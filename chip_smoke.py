@@ -2,21 +2,35 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--reads 5120] [--batch-size 512]
+                          [--entries 561356] [--protein-seed 7]
 
-1. Requires a CUDA card and prints its name and power limit.
+1. Requires a CUDA card and prints its name, power limit and top SM clock.
 2. Builds the port's CUDA kernels from ``parallel_genomeseq_tpu_torch/csrc``.
-3. Holds each kernel against its plain PyTorch version on the card, on the
-   same inputs, at the main path's shapes, with exact equality (every value
-   is an integer or a byte): K1 in both modes (512 reads x 17 windows), K2 on
-   the 512 winning windows and on the full reference (--npiece 1), K3 on
-   K2's output. Times both with CUDA events.
-4. Runs ``solve_small.main`` of the port with its defaults (17 windows) on a
-   seeded stand-in for the data_small workload: a 4,980-bp reference and
-   125-bp reads with substitutions and small indels. Checks that all three
-   kernels launched during that run, and that 32 sampled reads of that run
-   agree with the numpy oracle: score over the full reference, and pos and
-   consensus of the oracle's alignment on the winning window.
-5. Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` last.
+3. DNA short-read path. Holds K1 (both modes, 512 reads x 17 windows), K2
+   (the 512 winning windows and the full reference) and K3 (on K2's output)
+   against their plain PyTorch versions on the card, on the same inputs,
+   with exact equality (every value is an integer or a byte). Runs
+   ``solve_small`` of the port with its defaults on a seeded stand-in for the
+   data_small workload (4,980-bp reference, 5,120 reads of 125 bp with
+   substitutions and small indels), checks that K1, K2 and K3 launched during
+   that run, and that 32 sampled reads agree with the numpy oracle.
+4. Protein database scan path, at SwissProt scale: 561,356 generated entries
+   (lognormal lengths, median ~290 aa, 60-2,048) with 9 mutated copies of a
+   seeded 145-aa query planted (every index k with k % 70,169 == 3). Holds K4 against its plain version on the
+   whole resident slab (the main path's single launch) and on the shortest
+   and longest 4,096-lane length groups; K5 and K3 on the top-10 traceback
+   batch and on 256 of the longest entries (M = 2,048, about 1.2 GB of
+   moves). Runs ``solve_uniprot`` of the port with the ``uniprot_e2e``
+   settings (BLOSUM50, gap 12, batch 4,096, pad 128, top 10) after a warm-up
+   on 20,000 entries, prints pack+upload seconds, scan seconds, GCUPS and
+   proteins/s, checks that K4, K5 and K3 launched during that run, and holds
+   the planted entries, the top 10 and 32 sampled entries against the numpy
+   oracle (score and pos_end; pos_pred and both consensus strings for the
+   top 10).
+5. Prints the kernels' JSON line -- each kernel's time, its plain version's,
+   and its bound: the larger of the integer operations its cells need over
+   the card's int32 ALU peak and the bytes it must move over the memory
+   rate -- then ``{"ok": true, "device": ...}`` last.
 
 Any failed phase raises and exits non-zero before the last line.
 """
@@ -35,6 +49,39 @@ ROOT = Path(__file__).resolve().parent
 CSRC = "parallel_genomeseq_tpu_torch/csrc"
 PALLAS = "parallel_genomeseq_tpu/ops/wavefront_pallas.py"
 
+# The card's published memory rate (H100 SXM, 80 GB HBM3) and its int32 ALU
+# width (132 SMs x 64 INT32 lanes); the int32 peak is that width times the
+# top SM clock nvidia-smi reports.
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES = 132 * 64
+# Integer ALU operations per DP cell that the function needs on sm_90a,
+# counted from the recurrence H = max(diag + s, max(west, north) - gap, 0).
+# Memory traffic is not counted (the column scratch, the shared-memory table
+# read and the move-byte store issue on the load/store pipe), nor addressing.
+#   the score s: uniform, a compare and a select (2); a table, one
+#     shared-memory read (0);
+#   the recurrence: max(west, north), the gap subtract, and one DPX
+#     __viaddmax_s32_relu(diag, s, .) for the add, the max and the zero max (3);
+#   the running best: score only, one max (1); with its cell, one max over a
+#     packed (score, -row) key plus the key's multiply-add (2), the column
+#     taken once per column, not per cell;
+#   the move code: nw against the recurrence's max(west, north) and west
+#     against north (2 compares), 2 selects; the stop flag, a DPX
+#     __vimin3_s32 of the three neighbours, a compare with 0 and an or into
+#     the code (3): 7.
+OPS_PER_CELL = {
+    ("sw_score", False): 2 + 3 + 1,
+    ("sw_score", True): 2 + 3 + 2,
+    "sw_score_moves": 2 + 3 + 2 + 7,
+    "sw_profile": 0 + 3 + 2,
+    "sw_profile_moves": 0 + 3 + 2 + 7,
+}
+# K3 per walk step (the code read is a load, not counted): test the stop bit
+# and the two moves (3), select the two emitted bytes (2), update i, j, pos,
+# steps and the active flag (5).
+OPS_PER_STEP = 10
+LANE_BYTES = 8 + 12  # per lane: two int32 lengths in, (score, i, j) out
+
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call over ``reps`` calls, by CUDA events, after
@@ -51,6 +98,35 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed(fn):
+    """(fn(), milliseconds of that one call by CUDA events): for plain
+    versions too slow to run twice."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def bound(ops: float, nbytes: float, clock_mhz: float):
+    """(bound_ms, bound_by): the larger of the operations over the int32
+    ALU peak and the bytes over the memory rate."""
+    t_ops = ops / (INT32_LANES * clock_mhz * 1e6) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def lane_work(m, n):
+    """(cells, input sequence bytes) of lanes with true lengths m, n."""
+    m, n = m.long(), n.long()
+    return int((m * n).sum()), int(m.sum() + n.sum())
 
 
 def max_abs_err(got, want) -> int:
@@ -77,26 +153,48 @@ def moves_err(got, want, m, n, chunk: int = 256) -> int:
         diff = (got[d0 : d0 + chunk].int() - want[d0 : d0 + chunk].int()).abs()
         err = max(err, int((diff * valid).max()))
     if err != 0:
-        raise AssertionError(f"K2 move codes disagree on valid cells: max |diff| = {err}")
+        raise AssertionError(f"move codes disagree on valid cells: max |diff| = {err}")
     return err
 
 
-def check_kernels(reads, ref, batch: int):
-    """Phase 3: each kernel against its plain version at the main path's
-    shapes. Returns {kernel name: measurements}."""
+def report(name, label, rec):
+    print(f"{name}[{label}] {rec['shape']}: equal; kernel {rec['ms']:.3f} ms, plain "
+          f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+
+
+def walk_case(moves, x_mb, y_bn, i0, j0, steps, clock, reps=10):
+    """K3 against its plain walk on the same move codes."""
+    from parallel_genomeseq_tpu_torch.ops import traceback
+
+    got = traceback.walk_moves(moves, x_mb, y_bn, i0, j0, max_steps=steps)
+    want, plain_ms = timed(lambda: traceback._walk_moves_plain(moves, x_mb, y_bn, i0, j0, steps))
+    B = x_mb.shape[1]
+    walked = int(got[3].long().sum())
+    rec = {"shape": f"{B} lanes, max_steps={steps}", "max_abs_err": max_abs_err(got, want),
+           "ms": cuda_ms(lambda: traceback.walk_moves(moves, x_mb, y_bn, i0, j0, max_steps=steps), reps),
+           "plain_ms": plain_ms}
+    # Read per step: one move code and two sequence bytes; write both
+    # (max_steps, B) consensus buffers, and per lane (i0, j0) in, (pos, steps) out.
+    rec["bound_ms"], rec["bound_by"] = bound(
+        walked * OPS_PER_STEP, 3 * walked + 2 * steps * B + 16 * B, clock)
+    return rec
+
+
+def check_kernels(reads, ref, batch: int, clock: float, dev):
+    """DNA phase: K1, K2, K3 against their plain versions at the main
+    path's shapes. Returns {kernel: {case label: measurements}}."""
     import numpy as np
     import torch
 
     from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
-    from parallel_genomeseq_tpu_torch.ops import scan_dp, traceback, wavefront_cuda
+    from parallel_genomeseq_tpu_torch.ops import scan_dp, wavefront_cuda
     from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkConfig, ChunkedAligner
     from parallel_genomeseq_tpu_torch.utils.device import to_host
 
-    dev = torch.device("cuda")
     kw = dict(match=3, mismatch=-3, gap=2)
     chunked = ChunkedAligner(chunk=ChunkConfig(npiece=17, overlap_ratio=2.0), device=dev)
     aligner = BatchSWAligner(device=dev)
-    out = {}
+    out = {"sw_score": {}, "sw_score_moves": {}, "walk_moves": {}}
 
     def on_card(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
@@ -105,85 +203,104 @@ def check_kernels(reads, ref, batch: int):
     batch_reads = reads[:batch]
     xs, ys, m, n, all_ranges = chunked.window_lanes(batch_reads, ref)
     xs, ys, m, n = on_card(xs, ys, m, n)
-    k1 = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}"}
+    cells, seq_bytes = lane_work(m, n)
     for track_pos in (False, True):
         tag = "track_pos" if track_pos else "score_only"
         got = wavefront_cuda.sw_score(xs, ys, m, n, track_pos=track_pos, **kw)
         want = scan_dp.sw_score_plain(xs, ys, m, n, track_pos=track_pos, **kw)
-        k1[f"{tag}_max_abs_err"] = max_abs_err(got, want)
-        k1[f"{tag}_ms"] = cuda_ms(
-            lambda: wavefront_cuda.sw_score(xs, ys, m, n, track_pos=track_pos, **kw), 10)
-        k1[f"{tag}_plain_ms"] = cuda_ms(
-            lambda: scan_dp.sw_score_plain(xs, ys, m, n, track_pos=track_pos, **kw), 1)
-        print(f"K1 sw_score[{tag}] {k1['shape']}: equal; kernel {k1[f'{tag}_ms']:.3f} ms, "
-              f"plain {k1[f'{tag}_plain_ms']:.3f} ms")
-    out["sw_score"] = k1
+        rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}",
+               "max_abs_err": max_abs_err(got, want),
+               "ms": cuda_ms(lambda: wavefront_cuda.sw_score(xs, ys, m, n, track_pos=track_pos, **kw), 10),
+               "plain_ms": cuda_ms(lambda: scan_dp.sw_score_plain(xs, ys, m, n, track_pos=track_pos, **kw), 1)}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            cells * OPS_PER_CELL[("sw_score", track_pos)], seq_bytes + LANE_BYTES * xs.shape[0], clock)
+        out["sw_score"][tag] = rec
+        report("K1 sw_score", tag, rec)
 
     # K2 on the winning windows (the stage-B re-run) and on the full reference.
     (scores,) = to_host([got[0]])
     winner = scores.reshape(len(batch_reads), -1).argmax(axis=1)
     win_refs = [ref[slice(*all_ranges[r][w])] for r, w in enumerate(winner)]
-    k2 = {}
     walk_inputs = None
     for tag, refs in (("windows", win_refs), ("npiece1", [ref])):
         xs, ys, m, n = on_card(*aligner.pad_batch(batch_reads, refs))
         got = wavefront_cuda.sw_score_moves(xs, ys, m, n, **kw)
         want = scan_dp.sw_score_moves_plain(xs, ys, m, n, **kw)
-        err = max(max_abs_err(got[:3], want[:3]), moves_err(got[3], want[3], m, n))
-        k2[f"{tag}_shape"] = f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}"
-        k2[f"{tag}_max_abs_err"] = err
-        k2[f"{tag}_ms"] = cuda_ms(lambda: wavefront_cuda.sw_score_moves(xs, ys, m, n, **kw), 10)
-        k2[f"{tag}_plain_ms"] = cuda_ms(lambda: scan_dp.sw_score_moves_plain(xs, ys, m, n, **kw), 1)
-        print(f"K2 sw_score_moves[{tag}] {k2[f'{tag}_shape']}: equal on valid cells; kernel "
-              f"{k2[f'{tag}_ms']:.3f} ms, plain {k2[f'{tag}_plain_ms']:.3f} ms")
+        cells, seq_bytes = lane_work(m, n)
+        rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}",
+               "max_abs_err": max(max_abs_err(got[:3], want[:3]), moves_err(got[3], want[3], m, n)),
+               "ms": cuda_ms(lambda: wavefront_cuda.sw_score_moves(xs, ys, m, n, **kw), 10),
+               "plain_ms": cuda_ms(lambda: scan_dp.sw_score_moves_plain(xs, ys, m, n, **kw), 1)}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            cells * OPS_PER_CELL["sw_score_moves"],
+            seq_bytes + LANE_BYTES * xs.shape[0] + cells, clock)  # + one move byte per cell
+        out["sw_score_moves"][tag] = rec
+        report("K2 sw_score_moves", tag, rec)
         if walk_inputs is None:
             walk_inputs = (got[3], xs.T.contiguous(), ys, got[1], got[2],
                            aligner.max_steps(xs.shape[1], ys.shape[1]))
         del got, want
-    out["sw_score_moves"] = k2
 
     # K3 on K2's output for the winning windows.
-    moves, x_mb, y_bn, i0, j0, steps = walk_inputs
-    got = traceback.walk_moves(moves, x_mb, y_bn, i0, j0, max_steps=steps)
-    want = traceback._walk_moves_plain(moves, x_mb, y_bn, i0, j0, steps)
-    k3 = {"shape": f"{x_mb.shape[1]} lanes, max_steps={steps}",
-          "max_abs_err": max_abs_err(got, want)}
-    k3["ms"] = cuda_ms(lambda: traceback.walk_moves(moves, x_mb, y_bn, i0, j0, max_steps=steps), 10)
-    k3["plain_ms"] = cuda_ms(lambda: traceback._walk_moves_plain(moves, x_mb, y_bn, i0, j0, steps), 1)
-    print(f"K3 walk_moves {k3['shape']}: equal; kernel {k3['ms']:.3f} ms, "
-          f"plain {k3['plain_ms']:.3f} ms")
-    out["walk_moves"] = k3
+    rec = walk_case(*walk_inputs, clock)
+    out["walk_moves"]["windows"] = rec
+    report("K3 walk_moves", "windows", rec)
     return out
 
 
-def oracle_matrix(read: str, ref: str, match=3, mismatch=-3, gap=2):
+def oracle_matrix(read: str, ref: str, gap=2, sub=None):
     """Dense (m+1, n+1) Smith-Waterman matrix in numpy, one column at a
     time: the in-column north chain H[i] = max(E[i], H[i-1] - gap) is a
     prefix max of E[i] + gap*i (the method of the JAX package's numpy
     oracle, ops/oracle.sw_score_fast, kept here so this script depends only
-    on the port)."""
+    on the port). ``sub`` is None for uniform +3/-3 scoring, else a (256,
+    256) score table indexed by byte pair (``byte_pair_scores``)."""
     import numpy as np
 
     x = np.frombuffer(read.encode(), np.uint8)
     y = np.frombuffer(ref.encode(), np.uint8)
+    if sub is None:
+        column = lambda yb: np.where(x == yb, 3, -3)
+    else:
+        rows = sub[x]  # (m, 256): the score of x_i against each byte
+        column = lambda yb: rows[:, yb]
     H = np.zeros((len(x) + 1, len(y) + 1), np.int64)
     gi = gap * np.arange(1, len(x) + 1)
     for j in range(1, len(y) + 1):
-        e = np.maximum(H[:-1, j - 1] + np.where(x == y[j - 1], match, mismatch),
-                       np.maximum(H[1:, j - 1] - gap, 0))
+        e = np.maximum(H[:-1, j - 1] + column(y[j - 1]), np.maximum(H[1:, j - 1] - gap, 0))
         H[1:, j] = np.maximum.accumulate(e + gi) - gi
     return H
 
 
-def oracle_align(read: str, ref: str):
+def byte_pair_scores(alphabet: str, matrix):
+    """(256, 256) int64 scores of every byte pair, by letter from a
+    substitution matrix: a pair with a byte outside the alphabet (lowercase
+    too) scores the matrix minimum."""
+    import numpy as np
+
+    low = int(matrix.min())
+    index = {ord(c): k for k, c in enumerate(alphabet)}
+    out = np.full((256, 256), low, np.int64)
+    for a, ka in index.items():
+        for b, kb in index.items():
+            out[a, b] = int(matrix[ka][kb])
+    return out
+
+
+def oracle_best(H):
+    """(score, i, j) of the first maximum in column-major order."""
+    import numpy as np
+
+    j, i = divmod(int(np.argmax(H.T)), H.shape[0])
+    return int(H[i, j]), i, j
+
+
+def oracle_align(read: str, ref: str, gap=2, sub=None):
     """(score, pos, consensus_x, consensus_y): first maximum in column-major
     order, then the greedy NW >= W >= N walk that stops on the first cell with
     a zero neighbour (consensus reversed, '-' for gaps)."""
-    import numpy as np
-
-    H = oracle_matrix(read, ref)
-    j, i = divmod(int(np.argmax(H.T)), H.shape[0])
-    score = int(H[i, j])
+    H = oracle_matrix(read, ref, gap, sub)
+    score, i, j = oracle_best(H)
     if score <= 0:
         return score, 0, "", ""
     cx, cy = [], []
@@ -208,8 +325,8 @@ def oracle_align(read: str, ref: str):
 
 
 def check_sampled(reads, ref, rows, results, seed: int, count: int = 32):
-    """Phase 4 check: sampled reads of the timed run against the numpy
-    oracle. ``rows`` is the run's CSV, ``results`` its AlignResults."""
+    """DNA check: sampled reads of the timed run against the numpy oracle.
+    ``rows`` is the run's CSV, ``results`` its AlignResults."""
     import numpy as np
 
     from parallel_genomeseq_tpu_torch.parallel.chunking import make_string_ranges
@@ -232,38 +349,11 @@ def check_sampled(reads, ref, rows, results, seed: int, count: int = 32):
           "the full reference; pos and consensus on the winning window)")
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--reads", type=int, default=5120)
-    ap.add_argument("--batch-size", type=int, default=512)
-    args = ap.parse_args(argv)
-
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
-              file=sys.stderr)
-        return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(card)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-
-    from parallel_genomeseq_tpu_torch.ops import _build, traceback, wavefront_cuda
+def dna_phase(args, card: str, clock: float, dev):
+    """Phase 3. Returns (measurements, launches during solve_small)."""
     from parallel_genomeseq_tpu_torch.cli import solve_small
+    from parallel_genomeseq_tpu_torch.ops import traceback, wavefront_cuda
     from parallel_genomeseq_tpu_torch.utils.synth import write_dataset
-
-    t0 = time.perf_counter()
-    lib = _build.build()
-    _build.load()
-    print(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
-    for line in (lib.parent / "nvcc.log").read_text().splitlines():
-        if "entry function" in line or "Used" in line:
-            print(f"  nvcc: {line.strip()}")
 
     data = ROOT / "data" / "chip_smoke"
     ref_path, csv_path = write_dataset(
@@ -274,11 +364,11 @@ def main(argv=None) -> int:
         reads = [r["SEQ"] for r in csv.DictReader(f)]
     print(f"data: {len(reads)} reads x 125 bp vs {len(ref)}-bp reference (seed {args.seed})")
 
-    measured = check_kernels(reads, ref, args.batch_size)
+    measured = check_kernels(reads, ref, args.batch_size, clock, dev)
 
     out_csv = data / "align_output.csv"
     cli = ["--ref", str(ref_path), "--input", str(csv_path), "--output", str(out_csv),
-           "--batch-size", str(args.batch_size)]
+           "--batch-size", str(args.batch_size), "--device", str(dev)]
     if solve_small.main(cli + ["--limit", str(args.batch_size)]) != 0:  # warm-up
         raise AssertionError("solve_small warm-up failed")
     counters = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves, traceback.walk_moves)
@@ -300,22 +390,244 @@ def main(argv=None) -> int:
           f"{run.cells / run.seconds / 1e9:.3f} GCUPS (full-reference cells, "
           f"{run.seconds:.3f} s) on {card}")
     check_sampled(reads, ref, rows, run.results, args.seed)
+    return measured, launches
 
-    # name, source, the TPU code it replaces, prefix of its main-path timing
-    spec = (("sw_score", "wavefront.cu", f"{PALLAS}:160", "score_only_"),
-            ("sw_score_moves", "wavefront.cu", f"{PALLAS}:535", "windows_"),
-            ("walk_moves", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:31", ""))
-    kernels = []
-    for name, src, replaces, pre in spec:
-        m = measured[name]
-        main_keys = (f"{pre}ms", f"{pre}plain_ms", f"{pre}max_abs_err")
-        kernels.append({
-            "name": name, "route": "cuda", "source": f"{CSRC}/{src}",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(v for k, v in m.items() if k.endswith("max_abs_err")),
-            "ms": m[f"{pre}ms"], "plain_ms": m[f"{pre}plain_ms"],
-            **{k: v for k, v in m.items() if k not in main_keys},
-        })
+
+def check_protein_kernels(db, query: str, clock: float):
+    """Protein phase: K4 on the resident slab, K5 and K3 on the traceback
+    batches, each against its plain version. Returns {kernel: {case:
+    measurements}}."""
+    import numpy as np
+    import torch
+
+    from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
+    from parallel_genomeseq_tpu_torch.ops import profile_cuda, scan_dp
+    from parallel_genomeseq_tpu_torch.utils.device import to_host
+
+    dev = db.device
+    table, gap, lut = db.engine.table, db.engine.gap, db.engine.encode_lut
+    out = {"sw_profile": {}, "sw_profile_moves": {}, "walk_moves": {}}
+    q = db.encode_query(query)
+    slab, offs, lens = db._slab, db._offs, db._lens
+    m = torch.full_like(lens, q.shape[0])
+
+    def k4_case(sl):
+        o, n, mm = offs[sl], lens[sl], m[sl]
+        call = lambda: profile_cuda.sw_profile(q, slab, mm, n, table=table, gap=gap, y_off=o)
+        got = call()
+        want, plain_ms = timed(lambda: scan_dp.sw_profile_plain(q, slab, mm, n, table=table, gap=gap, y_off=o))
+        cells, seq_bytes = lane_work(mm, n)
+        rec = {"shape": f"{n.shape[0]} lanes, query {q.shape[0]} aa, entries "
+                        f"{int(n.min())}-{int(n.max())} aa",
+               "max_abs_err": max_abs_err(got, want), "ms": cuda_ms(call, 3), "plain_ms": plain_ms}
+        # Each entry byte and the query read once (the query counted in m's
+        # cells, not its bytes, so take n's bytes and the query once), the
+        # lane's offset, lengths and results.
+        rec["bound_ms"], rec["bound_by"] = bound(
+            cells * OPS_PER_CELL["sw_profile"],
+            int(n.long().sum()) + q.shape[0] + (LANE_BYTES + 8) * n.shape[0] + table.numel() * 4,
+            clock)
+        return rec, got
+
+    L = lens.shape[0]
+    rec, got = k4_case(slice(0, L))
+    out["sw_profile"]["db"] = rec
+    report("K4 sw_profile", "db", rec)
+    for label, sl in (("short_group", slice(0, min(L, 4096))),
+                      ("long_group", slice(max(0, L - 4096), L))):
+        out["sw_profile"][label], _ = k4_case(sl)
+        report("K4 sw_profile", label, out["sw_profile"][label])
+
+    # K5 (and K3 on its codes) on the batches the traceback runs: the top 10,
+    # and 256 of the longest entries. x = entry, y = query, pad_m = 128.
+    score = to_host([got[0]])[0]
+    top = [db.order[k] for k in np.argsort(-score, kind="stable")[:10]]
+    longest = db.order[-256:]
+    bat = BatchSWAligner(db.cfg, pad_m=128, device=dev)
+    for label, idxs in (("top10", top), ("long256", longest)):
+        xs, ys, mm, nn = bat.pad_batch([db.entries[k][1] for k in idxs], [query])
+        xs, ys = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+        mm, nn = torch.from_numpy(mm).to(dev), torch.from_numpy(nn).to(dev)
+        xc = torch.from_numpy(lut).to(dev)[xs.long()]
+        yc = torch.from_numpy(lut).to(dev)[ys.long()]
+        call = lambda: profile_cuda.sw_profile_moves(xc, yc, mm, nn, table=table, gap=gap)
+        got5 = call()
+        want5, plain_ms = timed(lambda: scan_dp.sw_profile_moves_plain(xc, yc, mm, nn, table=table, gap=gap))
+        cells, seq_bytes = lane_work(mm, nn)
+        rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}, "
+                        f"moves {got5[3].numel() / 1e9:.3f} GB",
+               "max_abs_err": max(max_abs_err(got5[:3], want5[:3]), moves_err(got5[3], want5[3], mm, nn)),
+               "plain_ms": plain_ms}
+        del want5
+        rec["ms"] = cuda_ms(call, 3)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            cells * OPS_PER_CELL["sw_profile_moves"],
+            seq_bytes + LANE_BYTES * xs.shape[0] + cells + table.numel() * 4, clock)
+        out["sw_profile_moves"][label] = rec
+        report("K5 sw_profile_moves", label, rec)
+        steps = bat.max_steps(xs.shape[1], ys.shape[1])
+        out["walk_moves"][f"protein_{label}"] = walk_case(
+            got5[3], xs.T.contiguous(), ys, got5[1], got5[2], steps, clock, reps=3)
+        report("K3 walk_moves", f"protein_{label}", out["walk_moves"][f"protein_{label}"])
+        del got5
+        torch.cuda.empty_cache()
+    return out
+
+
+def protein_phase(args, card: str, clock: float, dev):
+    """Phase 4. Returns (measurements, launches during solve_uniprot)."""
+    import numpy as np
+    import torch
+
+    from parallel_genomeseq_tpu_torch.cli import solve_uniprot
+    from parallel_genomeseq_tpu_torch.models.protein_db import ResidentProteinDB
+    from parallel_genomeseq_tpu_torch.ops import profile_cuda, traceback
+    from parallel_genomeseq_tpu_torch.ops.substitution import ALPHABET, BLOSUM50
+    from parallel_genomeseq_tpu_torch.seqio.uniprot import iter_database
+    from parallel_genomeseq_tpu_torch.utils.synth import write_protein_dataset
+
+    data = ROOT / "data" / "chip_smoke" / "protein"
+    t0 = time.perf_counter()
+    query_path, db_path, query = write_protein_dataset(
+        data, n_entries=args.entries, query_len=145, seed=args.protein_seed)
+    entries = list(iter_database(db_path))
+    residues = sum(len(s) for _, s in entries)
+    print(f"protein data: {len(entries)} entries, {residues} residues "
+          f"(slab {residues / 1e6:.1f} MB), query {len(query)} aa (seed "
+          f"{args.protein_seed}), generated and read in {time.perf_counter() - t0:.2f} s")
+
+    db = ResidentProteinDB(entries, matrix="blosum50", gap_penalty=12.0, gap_open=0.0,
+                           device=dev)
+    measured = check_protein_kernels(db, query, clock)
+    del db
+    torch.cuda.empty_cache()
+
+    out_csv = data / "uniprot_output.csv"
+    cli = ["--query", str(query_path), "--database", str(db_path), "--output", str(out_csv),
+           "--matrix", "blosum50", "--gap-penalty", "12", "--batch-size", "4096",
+           "--pad-mult", "128", "--top", "10", "--device", str(dev)]
+    solve_uniprot.run(cli + ["--limit", "20000"])  # warm-up
+    counters = (profile_cuda.sw_profile, profile_cuda.sw_profile_moves, traceback.walk_moves)
+    for fn in counters:
+        fn.launches = 0
+    run = solve_uniprot.run(cli)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"launches during solve_uniprot: {launches}")
+    if run.rc != 0 or min(launches.values()) < 1:
+        raise AssertionError(f"solve_uniprot rc {run.rc}, launches {launches}")
+    scan = run.scans[0]
+    print(f"solve_uniprot: pack+upload {run.prep_seconds:.3f} s, scan {scan['seconds']:.3f} s, "
+          f"{scan['cells'] / scan['seconds'] / 1e9:.3f} GCUPS, "
+          f"{len(entries) / scan['seconds']:.1f} proteins/s on {card}")
+
+    # Oracle: the planted copies, the top 10 and 32 sampled entries (score
+    # and pos_end with x = query, y = entry); for the top 10 also the walk
+    # (pos_pred and both consensus strings with x = entry, y = query).
+    with open(out_csv, newline="") as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != len(entries):
+        raise AssertionError(f"expected {len(entries)} rows, got {len(rows)}")
+    results, tb_rows = scan["results"], scan["tb_rows"]
+    sub = byte_pair_scores(ALPHABET, BLOSUM50)
+    step = max(1, len(entries) // 8)
+    planted = [k for k in range(len(entries)) if k % step == 3]
+    top = sorted(range(len(entries)), key=lambda k: -results[k][0])[:10]
+    sampled = np.random.default_rng(args.protein_seed).choice(len(entries), 32, replace=False)
+    for k in sorted(set(planted) | set(top) | set(int(s) for s in sampled)):
+        score, _, j = oracle_best(oracle_matrix(query, entries[k][1], 12, sub))
+        got = (int(rows[k]["score"]), int(rows[k]["pos_end"]), *results[k])
+        if got != (score, j, score, j):
+            raise AssertionError(f"entry {k}: port (score, pos_end) {got} != oracle {(score, j)}")
+    for k in top:
+        want = oracle_align(entries[k][1], query, 12, sub)
+        got = (int(rows[k]["score"]), int(rows[k]["pos_pred"]), rows[k]["consensus_x"],
+               rows[k]["consensus_y"])
+        if got != want or tb_rows[k] != want[1:]:
+            raise AssertionError(f"entry {k}: port walk {got} != oracle {want}")
+    if not all(results[k][0] > 100 for k in planted):
+        raise AssertionError("a planted copy of the query scored low")
+    print(f"oracle check: {len(planted)} planted, top 10 and 32 sampled entries of the timed "
+          "run agree (score, pos_end; pos_pred and consensus for the top 10)")
+    return measured, launches
+
+
+def card_info():
+    """(name and power limit as nvidia-smi prints them, top SM clock MHz)."""
+    def query(fields):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip().splitlines()[0]
+
+    clock = float(query("clocks.max.sm").split()[0])
+    return query("name,power.limit"), clock
+
+
+def kernel_line(name, src, replaces, cases, main, launches):
+    """One entry of the kernels JSON line: the main-path case's numbers, the
+    other cases' under their labels."""
+    rec = cases[main]
+    entry = {"name": name, "route": "cuda", "source": f"{CSRC}/{src}", "replaces": replaces,
+             "launches": launches,
+             "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+             "bound_by": rec["bound_by"], "library_ms": None, "shape": rec["shape"]}
+    for label, c in cases.items():
+        if label != main:
+            entry.update({f"{label}_{k}": v for k, v in c.items() if k != "max_abs_err"})
+    return entry
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reads", type=int, default=5120)
+    ap.add_argument("--batch-size", type=int, default=512)
+    ap.add_argument("--entries", type=int, default=561_356)
+    ap.add_argument("--protein-seed", type=int, default=7)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    card, clock = card_info()
+    print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, "
+          f"max SM clock {clock:.0f} MHz")
+
+    from parallel_genomeseq_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.load()
+    print(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
+    for line in (lib.parent / "nvcc.log").read_text().splitlines():
+        if "entry function" in line or "Used" in line:
+            print(f"  nvcc: {line.strip()}")
+
+    dev = torch.device("cuda", 0)
+    dna, dna_launches = dna_phase(args, card, clock, dev)
+    protein, protein_launches = protein_phase(args, card, clock, dev)
+
+    walks = {**dna["walk_moves"], **protein["walk_moves"]}
+    kernels = [
+        kernel_line("sw_score", "wavefront.cu", f"{PALLAS}:160", dna["sw_score"],
+                    "score_only", dna_launches["sw_score"]),
+        kernel_line("sw_score_moves", "wavefront.cu", f"{PALLAS}:535", dna["sw_score_moves"],
+                    "windows", dna_launches["sw_score_moves"]),
+        kernel_line("walk_moves", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:31",
+                    walks, "windows", dna_launches["walk_moves"] + protein_launches["walk_moves"]),
+        kernel_line("sw_profile", "profile.cu", f"{PALLAS}:418", protein["sw_profile"],
+                    "db", protein_launches["sw_profile"]),
+        kernel_line("sw_profile_moves", "profile.cu", f"{PALLAS}:815",
+                    protein["sw_profile_moves"], "top10", protein_launches["sw_profile_moves"]),
+    ]
+    kernels[2]["launches_solve_small"] = dna_launches["walk_moves"]
+    kernels[2]["launches_solve_uniprot"] = protein_launches["walk_moves"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

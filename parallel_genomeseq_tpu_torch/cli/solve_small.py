@@ -22,16 +22,14 @@ import sys
 import time
 from typing import List
 
-from parallel_genomeseq_tpu.cli import common
-from parallel_genomeseq_tpu.seqio.evaluate import check_parity
-from parallel_genomeseq_tpu.seqio.native_io import read_fasta
-from parallel_genomeseq_tpu.seqio.readers import read_ground_truth
-from parallel_genomeseq_tpu.seqio.writers import write_align_output
-from parallel_genomeseq_tpu.utils.encoding import revcomp
-from parallel_genomeseq_tpu.utils.result import AlignResult
-
 from ..models.swaligner import BatchSWAligner, merge_strand_pairs
 from ..parallel.chunking import ChunkedAligner
+from ..seqio.evaluate import check_parity
+from ..seqio.readers import read_fasta, read_ground_truth
+from ..seqio.writers import write_align_output
+from ..utils.encoding import revcomp
+from ..utils.result import AlignResult
+from . import common
 
 
 @dataclasses.dataclass
@@ -66,11 +64,7 @@ def run(argv=None) -> Run:
     )
     common.add_scoring_flags(p)
     common.add_chunk_flags(p, npiece_default=17)
-    p.add_argument(
-        "--device", default=None,
-        help="torch device (default: cuda; 'cpu' runs the plain PyTorch route)",
-    )
-    p.add_argument("--batch-size", type=int, default=128, help="reads per device batch")
+    common.add_device_flags(p)
     args = p.parse_args(argv)
 
     if args.seed_extend:
@@ -78,7 +72,7 @@ def run(argv=None) -> Run:
     if args.parity_mode == "skewed":
         p.error("--parity-mode skewed is not ported yet (ROADMAP A2)")
     if args.matrix != "uniform":
-        p.error("--matrix is not ported yet (ROADMAP A8)")
+        p.error("--matrix is not ported for solve_small yet (ROADMAP A6)")
 
     ref = read_fasta(args.ref)
     rows = read_ground_truth(args.input)

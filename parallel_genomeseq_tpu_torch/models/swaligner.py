@@ -1,8 +1,10 @@
 """Smith-Waterman aligner API, batch-first: the port of the JAX package's
 ``models/swaligner.py`` (:59-354) for the linear-gap, single-strip path.
 
-Per batch: K2 (``CudaEngine.score_batch_moves``) computes score, argmax and
-move codes in one pass, K3 (``walk_moves``) walks every lane, and ``collect``
+Per batch: K2 (uniform scoring) or K5 (a substitution matrix), through
+``CudaEngine.score_batch_moves``, computes score, argmax and move codes in
+one pass for every read length up to 2,048, K3 (``walk_moves``) walks every
+lane (``engine="plain"`` runs the plain versions of all three), and ``collect``
 copies all outputs to the host with one synchronisation before the host
 string assembly. Dispatch is asynchronous: ``submit_batch`` returns while the
 device works, so ``align_stream`` overlaps host preparation of later batches
@@ -18,20 +20,20 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from parallel_genomeseq_tpu.utils.config import ScoringConfig
-from parallel_genomeseq_tpu.utils.encoding import X_PAD, Y_PAD, batch_pad, to_bytes
-from parallel_genomeseq_tpu.utils.result import AlignResult, Timings
-
-from ..ops.engine import CudaEngine, check_supported
-from ..ops.traceback import decode_consensus, walk_moves
+from ..ops.engine import check_supported, make_score_engine
+from ..ops.traceback import decode_consensus
+from ..utils.config import ScoringConfig
 from ..utils.device import to_host
+from ..utils.encoding import X_PAD, Y_PAD, batch_pad, to_bytes
+from ..utils.result import AlignResult, Timings
 
 
-# Batch shapes are padded to multiples of these. They must equal the JAX
-# package's defaults (swaligner.py:71-72, chunking.py:82-83): the padded M and
-# N set the walk's max_steps, and so where a long consensus is truncated,
-# which the byte-identical align_output.csv depends on. The kernels bound
-# their loops by the true lengths, so padding sets nothing else.
+# Default batch padding: batch shapes are padded to multiples of these. They
+# must equal the JAX package's defaults (swaligner.py:71-72, chunking.py:82-83),
+# and a caller that passes others must pass the JAX caller's (solve_uniprot
+# uses pad_m=128): the padded M and N set the walk's max_steps, and so where a
+# long consensus is truncated, which the byte-identical CSVs depend on. The
+# kernels bound their loops by the true lengths, so padding sets nothing else.
 PAD_M = 8
 PAD_N = 128
 
@@ -46,12 +48,17 @@ class BatchSWAligner:
     def __init__(
         self,
         cfg: ScoringConfig = ScoringConfig(),
+        pad_m: int = PAD_M,
+        pad_n: int = PAD_N,
         tie: str = "colmajor",
         device=None,
+        engine: str = "auto",
     ):
         check_supported(cfg, tie)
         self.cfg = cfg
-        self.engine = CudaEngine(cfg, device)
+        self.pad_m = pad_m
+        self.pad_n = pad_n
+        self.engine = make_score_engine(cfg, engine, device)
         self.device = self.engine.device
 
     def align_batch(self, reads: Sequence[str], refs: Sequence[str],
@@ -85,15 +92,19 @@ class BatchSWAligner:
         yb = [to_bytes(r) for r in refs]
         m = np.array([len(v) for v in xb], np.int32)
         n = np.array([len(v) for v in yb], np.int32)
-        M = round_up(max(1, int(m.max())), PAD_M)
-        N = round_up(max(1, int(n.max())), PAD_N)
+        M = round_up(max(1, int(m.max())), self.pad_m)
+        N = round_up(max(1, int(n.max())), self.pad_n)
         return batch_pad(xb, M, X_PAD), batch_pad(yb, N, Y_PAD), m, n
 
     def max_steps(self, M: int, N: int) -> int:
         """Walk-length bound of swaligner.py:145-149: <= M diagonal/north
-        moves plus at most score/gap west moves, capped by M + N + 1."""
+        moves plus at most score/gap west moves (score <= best cell score x
+        M: the match score, or a matrix's maximum), capped by M + N + 1."""
         gapv = max(float(self.cfg.gap_penalty), 1e-9)
-        matchv = max(float(self.cfg.match), 1.0)
+        if self.cfg.is_uniform:
+            matchv = max(float(self.cfg.match), 1.0)
+        else:
+            matchv = float(np.asarray(self.cfg.matrix).max())
         return min(int(M + matchv * M / gapv) + 8, M + N + 1)
 
     def submit_batch(self, reads, refs, traceback: bool = True) -> "_PendingBatch":
@@ -106,7 +117,7 @@ class BatchSWAligner:
         ys_d = torch.from_numpy(ys).to(dev)
         if traceback:
             res = self.engine.score_batch_moves(xs_d, ys_d, m, n)
-            pos, cx, cy, steps = walk_moves(
+            pos, cx, cy, steps = self.engine.walk(
                 res["moves"], xs_d.T.contiguous(), ys_d, res["i"], res["j"],
                 max_steps=self.max_steps(xs.shape[1], ys.shape[1]),
             )

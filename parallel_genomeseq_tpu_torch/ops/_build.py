@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles every source under ``csrc/`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, at first use, into
-``csrc/build/``; ``ctypes`` binds it. Nothing here runs at import time, so
-modules that hold a wrapper import on machines with no CUDA toolkit, and the
-CPU route never touches this file. A missing ``nvcc`` or a failed build
-raises: there is no fallback to the plain PyTorch versions.
+``nvcc`` compiles every source under ``csrc/`` for Hopper (``sm_90a``), one
+process per source in parallel, and links them into one shared library with
+a plain C interface, at first use, into ``csrc/build/``; ``ctypes`` binds
+it. Nothing here runs at import time, so modules that hold a wrapper import
+on machines with no CUDA toolkit, and the CPU route never touches this file.
+A missing ``nvcc`` or a failed build raises: there is no fallback to the
+plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -19,19 +20,22 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 LIB_NAME = "libpgs_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # name -> argtypes; every pointer and the stream are c_void_p (a c_int would
-# truncate a 64-bit address), every size and score an int.
+# truncate a 64-bit address), every size and score an int, byte counts 64-bit.
 _SIGNATURES = {
     # x_mb, y_nb, m, n, hcol, M, N, B, match, mismatch, gap, track_pos,
     # score, best_i, best_j, moves, stream
     "pgs_sw_score": [_P] * 5 + [_I] * 7 + [_P] * 5,
+    # x, x_lane, x_row, y, y_off, y_len, m, n, table, ncodes, hcol, M, N, B,
+    # gap, score, best_i, best_j, moves, stream
+    "pgs_sw_profile": [_P, _I, _I, _P, _P, _L, _P, _P, _P, _I, _P]
+    + [_I] * 4 + [_P] * 5,
     # moves, x_mb, y_bn, i0, j0, D, M, N, B, max_steps, pos, cx, cy, steps, stream
     "pgs_walk_moves": [_P] * 5 + [_I] * 5 + [_P] * 5,
 }
@@ -65,22 +69,37 @@ def find_nvcc() -> str:
 
 def build(build_dir=None) -> Path:
     """Compile the kernels into ``build_dir`` (default ``csrc/build``) unless
-    the library there is newer than every source. Returns the library path;
-    the compiler's resource report (``-Xptxas -v``) is kept beside it in
-    ``nvcc.log``."""
+    the library there is newer than every source: one ``nvcc -c`` per
+    source, all started together, then one link into the shared library.
+    Returns the library path; the compilers' resource reports (``-Xptxas
+    -v``) are kept beside it in ``nvcc.log``."""
     so = Path(build_dir or BUILD_DIR) / LIB_NAME
     srcs = sources()
     if so.exists() and so.stat().st_mtime >= max(s.stat().st_mtime for s in srcs):
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (so.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{s.stem}.{tag}.o") for s in srcs]
+    cmds = [[nvcc, *COMPILE_FLAGS, "-o", str(o), str(s)] for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    tmp = so.with_name(f"{LIB_NAME}.{tag}")
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs) if p.returncode]
+    if not failed:
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        outs.append(proc.stdout)
+        if proc.returncode:
+            failed = [(link, proc.returncode, proc.stdout)]
+    (so.parent / "nvcc.log").write_text("".join(outs))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        cmd, rc, out = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees old or new, never half
     return so
 

@@ -1,41 +1,39 @@
 """Score engines: the contract of the JAX package's ``PallasEngine`` that the
-short-read slice uses (``score_batch`` :2556, ``score_batch_moves`` :2575),
-and ``make_score_engine``, the counterpart of ``swaligner.py:33-56``.
+ported slices use (``score_batch`` :2556, ``score_batch_moves`` :2575, and
+the resident database scan of ``score_db_slab_group_jit`` :2381), and
+``make_score_engine``, the counterpart of ``swaligner.py:33-56``.
 
-``CudaEngine`` runs the K1/K2 wrappers (``ops/wavefront_cuda``): CUDA tensors
-launch the kernels or raise, CPU tensors take the plain route.
-``PlainEngine`` always runs the plain PyTorch wavefront (``ops/scan_dp``), on
-either device. Inputs may be numpy arrays or tensors; results are tensors on
-the engine's device, unpadded (B lanes, (M + N - 1, M, B) moves).
+``CudaEngine`` runs the kernel wrappers -- K1/K2 (``ops/wavefront_cuda``)
+for uniform scoring, K4/K5 (``ops/profile_cuda``) for a substitution matrix:
+CUDA tensors launch the kernels or raise, CPU tensors take the plain route.
+``PlainEngine`` always runs the plain PyTorch wavefront (``ops/scan_dp``) and
+walk (``ops/traceback``), on either device. Inputs may be numpy arrays or tensors of raw bytes; results
+are tensors on the engine's device, unpadded (B lanes, (M + N - 1, M, B)
+moves).
 
-Configurations outside this slice raise NotImplementedError naming the
-ROADMAP item that ports them; none is rerouted.
+Configurations outside the ported slices raise NotImplementedError naming
+the ROADMAP item that ports them; none is rerouted.
 """
 
 from __future__ import annotations
 
 import torch
 
-from parallel_genomeseq_tpu.utils.config import ScoringConfig, Semantics
-
+from ..utils.config import ScoringConfig, Semantics
 from ..utils.device import resolve_device
-from . import scan_dp, wavefront_cuda
+from . import profile_cuda, scan_dp, traceback, wavefront_cuda
 
 MAX_M = 2048  # single-strip read-length cap of the JAX kernels (wavefront_pallas.py:55)
 
 
 def check_supported(cfg: ScoringConfig, tie: str = "colmajor"):
-    """Raise NotImplementedError for what this slice does not port yet."""
+    """Raise NotImplementedError for what the port does not run yet."""
     if cfg.semantics == Semantics.SAT_UINT8:
         raise NotImplementedError(
             "sat_uint8 semantics (--parity-mode skewed) is not ported yet: ROADMAP A2"
         )
     if tie != "colmajor":
         raise NotImplementedError(f"tie={tie!r} is not ported yet: ROADMAP A2")
-    if not cfg.is_uniform:
-        raise NotImplementedError(
-            "substitution-matrix scoring is not ported yet: ROADMAP A8"
-        )
     if cfg.is_affine:
         raise NotImplementedError("affine (Gotoh) gaps are not ported yet: ROADMAP A9")
     if cfg.semantics == Semantics.FLOAT32 or not cfg.is_integral:
@@ -49,59 +47,107 @@ def _as_tensor(a, dtype, device):
     return t.to(device=device, dtype=dtype)
 
 
+def _check_length(rows: int, what: str):
+    if rows > MAX_M:
+        raise NotImplementedError(
+            f"{what} longer than {MAX_M} (strip kernels) are not ported yet: "
+            "ROADMAP A10"
+        )
+
+
 class _Engine:
     def __init__(self, cfg: ScoringConfig = ScoringConfig(), device=None):
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        self._kw = dict(
-            match=int(cfg.match), mismatch=int(cfg.mismatch),
-            gap=int(cfg.gap_penalty),
-        )
+        self.gap = int(cfg.gap_penalty)
+        if cfg.is_uniform:
+            self._kw = dict(match=int(cfg.match), mismatch=int(cfg.mismatch), gap=self.gap)
+        else:
+            lut, table = scan_dp.profile_tables(cfg)
+            self.encode_lut = lut  # byte -> compact code, on the host
+            self._lut = torch.from_numpy(lut).to(self.device)
+            self.table = torch.from_numpy(table).to(self.device)
 
     def _inputs(self, x_bm, y_bn, m, n):
         xs = _as_tensor(x_bm, torch.uint8, self.device)
-        if xs.shape[1] > MAX_M:
-            raise NotImplementedError(
-                f"reads longer than {MAX_M} (strip kernels) are not ported "
-                "yet: ROADMAP A10"
-            )
+        _check_length(xs.shape[1], "reads")
+        ys = _as_tensor(y_bn, torch.uint8, self.device)
+        if not self.cfg.is_uniform:  # raw bytes -> compact codes
+            xs, ys = self._lut[xs.long()], self._lut[ys.long()]
         return (
-            xs, _as_tensor(y_bn, torch.uint8, self.device),
-            _as_tensor(m, torch.int32, self.device),
+            xs, ys, _as_tensor(m, torch.int32, self.device),
             _as_tensor(n, torch.int32, self.device),
         )
 
     def score_batch(self, x_bm, y_bn, m, n, need_pos: bool = True):
-        """Per-lane 'score', 'i', 'j' (int32); need_pos=False is the
-        score-only sweep (i = j = 0)."""
-        score, i, j = self._score(*self._inputs(x_bm, y_bn, m, n), need_pos)
+        """Per-lane 'score', 'i', 'j' (int32); need_pos=False gives
+        i = j = 0, as the JAX engine does (:3171-3175)."""
+        xs, ys, m, n = self._inputs(x_bm, y_bn, m, n)
+        if self.cfg.is_uniform:
+            score, i, j = self._uniform(xs, ys, m, n, need_pos)
+        else:
+            score, i, j = self._profile(xs, ys, m, n, None)
+            if not need_pos:
+                i, j = torch.zeros_like(i), torch.zeros_like(j)
         return {"score": score, "i": i, "j": j}
 
     def score_batch_moves(self, x_bm, y_bn, m, n):
         """Score + argmax + (M + N - 1, M, B) uint8 move codes in one pass."""
-        score, i, j, moves = self._score_moves(*self._inputs(x_bm, y_bn, m, n))
+        args = self._inputs(x_bm, y_bn, m, n)
+        score, i, j, moves = (
+            self._uniform_moves(*args) if self.cfg.is_uniform else self._profile_moves(*args)
+        )
         return {"score": score, "i": i, "j": j, "moves": moves}
+
+    def score_slab(self, query_codes, slab, y_off, lens):
+        """The database scan: one query (M,) of compact codes against every
+        lane of a resident (R,) code slab, lane b = ``slab[y_off[b] :
+        y_off[b] + lens[b]]``. Returns per-lane (score, i, j) int32, j the
+        1-based entry index of the maximum."""
+        if self.cfg.is_uniform:
+            raise ValueError("the slab scan needs a substitution-matrix config")
+        _check_length(query_codes.shape[0], "queries")
+        m = torch.full_like(lens, query_codes.shape[0])
+        return self._profile(query_codes, slab, m, lens, y_off)
 
 
 class CudaEngine(_Engine):
-    """The K1/K2 kernels (plain route for CPU tensors)."""
+    """The kernels (plain route for CPU tensors)."""
 
-    def _score(self, xs, ys, m, n, need_pos):
+    def _uniform(self, xs, ys, m, n, need_pos):
         return wavefront_cuda.sw_score(xs, ys, m, n, track_pos=need_pos, **self._kw)
 
-    def _score_moves(self, xs, ys, m, n):
+    def _uniform_moves(self, xs, ys, m, n):
         return wavefront_cuda.sw_score_moves(xs, ys, m, n, **self._kw)
+
+    def _profile(self, x, y, m, n, y_off):
+        return profile_cuda.sw_profile(x, y, m, n, table=self.table, gap=self.gap, y_off=y_off)
+
+    def _profile_moves(self, xs, ys, m, n):
+        return profile_cuda.sw_profile_moves(xs, ys, m, n, table=self.table, gap=self.gap)
+
+    def walk(self, moves, x_mb, y_bn, i0, j0, max_steps: int):
+        return traceback.walk_moves(moves, x_mb, y_bn, i0, j0, max_steps=max_steps)
 
 
 class PlainEngine(_Engine):
     """The plain PyTorch wavefront on the engine's device."""
 
-    def _score(self, xs, ys, m, n, need_pos):
+    def _uniform(self, xs, ys, m, n, need_pos):
         return scan_dp.sw_score_plain(xs, ys, m, n, track_pos=need_pos, **self._kw)
 
-    def _score_moves(self, xs, ys, m, n):
+    def _uniform_moves(self, xs, ys, m, n):
         return scan_dp.sw_score_moves_plain(xs, ys, m, n, **self._kw)
+
+    def _profile(self, x, y, m, n, y_off):
+        return scan_dp.sw_profile_plain(x, y, m, n, table=self.table, gap=self.gap, y_off=y_off)
+
+    def _profile_moves(self, xs, ys, m, n):
+        return scan_dp.sw_profile_moves_plain(xs, ys, m, n, table=self.table, gap=self.gap)
+
+    def walk(self, moves, x_mb, y_bn, i0, j0, max_steps: int):
+        return traceback._walk_moves_plain(moves, x_mb, y_bn, i0, j0, max_steps)
 
 
 def make_score_engine(cfg: ScoringConfig = ScoringConfig(), name: str = "auto",

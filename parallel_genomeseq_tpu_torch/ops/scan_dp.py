@@ -2,20 +2,30 @@
 beside the CUDA kernels, and the CPU route.
 
 Counterpart of the JAX package's ``ops/scan_dp._wavefront`` (:93) and
-``_reduce_best`` (:302-321), for the configuration this slice runs: exact
-int32 values, uniform match/mismatch scoring, linear gaps and the
-column-major argmax tie-break. Same formulation: cell (r, d) is DP cell
-(i = r + 1, j = d - r + 1); west and north come from diagonal d - 1, north-west
-from d - 2; invalid cells (j < 1, i > m_b, j > n_b) are stored as 0, which is
-both the zero boundary and what keeps the running argmax exact. The loop runs
-one diagonal per step over (M, B) tensors, on whatever device the inputs are.
+``_reduce_best`` (:302-321), for the configurations ported so far: exact
+int32 values, linear gaps, the column-major argmax tie-break, and either
+uniform match/mismatch scores over raw bytes (K1/K2) or a substitution table
+over compact codes (K4/K5). Same formulation: cell (r, d) is DP cell
+(i = r + 1, j = d - r + 1); west and north come from diagonal d - 1,
+north-west from d - 2; invalid cells (j < 1, i > m_b, j > n_b) are stored as
+0, which is both the zero boundary and what keeps the running argmax exact.
+The loop runs one diagonal per step over (M, B) tensors, on whatever device
+the inputs are.
+
+Compact codes (as the JAX package's ``_packed_luts``, wavefront_pallas.py:314,
+assigns them): code c + 1 stands for ``alphabet[c]``, code 0 for every other
+byte (pad bytes, lowercase, anything outside the alphabet), and every pair
+involving code 0 scores the matrix minimum, as ``ScoringConfig.score`` does.
+A code at or beyond the table's size reads as code 0, here and in the
+kernels.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from parallel_genomeseq_tpu.utils.encoding import Y_PAD
+from ..utils.encoding import Y_PAD
 
 # Traceback move codes (bits 0-1) and the stop flag (bit 2), as in the JAX
 # package's ops/scan_dp.py:83-86: NW if nw >= west and nw >= north, else W if
@@ -26,6 +36,22 @@ MOVE_N = 2
 STOP_BIT = 4
 
 _INT32_MAX = 2**31 - 1
+# Lanes per block of the plain K4 on a slab: each block is padded only to
+# its own longest entry, so a whole length-sorted database fits in memory.
+LANE_BLOCK = 4096
+
+
+def profile_tables(cfg):
+    """(encode_lut (256,) uint8, table (A + 1, A + 1) int32) of a
+    substitution-matrix config over an alphabet of A letters: byte ->
+    compact code, and the score of each (x code, y code) pair."""
+    S = np.asarray(cfg.matrix).astype(np.int64)
+    A = len(cfg.alphabet)
+    table = np.full((A + 1, A + 1), int(S.min()), np.int32)
+    table[1:, 1:] = S
+    encode_lut = np.zeros(256, np.uint8)
+    encode_lut[np.frombuffer(cfg.alphabet.encode("ascii"), np.uint8)] = np.arange(1, A + 1)
+    return encode_lut, table
 
 
 def _shift_down(h: torch.Tensor) -> torch.Tensor:
@@ -42,13 +68,36 @@ def prepare_refs(y_bn: torch.Tensor, M: int) -> torch.Tensor:
     return torch.cat([yr, pad.T], dim=0)
 
 
-def wavefront(x_mb, y_bn, m, n, *, match: int, mismatch: int, gap: int,
-              track_pos: bool = True, emit_moves: bool = False):
+def uniform_scorer(match: int, mismatch: int):
+    """Cell scores of uniform scoring over raw bytes."""
+    return lambda x_mb, ywin: torch.where(x_mb == ywin, match, mismatch).to(torch.int32)
+
+
+def table_scorer(table: torch.Tensor):
+    """Cell scores from an (ncodes, ncodes) int32 table over compact codes;
+    codes >= ncodes read as code 0."""
+    nc = table.shape[0]
+    flat = table.reshape(-1)
+
+    def score(x_mb, ywin):
+        xc = x_mb.long()
+        yc = ywin.long()
+        xc = torch.where(xc < nc, xc, 0)
+        yc = torch.where(yc < nc, yc, 0)
+        return flat[xc * nc + yc]
+
+    return score
+
+
+def wavefront(x_mb, y_bn, m, n, *, score, gap: int, track_pos: bool = True,
+              emit_moves: bool = False):
     """Sweep all M + N - 1 diagonals.
 
     x_mb (M, B) uint8 reads, y_bn (B, N) uint8 refs, m/n (B,) int32 true
-    lengths, clamped to M and N as the kernels clamp them. Returns (best
-    (M, B), bestd (M, B), moves (D, M, B) uint8 or None). With
+    lengths, clamped to M and N as the kernels clamp them; ``score(x_mb,
+    ywin)`` gives one diagonal's (M, B) int32 cell scores (cells outside a
+    lane's matrix are masked to 0 whatever they score). Returns
+    (best (M, B), bestd (M, B), moves (D, M, B) uint8 or None). With
     track_pos=False bestd stays 0 (score-only sweep).
     """
     M, B = x_mb.shape
@@ -69,7 +118,7 @@ def wavefront(x_mb, y_bn, m, n, *, match: int, mismatch: int, gap: int,
     moves = torch.empty((D, M, B), dtype=torch.uint8, device=dev) if emit_moves else None
     for d in range(D):
         ywin = yr[N + M - 1 - d : N + 2 * M - 1 - d]
-        sc = torch.where(x_mb == ywin, match, mismatch).to(torch.int32)
+        sc = score(x_mb, ywin)
         h1s = _shift_down(h1)  # north (i-1, j)
         h2s = _shift_down(h2)  # nw    (i-1, j-1)
         hd = torch.maximum(
@@ -119,7 +168,7 @@ def sw_score_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int,
     """Plain version of the K1 kernel: xs (B, M), ys (B, N) uint8, m/n (B,)
     int32 -> per-lane (score, i, j) int32; i = j = 0 when not track_pos."""
     best, bestd, _ = wavefront(
-        xs.T, ys, m, n, match=match, mismatch=mismatch, gap=gap,
+        xs.T, ys, m, n, score=uniform_scorer(match, mismatch), gap=gap,
         track_pos=track_pos,
     )
     if not track_pos:
@@ -133,7 +182,63 @@ def sw_score_moves_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
     """Plain version of the K2 kernel: K1's (score, i, j) plus the
     (M + N - 1, M, B) uint8 move/stop codes."""
     best, bestd, moves = wavefront(
-        xs.T, ys, m, n, match=match, mismatch=mismatch, gap=gap,
+        xs.T, ys, m, n, score=uniform_scorer(match, mismatch), gap=gap,
         emit_moves=True,
+    )
+    return (*reduce_best(best, bestd), moves)
+
+
+def gather_lanes(slab, y_off, n):
+    """Lanes of a flat (R,) code slab -> ((B, N) codes padded with 0, the
+    lengths clamped to what the slab holds past each offset), N = the
+    largest clamped length. A lane whose offset lies outside [0, R] gets
+    length 0 -- the kernels clamp the same way."""
+    R = slab.shape[0]
+    off = y_off.long()
+    inside = (off >= 0) & (off <= R)
+    n = torch.where(inside, torch.minimum(n.long(), R - off), 0).clamp(min=0)
+    N = max(1, int(n.max())) if n.numel() else 1
+    t = torch.arange(N, device=slab.device)
+    valid = t[None, :] < n[:, None]
+    ys = torch.zeros(valid.shape, dtype=torch.uint8, device=slab.device)
+    ys[valid] = slab[(off[:, None] + t[None, :])[valid]]
+    return ys, n.to(torch.int32)
+
+
+def sw_profile_plain(x, y, m, n, *, table, gap: int, y_off=None):
+    """Plain version of the K4 kernel: per-lane (score, i, j) int32 of
+    linear-gap SW scored by ``table`` (ncodes, ncodes) int32 over compact
+    codes.
+
+    x: (B, M) codes, or (M,) codes of one query shared by every lane.
+    y: (B, N) codes, or -- with ``y_off`` (B,) int64 -- a flat (R,) slab in
+    which lane b reads ``y[y_off[b] : y_off[b] + n[b]]``.
+    m, n: (B,) int32 true lengths, clamped to M and to what y holds.
+    Lanes run in blocks of LANE_BLOCK.
+    """
+    B = m.shape[0]
+    out = []
+    for b0 in range(0, B, LANE_BLOCK):
+        sl = slice(b0, min(B, b0 + LANE_BLOCK))
+        if y_off is None:
+            ys, nb = y[sl], n[sl]
+        else:
+            ys, nb = gather_lanes(y, y_off[sl], n[sl])
+        xs = x[sl] if x.dim() == 2 else x[None, :].expand(ys.shape[0], -1)
+        best, bestd, _ = wavefront(
+            xs.T, ys, m[sl], nb, score=table_scorer(table), gap=gap,
+        )
+        out.append(reduce_best(best, bestd))
+    if not out:
+        z = torch.zeros(0, dtype=torch.int32, device=m.device)
+        return z, z.clone(), z.clone()
+    return tuple(torch.cat(parts) for parts in zip(*out))
+
+
+def sw_profile_moves_plain(xs, ys, m, n, *, table, gap: int):
+    """Plain version of the K5 kernel: K4's (score, i, j) on xs (B, M) and
+    ys (B, N) codes plus the (M + N - 1, M, B) uint8 move/stop codes."""
+    best, bestd, moves = wavefront(
+        xs.T, ys, m, n, score=table_scorer(table), gap=gap, emit_moves=True,
     )
     return (*reduce_best(best, bestd), moves)

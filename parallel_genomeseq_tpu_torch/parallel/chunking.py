@@ -17,13 +17,12 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from parallel_genomeseq_tpu.utils.config import ChunkConfig, ScoringConfig
-from parallel_genomeseq_tpu.utils.encoding import X_PAD, Y_PAD, batch_pad, to_bytes
-from parallel_genomeseq_tpu.utils.result import AlignResult, Timings
-
 from ..models.swaligner import PAD_M, PAD_N, BatchSWAligner, round_up
 from ..ops.engine import CudaEngine
+from ..utils.config import ChunkConfig, ScoringConfig
 from ..utils.device import to_host
+from ..utils.encoding import X_PAD, Y_PAD, batch_pad, to_bytes
+from ..utils.result import AlignResult, Timings
 
 
 def make_string_ranges(

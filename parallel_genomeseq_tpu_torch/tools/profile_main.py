@@ -1,23 +1,29 @@
-"""Where the time goes in the port's ``solve_small`` main path.
+"""Where the time goes in the port's main paths.
 
     python -m parallel_genomeseq_tpu_torch.tools.profile_main \\
-        [--seed 0] [--reads 5120] [--read-len 125] [--batch-size 512] \\
-        [--sweep 128,1024,2048]
+        [--workload small|uniprot] [--seed 0] [--reads 5120] [--read-len 125]
+        [--batch-size 512] [--sweep 128,1024,2048] [--entries 561356]
 
-On the data set of ``chip_smoke.py`` (a seeded 4,980-bp reference and
-125-bp reads with substitutions and small indels, written under
-``data/profile/`` of the checkout), after one warm-up run:
+``--workload small`` (default): ``solve_small`` on the data set of
+``chip_smoke.py`` (a seeded 4,980-bp reference and 125-bp reads with
+substitutions and small indels, written under ``data/profile/``).
+``--workload uniprot``: ``solve_uniprot`` with the ``uniprot_e2e`` settings
+(BLOSUM50, gap 12, batch 4,096, top 10) on ``chip_smoke.py``'s protein data
+(``--entries`` generated entries with mutated copies of a seeded 145-aa
+query planted in them: 9 at the default size).
 
-1. three timed runs (``solve_small``'s own timer);
+After one warm-up run:
+
+1. three timed runs (the CLI's own timer; for uniprot the scan's seconds
+   and the whole run's wall seconds);
 2. one run under ``torch.profiler``: device time by kernel, then a JSON line
    with the run's wall time, the device's busy time (the sum of the self
    time of every event on the device) and its idle share;
 3. one run under ``cProfile``: host time by function, cumulative and self;
-4. one timed run at each batch size of ``--sweep``.
+4. (small only) one timed run at each batch size of ``--sweep``.
 
-``--device cpu`` runs the same phases on the plain route, at a small
-``--reads`` and ``--read-len``, to check the tool itself; it then reports
-no device time.
+``--device cpu`` runs the same phases on the plain route, at a small size,
+to check the tool itself; it then reports no device time.
 """
 
 from __future__ import annotations
@@ -34,9 +40,9 @@ from pathlib import Path
 
 import torch
 
-from ..cli import solve_small
+from ..cli import solve_small, solve_uniprot
 from ..utils.device import resolve_device
-from ..utils.synth import write_dataset
+from ..utils.synth import write_dataset, write_protein_dataset
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -52,24 +58,29 @@ def card_line(dev: torch.device) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def quiet_run(cli):
-    """One solve_small run with its progress lines swallowed."""
+def quiet_run(cli_module, argv):
+    """One CLI run with its report lines swallowed: (its Run, wall s)."""
+    t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
-        out = solve_small.run(cli)
+        out = cli_module.run(argv)
     if out.rc != 0:
-        raise RuntimeError(f"solve_small exited {out.rc}")
-    return out
+        raise RuntimeError(f"{cli_module.__name__} exited {out.rc}")
+    return out, time.perf_counter() - t0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", choices=["small", "uniprot"], default="small")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reads", type=int, default=5120)
     ap.add_argument("--ref-len", type=int, default=4980)
     ap.add_argument("--read-len", type=int, default=125)
-    ap.add_argument("--batch-size", type=int, default=512)
+    ap.add_argument("--batch-size", type=int, default=None,
+                    help="default 512 (small) or 4096 (uniprot)")
     ap.add_argument("--sweep", default="128,1024,2048",
                     help="comma-separated batch sizes for phase 4 ('' for none)")
+    ap.add_argument("--entries", type=int, default=561_356)
+    ap.add_argument("--query-len", type=int, default=145)
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--out-dir", default=str(ROOT / "data" / "profile"))
     args = ap.parse_args(argv)
@@ -77,18 +88,40 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     print(card_line(dev))
     out_dir = Path(args.out_dir)
-    ref, reads = write_dataset(out_dir, ref_len=args.ref_len, n_reads=args.reads,
-                               read_len=(args.read_len, args.read_len), seed=args.seed)
+    if args.workload == "small":
+        batch = args.batch_size or 512
+        ref, reads = write_dataset(out_dir, ref_len=args.ref_len, n_reads=args.reads,
+                                   read_len=(args.read_len, args.read_len), seed=args.seed)
+        cli_module = solve_small
 
-    def cli(batch):
-        return ["--ref", str(ref), "--input", str(reads), "--output",
-                str(out_dir / "align_output.csv"), "--batch-size", str(batch),
-                "--device", str(dev)]
+        def cli(b):
+            return ["--ref", str(ref), "--input", str(reads), "--output",
+                    str(out_dir / "align_output.csv"), "--batch-size", str(b),
+                    "--device", str(dev)]
 
-    base = cli(args.batch_size)
-    quiet_run(base)  # warm-up: kernel build and first launches
-    timed = [quiet_run(base).seconds for _ in range(3)]
-    print(f"batch {args.batch_size}: solve_small seconds {timed}")
+        def timing(out, wall):
+            return f"{out.seconds:.6f} s, {len(out.results) / out.seconds:.1f} reads/s"
+    else:
+        batch = args.batch_size or 4096
+        query, db, _ = write_protein_dataset(out_dir / "protein", n_entries=args.entries,
+                                             query_len=args.query_len, seed=7)
+        cli_module = solve_uniprot
+
+        def cli(b):
+            return ["--query", str(query), "--database", str(db), "--output",
+                    str(out_dir / "uniprot_output.csv"), "--matrix", "blosum50",
+                    "--gap-penalty", "12", "--batch-size", str(b), "--top", "10",
+                    "--device", str(dev)]
+
+        def timing(out, wall):
+            scan = out.scans[0]
+            return (f"scan {scan['seconds']:.6f} s ({scan['cells'] / scan['seconds'] / 1e9:.3f} "
+                    f"GCUPS), pack+upload {out.prep_seconds:.6f} s, run {wall:.6f} s")
+
+    base = cli(batch)
+    quiet_run(cli_module, base)  # warm-up: kernel build and first launches
+    for _ in range(3):
+        print(f"{args.workload} batch {batch}: {timing(*quiet_run(cli_module, base))}")
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -97,9 +130,7 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        quiet_run(base)
-        wall = time.perf_counter() - t0
+        _, wall = quiet_run(cli_module, base)
     events = prof.key_averages()
     if dev.type == "cuda":
         print(events.table(sort_by="self_device_time_total", row_limit=15))
@@ -111,22 +142,22 @@ def main(argv=None) -> int:
         idle = 1 - busy / wall
     else:
         busy = idle = None
-    print(json.dumps({"batch": args.batch_size, "wall_s": wall,
+    print(json.dumps({"workload": args.workload, "batch": batch, "wall_s": wall,
                       "device_busy_s": busy, "idle_share": idle}))
 
     pr = cProfile.Profile()
     pr.enable()
-    quiet_run(base)
+    quiet_run(cli_module, base)
     pr.disable()
     for key, rows in (("cumulative", 35), ("tottime", 20)):
         s = io.StringIO()
         pstats.Stats(pr, stream=s).sort_stats(key).print_stats(rows)
         print(s.getvalue())
 
-    for batch in (int(b) for b in args.sweep.split(",") if b):
-        quiet_run(cli(batch))  # warm-up at this batch's shapes
-        out = quiet_run(cli(batch))
-        print(f"batch {batch}: {out.seconds:.6f} s, {len(out.results) / out.seconds:.1f} reads/s")
+    if args.workload == "small":
+        for b in (int(v) for v in args.sweep.split(",") if v):
+            quiet_run(cli_module, cli(b))  # warm-up at this batch's shapes
+            print(f"batch {b}: {timing(*quiet_run(cli_module, cli(b)))}")
     return 0
 
 

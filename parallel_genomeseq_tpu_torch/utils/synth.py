@@ -1,11 +1,14 @@
-"""Seeded stand-in for the data_small workload: a random reference FASTA and
-a ground-truth CSV (``index,QNAME,SEQ,POS``) of reads sampled from it and
-mutated with substitutions and small indels.
+"""Seeded stand-ins for the reference's data, used by the port's tests and
+by ``chip_smoke.py``:
 
-The reference comes from the JAX package's jax-free
-``seqio.datagen.gen_ref_custom``; its ``gen_reads_custom`` samples exact
-substrings only, so the mutation step lives here. Used by the port's tests
-and by ``chip_smoke.py``.
+- ``write_dataset``, the data_small workload: a random reference FASTA and a
+  ground-truth CSV (``index,QNAME,SEQ,POS``) of reads sampled from it and
+  mutated with substitutions and small indels (``seqio.datagen``'s
+  ``gen_reads_custom`` samples exact substrings only, so the mutation step
+  lives here);
+- ``write_protein_dataset``, the UNIPROT workload: a random query the length
+  of P02232 and a SwissProt-scale database with mutated copies of the query
+  planted in it (``seqio.datagen.gen_protein_db``).
 """
 
 from __future__ import annotations
@@ -16,10 +19,11 @@ from typing import Tuple
 
 import numpy as np
 
-from parallel_genomeseq_tpu.seqio.datagen import gen_ref_custom
-from parallel_genomeseq_tpu.utils.encoding import to_bytes
+from ..seqio.datagen import gen_protein_db, gen_ref_custom
+from .encoding import to_bytes
 
 _ACGT = np.frombuffer(b"ACGT", np.uint8)
+_AMINO = list("ARNDCQEGHILKMFPSTWYV")
 
 
 def write_dataset(
@@ -63,3 +67,25 @@ def write_dataset(
                     seg = np.concatenate([seg[:at], seg[at + size :]])
             w.writerow([k, f"synth-{k}", seg[:length].tobytes().decode(), start + 1])
     return ref_path, csv_path
+
+
+def write_protein_dataset(
+    out_dir,
+    n_entries: int = 561_356,
+    query_len: int = 145,
+    seed: int = 7,
+    max_len: int = 2048,
+) -> Tuple[Path, Path, str]:
+    """Write ``query.fasta`` (a random query of ``query_len`` amino acids,
+    from ``seed``) and ``database.fasta`` (``gen_protein_db`` with the same
+    seed, entry lengths clipped to [60, max_len], mutated query copies
+    planted at every index k with ``k % (n_entries // 8) == 3``) into
+    ``out_dir``. Returns both paths and the query."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    query = "".join(np.random.default_rng(seed + 1).choice(_AMINO, query_len))
+    query_path = out_dir / "query.fasta"
+    query_path.write_text(f">query\n{query}\n")
+    db_path = out_dir / "database.fasta"
+    gen_protein_db(db_path, n_entries=n_entries, query=query, seed=seed, max_len=max_len)
+    return query_path, db_path, query

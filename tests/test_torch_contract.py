@@ -1,7 +1,8 @@
-"""Contract of the PyTorch/CUDA port: it never imports jax, configurations
-outside the ported slice raise NotImplementedError, CPU tensors take the
-plain route without counting a kernel launch, and a missing CUDA toolkit or
-card raises instead of falling back."""
+"""Contract of the PyTorch/CUDA port: it never imports jax or the JAX
+package, configurations and options outside the ported slices raise
+naming their ROADMAP item, CPU tensors take the plain route without counting
+a kernel launch, and a missing CUDA toolkit or card raises instead of
+falling back."""
 
 import subprocess
 import sys
@@ -11,40 +12,53 @@ import numpy as np
 import pytest
 import torch
 
-from parallel_genomeseq_tpu.utils.config import ScoringConfig, Semantics
-from parallel_genomeseq_tpu_torch.cli import solve_small
+from parallel_genomeseq_tpu_torch.cli import solve_small, solve_uniprot
+from parallel_genomeseq_tpu_torch.models.protein_db import ResidentProteinDB
 from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
-from parallel_genomeseq_tpu_torch.ops import _build, engine, traceback, wavefront_cuda
+from parallel_genomeseq_tpu_torch.ops import (
+    _build,
+    engine,
+    profile_cuda,
+    traceback,
+    wavefront_cuda,
+)
+from parallel_genomeseq_tpu_torch.ops.substitution import ALPHABET, blosum_config
 from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkedAligner
 from parallel_genomeseq_tpu_torch.utils import device as device_mod
+from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig, Semantics
 
 REPO = Path(__file__).resolve().parents[1]
-COUNTERS = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves, traceback.walk_moves)
+COUNTERS = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves, traceback.walk_moves,
+            profile_cuda.sw_profile, profile_cuda.sw_profile_moves)
 
 
 def test_port_never_imports_jax():
     """Import every module of the port, and chip_smoke, in a fresh
-    interpreter: jax must not be loaded."""
+    interpreter: neither jax nor any module of the JAX package
+    (parallel_genomeseq_tpu, parallel_genomeseq_tpu.*) may be loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import parallel_genomeseq_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "assert 'parallel_genomeseq_tpu_torch.cli.solve_small' in mods\n"
-        "print(len(mods), 'jax' in sys.modules)\n"
+        "assert 'parallel_genomeseq_tpu_torch.cli.solve_uniprot' in mods\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'parallel_genomeseq_tpu'\n"
+        "             or m.startswith('parallel_genomeseq_tpu.'))\n"
+        "print(len(mods), ','.join(bad) or '-')\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
         check=True, timeout=120,
     ).stdout.split()
-    assert int(out[0]) >= 10 and out[1] == "False", out
+    assert int(out[0]) >= 20 and out[1] == "-", out
 
 
 @pytest.mark.parametrize("cfg", [
     ScoringConfig(semantics=Semantics.SAT_UINT8),
     ScoringConfig(gap_open=10.0),
-    ScoringConfig(matrix=np.eye(4) * 5 - 1, alphabet="ACGT"),
+    blosum_config("blosum50", gap_penalty=2.0, gap_open=10.0),
     ScoringConfig(match=2.5),
     ScoringConfig(semantics=Semantics.FLOAT32),
 ], ids=["sat_uint8", "affine", "matrix", "non_integral", "float32"])
@@ -53,6 +67,21 @@ def test_unsupported_configs_raise(cfg):
         engine.make_score_engine(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         ChunkedAligner(cfg=cfg, device="cpu")
+
+
+def test_matrix_configs_are_ported_but_affine_matrix_and_long_queries_raise(tmp_path):
+    """Linear substitution-matrix scoring runs (A8); its affine form raises
+    naming A9, in the engine and in the resident database, whose default
+    gaps are the affine 10/2; a database for queries past 2,048 raises A10."""
+    eng = engine.make_score_engine(blosum_config("blosum62"), device="cpu")
+    assert int(eng.table[1, 1]) == 4 and eng.table.shape == (len(ALPHABET) + 1,) * 2
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        engine.make_score_engine(blosum_config("blosum50", gap_open=10.0), device="cpu")
+    entries = [("a", "MKWVTFISLL"), ("b", "GVFRRDTHKS")]
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        ResidentProteinDB(entries, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        ResidentProteinDB(entries, gap_open=0.0, max_query_len=engine.MAX_M + 1, device="cpu")
 
 
 def test_make_score_engine_names():
@@ -68,6 +97,14 @@ def test_make_score_engine_names():
     assert int(got["score"][0]) == 24
     with pytest.raises(ValueError, match="unknown engine"):
         engine.make_score_engine(name="pallas", device="cpu")
+    # The aligner takes the same names: 'plain' walks with the plain walk too.
+    bat = BatchSWAligner(device="cpu", engine="plain")
+    assert type(bat.engine) is engine.PlainEngine
+    reads, refs = ["ACGTTACG"], ["TTACGTTACGAA"]
+    got = bat.align_batch(reads, refs)[0]
+    want = BatchSWAligner(device="cpu").align_batch(reads, refs)[0]
+    assert (got.score, got.pos, got.consensus_x, got.consensus_y) == (
+        want.score, want.pos, want.consensus_x, want.consensus_y)
 
 
 def test_skewed_ties_and_strip_length_reads_raise():
@@ -88,6 +125,42 @@ def test_solve_small_rejects_unported_modes(flags, tmp_path):
     assert exc.value.code == 2
 
 
+@pytest.mark.parametrize("case, item", [
+    ("gap_open", "A9"), ("long_query", "A10"), ("num_processes", "A13"),
+])
+def test_solve_uniprot_rejects_unported_modes(case, item, tmp_path, capsys):
+    """Affine gaps, a query past the single-strip kernels' 2,048 rows and a
+    sharded run are refused, naming the ROADMAP item that ports them."""
+    query = tmp_path / "q.fasta"
+    query.write_text(">q\n" + "MKWVTFISLL" * (206 if case == "long_query" else 3) + "\n")
+    db = tmp_path / "db.fasta"
+    db.write_text(">a\nMKWVTFISLLGVFRR\n")
+    flags = {"gap_open": ["--gap-open", "10", "--gap-penalty", "2"],
+             "long_query": [], "num_processes": ["--num-processes", "2"]}[case]
+    with pytest.raises(SystemExit) as exc:
+        solve_uniprot.main(["--query", str(query), "--database", str(db), "--device",
+                            "cpu", "--output", str(tmp_path / "o.csv")] + flags)
+    assert exc.value.code == 2
+    assert f"ROADMAP {item}" in capsys.readouterr().err
+    assert not (tmp_path / "o.csv").exists()
+
+
+def test_solve_uniprot_scans_long_entries_but_refuses_their_walk(tmp_path):
+    """An entry past 2,048 aa is scanned (the entry is K4's y, which has no
+    row limit); walking it needs the strip kernels and raises naming A10."""
+    query = "MKWVTFISLLGVFRRDTHKSEIAHRFKDLGE"
+    (tmp_path / "q.fasta").write_text(f">q\n{query}\n")
+    (tmp_path / "db.fasta").write_text(
+        f">short\n{query[:20]}\n>long\n{'GS' * 1040}{query}\n")
+    base = ["--query", str(tmp_path / "q.fasta"), "--database", str(tmp_path / "db.fasta"),
+            "--device", "cpu", "--output", str(tmp_path / "o.csv")]
+    assert solve_uniprot.main(base + ["--traceback-top", "0"]) == 0
+    rows = (tmp_path / "o.csv").read_text().splitlines()
+    assert rows[2].startswith(f"long,{2080 + len(query)},") and rows[2].endswith(f",{2080 + len(query)},,,")
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        solve_uniprot.main(base)
+
+
 def test_cpu_tensors_take_plain_route_without_launches():
     for fn in COUNTERS:
         fn.launches = 0
@@ -100,7 +173,16 @@ def test_cpu_tensors_take_plain_route_without_launches():
         np.frombuffer(reads[0].encode(), np.uint8).copy()[None],
         np.frombuffer(ref.encode(), np.uint8).copy()[None], [50], [600],
     )
-    assert [fn.launches for fn in COUNTERS] == [0, 0, 0]
+    # The protein path: the resident scan (K4's route), the matrix
+    # traceback (K5 then K3) and the per-lane K4 route.
+    proteins = ["".join(rng.choice(list(ALPHABET[:20]), k)) for k in (40, 90, 130)]
+    db = ResidentProteinDB([(str(k), p) for k, p in enumerate(proteins)],
+                           gap_penalty=12.0, gap_open=0.0, device="cpu")
+    db.scan(proteins[1][10:60])
+    cfg = blosum_config("blosum50", gap_penalty=12.0)
+    BatchSWAligner(cfg, pad_m=128, device="cpu").align_batch(proteins, [proteins[1][10:60]])
+    BatchSWAligner(cfg, device="cpu").align_batch(proteins, [proteins[2]], traceback=False)
+    assert [fn.launches for fn in COUNTERS] == [0] * 5
 
 
 def test_cuda_default_without_card_raises(monkeypatch):
@@ -129,18 +211,26 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_build_command_targets_hopper(monkeypatch, tmp_path):
-    """The build compiles every csrc/*.cu for sm_90a into the build dir,
-    and a compiler failure raises with its message."""
+    """The build compiles each csrc/*.cu for sm_90a in its own nvcc process,
+    links the objects into one shared library in the build dir, and a
+    compiler or linker failure raises with its message."""
     nvcc = tmp_path / "nvcc"
-    nvcc.write_text("#!/bin/sh\necho \"$@\" > \"$(dirname \"$0\")/args\"\n"
-                    "echo 'error: refused' >&2\nexit 3\n")
+    nvcc.write_text(
+        "#!/bin/sh\necho \"$@\" >> \"$(dirname \"$0\")/args\"\n"
+        "for a in \"$@\"; do [ \"$a\" = -c ] && exec echo compiled; done\n"
+        "echo 'error: refused' >&2\nexit 3\n")
     nvcc.chmod(0o755)
     monkeypatch.setenv("NVCC", str(nvcc))
     with pytest.raises(RuntimeError, match="refused"):
         _build.build(tmp_path / "build")
-    args = (tmp_path / "args").read_text().split()
-    assert "arch=compute_90a,code=sm_90a" in args and "-shared" in args
-    assert {Path(a).name for a in args if a.endswith(".cu")} == {"wavefront.cu", "traceback.cu"}
+    calls = [line.split() for line in (tmp_path / "args").read_text().splitlines()]
+    compiles, links = [c for c in calls if "-c" in c], [c for c in calls if "-c" not in c]
+    assert [Path(c[-1]).name for c in sorted(compiles, key=lambda c: c[-1])] == \
+        ["profile.cu", "traceback.cu", "wavefront.cu"]
+    assert len(links) == 1 and "-shared" in links[0]
+    assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
+    assert "compiled" in (tmp_path / "build" / "nvcc.log").read_text()
+    assert not list((tmp_path / "build").glob("*.o"))
 
 
 def test_profile_tool_runs_on_the_plain_route(tmp_path, capsys):
@@ -155,6 +245,19 @@ def test_profile_tool_runs_on_the_plain_route(tmp_path, capsys):
     out = capsys.readouterr().out
     assert '"device_busy_s": null' in out and "batch 8:" in out
     assert (tmp_path / "align_output.csv").exists()
+
+
+def test_profile_tool_runs_the_protein_path_on_the_plain_route(tmp_path, capsys):
+    from parallel_genomeseq_tpu_torch.tools import profile_main
+
+    assert profile_main.main([
+        "--workload", "uniprot", "--device", "cpu", "--entries", "5",
+        "--query-len", "12", "--batch-size", "8", "--out-dir", str(tmp_path),
+    ]) == 0
+    out = capsys.readouterr().out
+    assert '"workload": "uniprot"' in out and '"device_busy_s": null' in out
+    assert out.count("uniprot batch 8: scan") == 3
+    assert len((tmp_path / "uniprot_output.csv").read_text().splitlines()) == 6
 
 
 def test_wrappers_validate_inputs():

@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from parallel_genomeseq_tpu_torch.cli import solve_small
-from parallel_genomeseq_tpu_torch.ops import scan_dp, traceback, wavefront_cuda
-from parallel_genomeseq_tpu_torch.utils.synth import write_dataset
+from parallel_genomeseq_tpu_torch.cli import solve_small, solve_uniprot
+from parallel_genomeseq_tpu_torch.ops import profile_cuda, scan_dp, traceback, wavefront_cuda
+from parallel_genomeseq_tpu_torch.ops.substitution import blosum_config
+from parallel_genomeseq_tpu_torch.utils.synth import write_dataset, write_protein_dataset
 
 pytestmark = pytest.mark.gpu
 KW = dict(match=3, mismatch=-3, gap=2)
@@ -118,3 +119,92 @@ def test_solve_small_cuda_matches_cpu(cuda, tmp_path):
         assert solve_small.main(
             base + extra + ["--device", "cpu", "--output", str(tmp_path / "cpu.csv")]) == 0
         assert (tmp_path / "gpu.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
+
+
+def protein_lanes(seed, dev, B=77, M=150, N=420):
+    """Random protein lanes of ragged true lengths with a shared motif, in
+    compact codes, with some codes at or past the table's size (they score
+    as code 0, like a byte outside the alphabet)."""
+    rng = np.random.default_rng(seed)
+    lut, table = scan_dp.profile_tables(blosum_config("blosum50"))
+    m = rng.integers(1, M + 1, B).astype(np.int32)
+    n = rng.integers(1, N + 1, B).astype(np.int32)
+    xs = rng.integers(0, 30, (B, M)).astype(np.uint8)
+    ys = rng.integers(0, 30, (B, N)).astype(np.uint8)
+    for b in range(B):
+        k = min(m[b], n[b]) // 2
+        if k:
+            ys[b, n[b] - k : n[b]] = xs[b, :k]
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return t(xs), t(ys), t(m), t(n), t(table)
+
+
+def valid_moves(got, want, m, n):
+    D, M, B = got.shape
+    d = torch.arange(D, device=got.device)[:, None, None]
+    r = torch.arange(M, device=got.device)[None, :, None]
+    valid = (r < m) & (d >= r) & (d - r < n)
+    return torch.equal(got[valid], want[valid])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k4_matches_plain(cuda, seed):
+    """K4 on per-lane queries, and on a flat slab with one shared query and
+    lanes that run past the slab's end or start outside it."""
+    xs, ys, m, n, table = protein_lanes(seed, cuda)
+    before = profile_cuda.sw_profile.launches
+    got = profile_cuda.sw_profile(xs, ys, m, n, table=table, gap=12)
+    want = scan_dp.sw_profile_plain(xs, ys, m, n, table=table, gap=12)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    slab = ys.reshape(-1)[: ys.numel() - 100].contiguous()
+    off = torch.arange(ys.shape[0], device=cuda, dtype=torch.int64) * 420
+    off[:3] = torch.tensor([-5, slab.numel(), slab.numel() + 9], device=cuda)
+    mq = torch.full_like(m, xs.shape[1])
+    got = profile_cuda.sw_profile(xs[0], slab, mq, n * 3, table=table, gap=12, y_off=off)
+    want = scan_dp.sw_profile_plain(xs[0], slab, mq, n * 3, table=table, gap=12, y_off=off)
+    torch.cuda.synchronize()
+    assert profile_cuda.sw_profile.launches == before + 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[0][:3].tolist() == [0, 0, 0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k5_and_k3_match_plain(cuda, seed):
+    xs, ys, m, n, table = protein_lanes(seed, cuda)
+    before = profile_cuda.sw_profile_moves.launches
+    got = profile_cuda.sw_profile_moves(xs, ys, m, n, table=table, gap=12)
+    want = scan_dp.sw_profile_moves_plain(xs, ys, m, n, table=table, gap=12)
+    assert profile_cuda.sw_profile_moves.launches == before + 1
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert valid_moves(got[3], want[3], m, n)
+    x_mb = xs.T.contiguous()
+    walked = traceback.walk_moves(got[3], x_mb, ys, got[1], got[2], max_steps=400)
+    plain = traceback._walk_moves_plain(got[3], x_mb, ys, got[1], got[2], 400)
+    for g, w in zip(walked, plain):
+        assert torch.equal(g, w)
+
+
+def test_solve_uniprot_cuda_matches_cpu(cuda, tmp_path):
+    query, db, _ = write_protein_dataset(tmp_path, n_entries=300, query_len=145, seed=4)
+    base = ["--query", str(query), "--database", str(db), "--batch-size", "64"]
+    for extra in ([], ["--traceback-all"], ["--matrix", "uniform"]):
+        assert solve_uniprot.main(base + extra + ["--output", str(tmp_path / "gpu.csv")]) == 0
+        assert solve_uniprot.main(
+            base + extra + ["--device", "cpu", "--output", str(tmp_path / "cpu.csv")]) == 0
+        assert (tmp_path / "gpu.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
+
+
+def test_solve_uniprot_plain_engine_on_card_launches_no_kernel(cuda, tmp_path):
+    """``--engine plain`` runs the plain versions of K4, K5 and K3 on the
+    card: the same CSV as the kernels, and no launch."""
+    query, db, _ = write_protein_dataset(tmp_path, n_entries=120, query_len=64, seed=6)
+    base = ["--query", str(query), "--database", str(db), "--batch-size", "64"]
+    assert solve_uniprot.main(base + ["--output", str(tmp_path / "k.csv")]) == 0
+    counters = (profile_cuda.sw_profile, profile_cuda.sw_profile_moves, traceback.walk_moves)
+    before = [fn.launches for fn in counters]
+    assert solve_uniprot.main(base + ["--engine", "plain", "--output", str(tmp_path / "p.csv")]) == 0
+    assert [fn.launches for fn in counters] == before
+    assert (tmp_path / "k.csv").read_bytes() == (tmp_path / "p.csv").read_bytes()

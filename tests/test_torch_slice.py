@@ -11,10 +11,11 @@ from parallel_genomeseq_tpu.cli import solve_small as jax_cli
 from parallel_genomeseq_tpu.models.swaligner import BatchSWAligner as JaxBatch
 from parallel_genomeseq_tpu.parallel.chunking import ChunkedAligner as JaxChunked
 from parallel_genomeseq_tpu.seqio.readers import read_fasta
-from parallel_genomeseq_tpu.utils.config import ChunkConfig
+from parallel_genomeseq_tpu.utils.config import ChunkConfig as JaxChunkConfig
 from parallel_genomeseq_tpu_torch.cli import solve_small as port_cli
 from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
 from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkedAligner
+from parallel_genomeseq_tpu_torch.utils.config import ChunkConfig
 from parallel_genomeseq_tpu_torch.utils.synth import write_dataset
 
 FIELDS = ("score", "pos", "consensus_x", "consensus_y", "max_i", "max_j")
@@ -47,10 +48,10 @@ def batches(reads, size=16):
 @pytest.mark.parametrize("npiece", [17, 4])
 def test_chunked_aligner_matches_jax(dataset, npiece):
     _, _, ref, reads = dataset
-    chunk = ChunkConfig(npiece=npiece, overlap_ratio=2.0)
-    want = [r for b in JaxChunked(chunk=chunk, score_engine="pallas")
+    want = [r for b in JaxChunked(chunk=JaxChunkConfig(npiece=npiece, overlap_ratio=2.0),
+                                  score_engine="pallas")
             .align_stream(batches(reads), ref) for r in b]
-    port = ChunkedAligner(chunk=chunk, device="cpu")
+    port = ChunkedAligner(chunk=ChunkConfig(npiece=npiece, overlap_ratio=2.0), device="cpu")
     got = [r for b in port.align_stream(batches(reads), ref) for r in b]
     assert_same(got, want)
     assert_same(port.align_batch(reads[:5], ref), want[:5])
