@@ -14,20 +14,31 @@
    data_small workload (4,980-bp reference, 5,120 reads of 125 bp with
    substitutions and small indels), checks that K1, K2 and K3 launched during
    that run, and that 32 sampled reads agree with the numpy oracle.
-4. Protein database scan path, at SwissProt scale: 561,356 generated entries
+4. The same path with affine (Gotoh) gaps under BWA-MEM's scoring (match 1,
+   mismatch -4, gap open 6, extend 1) on the same reads: K6 (both modes),
+   K7 (winning windows and the full reference) and K10 (on K7's output)
+   against their plain versions, ``solve_small --match 1 --mismatch -4
+   --gap-open 6 --gap-penalty 1``, K6, K7 and K10 launched during it, and 32
+   sampled reads against a numpy Gotoh oracle (score, pos and both consensus
+   strings).
+5. Protein database scan path, at SwissProt scale: 561,356 generated entries
    (lognormal lengths, median ~290 aa, 60-2,048) with 9 mutated copies of a
    seeded 145-aa query planted (every index k with k % 70,169 == 3). Holds K4 against its plain version on the
    whole resident slab (the main path's single launch) and on the shortest
    and longest 4,096-lane length groups; K5 and K3 on the top-10 traceback
    batch and on 256 of the longest entries (M = 2,048, about 1.2 GB of
-   moves). Runs ``solve_uniprot`` of the port with the ``uniprot_e2e``
-   settings (BLOSUM50, gap 12, batch 4,096, pad 128, top 10) after a warm-up
-   on 20,000 entries, prints pack+upload seconds, scan seconds, GCUPS and
-   proteins/s, checks that K4, K5 and K3 launched during that run, and holds
-   the planted entries, the top 10 and 32 sampled entries against the numpy
+   moves). Holds their affine forms under BLOSUM50 with gap 10/2 on the same
+   slab: K8 on the two length groups and on every 16th lane of its
+   whole-slab launch, K9 and K10 on the affine top 10 and the 256 longest.
+   Runs ``solve_uniprot`` of the port with the ``uniprot_e2e`` settings
+   (BLOSUM50, gap 12, batch 4,096, pad 128, top 10), then with ``--gap-open
+   10 --gap-penalty 2``, each after a warm-up on 20,000 entries, prints
+   pack+upload seconds, scan seconds, GCUPS and proteins/s, checks that K4,
+   K5 and K3 (K8, K9 and K10) launched during that run, and holds the
+   planted entries, the top 10 and 32 sampled entries against the numpy
    oracle (score and pos_end; pos_pred and both consensus strings for the
    top 10).
-5. Prints the kernels' JSON line -- each kernel's time, its plain version's,
+6. Prints the kernels' JSON line -- each kernel's time, its plain version's,
    and its bound: the larger of the integer operations its cells need over
    the card's int32 ALU peak and the bytes it must move over the memory
    rate -- then ``{"ok": true, "device": ...}`` last.
@@ -69,18 +80,45 @@ INT32_LANES = 132 * 64
 #     against north (2 compares), 2 selects; the stop flag, a DPX
 #     __vimin3_s32 of the three neighbours, a compare with 0 and an or into
 #     the code (3): 7.
+# The affine (Gotoh) cell, E = max(H_west - open, E_west) - extend, F the same
+# from the north, H = max(diag + s, E, F, 0):
+#   the recurrence: E and F each one DPX __viaddmax_s32(H, -open, run) and
+#     the extend subtract (2 + 2), H one max(E, F) and one DPX
+#     __viaddmax_s32_relu(diag, s, .) for the add and the rest of the max (2):
+#     6;
+#   the move byte: H's source from three equality tests (H == 0, == diag +
+#     s, == E) and three selects (6); the extend bits, the two opening
+#     values (H - open) the DPX folded away, two compares and two ors into
+#     the byte (6): 12.
 OPS_PER_CELL = {
     ("sw_score", False): 2 + 3 + 1,
     ("sw_score", True): 2 + 3 + 2,
     "sw_score_moves": 2 + 3 + 2 + 7,
     "sw_profile": 0 + 3 + 2,
     "sw_profile_moves": 0 + 3 + 2 + 7,
+    ("sw_score_affine", False): 2 + 6 + 1,
+    ("sw_score_affine", True): 2 + 6 + 2,
+    "sw_score_affine_moves": 2 + 6 + 2 + 12,
+    "sw_profile_affine": 0 + 6 + 2,
+    "sw_profile_affine_moves": 0 + 6 + 2 + 12,
 }
-# K3 per walk step (the code read is a load, not counted): test the stop bit
-# and the two moves (3), select the two emitted bytes (2), update i, j, pos,
-# steps and the active flag (5).
-OPS_PER_STEP = 10
+# Per walk step (the code read is a load, not counted). K3: test the stop
+# bit and the two moves (3), select the two emitted bytes (2), update i, j,
+# pos, steps and the active flag (5). K10: the op in force, a state test and
+# a select (2); the stop rule, the H_ZERO and two boundary tests, their or
+# and the state's and (5); NW and E against the op (2); the two emitted
+# bytes (2); the next state, the extend bit's test and a select (2); i, j,
+# pos, steps and the active flag (5).
+OPS_PER_STEP = {"walk_moves": 10, "walk_moves_affine": 18}
 LANE_BYTES = 8 + 12  # per lane: two int32 lengths in, (score, i, j) out
+# The DNA path's scoring: solve_small's defaults, and BWA-MEM's affine
+# scoring (a gap of length L costs gap_open + L * gap).
+LINEAR = dict(match=3, mismatch=-3, gap=2)
+BWA = dict(match=1, mismatch=-4, gap_open=6, gap=1)
+BWA_FLAGS = ["--match", "1", "--mismatch", "-4", "--gap-open", "6", "--gap-penalty", "1"]
+# The protein path's gaps: the uniprot_e2e linear 12, and swps3's affine 10/2.
+PROTEIN_LINEAR = dict(gap=12)
+PROTEIN_AFFINE = dict(gap_open=10, gap=2)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -162,89 +200,113 @@ def report(name, label, rec):
           f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
 
 
-def walk_case(moves, x_mb, y_bn, i0, j0, steps, clock, reps=10):
-    """K3 against its plain walk on the same move codes."""
-    from parallel_genomeseq_tpu_torch.ops import traceback
-
-    got = traceback.walk_moves(moves, x_mb, y_bn, i0, j0, max_steps=steps)
-    want, plain_ms = timed(lambda: traceback._walk_moves_plain(moves, x_mb, y_bn, i0, j0, steps))
+def walk_case(walk, plain_walk, moves, x_mb, y_bn, i0, j0, steps, clock, reps=10):
+    """K3 or K10 (``walk``) against its plain walk on the same move codes."""
+    got = walk(moves, x_mb, y_bn, i0, j0, max_steps=steps)
+    want, plain_ms = timed(lambda: plain_walk(moves, x_mb, y_bn, i0, j0, steps))
     B = x_mb.shape[1]
     walked = int(got[3].long().sum())
     rec = {"shape": f"{B} lanes, max_steps={steps}", "max_abs_err": max_abs_err(got, want),
-           "ms": cuda_ms(lambda: traceback.walk_moves(moves, x_mb, y_bn, i0, j0, max_steps=steps), reps),
+           "ms": cuda_ms(lambda: walk(moves, x_mb, y_bn, i0, j0, max_steps=steps), reps),
            "plain_ms": plain_ms}
     # Read per step: one move code and two sequence bytes; write both
     # (max_steps, B) consensus buffers, and per lane (i0, j0) in, (pos, steps) out.
     rec["bound_ms"], rec["bound_by"] = bound(
-        walked * OPS_PER_STEP, 3 * walked + 2 * steps * B + 16 * B, clock)
+        walked * OPS_PER_STEP[walk.__name__], 3 * walked + 2 * steps * B + 16 * B, clock)
     return rec
 
 
-def check_kernels(reads, ref, batch: int, clock: float, dev):
-    """DNA phase: K1, K2, K3 against their plain versions at the main
-    path's shapes. Returns {kernel: {case label: measurements}}."""
+def dna_kernels(kw):
+    """(score sweep, re-run with moves, walk, plain walk) of the DNA path
+    under the gaps of ``kw``: K1, K2, K3, or with gap_open K6, K7, K10."""
+    from parallel_genomeseq_tpu_torch.ops import traceback, wavefront_cuda
+
+    if "gap_open" in kw:
+        return (wavefront_cuda.sw_score_affine, wavefront_cuda.sw_score_affine_moves,
+                traceback.walk_moves_affine, traceback._walk_moves_affine_plain)
+    return (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves, traceback.walk_moves,
+            traceback._walk_moves_plain)
+
+
+def dna_config(kw):
+    from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
+
+    return ScoringConfig(match=kw["match"], mismatch=kw["mismatch"], gap_penalty=kw["gap"],
+                         gap_open=kw.get("gap_open", 0))
+
+
+def check_kernels(reads, ref, batch: int, clock: float, dev, kw):
+    """DNA phase: the score sweep, the re-run with moves and the walk of the
+    scoring ``kw`` (K1/K2/K3, or K6/K7/K10) against their plain versions at
+    the main path's shapes. Returns {kernel: {case label: measurements}}."""
     import numpy as np
     import torch
 
     from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
-    from parallel_genomeseq_tpu_torch.ops import scan_dp, wavefront_cuda
+    from parallel_genomeseq_tpu_torch.ops import scan_dp
     from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkConfig, ChunkedAligner
     from parallel_genomeseq_tpu_torch.utils.device import to_host
 
-    kw = dict(match=3, mismatch=-3, gap=2)
-    chunked = ChunkedAligner(chunk=ChunkConfig(npiece=17, overlap_ratio=2.0), device=dev)
-    aligner = BatchSWAligner(device=dev)
-    out = {"sw_score": {}, "sw_score_moves": {}, "walk_moves": {}}
+    score_k, moves_k, walk_k, plain_walk = dna_kernels(kw)
+    cfg = dna_config(kw)
+    chunked = ChunkedAligner(cfg, chunk=ChunkConfig(npiece=17, overlap_ratio=2.0), device=dev)
+    aligner = BatchSWAligner(cfg, device=dev)
+    out = {score_k.__name__: {}, moves_k.__name__: {}, walk_k.__name__: {}}
+    tag = f"K{'6' if 'gap_open' in kw else '1'} {score_k.__name__}"
 
     def on_card(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
-    # K1: the stage-A window sweep, both modes.
+    # The stage-A window sweep, both modes.
     batch_reads = reads[:batch]
     xs, ys, m, n, all_ranges = chunked.window_lanes(batch_reads, ref)
     xs, ys, m, n = on_card(xs, ys, m, n)
     cells, seq_bytes = lane_work(m, n)
     for track_pos in (False, True):
-        tag = "track_pos" if track_pos else "score_only"
-        got = wavefront_cuda.sw_score(xs, ys, m, n, track_pos=track_pos, **kw)
+        label = "track_pos" if track_pos else "score_only"
+        got = score_k(xs, ys, m, n, track_pos=track_pos, **kw)
         want = scan_dp.sw_score_plain(xs, ys, m, n, track_pos=track_pos, **kw)
         rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}",
                "max_abs_err": max_abs_err(got, want),
-               "ms": cuda_ms(lambda: wavefront_cuda.sw_score(xs, ys, m, n, track_pos=track_pos, **kw), 10),
-               "plain_ms": cuda_ms(lambda: scan_dp.sw_score_plain(xs, ys, m, n, track_pos=track_pos, **kw), 1)}
+               "ms": cuda_ms(lambda: score_k(xs, ys, m, n, track_pos=track_pos, **kw), 10),
+               "plain_ms": cuda_ms(lambda: scan_dp.sw_score_plain(
+                   xs, ys, m, n, track_pos=track_pos, **kw), 1)}
         rec["bound_ms"], rec["bound_by"] = bound(
-            cells * OPS_PER_CELL[("sw_score", track_pos)], seq_bytes + LANE_BYTES * xs.shape[0], clock)
-        out["sw_score"][tag] = rec
-        report("K1 sw_score", tag, rec)
+            cells * OPS_PER_CELL[(score_k.__name__, track_pos)],
+            seq_bytes + LANE_BYTES * xs.shape[0], clock)
+        out[score_k.__name__][label] = rec
+        report(tag, label, rec)
 
-    # K2 on the winning windows (the stage-B re-run) and on the full reference.
+    # The re-run with moves on the winning windows (stage B) and on the full
+    # reference.
+    tag = f"K{'7' if 'gap_open' in kw else '2'} {moves_k.__name__}"
     (scores,) = to_host([got[0]])
     winner = scores.reshape(len(batch_reads), -1).argmax(axis=1)
     win_refs = [ref[slice(*all_ranges[r][w])] for r, w in enumerate(winner)]
     walk_inputs = None
-    for tag, refs in (("windows", win_refs), ("npiece1", [ref])):
+    for label, refs in (("windows", win_refs), ("npiece1", [ref])):
         xs, ys, m, n = on_card(*aligner.pad_batch(batch_reads, refs))
-        got = wavefront_cuda.sw_score_moves(xs, ys, m, n, **kw)
+        got = moves_k(xs, ys, m, n, **kw)
         want = scan_dp.sw_score_moves_plain(xs, ys, m, n, **kw)
         cells, seq_bytes = lane_work(m, n)
         rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}",
                "max_abs_err": max(max_abs_err(got[:3], want[:3]), moves_err(got[3], want[3], m, n)),
-               "ms": cuda_ms(lambda: wavefront_cuda.sw_score_moves(xs, ys, m, n, **kw), 10),
+               "ms": cuda_ms(lambda: moves_k(xs, ys, m, n, **kw), 10),
                "plain_ms": cuda_ms(lambda: scan_dp.sw_score_moves_plain(xs, ys, m, n, **kw), 1)}
         rec["bound_ms"], rec["bound_by"] = bound(
-            cells * OPS_PER_CELL["sw_score_moves"],
+            cells * OPS_PER_CELL[moves_k.__name__],
             seq_bytes + LANE_BYTES * xs.shape[0] + cells, clock)  # + one move byte per cell
-        out["sw_score_moves"][tag] = rec
-        report("K2 sw_score_moves", tag, rec)
+        out[moves_k.__name__][label] = rec
+        report(tag, label, rec)
         if walk_inputs is None:
             walk_inputs = (got[3], xs.T.contiguous(), ys, got[1], got[2],
                            aligner.max_steps(xs.shape[1], ys.shape[1]))
         del got, want
 
-    # K3 on K2's output for the winning windows.
-    rec = walk_case(*walk_inputs, clock)
-    out["walk_moves"]["windows"] = rec
-    report("K3 walk_moves", "windows", rec)
+    # The walk on the re-run's output for the winning windows.
+    rec = walk_case(walk_k, plain_walk, *walk_inputs, clock)
+    out[walk_k.__name__]["windows"] = rec
+    report(f"K{'10' if 'gap_open' in kw else '3'} {walk_k.__name__}", "windows", rec)
     return out
 
 
@@ -324,6 +386,100 @@ def oracle_align(read: str, ref: str, gap=2, sub=None):
             i -= 1
 
 
+def gotoh(X, y, sub, gap_open: int, gap: int, keep: bool = False):
+    """Gotoh's affine-gap local DP in numpy for R rows X (R, m) uint8 against
+    y (n,) uint8, one column at a time, with pair scores ``sub`` (256, 256):
+    E = max(H_west - open, E_west) - gap, F the same from the north, H =
+    max(0, diag + s, E, F). The in-column F chain is a prefix max of A + gap*i
+    with A = max(0, diag + s, E), the method of the JAX package's
+    oracle.sw_affine_score_fast, kept here so this script depends only on
+    the port. Returns per row (best, i, j), the first maximum in column-major
+    order; with ``keep`` also H, E, F (R, m + 1, n + 1) with the oracle's
+    boundaries (H = 0 on row and column 0, E = F = -2^40 there)."""
+    import numpy as np
+
+    R, m = X.shape
+    n = len(y)
+    neg = -(2**40)
+    rows = sub[X]  # (R, m, 256): each x_i's score against every byte
+    gi = gap * np.arange(1, m + 1, dtype=np.int64)
+    h = np.zeros((R, m + 1), np.int64)  # H of the previous column, row 0 = 0
+    e = np.full((R, m), neg, np.int64)  # E of the previous column, rows 1..m
+    zero = np.zeros((R, 1), np.int64)
+    best = np.zeros(R, np.int64)
+    bi = np.zeros(R, np.int64)
+    bj = np.zeros(R, np.int64)
+    if keep:
+        H = np.zeros((R, m + 1, n + 1), np.int64)
+        E = np.full((R, m + 1, n + 1), neg, np.int64)
+        F = np.full((R, m + 1, n + 1), neg, np.int64)
+    for j in range(1, n + 1):
+        e = np.maximum(h[:, 1:] - gap_open, e) - gap
+        a = np.maximum(np.maximum(h[:, :-1] + rows[:, :, y[j - 1]], e), 0)
+        q = np.maximum.accumulate(np.concatenate([zero, a + gi], axis=1), axis=1)
+        f = q[:, :-1] - gap_open - gi
+        col = np.maximum(a, f)
+        cm = col.max(axis=1)
+        upd = cm > best
+        best = np.where(upd, cm, best)
+        bi = np.where(upd, col.argmax(axis=1) + 1, bi)
+        bj = np.where(upd, j, bj)
+        h[:, 1:] = col
+        if keep:
+            H[:, 1:, j], E[:, 1:, j], F[:, 1:, j] = col, e, f
+    return (best, bi, bj, H, E, F) if keep else (best, bi, bj)
+
+
+def gotoh_align(x: str, y: str, sub, gap_open: int, gap: int):
+    """(score, pos, consensus_x, consensus_y) of x against y: the first
+    maximum in column-major order, then the walk of the JAX package's
+    oracle.affine_traceback: in H, NW if H = diag + s, else enter E if
+    H = E, else F; an E (F) run emits a gap column and continues while
+    E(i, j) = E(i, j-1) - gap (F(i, j) = F(i-1, j) - gap); stop in H on a
+    zero cell. pos is the j of the last column that used y."""
+    import numpy as np
+
+    xb = np.frombuffer(x.encode(), np.uint8)
+    yb = np.frombuffer(y.encode(), np.uint8)
+    best, bi, bj, H, E, F = (v[0] for v in gotoh(xb[None], yb, sub, gap_open, gap, keep=True))
+    score, i, j = int(best), int(bi), int(bj)
+    if score <= 0:
+        return score, 0, "", ""
+    cx, cy = [], []
+    state, pos = "H", j
+    while True:
+        if state == "H":
+            if H[i, j] == 0:
+                return score, pos, "".join(cx), "".join(cy)
+            if H[i, j] == H[i - 1, j - 1] + sub[xb[i - 1], yb[j - 1]]:
+                cx.append(x[i - 1])
+                cy.append(y[j - 1])
+                pos = j
+                i, j = i - 1, j - 1
+            else:
+                state = "E" if H[i, j] == E[i, j] else "F"
+        elif state == "E":
+            cx.append("-")
+            cy.append(y[j - 1])
+            pos = j
+            extend = E[i, j] == E[i, j - 1] - gap
+            j -= 1
+            state = "E" if extend else "H"
+        else:
+            cx.append(x[i - 1])
+            cy.append("-")
+            extend = F[i, j] == F[i - 1, j] - gap
+            i -= 1
+            state = "F" if extend else "H"
+
+
+def uniform_pair_scores(match: int, mismatch: int):
+    """(256, 256) int64 scores of uniform scoring over raw bytes."""
+    import numpy as np
+
+    return np.where(np.eye(256, dtype=bool), match, mismatch).astype(np.int64)
+
+
 def check_sampled(reads, ref, rows, results, seed: int, count: int = 32):
     """DNA check: sampled reads of the timed run against the numpy oracle.
     ``rows`` is the run's CSV, ``results`` its AlignResults."""
@@ -349,10 +505,76 @@ def check_sampled(reads, ref, rows, results, seed: int, count: int = 32):
           "the full reference; pos and consensus on the winning window)")
 
 
-def dna_phase(args, card: str, clock: float, dev):
-    """Phase 3. Returns (measurements, launches during solve_small)."""
+def check_sampled_affine(reads, ref, rows, results, seed: int, count: int = 32):
+    """The affine DNA check: sampled reads (all of one length, so one batch
+    of numpy columns) against the Gotoh oracle under BWA-MEM's scoring --
+    the best over the full reference, the winning window (first on ties),
+    and on it (score, i, j), pos and both consensus strings."""
+    import numpy as np
+
+    from parallel_genomeseq_tpu_torch.parallel.chunking import make_string_ranges
+
+    sub = uniform_pair_scores(BWA["match"], BWA["mismatch"])
+    picks = np.random.default_rng(seed).choice(len(reads), count, replace=False)
+    if len({len(reads[k]) for k in picks}) != 1:
+        raise AssertionError("the affine oracle batches reads of one length")
+    X = np.stack([np.frombuffer(reads[k].encode(), np.uint8) for k in picks])
+    y = np.frombuffer(ref.encode(), np.uint8)
+    full = gotoh(X, y, sub, BWA["gap_open"], BWA["gap"])[0]
+    ranges = make_string_ranges(17, X.shape[1], len(ref), 2.0)
+    per_window = np.stack([gotoh(X, y[l:r], sub, BWA["gap_open"], BWA["gap"])[0]
+                           for l, r in ranges], axis=1)
+    for r, k in enumerate(picks):
+        left, right = ranges[int(np.argmax(per_window[r]))]
+        score, pos, cx, cy = gotoh_align(reads[k], ref[left:right], sub, BWA["gap_open"],
+                                         BWA["gap"])
+        pos = pos + left if pos > 0 else 0
+        res = results[k]
+        got = (int(rows[k]["score"]), int(rows[k]["pos_pred"]), int(res.score),
+               res.pos, res.consensus_x, res.consensus_y)
+        exp = (int(full[r]), pos, score, pos, cx, cy)
+        if got != exp:
+            raise AssertionError(f"read {k}: port {got} != Gotoh oracle {exp}")
+    gapped = sum("-" in results[k].consensus_x + results[k].consensus_y for k in picks)
+    print(f"oracle check: {count} sampled reads of the affine run agree with the Gotoh oracle "
+          f"({gapped} of them gapped)")
+
+
+def dna_run(label, cli, kw, reads, ref, out_csv, card, seed):
+    """Drive the port's solve_small once for ``label`` after a warm-up on
+    one batch, with the counts of its kernels set to 0 just before the run
+    and read just after; check its output and sampled reads. Returns the
+    launches."""
     from parallel_genomeseq_tpu_torch.cli import solve_small
-    from parallel_genomeseq_tpu_torch.ops import traceback, wavefront_cuda
+
+    if solve_small.main(cli + ["--limit", cli[cli.index("--batch-size") + 1]]) != 0:  # warm-up
+        raise AssertionError(f"solve_small {label} warm-up failed")
+    counters = dna_kernels(kw)[:3]
+    for fn in counters:
+        fn.launches = 0
+    run = solve_small.run(cli)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if run.rc != 0:
+        raise AssertionError(f"solve_small {label} exited {run.rc}")
+    print(f"launches during solve_small {label}: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
+    with open(out_csv, newline="") as f:
+        rows = list(csv.DictReader(f))
+    if len(run.results) != len(reads) or len(rows) != len(reads):
+        raise AssertionError(f"expected {len(reads)} results and rows, got "
+                             f"{len(run.results)} and {len(rows)}")
+    print(f"solve_small {label}: {len(reads) / run.seconds:.1f} reads/s, "
+          f"{run.cells / run.seconds / 1e9:.3f} GCUPS (full-reference cells, "
+          f"{run.seconds:.3f} s) on {card}")
+    check = check_sampled_affine if "gap_open" in kw else check_sampled
+    check(reads, ref, rows, run.results, seed)
+    return launches
+
+
+def dna_phase(args, card: str, clock: float, dev):
+    """Phases 3 and 4. Returns (measurements, launches during each
+    solve_small run), both keyed by 'linear' and 'affine'."""
     from parallel_genomeseq_tpu_torch.utils.synth import write_dataset
 
     data = ROOT / "data" / "chip_smoke"
@@ -364,125 +586,196 @@ def dna_phase(args, card: str, clock: float, dev):
         reads = [r["SEQ"] for r in csv.DictReader(f)]
     print(f"data: {len(reads)} reads x 125 bp vs {len(ref)}-bp reference (seed {args.seed})")
 
-    measured = check_kernels(reads, ref, args.batch_size, clock, dev)
-
-    out_csv = data / "align_output.csv"
-    cli = ["--ref", str(ref_path), "--input", str(csv_path), "--output", str(out_csv),
-           "--batch-size", str(args.batch_size), "--device", str(dev)]
-    if solve_small.main(cli + ["--limit", str(args.batch_size)]) != 0:  # warm-up
-        raise AssertionError("solve_small warm-up failed")
-    counters = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves, traceback.walk_moves)
-    for fn in counters:
-        fn.launches = 0
-    run = solve_small.run(cli)
-    launches = {fn.__name__: fn.launches for fn in counters}
-    if run.rc != 0:
-        raise AssertionError(f"solve_small exited {run.rc}")
-    print(f"launches during solve_small: {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    with open(out_csv, newline="") as f:
-        rows = list(csv.DictReader(f))
-    if len(run.results) != len(reads) or len(rows) != len(reads):
-        raise AssertionError(f"expected {len(reads)} results and rows, got "
-                             f"{len(run.results)} and {len(rows)}")
-    print(f"solve_small: {len(reads) / run.seconds:.1f} reads/s, "
-          f"{run.cells / run.seconds / 1e9:.3f} GCUPS (full-reference cells, "
-          f"{run.seconds:.3f} s) on {card}")
-    check_sampled(reads, ref, rows, run.results, args.seed)
+    measured, launches = {}, {}
+    for label, kw, flags in (("linear", LINEAR, []), ("affine", BWA, BWA_FLAGS)):
+        print(f"-- DNA short reads, {label} gaps: {kw}")
+        measured[label] = check_kernels(reads, ref, args.batch_size, clock, dev, kw)
+        out_csv = data / f"align_output_{label}.csv"
+        cli = ["--ref", str(ref_path), "--input", str(csv_path), "--output", str(out_csv),
+               "--batch-size", str(args.batch_size), "--device", str(dev)] + flags
+        launches[label] = dna_run(label, cli, kw, reads, ref, out_csv, card, args.seed)
     return measured, launches
 
 
-def check_protein_kernels(db, query: str, clock: float):
-    """Protein phase: K4 on the resident slab, K5 and K3 on the traceback
-    batches, each against its plain version. Returns {kernel: {case:
-    measurements}}."""
+def protein_kernels(gaps):
+    """(scan, re-run with moves, walk, plain walk) of the protein path under
+    ``gaps``: K4, K5, K3, or with gap_open K8, K9, K10."""
+    from parallel_genomeseq_tpu_torch.ops import profile_cuda, traceback
+
+    if "gap_open" in gaps:
+        return (profile_cuda.sw_profile_affine, profile_cuda.sw_profile_affine_moves,
+                traceback.walk_moves_affine, traceback._walk_moves_affine_plain)
+    return (profile_cuda.sw_profile, profile_cuda.sw_profile_moves, traceback.walk_moves,
+            traceback._walk_moves_plain)
+
+
+def check_protein_kernels(db, query: str, clock: float, gaps, stride: int = 1):
+    """Protein phase: the scan on the resident slab, and the re-run with
+    moves and the walk on the traceback batches, each against its plain
+    version, under ``gaps`` (K4/K5/K3, or K8/K9/K10 on the same slab and
+    table). The whole-slab launch is held on every ``stride``-th lane.
+    Returns {kernel: {case: measurements}}."""
     import numpy as np
     import torch
 
     from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
-    from parallel_genomeseq_tpu_torch.ops import profile_cuda, scan_dp
+    from parallel_genomeseq_tpu_torch.ops import scan_dp
+    from parallel_genomeseq_tpu_torch.ops.substitution import blosum_config
     from parallel_genomeseq_tpu_torch.utils.device import to_host
 
+    scan_k, moves_k, walk_k, plain_walk = protein_kernels(gaps)
+    affine = "gap_open" in gaps
+    names = ("K8", "K9", "K10") if affine else ("K4", "K5", "K3")
     dev = db.device
-    table, gap, lut = db.engine.table, db.engine.gap, db.engine.encode_lut
-    out = {"sw_profile": {}, "sw_profile_moves": {}, "walk_moves": {}}
+    table, lut = db.engine.table, db.engine.encode_lut
+    kw = dict(table=table, **gaps)
+    out = {scan_k.__name__: {}, moves_k.__name__: {}, walk_k.__name__: {}}
     q = db.encode_query(query)
     slab, offs, lens = db._slab, db._offs, db._lens
     m = torch.full_like(lens, q.shape[0])
 
-    def k4_case(sl):
+    def scan_case(sl, step=1):
         o, n, mm = offs[sl], lens[sl], m[sl]
-        call = lambda: profile_cuda.sw_profile(q, slab, mm, n, table=table, gap=gap, y_off=o)
+        call = lambda: scan_k(q, slab, mm, n, y_off=o, **kw)
         got = call()
-        want, plain_ms = timed(lambda: scan_dp.sw_profile_plain(q, slab, mm, n, table=table, gap=gap, y_off=o))
-        cells, seq_bytes = lane_work(mm, n)
+        ps = slice(None, None, step)
+        want, plain_ms = timed(lambda: scan_dp.sw_profile_plain(
+            q, slab, mm[ps], n[ps], y_off=o[ps], **kw))
+        cells, _ = lane_work(mm, n)
         rec = {"shape": f"{n.shape[0]} lanes, query {q.shape[0]} aa, entries "
                         f"{int(n.min())}-{int(n.max())} aa",
-               "max_abs_err": max_abs_err(got, want), "ms": cuda_ms(call, 3), "plain_ms": plain_ms}
+               "max_abs_err": max_abs_err([g[ps] for g in got], want), "ms": cuda_ms(call, 3),
+               "plain_ms": plain_ms}
+        if step > 1:  # held, and the plain version timed, on every step-th lane
+            rec["plain_lanes"] = int(n[ps].shape[0])
         # Each entry byte and the query read once (the query counted in m's
         # cells, not its bytes, so take n's bytes and the query once), the
         # lane's offset, lengths and results.
         rec["bound_ms"], rec["bound_by"] = bound(
-            cells * OPS_PER_CELL["sw_profile"],
+            cells * OPS_PER_CELL[scan_k.__name__],
             int(n.long().sum()) + q.shape[0] + (LANE_BYTES + 8) * n.shape[0] + table.numel() * 4,
             clock)
         return rec, got
 
     L = lens.shape[0]
-    rec, got = k4_case(slice(0, L))
-    out["sw_profile"]["db"] = rec
-    report("K4 sw_profile", "db", rec)
+    rec, got = scan_case(slice(0, L), stride)
+    out[scan_k.__name__]["db"] = rec
+    report(f"{names[0]} {scan_k.__name__}", "db", rec)
     for label, sl in (("short_group", slice(0, min(L, 4096))),
                       ("long_group", slice(max(0, L - 4096), L))):
-        out["sw_profile"][label], _ = k4_case(sl)
-        report("K4 sw_profile", label, out["sw_profile"][label])
+        out[scan_k.__name__][label], _ = scan_case(sl)
+        report(f"{names[0]} {scan_k.__name__}", label, out[scan_k.__name__][label])
 
-    # K5 (and K3 on its codes) on the batches the traceback runs: the top 10,
-    # and 256 of the longest entries. x = entry, y = query, pad_m = 128.
+    # The re-run with moves (and the walk on its codes) on the batches the
+    # traceback runs: the top 10, and 256 of the longest entries. x = entry,
+    # y = query, pad_m = 128.
     score = to_host([got[0]])[0]
     top = [db.order[k] for k in np.argsort(-score, kind="stable")[:10]]
     longest = db.order[-256:]
-    bat = BatchSWAligner(db.cfg, pad_m=128, device=dev)
+    cfg = blosum_config("blosum50", gap_penalty=gaps["gap"], gap_open=gaps.get("gap_open", 0))
+    bat = BatchSWAligner(cfg, pad_m=128, device=dev)
     for label, idxs in (("top10", top), ("long256", longest)):
         xs, ys, mm, nn = bat.pad_batch([db.entries[k][1] for k in idxs], [query])
         xs, ys = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
         mm, nn = torch.from_numpy(mm).to(dev), torch.from_numpy(nn).to(dev)
         xc = torch.from_numpy(lut).to(dev)[xs.long()]
         yc = torch.from_numpy(lut).to(dev)[ys.long()]
-        call = lambda: profile_cuda.sw_profile_moves(xc, yc, mm, nn, table=table, gap=gap)
+        call = lambda: moves_k(xc, yc, mm, nn, **kw)
         got5 = call()
-        want5, plain_ms = timed(lambda: scan_dp.sw_profile_moves_plain(xc, yc, mm, nn, table=table, gap=gap))
+        want5, plain_ms = timed(lambda: scan_dp.sw_profile_moves_plain(xc, yc, mm, nn, **kw))
         cells, seq_bytes = lane_work(mm, nn)
         rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}, "
                         f"moves {got5[3].numel() / 1e9:.3f} GB",
-               "max_abs_err": max(max_abs_err(got5[:3], want5[:3]), moves_err(got5[3], want5[3], mm, nn)),
+               "max_abs_err": max(max_abs_err(got5[:3], want5[:3]),
+                                  moves_err(got5[3], want5[3], mm, nn)),
                "plain_ms": plain_ms}
         del want5
         rec["ms"] = cuda_ms(call, 3)
         rec["bound_ms"], rec["bound_by"] = bound(
-            cells * OPS_PER_CELL["sw_profile_moves"],
+            cells * OPS_PER_CELL[moves_k.__name__],
             seq_bytes + LANE_BYTES * xs.shape[0] + cells + table.numel() * 4, clock)
-        out["sw_profile_moves"][label] = rec
-        report("K5 sw_profile_moves", label, rec)
+        out[moves_k.__name__][label] = rec
+        report(f"{names[1]} {moves_k.__name__}", label, rec)
         steps = bat.max_steps(xs.shape[1], ys.shape[1])
-        out["walk_moves"][f"protein_{label}"] = walk_case(
-            got5[3], xs.T.contiguous(), ys, got5[1], got5[2], steps, clock, reps=3)
-        report("K3 walk_moves", f"protein_{label}", out["walk_moves"][f"protein_{label}"])
+        out[walk_k.__name__][f"protein_{label}"] = walk_case(
+            walk_k, plain_walk, got5[3], xs.T.contiguous(), ys, got5[1], got5[2], steps, clock,
+            reps=3)
+        report(f"{names[2]} {walk_k.__name__}", f"protein_{label}",
+               out[walk_k.__name__][f"protein_{label}"])
         del got5
         torch.cuda.empty_cache()
     return out
 
 
-def protein_phase(args, card: str, clock: float, dev):
-    """Phase 4. Returns (measurements, launches during solve_uniprot)."""
+def protein_run(label, cli, gaps, entries, query, out_csv, card, seed):
+    """Drive the port's solve_uniprot once for ``label`` after a warm-up on
+    20,000 entries, with the counts of its kernels set to 0 just before the
+    run and read just after, then hold the planted copies, the top 10 and
+    32 sampled entries against the numpy oracle (score and pos_end with x =
+    query, y = entry; for the top 10 also the walk, pos_pred and both
+    consensus strings with x = entry, y = query). Returns the launches."""
     import numpy as np
-    import torch
 
     from parallel_genomeseq_tpu_torch.cli import solve_uniprot
-    from parallel_genomeseq_tpu_torch.models.protein_db import ResidentProteinDB
-    from parallel_genomeseq_tpu_torch.ops import profile_cuda, traceback
     from parallel_genomeseq_tpu_torch.ops.substitution import ALPHABET, BLOSUM50
+
+    solve_uniprot.run(cli + ["--limit", "20000"])  # warm-up
+    counters = protein_kernels(gaps)[:3]
+    for fn in counters:
+        fn.launches = 0
+    run = solve_uniprot.run(cli)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"launches during solve_uniprot {label}: {launches}")
+    if run.rc != 0 or min(launches.values()) < 1:
+        raise AssertionError(f"solve_uniprot {label} rc {run.rc}, launches {launches}")
+    scan = run.scans[0]
+    print(f"solve_uniprot {label}: pack+upload {run.prep_seconds:.3f} s, scan "
+          f"{scan['seconds']:.3f} s, {scan['cells'] / scan['seconds'] / 1e9:.3f} GCUPS, "
+          f"{len(entries) / scan['seconds']:.1f} proteins/s on {card}")
+
+    with open(out_csv, newline="") as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != len(entries):
+        raise AssertionError(f"expected {len(entries)} rows, got {len(rows)}")
+    results, tb_rows = scan["results"], scan["tb_rows"]
+    sub = byte_pair_scores(ALPHABET, BLOSUM50)
+    step = max(1, len(entries) // 8)
+    planted = [k for k in range(len(entries)) if k % step == 3]
+    top = sorted(range(len(entries)), key=lambda k: -results[k][0])[:10]
+    sampled = np.random.default_rng(seed).choice(len(entries), 32, replace=False)
+    qb = np.frombuffer(query.encode(), np.uint8)
+    for k in sorted(set(planted) | set(top) | set(int(s) for s in sampled)):
+        if "gap_open" in gaps:
+            best, _, bj = gotoh(qb[None], np.frombuffer(entries[k][1].encode(), np.uint8), sub,
+                                gaps["gap_open"], gaps["gap"])
+            score, j = int(best[0]), int(bj[0])
+        else:
+            score, _, j = oracle_best(oracle_matrix(query, entries[k][1], gaps["gap"], sub))
+        got = (int(rows[k]["score"]), int(rows[k]["pos_end"]), *results[k])
+        if got != (score, j, score, j):
+            raise AssertionError(f"entry {k}: port (score, pos_end) {got} != oracle {(score, j)}")
+    for k in top:
+        if "gap_open" in gaps:
+            want = gotoh_align(entries[k][1], query, sub, gaps["gap_open"], gaps["gap"])
+        else:
+            want = oracle_align(entries[k][1], query, gaps["gap"], sub)
+        got = (int(rows[k]["score"]), int(rows[k]["pos_pred"]), rows[k]["consensus_x"],
+               rows[k]["consensus_y"])
+        if got != want or tb_rows[k] != want[1:]:
+            raise AssertionError(f"entry {k}: port walk {got} != oracle {want}")
+    if not all(results[k][0] > 100 for k in planted):
+        raise AssertionError("a planted copy of the query scored low")
+    print(f"oracle check ({label}): {len(planted)} planted, top 10 and 32 sampled entries of "
+          "the timed run agree (score, pos_end; pos_pred and consensus for the top 10)")
+    return launches
+
+
+def protein_phase(args, card: str, clock: float, dev):
+    """Phase 5. Returns (measurements, launches during each solve_uniprot
+    run), both keyed by 'linear' and 'affine'."""
+    import torch
+
+    from parallel_genomeseq_tpu_torch.models.protein_db import ResidentProteinDB
     from parallel_genomeseq_tpu_torch.seqio.uniprot import iter_database
     from parallel_genomeseq_tpu_torch.utils.synth import write_protein_dataset
 
@@ -496,59 +789,45 @@ def protein_phase(args, card: str, clock: float, dev):
           f"(slab {residues / 1e6:.1f} MB), query {len(query)} aa (seed "
           f"{args.protein_seed}), generated and read in {time.perf_counter() - t0:.2f} s")
 
+    # One resident slab for both gap models' kernel checks: the codes and
+    # the BLOSUM50 table are the same, the gaps are the kernels' arguments.
     db = ResidentProteinDB(entries, matrix="blosum50", gap_penalty=12.0, gap_open=0.0,
                            device=dev)
-    measured = check_protein_kernels(db, query, clock)
+    measured = {"linear": check_protein_kernels(db, query, clock, PROTEIN_LINEAR)}
+    print(f"-- protein scan, affine gaps: {PROTEIN_AFFINE}")
+    measured["affine"] = check_protein_kernels(db, query, clock, PROTEIN_AFFINE, stride=16)
     del db
     torch.cuda.empty_cache()
 
-    out_csv = data / "uniprot_output.csv"
-    cli = ["--query", str(query_path), "--database", str(db_path), "--output", str(out_csv),
-           "--matrix", "blosum50", "--gap-penalty", "12", "--batch-size", "4096",
-           "--pad-mult", "128", "--top", "10", "--device", str(dev)]
-    solve_uniprot.run(cli + ["--limit", "20000"])  # warm-up
-    counters = (profile_cuda.sw_profile, profile_cuda.sw_profile_moves, traceback.walk_moves)
-    for fn in counters:
-        fn.launches = 0
-    run = solve_uniprot.run(cli)
-    launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"launches during solve_uniprot: {launches}")
-    if run.rc != 0 or min(launches.values()) < 1:
-        raise AssertionError(f"solve_uniprot rc {run.rc}, launches {launches}")
-    scan = run.scans[0]
-    print(f"solve_uniprot: pack+upload {run.prep_seconds:.3f} s, scan {scan['seconds']:.3f} s, "
-          f"{scan['cells'] / scan['seconds'] / 1e9:.3f} GCUPS, "
-          f"{len(entries) / scan['seconds']:.1f} proteins/s on {card}")
-
-    # Oracle: the planted copies, the top 10 and 32 sampled entries (score
-    # and pos_end with x = query, y = entry); for the top 10 also the walk
-    # (pos_pred and both consensus strings with x = entry, y = query).
-    with open(out_csv, newline="") as f:
-        rows = list(csv.DictReader(f))
-    if len(rows) != len(entries):
-        raise AssertionError(f"expected {len(entries)} rows, got {len(rows)}")
-    results, tb_rows = scan["results"], scan["tb_rows"]
-    sub = byte_pair_scores(ALPHABET, BLOSUM50)
-    step = max(1, len(entries) // 8)
-    planted = [k for k in range(len(entries)) if k % step == 3]
-    top = sorted(range(len(entries)), key=lambda k: -results[k][0])[:10]
-    sampled = np.random.default_rng(args.protein_seed).choice(len(entries), 32, replace=False)
-    for k in sorted(set(planted) | set(top) | set(int(s) for s in sampled)):
-        score, _, j = oracle_best(oracle_matrix(query, entries[k][1], 12, sub))
-        got = (int(rows[k]["score"]), int(rows[k]["pos_end"]), *results[k])
-        if got != (score, j, score, j):
-            raise AssertionError(f"entry {k}: port (score, pos_end) {got} != oracle {(score, j)}")
-    for k in top:
-        want = oracle_align(entries[k][1], query, 12, sub)
-        got = (int(rows[k]["score"]), int(rows[k]["pos_pred"]), rows[k]["consensus_x"],
-               rows[k]["consensus_y"])
-        if got != want or tb_rows[k] != want[1:]:
-            raise AssertionError(f"entry {k}: port walk {got} != oracle {want}")
-    if not all(results[k][0] > 100 for k in planted):
-        raise AssertionError("a planted copy of the query scored low")
-    print(f"oracle check: {len(planted)} planted, top 10 and 32 sampled entries of the timed "
-          "run agree (score, pos_end; pos_pred and consensus for the top 10)")
+    launches = {}
+    base = ["--query", str(query_path), "--database", str(db_path), "--matrix", "blosum50",
+            "--batch-size", "4096", "--pad-mult", "128", "--top", "10", "--device", str(dev)]
+    for label, gaps, flags in (
+        ("linear", PROTEIN_LINEAR, ["--gap-penalty", "12"]),
+        ("affine", PROTEIN_AFFINE, ["--gap-open", "10", "--gap-penalty", "2"]),
+    ):
+        out_csv = data / f"uniprot_output_{label}.csv"
+        launches[label] = protein_run(label, base + flags + ["--output", str(out_csv)], gaps,
+                                      entries, query, out_csv, card, args.protein_seed)
     return measured, launches
+
+
+# K1-K10: (wrapper, source, the TPU code it replaces, gap model, the main
+# path's case that the JSON line quotes first).
+KERNELS = [
+    ("sw_score", "wavefront.cu", f"{PALLAS}:160", "linear", "score_only"),
+    ("sw_score_moves", "wavefront.cu", f"{PALLAS}:535", "linear", "windows"),
+    ("walk_moves", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:31", "linear",
+     "windows"),
+    ("sw_profile", "profile.cu", f"{PALLAS}:418", "linear", "db"),
+    ("sw_profile_moves", "profile.cu", f"{PALLAS}:815", "linear", "top10"),
+    ("sw_score_affine", "wavefront.cu", f"{PALLAS}:208", "affine", "score_only"),
+    ("sw_score_affine_moves", "wavefront.cu", f"{PALLAS}:710", "affine", "windows"),
+    ("sw_profile_affine", "profile.cu", f"{PALLAS}:442", "affine", "db"),
+    ("sw_profile_affine_moves", "profile.cu", f"{PALLAS}:724", "affine", "top10"),
+    ("walk_moves_affine", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:93", "affine",
+     "windows"),
+]
 
 
 def card_info():
@@ -566,16 +845,36 @@ def card_info():
 def kernel_line(name, src, replaces, cases, main, launches):
     """One entry of the kernels JSON line: the main-path case's numbers, the
     other cases' under their labels."""
-    rec = cases[main]
     entry = {"name": name, "route": "cuda", "source": f"{CSRC}/{src}", "replaces": replaces,
              "launches": launches,
              "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-             "bound_by": rec["bound_by"], "library_ms": None, "shape": rec["shape"]}
+             "library_ms": None}
+    # ms, plain_ms, bound_ms, bound_by, shape, and plain_lanes where the plain
+    # version ran on a sample of the lanes.
+    entry.update({k: v for k, v in cases[main].items() if k != "max_abs_err"})
     for label, c in cases.items():
         if label != main:
             entry.update({f"{label}_{k}": v for k, v in c.items() if k != "max_abs_err"})
     return entry
+
+
+def kernel_entries(dna, dna_launches, protein, protein_launches):
+    """The kernels JSON line's entries, K1-K10, from both phases'
+    measurements and launches (keyed by gap model, then kernel)."""
+    kernels = []
+    for name, src, replaces, gaps, main_case in KERNELS:
+        if name.startswith("walk_moves"):  # both paths walk
+            cases = {**dna[gaps][name], **protein[gaps][name]}
+            on_dna, on_protein = dna_launches[gaps][name], protein_launches[gaps][name]
+            entry = kernel_line(name, src, replaces, cases, main_case, on_dna + on_protein)
+            entry.update(launches_solve_small=on_dna, launches_solve_uniprot=on_protein)
+        else:
+            measured, launches = ((dna, dna_launches) if name in dna[gaps]
+                                  else (protein, protein_launches))
+            entry = kernel_line(name, src, replaces, measured[gaps][name], main_case,
+                                launches[gaps][name])
+        kernels.append(entry)
+    return kernels
 
 
 def main(argv=None) -> int:
@@ -613,22 +912,7 @@ def main(argv=None) -> int:
     dna, dna_launches = dna_phase(args, card, clock, dev)
     protein, protein_launches = protein_phase(args, card, clock, dev)
 
-    walks = {**dna["walk_moves"], **protein["walk_moves"]}
-    kernels = [
-        kernel_line("sw_score", "wavefront.cu", f"{PALLAS}:160", dna["sw_score"],
-                    "score_only", dna_launches["sw_score"]),
-        kernel_line("sw_score_moves", "wavefront.cu", f"{PALLAS}:535", dna["sw_score_moves"],
-                    "windows", dna_launches["sw_score_moves"]),
-        kernel_line("walk_moves", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:31",
-                    walks, "windows", dna_launches["walk_moves"] + protein_launches["walk_moves"]),
-        kernel_line("sw_profile", "profile.cu", f"{PALLAS}:418", protein["sw_profile"],
-                    "db", protein_launches["sw_profile"]),
-        kernel_line("sw_profile_moves", "profile.cu", f"{PALLAS}:815",
-                    protein["sw_profile_moves"], "top10", protein_launches["sw_profile_moves"]),
-    ]
-    kernels[2]["launches_solve_small"] = dna_launches["walk_moves"]
-    kernels[2]["launches_solve_uniprot"] = protein_launches["walk_moves"]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_entries(dna, dna_launches, protein, protein_launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

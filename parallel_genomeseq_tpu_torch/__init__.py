@@ -10,7 +10,8 @@ matrices), each with a pointer to its source.
 Layers (bottom-up):
 - csrc:     hand-written CUDA kernels (sm_90a): K1 score sweep, K2 score +
             move codes, K3 traceback walk, K4 substitution-matrix score
-            sweep (the database scan), K5 substitution-matrix moves
+            sweep (the database scan), K5 substitution-matrix moves, and
+            their affine (Gotoh) forms K6-K9 with the affine walk K10
 - ops:      kernel build/loading, wrappers with launch counters, the plain
             PyTorch wavefront and walk (CPU route and reference), engines,
             substitution matrices

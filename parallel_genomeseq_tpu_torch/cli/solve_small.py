@@ -5,11 +5,15 @@ align_output.csv with appended pos_pred,score columns.
 The port of the JAX package's ``cli/solve_small.py``: same flags and the
 same output file, byte for byte, with ``--device`` in place of
 ``--platform`` (default: the CUDA card; ``--device cpu`` runs the plain
-PyTorch route). ``--seed-extend`` and ``--parity-mode skewed`` are not
-ported yet.
+PyTorch route). ``--gap-open`` > 0 runs affine (Gotoh) gaps: a gap of
+length L costs gap_open + L * gap_penalty (BWA-MEM's scoring is ``--match 1
+--mismatch -4 --gap-open 6 --gap-penalty 1``), through the affine kernels
+K6, K7 and K10. ``--seed-extend``, ``--parity-mode skewed`` and ``--matrix``
+are not ported yet.
 
 Usage:
     python -m parallel_genomeseq_tpu_torch.cli.solve_small [--npiece 17] [--eval]
+        [--match 1 --mismatch -4 --gap-open 6 --gap-penalty 1]
 """
 
 from __future__ import annotations

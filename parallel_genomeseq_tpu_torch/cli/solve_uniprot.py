@@ -15,10 +15,13 @@ entry in one K4 launch, then the top-K entries (or every entry with
 ``--traceback-all``) are re-run with x = entry, y = query through
 ``BatchSWAligner`` (K5 then the K3 walk), so pos_pred is the position in the
 QUERY where the greedy walk stops. ``--matrix uniform`` scores length-sorted
-batches with K1 and walks with K2/K3.
+batches with K1 and walks with K2/K3. With ``--gap-open`` > 0 (affine gaps,
+e.g. swps3's ``--gap-open 10 --gap-penalty 2``) the same steps run their
+affine kernels: K8 for the scan, K9 and the K10 walk for the traceback, K6
+and K7 under ``--matrix uniform``.
 
-Not ported yet, and refused: ``--gap-open > 0`` (ROADMAP A9), queries longer
-than 2,048 (the strip kernels, A10) and ``--num-processes > 1`` (A13). The
+Not ported yet, and refused: queries longer than 2,048 (the strip kernels,
+A10) and ``--num-processes > 1`` (A13). The
 scan takes entries of any length, but walking an entry longer than 2,048
 (a top-K hit, or any entry under ``--traceback-all``) raises
 NotImplementedError naming A10: the JAX package walks those in strips.
@@ -86,9 +89,11 @@ def _parser():
     p.add_argument("--output", default=str(common.REPO_DATA / "uniprot_output.csv"))
     p.add_argument("--matrix", default="blosum50", choices=["blosum50", "blosum62", "uniform"])
     p.add_argument("--gap-penalty", type=float, default=12.0,
-                   help="per-residue gap cost")
+                   help="per-residue gap cost (the affine extend when --gap-open > 0)")
     p.add_argument("--gap-open", type=float, default=0.0,
-                   help="affine opening surcharge (not ported yet: ROADMAP A9)")
+                   help="affine opening surcharge: gap of length L costs "
+                   "gap_open + L * gap_penalty (swps3's 12/2 affine default "
+                   "is --gap-open 10 --gap-penalty 2)")
     p.add_argument("--top", type=int, default=10, help="print top-K hits")
     p.add_argument(
         "--traceback-top", type=int, default=-1, metavar="K",
@@ -171,8 +176,6 @@ def run(argv=None) -> Run:
     report."""
     p = _parser()
     args = p.parse_args(argv)
-    if args.gap_open > 0:
-        p.error("--gap-open (affine gaps) is not ported yet (ROADMAP A9)")
     if args.num_processes > 1:
         p.error("--num-processes is not ported yet (ROADMAP A13)")
 
@@ -196,10 +199,10 @@ def run(argv=None) -> Run:
           + (f" (query {len(query)}aa first)" if multi_q else ""))
 
     if args.matrix == "uniform":
-        cfg = ScoringConfig(gap_penalty=args.gap_penalty)
+        cfg = ScoringConfig(gap_penalty=args.gap_penalty, gap_open=args.gap_open)
         engine = make_score_engine(cfg, args.engine, args.device)
     else:
-        cfg = blosum_config(args.matrix, gap_penalty=args.gap_penalty)
+        cfg = blosum_config(args.matrix, gap_penalty=args.gap_penalty, gap_open=args.gap_open)
     B = args.batch_size
     order = sorted(range(len(entries)), key=lambda k: len(entries[k][1]))
     results: List = [None] * len(entries)
@@ -230,7 +233,7 @@ def run(argv=None) -> Run:
             # uploaded once for every query; its scan order is `order`.
             db = ResidentProteinDB(
                 [entries[k] for k in order], matrix=args.matrix,
-                gap_penalty=args.gap_penalty, gap_open=0.0,
+                gap_penalty=args.gap_penalty, gap_open=args.gap_open,
                 device=args.device, engine=args.engine,
             )
             prep = db.prep_s

@@ -4,16 +4,15 @@ JAX package's ``models/protein_db.py`` (:36-274).
 The whole database is length-sorted, encoded to compact codes on the host
 (``ops/scan_dp.profile_tables``), concatenated into one flat slab with a
 64-bit offset per entry, and uploaded ONCE to the card. Each scan then
-uploads only the query's codes and runs one K4 launch over every entry (one
-thread per entry; each thread's loops stop at its entry's true length, so
+uploads only the query's codes and runs one K4 launch (K8 under affine gaps,
+the default 10/2) over every entry (one thread per entry; each thread's loops stop at its entry's true length, so
 the TPU's per-batch padding, ``pad_mult`` rounding, overrun rows and
 dispatch groups have no counterpart), and fetches the per-entry (score,
 pos_end) with one synchronisation.
 
 Not ported: the first-scan oracle gate (a guard against TPU miscompiles;
-``chip_smoke.py`` holds K4 against its plain version instead), and affine
-gaps (ROADMAP A9) and queries longer than 2,048 (the strip kernels, A10),
-which raise.
+``chip_smoke.py`` holds K4 and K8 against their plain versions instead), and
+queries longer than 2,048 (the strip kernels, A10), which raise.
 """
 
 from __future__ import annotations
@@ -68,17 +67,14 @@ class ResidentProteinDB:
 
     Entries are (name, sequence) pairs; scans return each entry's DP score
     and pos_end (1-based entry index of the DP maximum), or the top-K hits.
-    ``engine`` is 'auto'/'cuda' (K4 on a CUDA device, the plain version on
-    the CPU) or 'plain'; ``device`` defaults to the card.
+    ``engine`` is 'auto'/'cuda' (K4, or K8 when gap_open > 0, on a CUDA
+    device, the plain version on the CPU) or 'plain'; ``device`` defaults to
+    the card.
     """
 
     def __init__(self, entries: List[Tuple[str, str]], matrix="blosum50",
                  gap_penalty=2.0, gap_open=10.0, max_query_len=None,
                  device=None, engine="auto"):
-        if gap_open > 0:
-            raise NotImplementedError(
-                "affine (Gotoh) gaps are not ported yet: ROADMAP A9"
-            )
         self.max_query_len = max_query_len or MAX_M
         if self.max_query_len > MAX_M:
             raise NotImplementedError(
@@ -113,7 +109,7 @@ class ResidentProteinDB:
         return torch.from_numpy(self.engine.encode_lut[qb]).to(self.device)
 
     def scan_lanes(self, query_codes: torch.Tensor):
-        """One K4 launch over every entry, in scan order: (score, i, j)
+        """One K4 (K8) launch over every entry, in scan order: (score, i, j)
         tensors on the device, not synchronised."""
         return self.engine.score_slab(query_codes, self._slab, self._offs, self._lens)
 

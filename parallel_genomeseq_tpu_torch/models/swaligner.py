@@ -1,10 +1,15 @@
 """Smith-Waterman aligner API, batch-first: the port of the JAX package's
-``models/swaligner.py`` (:59-354) for the linear-gap, single-strip path.
+``models/swaligner.py`` (:59-354) for the single-strip path.
 
 Per batch: K2 (uniform scoring) or K5 (a substitution matrix), through
 ``CudaEngine.score_batch_moves``, computes score, argmax and move codes in
 one pass for every read length up to 2,048, K3 (``walk_moves``) walks every
-lane (``engine="plain"`` runs the plain versions of all three), and ``collect``
+lane (``engine="plain"`` runs the plain versions of all three); under affine
+gaps (``cfg.is_affine``) K7 or K9 emit the affine move bytes and K10
+(``walk_moves_affine``) walks them, as swaligner.py:241, 264 choose. The
+JAX package's affine envelopes (``AFFINE_MOVES_MAX_M``,
+``PROFILE_AFFINE_MOVES_MAX_M``) and the scan fallback they force are TPU
+limits, not ported. ``collect``
 copies all outputs to the host with one synchronisation before the host
 string assembly. Dispatch is asynchronous: ``submit_batch`` returns while the
 device works, so ``align_stream`` overlaps host preparation of later batches

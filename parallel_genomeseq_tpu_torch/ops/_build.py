@@ -29,15 +29,16 @@ _L = ctypes.c_longlong
 # name -> argtypes; every pointer and the stream are c_void_p (a c_int would
 # truncate a 64-bit address), every size and score an int, byte counts 64-bit.
 _SIGNATURES = {
-    # x_mb, y_nb, m, n, hcol, M, N, B, match, mismatch, gap, track_pos,
-    # score, best_i, best_j, moves, stream
-    "pgs_sw_score": [_P] * 5 + [_I] * 7 + [_P] * 5,
+    # x_mb, y_nb, m, n, hcol, M, N, B, match, mismatch, gap_open, gap,
+    # track_pos, score, best_i, best_j, moves, stream
+    "pgs_sw_score": [_P] * 5 + [_I] * 8 + [_P] * 5,
     # x, x_lane, x_row, y, y_off, y_len, m, n, table, ncodes, hcol, M, N, B,
-    # gap, score, best_i, best_j, moves, stream
+    # gap_open, gap, score, best_i, best_j, moves, stream
     "pgs_sw_profile": [_P, _I, _I, _P, _P, _L, _P, _P, _P, _I, _P]
-    + [_I] * 4 + [_P] * 5,
+    + [_I] * 5 + [_P] * 5,
     # moves, x_mb, y_bn, i0, j0, D, M, N, B, max_steps, pos, cx, cy, steps, stream
     "pgs_walk_moves": [_P] * 5 + [_I] * 5 + [_P] * 5,
+    "pgs_walk_moves_affine": [_P] * 5 + [_I] * 5 + [_P] * 5,
 }
 
 _lib = None

@@ -4,12 +4,13 @@ the resident database scan of ``score_db_slab_group_jit`` :2381), and
 ``make_score_engine``, the counterpart of ``swaligner.py:33-56``.
 
 ``CudaEngine`` runs the kernel wrappers -- K1/K2 (``ops/wavefront_cuda``)
-for uniform scoring, K4/K5 (``ops/profile_cuda``) for a substitution matrix:
-CUDA tensors launch the kernels or raise, CPU tensors take the plain route.
-``PlainEngine`` always runs the plain PyTorch wavefront (``ops/scan_dp``) and
-walk (``ops/traceback``), on either device. Inputs may be numpy arrays or tensors of raw bytes; results
-are tensors on the engine's device, unpadded (B lanes, (M + N - 1, M, B)
-moves).
+for uniform scoring, K4/K5 (``ops/profile_cuda``) for a substitution matrix,
+and under affine (Gotoh) gaps their forms K6/K7 and K8/K9, walked by K3 or,
+affine, K10 (``ops/traceback``): CUDA tensors launch the kernels or raise,
+CPU tensors take the plain route. ``PlainEngine`` always runs the plain
+PyTorch wavefront (``ops/scan_dp``) and walk (``ops/traceback``), on either
+device. Inputs may be numpy arrays or tensors of raw bytes; results are
+tensors on the engine's device, unpadded (B lanes, (M + N - 1, M, B) moves).
 
 Configurations outside the ported slices raise NotImplementedError naming
 the ROADMAP item that ports them; none is rerouted.
@@ -34,8 +35,6 @@ def check_supported(cfg: ScoringConfig, tie: str = "colmajor"):
         )
     if tie != "colmajor":
         raise NotImplementedError(f"tie={tie!r} is not ported yet: ROADMAP A2")
-    if cfg.is_affine:
-        raise NotImplementedError("affine (Gotoh) gaps are not ported yet: ROADMAP A9")
     if cfg.semantics == Semantics.FLOAT32 or not cfg.is_integral:
         raise NotImplementedError(
             "non-integral or float32 scoring is not ported yet: ROADMAP A2"
@@ -61,13 +60,17 @@ class _Engine:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.gap = int(cfg.gap_penalty)
+        gaps = {"gap": self.gap}
+        if cfg.is_affine:  # `gap` is then the extension cost
+            gaps["gap_open"] = int(cfg.gap_open)
         if cfg.is_uniform:
-            self._kw = dict(match=int(cfg.match), mismatch=int(cfg.mismatch), gap=self.gap)
+            self._kw = dict(match=int(cfg.match), mismatch=int(cfg.mismatch), **gaps)
         else:
             lut, table = scan_dp.profile_tables(cfg)
             self.encode_lut = lut  # byte -> compact code, on the host
             self._lut = torch.from_numpy(lut).to(self.device)
             self.table = torch.from_numpy(table).to(self.device)
+            self._kw = dict(table=self.table, **gaps)
 
     def _inputs(self, x_bm, y_bn, m, n):
         xs = _as_tensor(x_bm, torch.uint8, self.device)
@@ -113,26 +116,39 @@ class _Engine:
 
 
 class CudaEngine(_Engine):
-    """The kernels (plain route for CPU tensors)."""
+    """The kernels (plain route for CPU tensors): K1/K2/K4/K5 and the K3
+    walk, or under affine gaps K6/K7/K8/K9 and the K10 walk."""
+
+    def __init__(self, cfg: ScoringConfig = ScoringConfig(), device=None):
+        super().__init__(cfg, device)
+        w, p, t = wavefront_cuda, profile_cuda, traceback
+        if cfg.is_affine:
+            self._sw, self._sw_moves = w.sw_score_affine, w.sw_score_affine_moves
+            self._pr, self._pr_moves = p.sw_profile_affine, p.sw_profile_affine_moves
+            self._walk = t.walk_moves_affine
+        else:
+            self._sw, self._sw_moves = w.sw_score, w.sw_score_moves
+            self._pr, self._pr_moves = p.sw_profile, p.sw_profile_moves
+            self._walk = t.walk_moves
 
     def _uniform(self, xs, ys, m, n, need_pos):
-        return wavefront_cuda.sw_score(xs, ys, m, n, track_pos=need_pos, **self._kw)
+        return self._sw(xs, ys, m, n, track_pos=need_pos, **self._kw)
 
     def _uniform_moves(self, xs, ys, m, n):
-        return wavefront_cuda.sw_score_moves(xs, ys, m, n, **self._kw)
+        return self._sw_moves(xs, ys, m, n, **self._kw)
 
     def _profile(self, x, y, m, n, y_off):
-        return profile_cuda.sw_profile(x, y, m, n, table=self.table, gap=self.gap, y_off=y_off)
+        return self._pr(x, y, m, n, y_off=y_off, **self._kw)
 
     def _profile_moves(self, xs, ys, m, n):
-        return profile_cuda.sw_profile_moves(xs, ys, m, n, table=self.table, gap=self.gap)
+        return self._pr_moves(xs, ys, m, n, **self._kw)
 
     def walk(self, moves, x_mb, y_bn, i0, j0, max_steps: int):
-        return traceback.walk_moves(moves, x_mb, y_bn, i0, j0, max_steps=max_steps)
+        return self._walk(moves, x_mb, y_bn, i0, j0, max_steps=max_steps)
 
 
 class PlainEngine(_Engine):
-    """The plain PyTorch wavefront on the engine's device."""
+    """The plain PyTorch wavefront and walk on the engine's device."""
 
     def _uniform(self, xs, ys, m, n, need_pos):
         return scan_dp.sw_score_plain(xs, ys, m, n, track_pos=need_pos, **self._kw)
@@ -141,13 +157,15 @@ class PlainEngine(_Engine):
         return scan_dp.sw_score_moves_plain(xs, ys, m, n, **self._kw)
 
     def _profile(self, x, y, m, n, y_off):
-        return scan_dp.sw_profile_plain(x, y, m, n, table=self.table, gap=self.gap, y_off=y_off)
+        return scan_dp.sw_profile_plain(x, y, m, n, y_off=y_off, **self._kw)
 
     def _profile_moves(self, xs, ys, m, n):
-        return scan_dp.sw_profile_moves_plain(xs, ys, m, n, table=self.table, gap=self.gap)
+        return scan_dp.sw_profile_moves_plain(xs, ys, m, n, **self._kw)
 
     def walk(self, moves, x_mb, y_bn, i0, j0, max_steps: int):
-        return traceback._walk_moves_plain(moves, x_mb, y_bn, i0, j0, max_steps)
+        walk = (traceback._walk_moves_affine_plain if self.cfg.is_affine
+                else traceback._walk_moves_plain)
+        return walk(moves, x_mb, y_bn, i0, j0, max_steps)
 
 
 def make_score_engine(cfg: ScoringConfig = ScoringConfig(), name: str = "auto",

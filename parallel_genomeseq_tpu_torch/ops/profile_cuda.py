@@ -1,13 +1,17 @@
-"""Wrappers of the CUDA substitution-matrix kernels K4 and K5
+"""Wrappers of the CUDA substitution-matrix kernels K4, K5, K8 and K9
 (``csrc/profile.cu``).
 
 K4 ``sw_profile`` ports the Pallas kernel B3 (``_kernel_profile``, TPU
 ``ops/wavefront_pallas.py:418`` via ``_call_profile`` :984); K5
 ``sw_profile_moves`` ports B4 (``_kernel_profile_moves`` :815 via
-``_call_profile_moves`` :874). Both score compact codes (``ops/scan_dp``'s
-``profile_tables``) with an (ncodes, ncodes) int32 table and return per-lane
-int32 (score, i, j); K5 also returns the (M + N - 1, M, B) uint8 move codes
-that K3 walks.
+``_call_profile_moves`` :874). Their affine (Gotoh) forms: K8
+``sw_profile_affine`` ports B7 (``_kernel_profile_affine`` :442 via
+``_call_profile_affine`` :500), K9 ``sw_profile_affine_moves`` ports B8
+(``_kernel_profile_affine_moves`` :724 via ``_call_profile_affine_moves``
+:779). All score compact codes (``ops/scan_dp``'s ``profile_tables``) with
+an (ncodes, ncodes) int32 table and return per-lane int32 (score, i, j); K5
+and K9 also return the (M + N - 1, M, B) uint8 move codes that K3 (K10 for
+K9's affine bytes) walks.
 
 Route: tensors on the CPU take the plain PyTorch version (``ops/scan_dp``);
 tensors on a CUDA device launch the kernel, and a missing toolkit or a failed
@@ -19,21 +23,12 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device import device_of
 from . import _build
 from .scan_dp import sw_profile_moves_plain, sw_profile_plain
 
 MAX_CODES = 64  # the table lives in shared memory: 64 x 64 x 4 B = 16 KB
 _NO_WIDTH = 2**31 - 1  # a slab has no padded width; y_len bounds each lane
-
-
-def _device_of(*tensors):
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
-    dev = tensors[0].device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _check_common(m, n, table):
@@ -47,20 +42,22 @@ def _check_common(m, n, table):
         raise ValueError(f"table has {table.shape[0]} codes; the kernels take 1..{MAX_CODES}")
 
 
-def _launch(x, x_lane, x_row, y, y_off, m, n, table, hcol_rows, N, gap, moves):
-    """Shared K4/K5 launch on the current stream, no sync. Outputs and the
-    (hcol_rows, B) column scratch are allocated here."""
+def _launch(x, x_lane, x_row, y, y_off, m, n, table, hcol_rows, N, gap_open, gap, moves):
+    """Shared K4/K5/K8/K9 launch on the current stream, no sync. Outputs and
+    the column scratch -- (hcol_rows, B) H, or (hcol_rows, B, 2) (H, E) for
+    gap_open > 0 -- are allocated here."""
     B = m.shape[0]
     dev = m.device
     lib = _build.load()
-    hcol = torch.empty((hcol_rows, B), dtype=torch.int32, device=dev)
+    shape = (hcol_rows, B, 2) if gap_open > 0 else (hcol_rows, B)
+    hcol = torch.empty(shape, dtype=torch.int32, device=dev)
     score, bi, bj = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
     with torch.cuda.device(dev):
         err = lib.pgs_sw_profile(
             x.data_ptr(), x_lane, x_row, y.data_ptr(), y_off.data_ptr(),
             y.numel(), m.data_ptr(), n.data_ptr(), table.data_ptr(),
-            table.shape[0], hcol.data_ptr(), hcol_rows, N, B, int(gap),
-            score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
+            table.shape[0], hcol.data_ptr(), hcol_rows, N, B, int(gap_open),
+            int(gap), score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
             moves.data_ptr() if moves is not None else None,
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -68,16 +65,9 @@ def _launch(x, x_lane, x_row, y, y_off, m, n, table, hcol_rows, N, gap, moves):
     return score, bi, bj
 
 
-def sw_profile(x, y, m, n, *, table, gap: int, y_off=None):
-    """K4: per-lane (score, i, j) int32 of linear-gap SW over compact codes,
-    column-major argmax tie-break.
-
-    x: (B, M) uint8 codes, or (M,) codes of one query shared by every lane
-    (the database scan). y: (B, N) uint8 codes, or -- with ``y_off`` (B,)
-    int64 -- a flat (R,) slab in which lane b reads ``y[y_off[b] :
-    y_off[b] + n[b]]``. m, n: (B,) int32 true lengths, clamped to M, N and
-    to what y holds past the offset. table: (ncodes, ncodes) int32.
-    """
+def _scores(x, y, m, n, table, gap_open, gap, y_off):
+    """K4/K8 route: validate, then the plain version on the CPU or the
+    kernel on the card. Returns (launched, (score, i, j))."""
     _check_common(m, n, table)
     if x.dtype != torch.uint8 or y.dtype != torch.uint8:
         raise TypeError("x and y must be uint8 codes")
@@ -90,9 +80,10 @@ def sw_profile(x, y, m, n, *, table, gap: int, y_off=None):
     elif y.dim() != 1 or y_off.dtype != torch.int64 or y_off.shape != (B,):
         raise ValueError("a slab is a 1-D y with y_off (B,) int64")
     tensors = (x, y, m, n, table) + (() if y_off is None else (y_off,))
-    dev = _device_of(*tensors)
+    dev = device_of(*tensors)
     if dev.type == "cpu":
-        return sw_profile_plain(x, y, m, n, table=table, gap=gap, y_off=y_off)
+        return False, sw_profile_plain(x, y, m, n, table=table, gap_open=gap_open,
+                                       gap=gap, y_off=y_off)
     M = x.shape[-1]
     if x.dim() == 2:
         x, x_lane, x_row = x.T.contiguous(), 1, B
@@ -103,10 +94,51 @@ def sw_profile(x, y, m, n, *, table, gap: int, y_off=None):
         y_off = torch.arange(B, dtype=torch.int64, device=dev) * N
     else:
         N = _NO_WIDTH
-    out = _launch(x, x_lane, x_row, y.contiguous(), y_off.contiguous(),
-                  m.contiguous(), n.contiguous(), table.contiguous(), M, N,
-                  gap, None)
-    sw_profile.launches += 1
+    return True, _launch(x, x_lane, x_row, y.contiguous(), y_off.contiguous(),
+                         m.contiguous(), n.contiguous(), table.contiguous(), M, N,
+                         gap_open, gap, None)
+
+
+def _moves(xs, ys, m, n, table, gap_open, gap):
+    """K5/K9 route, as ``_scores``. Returns (launched, (score, i, j, moves))."""
+    _check_common(m, n, table)
+    if xs.dtype != torch.uint8 or ys.dtype != torch.uint8:
+        raise TypeError("xs and ys must be uint8 codes")
+    B = m.shape[0]
+    if xs.dim() != 2 or ys.dim() != 2 or xs.shape[0] != B or ys.shape[0] != B:
+        raise ValueError(f"expected xs (B, M) and ys (B, N), got {tuple(xs.shape)}, "
+                         f"{tuple(ys.shape)}")
+    dev = device_of(xs, ys, m, n, table)
+    if dev.type == "cpu":
+        return False, sw_profile_moves_plain(xs, ys, m, n, table=table,
+                                             gap_open=gap_open, gap=gap)
+    M, N = xs.shape[1], ys.shape[1]
+    moves = torch.empty((M + N - 1, M, B), dtype=torch.uint8, device=dev)
+    y_off = torch.arange(B, dtype=torch.int64, device=dev) * N
+    score, bi, bj = _launch(
+        xs.T.contiguous(), 1, B, ys.contiguous(), y_off, m.contiguous(),
+        n.contiguous(), table.contiguous(), M, N, gap_open, gap, moves,
+    )
+    return True, (score, bi, bj, moves)
+
+
+def _check_gap_open(gap_open):
+    if gap_open < 1:
+        raise ValueError(f"gap_open must be >= 1 for the affine kernels, got {gap_open}")
+
+
+def sw_profile(x, y, m, n, *, table, gap: int, y_off=None):
+    """K4: per-lane (score, i, j) int32 of linear-gap SW over compact codes,
+    column-major argmax tie-break.
+
+    x: (B, M) uint8 codes, or (M,) codes of one query shared by every lane
+    (the database scan). y: (B, N) uint8 codes, or -- with ``y_off`` (B,)
+    int64 -- a flat (R,) slab in which lane b reads ``y[y_off[b] :
+    y_off[b] + n[b]]``. m, n: (B,) int32 true lengths, clamped to M, N and
+    to what y holds past the offset. table: (ncodes, ncodes) int32.
+    """
+    launched, out = _scores(x, y, m, n, table, 0, gap, y_off)
+    sw_profile.launches += launched
     return out
 
 
@@ -118,24 +150,36 @@ def sw_profile_moves(xs, ys, m, n, *, table, gap: int):
     (M + N - 1, M, B) uint8 move/stop codes. Only cells inside each lane's
     m_b x n_b matrix are written; the rest of the moves tensor is left
     uninitialised (the walk never reads it)."""
-    _check_common(m, n, table)
-    if xs.dtype != torch.uint8 or ys.dtype != torch.uint8:
-        raise TypeError("xs and ys must be uint8 codes")
-    B = m.shape[0]
-    if xs.dim() != 2 or ys.dim() != 2 or xs.shape[0] != B or ys.shape[0] != B:
-        raise ValueError(f"expected xs (B, M) and ys (B, N), got {tuple(xs.shape)}, {tuple(ys.shape)}")
-    dev = _device_of(xs, ys, m, n, table)
-    if dev.type == "cpu":
-        return sw_profile_moves_plain(xs, ys, m, n, table=table, gap=gap)
-    M, N = xs.shape[1], ys.shape[1]
-    moves = torch.empty((M + N - 1, M, B), dtype=torch.uint8, device=dev)
-    y_off = torch.arange(B, dtype=torch.int64, device=dev) * N
-    score, bi, bj = _launch(
-        xs.T.contiguous(), 1, B, ys.contiguous(), y_off, m.contiguous(),
-        n.contiguous(), table.contiguous(), M, N, gap, moves,
-    )
-    sw_profile_moves.launches += 1
-    return score, bi, bj, moves
+    launched, out = _moves(xs, ys, m, n, table, 0, gap)
+    sw_profile_moves.launches += launched
+    return out
 
 
 sw_profile_moves.launches = 0
+
+
+def sw_profile_affine(x, y, m, n, *, table, gap_open: int, gap: int, y_off=None):
+    """K8: K4 under affine (Gotoh) gaps -- a gap of length L costs gap_open
+    + L * gap -- with the JAX scan's boundaries; the same arguments as K4
+    (the database scan is its shared-query slab form)."""
+    _check_gap_open(gap_open)
+    launched, out = _scores(x, y, m, n, table, gap_open, gap, y_off)
+    sw_profile_affine.launches += launched
+    return out
+
+
+sw_profile_affine.launches = 0
+
+
+def sw_profile_affine_moves(xs, ys, m, n, *, table, gap_open: int, gap: int):
+    """K9: K8's (score, i, j) on xs (B, M) and ys (B, N) uint8 codes plus
+    the (M + N - 1, M, B) uint8 affine move bytes that
+    ``traceback.walk_moves_affine`` walks; only in-matrix cells are
+    written, as in K5."""
+    _check_gap_open(gap_open)
+    launched, out = _moves(xs, ys, m, n, table, gap_open, gap)
+    sw_profile_affine_moves.launches += launched
+    return out
+
+
+sw_profile_affine_moves.launches = 0

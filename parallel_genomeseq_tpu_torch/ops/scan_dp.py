@@ -1,16 +1,18 @@
 """Anti-diagonal wavefront Smith-Waterman in eager PyTorch: the plain version
 beside the CUDA kernels, and the CPU route.
 
-Counterpart of the JAX package's ``ops/scan_dp._wavefront`` (:93) and
-``_reduce_best`` (:302-321), for the configurations ported so far: exact
-int32 values, linear gaps, the column-major argmax tie-break, and either
-uniform match/mismatch scores over raw bytes (K1/K2) or a substitution table
-over compact codes (K4/K5). Same formulation: cell (r, d) is DP cell
+Counterpart of the JAX package's ``ops/scan_dp._wavefront`` (:93),
+``_wavefront_affine`` (:221) and ``_reduce_best`` (:302-321), for the
+configurations ported so far: exact int32 values, linear or affine (Gotoh)
+gaps, the column-major argmax tie-break, and either uniform match/mismatch
+scores over raw bytes (K1/K2, affine K6/K7) or a substitution table over
+compact codes (K4/K5, affine K8/K9). Same formulation: cell (r, d) is DP cell
 (i = r + 1, j = d - r + 1); west and north come from diagonal d - 1,
 north-west from d - 2; invalid cells (j < 1, i > m_b, j > n_b) are stored as
-0, which is both the zero boundary and what keeps the running argmax exact.
-The loop runs one diagonal per step over (M, B) tensors, on whatever device
-the inputs are.
+H = 0, which is both the zero boundary and what keeps the running argmax
+exact (and, affine, E = F = -2^30). The loop runs one diagonal per step over
+(M, B) tensors, on whatever device the inputs are. A ``gap_open`` > 0 selects
+the affine recurrence, as ``ScoringConfig.is_affine`` does.
 
 Compact codes (as the JAX package's ``_packed_luts``, wavefront_pallas.py:314,
 assigns them): code c + 1 stands for ``alphabet[c]``, code 0 for every other
@@ -34,6 +36,17 @@ MOVE_NW = 0
 MOVE_W = 1
 MOVE_N = 2
 STOP_BIT = 4
+
+# Affine (Gotoh) move byte, as in the JAX package's ops/scan_dp.py:204-215:
+# bits 0-1 the term that achieved H (ZERO > NW > E > F on ties), bit 3 the E
+# (west) run extends, bit 4 the F (north) run extends (extend wins ties).
+H_NW = 0
+H_E = 1
+H_F = 2
+H_ZERO = 3
+E_EXT_BIT = 8
+F_EXT_BIT = 16
+NEG = -(2**30)  # E and F where no gap run can reach
 
 _INT32_MAX = 2**31 - 1
 # Lanes per block of the plain K4 on a slab: each block is padded only to
@@ -89,8 +102,8 @@ def table_scorer(table: torch.Tensor):
     return score
 
 
-def wavefront(x_mb, y_bn, m, n, *, score, gap: int, track_pos: bool = True,
-              emit_moves: bool = False):
+def wavefront(x_mb, y_bn, m, n, *, score, gap: int, gap_open: int = 0,
+              track_pos: bool = True, emit_moves: bool = False):
     """Sweep all M + N - 1 diagonals.
 
     x_mb (M, B) uint8 reads, y_bn (B, N) uint8 refs, m/n (B,) int32 true
@@ -98,8 +111,14 @@ def wavefront(x_mb, y_bn, m, n, *, score, gap: int, track_pos: bool = True,
     ywin)`` gives one diagonal's (M, B) int32 cell scores (cells outside a
     lane's matrix are masked to 0 whatever they score). Returns
     (best (M, B), bestd (M, B), moves (D, M, B) uint8 or None). With
-    track_pos=False bestd stays 0 (score-only sweep).
+    track_pos=False bestd stays 0 (score-only sweep). ``gap_open`` > 0 runs
+    ``wavefront_affine`` instead, with ``gap`` as the extension cost.
     """
+    if gap_open > 0:
+        return wavefront_affine(
+            x_mb, y_bn, m, n, score=score, gap_open=gap_open, gap=gap,
+            track_pos=track_pos, emit_moves=emit_moves,
+        )
     M, B = x_mb.shape
     N = y_bn.shape[1]
     D = M + N - 1
@@ -145,6 +164,70 @@ def wavefront(x_mb, y_bn, m, n, *, score, gap: int, track_pos: bool = True,
     return best, bestd, moves
 
 
+def wavefront_affine(x_mb, y_bn, m, n, *, score, gap_open: int, gap: int,
+                     track_pos: bool = True, emit_moves: bool = False):
+    """Affine-gap (Gotoh) sweep, line for line ``_wavefront_affine``
+    (scan_dp.py:221-299): a gap of length L costs gap_open + L * gap. Two
+    more carried diagonals, E (west runs) and F (north runs); invalid cells
+    hold H = 0 and E = F = NEG, and row 0's F shifts in as 0, as the scan's
+    ``_shift_down`` does. Same arguments and returns as ``wavefront``; the
+    moves are the affine bytes (H source, E/F extend bits)."""
+    M, B = x_mb.shape
+    N = y_bn.shape[1]
+    D = M + N - 1
+    dev = x_mb.device
+    m = m.clamp(max=M)
+    n = n.clamp(max=N)
+    yr = prepare_refs(y_bn, M)
+    rr = torch.arange(M, dtype=torch.int32, device=dev)[:, None]
+    rowmask = rr < m[None, :]
+    lo = 1 - n[None, :]
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    neg = torch.full((), NEG, dtype=torch.int32, device=dev)
+    h1 = torch.zeros((M, B), dtype=torch.int32, device=dev)
+    h2 = torch.zeros_like(h1)
+    e1 = torch.full_like(h1, NEG)
+    f1 = torch.full_like(h1, NEG)
+    best = torch.zeros_like(h1)
+    bestd = torch.zeros_like(h1)
+    moves = torch.empty((D, M, B), dtype=torch.uint8, device=dev) if emit_moves else None
+    for d in range(D):
+        ywin = yr[N + M - 1 - d : N + 2 * M - 1 - d]
+        sc = score(x_mb, ywin)
+        h1s = _shift_down(h1)  # north   (i-1, j)
+        h2s = _shift_down(h2)  # nw      (i-1, j-1)
+        f1s = _shift_down(f1)  # north F
+        e_open = h1 - gap_open
+        f_open = h1s - gap_open
+        e_d = torch.maximum(e_open, e1) - gap
+        f_d = torch.maximum(f_open, f1s) - gap
+        diag = h2s + sc
+        hd = torch.maximum(torch.maximum(diag, e_d), torch.maximum(f_d, zero))
+        valid = (rr <= d) & rowmask & (rr >= lo + d)
+        hd = torch.where(valid, hd, zero)
+        e_d = torch.where(valid, e_d, neg)
+        f_d = torch.where(valid, f_d, neg)
+        if track_pos:
+            upd = hd > best  # strict: earliest diagonal (smallest j) wins ties
+            best = torch.where(upd, hd, best)
+            bestd = torch.where(upd, d, bestd)
+        else:
+            best = torch.maximum(best, hd)
+        if emit_moves:
+            h_src = torch.where(
+                hd == 0, H_ZERO,
+                torch.where(hd == diag, H_NW, torch.where(hd == e_d, H_E, H_F)),
+            )
+            mv = (h_src + torch.where(e1 >= e_open, E_EXT_BIT, 0)
+                  + torch.where(f1s >= f_open, F_EXT_BIT, 0))
+            moves[d] = mv.to(torch.uint8)
+        h2 = h1
+        h1 = hd
+        e1 = e_d
+        f1 = f_d
+    return best, bestd, moves
+
+
 def reduce_best(best, bestd):
     """(M, B) elementwise bests -> per-lane (score, i, j) int32 with the
     column-major tie-break: min j, then min i; an all-zero lane gives
@@ -164,12 +247,13 @@ def reduce_best(best, bestd):
 
 
 def sw_score_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int,
-                   track_pos: bool = True):
-    """Plain version of the K1 kernel: xs (B, M), ys (B, N) uint8, m/n (B,)
-    int32 -> per-lane (score, i, j) int32; i = j = 0 when not track_pos."""
+                   gap_open: int = 0, track_pos: bool = True):
+    """Plain version of the K1 kernel (K6 with gap_open > 0): xs (B, M), ys
+    (B, N) uint8, m/n (B,) int32 -> per-lane (score, i, j) int32; i = j = 0
+    when not track_pos."""
     best, bestd, _ = wavefront(
         xs.T, ys, m, n, score=uniform_scorer(match, mismatch), gap=gap,
-        track_pos=track_pos,
+        gap_open=gap_open, track_pos=track_pos,
     )
     if not track_pos:
         score = best.max(dim=0).values
@@ -178,12 +262,13 @@ def sw_score_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int,
     return reduce_best(best, bestd)
 
 
-def sw_score_moves_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
-    """Plain version of the K2 kernel: K1's (score, i, j) plus the
-    (M + N - 1, M, B) uint8 move/stop codes."""
+def sw_score_moves_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int,
+                         gap_open: int = 0):
+    """Plain version of the K2 kernel (K7 with gap_open > 0): K1's (score, i,
+    j) plus the (M + N - 1, M, B) uint8 move codes."""
     best, bestd, moves = wavefront(
         xs.T, ys, m, n, score=uniform_scorer(match, mismatch), gap=gap,
-        emit_moves=True,
+        gap_open=gap_open, emit_moves=True,
     )
     return (*reduce_best(best, bestd), moves)
 
@@ -205,10 +290,10 @@ def gather_lanes(slab, y_off, n):
     return ys, n.to(torch.int32)
 
 
-def sw_profile_plain(x, y, m, n, *, table, gap: int, y_off=None):
-    """Plain version of the K4 kernel: per-lane (score, i, j) int32 of
-    linear-gap SW scored by ``table`` (ncodes, ncodes) int32 over compact
-    codes.
+def sw_profile_plain(x, y, m, n, *, table, gap: int, gap_open: int = 0, y_off=None):
+    """Plain version of the K4 kernel (K8 with gap_open > 0): per-lane
+    (score, i, j) int32 of SW scored by ``table`` (ncodes, ncodes) int32 over
+    compact codes.
 
     x: (B, M) codes, or (M,) codes of one query shared by every lane.
     y: (B, N) codes, or -- with ``y_off`` (B,) int64 -- a flat (R,) slab in
@@ -227,6 +312,7 @@ def sw_profile_plain(x, y, m, n, *, table, gap: int, y_off=None):
         xs = x[sl] if x.dim() == 2 else x[None, :].expand(ys.shape[0], -1)
         best, bestd, _ = wavefront(
             xs.T, ys, m[sl], nb, score=table_scorer(table), gap=gap,
+            gap_open=gap_open,
         )
         out.append(reduce_best(best, bestd))
     if not out:
@@ -235,10 +321,12 @@ def sw_profile_plain(x, y, m, n, *, table, gap: int, y_off=None):
     return tuple(torch.cat(parts) for parts in zip(*out))
 
 
-def sw_profile_moves_plain(xs, ys, m, n, *, table, gap: int):
-    """Plain version of the K5 kernel: K4's (score, i, j) on xs (B, M) and
-    ys (B, N) codes plus the (M + N - 1, M, B) uint8 move/stop codes."""
+def sw_profile_moves_plain(xs, ys, m, n, *, table, gap: int, gap_open: int = 0):
+    """Plain version of the K5 kernel (K9 with gap_open > 0): K4's (score, i,
+    j) on xs (B, M) and ys (B, N) codes plus the (M + N - 1, M, B) uint8
+    move codes."""
     best, bestd, moves = wavefront(
-        xs.T, ys, m, n, score=table_scorer(table), gap=gap, emit_moves=True,
+        xs.T, ys, m, n, score=table_scorer(table), gap=gap, gap_open=gap_open,
+        emit_moves=True,
     )
     return (*reduce_best(best, bestd), moves)

@@ -1,11 +1,12 @@
 """Batched greedy traceback over the forward sweep's move codes.
 
 ``walk_moves`` is the counterpart of the JAX package's ``ops/traceback.py``
-``walk_moves`` (:30-89): on CPU tensors it runs the plain PyTorch loop below,
-line for line the JAX body; on CUDA tensors it launches the K3 kernel
-(``csrc/traceback.cu``), one thread per lane, since the eager loop would be
-about fifteen launches per step. ``decode_consensus`` is copied from
-traceback.py:289-307 and stays numpy.
+``walk_moves`` (:30-89), and ``walk_moves_affine`` of its affine (Gotoh)
+state-machine walk ``walk_moves_affine`` (:92-164): on CPU tensors each runs
+the plain PyTorch loop below, line for line the JAX body; on CUDA tensors
+they launch K3 and K10 (``csrc/traceback.cu``), one thread per lane, since
+the eager loop would be about fifteen launches per step.
+``decode_consensus`` is copied from traceback.py:289-307 and stays numpy.
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import device_of
 from . import _build
-from .scan_dp import MOVE_N, MOVE_W, STOP_BIT
+from .scan_dp import E_EXT_BIT, F_EXT_BIT, H_E, H_F, H_NW, H_ZERO, MOVE_N, MOVE_W, STOP_BIT
 
 GAP_BYTE = ord("-")
 
@@ -60,29 +62,63 @@ def _walk_moves_plain(moves, x_mb, y_bn, i0, j0, max_steps: int):
     return pos, cx, cy, steps
 
 
-def walk_moves(moves, x_mb, y_bn, i0, j0, *, max_steps: int):
-    """Walk B lanes from their 1-based argmax cells (i0, j0).
-
-    moves (D, M, B) uint8 codes, x_mb (M, B) uint8 reads, y_bn (B, N) uint8
-    refs, i0/j0 (B,) int32; lanes with i0 == 0 are skipped. Returns pos (B,)
-    int32, cx/cy (max_steps, B) uint8 NUL-padded reversed consensus, steps
-    (B,) int32. The counter ``walk_moves.launches`` counts K3 launches.
-    """
-    tensors = (moves, x_mb, y_bn, i0, j0)
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
+def _walk_moves_affine_plain(moves, x_mb, y_bn, i0, j0, max_steps: int):
+    M, B = x_mb.shape
+    N = y_bn.shape[1]
     dev = x_mb.device
-    if dev.type == "cpu":
-        return _walk_moves_plain(moves, x_mb, y_bn, i0, j0, max_steps)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    lanes = torch.arange(B, device=dev)
+    cx = torch.zeros((max_steps, B), dtype=torch.uint8, device=dev)
+    cy = torch.zeros((max_steps, B), dtype=torch.uint8, device=dev)
+    i = i0.to(torch.int32)
+    j = j0.to(torch.int32)
+    pos = torch.zeros(B, dtype=torch.int32, device=dev)
+    state = torch.zeros(B, dtype=torch.int32, device=dev)  # 0 = H, 1 = E run, 2 = F run
+    steps = torch.zeros(B, dtype=torch.int32, device=dev)
+    active = i > 0
+    gap = torch.tensor(GAP_BYTE, dtype=torch.uint8, device=dev)
+    for it in range(max_steps):
+        d = (i + j - 2).clamp(0, moves.shape[0] - 1).long()
+        r = (i - 1).clamp(0, M - 1).long()
+        mv = moves[d, r, lanes]
+        hsrc = (mv & 3).to(torch.int32)
+        e_ext = (mv & E_EXT_BIT) != 0
+        f_ext = (mv & F_EXT_BIT) != 0
+        in_h = state == 0
+        # In a run the op is the run; the cell's H source is ignored.
+        op = torch.where(in_h, hsrc, state)
+        # Only the H state stops: on H_ZERO, or at the i = 0 / j = 0 boundary.
+        stop = in_h & ((hsrc == H_ZERO) | (i <= 0) | (j <= 0))
+        emitting = active & ~stop
+        nw = emitting & (op == H_NW)
+        go_w = emitting & (op == H_E)
+        go_n = emitting & (op == H_F)
+        xc = x_mb[r, lanes]
+        yc = y_bn[lanes, (j - 1).clamp(0, N - 1).long()]
+        cx[it] = torch.where(emitting, torch.where(go_w, gap, xc), 0)
+        cy[it] = torch.where(emitting, torch.where(go_n, gap, yc), 0)
+        steps = torch.where(emitting, steps + 1, steps)
+        pos = torch.where(nw, j, pos)  # the j of the last NW emission
+        state = torch.where(
+            nw, 0,
+            torch.where(go_w, torch.where(e_ext, 1, 0),
+                        torch.where(go_n, torch.where(f_ext, 2, 0), state)),
+        ).to(torch.int32)
+        i = i - (nw | go_n).to(torch.int32)
+        j = j - (nw | go_w).to(torch.int32)
+        active = active & ~stop
+    return pos, cx, cy, steps
+
+
+def _launch_walk(name, moves, x_mb, y_bn, i0, j0, max_steps):
+    """Shared K3/K10 launch of the entry point ``name`` on the current
+    stream, no sync; outputs allocated here."""
     if moves.dtype != torch.uint8 or x_mb.dtype != torch.uint8 or y_bn.dtype != torch.uint8:
         raise TypeError("moves, x_mb and y_bn must be uint8")
     D, M, B = moves.shape
     N = y_bn.shape[1]
     if x_mb.shape != (M, B) or y_bn.shape[0] != B or i0.shape != (B,) or j0.shape != (B,):
-        raise ValueError("walk_moves: inconsistent shapes")
+        raise ValueError(f"{name}: inconsistent shapes")
+    dev = x_mb.device
     moves, x_mb, y_bn = moves.contiguous(), x_mb.contiguous(), y_bn.contiguous()
     i0 = i0.to(torch.int32).contiguous()
     j0 = j0.to(torch.int32).contiguous()
@@ -92,18 +128,48 @@ def walk_moves(moves, x_mb, y_bn, i0, j0, *, max_steps: int):
     cy = torch.empty((max_steps, B), dtype=torch.uint8, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
-        err = lib.pgs_walk_moves(
+        err = getattr(lib, name)(
             moves.data_ptr(), x_mb.data_ptr(), y_bn.data_ptr(), i0.data_ptr(),
             j0.data_ptr(), D, M, N, B, int(max_steps), pos.data_ptr(),
             cx.data_ptr(), cy.data_ptr(), steps.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _build.check(err, "pgs_walk_moves")
-    walk_moves.launches += 1
+    _build.check(err, name)
     return pos, cx, cy, steps
 
 
+def walk_moves(moves, x_mb, y_bn, i0, j0, *, max_steps: int):
+    """Walk B lanes from their 1-based argmax cells (i0, j0).
+
+    moves (D, M, B) uint8 codes, x_mb (M, B) uint8 reads, y_bn (B, N) uint8
+    refs, i0/j0 (B,) int32; lanes with i0 == 0 are skipped. Returns pos (B,)
+    int32, cx/cy (max_steps, B) uint8 NUL-padded reversed consensus, steps
+    (B,) int32. The counter ``walk_moves.launches`` counts K3 launches.
+    """
+    if device_of(moves, x_mb, y_bn, i0, j0).type == "cpu":
+        return _walk_moves_plain(moves, x_mb, y_bn, i0, j0, max_steps)
+    out = _launch_walk("pgs_walk_moves", moves, x_mb, y_bn, i0, j0, max_steps)
+    walk_moves.launches += 1
+    return out
+
+
 walk_moves.launches = 0
+
+
+def walk_moves_affine(moves, x_mb, y_bn, i0, j0, *, max_steps: int):
+    """The affine walk over K7/K9's move bytes: the arguments and returns of
+    ``walk_moves``. Each lane is in state H, an E (west gap) run or an F
+    (north gap) run; it stops only in H, on H_ZERO or at i <= 0 or j <= 0,
+    and pos is the j of its last NW emission. The counter
+    ``walk_moves_affine.launches`` counts K10 launches."""
+    if device_of(moves, x_mb, y_bn, i0, j0).type == "cpu":
+        return _walk_moves_affine_plain(moves, x_mb, y_bn, i0, j0, max_steps)
+    out = _launch_walk("pgs_walk_moves_affine", moves, x_mb, y_bn, i0, j0, max_steps)
+    walk_moves_affine.launches += 1
+    return out
+
+
+walk_moves_affine.launches = 0
 
 
 def decode_consensus(cx, cy, steps) -> List[Tuple[str, str]]:

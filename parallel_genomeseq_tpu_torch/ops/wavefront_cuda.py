@@ -1,13 +1,19 @@
-"""Wrappers of the CUDA score kernels K1 and K2 (``csrc/wavefront.cu``).
+"""Wrappers of the CUDA uniform-scoring kernels K1, K2, K6 and K7
+(``csrc/wavefront.cu``).
 
 K1 ``sw_score`` ports the Pallas kernel B1 (``_kernel_uniform``, TPU
 ``ops/wavefront_pallas.py:160`` via ``_call_uniform`` :924); K2
 ``sw_score_moves`` ports B2 (``_kernel_uniform_moves`` :535 via
-``_call_uniform_moves`` :596). Both take the JAX package's batch-first
-layout -- xs (B, M), ys (B, N) uint8 padded with X_PAD / Y_PAD, m, n (B,)
-int32 -- and return per-lane int32 (score, i, j); K2 also returns the
-(M + N - 1, M, B) uint8 move codes. A lane length beyond the padded shape
-is clamped to it (m_b <= M, n_b <= N) on both routes.
+``_call_uniform_moves`` :596). Their affine (Gotoh) forms: K6
+``sw_score_affine`` ports B5 (``_kernel_uniform_affine`` :208 via
+``_call_uniform_affine`` :280), K7 ``sw_score_affine_moves`` ports B6
+(``_kernel_uniform_affine_moves`` :710 via ``_call_uniform_affine_moves``
+:740). All take the JAX package's batch-first layout -- xs (B, M), ys (B, N)
+uint8 padded with X_PAD / Y_PAD, m, n (B,) int32 -- and return per-lane int32
+(score, i, j); K2 and K7 also return the (M + N - 1, M, B) uint8 move codes
+(K7's are the affine bytes that ``traceback.walk_moves_affine`` walks). A
+lane length beyond the padded shape is clamped to it (m_b <= M, n_b <= N) on
+both routes.
 
 Route: tensors on the CPU take the plain PyTorch version (``ops/scan_dp``);
 tensors on a CUDA device launch the kernel, and a missing toolkit or a failed
@@ -19,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device import device_of
 from . import _build
 from .scan_dp import sw_score_moves_plain, sw_score_plain
 
@@ -32,18 +39,13 @@ def _check_inputs(xs, ys, m, n):
         raise ValueError(f"expected xs (B, M) and ys (B, N), got {tuple(xs.shape)}, {tuple(ys.shape)}")
     if m.shape != (xs.shape[0],) or n.shape != (xs.shape[0],):
         raise ValueError("m and n must have shape (B,)")
-    devs = {t.device for t in (xs, ys, m, n)}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
-    dev = xs.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
+    return device_of(xs, ys, m, n)
 
 
-def _launch(xs, ys, m, n, *, match, mismatch, gap, track_pos, moves):
-    """Shared K1/K2 launch: lane-fastest copies of the inputs, scratch and
-    outputs allocated here, kernel on the current stream, no sync."""
+def _launch(xs, ys, m, n, *, match, mismatch, gap_open, gap, track_pos, moves):
+    """Shared K1/K2/K6/K7 launch: lane-fastest copies of the inputs, scratch
+    and outputs allocated here, kernel on the current stream, no sync. The
+    column scratch is (M, B) H, or (M, B, 2) (H, E) for gap_open > 0."""
     B, M = xs.shape
     N = ys.shape[1]
     dev = xs.device
@@ -52,14 +54,14 @@ def _launch(xs, ys, m, n, *, match, mismatch, gap, track_pos, moves):
     y_nb = ys.T.contiguous()
     m = m.contiguous()
     n = n.contiguous()
-    hcol = torch.empty((M, B), dtype=torch.int32, device=dev)
+    hcol = torch.empty((M, B, 2) if gap_open > 0 else (M, B), dtype=torch.int32, device=dev)
     score, bi, bj = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pgs_sw_score(
             x_mb.data_ptr(), y_nb.data_ptr(), m.data_ptr(), n.data_ptr(),
-            hcol.data_ptr(), M, N, B, int(match), int(mismatch), int(gap),
-            int(track_pos), score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
+            hcol.data_ptr(), M, N, B, int(match), int(mismatch), int(gap_open),
+            int(gap), int(track_pos), score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
             moves.data_ptr() if moves is not None else None, stream,
         )
     _build.check(err, "pgs_sw_score")
@@ -78,7 +80,7 @@ def sw_score(xs, ys, m, n, *, match: int, mismatch: int, gap: int,
             track_pos=track_pos,
         )
     out = _launch(
-        xs, ys, m, n, match=match, mismatch=mismatch, gap=gap,
+        xs, ys, m, n, match=match, mismatch=mismatch, gap_open=0, gap=gap,
         track_pos=track_pos, moves=None,
     )
     sw_score.launches += 1
@@ -101,7 +103,7 @@ def sw_score_moves(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
     N = ys.shape[1]
     moves = torch.empty((M + N - 1, M, B), dtype=torch.uint8, device=dev)
     score, bi, bj = _launch(
-        xs, ys, m, n, match=match, mismatch=mismatch, gap=gap,
+        xs, ys, m, n, match=match, mismatch=mismatch, gap_open=0, gap=gap,
         track_pos=True, moves=moves,
     )
     sw_score_moves.launches += 1
@@ -109,3 +111,56 @@ def sw_score_moves(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
 
 
 sw_score_moves.launches = 0
+
+
+def _check_gap_open(gap_open):
+    if gap_open < 1:
+        raise ValueError(f"gap_open must be >= 1 for the affine kernels, got {gap_open}")
+
+
+def sw_score_affine(xs, ys, m, n, *, match: int, mismatch: int, gap_open: int,
+                    gap: int, track_pos: bool = True):
+    """K6: K1 under affine (Gotoh) gaps -- a gap of length L costs
+    gap_open + L * gap -- with the JAX scan's boundaries; per-lane (score,
+    i, j) int32, i = j = 0 when not track_pos."""
+    dev = _check_inputs(xs, ys, m, n)
+    _check_gap_open(gap_open)
+    if dev.type == "cpu":
+        return sw_score_plain(
+            xs, ys, m, n, match=match, mismatch=mismatch, gap_open=gap_open,
+            gap=gap, track_pos=track_pos,
+        )
+    out = _launch(
+        xs, ys, m, n, match=match, mismatch=mismatch, gap_open=gap_open,
+        gap=gap, track_pos=track_pos, moves=None,
+    )
+    sw_score_affine.launches += 1
+    return out
+
+
+sw_score_affine.launches = 0
+
+
+def sw_score_affine_moves(xs, ys, m, n, *, match: int, mismatch: int,
+                          gap_open: int, gap: int):
+    """K7: K6's (score, i, j) plus the (M + N - 1, M, B) uint8 affine move
+    bytes (``scan_dp.H_*``, ``E_EXT_BIT``, ``F_EXT_BIT``). Only cells inside
+    each lane's m_b x n_b matrix are written, as in K2."""
+    dev = _check_inputs(xs, ys, m, n)
+    _check_gap_open(gap_open)
+    if dev.type == "cpu":
+        return sw_score_moves_plain(
+            xs, ys, m, n, match=match, mismatch=mismatch, gap_open=gap_open, gap=gap,
+        )
+    B, M = xs.shape
+    N = ys.shape[1]
+    moves = torch.empty((M + N - 1, M, B), dtype=torch.uint8, device=dev)
+    score, bi, bj = _launch(
+        xs, ys, m, n, match=match, mismatch=mismatch, gap_open=gap_open,
+        gap=gap, track_pos=True, moves=moves,
+    )
+    sw_score_affine_moves.launches += 1
+    return score, bi, bj, moves
+
+
+sw_score_affine_moves.launches = 0

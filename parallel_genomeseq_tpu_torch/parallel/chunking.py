@@ -2,9 +2,11 @@
 the JAX package's ``parallel/chunking.py`` (:31-230).
 
 Stage A scores every (read, window) pair as one lane of a score-only K1
-sweep; the best window per read wins (first window on ties); stage B re-runs
-the winners through ``BatchSWAligner`` (K2 + K3) and offsets positions back
-to reference coordinates. Same lane order, window geometry, merge and
+sweep (K6 under affine gaps, ``--gap-open``); the best window per read wins
+(first window on ties); stage B re-runs the winners through
+``BatchSWAligner`` (K2 + K3, or K7 + K10) and offsets positions back to
+reference coordinates. The scoring config, ``gap_open`` included, reaches
+both stages. Same lane order, window geometry, merge and
 ``align_stream`` depth as the JAX package. Unlike it there is no fallback to
 another engine: a batch the kernels cannot run raises.
 """

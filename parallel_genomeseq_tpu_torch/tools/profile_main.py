@@ -2,7 +2,7 @@
 
     python -m parallel_genomeseq_tpu_torch.tools.profile_main \\
         [--workload small|uniprot] [--seed 0] [--reads 5120] [--read-len 125]
-        [--batch-size 512] [--sweep 128,1024,2048] [--entries 561356]
+        [--batch-size 512] [--sweep 128,1024,2048] [--entries 561356] [--affine]
 
 ``--workload small`` (default): ``solve_small`` on the data set of
 ``chip_smoke.py`` (a seeded 4,980-bp reference and 125-bp reads with
@@ -10,7 +10,10 @@ substitutions and small indels, written under ``data/profile/``).
 ``--workload uniprot``: ``solve_uniprot`` with the ``uniprot_e2e`` settings
 (BLOSUM50, gap 12, batch 4,096, top 10) on ``chip_smoke.py``'s protein data
 (``--entries`` generated entries with mutated copies of a seeded 145-aa
-query planted in them: 9 at the default size).
+query planted in them: 9 at the default size). ``--affine`` runs both with
+affine (Gotoh) gaps: BWA-MEM's scoring for small (``--match 1 --mismatch -4
+--gap-open 6 --gap-penalty 1``), swps3's 10/2 for uniprot (``--gap-open 10
+--gap-penalty 2``), as ``chip_smoke.py`` does.
 
 After one warm-up run:
 
@@ -81,6 +84,8 @@ def main(argv=None) -> int:
                     help="comma-separated batch sizes for phase 4 ('' for none)")
     ap.add_argument("--entries", type=int, default=561_356)
     ap.add_argument("--query-len", type=int, default=145)
+    ap.add_argument("--affine", action="store_true",
+                    help="affine gaps: BWA-MEM's scoring (small), gap 10/2 (uniprot)")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--out-dir", default=str(ROOT / "data" / "profile"))
     args = ap.parse_args(argv)
@@ -94,10 +99,13 @@ def main(argv=None) -> int:
                                    read_len=(args.read_len, args.read_len), seed=args.seed)
         cli_module = solve_small
 
+        gaps = ["--match", "1", "--mismatch", "-4", "--gap-open", "6",
+                "--gap-penalty", "1"] if args.affine else []
+
         def cli(b):
             return ["--ref", str(ref), "--input", str(reads), "--output",
                     str(out_dir / "align_output.csv"), "--batch-size", str(b),
-                    "--device", str(dev)]
+                    "--device", str(dev)] + gaps
 
         def timing(out, wall):
             return f"{out.seconds:.6f} s, {len(out.results) / out.seconds:.1f} reads/s"
@@ -107,11 +115,13 @@ def main(argv=None) -> int:
                                              query_len=args.query_len, seed=7)
         cli_module = solve_uniprot
 
+        gaps = (["--gap-open", "10", "--gap-penalty", "2"] if args.affine
+                else ["--gap-penalty", "12"])
+
         def cli(b):
             return ["--query", str(query), "--database", str(db), "--output",
                     str(out_dir / "uniprot_output.csv"), "--matrix", "blosum50",
-                    "--gap-penalty", "12", "--batch-size", str(b), "--top", "10",
-                    "--device", str(dev)]
+                    "--batch-size", str(b), "--top", "10", "--device", str(dev)] + gaps
 
         def timing(out, wall):
             scan = out.scans[0]
@@ -142,7 +152,8 @@ def main(argv=None) -> int:
         idle = 1 - busy / wall
     else:
         busy = idle = None
-    print(json.dumps({"workload": args.workload, "batch": batch, "wall_s": wall,
+    print(json.dumps({"workload": args.workload, "affine": args.affine, "batch": batch,
+                      "wall_s": wall,
                       "device_busy_s": busy, "idle_share": idle}))
 
     pr = cProfile.Profile()

@@ -30,6 +30,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def device_of(*tensors) -> torch.device:
+    """The one device of a kernel wrapper's input tensors; raises unless
+    they share it and it is the CPU or a card."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
 def to_host(tensors: Sequence[torch.Tensor]) -> list:
     """Copy tensors to host numpy arrays with one synchronisation: every copy
     is queued into pinned memory on the current stream, then the stream is

@@ -1,8 +1,8 @@
 """Contract of the PyTorch/CUDA port: it never imports jax or the JAX
 package, configurations and options outside the ported slices raise
-naming their ROADMAP item, CPU tensors take the plain route without counting
-a kernel launch, and a missing CUDA toolkit or card raises instead of
-falling back."""
+naming their ROADMAP item while the ported ones (affine gaps among them)
+run, CPU tensors take the plain route without counting a kernel launch, and
+a missing CUDA toolkit or card raises instead of falling back."""
 
 import subprocess
 import sys
@@ -25,11 +25,18 @@ from parallel_genomeseq_tpu_torch.ops import (
 from parallel_genomeseq_tpu_torch.ops.substitution import ALPHABET, blosum_config
 from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkedAligner
 from parallel_genomeseq_tpu_torch.utils import device as device_mod
-from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig, Semantics
+from parallel_genomeseq_tpu_torch.utils.config import ChunkConfig, ScoringConfig, Semantics
 
 REPO = Path(__file__).resolve().parents[1]
 COUNTERS = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves, traceback.walk_moves,
-            profile_cuda.sw_profile, profile_cuda.sw_profile_moves)
+            profile_cuda.sw_profile, profile_cuda.sw_profile_moves,
+            wavefront_cuda.sw_score_affine, wavefront_cuda.sw_score_affine_moves,
+            profile_cuda.sw_profile_affine, profile_cuda.sw_profile_affine_moves,
+            traceback.walk_moves_affine)
+AFFINE = {
+    "uniform": ScoringConfig(gap_open=10.0),
+    "matrix": blosum_config("blosum50", gap_penalty=2.0, gap_open=10.0),
+}
 
 
 def test_port_never_imports_jax():
@@ -57,11 +64,9 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize("cfg", [
     ScoringConfig(semantics=Semantics.SAT_UINT8),
-    ScoringConfig(gap_open=10.0),
-    blosum_config("blosum50", gap_penalty=2.0, gap_open=10.0),
     ScoringConfig(match=2.5),
     ScoringConfig(semantics=Semantics.FLOAT32),
-], ids=["sat_uint8", "affine", "matrix", "non_integral", "float32"])
+], ids=["sat_uint8", "non_integral", "float32"])
 def test_unsupported_configs_raise(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         engine.make_score_engine(cfg, device="cpu")
@@ -69,17 +74,40 @@ def test_unsupported_configs_raise(cfg):
         ChunkedAligner(cfg=cfg, device="cpu")
 
 
-def test_matrix_configs_are_ported_but_affine_matrix_and_long_queries_raise(tmp_path):
-    """Linear substitution-matrix scoring runs (A8); its affine form raises
-    naming A9, in the engine and in the resident database, whose default
-    gaps are the affine 10/2; a database for queries past 2,048 raises A10."""
+@pytest.mark.parametrize("kind", ["uniform", "matrix"])
+def test_affine_configs_run(kind):
+    """Affine configs (A9), uniform and matrix, build their engine and
+    ChunkedAligner on the CPU and align across one gap: a read with two
+    residues deleted scores its matches less gap_open + 2 * gap_penalty."""
+    cfg = AFFINE[kind]
+    assert type(engine.make_score_engine(cfg, device="cpu")) is engine.CudaEngine
+    rng = np.random.default_rng(5)
+    letters = list("ACGT") if kind == "uniform" else list(ALPHABET[:20])
+    ref = "".join(rng.choice(letters, 300))
+    read = ref[100:120] + ref[122:142]
+    if kind == "uniform":
+        matches = 3 * len(read)
+    else:
+        matches = sum(int(cfg.matrix[ALPHABET.index(c)][ALPHABET.index(c)]) for c in read)
+    res = ChunkedAligner(cfg=cfg, chunk=ChunkConfig(npiece=3, overlap_ratio=2.0),
+                         device="cpu").align_batch([read], ref)[0]
+    assert res.score == matches - 10 - 2 * 2
+    assert (res.pos, res.consensus_x.count("-"), res.consensus_y.count("-")) == (101, 2, 0)
+    assert "--" in res.consensus_x
+
+
+def test_matrix_configs_are_ported_but_long_queries_raise(tmp_path):
+    """Linear substitution-matrix scoring runs (A8), and so does its affine
+    form (A9): the resident database's default gaps are the affine 10/2 and
+    it scans; a database for queries past 2,048 raises A10."""
     eng = engine.make_score_engine(blosum_config("blosum62"), device="cpu")
     assert int(eng.table[1, 1]) == 4 and eng.table.shape == (len(ALPHABET) + 1,) * 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        engine.make_score_engine(blosum_config("blosum50", gap_open=10.0), device="cpu")
     entries = [("a", "MKWVTFISLL"), ("b", "GVFRRDTHKS")]
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ResidentProteinDB(entries, device="cpu")
+    db = ResidentProteinDB(entries, device="cpu")
+    assert (db.cfg.gap_open, db.cfg.gap_penalty) == (10.0, 2.0)
+    scores, pos, _ = db.scan_scores("MKWVTFISLL")
+    # MKWVTFISLL against itself under BLOSUM50: 7+6+15+5+5+8+5+5+5+5.
+    assert (int(scores[0]), int(pos[0])) == (66, 10)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         ResidentProteinDB(entries, gap_open=0.0, max_query_len=engine.MAX_M + 1, device="cpu")
 
@@ -125,24 +153,39 @@ def test_solve_small_rejects_unported_modes(flags, tmp_path):
     assert exc.value.code == 2
 
 
-@pytest.mark.parametrize("case, item", [
-    ("gap_open", "A9"), ("long_query", "A10"), ("num_processes", "A13"),
-])
+@pytest.mark.parametrize("case, item", [("long_query", "A10"), ("num_processes", "A13")])
 def test_solve_uniprot_rejects_unported_modes(case, item, tmp_path, capsys):
-    """Affine gaps, a query past the single-strip kernels' 2,048 rows and a
-    sharded run are refused, naming the ROADMAP item that ports them."""
+    """A query past the single-strip kernels' 2,048 rows and a sharded run
+    are refused, naming the ROADMAP item that ports them."""
     query = tmp_path / "q.fasta"
     query.write_text(">q\n" + "MKWVTFISLL" * (206 if case == "long_query" else 3) + "\n")
     db = tmp_path / "db.fasta"
     db.write_text(">a\nMKWVTFISLLGVFRR\n")
-    flags = {"gap_open": ["--gap-open", "10", "--gap-penalty", "2"],
-             "long_query": [], "num_processes": ["--num-processes", "2"]}[case]
+    flags = {"long_query": [], "num_processes": ["--num-processes", "2"]}[case]
     with pytest.raises(SystemExit) as exc:
         solve_uniprot.main(["--query", str(query), "--database", str(db), "--device",
                             "cpu", "--output", str(tmp_path / "o.csv")] + flags)
     assert exc.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
     assert not (tmp_path / "o.csv").exists()
+
+
+def test_solve_uniprot_runs_affine_gaps(tmp_path, capsys):
+    """--gap-open 10 --gap-penalty 2 (A9) scans, walks the top hit and
+    writes the CSV."""
+    (tmp_path / "q.fasta").write_text(">q\nMKWVTFISLLGVFRRDTHKS\n")
+    (tmp_path / "db.fasta").write_text(">a\nMKWVTFISLLGVFRR\n>b\nPPPPGGGG\n")
+    out = tmp_path / "o.csv"
+    assert solve_uniprot.main(["--query", str(tmp_path / "q.fasta"), "--database",
+                               str(tmp_path / "db.fasta"), "--device", "cpu", "--output",
+                               str(out), "--gap-open", "10", "--gap-penalty", "2"]) == 0
+    rows = out.read_text().splitlines()
+    # Entry a is the query's first 15 residues: the BLOSUM50 diagonal's sum,
+    # walked back to the query's first residue (consensus reversed).
+    walk = "MKWVTFISLLGVFRR"[::-1]
+    assert rows[:2] == ["name,len,score,pos_end,pos_pred,consensus_x,consensus_y",
+                        f"a,15,101,15,1,{walk},{walk}"]
+    assert len(rows) == 3 and "Scored" in capsys.readouterr().out
 
 
 def test_solve_uniprot_scans_long_entries_but_refuses_their_walk(tmp_path):
@@ -182,7 +225,14 @@ def test_cpu_tensors_take_plain_route_without_launches():
     cfg = blosum_config("blosum50", gap_penalty=12.0)
     BatchSWAligner(cfg, pad_m=128, device="cpu").align_batch(proteins, [proteins[1][10:60]])
     BatchSWAligner(cfg, device="cpu").align_batch(proteins, [proteins[2]], traceback=False)
-    assert [fn.launches for fn in COUNTERS] == [0] * 5
+    # The affine forms: the window sweep and winner re-run (K6, K7, K10),
+    # the resident scan (K8) and the matrix traceback (K9, K10).
+    ChunkedAligner(AFFINE["uniform"], device="cpu").align_batch(reads, ref)
+    ResidentProteinDB([(str(k), p) for k, p in enumerate(proteins)], device="cpu").scan(
+        proteins[1][10:60])
+    BatchSWAligner(AFFINE["matrix"], pad_m=128, device="cpu").align_batch(
+        proteins, [proteins[1][10:60]])
+    assert [fn.launches for fn in COUNTERS] == [0] * 10
 
 
 def test_cuda_default_without_card_raises(monkeypatch):
@@ -195,6 +245,40 @@ def test_cuda_default_without_card_raises(monkeypatch):
     assert device_mod.resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         device_mod.resolve_device("meta")
+
+
+def test_affine_without_card_raises(monkeypatch):
+    """An affine config takes the card by default and raises without one;
+    a tensor on neither the CPU nor a card raises in every affine wrapper
+    rather than taking the plain route."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cfg in AFFINE.values():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            engine.make_score_engine(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ChunkedAligner(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ResidentProteinDB([("a", "MKWVTFISLL")])
+    meta = lambda *shape, dtype=torch.uint8: torch.empty(shape, dtype=dtype, device="meta")
+    xs, ys, m = meta(2, 8), meta(2, 16), meta(2, dtype=torch.int32)
+    table = meta(25, 25, dtype=torch.int32)
+    calls = [
+        lambda: wavefront_cuda.sw_score_affine(xs, ys, m, m, match=1, mismatch=-4, gap_open=6, gap=1),
+        lambda: wavefront_cuda.sw_score_affine_moves(xs, ys, m, m, match=1, mismatch=-4,
+                                                     gap_open=6, gap=1),
+        lambda: profile_cuda.sw_profile_affine(xs, ys, m, m, table=table, gap_open=10, gap=2),
+        lambda: profile_cuda.sw_profile_affine_moves(xs, ys, m, m, table=table, gap_open=10, gap=2),
+        lambda: traceback.walk_moves_affine(meta(23, 8, 2), xs.T, ys, m, m, max_steps=9),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    with pytest.raises(ValueError, match="gap_open"):
+        wavefront_cuda.sw_score_affine(torch.zeros((2, 8), dtype=torch.uint8),
+                                       torch.zeros((2, 16), dtype=torch.uint8),
+                                       torch.ones(2, dtype=torch.int32),
+                                       torch.ones(2, dtype=torch.int32),
+                                       match=1, mismatch=-4, gap_open=0, gap=1)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -245,6 +329,20 @@ def test_profile_tool_runs_on_the_plain_route(tmp_path, capsys):
     out = capsys.readouterr().out
     assert '"device_busy_s": null' in out and "batch 8:" in out
     assert (tmp_path / "align_output.csv").exists()
+
+
+def test_profile_tool_runs_the_affine_paths_on_the_plain_route(tmp_path, capsys):
+    """--affine: BWA-MEM's scoring on the short reads, gap 10/2 on the
+    protein scan; both runs write their CSV."""
+    from parallel_genomeseq_tpu_torch.tools import profile_main
+
+    for workload, size in (("small", ["--reads", "8", "--read-len", "30", "--ref-len", "400",
+                                      "--sweep", ""]),
+                           ("uniprot", ["--entries", "5", "--query-len", "12"])):
+        assert profile_main.main(["--workload", workload, "--affine", "--device", "cpu",
+                                  "--batch-size", "8", "--out-dir", str(tmp_path)] + size) == 0
+        assert f'"workload": "{workload}", "affine": true' in capsys.readouterr().out
+    assert (tmp_path / "align_output.csv").exists() and (tmp_path / "uniprot_output.csv").exists()
 
 
 def test_profile_tool_runs_the_protein_path_on_the_plain_route(tmp_path, capsys):

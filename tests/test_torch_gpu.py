@@ -17,6 +17,9 @@ from parallel_genomeseq_tpu_torch.utils.synth import write_dataset, write_protei
 
 pytestmark = pytest.mark.gpu
 KW = dict(match=3, mismatch=-3, gap=2)
+BWA = dict(match=1, mismatch=-4, gap_open=6, gap=1)  # BWA-MEM's affine scoring
+BWA_FLAGS = ["--match", "1", "--mismatch", "-4", "--gap-open", "6", "--gap-penalty", "1"]
+AFFINE_FLAGS = ["--gap-open", "10", "--gap-penalty", "2"]
 
 
 @pytest.fixture
@@ -111,6 +114,64 @@ def test_lengths_beyond_the_padded_shape_match_plain(cuda):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("track_pos", [False, True])
+def test_k6_matches_plain(cuda, seed, track_pos):
+    xs, ys, m, n = ragged(seed, cuda)
+    before = wavefront_cuda.sw_score_affine.launches
+    got = wavefront_cuda.sw_score_affine(xs, ys, m, n, track_pos=track_pos, **BWA)
+    want = scan_dp.sw_score_plain(xs, ys, m, n, track_pos=track_pos, **BWA)
+    torch.cuda.synchronize()
+    assert wavefront_cuda.sw_score_affine.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k7_and_k10_match_plain(cuda, seed):
+    xs, ys, m, n = ragged(seed, cuda)
+    before = (wavefront_cuda.sw_score_affine_moves.launches, traceback.walk_moves_affine.launches)
+    got = wavefront_cuda.sw_score_affine_moves(xs, ys, m, n, **BWA)
+    want = scan_dp.sw_score_moves_plain(xs, ys, m, n, **BWA)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert valid_moves(got[3], want[3], m, n)
+    x_mb = xs.T.contiguous()
+    walked = traceback.walk_moves_affine(got[3], x_mb, ys, got[1], got[2], max_steps=250)
+    plain = traceback._walk_moves_affine_plain(got[3], x_mb, ys, got[1], got[2], 250)
+    assert (wavefront_cuda.sw_score_affine_moves.launches,
+            traceback.walk_moves_affine.launches) == (before[0] + 1, before[1] + 1)
+    for g, w in zip(walked, plain):
+        assert torch.equal(g, w)
+
+
+def test_affine_lengths_beyond_the_padded_shape_match_plain(cuda):
+    """K6, K7 and K10 on lanes with m_b > M or n_b > N, and walks started
+    outside the matrix, in every lane state the moves lead to."""
+    xs, ys, m, n = ragged(2, cuda)
+    M, N = xs.shape[1], ys.shape[1]
+    m[:4] = M + torch.tensor([1, 9, 1000, 2**30], dtype=torch.int32, device=cuda)
+    n[2:6] = N + torch.tensor([1, 17, 5000, 2**30], dtype=torch.int32, device=cuda)
+    for track_pos in (False, True):
+        got = wavefront_cuda.sw_score_affine(xs, ys, m, n, track_pos=track_pos, **BWA)
+        want = scan_dp.sw_score_plain(xs, ys, m, n, track_pos=track_pos, **BWA)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    got = wavefront_cuda.sw_score_affine_moves(xs, ys, m, n, **BWA)
+    want = scan_dp.sw_score_moves_plain(xs, ys, m, n, **BWA)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert valid_moves(got[3], want[3], m.clamp(max=M), n.clamp(max=N))
+    x_mb = xs.T.contiguous()
+    i0 = torch.full_like(m, M + 50)
+    j0 = torch.full_like(n, N + 70)
+    i0[::3] = torch.arange(1, M + 1, 3, device=cuda, dtype=torch.int32)[: i0[::3].numel()]
+    walked = traceback.walk_moves_affine(want[3], x_mb, ys, i0, j0, max_steps=60)
+    plain = traceback._walk_moves_affine_plain(want[3], x_mb, ys, i0, j0, 60)
+    for g, w in zip(walked, plain):
+        assert torch.equal(g, w)
+
+
 def test_solve_small_cuda_matches_cpu(cuda, tmp_path):
     ref_path, csv_path = write_dataset(tmp_path, ref_len=2000, n_reads=96, seed=5)
     base = ["--ref", str(ref_path), "--input", str(csv_path), "--batch-size", "32"]
@@ -119,6 +180,24 @@ def test_solve_small_cuda_matches_cpu(cuda, tmp_path):
         assert solve_small.main(
             base + extra + ["--device", "cpu", "--output", str(tmp_path / "cpu.csv")]) == 0
         assert (tmp_path / "gpu.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
+
+
+def test_solve_small_affine_cuda_matches_cpu(cuda, tmp_path):
+    """BWA-MEM's affine scoring: the card's CSV (K6, K7, K10) equals the
+    CPU's byte for byte, and the kernels launched."""
+    ref_path, csv_path = write_dataset(tmp_path, ref_len=2000, n_reads=96, seed=8)
+    base = ["--ref", str(ref_path), "--input", str(csv_path), "--batch-size", "32"] + BWA_FLAGS
+    counters = (wavefront_cuda.sw_score_affine, wavefront_cuda.sw_score_affine_moves,
+                traceback.walk_moves_affine)
+    for extra in (["--npiece", "17"], ["--npiece", "1", "--both-strands"]):
+        before = [fn.launches for fn in counters]
+        assert solve_small.main(base + extra + ["--output", str(tmp_path / "gpu.csv")]) == 0
+        after = [fn.launches for fn in counters]
+        assert after[1] > before[1] and after[2] > before[2]
+        assert solve_small.main(
+            base + extra + ["--device", "cpu", "--output", str(tmp_path / "cpu.csv")]) == 0
+        assert (tmp_path / "gpu.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
+    assert wavefront_cuda.sw_score_affine.launches > 0
 
 
 def protein_lanes(seed, dev, B=77, M=150, N=420):
@@ -195,6 +274,64 @@ def test_solve_uniprot_cuda_matches_cpu(cuda, tmp_path):
         assert solve_uniprot.main(
             base + extra + ["--device", "cpu", "--output", str(tmp_path / "cpu.csv")]) == 0
         assert (tmp_path / "gpu.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k8_matches_plain(cuda, seed):
+    """K8 on per-lane queries, and on a flat slab with one shared query and
+    lanes that run past the slab's end or start outside it."""
+    xs, ys, m, n, table = protein_lanes(seed, cuda)
+    kw = dict(table=table, gap_open=10, gap=2)
+    before = profile_cuda.sw_profile_affine.launches
+    got = profile_cuda.sw_profile_affine(xs, ys, m, n, **kw)
+    want = scan_dp.sw_profile_plain(xs, ys, m, n, **kw)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    slab = ys.reshape(-1)[: ys.numel() - 100].contiguous()
+    off = torch.arange(ys.shape[0], device=cuda, dtype=torch.int64) * 420
+    off[:3] = torch.tensor([-5, slab.numel(), slab.numel() + 9], device=cuda)
+    mq = torch.full_like(m, xs.shape[1])
+    got = profile_cuda.sw_profile_affine(xs[0], slab, mq, n * 3, y_off=off, **kw)
+    want = scan_dp.sw_profile_plain(xs[0], slab, mq, n * 3, y_off=off, **kw)
+    torch.cuda.synchronize()
+    assert profile_cuda.sw_profile_affine.launches == before + 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[0][:3].tolist() == [0, 0, 0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k9_and_k10_match_plain(cuda, seed):
+    xs, ys, m, n, table = protein_lanes(seed, cuda)
+    kw = dict(table=table, gap_open=10, gap=2)
+    before = profile_cuda.sw_profile_affine_moves.launches
+    got = profile_cuda.sw_profile_affine_moves(xs, ys, m, n, **kw)
+    want = scan_dp.sw_profile_moves_plain(xs, ys, m, n, **kw)
+    assert profile_cuda.sw_profile_affine_moves.launches == before + 1
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert valid_moves(got[3], want[3], m, n)
+    x_mb = xs.T.contiguous()
+    walked = traceback.walk_moves_affine(got[3], x_mb, ys, got[1], got[2], max_steps=400)
+    plain = traceback._walk_moves_affine_plain(got[3], x_mb, ys, got[1], got[2], 400)
+    for g, w in zip(walked, plain):
+        assert torch.equal(g, w)
+
+
+def test_solve_uniprot_affine_cuda_matches_cpu(cuda, tmp_path):
+    """swps3's BLOSUM50 10/2 gaps: the card's CSV (K8, K9, K10; K6, K7
+    under --matrix uniform) equals the CPU's byte for byte."""
+    query, db, _ = write_protein_dataset(tmp_path, n_entries=300, query_len=145, seed=9)
+    base = ["--query", str(query), "--database", str(db), "--batch-size", "64"] + AFFINE_FLAGS
+    counters = (profile_cuda.sw_profile_affine, profile_cuda.sw_profile_affine_moves,
+                traceback.walk_moves_affine)
+    before = [fn.launches for fn in counters]
+    for extra in ([], ["--traceback-all"], ["--matrix", "uniform"]):
+        assert solve_uniprot.main(base + extra + ["--output", str(tmp_path / "gpu.csv")]) == 0
+        assert solve_uniprot.main(
+            base + extra + ["--device", "cpu", "--output", str(tmp_path / "cpu.csv")]) == 0
+        assert (tmp_path / "gpu.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
+    assert all(fn.launches > b for fn, b in zip(counters, before))
 
 
 def test_solve_uniprot_plain_engine_on_card_launches_no_kernel(cuda, tmp_path):

@@ -1,7 +1,8 @@
 """The short-read slice end to end: the port (plain route, CPU) against the
 JAX package on the same generated reads -- ChunkedAligner and
 BatchSWAligner results field by field, and solve_small's align_output.csv
-byte for byte."""
+byte for byte, with linear gaps and with BWA-MEM's affine scoring (match 1,
+mismatch -4, gap open 6, extend 1)."""
 
 import csv
 
@@ -12,13 +13,16 @@ from parallel_genomeseq_tpu.models.swaligner import BatchSWAligner as JaxBatch
 from parallel_genomeseq_tpu.parallel.chunking import ChunkedAligner as JaxChunked
 from parallel_genomeseq_tpu.seqio.readers import read_fasta
 from parallel_genomeseq_tpu.utils.config import ChunkConfig as JaxChunkConfig
+from parallel_genomeseq_tpu.utils.config import ScoringConfig as JaxScoringConfig
 from parallel_genomeseq_tpu_torch.cli import solve_small as port_cli
 from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
 from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkedAligner
-from parallel_genomeseq_tpu_torch.utils.config import ChunkConfig
+from parallel_genomeseq_tpu_torch.utils.config import ChunkConfig, ScoringConfig
 from parallel_genomeseq_tpu_torch.utils.synth import write_dataset
 
 FIELDS = ("score", "pos", "consensus_x", "consensus_y", "max_i", "max_j")
+BWA = dict(match=1.0, mismatch=-4.0, gap_open=6.0, gap_penalty=1.0)
+BWA_FLAGS = ["--match", "1", "--mismatch", "-4", "--gap-open", "6", "--gap-penalty", "1"]
 
 
 @pytest.fixture(scope="module")
@@ -57,6 +61,22 @@ def test_chunked_aligner_matches_jax(dataset, npiece):
     assert_same(port.align_batch(reads[:5], ref), want[:5])
 
 
+def test_affine_aligners_match_jax(dataset):
+    """BWA-MEM's affine scoring through both aligners: the JAX side's Pallas
+    B5 window sweep and B6 re-run (interpret mode), the port's plain K6, K7
+    and affine walk; the config carried across as the port's own."""
+    _, _, ref, reads = dataset
+    jcfg, cfg = JaxScoringConfig(**BWA), ScoringConfig(**BWA)
+    want = [r for b in JaxChunked(cfg=jcfg, chunk=JaxChunkConfig(npiece=17, overlap_ratio=2.0),
+                                  score_engine="pallas")
+            .align_stream(batches(reads[:32]), ref) for r in b]
+    port = ChunkedAligner(cfg=cfg, chunk=ChunkConfig(npiece=17, overlap_ratio=2.0), device="cpu")
+    assert_same([r for b in port.align_stream(batches(reads[:32]), ref) for r in b], want)
+    want = JaxBatch(jcfg, score_engine="pallas").align_batch(reads[:12], [ref])
+    assert_same(BatchSWAligner(cfg, device="cpu").align_batch(reads[:12], [ref]), want)
+    assert any("-" in r.consensus_x + r.consensus_y for r in want)
+
+
 def test_batch_aligner_matches_jax(dataset):
     """--npiece 1: every read against the whole reference, traceback fused
     in the Pallas moves kernel on the JAX side."""
@@ -73,7 +93,11 @@ def test_batch_aligner_matches_jax(dataset):
     ["--npiece", "17"],
     ["--npiece", "1", "--eval"],
     ["--npiece", "4", "--both-strands", "--limit", "20"],
-], ids=["npiece17", "npiece1-eval", "both-strands-limit"])
+    BWA_FLAGS + ["--npiece", "17"],
+    BWA_FLAGS + ["--npiece", "1", "--eval"],
+    BWA_FLAGS + ["--npiece", "17", "--both-strands", "--limit", "20"],
+], ids=["npiece17", "npiece1-eval", "both-strands-limit", "bwa-npiece17", "bwa-npiece1-eval",
+        "bwa-both-strands"])
 def test_solve_small_csv_byte_identical(dataset, tmp_path, capsys, extra):
     ref_path, csv_path, _, _ = dataset
     base = ["--ref", str(ref_path), "--input", str(csv_path), "--batch-size", "16"] + extra

@@ -3,7 +3,8 @@
 database -- ``uniprot_output.csv`` byte for byte, for the default flags and
 each ported option. The database holds entries of 60-600 aa, some of
 513-600 aa, so the JAX side walks on both of its traceback routes' shapes,
-and 8 mutated copies of the query."""
+and 8 mutated copies of the query. The affine runs take swps3's BLOSUM50
+10/2 gaps (``--gap-open 10 --gap-penalty 2``)."""
 
 import pytest
 
@@ -42,12 +43,19 @@ def top_hits(stdout: str):
     return lines[at : lines.index(next(l for l in lines[at:] if l.startswith("Done")))]
 
 
+AFFINE = ["--gap-open", "10", "--gap-penalty", "2"]
+
+
 @pytest.mark.parametrize("extra, walked", [
     ([], 10),
     (["--matrix", "blosum62", "--top", "4"], 4),
     (["--matrix", "uniform", "--traceback-top", "3"], 3),
     (["--traceback-all"], 40),
-], ids=["default", "blosum62", "uniform", "traceback-all"])
+    (AFFINE, 10),
+    (AFFINE + ["--traceback-all"], 40),
+    (["--matrix", "uniform", "--gap-open", "4", "--gap-penalty", "1", "--traceback-top", "3"], 3),
+], ids=["default", "blosum62", "uniform", "traceback-all", "affine", "affine-traceback-all",
+        "affine-uniform"])
 def test_solve_uniprot_csv_byte_identical(dataset, tmp_path, capsys, extra, walked):
     query, db, _ = dataset
     argv = ["--query", str(query), "--database", str(db), "--output", "{d}/out.csv",
@@ -73,9 +81,17 @@ def test_solve_uniprot_two_queries(dataset, tmp_path, capsys):
 def test_solve_uniprot_checkpoint_resume(dataset, tmp_path, capsys):
     """A run cut short after 25 proteins, then resumed from its checkpoint:
     the same checkpoint file and the same final CSV as the JAX package."""
+    check_resume(dataset, tmp_path, capsys, [])
+
+
+def test_solve_uniprot_checkpoint_resume_affine(dataset, tmp_path, capsys):
+    check_resume(dataset, tmp_path, capsys, AFFINE)
+
+
+def check_resume(dataset, tmp_path, capsys, gaps):
     query, db, _ = dataset
     base = ["--query", str(query), "--database", str(db), "--checkpoint",
-            "{d}/ckpt", "--batch-size", "8"]
+            "{d}/ckpt", "--batch-size", "8"] + gaps
     (jax_files, _), (port_files, _) = run_both(
         tmp_path, capsys, base + ["--limit", "25", "--output", "{d}/part.csv"],
         outs=("part.csv", "ckpt"))
