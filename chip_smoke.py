@@ -38,7 +38,19 @@
    planted entries, the top 10 and 32 sampled entries against the numpy
    oracle (score and pos_end; pos_pred and both consensus strings for the
    top 10).
-6. Prints the kernels' JSON line -- each kernel's time, its plain version's,
+6. Long-read path, at ``solve_big``'s default width: a 30,000-bp generated
+   reference (seed 0), 100 reads of 10,000 bp sampled from it (what
+   ``solve_big`` generates) and a mutated copy of them (about 1%
+   substitutions and three 1-3 bp indels per read), 14 windows. Holds K11
+   (the 1,400-lane window sweep on one read's 14 lanes, and every lane of a
+   reduced 1,400 x 2,304 x 4,608 shape), K12 (the 100 winners, on 4 of
+   them), K13 and K14 (the top, a middle and the bottom strip of the
+   winners' traceback, every lane) against their plain versions. Runs
+   ``solve_big 7 3`` on the exact reads and ``solve_big 7 1 --traceback`` on
+   the mutated ones, checks that K11 (and K12, K13, K14) launched during
+   them, and holds 2 sampled reads of the traceback run against the numpy
+   oracle over their winning window (score, pos, both consensus strings).
+7. Prints the kernels' JSON line -- each kernel's time, its plain version's,
    and its bound: the larger of the integer operations its cells need over
    the card's int32 ALU peak and the bytes it must move over the memory
    rate -- then ``{"ok": true, "device": ...}`` last.
@@ -90,9 +102,14 @@ INT32_LANES = 132 * 64
 #     s, == E) and three selects (6); the extend bits, the two opening
 #     values (H - open) the DPX folded away, two compares and two ors into
 #     the byte (6): 12.
+# The long-read kernels count as their single-strip twins: K11 and K12 as
+# K1 with its cell (K12's row store is bytes, not operations), K13 as K2.
 OPS_PER_CELL = {
     ("sw_score", False): 2 + 3 + 1,
     ("sw_score", True): 2 + 3 + 2,
+    "sw_score_strips": 2 + 3 + 2,
+    "sw_score_strips_ckpt": 2 + 3 + 2,
+    "strip_moves": 2 + 3 + 2 + 7,
     "sw_score_moves": 2 + 3 + 2 + 7,
     "sw_profile": 0 + 3 + 2,
     "sw_profile_moves": 0 + 3 + 2 + 7,
@@ -109,7 +126,9 @@ OPS_PER_CELL = {
 # and the state's and (5); NW and E against the op (2); the two emitted
 # bytes (2); the next state, the extend bit's test and a select (2); i, j,
 # pos, steps and the active flag (5).
-OPS_PER_STEP = {"walk_moves": 10, "walk_moves_affine": 18}
+# K14, the strip walk, as K3 (10); its in-strip test and slot test are
+# loop control.
+OPS_PER_STEP = {"walk_moves": 10, "walk_moves_affine": 18, "walk_strip_level": 10}
 LANE_BYTES = 8 + 12  # per lane: two int32 lengths in, (score, i, j) out
 # The DNA path's scoring: solve_small's defaults, and BWA-MEM's affine
 # scoring (a gap of length L costs gap_open + L * gap).
@@ -119,6 +138,9 @@ BWA_FLAGS = ["--match", "1", "--mismatch", "-4", "--gap-open", "6", "--gap-penal
 # The protein path's gaps: the uniprot_e2e linear 12, and swps3's affine 10/2.
 PROTEIN_LINEAR = dict(gap=12)
 PROTEIN_AFFINE = dict(gap_open=10, gap=2)
+# solve_big's defaults: 100 reads of 10,000 bp against a 30,000-bp reference
+# in 2 x 7 windows of overlap ratio 2.0, linear 3/-3/2 scoring.
+BIG = dict(ref_len=30_000, read_len=10_000, n_reads=100, npiece=7, overlap=2.0)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -310,27 +332,37 @@ def check_kernels(reads, ref, batch: int, clock: float, dev, kw):
     return out
 
 
-def oracle_matrix(read: str, ref: str, gap=2, sub=None):
-    """Dense (m+1, n+1) Smith-Waterman matrix in numpy, one column at a
-    time: the in-column north chain H[i] = max(E[i], H[i-1] - gap) is a
-    prefix max of E[i] + gap*i (the method of the JAX package's numpy
-    oracle, ops/oracle.sw_score_fast, kept here so this script depends only
-    on the port). ``sub`` is None for uniform +3/-3 scoring, else a (256,
-    256) score table indexed by byte pair (``byte_pair_scores``)."""
+def oracle_columns(read: str, ref: str, gap=2, sub=None, dtype=None):
+    """The columns H(., j), j = 1..n, of the Smith-Waterman matrix in numpy,
+    one (m+1,) array at a time (the same array, updated in place): the
+    in-column north chain H[i] = max(E[i], H[i-1] - gap) is a prefix max of
+    E[i] + gap*i (the method of the JAX package's numpy oracle,
+    ops/oracle.sw_score_fast, kept here so this script depends only on the
+    port). ``sub`` is None for uniform +3/-3 scoring, else a (256, 256) score
+    table indexed by byte pair (``byte_pair_scores``)."""
     import numpy as np
 
     x = np.frombuffer(read.encode(), np.uint8)
-    y = np.frombuffer(ref.encode(), np.uint8)
     if sub is None:
         column = lambda yb: np.where(x == yb, 3, -3)
     else:
         rows = sub[x]  # (m, 256): the score of x_i against each byte
         column = lambda yb: rows[:, yb]
-    H = np.zeros((len(x) + 1, len(y) + 1), np.int64)
-    gi = gap * np.arange(1, len(x) + 1)
-    for j in range(1, len(y) + 1):
-        e = np.maximum(H[:-1, j - 1] + column(y[j - 1]), np.maximum(H[1:, j - 1] - gap, 0))
-        H[1:, j] = np.maximum.accumulate(e + gi) - gi
+    h = np.zeros(len(x) + 1, dtype or np.int64)
+    gi = gap * np.arange(1, len(x) + 1, dtype=h.dtype)
+    for yb in np.frombuffer(ref.encode(), np.uint8):
+        e = np.maximum(h[:-1] + column(yb), np.maximum(h[1:] - gap, 0))
+        h[1:] = np.maximum.accumulate(e + gi) - gi
+        yield h
+
+
+def oracle_matrix(read: str, ref: str, gap=2, sub=None, dtype=None):
+    """The dense (m+1, n+1) matrix of ``oracle_columns``."""
+    import numpy as np
+
+    H = np.zeros((len(read) + 1, len(ref) + 1), dtype or np.int64)
+    for j, col in enumerate(oracle_columns(read, ref, gap, sub, dtype), 1):
+        H[:, j] = col
     return H
 
 
@@ -357,11 +389,11 @@ def oracle_best(H):
     return int(H[i, j]), i, j
 
 
-def oracle_align(read: str, ref: str, gap=2, sub=None):
+def oracle_align(read: str, ref: str, gap=2, sub=None, dtype=None):
     """(score, pos, consensus_x, consensus_y): first maximum in column-major
     order, then the greedy NW >= W >= N walk that stops on the first cell with
     a zero neighbour (consensus reversed, '-' for gaps)."""
-    H = oracle_matrix(read, ref, gap, sub)
+    H = oracle_matrix(read, ref, gap, sub, dtype)
     score, i, j = oracle_best(H)
     if score <= 0:
         return score, 0, "", ""
@@ -812,8 +844,259 @@ def protein_phase(args, card: str, clock: float, dev):
     return measured, launches
 
 
-# K1-K10: (wrapper, source, the TPU code it replaces, gap model, the main
-# path's case that the JSON line quotes first).
+def mutated_reads(reads, seed: int):
+    """Each read with about 1% substitutions and three 1-3 bp indels at
+    random places, so that the walks take gaps across strip edges."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    out = []
+    for read in reads:
+        seg = np.frombuffer(read.encode(), np.uint8).copy()
+        subs = rng.random(seg.shape[0]) < 0.01
+        seg[subs] = rng.choice(acgt, int(subs.sum()))
+        for _ in range(3):
+            size, at = int(rng.integers(1, 4)), int(rng.integers(20, seg.shape[0] - 20))
+            if rng.random() < 0.5:
+                seg = np.concatenate([seg[:at], rng.choice(acgt, size), seg[at:]])
+            else:
+                seg = np.concatenate([seg[:at], seg[at + size :]])
+        out.append(seg.tobytes().decode())
+    return out
+
+
+def check_strip_kernels(reads, ref, clock: float, dev):
+    """Long-read phase: K11 (the 1,400-lane window sweep, held on one read's
+    14 lanes; and every lane of a reduced 1,400 x 2,304 x 4,608 shape), K12
+    (the 100 winners, held on 4), K13 and K14 (the top, a middle and the
+    bottom strip of the winners' traceback, every lane) against their plain
+    versions at the main path's shapes. Returns {kernel: {case: measurements}}."""
+    import numpy as np
+    import torch
+
+    from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
+    from parallel_genomeseq_tpu_torch.ops import scan_dp, strips_cuda, traceback
+    from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkConfig, ChunkedAligner
+
+    S = scan_dp.STRIP_S
+    k11, k12, k13, k14 = (strips_cuda.sw_score_strips, strips_cuda.sw_score_strips_ckpt,
+                          strips_cuda.strip_moves, traceback.walk_strip_level)
+    out = {fn.__name__: {} for fn in (k11, k12, k13, k14)}
+    chunked = ChunkedAligner(chunk=ChunkConfig(npiece=2 * BIG["npiece"],
+                                               overlap_ratio=BIG["overlap"]), device=dev)
+
+    def on_card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+    def sweep_case(label, xs, ys, m, n, held):
+        """K11 on every lane, held against the plain sweep on lanes ``held``."""
+        got = k11(xs, ys, m, n, **LINEAR)
+        want, plain_ms = timed(lambda: scan_dp.sw_score_plain(
+            xs[held], ys[held], m[held], n[held], **LINEAR))
+        cells, seq_bytes = lane_work(m, n)
+        rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}",
+               "max_abs_err": max_abs_err([g[held] for g in got], want),
+               "ms": cuda_ms(lambda: k11(xs, ys, m, n, **LINEAR), 3), "plain_ms": plain_ms,
+               "plain_lanes": int(m[held].shape[0])}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            cells * OPS_PER_CELL["sw_score_strips"], seq_bytes + LANE_BYTES * xs.shape[0], clock)
+        out[k11.__name__][label] = rec
+        report("K11 sw_score_strips", label, rec)
+        return got
+
+    # The stage-A window sweep: 100 reads x 14 windows at full width.
+    xs, ys, m, n, all_ranges = chunked.window_lanes(reads, ref)
+    xs, ys, m, n = on_card(xs, ys, m, n)
+    got = sweep_case("sweep", xs, ys, m, n, slice(0, 2 * BIG["npiece"]))
+    scores = got[0].cpu().numpy().reshape(len(reads), -1)
+    del xs, ys
+    # A reduced shape whose every lane the plain sweep can hold: each read's
+    # first 2,304 bases against 14 windows of 4,608.
+    rng = np.random.default_rng(1)
+    lanes = [(r, int(rng.integers(0, len(ref) - 4608))) for r in range(len(reads))
+             for _ in range(2 * BIG["npiece"])]
+    xr = np.stack([np.frombuffer(reads[r][:2304].encode(), np.uint8) for r, _ in lanes])
+    yr = np.stack([np.frombuffer(ref[o : o + 4608].encode(), np.uint8) for _, o in lanes])
+    xr, yr, mr, nr = on_card(xr, yr, np.full(len(lanes), 2304, np.int32),
+                             np.full(len(lanes), 4608, np.int32))
+    sweep_case("reduced", xr, yr, mr, nr, slice(None))
+    del xr, yr
+
+    # The winner re-run: K12 on the 100 winning windows, held on 4 lanes.
+    winner = scores.argmax(axis=1)
+    win_refs = [ref[slice(*all_ranges[r][w])] for r, w in enumerate(winner)]
+    aligner = BatchSWAligner(device=dev)
+    xs, ys, m, n = on_card(*aligner.pad_batch(reads, win_refs))
+    got = k12(xs, ys, m, n, **LINEAR)
+    held = slice(0, 4)
+    want, plain_ms = timed(lambda: scan_dp.sw_score_ckpt_plain(
+        xs[held], ys[held], m[held], n[held], **LINEAR))
+    cells, seq_bytes = lane_work(m, n)
+    rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}, checkpoints "
+                    f"{got[3].numel() * 4 / 1e9:.3f} GB",
+           "max_abs_err": max_abs_err([g[held] for g in got], want), "plain_ms": plain_ms,
+           "plain_lanes": 4}
+    del want
+    rec["ms"] = cuda_ms(lambda: k12(xs, ys, m, n, **LINEAR), 3)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        cells * OPS_PER_CELL["sw_score_strips_ckpt"],
+        seq_bytes + LANE_BYTES * xs.shape[0] + got[3].numel() * 4, clock)
+    out[k12.__name__]["winners"] = rec
+    report("K12 sw_score_strips_ckpt", "winners", rec)
+
+    # K13 and K14 through every strip of the winners' traceback, top first;
+    # held against the plain replay and walk on the top, a middle and the
+    # bottom strip.
+    _, i, j, ck = got
+    B, M = xs.shape
+    N = ys.shape[1]
+    x_mb = xs.T.contiguous()
+    steps_cap = aligner.max_steps(M, N)
+    state = traceback.new_strip_state(i, j, steps_cap)
+    nstrips = -(-M // S)
+    checked = {nstrips - 1: "top", nstrips // 2: "middle", 0: "bottom"}
+    r = torch.arange(S, device=dev)
+    for s in range(nstrips - 1, -1, -1):
+        rowin = ck[:, s - 1] if s else None
+        moves = k13(xs, ys, m, n, rowin, s * S, **LINEAR)
+        if s not in checked:
+            k14(moves, x_mb, ys, s * S, state, max_steps=steps_cap)
+            continue
+        label = checked[s]
+        want, plain_ms = timed(lambda: scan_dp.strip_moves_plain(
+            xs, ys, m, n, rowin, s * S, **LINEAR))
+        valid = (((s * S + r)[None, None, :] < m[:, None, None])
+                 & (torch.arange(N, device=dev)[None, :, None] < n[:, None, None]))
+        err = int((moves[valid].int() - want[valid].int()).abs().max())
+        if err:
+            raise AssertionError(f"K13 strip {s}: move codes differ on valid cells")
+        del want, valid
+        rows = (m - s * S).clamp(0, S).long()
+        cells = int((rows * n.long()).sum())
+        rec = {"shape": f"strip {s} of {nstrips}, {B} lanes, N={N}, moves "
+                        f"{moves.numel() / 1e9:.3f} GB", "max_abs_err": err,
+               "ms": cuda_ms(lambda: k13(xs, ys, m, n, rowin, s * S, **LINEAR), 3),
+               "plain_ms": plain_ms}
+        # Read the strip's read bytes, the references and the checkpoint row;
+        # write one move byte per cell.
+        rec["bound_ms"], rec["bound_by"] = bound(
+            cells * OPS_PER_CELL["strip_moves"],
+            int(rows.sum()) + int(n.long().sum()) * (5 if s else 1) + cells, clock)
+        out[k13.__name__][label] = rec
+        report("K13 strip_moves", label, rec)
+        # K14 on a copy of the state against the plain walk on another.
+        before = state[4].clone()
+        plain_state = tuple(a.clone() for a in state)
+        probe = tuple(a.clone() for a in state)
+        _, walk_ms = timed(lambda: k14(moves, x_mb, ys, s * S, probe, max_steps=steps_cap))
+        k14(moves, x_mb, ys, s * S, state, max_steps=steps_cap)
+        _, plain_ms = timed(lambda: traceback._walk_strip_plain(
+            moves, x_mb, ys, s * S, plain_state, steps_cap))
+        walked = int((state[4] - before).sum())
+        rec = {"shape": f"strip {s}, {B} lanes, {walked} steps", "ms": walk_ms,
+               "plain_ms": plain_ms, "max_abs_err": max_abs_err(state, plain_state)}
+        max_abs_err(probe, state)
+        # Per step read one move code and two sequence bytes, write two
+        # consensus bytes; per lane the state in and out.
+        rec["bound_ms"], rec["bound_by"] = bound(
+            walked * OPS_PER_STEP["walk_strip_level"], 5 * walked + 2 * 17 * B, clock)
+        out[k14.__name__][label] = rec
+        report("K14 walk_strip_level", label, rec)
+        del moves
+    if bool(state[3].any()):
+        raise AssertionError("a lane's walk did not end at the bottom strip")
+    torch.cuda.empty_cache()
+    return out
+
+
+def big_run(label, flags, counters, reads_path, ref_path):
+    """Drive the port's solve_big once with the counts of ``counters`` set
+    to 0 just before the run and read just after. Returns (its Run, the
+    launches)."""
+    from parallel_genomeseq_tpu_torch.cli import solve_big
+
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run = solve_big.run(flags + ["--ref", str(ref_path), "--reads", str(reads_path)])
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"launches during solve_big {label}: {launches} "
+          f"({time.perf_counter() - t0:.1f} s with data reading)")
+    if run.rc != 0 or min(launches.values()) < 1:
+        raise AssertionError(f"solve_big {label}: rc {run.rc}, launches {launches}")
+    return run, launches
+
+
+def check_long_oracle(reads, ref, results, seed: int, count: int = 2):
+    """Sampled reads of the traceback run against the numpy oracle: the
+    winning window (first on ties) by the best score in each, then on it the
+    score, pos and both consensus strings of the greedy walk."""
+    import numpy as np
+
+    from parallel_genomeseq_tpu_torch.parallel.chunking import make_string_ranges
+
+    for k in np.random.default_rng(seed).choice(len(reads), count, replace=False):
+        read = reads[k]
+        ranges = make_string_ranges(2 * BIG["npiece"], len(read), len(ref), BIG["overlap"])
+        best = [max(int(c.max()) for c in oracle_columns(read, ref[l:r], dtype=np.int32))
+                for l, r in ranges]
+        win = int(np.argmax(best))
+        left, right = ranges[win]
+        score, pos, cx, cy = oracle_align(read, ref[left:right], dtype=np.int32)
+        pos = pos + left if pos > 0 else 0
+        res = results[k]
+        got = (int(res.score), res.pos, res.consensus_x, res.consensus_y)
+        if got != (score, pos, cx, cy):
+            raise AssertionError(f"long read {k}: port (score {got[0]}, pos {got[1]}, "
+                                 f"{len(cx)}-column walk) != oracle ({score}, {pos})")
+        print(f"oracle check: long read {k} (window {win}) agrees: score {score}, pos {pos}, "
+              f"{len(cx)} columns, {cx.count('-') + cy.count('-')} gap columns")
+
+
+def long_phase(args, card: str, clock: float, dev):
+    """Phase 6: solve_big's default width. Returns (measurements, launches
+    keyed by kernel over both runs, the runs' launches)."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda, traceback
+    from parallel_genomeseq_tpu_torch.seqio.datagen import gen_reads_custom, gen_ref_custom
+
+    t_phase = time.perf_counter()
+    data = ROOT / "data" / "chip_smoke" / "big"
+    data.mkdir(parents=True, exist_ok=True)
+    ref = gen_ref_custom(data / "ref.fa", ref_len=BIG["ref_len"], seed=0)
+    exact = [s for s, _ in gen_reads_custom(ref, data / "reads.csv", n_reads=BIG["n_reads"],
+                                            read_len=BIG["read_len"])]
+    mutated = mutated_reads(exact, args.seed + 1)
+    with open(data / "mutated.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["index", "QNAME", "SEQ", "POS"])
+        w.writerows([k, f"mutated-{k}", s, 0] for k, s in enumerate(mutated))
+    print(f"long-read data: {len(exact)} reads x {BIG['read_len']} bp (and a mutated copy, "
+          f"{min(map(len, mutated))}-{max(map(len, mutated))} bp) vs {len(ref)}-bp reference")
+    measured = check_strip_kernels(mutated, ref, clock, dev)
+
+    k11 = strips_cuda.sw_score_strips
+    tb = (k11, strips_cuda.sw_score_strips_ckpt, strips_cuda.strip_moves,
+          traceback.walk_strip_level)
+    base = [str(BIG["npiece"]), "--device", str(dev)]
+    score_run, score_launches = big_run(
+        "7 3", base[:1] + ["3"] + base[1:], (k11,), data / "reads.csv", data / "ref.fa")
+    tb_run, tb_launches = big_run(
+        "7 1 --traceback", base[:1] + ["1", "--traceback"] + base[1:], tb,
+        data / "mutated.csv", data / "ref.fa")
+    print(f"solve_big on {card}: score-only {score_run.seconds[0] * 1e3:.1f} ms, "
+          f"{score_run.gcups[0]:.3f} GCUPS; with traceback {tb_run.seconds[0] * 1e3:.1f} ms, "
+          f"{tb_run.gcups[0]:.3f} GCUPS")
+    check_long_oracle(mutated, ref, tb_run.results, args.seed)
+    print(f"long-read phase: {time.perf_counter() - t_phase:.1f} s")
+    launches = {k11.__name__: score_launches[k11.__name__] + tb_launches[k11.__name__],
+                **{fn.__name__: tb_launches[fn.__name__] for fn in tb[1:]}}
+    return measured, launches, {"solve_big_7_3": score_launches,
+                                "solve_big_traceback": tb_launches}
+
+
+# K1-K14: (wrapper, source, the TPU code it replaces, gap model or phase,
+# the main path's case that the JSON line quotes first).
 KERNELS = [
     ("sw_score", "wavefront.cu", f"{PALLAS}:160", "linear", "score_only"),
     ("sw_score_moves", "wavefront.cu", f"{PALLAS}:535", "linear", "windows"),
@@ -827,6 +1110,11 @@ KERNELS = [
     ("sw_profile_affine_moves", "profile.cu", f"{PALLAS}:724", "affine", "top10"),
     ("walk_moves_affine", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:93", "affine",
      "windows"),
+    ("sw_score_strips", "strips.cu", f"{PALLAS}:1073", "long", "sweep"),
+    ("sw_score_strips_ckpt", "strips.cu", f"{PALLAS}:1134", "long", "winners"),
+    ("strip_moves", "strips.cu", f"{PALLAS}:1792", "long", "top"),
+    ("walk_strip_level", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:167", "long",
+     "top"),
 ]
 
 
@@ -858,12 +1146,18 @@ def kernel_line(name, src, replaces, cases, main, launches):
     return entry
 
 
-def kernel_entries(dna, dna_launches, protein, protein_launches):
-    """The kernels JSON line's entries, K1-K10, from both phases'
-    measurements and launches (keyed by gap model, then kernel)."""
+def kernel_entries(dna, dna_launches, protein, protein_launches, long, long_launches,
+                   long_runs):
+    """The kernels JSON line's entries, K1-K14, from the phases'
+    measurements and launches (keyed by gap model, then kernel; the
+    long-read phase's by kernel, with each solve_big run's launches)."""
     kernels = []
     for name, src, replaces, gaps, main_case in KERNELS:
-        if name.startswith("walk_moves"):  # both paths walk
+        if gaps == "long":
+            entry = kernel_line(name, src, replaces, long[name], main_case, long_launches[name])
+            entry.update({f"launches_{run}": n[name] for run, n in long_runs.items()
+                          if name in n})
+        elif name.startswith("walk_moves"):  # both paths walk
             cases = {**dna[gaps][name], **protein[gaps][name]}
             on_dna, on_protein = dna_launches[gaps][name], protein_launches[gaps][name]
             entry = kernel_line(name, src, replaces, cases, main_case, on_dna + on_protein)
@@ -911,8 +1205,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     dna, dna_launches = dna_phase(args, card, clock, dev)
     protein, protein_launches = protein_phase(args, card, clock, dev)
+    long, long_launches, long_runs = long_phase(args, card, clock, dev)
 
-    print(json.dumps({"kernels": kernel_entries(dna, dna_launches, protein, protein_launches)}))
+    print(json.dumps({"kernels": kernel_entries(dna, dna_launches, protein, protein_launches,
+                                                long, long_launches, long_runs)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
 // K3: batched greedy traceback walk over the (D, M, B) move codes of K2/K5.
 // K10: the affine (Gotoh) walk over the move bytes of K7/K9.
+// K14: the walk through one row-strip of a long read (K13's moves).
 //
 // Not a Pallas kernel. It replaces the JAX `lax.fori_loop` of per-step
 // gathers in parallel_genomeseq_tpu/ops/traceback.py `walk_moves` (:31), which
@@ -27,7 +28,22 @@
 // every active step emits one column and row `it` of cx/cy is still the
 // step's slot.
 //
-// What bounds both walks on the H100: one dependent gather from the moves
+// K14 replaces `walk_strip_level` (parallel_genomeseq_tpu/ops/traceback.py
+// :167-218), the JAX `fori_loop` that advances the walk through one row-strip
+// of a long read's matrix: K3's rule, one thread per lane, over the moves of
+// one strip (K13's (B, N, 256) layout, moves[b][j - 1][i - 1 - base]), with
+// the lane's state (i, j, pos, active, steps, cx, cy) read and written back
+// in place so that it carries from one strip to the next, top strip first.
+// A lane walks while it is active and its row lies in the strip; the slot of
+// an emission is the lane's step count (lanes progress unevenly), and an
+// emission past max_steps is dropped while the count goes on, as
+// traceback.py:206-209 does. The JAX loop's fixed trip count (S + west_slack)
+// and the rerun loop around it (wavefront_pallas.py:2746-2756) are TPU
+// artefacts: this loop ends when the lane leaves the strip or stops. It is
+// capped at S + N steps per strip, more than any walk inside the matrix takes
+// there, so that a walk started outside a lane's matrix still ends.
+//
+// What bounds the walks on the H100: one dependent gather from the moves
 // plane per step and lane (a latency chain, not bandwidth); a walk is a few
 // hundred steps, microseconds beside the sweep that feeds it.
 
@@ -147,7 +163,78 @@ __global__ void walk_moves_affine_kernel(const uint8_t* __restrict__ moves,
   steps[b] = count;
 }
 
+constexpr int kStrip = 256;  // strip height of K13's moves
+
+__global__ void walk_strip_kernel(const uint8_t* __restrict__ moves,
+                                  const uint8_t* __restrict__ x_mb,
+                                  const uint8_t* __restrict__ y_bn, int M,
+                                  int N, int B, int base, int max_steps,
+                                  int32_t* __restrict__ I,
+                                  int32_t* __restrict__ J,
+                                  int32_t* __restrict__ pos,
+                                  uint8_t* __restrict__ active,
+                                  int32_t* __restrict__ steps,
+                                  uint8_t* __restrict__ cx,
+                                  uint8_t* __restrict__ cy) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  int i = I[b];
+  int j = J[b];
+  int p = pos[b];
+  int count = steps[b];
+  bool act = active[b] != 0;
+  const uint8_t* mvl = moves + (size_t)b * N * kStrip;
+  for (int it = 0; act && i - 1 >= base && it < kStrip + N; ++it) {
+    const int r = clampi(i - 1 - base, 0, kStrip - 1);
+    const int c = clampi(j - 1, 0, N - 1);
+    const uint8_t mv = mvl[(size_t)c * kStrip + r];
+    const bool stop = (mv & 4) != 0;
+    const int code = mv & 3;
+    const bool go_w = code == 1 && !stop;
+    const bool go_n = code == 2 && !stop;
+    if (count < max_steps) {
+      cx[(size_t)count * B + b] = go_w ? kGap : x_mb[(size_t)clampi(i - 1, 0, M - 1) * B + b];
+      cy[(size_t)count * B + b] = go_n ? kGap : y_bn[(size_t)b * N + c];
+    }
+    ++count;
+    if (stop) {
+      p = j;
+      act = false;
+    } else {
+      i -= go_w ? 0 : 1;
+      j -= go_n ? 0 : 1;
+    }
+  }
+  I[b] = i;
+  J[b] = j;
+  pos[b] = p;
+  steps[b] = count;
+  active[b] = act ? 1 : 0;
+}
+
 }  // namespace
+
+// K14's entry point: moves (B, N, 256) uint8, x_mb (M, B), y_bn (B, N) uint8,
+// base the strip's first row; the state i, j, pos, steps (B,) int32, active
+// (B,) bool and cx, cy (max_steps, B) uint8 are updated in place. Returns
+// cudaGetLastError() after the launch.
+extern "C" int pgs_walk_strip(const void* moves, const void* x_mb,
+                              const void* y_bn, int M, int N, int B, int base,
+                              int max_steps, void* i, void* j, void* pos,
+                              void* active, void* steps, void* cx, void* cy,
+                              void* stream) {
+  if (B > 0) {
+    walk_strip_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(moves), static_cast<const uint8_t*>(x_mb),
+        static_cast<const uint8_t*>(y_bn), M, N, B, base, max_steps,
+        static_cast<int32_t*>(i), static_cast<int32_t*>(j),
+        static_cast<int32_t*>(pos), static_cast<uint8_t*>(active),
+        static_cast<int32_t*>(steps), static_cast<uint8_t*>(cx),
+        static_cast<uint8_t*>(cy));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Plain C entry points, bound with ctypes, one per walk (K3, K10). Device
 // pointers to contiguous tensors: moves (D, M, B) uint8, x_mb (M, B) uint8,

@@ -1,10 +1,14 @@
 """Smith-Waterman aligner API, batch-first: the port of the JAX package's
-``models/swaligner.py`` (:59-354) for the single-strip path.
+``models/swaligner.py`` (:59-354).
 
 Per batch: K2 (uniform scoring) or K5 (a substitution matrix), through
 ``CudaEngine.score_batch_moves``, computes score, argmax and move codes in
 one pass for every read length up to 2,048, K3 (``walk_moves``) walks every
-lane (``engine="plain"`` runs the plain versions of all three); under affine
+lane (``engine="plain"`` runs the plain versions of all three). A traceback
+batch of longer reads (linear uniform scoring) takes the checkpointed strip
+traceback, ``score_batch_strip_moves`` (K12, then K13 and K14 strip by
+strip), as swaligner.py:175-192 does, its per-strip times in
+``Timings.levels_us``; a score-only one takes K11. Under affine
 gaps (``cfg.is_affine``) K7 or K9 emit the affine move bytes and K10
 (``walk_moves_affine``) walks them, as swaligner.py:241, 264 choose. The
 JAX package's affine envelopes (``AFFINE_MOVES_MAX_M``,
@@ -25,7 +29,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..ops.engine import check_supported, make_score_engine
+from ..ops.engine import MAX_M, check_supported, make_score_engine
 from ..ops.traceback import decode_consensus
 from ..utils.config import ScoringConfig
 from ..utils.device import to_host
@@ -120,17 +124,23 @@ class BatchSWAligner:
         dev = self.device
         xs_d = torch.from_numpy(xs).to(dev)
         ys_d = torch.from_numpy(ys).to(dev)
-        if traceback:
+        levels_us = ()
+        max_steps = self.max_steps(xs.shape[1], ys.shape[1])
+        if traceback and xs.shape[1] > MAX_M:
+            res = self.engine.score_batch_strip_moves(xs_d, ys_d, m, n, max_steps)
+            arrays = tuple(res[k] for k in ("score", "i", "j", "pos", "cx", "cy", "steps"))
+            levels_us = res["level_us"]
+        elif traceback:
             res = self.engine.score_batch_moves(xs_d, ys_d, m, n)
             pos, cx, cy, steps = self.engine.walk(
                 res["moves"], xs_d.T.contiguous(), ys_d, res["i"], res["j"],
-                max_steps=self.max_steps(xs.shape[1], ys.shape[1]),
+                max_steps=max_steps,
             )
             arrays = (res["score"], res["i"], res["j"], pos, cx, cy, steps)
         else:
             res = self.engine.score_batch(xs_d, ys_d, m, n)
             arrays = (res["score"], res["i"], res["j"])
-        return _PendingBatch(len(reads), traceback, t0, arrays)
+        return _PendingBatch(len(reads), traceback, t0, arrays, levels_us)
 
     def collect(self, pending: "_PendingBatch") -> List[AlignResult]:
         """Wait for a pending batch: one host copy of every output, one
@@ -148,21 +158,23 @@ class BatchSWAligner:
             walk_us = 0.0
         return _assemble(
             pending.nreads, pending.traceback, score, ii, jj, pos, consensus,
-            Timings(sweep_us=sweep_us, walk_us=walk_us),
+            Timings(sweep_us=sweep_us, walk_us=walk_us, levels_us=pending.levels_us),
         )
 
 
 class _PendingBatch:
     """An in-flight batch: dispatched device tensors awaiting one fetch
-    (copied from swaligner.py:299-310, without the synchronous variant)."""
+    (copied from swaligner.py:299-310, without the synchronous variant), and
+    the strip traceback's per-strip times."""
 
-    __slots__ = ("nreads", "traceback", "t0", "arrays")
+    __slots__ = ("nreads", "traceback", "t0", "arrays", "levels_us")
 
-    def __init__(self, nreads, traceback, t0, arrays):
+    def __init__(self, nreads, traceback, t0, arrays, levels_us=()):
         self.nreads = nreads
         self.traceback = traceback
         self.t0 = t0
         self.arrays = arrays
+        self.levels_us = levels_us
 
 
 def _assemble(nreads, traceback, score, ii, jj, pos, consensus, t: Timings):

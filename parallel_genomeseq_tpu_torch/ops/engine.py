@@ -1,16 +1,20 @@
 """Score engines: the contract of the JAX package's ``PallasEngine`` that the
-ported slices use (``score_batch`` :2556, ``score_batch_moves`` :2575, and
-the resident database scan of ``score_db_slab_group_jit`` :2381), and
-``make_score_engine``, the counterpart of ``swaligner.py:33-56``.
+ported slices use (``score_batch`` :2556, ``score_batch_moves`` :2575,
+``score_batch_strip_moves`` :2668, and the resident database scan of
+``score_db_slab_group_jit`` :2381), and ``make_score_engine``, the
+counterpart of ``swaligner.py:33-56``.
 
 ``CudaEngine`` runs the kernel wrappers -- K1/K2 (``ops/wavefront_cuda``)
 for uniform scoring, K4/K5 (``ops/profile_cuda``) for a substitution matrix,
 and under affine (Gotoh) gaps their forms K6/K7 and K8/K9, walked by K3 or,
-affine, K10 (``ops/traceback``): CUDA tensors launch the kernels or raise,
-CPU tensors take the plain route. ``PlainEngine`` always runs the plain
-PyTorch wavefront (``ops/scan_dp``) and walk (``ops/traceback``), on either
-device. Inputs may be numpy arrays or tensors of raw bytes; results are
-tensors on the engine's device, unpadded (B lanes, (M + N - 1, M, B) moves).
+affine, K10 (``ops/traceback``); reads longer than MAX_M under linear
+uniform scoring go to the strip kernels K11 (score), K12 (checkpoints) and
+K13 (replay) of ``ops/strips_cuda``, walked strip by strip by K14. CUDA
+tensors launch the kernels or raise, CPU tensors take the plain route.
+``PlainEngine`` always runs the plain PyTorch wavefront (``ops/scan_dp``)
+and walks (``ops/traceback``), on either device. Inputs may be numpy arrays
+or tensors of raw bytes; results are tensors on the engine's device,
+unpadded (B lanes, (M + N - 1, M, B) moves).
 
 Configurations outside the ported slices raise NotImplementedError naming
 the ROADMAP item that ports them; none is rerouted.
@@ -18,13 +22,18 @@ the ROADMAP item that ports them; none is rerouted.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from ..utils.config import ScoringConfig, Semantics
 from ..utils.device import resolve_device
-from . import profile_cuda, scan_dp, traceback, wavefront_cuda
+from . import profile_cuda, scan_dp, strips_cuda, traceback, wavefront_cuda
 
-MAX_M = 2048  # single-strip read-length cap of the JAX kernels (wavefront_pallas.py:55)
+# Single-strip read-length cap of the JAX kernels (wavefront_pallas.py:55):
+# longer reads take the strip path (wavefront_pallas.py:3001), here too.
+MAX_M = 2048
+STRIP_S = scan_dp.STRIP_S
 
 
 def check_supported(cfg: ScoringConfig, tie: str = "colmajor"):
@@ -46,11 +55,12 @@ def _as_tensor(a, dtype, device):
     return t.to(device=device, dtype=dtype)
 
 
-def _check_length(rows: int, what: str):
-    if rows > MAX_M:
+def _check_length(cfg: ScoringConfig, rows: int, what: str):
+    """Strip-length inputs run under linear uniform scoring only."""
+    if rows > MAX_M and (cfg.is_affine or not cfg.is_uniform):
         raise NotImplementedError(
-            f"{what} longer than {MAX_M} (strip kernels) are not ported yet: "
-            "ROADMAP A10"
+            f"{what} longer than {MAX_M} under affine or substitution-matrix "
+            "scoring (their strip kernels) are not ported yet: ROADMAP A10"
         )
 
 
@@ -74,7 +84,7 @@ class _Engine:
 
     def _inputs(self, x_bm, y_bn, m, n):
         xs = _as_tensor(x_bm, torch.uint8, self.device)
-        _check_length(xs.shape[1], "reads")
+        _check_length(self.cfg, xs.shape[1], "reads")
         ys = _as_tensor(y_bn, torch.uint8, self.device)
         if not self.cfg.is_uniform:  # raw bytes -> compact codes
             xs, ys = self._lut[xs.long()], self._lut[ys.long()]
@@ -87,7 +97,11 @@ class _Engine:
         """Per-lane 'score', 'i', 'j' (int32); need_pos=False gives
         i = j = 0, as the JAX engine does (:3171-3175)."""
         xs, ys, m, n = self._inputs(x_bm, y_bn, m, n)
-        if self.cfg.is_uniform:
+        if xs.shape[1] > MAX_M:
+            score, i, j = self._strips(xs, ys, m, n)
+            if not need_pos:
+                i, j = torch.zeros_like(i), torch.zeros_like(j)
+        elif self.cfg.is_uniform:
             score, i, j = self._uniform(xs, ys, m, n, need_pos)
         else:
             score, i, j = self._profile(xs, ys, m, n, None)
@@ -103,6 +117,53 @@ class _Engine:
         )
         return {"score": score, "i": i, "j": j, "moves": moves}
 
+    def score_batch_strip_moves(self, x_bm, y_bn, m, n, max_steps: int):
+        """Score, argmax and the whole greedy walk for reads longer than
+        MAX_M (linear uniform scoring), in checkpoint memory rather than
+        the (M + N - 1, M, B) move tensor: one checkpointing sweep (K12),
+        then for each strip of STRIP_S rows from the bottom of the matrix
+        up, its moves replayed from the checkpoint above it (K13) and every
+        lane inside it walked (K14), as wavefront_pallas.py:2668-2764.
+
+        One host sync per strip decides whether any lane reaches it (a strip
+        no lane reaches is skipped), and ends the previous strip's timing;
+        one more ends the last. Returns per-lane 'score', 'i', 'j', 'pos',
+        'steps' (B,) int32, 'cx', 'cy' (max_steps, B) uint8, and
+        'level_us', each strip's replay-and-walk microseconds, top strip
+        (largest rows) first, 0 where skipped."""
+        xs, ys, m, n = self._inputs(x_bm, y_bn, m, n)
+        if xs.shape[1] <= MAX_M:
+            raise ValueError(f"the strip path is for reads longer than {MAX_M}")
+        score, i, j, ck = self._strips_ckpt(xs, ys, m, n)
+        x_mb = xs.T.contiguous()
+        state = traceback.new_strip_state(i, j, max_steps)
+        active, cur = state[3], state[0]
+        nstrips = -(-xs.shape[1] // STRIP_S)
+        level_us = [0.0] * nstrips
+        timing = None  # (level, start) of the strip in flight
+        for s in range(nstrips - 1, -1, -1):
+            base = s * STRIP_S
+            reach, any_active = torch.stack(
+                [(active & (cur - 1 >= base)).any(), active.any()]).tolist()
+            if timing is not None:
+                level_us[timing[0]] = (time.perf_counter() - timing[1]) * 1e6
+                timing = None
+            if not any_active:
+                break
+            if not reach:
+                continue
+            timing = (nstrips - 1 - s, time.perf_counter())
+            rowin = ck[:, s - 1] if s > 0 else None
+            moves = self._strip_moves(xs, ys, m, n, rowin, base)
+            self._strip_walk(moves, x_mb, ys, base, state, max_steps)
+            del moves
+        if timing is not None:
+            bool(active.any())  # sync: the last strip's work is done
+            level_us[timing[0]] = (time.perf_counter() - timing[1]) * 1e6
+        _, _, pos, _, steps, cx, cy = state
+        return {"score": score, "i": i, "j": j, "pos": pos, "cx": cx, "cy": cy,
+                "steps": steps, "level_us": tuple(level_us)}
+
     def score_slab(self, query_codes, slab, y_off, lens):
         """The database scan: one query (M,) of compact codes against every
         lane of a resident (R,) code slab, lane b = ``slab[y_off[b] :
@@ -110,7 +171,7 @@ class _Engine:
         1-based entry index of the maximum."""
         if self.cfg.is_uniform:
             raise ValueError("the slab scan needs a substitution-matrix config")
-        _check_length(query_codes.shape[0], "queries")
+        _check_length(self.cfg, query_codes.shape[0], "queries")
         m = torch.full_like(lens, query_codes.shape[0])
         return self._profile(query_codes, slab, m, lens, y_off)
 
@@ -146,6 +207,18 @@ class CudaEngine(_Engine):
     def walk(self, moves, x_mb, y_bn, i0, j0, max_steps: int):
         return self._walk(moves, x_mb, y_bn, i0, j0, max_steps=max_steps)
 
+    def _strips(self, xs, ys, m, n):
+        return strips_cuda.sw_score_strips(xs, ys, m, n, **self._kw)
+
+    def _strips_ckpt(self, xs, ys, m, n):
+        return strips_cuda.sw_score_strips_ckpt(xs, ys, m, n, **self._kw)
+
+    def _strip_moves(self, xs, ys, m, n, rowin, base):
+        return strips_cuda.strip_moves(xs, ys, m, n, rowin, base, **self._kw)
+
+    def _strip_walk(self, moves, x_mb, ys, base, state, max_steps):
+        return traceback.walk_strip_level(moves, x_mb, ys, base, state, max_steps=max_steps)
+
 
 class PlainEngine(_Engine):
     """The plain PyTorch wavefront and walk on the engine's device."""
@@ -166,6 +239,18 @@ class PlainEngine(_Engine):
         walk = (traceback._walk_moves_affine_plain if self.cfg.is_affine
                 else traceback._walk_moves_plain)
         return walk(moves, x_mb, y_bn, i0, j0, max_steps)
+
+    def _strips(self, xs, ys, m, n):
+        return scan_dp.sw_score_plain(xs, ys, m, n, **self._kw)
+
+    def _strips_ckpt(self, xs, ys, m, n):
+        return scan_dp.sw_score_ckpt_plain(xs, ys, m, n, **self._kw)
+
+    def _strip_moves(self, xs, ys, m, n, rowin, base):
+        return scan_dp.strip_moves_plain(xs, ys, m, n, rowin, base, **self._kw)
+
+    def _strip_walk(self, moves, x_mb, ys, base, state, max_steps):
+        return traceback._walk_strip_plain(moves, x_mb, ys, base, state, max_steps)
 
 
 def make_score_engine(cfg: ScoringConfig = ScoringConfig(), name: str = "auto",

@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.encoding import Y_PAD
+from ..utils.encoding import X_PAD, Y_PAD
 
 # Traceback move codes (bits 0-1) and the stop flag (bit 2), as in the JAX
 # package's ops/scan_dp.py:83-86: NW if nw >= west and nw >= north, else W if
@@ -49,6 +49,10 @@ F_EXT_BIT = 16
 NEG = -(2**30)  # E and F where no gap run can reach
 
 _INT32_MAX = 2**31 - 1
+# Rows per strip of the long-read path: checkpoints are the H values of rows
+# kS - 1, and the traceback replays S rows at a time (B13/B17's STRIP_S,
+# wavefront_pallas.py:1030).
+STRIP_S = 256
 # Lanes per block of the plain K4 on a slab: each block is padded only to
 # its own longest entry, so a whole length-sorted database fits in memory.
 LANE_BLOCK = 4096
@@ -103,7 +107,8 @@ def table_scorer(table: torch.Tensor):
 
 
 def wavefront(x_mb, y_bn, m, n, *, score, gap: int, gap_open: int = 0,
-              track_pos: bool = True, emit_moves: bool = False):
+              track_pos: bool = True, emit_moves: bool = False, north=None,
+              keep=None):
     """Sweep all M + N - 1 diagonals.
 
     x_mb (M, B) uint8 reads, y_bn (B, N) uint8 refs, m/n (B,) int32 true
@@ -113,6 +118,11 @@ def wavefront(x_mb, y_bn, m, n, *, score, gap: int, gap_open: int = 0,
     (best (M, B), bestd (M, B), moves (D, M, B) uint8 or None). With
     track_pos=False bestd stays 0 (score-only sweep). ``gap_open`` > 0 runs
     ``wavefront_affine`` instead, with ``gap`` as the extension cost.
+
+    Linear only: ``north`` (B, N + 1) int32 is the H row above row 0 for
+    columns j = 0..N (zeros when None; a strip replay passes its checkpoint
+    row), and ``keep`` = (rows (K,) int64, out (K, D, B) int32) records the H
+    of those rows on every diagonal (a checkpointing sweep).
     """
     if gap_open > 0:
         return wavefront_affine(
@@ -135,16 +145,23 @@ def wavefront(x_mb, y_bn, m, n, *, score, gap: int, gap_open: int = 0,
     best = torch.zeros_like(h1)
     bestd = torch.zeros_like(h1)
     moves = torch.empty((D, M, B), dtype=torch.uint8, device=dev) if emit_moves else None
+    if north is not None:  # padded so that every diagonal reads a column
+        north = torch.cat([north.T, torch.zeros((M, B), dtype=torch.int32, device=dev)])
     for d in range(D):
         ywin = yr[N + M - 1 - d : N + 2 * M - 1 - d]
         sc = score(x_mb, ywin)
         h1s = _shift_down(h1)  # north (i-1, j)
         h2s = _shift_down(h2)  # nw    (i-1, j-1)
+        if north is not None:  # row 0's cell is j = d + 1
+            h1s[0] = north[d + 1]
+            h2s[0] = north[d]
         hd = torch.maximum(
             torch.maximum(h2s + sc, h1 - gap), torch.maximum(h1s - gap, zero)
         )
         valid = (rr <= d) & rowmask & (rr >= lo + d)
         hd = torch.where(valid, hd, zero)
+        if keep is not None:
+            keep[1][:, d] = hd[keep[0]]
         if track_pos:
             upd = hd > best  # strict: keeps the earliest diagonal (smallest j)
             best = torch.where(upd, hd, best)
@@ -271,6 +288,53 @@ def sw_score_moves_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int,
         gap_open=gap_open, emit_moves=True,
     )
     return (*reduce_best(best, bestd), moves)
+
+
+def sw_score_ckpt_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
+    """Plain version of the K12 kernel: K1's (score, i, j) on xs (B, M), ys
+    (B, N) plus the checkpoint rows (B, K, N) int32, K = ceil(M / STRIP_S) -
+    1: ck[b, k, j - 1] = H((k + 1) * STRIP_S, j) in 1-based rows, 0 outside
+    the lane's matrix."""
+    B, M = xs.shape
+    N = ys.shape[1]
+    K = max(0, -(-M // STRIP_S) - 1)
+    dev = xs.device
+    rows = (torch.arange(K, device=dev) + 1) * STRIP_S - 1
+    out = torch.zeros((K, M + N - 1, B), dtype=torch.int32, device=dev)
+    best, bestd, _ = wavefront(
+        xs.T, ys, m, n, score=uniform_scorer(match, mismatch), gap=gap, keep=(rows, out),
+    )
+    # Row r's cell in column j lies on diagonal r + j - 1.
+    d = rows[:, None] + torch.arange(N, device=dev)[None, :]
+    ck = out[torch.arange(K, device=dev)[:, None], d]  # (K, N, B)
+    return (*reduce_best(best, bestd), ck.permute(2, 0, 1).contiguous())
+
+
+def strip_moves_plain(xs, ys, m, n, rowin, base: int, *, match: int, mismatch: int,
+                      gap: int):
+    """Plain version of the K13 kernel: the move codes of the STRIP_S rows
+    [base, base + STRIP_S) of xs (B, M) against ys (B, N), recomputed from
+    ``rowin`` (B, N) int32, the H of row ``base`` (1-based) for j = 1..N (None
+    for the first strip: zeros). Returns (B, N, STRIP_S) uint8,
+    moves[b, j - 1, r] the code of cell (base + r + 1, j); rows past a lane's
+    m and columns past its n hold codes no walk reads."""
+    B, M = xs.shape
+    N = ys.shape[1]
+    S = STRIP_S
+    dev = xs.device
+    x = torch.full((B, S), X_PAD, dtype=torch.uint8, device=dev)
+    x[:, : max(0, min(S, M - base))] = xs[:, base : base + S]
+    ms = (m.clamp(max=M) - base).clamp(0, S).to(torch.int32)
+    north = torch.zeros((B, N + 1), dtype=torch.int32, device=dev)
+    if rowin is not None:
+        north[:, 1:] = rowin
+    _, _, moves = wavefront(
+        x.T, ys, ms, n, score=uniform_scorer(match, mismatch), gap=gap,
+        track_pos=False, emit_moves=True, north=north,
+    )
+    r = torch.arange(S, device=dev)[None, :]
+    d = r + torch.arange(N, device=dev)[:, None]  # cell (r, j) on diagonal r + j - 1
+    return moves[d, r].permute(2, 0, 1).contiguous()
 
 
 def gather_lanes(slab, y_off, n):

@@ -1,11 +1,12 @@
 """Batched greedy traceback over the forward sweep's move codes.
 
 ``walk_moves`` is the counterpart of the JAX package's ``ops/traceback.py``
-``walk_moves`` (:30-89), and ``walk_moves_affine`` of its affine (Gotoh)
-state-machine walk ``walk_moves_affine`` (:92-164): on CPU tensors each runs
-the plain PyTorch loop below, line for line the JAX body; on CUDA tensors
-they launch K3 and K10 (``csrc/traceback.cu``), one thread per lane, since
-the eager loop would be about fifteen launches per step.
+``walk_moves`` (:30-89), ``walk_moves_affine`` of its affine (Gotoh)
+state-machine walk ``walk_moves_affine`` (:92-164), and ``walk_strip_level``
+of the long-read walk through one row-strip (:167-218): on CPU tensors each
+runs the plain PyTorch loop below, line for line the JAX body; on CUDA
+tensors they launch K3, K10 and K14 (``csrc/traceback.cu``), one thread per
+lane, since the eager loop would be about fifteen launches per step.
 ``decode_consensus`` is copied from traceback.py:289-307 and stays numpy.
 """
 
@@ -170,6 +171,86 @@ def walk_moves_affine(moves, x_mb, y_bn, i0, j0, *, max_steps: int):
 
 
 walk_moves_affine.launches = 0
+
+
+def new_strip_state(i0, j0, max_steps: int):
+    """The walk's per-lane state before the top strip, as
+    wavefront_pallas.py:2723-2728 builds it: (i, j, pos, active, steps, cx,
+    cy) -- i, j the argmax cell, pos = steps = 0, active where i > 0, and
+    (max_steps, B) NUL consensus buffers."""
+    i = i0.to(torch.int32).clone()
+    z = torch.zeros_like(i)
+    buf = torch.zeros((max_steps, i.shape[0]), dtype=torch.uint8, device=i.device)
+    return (i, j0.to(torch.int32).clone(), z, i > 0, z.clone(), buf, buf.clone())
+
+
+def _walk_strip_plain(moves, x_mb, y_bn, base: int, state, max_steps: int):
+    B, N, S = moves.shape
+    M = x_mb.shape[0]
+    i, j, pos, active, steps, cx, cy = state
+    lanes = torch.arange(B, device=moves.device)
+    gap = torch.tensor(GAP_BYTE, dtype=torch.uint8, device=moves.device)
+    for _ in range(S + N):  # the kernel's cap: no walk inside a strip takes more
+        inlevel = active & (i - 1 >= base)
+        if not bool(inlevel.any()):
+            break
+        c = (j - 1).clamp(0, N - 1).long()
+        mv = moves[lanes, c, (i - 1 - base).clamp(0, S - 1).long()]
+        stop = (mv & STOP_BIT) != 0
+        code = mv & 3
+        go_w = (code == MOVE_W) & ~stop
+        go_n = (code == MOVE_N) & ~stop
+        emit_x = torch.where(go_w, gap, x_mb[(i - 1).clamp(0, M - 1).long(), lanes])
+        emit_y = torch.where(go_n, gap, y_bn[lanes, c])
+        put = inlevel & (steps < max_steps)  # emissions past max_steps drop
+        cx[steps[put].long(), lanes[put]] = emit_x[put]
+        cy[steps[put].long(), lanes[put]] = emit_y[put]
+        steps += inlevel.to(torch.int32)
+        pos.copy_(torch.where(inlevel & stop, j, pos))
+        move = inlevel & ~stop
+        i -= (move & ~go_w).to(torch.int32)
+        j -= (move & ~go_n).to(torch.int32)
+        active &= ~(inlevel & stop)
+    return state
+
+
+def walk_strip_level(moves, x_mb, y_bn, base: int, state, *, max_steps: int):
+    """Advance the walk through one strip of STRIP_S rows starting at row
+    ``base`` (0-based): the counterpart of traceback.py:167-218.
+
+    moves (B, N, STRIP_S) uint8 from ``strips_cuda.strip_moves``, x_mb (M, B)
+    and y_bn (B, N) uint8, ``state`` from ``new_strip_state``, updated in
+    place and returned. Each active lane whose row lies in the strip walks
+    K3's rule until it stops (pos = j) or leaves the strip; its k-th
+    emission goes to row k of cx/cy, dropped past max_steps while steps goes
+    on counting. The counter ``walk_strip_level.launches`` counts K14
+    launches."""
+    i, j, pos, active, steps, cx, cy = state
+    dev = device_of(moves, x_mb, y_bn, i, j, pos, active, steps, cx, cy)
+    if dev.type == "cpu":
+        return _walk_strip_plain(moves, x_mb, y_bn, base, state, max_steps)
+    if moves.dtype != torch.uint8 or x_mb.dtype != torch.uint8 or y_bn.dtype != torch.uint8:
+        raise TypeError("moves, x_mb and y_bn must be uint8")
+    B, N, S = moves.shape
+    if (S != 256 or y_bn.shape != (B, N) or x_mb.shape[1] != B or active.dtype != torch.bool
+            or cx.shape != (max_steps, B) or cy.shape != (max_steps, B)
+            or not all(t.is_contiguous() for t in (moves, x_mb, y_bn, *state))
+            or any(t.dtype != torch.int32 or t.shape != (B,) for t in (i, j, pos, steps))):
+        raise ValueError("walk_strip_level: inconsistent shapes, types or layout")
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.pgs_walk_strip(
+            moves.data_ptr(), x_mb.data_ptr(), y_bn.data_ptr(), x_mb.shape[0], N, B,
+            int(base), int(max_steps), i.data_ptr(), j.data_ptr(), pos.data_ptr(),
+            active.data_ptr(), steps.data_ptr(), cx.data_ptr(), cy.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "pgs_walk_strip")
+    walk_strip_level.launches += 1
+    return state
+
+
+walk_strip_level.launches = 0
 
 
 def decode_consensus(cx, cy, steps) -> List[Tuple[str, str]]:

@@ -3,12 +3,15 @@
 for the same seed):
 
 - gen_ref_custom: a random reference FASTA, or a slice of a source genome;
+- gen_reads_custom: reads sampled as exact substrings of a reference, with
+  their 1-based positions, to a CSV (datagen.py:45-70);
 - gen_protein_db: a SwissProt-scale protein database, optionally with
   mutated copies of a query planted at known indices.
 """
 
 from __future__ import annotations
 
+import csv
 from typing import Optional
 
 import numpy as np
@@ -37,6 +40,30 @@ def gen_ref_custom(
         f.write(">custom_ref\n")
         f.write(seq + "\n")
     return seq
+
+
+def gen_reads_custom(
+    ref_seq: str,
+    out_csv,
+    n_reads: int = 100,
+    read_len: int = 10_000,
+    seed: int = 1,
+):
+    """Sample reads with 1-based ground-truth POS to a CSV (index, QNAME,
+    SEQ, POS); returns a list of (seq, pos)."""
+    rng = np.random.default_rng(seed)
+    if read_len > len(ref_seq):
+        raise ValueError("read_len > reference length")
+    out = []
+    with open(out_csv, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["index", "QNAME", "SEQ", "POS"])
+        for k in range(n_reads):
+            start = int(rng.integers(0, len(ref_seq) - read_len + 1))
+            seq = ref_seq[start : start + read_len]
+            w.writerow([k, f"custom-{k}", seq, start + 1])
+            out.append((seq, start + 1))
+    return out
 
 
 def gen_protein_db(

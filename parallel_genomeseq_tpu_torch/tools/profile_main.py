@@ -1,8 +1,9 @@
 """Where the time goes in the port's main paths.
 
     python -m parallel_genomeseq_tpu_torch.tools.profile_main \\
-        [--workload small|uniprot] [--seed 0] [--reads 5120] [--read-len 125]
+        [--workload small|uniprot|big] [--seed 0] [--reads 5120] [--read-len 125]
         [--batch-size 512] [--sweep 128,1024,2048] [--entries 561356] [--affine]
+        [--traceback]
 
 ``--workload small`` (default): ``solve_small`` on the data set of
 ``chip_smoke.py`` (a seeded 4,980-bp reference and 125-bp reads with
@@ -14,6 +15,10 @@ query planted in them: 9 at the default size). ``--affine`` runs both with
 affine (Gotoh) gaps: BWA-MEM's scoring for small (``--match 1 --mismatch -4
 --gap-open 6 --gap-penalty 1``), swps3's 10/2 for uniprot (``--gap-open 10
 --gap-penalty 2``), as ``chip_smoke.py`` does.
+``--workload big``: ``solve_big 7 1`` at its default width on
+``chip_smoke.py``'s long-read data (a 30,000-bp reference from seed 0, 100
+exact 10,000-bp substrings of it, 14 windows; written under
+``data/profile/big/``); ``--traceback`` adds the winners' strip traceback.
 
 After one warm-up run:
 
@@ -25,8 +30,9 @@ After one warm-up run:
 3. one run under ``cProfile``: host time by function, cumulative and self;
 4. (small only) one timed run at each batch size of ``--sweep``.
 
-``--device cpu`` runs the same phases on the plain route, at a small size,
-to check the tool itself; it then reports no device time.
+``--device cpu`` runs the same phases on the plain route, at a small size
+(for big: ``--ref-len``, ``--read-len`` and ``--reads`` set it), to check
+the tool itself; it then reports no device time.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ from pathlib import Path
 
 import torch
 
-from ..cli import solve_small, solve_uniprot
+from ..cli import solve_big, solve_small, solve_uniprot
+from ..seqio.datagen import gen_reads_custom, gen_ref_custom
 from ..utils.device import resolve_device
 from ..utils.synth import write_dataset, write_protein_dataset
 
@@ -73,19 +80,24 @@ def quiet_run(cli_module, argv):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=["small", "uniprot"], default="small")
+    ap.add_argument("--workload", choices=["small", "uniprot", "big"], default="small")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--reads", type=int, default=5120)
-    ap.add_argument("--ref-len", type=int, default=4980)
-    ap.add_argument("--read-len", type=int, default=125)
+    ap.add_argument("--reads", type=int, default=None,
+                    help="default 5120 (small) or 100 (big)")
+    ap.add_argument("--ref-len", type=int, default=None,
+                    help="default 4980 (small) or 30000 (big)")
+    ap.add_argument("--read-len", type=int, default=None,
+                    help="default 125 (small) or 10000 (big)")
     ap.add_argument("--batch-size", type=int, default=None,
-                    help="default 512 (small) or 4096 (uniprot)")
+                    help="default 512 (small), 4096 (uniprot) or 128 (big)")
     ap.add_argument("--sweep", default="128,1024,2048",
                     help="comma-separated batch sizes for phase 4 ('' for none)")
     ap.add_argument("--entries", type=int, default=561_356)
     ap.add_argument("--query-len", type=int, default=145)
     ap.add_argument("--affine", action="store_true",
                     help="affine gaps: BWA-MEM's scoring (small), gap 10/2 (uniprot)")
+    ap.add_argument("--traceback", action="store_true",
+                    help="big: include the winners' strip traceback")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--out-dir", default=str(ROOT / "data" / "profile"))
     args = ap.parse_args(argv)
@@ -95,8 +107,10 @@ def main(argv=None) -> int:
     out_dir = Path(args.out_dir)
     if args.workload == "small":
         batch = args.batch_size or 512
-        ref, reads = write_dataset(out_dir, ref_len=args.ref_len, n_reads=args.reads,
-                                   read_len=(args.read_len, args.read_len), seed=args.seed)
+        read_len = args.read_len or 125
+        ref, reads = write_dataset(out_dir, ref_len=args.ref_len or 4980,
+                                   n_reads=args.reads or 5120, read_len=(read_len, read_len),
+                                   seed=args.seed)
         cli_module = solve_small
 
         gaps = ["--match", "1", "--mismatch", "-4", "--gap-open", "6",
@@ -109,6 +123,23 @@ def main(argv=None) -> int:
 
         def timing(out, wall):
             return f"{out.seconds:.6f} s, {len(out.results) / out.seconds:.1f} reads/s"
+    elif args.workload == "big":
+        batch = args.batch_size or 128  # solve_big's default: one batch of 100
+        big = out_dir / "big"
+        big.mkdir(parents=True, exist_ok=True)
+        ref_seq = gen_ref_custom(big / "ref.fa", ref_len=args.ref_len or 30_000, seed=args.seed)
+        gen_reads_custom(ref_seq, big / "reads.csv", n_reads=args.reads or 100,
+                         read_len=args.read_len or 10_000)
+        cli_module = solve_big
+
+        def cli(b):
+            return ["7", "1", "--ref", str(big / "ref.fa"), "--reads", str(big / "reads.csv"),
+                    "--batch-size", str(b), "--device", str(dev)] + (
+                        ["--traceback"] if args.traceback else [])
+
+        def timing(out, wall):
+            return (f"{sum(out.seconds):.6f} s, {sum(out.swept_cells) / sum(out.seconds) / 1e9:.3f} "
+                    f"swept GCUPS, {out.gcups[0]:.3f} GCUPS (first batch), run {wall:.6f} s")
     else:
         batch = args.batch_size or 4096
         query, db, _ = write_protein_dataset(out_dir / "protein", n_entries=args.entries,
@@ -152,7 +183,8 @@ def main(argv=None) -> int:
         idle = 1 - busy / wall
     else:
         busy = idle = None
-    print(json.dumps({"workload": args.workload, "affine": args.affine, "batch": batch,
+    print(json.dumps({"workload": args.workload, "affine": args.affine,
+                      "traceback": args.traceback, "batch": batch,
                       "wall_s": wall,
                       "device_busy_s": busy, "idle_share": idle}))
 

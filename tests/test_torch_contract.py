@@ -12,13 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from parallel_genomeseq_tpu_torch.cli import solve_small, solve_uniprot
+from parallel_genomeseq_tpu_torch.cli import solve_big, solve_small, solve_uniprot
 from parallel_genomeseq_tpu_torch.models.protein_db import ResidentProteinDB
 from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
 from parallel_genomeseq_tpu_torch.ops import (
     _build,
     engine,
     profile_cuda,
+    strips_cuda,
     traceback,
     wavefront_cuda,
 )
@@ -32,7 +33,9 @@ COUNTERS = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves, traceback.wa
             profile_cuda.sw_profile, profile_cuda.sw_profile_moves,
             wavefront_cuda.sw_score_affine, wavefront_cuda.sw_score_affine_moves,
             profile_cuda.sw_profile_affine, profile_cuda.sw_profile_affine_moves,
-            traceback.walk_moves_affine)
+            traceback.walk_moves_affine, strips_cuda.sw_score_strips,
+            strips_cuda.sw_score_strips_ckpt, strips_cuda.strip_moves,
+            traceback.walk_strip_level)
 AFFINE = {
     "uniform": ScoringConfig(gap_open=10.0),
     "matrix": blosum_config("blosum50", gap_penalty=2.0, gap_open=10.0),
@@ -50,6 +53,8 @@ def test_port_never_imports_jax():
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "assert 'parallel_genomeseq_tpu_torch.cli.solve_uniprot' in mods\n"
+        "assert 'parallel_genomeseq_tpu_torch.cli.solve_big' in mods\n"
+        "assert 'parallel_genomeseq_tpu_torch.ops.strips_cuda' in mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'parallel_genomeseq_tpu'\n"
         "             or m.startswith('parallel_genomeseq_tpu.'))\n"
@@ -136,12 +141,34 @@ def test_make_score_engine_names():
 
 
 def test_skewed_ties_and_strip_length_reads_raise():
+    """Skewed ties raise naming A2. A read past MAX_M runs under linear
+    uniform scoring (the strip kernels, A10's first part); under affine gaps
+    or a substitution matrix it still raises naming A10."""
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         BatchSWAligner(tie="skewed", device="cpu")
     long_read = np.full((1, engine.MAX_M + 8), ord("A"), np.uint8)
-    eng = engine.make_score_engine(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        eng.score_batch(long_read, long_read, [engine.MAX_M + 8], [engine.MAX_M + 8])
+    lens = ([engine.MAX_M + 8], [engine.MAX_M + 8])
+    got = engine.make_score_engine(device="cpu").score_batch(long_read, long_read, *lens)
+    assert [int(got[k][0]) for k in ("score", "i", "j")] == [3 * (engine.MAX_M + 8)] + lens[0] * 2
+    for cfg in (AFFINE["uniform"], blosum_config("blosum50", gap_penalty=12.0)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            engine.make_score_engine(cfg, device="cpu").score_batch(long_read, long_read, *lens)
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            BatchSWAligner(cfg, device="cpu").align_batch(["A" * 2100], ["A" * 50])
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["--gap-open", "6"], "A10"), (["--matrix", "blosum50"], "A10"),
+    (["--semantics", "sat_uint8"], "A2"),
+], ids=["gap_open", "matrix", "sat_uint8"])
+def test_solve_big_rejects_unported_modes(flags, item, capsys):
+    """Affine gaps and substitution matrices on long reads need the strip
+    kernels of A10's later parts; sat_uint8 needs A2. Each exits 2 before
+    any data is generated."""
+    with pytest.raises(SystemExit) as exc:
+        solve_big.main(["--device", "cpu"] + flags)
+    assert exc.value.code == 2
+    assert f"ROADMAP {item}" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags", [
@@ -232,7 +259,13 @@ def test_cpu_tensors_take_plain_route_without_launches():
         proteins[1][10:60])
     BatchSWAligner(AFFINE["matrix"], pad_m=128, device="cpu").align_batch(
         proteins, [proteins[1][10:60]])
-    assert [fn.launches for fn in COUNTERS] == [0] * 10
+    # The long-read path: the strip sweep (K11) and the strip traceback (K12,
+    # K13, K14).
+    long_ref = "".join(rng.choice(list("ACGT"), 2400))
+    long_reads = [long_ref[100:2200], long_ref[150:2250]]
+    BatchSWAligner(device="cpu").align_batch(long_reads, [long_ref])
+    BatchSWAligner(device="cpu").align_batch(long_reads, [long_ref], traceback=False)
+    assert [fn.launches for fn in COUNTERS] == [0] * len(COUNTERS)
 
 
 def test_cuda_default_without_card_raises(monkeypatch):
@@ -310,7 +343,7 @@ def test_build_command_targets_hopper(monkeypatch, tmp_path):
     calls = [line.split() for line in (tmp_path / "args").read_text().splitlines()]
     compiles, links = [c for c in calls if "-c" in c], [c for c in calls if "-c" not in c]
     assert [Path(c[-1]).name for c in sorted(compiles, key=lambda c: c[-1])] == \
-        ["profile.cu", "traceback.cu", "wavefront.cu"]
+        ["profile.cu", "strips.cu", "traceback.cu", "wavefront.cu"]
     assert len(links) == 1 and "-shared" in links[0]
     assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
     assert "compiled" in (tmp_path / "build" / "nvcc.log").read_text()
@@ -343,6 +376,21 @@ def test_profile_tool_runs_the_affine_paths_on_the_plain_route(tmp_path, capsys)
                                   "--batch-size", "8", "--out-dir", str(tmp_path)] + size) == 0
         assert f'"workload": "{workload}", "affine": true' in capsys.readouterr().out
     assert (tmp_path / "align_output.csv").exists() and (tmp_path / "uniprot_output.csv").exists()
+
+
+def test_profile_tool_runs_the_long_read_workload_on_the_plain_route(tmp_path, capsys):
+    """--workload big: solve_big 7 1 on generated data (14 windows), here at
+    a size the plain route runs in seconds."""
+    from parallel_genomeseq_tpu_torch.tools import profile_main
+
+    assert profile_main.main([
+        "--workload", "big", "--device", "cpu", "--reads", "2", "--read-len", "30",
+        "--ref-len", "2000", "--out-dir", str(tmp_path),
+    ]) == 0
+    out = capsys.readouterr().out
+    assert '"workload": "big"' in out and '"device_busy_s": null' in out
+    assert out.count("big batch 128:") == 3 and "swept GCUPS" in out
+    assert len((tmp_path / "big" / "reads.csv").read_text().splitlines()) == 3
 
 
 def test_profile_tool_runs_the_protein_path_on_the_plain_route(tmp_path, capsys):

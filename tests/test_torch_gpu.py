@@ -345,3 +345,122 @@ def test_solve_uniprot_plain_engine_on_card_launches_no_kernel(cuda, tmp_path):
     assert solve_uniprot.main(base + ["--engine", "plain", "--output", str(tmp_path / "p.csv")]) == 0
     assert [fn.launches for fn in counters] == before
     assert (tmp_path / "k.csv").read_bytes() == (tmp_path / "p.csv").read_bytes()
+
+
+def long_lanes(seed, dev, B=9, M=2600, N=700):
+    """Long DNA lanes (reads past 2,048 rows) of ragged true lengths, each
+    with a mutated stretch of its reference planted across strip edges."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    m = rng.integers(M // 2, M + 1, B).astype(np.int32)
+    n = rng.integers(N // 3, N + 1, B).astype(np.int32)
+    xs = np.full((B, M), 1, np.uint8)
+    ys = np.full((B, N), 2, np.uint8)
+    for b in range(B):
+        ys[b, : n[b]] = rng.choice(acgt, n[b])
+        xs[b, : m[b]] = rng.choice(acgt, m[b])
+        k = min(n[b], m[b] - 200)
+        seg = ys[b, :k].copy()
+        seg[rng.integers(0, k, k // 40)] = rng.choice(acgt, k // 40)
+        xs[b, 200 + b * 37 : 200 + b * 37 + k] = seg[: m[b] - 200 - b * 37]
+    return [torch.from_numpy(a).to(dev) for a in (xs, ys, m, n)]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k11_and_k12_match_plain(cuda, seed):
+    """K11 and K12 on long ragged lanes, with lengths past the padded shape
+    on some: (score, i, j) and every checkpoint row equal the plain sweep's."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    xs, ys, m, n = long_lanes(seed, cuda)
+    m[0] += 5000
+    n[1] += 2**30
+    before = (strips_cuda.sw_score_strips.launches, strips_cuda.sw_score_strips_ckpt.launches)
+    got = strips_cuda.sw_score_strips(xs, ys, m, n, **KW)
+    ck = strips_cuda.sw_score_strips_ckpt(xs, ys, m, n, **KW)
+    want = scan_dp.sw_score_ckpt_plain(xs, ys, m, n, **KW)
+    torch.cuda.synchronize()
+    assert (strips_cuda.sw_score_strips.launches,
+            strips_cuda.sw_score_strips_ckpt.launches) == (before[0] + 1, before[1] + 1)
+    for g, c, w in zip(got, ck, want):
+        assert g.is_cuda and torch.equal(g, w) and torch.equal(c, w)
+    assert torch.equal(ck[3], want[3]) and int(want[0].min()) > 100
+
+
+def test_k11_beyond_one_pass_matches_plain(cuda):
+    """A read longer than one block's pass (16,384 rows): the bound row
+    carries between passes, and the argmax ties resolve across passes."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    rng = np.random.default_rng(3)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    M, N = strips_cuda.ROWS_PER_PASS + 700, 300
+    ref = rng.choice(acgt, N)
+    xs = rng.choice(acgt, (3, M)).astype(np.uint8)
+    xs[0, 100:400] = ref  # the same best score in both passes: the first wins
+    xs[0, M - 350 : M - 50] = ref
+    xs[1, strips_cuda.ROWS_PER_PASS - 150 : strips_cuda.ROWS_PER_PASS + 150] = ref
+    ys = np.broadcast_to(ref, (3, N)).copy()
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    m, n = t(np.full(3, M, np.int32)), t(np.full(3, N, np.int32))
+    got = strips_cuda.sw_score_strips_ckpt(t(xs), t(ys), m, n, **KW)
+    want = scan_dp.sw_score_ckpt_plain(t(xs), t(ys), m, n, **KW)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[0][:2].tolist() == [900, 900] and int(got[1][0]) == 400
+
+
+def test_strip_traceback_kernels_match_plain(cuda):
+    """K13 (every strip, valid cells) and K14 against their plain versions,
+    and the whole strip traceback of the CUDA engine (K12, K13, K14) against
+    the plain engine's on the card."""
+    from parallel_genomeseq_tpu_torch.ops import engine, strips_cuda
+
+    xs, ys, m, n = long_lanes(2, cuda)
+    _, i, j, ck = strips_cuda.sw_score_strips_ckpt(xs, ys, m, n, **KW)
+    B, N = ys.shape
+    x_mb = xs.T.contiguous()
+    state = traceback.new_strip_state(i, j, 900)
+    plain_state = tuple(a.clone() for a in state)
+    r = torch.arange(256, device=cuda)
+    before = (strips_cuda.strip_moves.launches, traceback.walk_strip_level.launches)
+    nstrips = -(-xs.shape[1] // 256)
+    for s in range(nstrips - 1, -1, -1):
+        rowin = ck[:, s - 1] if s else None
+        got = strips_cuda.strip_moves(xs, ys, m, n, rowin, s * 256, **KW)
+        want = scan_dp.strip_moves_plain(xs, ys, m, n, rowin, s * 256, **KW)
+        valid = ((s * 256 + r)[None, None, :] < m[:, None, None]) & \
+            (torch.arange(N, device=cuda)[None, :, None] < n[:, None, None])
+        assert torch.equal(got[valid], want[valid])
+        traceback.walk_strip_level(got, x_mb, ys, s * 256, state, max_steps=900)
+        traceback._walk_strip_plain(want, x_mb, ys, s * 256, plain_state, 900)
+        for g, w in zip(state, plain_state):
+            assert torch.equal(g, w)
+    assert (strips_cuda.strip_moves.launches, traceback.walk_strip_level.launches) == (
+        before[0] + nstrips, before[1] + nstrips)
+    assert int(state[4].min()) > 100 and not bool(state[3].any())
+    kw = dict(max_steps=900)
+    got = engine.CudaEngine(device=cuda).score_batch_strip_moves(xs, ys, m, n, **kw)
+    want = engine.PlainEngine(device=cuda).score_batch_strip_moves(xs, ys, m, n, **kw)
+    for k in ("score", "i", "j", "pos", "cx", "cy", "steps"):
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_solve_big_cuda_matches_cpu(cuda, tmp_path):
+    """solve_big on the card (K11; with --traceback K12, K13, K14) gives the
+    CPU's results, read for read."""
+    from parallel_genomeseq_tpu_torch.cli import solve_big
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    base = ["2", "1", "--ref-len", "9000", "--read-len", "2300", "--n-reads", "3"]
+    counters = (strips_cuda.sw_score_strips, strips_cuda.sw_score_strips_ckpt,
+                strips_cuda.strip_moves, traceback.walk_strip_level)
+    for extra in ([], ["--traceback"]):
+        before = [fn.launches for fn in counters]
+        gpu = solve_big.run(base + extra)
+        cpu = solve_big.run(base + extra + ["--device", "cpu"])
+        launched = [fn.launches > b for fn, b in zip(counters, before)]
+        assert launched == ([True] * 4 if extra else [True, False, False, False])
+        fields = lambda r: (r.score, r.pos, r.max_i, r.max_j, r.consensus_x, r.consensus_y)
+        assert [fields(r) for r in gpu.results] == [fields(r) for r in cpu.results]
+        assert gpu.swept_cells == cpu.swept_cells
