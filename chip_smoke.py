@@ -50,7 +50,15 @@
    the mutated ones, checks that K11 (and K12, K13, K14) launched during
    them, and holds 2 sampled reads of the traceback run against the numpy
    oracle over their winning window (score, pos, both consensus strings).
-7. Prints the kernels' JSON line -- each kernel's time, its plain version's,
+7. The long-read path with affine (Gotoh) gaps under BWA-MEM's scoring, on
+   the same reference and reads: K15 (one read's 14 lanes, and the reduced
+   shape), K16 (the 100 winners, held on 4 of them), K17 and K18 (the top,
+   a middle and the bottom strip, every lane) against their plain versions;
+   ``solve_big 7 3`` and ``solve_big 7 1 --traceback`` with the BWA-MEM
+   flags, checking that K15 (and K16, K17, K18) launched during them and
+   K11-K14 did not, and one sampled read of the traceback run against the
+   numpy Gotoh oracle over its winning window.
+8. Prints the kernels' JSON line -- each kernel's time, its plain version's,
    and its bound: the larger of the integer operations its cells need over
    the card's int32 ALU peak and the bytes it must move over the memory
    rate -- then ``{"ok": true, "device": ...}`` last.
@@ -103,13 +111,15 @@ INT32_LANES = 132 * 64
 #     values (H - open) the DPX folded away, two compares and two ors into
 #     the byte (6): 12.
 # The long-read kernels count as their single-strip twins: K11 and K12 as
-# K1 with its cell (K12's row store is bytes, not operations), K13 as K2.
+# K1 with its cell (K12's row store is bytes, not operations), K13 as K2
+# without the running best (a replay keeps none); affine, K15 and K16 as K6
+# with its cell, K17 as K7 without the running best.
 OPS_PER_CELL = {
     ("sw_score", False): 2 + 3 + 1,
     ("sw_score", True): 2 + 3 + 2,
     "sw_score_strips": 2 + 3 + 2,
     "sw_score_strips_ckpt": 2 + 3 + 2,
-    "strip_moves": 2 + 3 + 2 + 7,
+    "strip_moves": 2 + 3 + 7,
     "sw_score_moves": 2 + 3 + 2 + 7,
     "sw_profile": 0 + 3 + 2,
     "sw_profile_moves": 0 + 3 + 2 + 7,
@@ -118,6 +128,9 @@ OPS_PER_CELL = {
     "sw_score_affine_moves": 2 + 6 + 2 + 12,
     "sw_profile_affine": 0 + 6 + 2,
     "sw_profile_affine_moves": 0 + 6 + 2 + 12,
+    "sw_score_strips_affine": 2 + 6 + 2,
+    "sw_score_strips_affine_ckpt": 2 + 6 + 2,
+    "strip_affine_moves": 2 + 6 + 12,
 }
 # Per walk step (the code read is a load, not counted). K3: test the stop
 # bit and the two moves (3), select the two emitted bytes (2), update i, j,
@@ -126,9 +139,10 @@ OPS_PER_CELL = {
 # and the state's and (5); NW and E against the op (2); the two emitted
 # bytes (2); the next state, the extend bit's test and a select (2); i, j,
 # pos, steps and the active flag (5).
-# K14, the strip walk, as K3 (10); its in-strip test and slot test are
-# loop control.
-OPS_PER_STEP = {"walk_moves": 10, "walk_moves_affine": 18, "walk_strip_level": 10}
+# K14, the strip walk, as K3 (10), and K18, the affine strip walk, as K10
+# (18); their in-strip and slot tests are loop control.
+OPS_PER_STEP = {"walk_moves": 10, "walk_moves_affine": 18, "walk_strip_level": 10,
+                "walk_strip_level_affine": 18}
 LANE_BYTES = 8 + 12  # per lane: two int32 lengths in, (score, i, j) out
 # The DNA path's scoring: solve_small's defaults, and BWA-MEM's affine
 # scoring (a gap of length L costs gap_open + L * gap).
@@ -139,7 +153,8 @@ BWA_FLAGS = ["--match", "1", "--mismatch", "-4", "--gap-open", "6", "--gap-penal
 PROTEIN_LINEAR = dict(gap=12)
 PROTEIN_AFFINE = dict(gap_open=10, gap=2)
 # solve_big's defaults: 100 reads of 10,000 bp against a 30,000-bp reference
-# in 2 x 7 windows of overlap ratio 2.0, linear 3/-3/2 scoring.
+# in 2 x 7 windows of overlap ratio 2.0, linear 3/-3/2 scoring (and, in the
+# affine long-read phase, BWA-MEM's).
 BIG = dict(ref_len=30_000, read_len=10_000, n_reads=100, npiece=7, overlap=2.0)
 
 
@@ -866,43 +881,59 @@ def mutated_reads(reads, seed: int):
     return out
 
 
-def check_strip_kernels(reads, ref, clock: float, dev):
-    """Long-read phase: K11 (the 1,400-lane window sweep, held on one read's
-    14 lanes; and every lane of a reduced 1,400 x 2,304 x 4,608 shape), K12
-    (the 100 winners, held on 4), K13 and K14 (the top, a middle and the
-    bottom strip of the winners' traceback, every lane) against their plain
-    versions at the main path's shapes. Returns {kernel: {case: measurements}}."""
+def strip_kernels(kw):
+    """(names, (sweep, checkpointing sweep, replay, walk), the plain
+    versions of the last three) of the long-read path under the gaps of
+    ``kw``, from the engines' table: K11-K14, or with gap_open K15-K18."""
+    from parallel_genomeseq_tpu_torch.ops import engine
+
+    affine = "gap_open" in kw
+    return (("K15", "K16", "K17", "K18") if affine else ("K11", "K12", "K13", "K14"),
+            engine.STRIP_KERNELS[affine], engine.STRIP_PLAIN[affine][1:])
+
+
+def check_strip_kernels(reads, ref, clock: float, dev, kw):
+    """Long-read phase under the gaps of ``kw``: the sweep (K11, or K15; the
+    1,400-lane window sweep, held on one read's 14 lanes; and every lane of
+    a reduced 1,400 x 2,304 x 4,608 shape), the checkpointing sweep (K12,
+    K16; the 100 winners, held on 4), the replay and the walk (K13 and K14,
+    K17 and K18; the top, a middle and the bottom strip of the winners'
+    traceback, every lane) against their plain versions at the main path's
+    shapes. Returns {kernel: {case: measurements}}."""
     import numpy as np
     import torch
 
     from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
-    from parallel_genomeseq_tpu_torch.ops import scan_dp, strips_cuda, traceback
+    from parallel_genomeseq_tpu_torch.ops import scan_dp, traceback
     from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkConfig, ChunkedAligner
 
     S = scan_dp.STRIP_S
-    k11, k12, k13, k14 = (strips_cuda.sw_score_strips, strips_cuda.sw_score_strips_ckpt,
-                          strips_cuda.strip_moves, traceback.walk_strip_level)
-    out = {fn.__name__: {} for fn in (k11, k12, k13, k14)}
-    chunked = ChunkedAligner(chunk=ChunkConfig(npiece=2 * BIG["npiece"],
-                                               overlap_ratio=BIG["overlap"]), device=dev)
+    names, (sweep, ckpt, replay, walk), (plain_ckpt, plain_replay, plain_walk) = \
+        strip_kernels(kw)
+    affine = "gap_open" in kw
+    out = {fn.__name__: {} for fn in (sweep, ckpt, replay, walk)}
+    cfg = dna_config(kw)
+    chunked = ChunkedAligner(cfg, chunk=ChunkConfig(npiece=2 * BIG["npiece"],
+                                                    overlap_ratio=BIG["overlap"]), device=dev)
 
     def on_card(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
     def sweep_case(label, xs, ys, m, n, held):
-        """K11 on every lane, held against the plain sweep on lanes ``held``."""
-        got = k11(xs, ys, m, n, **LINEAR)
+        """The sweep on every lane, held against the plain sweep on lanes
+        ``held``."""
+        got = sweep(xs, ys, m, n, **kw)
         want, plain_ms = timed(lambda: scan_dp.sw_score_plain(
-            xs[held], ys[held], m[held], n[held], **LINEAR))
+            xs[held], ys[held], m[held], n[held], **kw))
         cells, seq_bytes = lane_work(m, n)
         rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}",
                "max_abs_err": max_abs_err([g[held] for g in got], want),
-               "ms": cuda_ms(lambda: k11(xs, ys, m, n, **LINEAR), 3), "plain_ms": plain_ms,
+               "ms": cuda_ms(lambda: sweep(xs, ys, m, n, **kw), 3), "plain_ms": plain_ms,
                "plain_lanes": int(m[held].shape[0])}
         rec["bound_ms"], rec["bound_by"] = bound(
-            cells * OPS_PER_CELL["sw_score_strips"], seq_bytes + LANE_BYTES * xs.shape[0], clock)
-        out[k11.__name__][label] = rec
-        report("K11 sw_score_strips", label, rec)
+            cells * OPS_PER_CELL[sweep.__name__], seq_bytes + LANE_BYTES * xs.shape[0], clock)
+        out[sweep.__name__][label] = rec
+        report(f"{names[0]} {sweep.__name__}", label, rec)
         return got
 
     # The stage-A window sweep: 100 reads x 14 windows at full width.
@@ -923,108 +954,114 @@ def check_strip_kernels(reads, ref, clock: float, dev):
     sweep_case("reduced", xr, yr, mr, nr, slice(None))
     del xr, yr
 
-    # The winner re-run: K12 on the 100 winning windows, held on 4 lanes.
+    # The winner re-run: the checkpointing sweep on the 100 winning windows,
+    # held on 4 lanes.
     winner = scores.argmax(axis=1)
     win_refs = [ref[slice(*all_ranges[r][w])] for r, w in enumerate(winner)]
-    aligner = BatchSWAligner(device=dev)
+    aligner = BatchSWAligner(cfg, device=dev)
     xs, ys, m, n = on_card(*aligner.pad_batch(reads, win_refs))
-    got = k12(xs, ys, m, n, **LINEAR)
+    got = ckpt(xs, ys, m, n, **kw)
     held = slice(0, 4)
-    want, plain_ms = timed(lambda: scan_dp.sw_score_ckpt_plain(
-        xs[held], ys[held], m[held], n[held], **LINEAR))
+    want, plain_ms = timed(lambda: plain_ckpt(xs[held], ys[held], m[held], n[held], **kw))
     cells, seq_bytes = lane_work(m, n)
+    ck_bytes = sum(c.numel() * 4 for c in got[3:])  # H (and F) checkpoint planes
     rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}, checkpoints "
-                    f"{got[3].numel() * 4 / 1e9:.3f} GB",
+                    f"{ck_bytes / 1e9:.3f} GB",
            "max_abs_err": max_abs_err([g[held] for g in got], want), "plain_ms": plain_ms,
            "plain_lanes": 4}
     del want
-    rec["ms"] = cuda_ms(lambda: k12(xs, ys, m, n, **LINEAR), 3)
+    rec["ms"] = cuda_ms(lambda: ckpt(xs, ys, m, n, **kw), 3)
     rec["bound_ms"], rec["bound_by"] = bound(
-        cells * OPS_PER_CELL["sw_score_strips_ckpt"],
-        seq_bytes + LANE_BYTES * xs.shape[0] + got[3].numel() * 4, clock)
-    out[k12.__name__]["winners"] = rec
-    report("K12 sw_score_strips_ckpt", "winners", rec)
+        cells * OPS_PER_CELL[ckpt.__name__], seq_bytes + LANE_BYTES * xs.shape[0] + ck_bytes,
+        clock)
+    out[ckpt.__name__]["winners"] = rec
+    report(f"{names[1]} {ckpt.__name__}", "winners", rec)
 
-    # K13 and K14 through every strip of the winners' traceback, top first;
-    # held against the plain replay and walk on the top, a middle and the
-    # bottom strip.
-    _, i, j, ck = got
+    # The replay and the walk through every strip of the winners' traceback,
+    # top first; held against the plain replay and walk on the top, a middle
+    # and the bottom strip.
+    _, i, j, *ck = got
     B, M = xs.shape
     N = ys.shape[1]
     x_mb = xs.T.contiguous()
     steps_cap = aligner.max_steps(M, N)
-    state = traceback.new_strip_state(i, j, steps_cap)
+    state = traceback.new_strip_state(i, j, steps_cap, affine=affine)
     nstrips = -(-M // S)
     checked = {nstrips - 1: "top", nstrips // 2: "middle", 0: "bottom"}
     r = torch.arange(S, device=dev)
     for s in range(nstrips - 1, -1, -1):
-        rowin = ck[:, s - 1] if s else None
-        moves = k13(xs, ys, m, n, rowin, s * S, **LINEAR)
+        rows = [c[:, s - 1] if s else None for c in ck]
+        moves = replay(xs, ys, m, n, *rows, s * S, **kw)
         if s not in checked:
-            k14(moves, x_mb, ys, s * S, state, max_steps=steps_cap)
+            walk(moves, x_mb, ys, s * S, state, max_steps=steps_cap)
             continue
         label = checked[s]
-        want, plain_ms = timed(lambda: scan_dp.strip_moves_plain(
-            xs, ys, m, n, rowin, s * S, **LINEAR))
+        want, plain_ms = timed(lambda: plain_replay(xs, ys, m, n, *rows, s * S, **kw))
         valid = (((s * S + r)[None, None, :] < m[:, None, None])
                  & (torch.arange(N, device=dev)[None, :, None] < n[:, None, None]))
         err = int((moves[valid].int() - want[valid].int()).abs().max())
         if err:
-            raise AssertionError(f"K13 strip {s}: move codes differ on valid cells")
+            raise AssertionError(f"{names[2]} strip {s}: move codes differ on valid cells")
         del want, valid
-        rows = (m - s * S).clamp(0, S).long()
-        cells = int((rows * n.long()).sum())
+        lanes_rows = (m - s * S).clamp(0, S).long()
+        cells = int((lanes_rows * n.long()).sum())
         rec = {"shape": f"strip {s} of {nstrips}, {B} lanes, N={N}, moves "
                         f"{moves.numel() / 1e9:.3f} GB", "max_abs_err": err,
-               "ms": cuda_ms(lambda: k13(xs, ys, m, n, rowin, s * S, **LINEAR), 3),
+               "ms": cuda_ms(lambda: replay(xs, ys, m, n, *rows, s * S, **kw), 3),
                "plain_ms": plain_ms}
-        # Read the strip's read bytes, the references and the checkpoint row;
-        # write one move byte per cell.
+        # Read the strip's read bytes, the references and the checkpoint
+        # row(s); write one move byte per cell.
         rec["bound_ms"], rec["bound_by"] = bound(
-            cells * OPS_PER_CELL["strip_moves"],
-            int(rows.sum()) + int(n.long().sum()) * (5 if s else 1) + cells, clock)
-        out[k13.__name__][label] = rec
-        report("K13 strip_moves", label, rec)
-        # K14 on a copy of the state against the plain walk on another.
+            cells * OPS_PER_CELL[replay.__name__],
+            int(lanes_rows.sum()) + int(n.long().sum()) * (1 + 4 * len(ck) if s else 1) + cells,
+            clock)
+        out[replay.__name__][label] = rec
+        report(f"{names[2]} {replay.__name__}", label, rec)
+        # The walk on a copy of the state against the plain walk on another.
         before = state[4].clone()
         plain_state = tuple(a.clone() for a in state)
         probe = tuple(a.clone() for a in state)
-        _, walk_ms = timed(lambda: k14(moves, x_mb, ys, s * S, probe, max_steps=steps_cap))
-        k14(moves, x_mb, ys, s * S, state, max_steps=steps_cap)
-        _, plain_ms = timed(lambda: traceback._walk_strip_plain(
-            moves, x_mb, ys, s * S, plain_state, steps_cap))
+        _, walk_ms = timed(lambda: walk(moves, x_mb, ys, s * S, probe, max_steps=steps_cap))
+        walk(moves, x_mb, ys, s * S, state, max_steps=steps_cap)
+        _, plain_ms = timed(lambda: plain_walk(moves, x_mb, ys, s * S, plain_state, steps_cap))
         walked = int((state[4] - before).sum())
         rec = {"shape": f"strip {s}, {B} lanes, {walked} steps", "ms": walk_ms,
                "plain_ms": plain_ms, "max_abs_err": max_abs_err(state, plain_state)}
         max_abs_err(probe, state)
         # Per step read one move code and two sequence bytes, write two
-        # consensus bytes; per lane the state in and out.
+        # consensus bytes; per lane the state in and out (i, j, pos, steps,
+        # the active flag, and affine the gap state).
         rec["bound_ms"], rec["bound_by"] = bound(
-            walked * OPS_PER_STEP["walk_strip_level"], 5 * walked + 2 * 17 * B, clock)
-        out[k14.__name__][label] = rec
-        report("K14 walk_strip_level", label, rec)
+            walked * OPS_PER_STEP[walk.__name__], 5 * walked + 2 * (21 if affine else 17) * B,
+            clock)
+        out[walk.__name__][label] = rec
+        report(f"{names[3]} {walk.__name__}", label, rec)
         del moves
-    if bool(state[3].any()):
+    # Every walk ended: it stopped, or (affine) ran through row 1, which
+    # leaves a lane active at i = 0, in no strip.
+    if bool((state[3] & (state[0] > 0)).any()):
         raise AssertionError("a lane's walk did not end at the bottom strip")
     torch.cuda.empty_cache()
     return out
 
 
-def big_run(label, flags, counters, reads_path, ref_path):
-    """Drive the port's solve_big once with the counts of ``counters`` set
-    to 0 just before the run and read just after. Returns (its Run, the
-    launches)."""
+def big_run(label, flags, counters, reads_path, ref_path, absent=()):
+    """Drive the port's solve_big once with the counts of ``counters`` and
+    ``absent`` set to 0 just before the run and read just after; each of
+    ``counters`` must have launched, none of ``absent``. Returns (its Run,
+    the launches of ``counters``)."""
     from parallel_genomeseq_tpu_torch.cli import solve_big
 
-    for fn in counters:
+    for fn in (*counters, *absent):
         fn.launches = 0
     t0 = time.perf_counter()
     run = solve_big.run(flags + ["--ref", str(ref_path), "--reads", str(reads_path)])
     launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"launches during solve_big {label}: {launches} "
+    others = {fn.__name__: fn.launches for fn in absent}
+    print(f"launches during solve_big {label}: {launches}, of other kernels {others} "
           f"({time.perf_counter() - t0:.1f} s with data reading)")
-    if run.rc != 0 or min(launches.values()) < 1:
-        raise AssertionError(f"solve_big {label}: rc {run.rc}, launches {launches}")
+    if run.rc != 0 or min(launches.values()) < 1 or any(others.values()):
+        raise AssertionError(f"solve_big {label}: rc {run.rc}, launches {launches}, {others}")
     return run, launches
 
 
@@ -1054,13 +1091,42 @@ def check_long_oracle(reads, ref, results, seed: int, count: int = 2):
               f"{len(cx)} columns, {cx.count('-') + cy.count('-')} gap columns")
 
 
-def long_phase(args, card: str, clock: float, dev):
-    """Phase 6: solve_big's default width. Returns (measurements, launches
-    keyed by kernel over both runs, the runs' launches)."""
-    from parallel_genomeseq_tpu_torch.ops import strips_cuda, traceback
+def check_long_oracle_affine(reads, ref, results, seed: int, count: int = 1):
+    """Sampled reads of the affine traceback run against the numpy Gotoh
+    oracle under BWA-MEM's scoring: the winning window (first on ties) by
+    the best score in each, then on it the score, pos and both consensus
+    strings of the state-machine walk."""
+    import numpy as np
+
+    from parallel_genomeseq_tpu_torch.parallel.chunking import make_string_ranges
+
+    sub = uniform_pair_scores(BWA["match"], BWA["mismatch"])
+    y = np.frombuffer(ref.encode(), np.uint8)
+    for k in np.random.default_rng(seed + 2).choice(len(reads), count, replace=False):
+        read = reads[k]
+        x = np.frombuffer(read.encode(), np.uint8)[None]
+        ranges = make_string_ranges(2 * BIG["npiece"], len(read), len(ref), BIG["overlap"])
+        best = [int(gotoh(x, y[l:r], sub, BWA["gap_open"], BWA["gap"])[0][0]) for l, r in ranges]
+        win = int(np.argmax(best))
+        left, right = ranges[win]
+        score, pos, cx, cy = gotoh_align(read, ref[left:right], sub, BWA["gap_open"], BWA["gap"])
+        pos = pos + left if pos > 0 else 0
+        res = results[k]
+        got = (int(res.score), res.pos, res.consensus_x, res.consensus_y)
+        if got != (score, pos, cx, cy):
+            raise AssertionError(f"long read {k}: port (score {got[0]}, pos {got[1]}, "
+                                 f"{len(res.consensus_x)}-column walk) != Gotoh oracle "
+                                 f"({score}, {pos}, {len(cx)} columns)")
+        print(f"Gotoh oracle check: long read {k} (window {win}) agrees: score {score}, pos "
+              f"{pos}, {len(cx)} columns, {cx.count('-') + cy.count('-')} gap columns")
+
+
+def long_data(args):
+    """solve_big's default data in ``data/chip_smoke/big``: a 30,000-bp
+    reference (seed 0), 100 exact 10,000-bp reads of it (reads.csv) and a
+    mutated copy (mutated.csv). Returns (data dir, ref, exact, mutated)."""
     from parallel_genomeseq_tpu_torch.seqio.datagen import gen_reads_custom, gen_ref_custom
 
-    t_phase = time.perf_counter()
     data = ROOT / "data" / "chip_smoke" / "big"
     data.mkdir(parents=True, exist_ok=True)
     ref = gen_ref_custom(data / "ref.fa", ref_len=BIG["ref_len"], seed=0)
@@ -1073,29 +1139,45 @@ def long_phase(args, card: str, clock: float, dev):
         w.writerows([k, f"mutated-{k}", s, 0] for k, s in enumerate(mutated))
     print(f"long-read data: {len(exact)} reads x {BIG['read_len']} bp (and a mutated copy, "
           f"{min(map(len, mutated))}-{max(map(len, mutated))} bp) vs {len(ref)}-bp reference")
-    measured = check_strip_kernels(mutated, ref, clock, dev)
+    return data, ref, exact, mutated
 
-    k11 = strips_cuda.sw_score_strips
-    tb = (k11, strips_cuda.sw_score_strips_ckpt, strips_cuda.strip_moves,
-          traceback.walk_strip_level)
-    base = [str(BIG["npiece"]), "--device", str(dev)]
+
+def long_phase(args, card: str, clock: float, dev, data, kw):
+    """Phases 6 (linear) and 7 (affine, ``kw`` with gap_open): solve_big's
+    default width on ``long_data``. Returns (measurements, launches keyed by
+    kernel over both runs, the runs' launches)."""
+    t_phase = time.perf_counter()
+    data_dir, ref, _, mutated = data
+    affine = "gap_open" in kw
+    print(f"-- long reads, {'affine' if affine else 'linear'} gaps: {kw}")
+    measured = check_strip_kernels(mutated, ref, clock, dev, kw)
+
+    tb = strip_kernels(kw)[1]
+    other = strip_kernels(LINEAR if affine else BWA)[1]  # must not launch
+    base = [str(BIG["npiece"]), "--device", str(dev)] + (BWA_FLAGS if affine else [])
     score_run, score_launches = big_run(
-        "7 3", base[:1] + ["3"] + base[1:], (k11,), data / "reads.csv", data / "ref.fa")
+        "7 3", base[:1] + ["3"] + base[1:], tb[:1], data_dir / "reads.csv", data_dir / "ref.fa",
+        absent=other)
     tb_run, tb_launches = big_run(
         "7 1 --traceback", base[:1] + ["1", "--traceback"] + base[1:], tb,
-        data / "mutated.csv", data / "ref.fa")
-    print(f"solve_big on {card}: score-only {score_run.seconds[0] * 1e3:.1f} ms, "
+        data_dir / "mutated.csv", data_dir / "ref.fa", absent=other)
+    label = "affine" if affine else "linear"
+    print(f"solve_big {label} on {card}: score-only {score_run.seconds[0] * 1e3:.1f} ms, "
           f"{score_run.gcups[0]:.3f} GCUPS; with traceback {tb_run.seconds[0] * 1e3:.1f} ms, "
           f"{tb_run.gcups[0]:.3f} GCUPS")
-    check_long_oracle(mutated, ref, tb_run.results, args.seed)
-    print(f"long-read phase: {time.perf_counter() - t_phase:.1f} s")
-    launches = {k11.__name__: score_launches[k11.__name__] + tb_launches[k11.__name__],
+    if affine:
+        check_long_oracle_affine(mutated, ref, tb_run.results, args.seed)
+    else:
+        check_long_oracle(mutated, ref, tb_run.results, args.seed)
+    print(f"long-read phase ({label}): {time.perf_counter() - t_phase:.1f} s")
+    sweep = tb[0].__name__
+    launches = {sweep: score_launches[sweep] + tb_launches[sweep],
                 **{fn.__name__: tb_launches[fn.__name__] for fn in tb[1:]}}
     return measured, launches, {"solve_big_7_3": score_launches,
                                 "solve_big_traceback": tb_launches}
 
 
-# K1-K14: (wrapper, source, the TPU code it replaces, gap model or phase,
+# K1-K18: (wrapper, source, the TPU code it replaces, gap model or phase,
 # the main path's case that the JSON line quotes first).
 KERNELS = [
     ("sw_score", "wavefront.cu", f"{PALLAS}:160", "linear", "score_only"),
@@ -1115,6 +1197,11 @@ KERNELS = [
     ("strip_moves", "strips.cu", f"{PALLAS}:1792", "long", "top"),
     ("walk_strip_level", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:167", "long",
      "top"),
+    ("sw_score_strips_affine", "strips.cu", f"{PALLAS}:1102", "long_affine", "sweep"),
+    ("sw_score_strips_affine_ckpt", "strips.cu", f"{PALLAS}:1147", "long_affine", "winners"),
+    ("strip_affine_moves", "strips.cu", f"{PALLAS}:1870", "long_affine", "top"),
+    ("walk_strip_level_affine", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:221",
+     "long_affine", "top"),
 ]
 
 
@@ -1146,17 +1233,17 @@ def kernel_line(name, src, replaces, cases, main, launches):
     return entry
 
 
-def kernel_entries(dna, dna_launches, protein, protein_launches, long, long_launches,
-                   long_runs):
-    """The kernels JSON line's entries, K1-K14, from the phases'
+def kernel_entries(dna, dna_launches, protein, protein_launches, long):
+    """The kernels JSON line's entries, K1-K18, from the phases'
     measurements and launches (keyed by gap model, then kernel; the
-    long-read phase's by kernel, with each solve_big run's launches)."""
+    long-read phases' keyed 'long' and 'long_affine', each (measurements by
+    kernel, launches by kernel, each solve_big run's launches))."""
     kernels = []
     for name, src, replaces, gaps, main_case in KERNELS:
-        if gaps == "long":
-            entry = kernel_line(name, src, replaces, long[name], main_case, long_launches[name])
-            entry.update({f"launches_{run}": n[name] for run, n in long_runs.items()
-                          if name in n})
+        if gaps.startswith("long"):
+            measured, launches, runs = long[gaps]
+            entry = kernel_line(name, src, replaces, measured[name], main_case, launches[name])
+            entry.update({f"launches_{run}": n[name] for run, n in runs.items() if name in n})
         elif name.startswith("walk_moves"):  # both paths walk
             cases = {**dna[gaps][name], **protein[gaps][name]}
             on_dna, on_protein = dna_launches[gaps][name], protein_launches[gaps][name]
@@ -1199,16 +1286,18 @@ def main(argv=None) -> int:
     _build.load()
     print(f"built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
     for line in (lib.parent / "nvcc.log").read_text().splitlines():
-        if "entry function" in line or "Used" in line:
+        if "entry function" in line or "Used" in line or "spill" in line:
             print(f"  nvcc: {line.strip()}")
 
     dev = torch.device("cuda", 0)
     dna, dna_launches = dna_phase(args, card, clock, dev)
     protein, protein_launches = protein_phase(args, card, clock, dev)
-    long, long_launches, long_runs = long_phase(args, card, clock, dev)
+    data = long_data(args)
+    long = {"long": long_phase(args, card, clock, dev, data, LINEAR),
+            "long_affine": long_phase(args, card, clock, dev, data, BWA)}
 
     print(json.dumps({"kernels": kernel_entries(dna, dna_launches, protein, protein_launches,
-                                                long, long_launches, long_runs)}))
+                                                long)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,15 +9,16 @@ length over that time), and the reference's overlap-efficiency model
 (npiece x rate / (ref + 2 (npiece - 1) overlap) x ref / npiece,
 src/sw_solve_big.cpp:71-74). Reads past 2,048 bp run through the strip
 kernels: K11 for the window sweep and, with ``--traceback``, K12, K13 and
-K14 for the winners' checkpointed strip traceback.
+K14 for the winners' checkpointed strip traceback; under affine gaps
+(``--gap-open``; BWA-MEM's scoring is ``--match 1 --mismatch -4 --gap-open 6
+--gap-penalty 1``) K15, then K16, K17 and K18.
 
 Unlike the JAX CLI, the efficiency model's kernel rate defaults to this
 run's own: the cells of every (read, window) lane, m x n summed, over the
 fastest batch's time. ``--kernel-gcups`` sets it. ``--device`` replaces
 ``--platform`` (default: the CUDA card; ``cpu`` runs the plain PyTorch
-route). Affine gaps (``--gap-open``) and ``--matrix`` are refused, naming
-ROADMAP A10 (their strip kernels are not ported yet), and ``--semantics
-sat_uint8`` naming A2.
+route). ``--matrix`` is refused, naming ROADMAP A10 (the substitution-matrix
+strip kernels are not ported yet), and ``--semantics sat_uint8`` naming A2.
 
 Generates its data when --ref/--reads are absent (``data/custom_ref_1.fa``,
 ``data/custom_reads_1.csv``).
@@ -85,8 +86,6 @@ def run(argv=None) -> Run:
     common.add_scoring_flags(p)
     common.add_device_flags(p)
     args = p.parse_args(argv)
-    if args.gap_open > 0:
-        p.error("--gap-open (affine strips) is not ported yet (ROADMAP A10)")
     if args.matrix != "uniform":
         p.error("--matrix (substitution-matrix strips) is not ported yet (ROADMAP A10)")
     if Semantics(args.semantics) != Semantics.EXACT_INT32:

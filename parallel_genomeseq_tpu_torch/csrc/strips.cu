@@ -1,20 +1,32 @@
 // Long-read (strip) Smith-Waterman kernels for Hopper (sm_90a): uniform
-// match/mismatch scoring, linear gaps, exact int32 values, reads of any
-// length.
+// match/mismatch scoring, linear or affine (Gotoh) gaps, exact int32 values,
+// reads of any length.
 //
-// K11 `strip_sweep_kernel<false>` replaces the Pallas TPU kernel B9,
+// K11 `strip_sweep_kernel<false, false>` replaces the Pallas TPU kernel B9,
 //     parallel_genomeseq_tpu/ops/wavefront_pallas.py `_kernel_strips`
 //     (:1073, body `_strips_body` :1197) via `_call_strips` (:1347): per-lane
 //     best score and its cell, the column-major tie-break of
 //     `_reduce_best_strips` (:2188-2207).
-// K12 `strip_sweep_kernel<true>` replaces B13, `_kernel_strips_ckpt` (:1134)
-//     via `_call_strips_ckpt` (:1550): K11 plus the H values of every strip's
-//     last row (rows kS - 1, S = 256), the checkpoints the strip traceback
-//     replays from.
-// K13 `strip_moves_kernel` replaces B17, `_kernel_strip_moves` (:1792) via
-//     `_call_strip_moves` (:1840): one strip's S rows recomputed from its
+// K12 `strip_sweep_kernel<true, false>` replaces B13, `_kernel_strips_ckpt`
+//     (:1134) via `_call_strips_ckpt` (:1550): K11 plus the H values of every
+//     strip's last row (rows kS - 1, S = 256), the checkpoints the strip
+//     traceback replays from.
+// K13 `strip_moves_kernel<false>` replaces B17, `_kernel_strip_moves` (:1792)
+//     via `_call_strip_moves` (:1840): one strip's S rows recomputed from its
 //     incoming checkpoint row, emitting the linear move byte of :1825-1831
 //     for every cell.
+// K15 `strip_sweep_kernel<false, true>` replaces B10, `_kernel_strips_affine`
+//     (:1102, the affine branch of `_strips_body` :1226, :1268-1276) via
+//     `_call_strips_affine` (:1389): K11 under the Gotoh recurrence
+//     E = max(H_west - open, E_west) - extend, F = max(H_north - open,
+//     F_north) - extend, H = max(diag + s, E, F, 0).
+// K16 `strip_sweep_kernel<true, true>` replaces B14,
+//     `_kernel_strips_affine_ckpt` (:1147) via `_call_strips_affine_ckpt`
+//     (:1595): K15 plus the H and the F of every strip's last row.
+// K17 `strip_moves_kernel<true>` replaces B18, `_kernel_strip_affine_moves`
+//     (:1870-1947) via `_call_strip_affine_moves` (:1953): one strip replayed
+//     from its incoming H and F rows, emitting the affine byte (H source
+//     ZERO > NW > E > F in bits 0-1, E extend bit 3, F extend bit 4).
 //
 // Design of K11/K12. One thread block per lane. Its T threads split the
 // lane's rows into bands of kBand = 32 consecutive rows, one band per thread,
@@ -31,6 +43,21 @@
 // the next pass reads, in place (a read of column j always precedes the
 // write of column j).
 //
+// Design of K15/K16, the same pipeline: E runs along a row, so each thread
+// keeps its band's E column in registers beside H (32 more int32) and E never
+// leaves the thread; F runs down the rows like the north H, so the hand-off
+// between bands, the between-pass bound row and the checkpoints carry the
+// pair (H, F) -- an int2 in shared memory, (B, N + 1) int2 in device memory,
+// and a second (B, K, N) int32 plane of F beside K16's H checkpoints. The
+// extra 32 registers would spill under K11's 512-thread bound (128 registers
+// a thread), so the affine blocks take at most kMaxThreadsAffine = 384
+// threads (168 registers): 12,288 rows a pass, which still covers a 10,000-bp
+// read in one. DPX folds E and F (`__viaddmax_s32`) and H with its zero
+// (`__viaddmax_s32_relu`). Boundaries are the port's full sweep's
+// (ops/scan_dp.wavefront_affine): E = -2^30 in column 0, F = 0 above row 1,
+// and H = 0, E = F = -2^30 on rows past the lane's m_b, so every value,
+// the F checkpoints included, equals the plain sweep's.
+//
 // Exactness: rows past the lane's m_b hold H = 0 and columns past n_b are not
 // swept, so every value equals the plain full-matrix sweep's. Ties: each
 // thread keeps the first maximum of its own cells in (j, i) order (a later
@@ -38,28 +65,34 @@
 // bests by max score, then min j, then min i. An all-zero lane gives
 // (0, 0, 0).
 //
-// Design of K13. One warp per lane: 32 threads x 8 rows cover the strip's
-// 256 rows, pipelined along the reference as above, the hand-off by
-// __shfl_up_sync (no barrier). Row 0's north and north-west come from the
-// checkpoint row (zeros for strip 0). A thread packs its 8 move bytes of a
+// Design of K13 and K17. One warp per lane: 32 threads x 8 rows cover the
+// strip's 256 rows, pipelined along the reference as above, the hand-off by
+// __shfl_up_sync (no barrier; K17 hands off H and F with two). Row 0's north
+// and north-west come from the checkpoint row (zeros for strip 0; K17's F
+// from the F row, 0 for strip 0). A thread packs its 8 move bytes of a
 // column into one 8-byte store into the lane-major (B, N, S) moves layout
-// (moves[b][j - 1][r]) that the strip walk reads.
+// (moves[b][j - 1][r]) that the strip walk reads. K17 keeps its 8 rows' E in
+// registers, from -2^30 in column 0 as the full sweep does, so its bytes
+// equal the full sweep's on every cell of the lane's matrix.
 //
 // What bounds them on the H100: the integer ALU (about 7 operations per cell
-// for K11/K12, 14 for K13) and, per column and thread, one barrier (K11/K12)
-// or shuffle (K13) and one read of the reference byte. K13 at the winner
-// re-run's shape is one warp per lane, so it is latency-bound: the north
-// chain down the 8 rows of a band.
+// for K11/K12, 12 for K13, 10 for K15/K16, 20 for K17) and, per column and
+// thread, one barrier (K11/K12/K15/K16) or shuffle (K13/K17) and one read of
+// the reference byte. K13/K17 at the winner re-run's shape are one warp per
+// lane, so they are latency-bound: the north chain down the 8 rows of a band.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBand = 32;         // rows per thread, K11/K12
-constexpr int kMaxThreads = 512;  // threads per block, K11/K12
-constexpr int kStrip = 256;       // strip height S (checkpoints, K13)
-constexpr int kReplayBand = kStrip / 32;  // rows per thread, K13
+constexpr int kBand = 32;               // rows per thread, K11/K12/K15/K16
+constexpr int kMaxThreads = 512;        // threads per block, K11/K12
+constexpr int kMaxThreadsAffine = 384;  // threads per block, K15/K16
+constexpr int kStrip = 256;             // strip height S (checkpoints, K13)
+constexpr int kReplayBand = kStrip / 32;  // rows per thread, K13/K17
+constexpr int kNeg = -(1 << 30);        // E and F where no gap run can reach
 
 // (v1, j1, i1) before (v2, j2, i2): higher score, then smaller j, then i.
 __device__ __forceinline__ bool better(int v1, int j1, int i1, int v2, int j2,
@@ -93,20 +126,56 @@ __device__ __forceinline__ int band_column(int (&h)[kRows],
   return colmax;
 }
 
-// K11 (kCkpt = false) and K12 (kCkpt = true). x (B, M) and y (B, N) uint8
-// lane-major; bound (B, N + 1) int32 scratch, used when passes > 1; ck
-// (B, nck, N) int32 zero-filled by the caller, ck[b][c][j - 1] = H((c + 1) *
-// kStrip, j) (1-based rows).
-template <bool kCkpt>
-__global__ void __launch_bounds__(kMaxThreads)
+// The affine form of band_column: h and e hold H(., j - 1) and E(., j - 1)
+// on entry and H(., j), E(., j) on return; f is F(row0, j) on entry and F of
+// the band's last row on return. Rows k >= nvalid hold H = 0, E = F = kNeg.
+template <bool kFull, int kRows>
+__device__ __forceinline__ int band_column_affine(int (&h)[kRows], int (&e)[kRows],
+                                                  const uint8_t (&xb)[kRows],
+                                                  uint8_t yc, int match,
+                                                  int mismatch, int gap_open,
+                                                  int gap, int nvalid, int nw,
+                                                  int north, int& f) {
+  int diag = nw;
+  int colmax = 0;
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int west = h[k];
+    int ek = __viaddmax_s32(west, -gap_open, e[k]) - gap;
+    f = __viaddmax_s32(north, -gap_open, f) - gap;
+    int v = __viaddmax_s32_relu(diag, xb[k] == yc ? match : mismatch, max(ek, f));
+    if (!kFull && k >= nvalid) {
+      v = 0;
+      ek = kNeg;
+      f = kNeg;
+    }
+    diag = west;
+    h[k] = v;
+    e[k] = ek;
+    north = v;
+    colmax = max(colmax, v);
+  }
+  return colmax;
+}
+
+// K11 (kCkpt = false) and K12 (kCkpt = true), and with kAffine K15 and K16.
+// x (B, M) and y (B, N) uint8 lane-major; bound (B, N + 1) scratch of the
+// hand-off type (int32, or int2 (H, F) when affine), used when passes > 1;
+// ck (B, nck, N) int32 zero-filled by the caller, ck[b][c][j - 1] =
+// H((c + 1) * kStrip, j) (1-based rows); fck the same shape, filled with
+// kNeg by the caller, fck[b][c][j - 1] = F((c + 1) * kStrip, j) (K16 only).
+template <bool kCkpt, bool kAffine>
+__global__ void __launch_bounds__(kAffine ? kMaxThreadsAffine : kMaxThreads)
 strip_sweep_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
                    const int32_t* __restrict__ m, const int32_t* __restrict__ n,
-                   int M, int N, int match, int mismatch, int gap, int passes,
-                   int32_t* __restrict__ bound, int32_t* __restrict__ ck,
-                   int nck, int32_t* __restrict__ score,
+                   int M, int N, int match, int mismatch, int gap_open, int gap,
+                   int passes, void* __restrict__ bound, int32_t* __restrict__ ck,
+                   int32_t* __restrict__ fck, int nck, int32_t* __restrict__ score,
                    int32_t* __restrict__ best_i, int32_t* __restrict__ best_j) {
-  __shared__ int xfer[2][kMaxThreads];
-  __shared__ int red[3][kMaxThreads / 32];
+  using Carry = std::conditional_t<kAffine, int2, int>;  // hand-off: H, or (H, F)
+  constexpr int kThreads = kAffine ? kMaxThreadsAffine : kMaxThreads;
+  __shared__ Carry xfer[2][kThreads];
+  __shared__ int red[3][kThreads / 32];
   const int b = blockIdx.x;
   const int t = threadIdx.x;
   const int T = blockDim.x;
@@ -114,17 +183,19 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
   const int nb = min(n[b], N);
   const uint8_t* xl = x + (size_t)b * M;
   const uint8_t* yl = y + (size_t)b * N;
-  int32_t* bl = bound ? bound + (size_t)b * (N + 1) : nullptr;
+  Carry* bl = bound ? static_cast<Carry*>(bound) + (size_t)b * (N + 1) : nullptr;
   int best = 0, bi = 0, bj = 0;
   for (int p = 0; p < passes; ++p) {
     const int row0 = (p * T + t) * kBand;  // 0-based first row of the band
     const int nvalid = min(max(mb - row0, 0), kBand);
     uint8_t xb[kBand];
     int h[kBand];
+    int e[kBand];  // affine only: E(., j - 1), kNeg in column 0
 #pragma unroll
     for (int k = 0; k < kBand; ++k) {
       xb[k] = row0 + k < M ? xl[row0 + k] : 0;
       h[k] = 0;
+      e[k] = kNeg;
     }
     // The band's last row closes strip c when (row0 + kBand) % kStrip == 0.
     const int c = (row0 + kBand) / kStrip - 1;
@@ -135,13 +206,33 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
     for (int s = 0; s < nb + T - 1; ++s) {
       const int j = s - t + 1;
       if (j >= 1 && j <= nb) {
-        const int north = t > 0 ? xfer[(s - 1) & 1][t - 1] : (p > 0 ? bl[j] : 0);
+        // Row 0's north: H = 0 and (affine) F = 0 above the first pass.
+        const Carry in = t > 0 ? xfer[(s - 1) & 1][t - 1] : (p > 0 ? bl[j] : Carry{});
         const uint8_t yc = yl[j - 1];
         int colmax = 0;
-        if (nvalid == kBand) {
-          colmax = band_column<true>(h, xb, yc, match, mismatch, gap, kBand, nw, north);
-        } else if (nvalid > 0) {
-          colmax = band_column<false>(h, xb, yc, match, mismatch, gap, nvalid, nw, north);
+        int north;
+        Carry last;
+        if constexpr (kAffine) {
+          north = in.x;
+          int f = in.y;
+          if (nvalid == kBand) {
+            colmax = band_column_affine<true>(h, e, xb, yc, match, mismatch, gap_open, gap,
+                                              kBand, nw, north, f);
+          } else if (nvalid > 0) {
+            colmax = band_column_affine<false>(h, e, xb, yc, match, mismatch, gap_open, gap,
+                                               nvalid, nw, north, f);
+          } else {
+            f = kNeg;  // a band wholly past m_b
+          }
+          last = make_int2(h[kBand - 1], f);
+        } else {
+          north = in;
+          if (nvalid == kBand) {
+            colmax = band_column<true>(h, xb, yc, match, mismatch, gap, kBand, nw, north);
+          } else if (nvalid > 0) {
+            colmax = band_column<false>(h, xb, yc, match, mismatch, gap, nvalid, nw, north);
+          }
+          last = h[kBand - 1];
         }
         if (colmax > best || (colmax == best && colmax > 0 && j < bj)) {
           int kk = 0;
@@ -151,9 +242,16 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
           bj = j;
           bi = row0 + kk + 1;
         }
-        const int last = h[kBand - 1];
         xfer[s & 1][t] = last;
-        if (writes_ck) ck[((size_t)b * nck + c) * N + (j - 1)] = last;
+        if (writes_ck) {
+          const size_t at = ((size_t)b * nck + c) * N + (j - 1);
+          if constexpr (kAffine) {
+            ck[at] = last.x;
+            fck[at] = last.y;
+          } else {
+            ck[at] = last;
+          }
+        }
         if (writes_bound) bl[j] = last;
         nw = north;
       }
@@ -192,15 +290,18 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
   }
 }
 
-// K13: one warp per lane. x (B, M) uint8 with the strip at rows [base, base +
-// kStrip); rowin (B, .) int32 with lane stride ld_row, rowin[b][j - 1] = H(base,
-// j), or null for strip 0; moves (B, N, kStrip) uint8.
+// K13 (kAffine = false) and K17 (kAffine = true): one warp per lane. x (B, M)
+// uint8 with the strip at rows [base, base + kStrip); rowin (B, .) int32 with
+// lane stride ld_row, rowin[b][j - 1] = H(base, j), or null for strip 0;
+// frowin (K17) the same for F(base, j), beside rowin with its stride; moves
+// (B, N, kStrip) uint8.
+template <bool kAffine>
 __global__ void __launch_bounds__(32)
 strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
                    const int32_t* __restrict__ m, const int32_t* __restrict__ n,
                    int M, int N, int base, const int32_t* __restrict__ rowin,
-                   long long ld_row, int match, int mismatch, int gap,
-                   uint8_t* __restrict__ moves) {
+                   const int32_t* __restrict__ frowin, long long ld_row, int match,
+                   int mismatch, int gap_open, int gap, uint8_t* __restrict__ moves) {
   const int b = blockIdx.x;
   const int t = threadIdx.x;
   const int nb = min(n[b], N);
@@ -208,37 +309,67 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
   const int nvalid = min(max(min(m[b], M) - base - row0, 0), kReplayBand);
   const uint8_t* xl = x + (size_t)b * M;
   const int32_t* rl = rowin ? rowin + (size_t)b * ld_row : nullptr;
+  const int32_t* fl = frowin ? frowin + (size_t)b * ld_row : nullptr;
   uint8_t xb[kReplayBand];
   int h[kReplayBand];
+  int e[kReplayBand];  // K17: E(., j - 1), kNeg in column 0
 #pragma unroll
   for (int k = 0; k < kReplayBand; ++k) {
     const int r = base + row0 + k;
     xb[k] = r < M ? xl[r] : 1;  // X_PAD past the read
     h[k] = 0;
+    e[k] = kNeg;
   }
   uint8_t* out = moves + (size_t)b * N * kStrip + row0;
-  int nw = 0;     // H(row0, j - 1)
-  int carry = 0;  // this band's last-row H of the column it finished last
+  int nw = 0;      // H(row0, j - 1)
+  int carry = 0;   // this band's last-row H of the column it finished last
+  int fcarry = 0;  // K17: the same row's F
   for (int s = 0; s < nb + 31; ++s) {
     const int up = __shfl_up_sync(0xffffffffu, carry, 1);
+    const int fup = kAffine ? __shfl_up_sync(0xffffffffu, fcarry, 1) : 0;
     const int j = s - t + 1;
     if (j >= 1 && j <= nb) {
       const int north_in = t > 0 ? up : (rl ? rl[j - 1] : 0);
       const uint8_t yc = y[(size_t)b * N + j - 1];
       int diag = nw, north = north_in;
+      int f = t > 0 ? fup : (fl ? fl[j - 1] : 0);  // K17: F(row0, j), 0 above row 1
       uint32_t code[2] = {0u, 0u};
 #pragma unroll
       for (int k = 0; k < kReplayBand; ++k) {
         const int west = h[k];
-        // Move code over the neighbours (nw, west, north): NW if nw >= west
-        // and nw >= north, else W if west >= both, else N; bit 2 (stop) when
-        // any of them is 0.
-        uint32_t mv = (diag >= west && diag >= north) ? 0u
-                      : (west >= diag && west >= north) ? 1u : 2u;
-        if (diag == 0 || west == 0 || north == 0) mv |= 4u;
-        int v = max(max(diag + (xb[k] == yc ? match : mismatch),
-                        max(west, north) - gap), 0);
-        v = k < nvalid ? v : 0;
+        const int s_xy = xb[k] == yc ? match : mismatch;
+        uint32_t mv;
+        int v;
+        if constexpr (kAffine) {
+          // The byte of ops/scan_dp.wavefront_affine: H's source by equality
+          // in the order ZERO, NW, E, F; the extend bits where the run's
+          // value reaches the opening one.
+          const int e_open = west - gap_open;
+          const int f_open = north - gap_open;
+          int ek = max(e_open, e[k]) - gap;
+          const int fk = max(f_open, f) - gap;
+          const int nwv = diag + s_xy;
+          v = max(max(nwv, ek), max(fk, 0));
+          mv = v == 0 ? 3u : v == nwv ? 0u : v == ek ? 1u : 2u;
+          if (e[k] >= e_open) mv |= 8u;
+          if (f >= f_open) mv |= 16u;
+          f = fk;
+          if (k >= nvalid) {
+            v = 0;
+            ek = kNeg;
+            f = kNeg;
+          }
+          e[k] = ek;
+        } else {
+          // Move code over the neighbours (nw, west, north): NW if nw >= west
+          // and nw >= north, else W if west >= both, else N; bit 2 (stop)
+          // when any of them is 0.
+          mv = (diag >= west && diag >= north) ? 0u
+               : (west >= diag && west >= north) ? 1u : 2u;
+          if (diag == 0 || west == 0 || north == 0) mv |= 4u;
+          v = max(max(diag + s_xy, max(west, north) - gap), 0);
+          v = k < nvalid ? v : 0;
+        }
         code[k >> 2] |= mv << (8 * (k & 3));
         diag = west;
         h[k] = v;
@@ -247,6 +378,7 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
       *reinterpret_cast<uint2*>(out + (size_t)(j - 1) * kStrip) =
           make_uint2(code[0], code[1]);
       carry = h[kReplayBand - 1];
+      fcarry = f;
       nw = north_in;
     }
   }
@@ -255,45 +387,54 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
 }  // namespace
 
 // Plain C entry points, bound with ctypes. Device pointers to contiguous
-// tensors. pgs_strip_sweep: x (B, M), y (B, N) uint8, m, n (B,) int32, bound
-// (B, N + 1) int32 scratch, or null when one pass covers M (M <= kMaxThreads x
-// kBand = 16,384, ROWS_PER_PASS in ops/strips_cuda.py), ck (B, nck, N)
-// int32 zero-filled or null (K11), score/best_i/best_j (B,) int32. Returns
-// cudaGetLastError() after the launch.
+// tensors. pgs_strip_sweep: x (B, M), y (B, N) uint8, m, n (B,) int32; bound
+// scratch (B, N + 1) int32, or (B, N + 1, 2) int32 when gap_open > 0, or null
+// when one pass covers M (M <= 512 x kBand = 16,384 rows, affine 384 x kBand
+// = 12,288: ROWS_PER_PASS and ROWS_PER_PASS_AFFINE in ops/strips_cuda.py);
+// ck (B, nck, N) int32 zero-filled or null (K11/K15); fck the same shape
+// filled with -2^30, or null unless K16; score/best_i/best_j (B,) int32.
+// gap_open > 0 selects the affine kernels. Returns cudaGetLastError() after
+// the launch.
 extern "C" int pgs_strip_sweep(const void* x, const void* y, const void* m,
                                const void* n, int M, int N, int B, int match,
-                               int mismatch, int gap, void* bound, void* ck,
-                               int nck, void* score, void* best_i, void* best_j,
-                               void* stream) {
+                               int mismatch, int gap_open, int gap, void* bound,
+                               void* ck, void* fck, int nck, void* score,
+                               void* best_i, void* best_j, void* stream) {
   if (B > 0) {
+    const bool affine = gap_open > 0;
     const int bands = (M + kBand - 1) / kBand;
-    const int threads = min(kMaxThreads, max(32, (bands + 31) / 32 * 32));
+    const int cap = affine ? kMaxThreadsAffine : kMaxThreads;
+    const int threads = min(cap, max(32, (bands + 31) / 32 * 32));
     const int passes = (bands + threads - 1) / threads;
-    auto kernel = ck ? &strip_sweep_kernel<true> : &strip_sweep_kernel<false>;
+    auto kernel = affine ? (ck ? &strip_sweep_kernel<true, true> : &strip_sweep_kernel<false, true>)
+                         : (ck ? &strip_sweep_kernel<true, false>
+                               : &strip_sweep_kernel<false, false>);
     kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(y),
         static_cast<const int32_t*>(m), static_cast<const int32_t*>(n), M, N,
-        match, mismatch, gap, passes, static_cast<int32_t*>(bound),
-        static_cast<int32_t*>(ck), nck, static_cast<int32_t*>(score),
+        match, mismatch, gap_open, gap, passes, bound, static_cast<int32_t*>(ck),
+        static_cast<int32_t*>(fck), nck, static_cast<int32_t*>(score),
         static_cast<int32_t*>(best_i), static_cast<int32_t*>(best_j));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // pgs_strip_moves: x (B, M), y (B, N) uint8, m, n (B,) int32, base the
-// strip's first row (a multiple of 256), rowin with lane stride ld_row or
-// null, moves (B, N, 256) uint8 (columns past a lane's n_b not written).
+// strip's first row (a multiple of 256), rowin (and, when gap_open > 0,
+// frowin) with lane stride ld_row or null, moves (B, N, 256) uint8 (columns
+// past a lane's n_b not written). gap_open > 0 selects K17.
 extern "C" int pgs_strip_moves(const void* x, const void* y, const void* m,
                                const void* n, int M, int N, int B, int base,
-                               const void* rowin, long long ld_row, int match,
-                               int mismatch, int gap, void* moves,
-                               void* stream) {
+                               const void* rowin, const void* frowin,
+                               long long ld_row, int match, int mismatch,
+                               int gap_open, int gap, void* moves, void* stream) {
   if (B > 0) {
-    strip_moves_kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+    auto kernel = gap_open > 0 ? &strip_moves_kernel<true> : &strip_moves_kernel<false>;
+    kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(y),
         static_cast<const int32_t*>(m), static_cast<const int32_t*>(n), M, N,
-        base, static_cast<const int32_t*>(rowin), ld_row, match, mismatch, gap,
-        static_cast<uint8_t*>(moves));
+        base, static_cast<const int32_t*>(rowin), static_cast<const int32_t*>(frowin),
+        ld_row, match, mismatch, gap_open, gap, static_cast<uint8_t*>(moves));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 // K3: batched greedy traceback walk over the (D, M, B) move codes of K2/K5.
 // K10: the affine (Gotoh) walk over the move bytes of K7/K9.
 // K14: the walk through one row-strip of a long read (K13's moves).
+// K18: the affine walk through one row-strip (K17's moves).
 //
 // Not a Pallas kernel. It replaces the JAX `lax.fori_loop` of per-step
 // gathers in parallel_genomeseq_tpu/ops/traceback.py `walk_moves` (:31), which
@@ -42,6 +43,16 @@
 // artefacts: this loop ends when the lane leaves the strip or stops. It is
 // capped at S + N steps per strip, more than any walk inside the matrix takes
 // there, so that a walk started outside a lane's matrix still ends.
+//
+// K18 replaces `walk_strip_level_affine` (parallel_genomeseq_tpu/ops/
+// traceback.py:221-286), the affine form of that loop: K14's shape (one
+// thread per lane over one strip's (B, N, 256) bytes, the state read and
+// written back in place, no fixed trip count, capped at S + N steps) with
+// K10's state machine. The gap state (0 = H, 1 = E run, 2 = F run) is a
+// (B,) int32 plane of the carried state, so a run that crosses a strip edge
+// -- an F run always does -- resumes in the next strip. A lane stops only in
+// the H state, on H_ZERO or at j <= 0, and the stopping cell emits nothing;
+// pos is the j of the last NW emission.
 //
 // What bounds the walks on the H100: one dependent gather from the moves
 // plane per step and lane (a latency chain, not bandwidth); a walk is a few
@@ -212,7 +223,83 @@ __global__ void walk_strip_kernel(const uint8_t* __restrict__ moves,
   active[b] = act ? 1 : 0;
 }
 
+__global__ void walk_strip_affine_kernel(const uint8_t* __restrict__ moves,
+                                         const uint8_t* __restrict__ x_mb,
+                                         const uint8_t* __restrict__ y_bn,
+                                         int M, int N, int B, int base,
+                                         int max_steps, int32_t* __restrict__ I,
+                                         int32_t* __restrict__ J,
+                                         int32_t* __restrict__ pos,
+                                         uint8_t* __restrict__ active,
+                                         int32_t* __restrict__ steps,
+                                         int32_t* __restrict__ gstate,
+                                         uint8_t* __restrict__ cx,
+                                         uint8_t* __restrict__ cy) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  int i = I[b];
+  int j = J[b];
+  int p = pos[b];
+  int count = steps[b];
+  int state = gstate[b];  // 0 = H, 1 = E run, 2 = F run
+  bool act = active[b] != 0;
+  const uint8_t* mvl = moves + (size_t)b * N * kStrip;
+  for (int it = 0; act && i - 1 >= base && it < kStrip + N; ++it) {
+    const int c = clampi(j - 1, 0, N - 1);
+    const uint8_t mv = mvl[(size_t)c * kStrip + clampi(i - 1 - base, 0, kStrip - 1)];
+    const int hsrc = mv & 3;
+    if (state == 0 && (hsrc == 3 || j <= 0)) {
+      act = false;
+      break;
+    }
+    const int op = state == 0 ? hsrc : state;  // in a run the op is the run
+    if (count < max_steps) {
+      cx[(size_t)count * B + b] = op == 1 ? kGap : x_mb[(size_t)clampi(i - 1, 0, M - 1) * B + b];
+      cy[(size_t)count * B + b] = op == 2 ? kGap : y_bn[(size_t)b * N + c];
+    }
+    ++count;
+    if (op == 0) {
+      p = j;
+      --i;
+      --j;
+    } else if (op == 1) {
+      state = (mv & 8) ? 1 : 0;
+      --j;
+    } else {
+      state = (mv & 16) ? 2 : 0;
+      --i;
+    }
+  }
+  I[b] = i;
+  J[b] = j;
+  pos[b] = p;
+  steps[b] = count;
+  gstate[b] = state;
+  active[b] = act ? 1 : 0;
+}
+
 }  // namespace
+
+// K18's entry point: K14's arguments and the gap state gstate (B,) int32,
+// also updated in place. Returns cudaGetLastError() after the launch.
+extern "C" int pgs_walk_strip_affine(const void* moves, const void* x_mb,
+                                     const void* y_bn, int M, int N, int B,
+                                     int base, int max_steps, void* i, void* j,
+                                     void* pos, void* active, void* steps,
+                                     void* gstate, void* cx, void* cy,
+                                     void* stream) {
+  if (B > 0) {
+    walk_strip_affine_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(moves), static_cast<const uint8_t*>(x_mb),
+        static_cast<const uint8_t*>(y_bn), M, N, B, base, max_steps,
+        static_cast<int32_t*>(i), static_cast<int32_t*>(j),
+        static_cast<int32_t*>(pos), static_cast<uint8_t*>(active),
+        static_cast<int32_t*>(steps), static_cast<int32_t*>(gstate),
+        static_cast<uint8_t*>(cx), static_cast<uint8_t*>(cy));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // K14's entry point: moves (B, N, 256) uint8, x_mb (M, B), y_bn (B, N) uint8,
 // base the strip's first row; the state i, j, pos, steps (B,) int32, active

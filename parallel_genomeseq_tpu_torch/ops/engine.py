@@ -7,9 +7,10 @@ counterpart of ``swaligner.py:33-56``.
 ``CudaEngine`` runs the kernel wrappers -- K1/K2 (``ops/wavefront_cuda``)
 for uniform scoring, K4/K5 (``ops/profile_cuda``) for a substitution matrix,
 and under affine (Gotoh) gaps their forms K6/K7 and K8/K9, walked by K3 or,
-affine, K10 (``ops/traceback``); reads longer than MAX_M under linear
-uniform scoring go to the strip kernels K11 (score), K12 (checkpoints) and
-K13 (replay) of ``ops/strips_cuda``, walked strip by strip by K14. CUDA
+affine, K10 (``ops/traceback``); reads longer than MAX_M under uniform
+scoring go to the strip kernels of ``ops/strips_cuda`` -- K11 (score), K12
+(checkpoints) and K13 (replay), walked strip by strip by K14, or under
+affine gaps K15, K16 (H and F checkpoints) and K17, walked by K18. CUDA
 tensors launch the kernels or raise, CPU tensors take the plain route.
 ``PlainEngine`` always runs the plain PyTorch wavefront (``ops/scan_dp``)
 and walks (``ops/traceback``), on either device. Inputs may be numpy arrays
@@ -35,6 +36,22 @@ from . import profile_cuda, scan_dp, strips_cuda, traceback, wavefront_cuda
 MAX_M = 2048
 STRIP_S = scan_dp.STRIP_S
 
+# The long-read (strip) functions of each gap model, keyed by
+# ``cfg.is_affine``: (sweep, checkpointing sweep, replay, walk). The kernels'
+# wrappers are K11-K14, affine K15-K18; their plain versions share the sweep.
+STRIP_KERNELS = {
+    False: (strips_cuda.sw_score_strips, strips_cuda.sw_score_strips_ckpt,
+            strips_cuda.strip_moves, traceback.walk_strip_level),
+    True: (strips_cuda.sw_score_strips_affine, strips_cuda.sw_score_strips_affine_ckpt,
+           strips_cuda.strip_affine_moves, traceback.walk_strip_level_affine),
+}
+STRIP_PLAIN = {
+    False: (scan_dp.sw_score_plain, scan_dp.sw_score_ckpt_plain, scan_dp.strip_moves_plain,
+            traceback._walk_strip_plain),
+    True: (scan_dp.sw_score_plain, scan_dp.sw_score_affine_ckpt_plain,
+           scan_dp.strip_affine_moves_plain, traceback._walk_strip_affine_plain),
+}
+
 
 def check_supported(cfg: ScoringConfig, tie: str = "colmajor"):
     """Raise NotImplementedError for what the port does not run yet."""
@@ -56,18 +73,22 @@ def _as_tensor(a, dtype, device):
 
 
 def _check_length(cfg: ScoringConfig, rows: int, what: str):
-    """Strip-length inputs run under linear uniform scoring only."""
-    if rows > MAX_M and (cfg.is_affine or not cfg.is_uniform):
+    """Strip-length inputs run under uniform scoring only, linear or
+    affine."""
+    if rows > MAX_M and not cfg.is_uniform:
         raise NotImplementedError(
-            f"{what} longer than {MAX_M} under affine or substitution-matrix "
-            "scoring (their strip kernels) are not ported yet: ROADMAP A10"
+            f"{what} longer than {MAX_M} under substitution-matrix scoring "
+            "(its strip kernels) are not ported yet: ROADMAP A10"
         )
 
 
 class _Engine:
+    _strip_fns = STRIP_KERNELS  # or STRIP_PLAIN
+
     def __init__(self, cfg: ScoringConfig = ScoringConfig(), device=None):
         check_supported(cfg)
         self.cfg = cfg
+        self._st, self._st_ckpt, self._st_moves, self._st_walk = self._strip_fns[cfg.is_affine]
         self.device = resolve_device(device)
         self.gap = int(cfg.gap_penalty)
         gaps = {"gap": self.gap}
@@ -98,7 +119,7 @@ class _Engine:
         i = j = 0, as the JAX engine does (:3171-3175)."""
         xs, ys, m, n = self._inputs(x_bm, y_bn, m, n)
         if xs.shape[1] > MAX_M:
-            score, i, j = self._strips(xs, ys, m, n)
+            score, i, j = self._st(xs, ys, m, n, **self._kw)
             if not need_pos:
                 i, j = torch.zeros_like(i), torch.zeros_like(j)
         elif self.cfg.is_uniform:
@@ -119,11 +140,14 @@ class _Engine:
 
     def score_batch_strip_moves(self, x_bm, y_bn, m, n, max_steps: int):
         """Score, argmax and the whole greedy walk for reads longer than
-        MAX_M (linear uniform scoring), in checkpoint memory rather than
-        the (M + N - 1, M, B) move tensor: one checkpointing sweep (K12),
-        then for each strip of STRIP_S rows from the bottom of the matrix
-        up, its moves replayed from the checkpoint above it (K13) and every
-        lane inside it walked (K14), as wavefront_pallas.py:2668-2764.
+        MAX_M (uniform scoring), in checkpoint memory rather than the
+        (M + N - 1, M, B) move tensor: one checkpointing sweep (K12), then
+        for each strip of STRIP_S rows from the bottom of the matrix up, its
+        moves replayed from the checkpoint above it (K13) and every lane
+        inside it walked (K14), as wavefront_pallas.py:2668-2764. Under
+        affine gaps the same loop is ``score_batch_strip_affine_moves``
+        (:2766-2871): K16 checkpoints H and F, K17 replays from both, and
+        K18 walks with the gap state carried from strip to strip.
 
         One host sync per strip decides whether any lane reaches it (a strip
         no lane reaches is skipped), and ends the previous strip's timing;
@@ -134,9 +158,9 @@ class _Engine:
         xs, ys, m, n = self._inputs(x_bm, y_bn, m, n)
         if xs.shape[1] <= MAX_M:
             raise ValueError(f"the strip path is for reads longer than {MAX_M}")
-        score, i, j, ck = self._strips_ckpt(xs, ys, m, n)
+        score, i, j, *ck = self._st_ckpt(xs, ys, m, n, **self._kw)  # H (and F) checkpoints
         x_mb = xs.T.contiguous()
-        state = traceback.new_strip_state(i, j, max_steps)
+        state = traceback.new_strip_state(i, j, max_steps, affine=self.cfg.is_affine)
         active, cur = state[3], state[0]
         nstrips = -(-xs.shape[1] // STRIP_S)
         level_us = [0.0] * nstrips
@@ -153,14 +177,14 @@ class _Engine:
             if not reach:
                 continue
             timing = (nstrips - 1 - s, time.perf_counter())
-            rowin = ck[:, s - 1] if s > 0 else None
-            moves = self._strip_moves(xs, ys, m, n, rowin, base)
-            self._strip_walk(moves, x_mb, ys, base, state, max_steps)
+            rows = [c[:, s - 1] if s > 0 else None for c in ck]
+            moves = self._st_moves(xs, ys, m, n, *rows, base, **self._kw)
+            self._st_walk(moves, x_mb, ys, base, state, max_steps=max_steps)
             del moves
         if timing is not None:
             bool(active.any())  # sync: the last strip's work is done
             level_us[timing[0]] = (time.perf_counter() - timing[1]) * 1e6
-        _, _, pos, _, steps, cx, cy = state
+        pos, steps, cx, cy = state[2], state[4], state[5], state[6]
         return {"score": score, "i": i, "j": j, "pos": pos, "cx": cx, "cy": cy,
                 "steps": steps, "level_us": tuple(level_us)}
 
@@ -177,8 +201,9 @@ class _Engine:
 
 
 class CudaEngine(_Engine):
-    """The kernels (plain route for CPU tensors): K1/K2/K4/K5 and the K3
-    walk, or under affine gaps K6/K7/K8/K9 and the K10 walk."""
+    """The kernels (plain route for CPU tensors): K1/K2/K4/K5, the K3 walk
+    and the strips K11-K14, or under affine gaps K6/K7/K8/K9, the K10 walk
+    and the strips K15-K18."""
 
     def __init__(self, cfg: ScoringConfig = ScoringConfig(), device=None):
         super().__init__(cfg, device)
@@ -207,21 +232,11 @@ class CudaEngine(_Engine):
     def walk(self, moves, x_mb, y_bn, i0, j0, max_steps: int):
         return self._walk(moves, x_mb, y_bn, i0, j0, max_steps=max_steps)
 
-    def _strips(self, xs, ys, m, n):
-        return strips_cuda.sw_score_strips(xs, ys, m, n, **self._kw)
-
-    def _strips_ckpt(self, xs, ys, m, n):
-        return strips_cuda.sw_score_strips_ckpt(xs, ys, m, n, **self._kw)
-
-    def _strip_moves(self, xs, ys, m, n, rowin, base):
-        return strips_cuda.strip_moves(xs, ys, m, n, rowin, base, **self._kw)
-
-    def _strip_walk(self, moves, x_mb, ys, base, state, max_steps):
-        return traceback.walk_strip_level(moves, x_mb, ys, base, state, max_steps=max_steps)
-
 
 class PlainEngine(_Engine):
     """The plain PyTorch wavefront and walk on the engine's device."""
+
+    _strip_fns = STRIP_PLAIN
 
     def _uniform(self, xs, ys, m, n, need_pos):
         return scan_dp.sw_score_plain(xs, ys, m, n, track_pos=need_pos, **self._kw)
@@ -239,18 +254,6 @@ class PlainEngine(_Engine):
         walk = (traceback._walk_moves_affine_plain if self.cfg.is_affine
                 else traceback._walk_moves_plain)
         return walk(moves, x_mb, y_bn, i0, j0, max_steps)
-
-    def _strips(self, xs, ys, m, n):
-        return scan_dp.sw_score_plain(xs, ys, m, n, **self._kw)
-
-    def _strips_ckpt(self, xs, ys, m, n):
-        return scan_dp.sw_score_ckpt_plain(xs, ys, m, n, **self._kw)
-
-    def _strip_moves(self, xs, ys, m, n, rowin, base):
-        return scan_dp.strip_moves_plain(xs, ys, m, n, rowin, base, **self._kw)
-
-    def _strip_walk(self, moves, x_mb, ys, base, state, max_steps):
-        return traceback._walk_strip_plain(moves, x_mb, ys, base, state, max_steps)
 
 
 def make_score_engine(cfg: ScoringConfig = ScoringConfig(), name: str = "auto",

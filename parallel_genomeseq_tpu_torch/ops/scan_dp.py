@@ -119,15 +119,16 @@ def wavefront(x_mb, y_bn, m, n, *, score, gap: int, gap_open: int = 0,
     track_pos=False bestd stays 0 (score-only sweep). ``gap_open`` > 0 runs
     ``wavefront_affine`` instead, with ``gap`` as the extension cost.
 
-    Linear only: ``north`` (B, N + 1) int32 is the H row above row 0 for
-    columns j = 0..N (zeros when None; a strip replay passes its checkpoint
-    row), and ``keep`` = (rows (K,) int64, out (K, D, B) int32) records the H
-    of those rows on every diagonal (a checkpointing sweep).
+    ``north`` (B, N + 1) int32 is the H row above row 0 for columns j =
+    0..N (zeros when None; a strip replay passes its checkpoint row), and
+    ``keep`` = (rows (K,) int64, out (K, D, B) int32) records the H of those
+    rows on every diagonal (a checkpointing sweep); ``wavefront_affine``
+    takes their affine forms.
     """
     if gap_open > 0:
         return wavefront_affine(
             x_mb, y_bn, m, n, score=score, gap_open=gap_open, gap=gap,
-            track_pos=track_pos, emit_moves=emit_moves,
+            track_pos=track_pos, emit_moves=emit_moves, north=north, keep=keep,
         )
     M, B = x_mb.shape
     N = y_bn.shape[1]
@@ -182,13 +183,21 @@ def wavefront(x_mb, y_bn, m, n, *, score, gap: int, gap_open: int = 0,
 
 
 def wavefront_affine(x_mb, y_bn, m, n, *, score, gap_open: int, gap: int,
-                     track_pos: bool = True, emit_moves: bool = False):
+                     track_pos: bool = True, emit_moves: bool = False, north=None,
+                     keep=None):
     """Affine-gap (Gotoh) sweep, line for line ``_wavefront_affine``
     (scan_dp.py:221-299): a gap of length L costs gap_open + L * gap. Two
     more carried diagonals, E (west runs) and F (north runs); invalid cells
     hold H = 0 and E = F = NEG, and row 0's F shifts in as 0, as the scan's
     ``_shift_down`` does. Same arguments and returns as ``wavefront``; the
-    moves are the affine bytes (H source, E/F extend bits)."""
+    moves are the affine bytes (H source, E/F extend bits).
+
+    ``north`` = (H row, F row), each (B, N + 1) int32 for columns j = 0..N:
+    the H and F of the row above row 0 (a strip replay passes its two
+    checkpoint rows; None keeps H = F = 0 there). E needs no such row: it
+    runs along a row and never crosses a strip edge. ``keep`` = (rows (K,)
+    int64, out_h, out_f (K, D, B) int32) records the H and F of those rows
+    on every diagonal."""
     M, B = x_mb.shape
     N = y_bn.shape[1]
     D = M + N - 1
@@ -208,12 +217,19 @@ def wavefront_affine(x_mb, y_bn, m, n, *, score, gap_open: int, gap: int,
     best = torch.zeros_like(h1)
     bestd = torch.zeros_like(h1)
     moves = torch.empty((D, M, B), dtype=torch.uint8, device=dev) if emit_moves else None
+    if north is not None:  # padded so that every diagonal reads a column
+        pad = torch.zeros((M, B), dtype=torch.int32, device=dev)
+        hnorth, fnorth = (torch.cat([row.T, pad]) for row in north)
     for d in range(D):
         ywin = yr[N + M - 1 - d : N + 2 * M - 1 - d]
         sc = score(x_mb, ywin)
         h1s = _shift_down(h1)  # north   (i-1, j)
         h2s = _shift_down(h2)  # nw      (i-1, j-1)
         f1s = _shift_down(f1)  # north F
+        if north is not None:  # row 0's cell is j = d + 1
+            h1s[0] = hnorth[d + 1]
+            h2s[0] = hnorth[d]
+            f1s[0] = fnorth[d + 1]
         e_open = h1 - gap_open
         f_open = h1s - gap_open
         e_d = torch.maximum(e_open, e1) - gap
@@ -224,6 +240,9 @@ def wavefront_affine(x_mb, y_bn, m, n, *, score, gap_open: int, gap: int,
         hd = torch.where(valid, hd, zero)
         e_d = torch.where(valid, e_d, neg)
         f_d = torch.where(valid, f_d, neg)
+        if keep is not None:
+            keep[1][:, d] = hd[keep[0]]
+            keep[2][:, d] = f_d[keep[0]]
         if track_pos:
             upd = hd > best  # strict: earliest diagonal (smallest j) wins ties
             best = torch.where(upd, hd, best)
@@ -290,24 +309,73 @@ def sw_score_moves_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int,
     return (*reduce_best(best, bestd), moves)
 
 
-def sw_score_ckpt_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
-    """Plain version of the K12 kernel: K1's (score, i, j) on xs (B, M), ys
-    (B, N) plus the checkpoint rows (B, K, N) int32, K = ceil(M / STRIP_S) -
-    1: ck[b, k, j - 1] = H((k + 1) * STRIP_S, j) in 1-based rows, 0 outside
-    the lane's matrix."""
+def _ckpt_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int, gap_open: int = 0):
+    """K1's (score, i, j) on xs (B, M), ys (B, N) plus the rows kept at
+    every STRIP_S-th row, each (B, K, N) int32, K = ceil(M / STRIP_S) - 1:
+    H, and under affine gaps F too."""
     B, M = xs.shape
     N = ys.shape[1]
     K = max(0, -(-M // STRIP_S) - 1)
     dev = xs.device
     rows = (torch.arange(K, device=dev) + 1) * STRIP_S - 1
-    out = torch.zeros((K, M + N - 1, B), dtype=torch.int32, device=dev)
+    outs = [torch.zeros((K, M + N - 1, B), dtype=torch.int32, device=dev)
+            for _ in range(2 if gap_open > 0 else 1)]
     best, bestd, _ = wavefront(
-        xs.T, ys, m, n, score=uniform_scorer(match, mismatch), gap=gap, keep=(rows, out),
+        xs.T, ys, m, n, score=uniform_scorer(match, mismatch), gap=gap, gap_open=gap_open,
+        keep=(rows, *outs),
     )
     # Row r's cell in column j lies on diagonal r + j - 1.
     d = rows[:, None] + torch.arange(N, device=dev)[None, :]
-    ck = out[torch.arange(K, device=dev)[:, None], d]  # (K, N, B)
-    return (*reduce_best(best, bestd), ck.permute(2, 0, 1).contiguous())
+    k = torch.arange(K, device=dev)[:, None]
+    planes = [out[k, d].permute(2, 0, 1).contiguous() for out in outs]  # (K, N, B) -> (B, K, N)
+    return (*reduce_best(best, bestd), *planes)
+
+
+def sw_score_ckpt_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
+    """Plain version of the K12 kernel: K1's (score, i, j) on xs (B, M), ys
+    (B, N) plus the checkpoint rows (B, K, N) int32, K = ceil(M / STRIP_S) -
+    1: ck[b, k, j - 1] = H((k + 1) * STRIP_S, j) in 1-based rows, 0 outside
+    the lane's matrix."""
+    return _ckpt_plain(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap)
+
+
+def sw_score_affine_ckpt_plain(xs, ys, m, n, *, match: int, mismatch: int, gap_open: int,
+                               gap: int):
+    """Plain version of the K16 kernel: K6's (score, i, j) on xs (B, M), ys
+    (B, N) plus the H checkpoint rows ck and the F rows fck, each (B, K, N)
+    int32 as K12's: fck[b, k, j - 1] = F((k + 1) * STRIP_S, j), NEG outside
+    the lane's matrix."""
+    return _ckpt_plain(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap,
+                       gap_open=gap_open)
+
+
+def _strip_replay(xs, ys, m, n, base: int, north, *, match: int, mismatch: int, gap: int,
+                  gap_open: int = 0):
+    """The moves of the STRIP_S rows [base, base + STRIP_S) of xs against ys
+    from the row(s) ``north`` above them, as (B, N, STRIP_S) uint8."""
+    B, M = xs.shape
+    N = ys.shape[1]
+    S = STRIP_S
+    dev = xs.device
+    x = torch.full((B, S), X_PAD, dtype=torch.uint8, device=dev)
+    x[:, : max(0, min(S, M - base))] = xs[:, base : base + S]
+    ms = (m.clamp(max=M) - base).clamp(0, S).to(torch.int32)
+    _, _, moves = wavefront(
+        x.T, ys, ms, n, score=uniform_scorer(match, mismatch), gap=gap, gap_open=gap_open,
+        track_pos=False, emit_moves=True, north=north,
+    )
+    r = torch.arange(S, device=dev)[None, :]
+    d = r + torch.arange(N, device=dev)[:, None]  # cell (r, j) on diagonal r + j - 1
+    return moves[d, r].permute(2, 0, 1).contiguous()
+
+
+def _north_row(row, B: int, N: int, dev):
+    """(B, N + 1) int32 boundary row: 0 in column 0, then ``row`` (zeros when
+    None)."""
+    out = torch.zeros((B, N + 1), dtype=torch.int32, device=dev)
+    if row is not None:
+        out[:, 1:] = row
+    return out
 
 
 def strip_moves_plain(xs, ys, m, n, rowin, base: int, *, match: int, mismatch: int,
@@ -318,23 +386,23 @@ def strip_moves_plain(xs, ys, m, n, rowin, base: int, *, match: int, mismatch: i
     for the first strip: zeros). Returns (B, N, STRIP_S) uint8,
     moves[b, j - 1, r] the code of cell (base + r + 1, j); rows past a lane's
     m and columns past its n hold codes no walk reads."""
-    B, M = xs.shape
-    N = ys.shape[1]
-    S = STRIP_S
-    dev = xs.device
-    x = torch.full((B, S), X_PAD, dtype=torch.uint8, device=dev)
-    x[:, : max(0, min(S, M - base))] = xs[:, base : base + S]
-    ms = (m.clamp(max=M) - base).clamp(0, S).to(torch.int32)
-    north = torch.zeros((B, N + 1), dtype=torch.int32, device=dev)
-    if rowin is not None:
-        north[:, 1:] = rowin
-    _, _, moves = wavefront(
-        x.T, ys, ms, n, score=uniform_scorer(match, mismatch), gap=gap,
-        track_pos=False, emit_moves=True, north=north,
-    )
-    r = torch.arange(S, device=dev)[None, :]
-    d = r + torch.arange(N, device=dev)[:, None]  # cell (r, j) on diagonal r + j - 1
-    return moves[d, r].permute(2, 0, 1).contiguous()
+    B, N = ys.shape
+    return _strip_replay(xs, ys, m, n, base, _north_row(rowin, B, N, xs.device),
+                         match=match, mismatch=mismatch, gap=gap)
+
+
+def strip_affine_moves_plain(xs, ys, m, n, rowin, frowin, base: int, *, match: int,
+                             mismatch: int, gap_open: int, gap: int):
+    """Plain version of the K17 kernel: ``strip_moves_plain`` under affine
+    gaps, replayed from the H row ``rowin`` and the F row ``frowin`` of row
+    ``base`` (both None for the first strip: H = F = 0 above row 1, the
+    boundary of the full sweep), emitting the affine move bytes. Every cell
+    inside a lane's matrix gets the byte of the full-matrix sweep: E starts
+    at NEG in column 0 of each row as there, and F and H come in exact."""
+    B, N = ys.shape
+    north = tuple(_north_row(row, B, N, xs.device) for row in (rowin, frowin))
+    return _strip_replay(xs, ys, m, n, base, north, match=match, mismatch=mismatch,
+                         gap=gap, gap_open=gap_open)
 
 
 def gather_lanes(slab, y_off, n):

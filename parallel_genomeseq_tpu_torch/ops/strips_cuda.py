@@ -1,21 +1,32 @@
-"""Wrappers of the CUDA long-read (strip) kernels K11, K12 and K13
-(``csrc/strips.cu``): uniform match/mismatch scoring, linear gaps, reads of
-any length.
+"""Wrappers of the CUDA long-read (strip) kernels (``csrc/strips.cu``):
+uniform match/mismatch scoring, linear or affine (Gotoh) gaps, reads of any
+length.
 
-K11 ``sw_score_strips`` ports the Pallas kernel B9 (``_kernel_strips``, TPU
-``ops/wavefront_pallas.py:1073`` via ``_call_strips`` :1347); K12
-``sw_score_strips_ckpt`` ports B13 (``_kernel_strips_ckpt`` :1134 via
-``_call_strips_ckpt`` :1550); K13 ``strip_moves`` ports B17
-(``_kernel_strip_moves`` :1792 via ``_call_strip_moves`` :1840). They take
-the JAX package's batch-first layout -- xs (B, M), ys (B, N) uint8 padded
-with X_PAD / Y_PAD, m, n (B,) int32, clamped to M and N -- and keep int32
-boundary rows: the int16 rows, hi/lo pairs, ``INT16_BOUND`` envelope and
-slot-packed argmax of the TPU kernels are not ported.
+Linear: K11 ``sw_score_strips`` ports the Pallas kernel B9
+(``_kernel_strips``, TPU ``ops/wavefront_pallas.py:1073`` via
+``_call_strips`` :1347); K12 ``sw_score_strips_ckpt`` ports B13
+(``_kernel_strips_ckpt`` :1134 via ``_call_strips_ckpt`` :1550); K13
+``strip_moves`` ports B17 (``_kernel_strip_moves`` :1792 via
+``_call_strip_moves`` :1840). Affine: K15 ``sw_score_strips_affine`` ports
+B10 (``_kernel_strips_affine`` :1102 via ``_call_strips_affine`` :1389);
+K16 ``sw_score_strips_affine_ckpt`` ports B14
+(``_kernel_strips_affine_ckpt`` :1147 via ``_call_strips_affine_ckpt``
+:1595), checkpointing F beside H; K17 ``strip_affine_moves`` ports B18
+(``_kernel_strip_affine_moves`` :1870 via ``_call_strip_affine_moves``
+:1953). They take the JAX package's batch-first layout -- xs (B, M), ys
+(B, N) uint8 padded with X_PAD / Y_PAD, m, n (B,) int32, clamped to M and N
+-- and keep int32 boundary rows: the int16 rows, hi/lo pairs,
+``INT16_BOUND`` envelope and slot-packed argmax of the TPU kernels are not
+ported. The affine boundaries are the port's full sweep's
+(``scan_dp.wavefront_affine``): F = 0 above row 1 (B14/B18 start strip 0
+at -(gap_open + gap + 1); the two differ only on negative E or F, which no
+walk reads).
 
 Route: tensors on the CPU take the plain PyTorch versions (``ops/scan_dp``:
-``sw_score_plain``, ``sw_score_ckpt_plain``, ``strip_moves_plain``); tensors
-on a CUDA device launch the kernel, and a missing toolkit or a failed build
-or launch raises. Each wrapper's ``launches`` counts kernel launches only.
+``sw_score_plain``, ``sw_score_ckpt_plain``, ``strip_moves_plain``,
+``sw_score_affine_ckpt_plain``, ``strip_affine_moves_plain``); tensors on a
+CUDA device launch the kernel, and a missing toolkit or a failed build or
+launch raises. Each wrapper's ``launches`` counts kernel launches only.
 """
 
 from __future__ import annotations
@@ -23,38 +34,59 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .scan_dp import STRIP_S, strip_moves_plain, sw_score_ckpt_plain, sw_score_plain
+from .scan_dp import (
+    NEG,
+    STRIP_S,
+    strip_affine_moves_plain,
+    strip_moves_plain,
+    sw_score_affine_ckpt_plain,
+    sw_score_ckpt_plain,
+    sw_score_plain,
+)
 from .wavefront_cuda import _check_inputs
 
-# Rows one K11/K12 block sweeps in a pass (kMaxThreads x kBand in
-# csrc/strips.cu); longer reads carry a boundary row between passes.
+# Rows one block sweeps in a pass (kMaxThreads x kBand in csrc/strips.cu;
+# kMaxThreadsAffine x kBand for K15/K16); longer reads carry a boundary row
+# between passes.
 ROWS_PER_PASS = 512 * 32
+ROWS_PER_PASS_AFFINE = 384 * 32
 
 
-def _sweep(xs, ys, m, n, *, match, mismatch, gap, ckpt):
-    """Shared K11/K12 launch on the current stream, no sync; outputs and
-    scratch allocated here. Returns (score, i, j, ck or None)."""
+def _sweep(xs, ys, m, n, *, match, mismatch, gap, ckpt, gap_open=0):
+    """Shared K11/K12 (gap_open > 0: K15/K16) launch on the current stream,
+    no sync; outputs and scratch allocated here. Returns (score, i, j), then
+    with ckpt the H checkpoints, and under affine gaps the F ones."""
     B, M = xs.shape
     N = ys.shape[1]
     dev = xs.device
+    affine = gap_open > 0
     xs, ys, m, n = xs.contiguous(), ys.contiguous(), m.contiguous(), n.contiguous()
     score, bi, bj = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
     nck = max(0, -(-M // STRIP_S) - 1)
-    ck = torch.zeros((B, nck, N), dtype=torch.int32, device=dev) if ckpt else None
-    bound = (torch.empty((B, N + 1), dtype=torch.int32, device=dev)
-             if M > ROWS_PER_PASS else None)
+    ck = fck = None
+    if ckpt:
+        ck = torch.zeros((B, nck, N), dtype=torch.int32, device=dev)
+        if affine:
+            fck = torch.full((B, nck, N), NEG, dtype=torch.int32, device=dev)
+    # The between-pass row: H, or the (H, F) pair.
+    bound = (torch.empty((B, N + 1, 2) if affine else (B, N + 1), dtype=torch.int32, device=dev)
+             if M > (ROWS_PER_PASS_AFFINE if affine else ROWS_PER_PASS) else None)
     lib = _build.load()
+    ptr = lambda t: t.data_ptr() if t is not None and t.numel() else None
     with torch.cuda.device(dev):
         err = lib.pgs_strip_sweep(
             xs.data_ptr(), ys.data_ptr(), m.data_ptr(), n.data_ptr(), M, N, B,
-            int(match), int(mismatch), int(gap),
-            bound.data_ptr() if bound is not None else None,
-            ck.data_ptr() if ck is not None and ck.numel() else None, nck,
-            score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
+            int(match), int(mismatch), int(gap_open), int(gap), ptr(bound), ptr(ck),
+            ptr(fck), nck, score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "pgs_strip_sweep")
-    return score, bi, bj, ck
+    return tuple(t for t in (score, bi, bj, ck, fck) if t is not None)
+
+
+def _check_gap_open(gap_open):
+    if gap_open <= 0:
+        raise ValueError(f"the affine strip kernels need gap_open > 0, got {gap_open}")
 
 
 def sw_score_strips(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
@@ -63,7 +95,7 @@ def sw_score_strips(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
     j, then min i; (0, 0, 0) for an all-zero lane)."""
     if _check_inputs(xs, ys, m, n).type == "cpu":
         return sw_score_plain(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap)
-    out = _sweep(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap, ckpt=False)[:3]
+    out = _sweep(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap, ckpt=False)
     sw_score_strips.launches += 1
     return out
 
@@ -85,6 +117,39 @@ def sw_score_strips_ckpt(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
 sw_score_strips_ckpt.launches = 0
 
 
+def _replay(xs, ys, m, n, rows, base: int, *, match, mismatch, gap, gap_open=0):
+    """Shared K13/K17 launch on CUDA tensors: checks, outputs allocated
+    here, no sync. ``rows`` are the incoming H row (and, affine, F row), or
+    Nones for the first strip. Returns the (B, N, STRIP_S) moves."""
+    dev = xs.device
+    if base % STRIP_S or base < 0:
+        raise ValueError(f"base must be a non-negative multiple of {STRIP_S}, got {base}")
+    if any(r is None for r in rows) != all(r is None for r in rows):
+        raise ValueError("the H and F rows come together")
+    if rows[0] is not None and any(
+            r.dtype != torch.int32 or r.shape != ys.shape or r.stride(1) != 1
+            or r.stride(0) != rows[0].stride(0) or r.device != dev for r in rows):
+        raise ValueError("rowin (and frowin) must be (B, N) int32 row-contiguous tensors "
+                         "of one lane stride beside ys")
+    B, M = xs.shape
+    N = ys.shape[1]
+    xs, ys, m, n = xs.contiguous(), ys.contiguous(), m.contiguous(), n.contiguous()
+    moves = torch.empty((B, N, STRIP_S), dtype=torch.uint8, device=dev)
+    rowin, frowin = (rows + (None,))[:2]
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.pgs_strip_moves(
+            xs.data_ptr(), ys.data_ptr(), m.data_ptr(), n.data_ptr(), M, N, B, base,
+            rowin.data_ptr() if rowin is not None else None,
+            frowin.data_ptr() if frowin is not None else None,
+            rowin.stride(0) if rowin is not None else 0,
+            int(match), int(mismatch), int(gap_open), int(gap), moves.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "pgs_strip_moves")
+    return moves
+
+
 def strip_moves(xs, ys, m, n, rowin, base: int, *, match: int, mismatch: int, gap: int):
     """K13: the move codes of the STRIP_S rows [base, base + STRIP_S) of xs
     (B, M) against ys (B, N), replayed from ``rowin`` (B, N) int32, the H of
@@ -92,31 +157,69 @@ def strip_moves(xs, ys, m, n, rowin, base: int, *, match: int, mismatch: int, ga
     first strip). Returns (B, N, STRIP_S) uint8, moves[b, j - 1, r] the code
     of cell (base + r + 1, j) (``scan_dp.MOVE_*`` and ``STOP_BIT``); columns
     past a lane's n are left unwritten."""
-    dev = _check_inputs(xs, ys, m, n)
-    if base % STRIP_S or base < 0:
-        raise ValueError(f"base must be a non-negative multiple of {STRIP_S}, got {base}")
-    if rowin is not None and (rowin.dtype != torch.int32 or rowin.shape != ys.shape
-                              or rowin.stride(1) != 1 or rowin.device != dev):
-        raise ValueError("rowin must be a (B, N) int32 row-contiguous tensor beside ys")
-    if dev.type == "cpu":
+    if _check_inputs(xs, ys, m, n).type == "cpu":
         return strip_moves_plain(xs, ys, m, n, rowin, base, match=match, mismatch=mismatch,
                                  gap=gap)
-    B, M = xs.shape
-    N = ys.shape[1]
-    xs, ys, m, n = xs.contiguous(), ys.contiguous(), m.contiguous(), n.contiguous()
-    moves = torch.empty((B, N, STRIP_S), dtype=torch.uint8, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        err = lib.pgs_strip_moves(
-            xs.data_ptr(), ys.data_ptr(), m.data_ptr(), n.data_ptr(), M, N, B, base,
-            rowin.data_ptr() if rowin is not None else None,
-            rowin.stride(0) if rowin is not None else 0,
-            int(match), int(mismatch), int(gap), moves.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(err, "pgs_strip_moves")
+    moves = _replay(xs, ys, m, n, (rowin,), base, match=match, mismatch=mismatch, gap=gap)
     strip_moves.launches += 1
     return moves
 
 
 strip_moves.launches = 0
+
+
+def sw_score_strips_affine(xs, ys, m, n, *, match: int, mismatch: int, gap_open: int,
+                           gap: int):
+    """K15: per-lane (score, i, j) int32 of affine (Gotoh) uniform
+    Smith-Waterman for reads of any length -- a gap of length L costs
+    gap_open + L * gap -- with K11's column-major argmax tie-break."""
+    _check_gap_open(gap_open)
+    if _check_inputs(xs, ys, m, n).type == "cpu":
+        return sw_score_plain(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap,
+                              gap_open=gap_open)
+    out = _sweep(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap, ckpt=False,
+                 gap_open=gap_open)
+    sw_score_strips_affine.launches += 1
+    return out
+
+
+sw_score_strips_affine.launches = 0
+
+
+def sw_score_strips_affine_ckpt(xs, ys, m, n, *, match: int, mismatch: int, gap_open: int,
+                                gap: int):
+    """K16: K15's (score, i, j) plus the H checkpoint rows ck and the F rows
+    fck, each (B, K, N) int32, K = ceil(M / STRIP_S) - 1: ck[b, k, j - 1] =
+    H((k + 1) * STRIP_S, j) and fck[b, k, j - 1] = F((k + 1) * STRIP_S, j)
+    with 1-based rows; outside the lane's matrix H = 0 and F = NEG."""
+    _check_gap_open(gap_open)
+    if _check_inputs(xs, ys, m, n).type == "cpu":
+        return sw_score_affine_ckpt_plain(xs, ys, m, n, match=match, mismatch=mismatch,
+                                          gap_open=gap_open, gap=gap)
+    out = _sweep(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap, ckpt=True,
+                 gap_open=gap_open)
+    sw_score_strips_affine_ckpt.launches += 1
+    return out
+
+
+sw_score_strips_affine_ckpt.launches = 0
+
+
+def strip_affine_moves(xs, ys, m, n, rowin, frowin, base: int, *, match: int, mismatch: int,
+                       gap_open: int, gap: int):
+    """K17: ``strip_moves`` under affine gaps, replayed from the H row
+    ``rowin`` and the F row ``frowin`` (slices of K16's checkpoints, with
+    one lane stride; both None for the first strip), emitting the affine
+    move bytes (``scan_dp.H_*``, ``E_EXT_BIT``, ``F_EXT_BIT``) of the full
+    sweep on every cell of a lane's matrix."""
+    _check_gap_open(gap_open)
+    if _check_inputs(xs, ys, m, n).type == "cpu":
+        return strip_affine_moves_plain(xs, ys, m, n, rowin, frowin, base, match=match,
+                                        mismatch=mismatch, gap_open=gap_open, gap=gap)
+    moves = _replay(xs, ys, m, n, (rowin, frowin), base, match=match, mismatch=mismatch,
+                    gap=gap, gap_open=gap_open)
+    strip_affine_moves.launches += 1
+    return moves
+
+
+strip_affine_moves.launches = 0

@@ -2,11 +2,13 @@
 
 ``walk_moves`` is the counterpart of the JAX package's ``ops/traceback.py``
 ``walk_moves`` (:30-89), ``walk_moves_affine`` of its affine (Gotoh)
-state-machine walk ``walk_moves_affine`` (:92-164), and ``walk_strip_level``
-of the long-read walk through one row-strip (:167-218): on CPU tensors each
-runs the plain PyTorch loop below, line for line the JAX body; on CUDA
-tensors they launch K3, K10 and K14 (``csrc/traceback.cu``), one thread per
-lane, since the eager loop would be about fifteen launches per step.
+state-machine walk ``walk_moves_affine`` (:92-164), ``walk_strip_level``
+of the long-read walk through one row-strip (:167-218) and
+``walk_strip_level_affine`` of its affine form (:221-286): on CPU tensors
+each runs the plain PyTorch loop below, line for line the JAX body; on CUDA
+tensors they launch K3, K10, K14 and K18 (``csrc/traceback.cu``), one
+thread per lane, since the eager loop would be about fifteen launches per
+step.
 ``decode_consensus`` is copied from traceback.py:289-307 and stays numpy.
 """
 
@@ -173,15 +175,33 @@ def walk_moves_affine(moves, x_mb, y_bn, i0, j0, *, max_steps: int):
 walk_moves_affine.launches = 0
 
 
-def new_strip_state(i0, j0, max_steps: int):
+def new_strip_state(i0, j0, max_steps: int, affine: bool = False):
     """The walk's per-lane state before the top strip, as
     wavefront_pallas.py:2723-2728 builds it: (i, j, pos, active, steps, cx,
     cy) -- i, j the argmax cell, pos = steps = 0, active where i > 0, and
-    (max_steps, B) NUL consensus buffers."""
+    (max_steps, B) NUL consensus buffers. ``affine`` appends the gap state
+    (B,) int32, 0 = H, 1 = E run, 2 = F run, all H to start
+    (wavefront_pallas.py:2823-2830)."""
     i = i0.to(torch.int32).clone()
     z = torch.zeros_like(i)
     buf = torch.zeros((max_steps, i.shape[0]), dtype=torch.uint8, device=i.device)
-    return (i, j0.to(torch.int32).clone(), z, i > 0, z.clone(), buf, buf.clone())
+    state = (i, j0.to(torch.int32).clone(), z, i > 0, z.clone(), buf, buf.clone())
+    return (*state, z.clone()) if affine else state
+
+
+def _check_strip_state(moves, x_mb, y_bn, state, max_steps: int):
+    """Raise unless the strip walks' kernels (K14, K18) take these tensors:
+    uint8 (B, N, 256) moves, (M, B) and (B, N) sequences, and the state of
+    ``new_strip_state``, all contiguous."""
+    if moves.dtype != torch.uint8 or x_mb.dtype != torch.uint8 or y_bn.dtype != torch.uint8:
+        raise TypeError("moves, x_mb and y_bn must be uint8")
+    i, j, pos, active, steps, cx, cy, *g = state
+    B, N, S = moves.shape
+    if (S != 256 or y_bn.shape != (B, N) or x_mb.shape[1] != B or active.dtype != torch.bool
+            or cx.shape != (max_steps, B) or cy.shape != (max_steps, B)
+            or not all(t.is_contiguous() for t in (moves, x_mb, y_bn, *state))
+            or any(t.dtype != torch.int32 or t.shape != (B,) for t in (i, j, pos, steps, *g))):
+        raise ValueError("strip walk: inconsistent shapes, types or layout")
 
 
 def _walk_strip_plain(moves, x_mb, y_bn, base: int, state, max_steps: int):
@@ -214,6 +234,43 @@ def _walk_strip_plain(moves, x_mb, y_bn, base: int, state, max_steps: int):
     return state
 
 
+def _walk_strip_affine_plain(moves, x_mb, y_bn, base: int, state, max_steps: int):
+    B, N, S = moves.shape
+    M = x_mb.shape[0]
+    i, j, pos, active, steps, cx, cy, g = state
+    lanes = torch.arange(B, device=moves.device)
+    gap = torch.tensor(GAP_BYTE, dtype=torch.uint8, device=moves.device)
+    for _ in range(S + N):  # the kernel's cap, as in _walk_strip_plain
+        inlevel = active & (i - 1 >= base)
+        if not bool(inlevel.any()):
+            break
+        c = (j - 1).clamp(0, N - 1).long()
+        mv = moves[lanes, c, (i - 1 - base).clamp(0, S - 1).long()]
+        hsrc = (mv & 3).to(torch.int32)
+        in_h = g == 0
+        op = torch.where(in_h, hsrc, g)  # in a run the op is the run
+        # Only the H state stops, without emitting: on H_ZERO, or at j <= 0.
+        stop = inlevel & in_h & ((hsrc == H_ZERO) | (j <= 0))
+        emitting = inlevel & ~stop
+        nw = emitting & (op == H_NW)
+        go_w = emitting & (op == H_E)
+        go_n = emitting & (op == H_F)
+        emit_x = torch.where(go_w, gap, x_mb[(i - 1).clamp(0, M - 1).long(), lanes])
+        emit_y = torch.where(go_n, gap, y_bn[lanes, c])
+        put = emitting & (steps < max_steps)  # emissions past max_steps drop
+        cx[steps[put].long(), lanes[put]] = emit_x[put]
+        cy[steps[put].long(), lanes[put]] = emit_y[put]
+        steps += emitting.to(torch.int32)
+        pos.copy_(torch.where(nw, j, pos))  # the j of the last NW emission
+        e_run = torch.where((mv & E_EXT_BIT) != 0, 1, 0)
+        f_run = torch.where((mv & F_EXT_BIT) != 0, 2, 0)
+        g.copy_(torch.where(nw, 0, torch.where(go_w, e_run, torch.where(go_n, f_run, g))))
+        i -= (nw | go_n).to(torch.int32)
+        j -= (nw | go_w).to(torch.int32)
+        active &= ~stop
+    return state
+
+
 def walk_strip_level(moves, x_mb, y_bn, base: int, state, *, max_steps: int):
     """Advance the walk through one strip of STRIP_S rows starting at row
     ``base`` (0-based): the counterpart of traceback.py:167-218.
@@ -225,18 +282,12 @@ def walk_strip_level(moves, x_mb, y_bn, base: int, state, *, max_steps: int):
     emission goes to row k of cx/cy, dropped past max_steps while steps goes
     on counting. The counter ``walk_strip_level.launches`` counts K14
     launches."""
-    i, j, pos, active, steps, cx, cy = state
-    dev = device_of(moves, x_mb, y_bn, i, j, pos, active, steps, cx, cy)
+    dev = device_of(moves, x_mb, y_bn, *state)
     if dev.type == "cpu":
         return _walk_strip_plain(moves, x_mb, y_bn, base, state, max_steps)
-    if moves.dtype != torch.uint8 or x_mb.dtype != torch.uint8 or y_bn.dtype != torch.uint8:
-        raise TypeError("moves, x_mb and y_bn must be uint8")
-    B, N, S = moves.shape
-    if (S != 256 or y_bn.shape != (B, N) or x_mb.shape[1] != B or active.dtype != torch.bool
-            or cx.shape != (max_steps, B) or cy.shape != (max_steps, B)
-            or not all(t.is_contiguous() for t in (moves, x_mb, y_bn, *state))
-            or any(t.dtype != torch.int32 or t.shape != (B,) for t in (i, j, pos, steps))):
-        raise ValueError("walk_strip_level: inconsistent shapes, types or layout")
+    _check_strip_state(moves, x_mb, y_bn, state, max_steps)
+    i, j, pos, active, steps, cx, cy = state
+    B, N, _ = moves.shape
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.pgs_walk_strip(
@@ -251,6 +302,41 @@ def walk_strip_level(moves, x_mb, y_bn, base: int, state, *, max_steps: int):
 
 
 walk_strip_level.launches = 0
+
+
+def walk_strip_level_affine(moves, x_mb, y_bn, base: int, state, *, max_steps: int):
+    """Advance the affine walk through one strip of STRIP_S rows starting at
+    row ``base`` (0-based): the counterpart of traceback.py:221-286.
+
+    moves (B, N, STRIP_S) uint8 affine bytes from
+    ``strips_cuda.strip_affine_moves``; ``state`` from ``new_strip_state(...,
+    affine=True)``, its gap state carried from strip to strip (a gap run
+    crossing a strip edge resumes in the next), updated in place and
+    returned. Each active lane whose row lies in the strip walks K10's rule
+    until it stops (in the H state, on H_ZERO or at j <= 0, emitting
+    nothing) or leaves the strip; emissions go to the lane's step slot and
+    drop past max_steps. The counter ``walk_strip_level_affine.launches``
+    counts K18 launches."""
+    dev = device_of(moves, x_mb, y_bn, *state)
+    if dev.type == "cpu":
+        return _walk_strip_affine_plain(moves, x_mb, y_bn, base, state, max_steps)
+    _check_strip_state(moves, x_mb, y_bn, state, max_steps)
+    i, j, pos, active, steps, cx, cy, g = state
+    B, N, _ = moves.shape
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.pgs_walk_strip_affine(
+            moves.data_ptr(), x_mb.data_ptr(), y_bn.data_ptr(), x_mb.shape[0], N, B,
+            int(base), int(max_steps), i.data_ptr(), j.data_ptr(), pos.data_ptr(),
+            active.data_ptr(), steps.data_ptr(), g.data_ptr(), cx.data_ptr(), cy.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "pgs_walk_strip_affine")
+    walk_strip_level_affine.launches += 1
+    return state
+
+
+walk_strip_level_affine.launches = 0
 
 
 def decode_consensus(cx, cy, steps) -> List[Tuple[str, str]]:

@@ -18,7 +18,8 @@ affine (Gotoh) gaps: BWA-MEM's scoring for small (``--match 1 --mismatch -4
 ``--workload big``: ``solve_big 7 1`` at its default width on
 ``chip_smoke.py``'s long-read data (a 30,000-bp reference from seed 0, 100
 exact 10,000-bp substrings of it, 14 windows; written under
-``data/profile/big/``); ``--traceback`` adds the winners' strip traceback.
+``data/profile/big/``); ``--traceback`` adds the winners' strip traceback,
+and ``--affine`` runs it under BWA-MEM's scoring (the affine strip kernels).
 
 After one warm-up run:
 
@@ -95,7 +96,7 @@ def main(argv=None) -> int:
     ap.add_argument("--entries", type=int, default=561_356)
     ap.add_argument("--query-len", type=int, default=145)
     ap.add_argument("--affine", action="store_true",
-                    help="affine gaps: BWA-MEM's scoring (small), gap 10/2 (uniprot)")
+                    help="affine gaps: BWA-MEM's scoring (small, big), gap 10/2 (uniprot)")
     ap.add_argument("--traceback", action="store_true",
                     help="big: include the winners' strip traceback")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
@@ -105,6 +106,7 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     print(card_line(dev))
     out_dir = Path(args.out_dir)
+    bwa = ["--match", "1", "--mismatch", "-4", "--gap-open", "6", "--gap-penalty", "1"]
     if args.workload == "small":
         batch = args.batch_size or 512
         read_len = args.read_len or 125
@@ -112,9 +114,7 @@ def main(argv=None) -> int:
                                    n_reads=args.reads or 5120, read_len=(read_len, read_len),
                                    seed=args.seed)
         cli_module = solve_small
-
-        gaps = ["--match", "1", "--mismatch", "-4", "--gap-open", "6",
-                "--gap-penalty", "1"] if args.affine else []
+        gaps = bwa if args.affine else []
 
         def cli(b):
             return ["--ref", str(ref), "--input", str(reads), "--output",
@@ -135,7 +135,7 @@ def main(argv=None) -> int:
         def cli(b):
             return ["7", "1", "--ref", str(big / "ref.fa"), "--reads", str(big / "reads.csv"),
                     "--batch-size", str(b), "--device", str(dev)] + (
-                        ["--traceback"] if args.traceback else [])
+                        ["--traceback"] if args.traceback else []) + (bwa if args.affine else [])
 
         def timing(out, wall):
             return (f"{sum(out.seconds):.6f} s, {sum(out.swept_cells) / sum(out.seconds) / 1e9:.3f} "

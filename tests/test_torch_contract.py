@@ -35,7 +35,9 @@ COUNTERS = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves, traceback.wa
             profile_cuda.sw_profile_affine, profile_cuda.sw_profile_affine_moves,
             traceback.walk_moves_affine, strips_cuda.sw_score_strips,
             strips_cuda.sw_score_strips_ckpt, strips_cuda.strip_moves,
-            traceback.walk_strip_level)
+            traceback.walk_strip_level, strips_cuda.sw_score_strips_affine,
+            strips_cuda.sw_score_strips_affine_ckpt, strips_cuda.strip_affine_moves,
+            traceback.walk_strip_level_affine)
 AFFINE = {
     "uniform": ScoringConfig(gap_open=10.0),
     "matrix": blosum_config("blosum50", gap_penalty=2.0, gap_open=10.0),
@@ -141,16 +143,18 @@ def test_make_score_engine_names():
 
 
 def test_skewed_ties_and_strip_length_reads_raise():
-    """Skewed ties raise naming A2. A read past MAX_M runs under linear
-    uniform scoring (the strip kernels, A10's first part); under affine gaps
-    or a substitution matrix it still raises naming A10."""
+    """Skewed ties raise naming A2. A read past MAX_M runs under uniform
+    scoring, linear or affine (the strip kernels, A10's first two parts);
+    under a substitution matrix it still raises naming A10."""
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         BatchSWAligner(tie="skewed", device="cpu")
     long_read = np.full((1, engine.MAX_M + 8), ord("A"), np.uint8)
     lens = ([engine.MAX_M + 8], [engine.MAX_M + 8])
-    got = engine.make_score_engine(device="cpu").score_batch(long_read, long_read, *lens)
-    assert [int(got[k][0]) for k in ("score", "i", "j")] == [3 * (engine.MAX_M + 8)] + lens[0] * 2
-    for cfg in (AFFINE["uniform"], blosum_config("blosum50", gap_penalty=12.0)):
+    for cfg in (ScoringConfig(), AFFINE["uniform"]):
+        got = engine.make_score_engine(cfg, device="cpu").score_batch(long_read, long_read, *lens)
+        assert [int(got[k][0]) for k in ("score", "i", "j")] == \
+            [3 * (engine.MAX_M + 8)] + lens[0] * 2
+    for cfg in (AFFINE["matrix"], blosum_config("blosum50", gap_penalty=12.0)):
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
             engine.make_score_engine(cfg, device="cpu").score_batch(long_read, long_read, *lens)
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
@@ -158,13 +162,14 @@ def test_skewed_ties_and_strip_length_reads_raise():
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--gap-open", "6"], "A10"), (["--matrix", "blosum50"], "A10"),
+    (["--gap-open", "6", "--matrix", "blosum62"], "A10"), (["--matrix", "blosum50"], "A10"),
     (["--semantics", "sat_uint8"], "A2"),
 ], ids=["gap_open", "matrix", "sat_uint8"])
 def test_solve_big_rejects_unported_modes(flags, item, capsys):
-    """Affine gaps and substitution matrices on long reads need the strip
-    kernels of A10's later parts; sat_uint8 needs A2. Each exits 2 before
-    any data is generated."""
+    """Substitution matrices on long reads, with linear or affine gaps, need
+    the strip kernels of A10's next part (affine gaps alone run since its
+    second); sat_uint8 needs A2. Each exits 2 before any data is
+    generated."""
     with pytest.raises(SystemExit) as exc:
         solve_big.main(["--device", "cpu"] + flags)
     assert exc.value.code == 2
@@ -265,6 +270,10 @@ def test_cpu_tensors_take_plain_route_without_launches():
     long_reads = [long_ref[100:2200], long_ref[150:2250]]
     BatchSWAligner(device="cpu").align_batch(long_reads, [long_ref])
     BatchSWAligner(device="cpu").align_batch(long_reads, [long_ref], traceback=False)
+    # Its affine form (K15, then K16, K17, K18).
+    BatchSWAligner(AFFINE["uniform"], device="cpu").align_batch(long_reads, [long_ref])
+    BatchSWAligner(AFFINE["uniform"], device="cpu").align_batch(long_reads, [long_ref],
+                                                                traceback=False)
     assert [fn.launches for fn in COUNTERS] == [0] * len(COUNTERS)
 
 
@@ -302,16 +311,25 @@ def test_affine_without_card_raises(monkeypatch):
         lambda: profile_cuda.sw_profile_affine(xs, ys, m, m, table=table, gap_open=10, gap=2),
         lambda: profile_cuda.sw_profile_affine_moves(xs, ys, m, m, table=table, gap_open=10, gap=2),
         lambda: traceback.walk_moves_affine(meta(23, 8, 2), xs.T, ys, m, m, max_steps=9),
+        lambda: strips_cuda.sw_score_strips_affine(xs, ys, m, m, match=1, mismatch=-4,
+                                                   gap_open=6, gap=1),
+        lambda: strips_cuda.sw_score_strips_affine_ckpt(xs, ys, m, m, match=1, mismatch=-4,
+                                                        gap_open=6, gap=1),
+        lambda: strips_cuda.strip_affine_moves(xs, ys, m, m, None, None, 0, match=1,
+                                               mismatch=-4, gap_open=6, gap=1),
+        lambda: traceback.walk_strip_level_affine(
+            meta(2, 16, 256), xs.T, ys, 0, (m, m, m, meta(2, dtype=torch.bool), m,
+                                            meta(9, 2), meta(9, 2), m), max_steps=9),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
             call()
-    with pytest.raises(ValueError, match="gap_open"):
-        wavefront_cuda.sw_score_affine(torch.zeros((2, 8), dtype=torch.uint8),
-                                       torch.zeros((2, 16), dtype=torch.uint8),
-                                       torch.ones(2, dtype=torch.int32),
-                                       torch.ones(2, dtype=torch.int32),
-                                       match=1, mismatch=-4, gap_open=0, gap=1)
+    cpu = (torch.zeros((2, 8), dtype=torch.uint8), torch.zeros((2, 16), dtype=torch.uint8),
+           torch.ones(2, dtype=torch.int32), torch.ones(2, dtype=torch.int32))
+    for affine in (wavefront_cuda.sw_score_affine, strips_cuda.sw_score_strips_affine,
+                   strips_cuda.sw_score_strips_affine_ckpt):
+        with pytest.raises(ValueError, match="gap_open"):
+            affine(*cpu, match=1, mismatch=-4, gap_open=0, gap=1)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -391,6 +409,21 @@ def test_profile_tool_runs_the_long_read_workload_on_the_plain_route(tmp_path, c
     assert '"workload": "big"' in out and '"device_busy_s": null' in out
     assert out.count("big batch 128:") == 3 and "swept GCUPS" in out
     assert len((tmp_path / "big" / "reads.csv").read_text().splitlines()) == 3
+
+
+def test_profile_tool_runs_the_affine_long_read_workload_on_the_plain_route(tmp_path, capsys):
+    """--workload big --affine --traceback: solve_big 7 1 under BWA-MEM's
+    scoring with the winners' affine strip traceback, at a size the plain
+    route runs in seconds."""
+    from parallel_genomeseq_tpu_torch.tools import profile_main
+
+    assert profile_main.main([
+        "--workload", "big", "--affine", "--traceback", "--device", "cpu", "--reads", "1",
+        "--read-len", "30", "--ref-len", "2000", "--out-dir", str(tmp_path),
+    ]) == 0
+    out = capsys.readouterr().out
+    assert '"workload": "big", "affine": true, "traceback": true' in out
+    assert out.count("big batch 128:") == 3
 
 
 def test_profile_tool_runs_the_protein_path_on_the_plain_route(tmp_path, capsys):

@@ -464,3 +464,134 @@ def test_solve_big_cuda_matches_cpu(cuda, tmp_path):
         fields = lambda r: (r.score, r.pos, r.max_i, r.max_j, r.consensus_x, r.consensus_y)
         assert [fields(r) for r in gpu.results] == [fields(r) for r in cpu.results]
         assert gpu.swept_cells == cpu.swept_cells
+
+
+def affine_lanes(seed, dev):
+    """long_lanes with a 20-base insertion planted in lane 0 across row 512
+    (an F run over a strip edge) and a 12-base deletion in lane 1."""
+    xs, ys, m, n = long_lanes(seed, dev)
+    rng = np.random.default_rng(seed + 10)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    ref = ys[0, : int(n[0])].cpu().numpy()
+    cut = len(ref) // 2
+    read = np.concatenate([ref[:cut], rng.choice(acgt, 20), ref[cut:]])
+    xs[0, 502 - cut : 502 - cut + len(read)] = torch.from_numpy(read).to(dev)
+    ref = ys[1, : int(n[1])].cpu().numpy()
+    cut = len(ref) // 2
+    read = np.concatenate([ref[:cut], ref[cut + 12 :]])
+    xs[1, 700 : 700 + len(read)] = torch.from_numpy(read).to(dev)
+    m[:2] = xs.shape[1]
+    return xs, ys, m, n
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k15_and_k16_match_plain(cuda, seed):
+    """K15 and K16 under BWA-MEM's scoring on long ragged lanes, with lengths
+    past the padded shape on some: (score, i, j) and every H and F
+    checkpoint row equal the plain sweep's."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    xs, ys, m, n = affine_lanes(seed, cuda)
+    m[2] += 5000
+    n[3] += 2**30
+    before = (strips_cuda.sw_score_strips_affine.launches,
+              strips_cuda.sw_score_strips_affine_ckpt.launches)
+    got = strips_cuda.sw_score_strips_affine(xs, ys, m, n, **BWA)
+    ck = strips_cuda.sw_score_strips_affine_ckpt(xs, ys, m, n, **BWA)
+    want = scan_dp.sw_score_affine_ckpt_plain(xs, ys, m, n, **BWA)
+    torch.cuda.synchronize()
+    assert (strips_cuda.sw_score_strips_affine.launches,
+            strips_cuda.sw_score_strips_affine_ckpt.launches) == (before[0] + 1, before[1] + 1)
+    for g, c, w in zip(got, ck, want):
+        assert g.is_cuda and torch.equal(g, w) and torch.equal(c, w)
+    assert torch.equal(ck[3], want[3]) and torch.equal(ck[4], want[4])
+    assert int(want[0].min()) > 50 and int(want[4].max()) > 0
+
+
+def test_k15_beyond_one_pass_matches_plain(cuda):
+    """A read longer than one affine block's pass (12,288 rows): the (H, F)
+    bound row carries between passes -- lane 1's insertion puts an F run
+    across the pass edge -- and the argmax ties resolve across passes."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    rng = np.random.default_rng(3)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    edge = strips_cuda.ROWS_PER_PASS_AFFINE
+    M, N = edge + 700, 300
+    ref = rng.choice(acgt, N)
+    xs = rng.choice(acgt, (3, M)).astype(np.uint8)
+    xs[0, 100:400] = ref  # the same best score in both passes: the first wins
+    xs[0, M - 350 : M - 50] = ref
+    read = np.concatenate([ref[:150], rng.choice(acgt, 16), ref[150:]])
+    xs[1, edge - 158 : edge - 158 + len(read)] = read
+    ys = np.broadcast_to(ref, (3, N)).copy()
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    m, n = t(np.full(3, M, np.int32)), t(np.full(3, N, np.int32))
+    got = strips_cuda.sw_score_strips_affine_ckpt(t(xs), t(ys), m, n, **BWA)
+    want = scan_dp.sw_score_affine_ckpt_plain(t(xs), t(ys), m, n, **BWA)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[0][0]) == 300 and int(got[1][0]) == 400
+    assert int(got[0][1]) >= 300 - 6 - 16  # across the insertion
+
+
+def test_affine_strip_traceback_kernels_match_plain(cuda):
+    """K17 (every strip, valid cells) and K18 against their plain versions,
+    and the affine strip traceback of the CUDA engine (K16, K17, K18)
+    against the plain engine's on the card."""
+    from parallel_genomeseq_tpu_torch.ops import engine, strips_cuda
+    from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
+
+    xs, ys, m, n = affine_lanes(2, cuda)
+    _, i, j, ck, fck = strips_cuda.sw_score_strips_affine_ckpt(xs, ys, m, n, **BWA)
+    B, N = ys.shape
+    x_mb = xs.T.contiguous()
+    state = traceback.new_strip_state(i, j, 900, affine=True)
+    plain_state = tuple(a.clone() for a in state)
+    r = torch.arange(256, device=cuda)
+    before = (strips_cuda.strip_affine_moves.launches, traceback.walk_strip_level_affine.launches)
+    nstrips = -(-xs.shape[1] // 256)
+    for s in range(nstrips - 1, -1, -1):
+        rows = (ck[:, s - 1], fck[:, s - 1]) if s else (None, None)
+        got = strips_cuda.strip_affine_moves(xs, ys, m, n, *rows, s * 256, **BWA)
+        want = scan_dp.strip_affine_moves_plain(xs, ys, m, n, *rows, s * 256, **BWA)
+        valid = ((s * 256 + r)[None, None, :] < m[:, None, None]) & \
+            (torch.arange(N, device=cuda)[None, :, None] < n[:, None, None])
+        assert torch.equal(got[valid], want[valid])
+        traceback.walk_strip_level_affine(got, x_mb, ys, s * 256, state, max_steps=900)
+        traceback._walk_strip_affine_plain(want, x_mb, ys, s * 256, plain_state, 900)
+        for g, w in zip(state, plain_state):
+            assert torch.equal(g, w)
+    assert (strips_cuda.strip_affine_moves.launches,
+            traceback.walk_strip_level_affine.launches) == (before[0] + nstrips,
+                                                            before[1] + nstrips)
+    assert int(state[4].min()) > 100 and not bool((state[3] & (state[0] > 0)).any())
+    cfg = ScoringConfig(match=1.0, mismatch=-4.0, gap_open=6.0, gap_penalty=1.0)
+    got = engine.CudaEngine(cfg, device=cuda).score_batch_strip_moves(xs, ys, m, n, 900)
+    want = engine.PlainEngine(cfg, device=cuda).score_batch_strip_moves(xs, ys, m, n, 900)
+    for k in ("score", "i", "j", "pos", "cx", "cy", "steps"):
+        assert torch.equal(got[k], want[k]), k
+    cons = traceback.decode_consensus(got["cx"].cpu(), got["cy"].cpu(), got["steps"].cpu())
+    assert "-" * 20 in cons[0][1] and "-" * 12 in cons[1][0]
+
+
+def test_solve_big_affine_cuda_matches_cpu(cuda):
+    """solve_big --gap-open on the card (K15; with --traceback K16, K17,
+    K18) gives the CPU's results, read for read, and launches none of the
+    linear strip kernels."""
+    from parallel_genomeseq_tpu_torch.cli import solve_big
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    base = ["2", "1", "--ref-len", "9000", "--read-len", "2300", "--n-reads", "3"] + BWA_FLAGS
+    counters = (strips_cuda.sw_score_strips_affine, strips_cuda.sw_score_strips_affine_ckpt,
+                strips_cuda.strip_affine_moves, traceback.walk_strip_level_affine)
+    linear = (strips_cuda.sw_score_strips, strips_cuda.sw_score_strips_ckpt,
+              strips_cuda.strip_moves, traceback.walk_strip_level)
+    for extra in ([], ["--traceback"]):
+        before = [fn.launches for fn in counters + linear]
+        gpu = solve_big.run(base + extra)
+        cpu = solve_big.run(base + extra + ["--device", "cpu"])
+        launched = [fn.launches > b for fn, b in zip(counters + linear, before)]
+        assert launched == ([True] * 4 if extra else [True, False, False, False]) + [False] * 4
+        fields = lambda r: (r.score, r.pos, r.max_i, r.max_j, r.consensus_x, r.consensus_y)
+        assert [fields(r) for r in gpu.results] == [fields(r) for r in cpu.results]
