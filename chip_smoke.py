@@ -58,7 +58,22 @@
    flags, checking that K15 (and K16, K17, K18) launched during them and
    K11-K14 did not, and one sampled read of the traceback run against the
    numpy Gotoh oracle over its winning window.
-8. Prints the kernels' JSON line -- each kernel's time, its plain version's,
+8. A titin-class query: a seeded 4,096-aa query against phase 5's entries
+   and three planted entries of 2,600, 3,500 and 4,600 aa, each holding a
+   mutated segment of the query (a database apart from phase 5's). Holds
+   K19 against its plain version on the whole-slab launch (on the planted
+   lanes and every 1,024th lane), on the shortest and longest 4,096-lane
+   groups, and per lane on a reduced BLOSUM50 shape of 1,400 x 2,304 x
+   4,608; K20, K21 and K14 on the top-10 traceback batch (the top, a middle
+   and the bottom strip, every lane). Runs ``solve_uniprot`` of the port on
+   it (BLOSUM50, gap 12, top 10) after a warm-up, prints pack+upload
+   seconds, scan seconds, GCUPS and proteins/s, checks that K19, K20, K21
+   and K14 launched during the run and K4, K5 and K3 did not, and holds the
+   planted entries, the top 10 and 32 sampled entries against the numpy
+   oracle. Runs ``solve_big --matrix blosum50 7 1 --traceback`` on phase 6's
+   mutated reads, checks its launches (K19, K20, K21, K14; none of K11-K13,
+   K15-K18) and holds one sampled read against the oracle.
+9. Prints the kernels' JSON line -- each kernel's time, its plain version's,
    and its bound: the larger of the integer operations its cells need over
    the card's int32 ALU peak and the bytes it must move over the memory
    rate -- then ``{"ok": true, "device": ...}`` last.
@@ -113,7 +128,8 @@ INT32_LANES = 132 * 64
 # The long-read kernels count as their single-strip twins: K11 and K12 as
 # K1 with its cell (K12's row store is bytes, not operations), K13 as K2
 # without the running best (a replay keeps none); affine, K15 and K16 as K6
-# with its cell, K17 as K7 without the running best.
+# with its cell, K17 as K7 without the running best; under a table, K19 and
+# K20 as K4 (0 + 3 + 2), K21 as K5 without the running best (0 + 3 + 7).
 OPS_PER_CELL = {
     ("sw_score", False): 2 + 3 + 1,
     ("sw_score", True): 2 + 3 + 2,
@@ -131,6 +147,9 @@ OPS_PER_CELL = {
     "sw_score_strips_affine": 2 + 6 + 2,
     "sw_score_strips_affine_ckpt": 2 + 6 + 2,
     "strip_affine_moves": 2 + 6 + 12,
+    "sw_score_strips_profile": 0 + 3 + 2,
+    "sw_score_strips_profile_ckpt": 0 + 3 + 2,
+    "strip_profile_moves": 0 + 3 + 7,
 }
 # Per walk step (the code read is a load, not counted). K3: test the stop
 # bit and the two moves (3), select the two emitted bytes (2), update i, j,
@@ -754,27 +773,32 @@ def check_protein_kernels(db, query: str, clock: float, gaps, stride: int = 1):
     return out
 
 
-def protein_run(label, cli, gaps, entries, query, out_csv, card, seed):
+def protein_run(label, cli, gaps, entries, query, out_csv, card, seed, counters=None,
+                absent=(), planted=None):
     """Drive the port's solve_uniprot once for ``label`` after a warm-up on
-    20,000 entries, with the counts of its kernels set to 0 just before the
-    run and read just after, then hold the planted copies, the top 10 and
-    32 sampled entries against the numpy oracle (score and pos_end with x =
-    query, y = entry; for the top 10 also the walk, pos_pred and both
-    consensus strings with x = entry, y = query). Returns the launches."""
+    20,000 entries, with the counts of its kernels (``counters``, by default
+    the scan, re-run and walk of ``gaps``) and of ``absent`` set to 0 just
+    before the run and read just after: each of ``counters`` must have
+    launched, none of ``absent``. Then hold the planted copies (``planted``,
+    by default gen_protein_db's), the top 10 and 32 sampled entries against
+    the numpy oracle (score and pos_end with x = query, y = entry; for the
+    top 10 also the walk, pos_pred and both consensus strings with x =
+    entry, y = query). Returns the launches."""
     import numpy as np
 
     from parallel_genomeseq_tpu_torch.cli import solve_uniprot
     from parallel_genomeseq_tpu_torch.ops.substitution import ALPHABET, BLOSUM50
 
     solve_uniprot.run(cli + ["--limit", "20000"])  # warm-up
-    counters = protein_kernels(gaps)[:3]
-    for fn in counters:
+    counters = counters or protein_kernels(gaps)[:3]
+    for fn in (*counters, *absent):
         fn.launches = 0
     run = solve_uniprot.run(cli)
     launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"launches during solve_uniprot {label}: {launches}")
-    if run.rc != 0 or min(launches.values()) < 1:
-        raise AssertionError(f"solve_uniprot {label} rc {run.rc}, launches {launches}")
+    others = {fn.__name__: fn.launches for fn in absent}
+    print(f"launches during solve_uniprot {label}: {launches}, of other kernels {others}")
+    if run.rc != 0 or min(launches.values()) < 1 or any(others.values()):
+        raise AssertionError(f"solve_uniprot {label} rc {run.rc}, launches {launches}, {others}")
     scan = run.scans[0]
     print(f"solve_uniprot {label}: pack+upload {run.prep_seconds:.3f} s, scan "
           f"{scan['seconds']:.3f} s, {scan['cells'] / scan['seconds'] / 1e9:.3f} GCUPS, "
@@ -787,7 +811,8 @@ def protein_run(label, cli, gaps, entries, query, out_csv, card, seed):
     results, tb_rows = scan["results"], scan["tb_rows"]
     sub = byte_pair_scores(ALPHABET, BLOSUM50)
     step = max(1, len(entries) // 8)
-    planted = [k for k in range(len(entries)) if k % step == 3]
+    planted = list(planted if planted is not None
+                   else (k for k in range(len(entries)) if k % step == 3))
     top = sorted(range(len(entries)), key=lambda k: -results[k][0])[:10]
     sampled = np.random.default_rng(seed).choice(len(entries), 32, replace=False)
     qb = np.frombuffer(query.encode(), np.uint8)
@@ -819,7 +844,8 @@ def protein_run(label, cli, gaps, entries, query, out_csv, card, seed):
 
 def protein_phase(args, card: str, clock: float, dev):
     """Phase 5. Returns (measurements, launches during each solve_uniprot
-    run), both keyed by 'linear' and 'affine'."""
+    run), both keyed by 'linear' and 'affine', and the database's
+    entries."""
     import torch
 
     from parallel_genomeseq_tpu_torch.models.protein_db import ResidentProteinDB
@@ -856,7 +882,7 @@ def protein_phase(args, card: str, clock: float, dev):
         out_csv = data / f"uniprot_output_{label}.csv"
         launches[label] = protein_run(label, base + flags + ["--output", str(out_csv)], gaps,
                                       entries, query, out_csv, card, args.protein_seed)
-    return measured, launches
+    return measured, launches, entries
 
 
 def mutated_reads(reads, seed: int):
@@ -883,13 +909,16 @@ def mutated_reads(reads, seed: int):
 
 def strip_kernels(kw):
     """(names, (sweep, checkpointing sweep, replay, walk), the plain
-    versions of the last three) of the long-read path under the gaps of
-    ``kw``, from the engines' table: K11-K14, or with gap_open K15-K18."""
+    versions of the last three) of the long-read path under the scoring of
+    ``kw``, from the engines' table: K11-K14, with gap_open K15-K18, with a
+    table K19-K21 and K14."""
     from parallel_genomeseq_tpu_torch.ops import engine
 
-    affine = "gap_open" in kw
-    return (("K15", "K16", "K17", "K18") if affine else ("K11", "K12", "K13", "K14"),
-            engine.STRIP_KERNELS[affine], engine.STRIP_PLAIN[affine][1:])
+    affine, uniform = "gap_open" in kw, "table" not in kw
+    names = (("K15", "K16", "K17", "K18") if affine else ("K11", "K12", "K13", "K14")
+             if uniform else ("K19", "K20", "K21", "K14"))
+    return (names, engine.STRIP_KERNELS[affine, uniform],
+            engine.STRIP_PLAIN[affine, uniform][1:])
 
 
 def check_strip_kernels(reads, ref, clock: float, dev, kw):
@@ -904,10 +933,9 @@ def check_strip_kernels(reads, ref, clock: float, dev, kw):
     import torch
 
     from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
-    from parallel_genomeseq_tpu_torch.ops import scan_dp, traceback
+    from parallel_genomeseq_tpu_torch.ops import scan_dp
     from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkConfig, ChunkedAligner
 
-    S = scan_dp.STRIP_S
     names, (sweep, ckpt, replay, walk), (plain_ckpt, plain_replay, plain_walk) = \
         strip_kernels(kw)
     affine = "gap_open" in kw
@@ -980,11 +1008,33 @@ def check_strip_kernels(reads, ref, clock: float, dev, kw):
     # The replay and the walk through every strip of the winners' traceback,
     # top first; held against the plain replay and walk on the top, a middle
     # and the bottom strip.
-    _, i, j, *ck = got
+    check_strip_traceback(names[2:], (replay, walk), (plain_replay, plain_walk), xs, ys, m, n,
+                          kw, got, xs, ys, aligner.max_steps(xs.shape[1], ys.shape[1]), clock,
+                          out, affine)
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y_walk,
+                          steps_cap: int, clock: float, out, affine: bool = False, prefix=""):
+    """The replay and the walk (``fns``: K13 and K14, K17 and K18, or K21 and
+    K14) through every strip of a strip traceback, top first, from the
+    checkpointing sweep's output ``swept`` = (score, i, j, H checkpoints[, F
+    checkpoints]); each held against its plain version (``plains``) on the
+    top, a middle and the bottom strip, every lane. xs, ys are what the
+    replay scores (compact codes under a matrix), x_walk, y_walk the bytes
+    the walk emits. Measurements go to out[kernel][prefix + strip label]."""
+    import torch
+
+    from parallel_genomeseq_tpu_torch.ops import scan_dp, traceback
+
+    S = scan_dp.STRIP_S
+    (replay, walk), (plain_replay, plain_walk) = fns, plains
+    dev = xs.device
+    _, i, j, *ck = swept
     B, M = xs.shape
     N = ys.shape[1]
-    x_mb = xs.T.contiguous()
-    steps_cap = aligner.max_steps(M, N)
+    x_mb = x_walk.T.contiguous()
     state = traceback.new_strip_state(i, j, steps_cap, affine=affine)
     nstrips = -(-M // S)
     checked = {nstrips - 1: "top", nstrips // 2: "middle", 0: "bottom"}
@@ -993,15 +1043,15 @@ def check_strip_kernels(reads, ref, clock: float, dev, kw):
         rows = [c[:, s - 1] if s else None for c in ck]
         moves = replay(xs, ys, m, n, *rows, s * S, **kw)
         if s not in checked:
-            walk(moves, x_mb, ys, s * S, state, max_steps=steps_cap)
+            walk(moves, x_mb, y_walk, s * S, state, max_steps=steps_cap)
             continue
-        label = checked[s]
+        label = prefix + checked[s]
         want, plain_ms = timed(lambda: plain_replay(xs, ys, m, n, *rows, s * S, **kw))
         valid = (((s * S + r)[None, None, :] < m[:, None, None])
                  & (torch.arange(N, device=dev)[None, :, None] < n[:, None, None]))
         err = int((moves[valid].int() - want[valid].int()).abs().max())
         if err:
-            raise AssertionError(f"{names[2]} strip {s}: move codes differ on valid cells")
+            raise AssertionError(f"{names[0]} strip {s}: move codes differ on valid cells")
         del want, valid
         lanes_rows = (m - s * S).clamp(0, S).long()
         cells = int((lanes_rows * n.long()).sum())
@@ -1010,20 +1060,21 @@ def check_strip_kernels(reads, ref, clock: float, dev, kw):
                "ms": cuda_ms(lambda: replay(xs, ys, m, n, *rows, s * S, **kw), 3),
                "plain_ms": plain_ms}
         # Read the strip's read bytes, the references and the checkpoint
-        # row(s); write one move byte per cell.
+        # row(s) (and a table); write one move byte per cell.
         rec["bound_ms"], rec["bound_by"] = bound(
             cells * OPS_PER_CELL[replay.__name__],
-            int(lanes_rows.sum()) + int(n.long().sum()) * (1 + 4 * len(ck) if s else 1) + cells,
-            clock)
+            int(lanes_rows.sum()) + int(n.long().sum()) * (1 + 4 * len(ck) if s else 1) + cells
+            + (kw["table"].numel() * 4 if "table" in kw else 0), clock)
         out[replay.__name__][label] = rec
-        report(f"{names[2]} {replay.__name__}", label, rec)
+        report(f"{names[0]} {replay.__name__}", label, rec)
         # The walk on a copy of the state against the plain walk on another.
         before = state[4].clone()
         plain_state = tuple(a.clone() for a in state)
         probe = tuple(a.clone() for a in state)
-        _, walk_ms = timed(lambda: walk(moves, x_mb, ys, s * S, probe, max_steps=steps_cap))
-        walk(moves, x_mb, ys, s * S, state, max_steps=steps_cap)
-        _, plain_ms = timed(lambda: plain_walk(moves, x_mb, ys, s * S, plain_state, steps_cap))
+        _, walk_ms = timed(lambda: walk(moves, x_mb, y_walk, s * S, probe, max_steps=steps_cap))
+        walk(moves, x_mb, y_walk, s * S, state, max_steps=steps_cap)
+        _, plain_ms = timed(lambda: plain_walk(moves, x_mb, y_walk, s * S, plain_state,
+                                               steps_cap))
         walked = int((state[4] - before).sum())
         rec = {"shape": f"strip {s}, {B} lanes, {walked} steps", "ms": walk_ms,
                "plain_ms": plain_ms, "max_abs_err": max_abs_err(state, plain_state)}
@@ -1035,14 +1086,13 @@ def check_strip_kernels(reads, ref, clock: float, dev, kw):
             walked * OPS_PER_STEP[walk.__name__], 5 * walked + 2 * (21 if affine else 17) * B,
             clock)
         out[walk.__name__][label] = rec
-        report(f"{names[3]} {walk.__name__}", label, rec)
+        report(f"{names[1]} {walk.__name__}", label, rec)
         del moves
     # Every walk ended: it stopped, or (affine) ran through row 1, which
     # leaves a lane active at i = 0, in no strip.
     if bool((state[3] & (state[0] > 0)).any()):
         raise AssertionError("a lane's walk did not end at the bottom strip")
-    torch.cuda.empty_cache()
-    return out
+    return state
 
 
 def big_run(label, flags, counters, reads_path, ref_path, absent=()):
@@ -1065,8 +1115,9 @@ def big_run(label, flags, counters, reads_path, ref_path, absent=()):
     return run, launches
 
 
-def check_long_oracle(reads, ref, results, seed: int, count: int = 2):
-    """Sampled reads of the traceback run against the numpy oracle: the
+def check_long_oracle(reads, ref, results, seed: int, count: int = 2, gap=2, sub=None):
+    """Sampled reads of the traceback run against the numpy oracle (uniform
+    3/-3, or the byte-pair scores ``sub``, and a linear ``gap``): the
     winning window (first on ties) by the best score in each, then on it the
     score, pos and both consensus strings of the greedy walk."""
     import numpy as np
@@ -1076,11 +1127,11 @@ def check_long_oracle(reads, ref, results, seed: int, count: int = 2):
     for k in np.random.default_rng(seed).choice(len(reads), count, replace=False):
         read = reads[k]
         ranges = make_string_ranges(2 * BIG["npiece"], len(read), len(ref), BIG["overlap"])
-        best = [max(int(c.max()) for c in oracle_columns(read, ref[l:r], dtype=np.int32))
+        best = [max(int(c.max()) for c in oracle_columns(read, ref[l:r], gap, sub, np.int32))
                 for l, r in ranges]
         win = int(np.argmax(best))
         left, right = ranges[win]
-        score, pos, cx, cy = oracle_align(read, ref[left:right], dtype=np.int32)
+        score, pos, cx, cy = oracle_align(read, ref[left:right], gap, sub, np.int32)
         pos = pos + left if pos > 0 else 0
         res = results[k]
         got = (int(res.score), res.pos, res.consensus_x, res.consensus_y)
@@ -1153,7 +1204,9 @@ def long_phase(args, card: str, clock: float, dev, data, kw):
     measured = check_strip_kernels(mutated, ref, clock, dev, kw)
 
     tb = strip_kernels(kw)[1]
-    other = strip_kernels(LINEAR if affine else BWA)[1]  # must not launch
+    # Must not launch: the other gap model's strip kernels, and the profile
+    # strips' own (K19-K21).
+    other = strip_kernels(LINEAR if affine else BWA)[1] + strip_kernels({"table": None})[1][:3]
     base = [str(BIG["npiece"]), "--device", str(dev)] + (BWA_FLAGS if affine else [])
     score_run, score_launches = big_run(
         "7 3", base[:1] + ["3"] + base[1:], tb[:1], data_dir / "reads.csv", data_dir / "ref.fa",
@@ -1177,7 +1230,206 @@ def long_phase(args, card: str, clock: float, dev, data, kw):
                                 "solve_big_traceback": tb_launches}
 
 
-# K1-K18: (wrapper, source, the TPU code it replaces, gap model or phase,
+# Phase 8: a titin-class query (4,096 aa) over phase 5's entries, and
+# three planted entries over 2,048 aa (length, the query segment it holds),
+# so that the top-10 traceback walks in strips.
+LONG_QUERY_LEN = 4096
+LONG_PLANTED = ((2600, 600), (3500, 1000), (4600, 1500))
+# K19's per-lane check: lanes, query and entry residues (phase 6's reduced
+# long-read shape).
+LONG_QUERY_REDUCED = (1400, 2304, 4608)
+
+
+def long_query_data(args, entries):
+    """Phase 8's database, apart from phase 5's: a seeded 4,096-aa query, and
+    phase 5's entries after three planted ones of ``LONG_PLANTED``, each
+    holding a segment of the query with 5% substitutions. Writes
+    ``query_long.fasta`` and ``database_long.fasta`` under
+    ``data/chip_smoke/protein``. Returns (query path, database path, query,
+    entries)."""
+    import numpy as np
+
+    data = ROOT / "data" / "chip_smoke" / "protein"
+    rng = np.random.default_rng(args.protein_seed + 100)
+    amino = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
+    q = rng.choice(amino, LONG_QUERY_LEN)
+    planted = []
+    for k, (length, seg_len) in enumerate(LONG_PLANTED):
+        entry = rng.choice(amino, length)
+        at_q = int(rng.integers(0, LONG_QUERY_LEN - seg_len))
+        at_e = int(rng.integers(0, length - seg_len))
+        seg = q[at_q : at_q + seg_len].copy()
+        subs = rng.random(seg_len) < 0.05
+        seg[subs] = rng.choice(amino, int(subs.sum()))
+        entry[at_e : at_e + seg_len] = seg
+        planted.append((f"LONG{k}", entry.tobytes().decode()))
+    query = q.tobytes().decode()
+    entries = planted + list(entries)
+    query_path, db_path = data / "query_long.fasta", data / "database_long.fasta"
+    query_path.write_text(f">titin_class\n{query}\n")
+    with open(db_path, "w") as f:
+        f.writelines(f">{name}\n{seq}\n" for name, seq in entries)
+    return query_path, db_path, query, entries
+
+
+def check_long_query_kernels(db, query: str, clock: float, dev):
+    """Phase 8's kernel checks, each against its plain version: K19 on the
+    resident slab (the whole-database launch, held on the planted lanes and
+    every 1,024th lane; the shortest and longest 4,096-lane groups, every
+    lane) and per lane on a reduced BLOSUM50 shape of 1,400 x 2,304 x 4,608;
+    K20, K21 and K14 on the top-10 traceback batch (x = entry, y = query,
+    pad_m = 128; K21 and K14 on the top, a middle and the bottom strip,
+    every lane). Returns {kernel: {case: measurements}}."""
+    import numpy as np
+    import torch
+
+    from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
+    from parallel_genomeseq_tpu_torch.ops import scan_dp
+    from parallel_genomeseq_tpu_torch.utils.device import to_host
+
+    names, (sweep, ckpt, replay, walk), (plain_ckpt, plain_replay, plain_walk) = \
+        strip_kernels({"table": None})
+    out = {fn.__name__: {} for fn in (sweep, ckpt, replay, walk)}
+    table, lut = db.engine.table, db.engine.encode_lut
+    kw = dict(table=table, **PROTEIN_LINEAR)
+    q = db.encode_query(query)
+    slab, offs, lens = db._slab, db._offs, db._lens
+    m = torch.full_like(lens, q.shape[0])
+
+    def sweep_case(label, x, y, mm, n, held, y_off=None):
+        """K19 on every lane, held against its plain version on lanes
+        ``held`` (an index tensor or a slice)."""
+        call = lambda: sweep(x, y, mm, n, y_off=y_off, **kw)
+        got = call()
+        if y_off is None:
+            want, plain_ms = timed(lambda: scan_dp.sw_profile_plain(
+                x[held], y[held], mm[held], n[held], **kw))
+        else:
+            want, plain_ms = timed(lambda: scan_dp.sw_profile_plain(
+                x, y, mm[held], n[held], y_off=y_off[held], **kw))
+        cells, seq_bytes = lane_work(mm, n)
+        rec = {"shape": f"{n.shape[0]} lanes, M={x.shape[-1]}, entries "
+                        f"{int(n.min())}-{int(n.max())}",
+               "max_abs_err": max_abs_err([g[held] for g in got], want),
+               "ms": cuda_ms(call, 3), "plain_ms": plain_ms,
+               "plain_lanes": int(mm[held].shape[0])}
+        if y_off is not None:  # the query once, each entry byte once, the offsets
+            seq_bytes = int(n.long().sum()) + x.shape[-1] + 8 * n.shape[0]
+        rec["bound_ms"], rec["bound_by"] = bound(
+            cells * OPS_PER_CELL[sweep.__name__],
+            seq_bytes + LANE_BYTES * n.shape[0] + table.numel() * 4, clock)
+        out[sweep.__name__][label] = rec
+        report(f"{names[0]} {sweep.__name__}", label, rec)
+        return got
+
+    # The main path's launch: the query against every lane of the slab, held
+    # on the planted lanes (the longest, at the end of the scan order) and
+    # every 1,024th lane.
+    L = lens.shape[0]
+    planted = [db.order.index(k) for k in range(len(LONG_PLANTED))]
+    held = torch.tensor(sorted(set(range(0, L, 1024)) | set(planted)), device=dev)
+    got = sweep_case("db", q, slab, m, lens, held, y_off=offs)
+    for label, sl in (("short_group", slice(0, min(L, 4096))),
+                      ("long_group", slice(max(0, L - 4096), L))):
+        sweep_case(label, q, slab, m[sl], lens[sl], slice(None), y_off=offs[sl])
+    score = to_host([got[0]])[0]
+    del got
+
+    # Per lane, as solve_big --matrix's window sweep runs it: 1,400 lanes of
+    # 2,304 against 4,608 residues, every 7th lane's y holding a stretch of
+    # its x.
+    B, Mr, Nr = LONG_QUERY_REDUCED
+    rng = np.random.default_rng(2)
+    amino = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
+    xr = rng.choice(amino, (B, Mr)).astype(np.uint8)
+    yr = rng.choice(amino, (B, Nr)).astype(np.uint8)
+    k = min(Mr, Nr) // 4
+    yr[::7, Nr // 4 : Nr // 4 + k] = xr[::7, Mr // 2 : Mr // 2 + k]
+    on_card = lambda a: torch.from_numpy(lut[a]).to(dev)
+    mr = torch.full((B,), Mr, dtype=torch.int32, device=dev)
+    nr = torch.full((B,), Nr, dtype=torch.int32, device=dev)
+    sweep_case("reduced", on_card(xr), on_card(yr), mr, nr, slice(None))
+    del xr, yr
+
+    # The top-10 traceback batch: K20 on every lane, then K21 and K14.
+    top = [db.order[k] for k in np.argsort(-score, kind="stable")[:10]]
+    if not set(range(len(LONG_PLANTED))) <= set(top):
+        raise AssertionError(f"the planted long entries are not all in the top 10: {top}")
+    bat = BatchSWAligner(db.cfg, pad_m=128, device=dev)
+    raw = bat.pad_batch([db.entries[k][1] for k in top], [query])
+    xs_raw, ys_raw, mm, nn = (torch.from_numpy(a).to(dev) for a in raw)
+    lut_d = torch.from_numpy(lut).to(dev)
+    xc, yc = lut_d[xs_raw.long()], lut_d[ys_raw.long()]
+    got = ckpt(xc, yc, mm, nn, **kw)
+    want, plain_ms = timed(lambda: plain_ckpt(xc, yc, mm, nn, **kw))
+    cells, seq_bytes = lane_work(mm, nn)
+    ck_bytes = got[3].numel() * 4
+    rec = {"shape": f"{xc.shape[0]} lanes, M={xc.shape[1]}, N={yc.shape[1]}, checkpoints "
+                    f"{ck_bytes / 1e9:.3f} GB",
+           "max_abs_err": max_abs_err(got, want), "plain_ms": plain_ms,
+           "ms": cuda_ms(lambda: ckpt(xc, yc, mm, nn, **kw), 3)}
+    del want
+    rec["bound_ms"], rec["bound_by"] = bound(
+        cells * OPS_PER_CELL[ckpt.__name__],
+        seq_bytes + LANE_BYTES * xc.shape[0] + ck_bytes + table.numel() * 4, clock)
+    out[ckpt.__name__]["top10"] = rec
+    report(f"{names[1]} {ckpt.__name__}", "top10", rec)
+    check_strip_traceback(names[2:], (replay, walk), (plain_replay, plain_walk), xc, yc, mm, nn,
+                          kw, got, xs_raw, ys_raw,
+                          bat.max_steps(xc.shape[1], yc.shape[1]), clock, out, prefix="query_")
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_query_phase(args, card: str, clock: float, dev, entries, long):
+    """Phase 8: the 4,096-aa query over ``long_query_data``'s database, and
+    ``solve_big --matrix blosum50 7 1 --traceback`` on the long-read phase's
+    data ``long``. Returns (measurements, launches keyed by kernel over both
+    runs, the runs' launches)."""
+    import torch
+
+    from parallel_genomeseq_tpu_torch.models.protein_db import ResidentProteinDB
+    from parallel_genomeseq_tpu_torch.ops import profile_cuda, traceback
+    from parallel_genomeseq_tpu_torch.ops.substitution import ALPHABET, BLOSUM50
+
+    t_phase = time.perf_counter()
+    print(f"-- long protein query, linear gap {PROTEIN_LINEAR['gap']} (profile strips)")
+    query_path, db_path, query, entries = long_query_data(args, entries)
+    print(f"long-query data: {len(entries)} entries ({len(LONG_PLANTED)} planted of "
+          f"{', '.join(str(n) for n, _ in LONG_PLANTED)} aa), query {len(query)} aa, written "
+          f"in {time.perf_counter() - t_phase:.1f} s")
+    db = ResidentProteinDB(entries, matrix="blosum50", gap_penalty=12.0, gap_open=0.0,
+                           max_query_len=len(query), device=dev)
+    measured = check_long_query_kernels(db, query, clock, dev)
+    del db
+    torch.cuda.empty_cache()
+
+    tb = strip_kernels({"table": None})[1]
+    short = (profile_cuda.sw_profile, profile_cuda.sw_profile_moves, traceback.walk_moves)
+    out_csv = query_path.parent / "uniprot_output_long.csv"
+    cli = ["--query", str(query_path), "--database", str(db_path), "--matrix", "blosum50",
+           "--gap-penalty", "12", "--batch-size", "4096", "--pad-mult", "128", "--top", "10",
+           "--device", str(dev), "--output", str(out_csv)]
+    uniprot = protein_run("long query", cli, PROTEIN_LINEAR, entries, query, out_csv, card,
+                          args.protein_seed, counters=tb, absent=short,
+                          planted=range(len(LONG_PLANTED)))
+    data_dir, ref, _, mutated = long
+    uniform = strip_kernels(LINEAR)[1][:3] + strip_kernels(BWA)[1]
+    big, big_launches = big_run(
+        "--matrix blosum50 7 1 --traceback",
+        [str(BIG["npiece"]), "1", "--traceback", "--matrix", "blosum50", "--device", str(dev)],
+        tb, data_dir / "mutated.csv", data_dir / "ref.fa", absent=uniform)
+    print(f"solve_big --matrix blosum50 on {card}: with traceback {big.seconds[0] * 1e3:.1f} ms, "
+          f"{big.gcups[0]:.3f} GCUPS")
+    check_long_oracle(mutated, ref, big.results, args.seed + 3, count=1,
+                      sub=byte_pair_scores(ALPHABET, BLOSUM50))
+    print(f"long-query phase: {time.perf_counter() - t_phase:.1f} s")
+    launches = {fn.__name__: uniprot[fn.__name__] + big_launches[fn.__name__] for fn in tb}
+    return measured, launches, {"solve_uniprot_long": uniprot,
+                                "solve_big_matrix_traceback": big_launches}
+
+
+# K1-K21: (wrapper, source, the TPU code it replaces, gap model or phase,
 # the main path's case that the JSON line quotes first).
 KERNELS = [
     ("sw_score", "wavefront.cu", f"{PALLAS}:160", "linear", "score_only"),
@@ -1202,6 +1454,9 @@ KERNELS = [
     ("strip_affine_moves", "strips.cu", f"{PALLAS}:1870", "long_affine", "top"),
     ("walk_strip_level_affine", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:221",
      "long_affine", "top"),
+    ("sw_score_strips_profile", "strips.cu", f"{PALLAS}:1081", "long_query", "db"),
+    ("sw_score_strips_profile_ckpt", "strips.cu", f"{PALLAS}:1642", "long_query", "top10"),
+    ("strip_profile_moves", "strips.cu", f"{PALLAS}:1986", "long_query", "query_top"),
 ]
 
 
@@ -1234,16 +1489,21 @@ def kernel_line(name, src, replaces, cases, main, launches):
 
 
 def kernel_entries(dna, dna_launches, protein, protein_launches, long):
-    """The kernels JSON line's entries, K1-K18, from the phases'
+    """The kernels JSON line's entries, K1-K21, from the phases'
     measurements and launches (keyed by gap model, then kernel; the
-    long-read phases' keyed 'long' and 'long_affine', each (measurements by
-    kernel, launches by kernel, each solve_big run's launches))."""
+    long-read and long-query phases' keyed 'long', 'long_affine' and
+    'long_query', each (measurements by kernel, launches by kernel, each
+    run's launches)). K14 walks in the long-read and the long-query phases:
+    its entry sums both."""
     kernels = []
     for name, src, replaces, gaps, main_case in KERNELS:
         if gaps.startswith("long"):
-            measured, launches, runs = long[gaps]
-            entry = kernel_line(name, src, replaces, measured[name], main_case, launches[name])
-            entry.update({f"launches_{run}": n[name] for run, n in runs.items() if name in n})
+            phases = [long[gaps]] + ([long["long_query"]] if name == "walk_strip_level" else [])
+            cases = {k: v for measured, _, _ in phases for k, v in measured[name].items()}
+            entry = kernel_line(name, src, replaces, cases, main_case,
+                                sum(launches[name] for _, launches, _ in phases))
+            for _, _, runs in phases:
+                entry.update({f"launches_{run}": n[name] for run, n in runs.items() if name in n})
         elif name.startswith("walk_moves"):  # both paths walk
             cases = {**dna[gaps][name], **protein[gaps][name]}
             on_dna, on_protein = dna_launches[gaps][name], protein_launches[gaps][name]
@@ -1291,10 +1551,12 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     dna, dna_launches = dna_phase(args, card, clock, dev)
-    protein, protein_launches = protein_phase(args, card, clock, dev)
+    protein, protein_launches, entries = protein_phase(args, card, clock, dev)
     data = long_data(args)
     long = {"long": long_phase(args, card, clock, dev, data, LINEAR),
             "long_affine": long_phase(args, card, clock, dev, data, BWA)}
+    long["long_query"] = long_query_phase(args, card, clock, dev, entries, data)
+    del entries
 
     print(json.dumps({"kernels": kernel_entries(dna, dna_launches, protein, protein_launches,
                                                 long)}))

@@ -20,11 +20,18 @@ e.g. swps3's ``--gap-open 10 --gap-penalty 2``) the same steps run their
 affine kernels: K8 for the scan, K9 and the K10 walk for the traceback, K6
 and K7 under ``--matrix uniform``.
 
-Not ported yet, and refused: queries longer than 2,048 (the strip kernels,
-A10) and ``--num-processes > 1`` (A13). The
-scan takes entries of any length, but walking an entry longer than 2,048
-(a top-K hit, or any entry under ``--traceback-all``) raises
-NotImplementedError naming A10: the JAX package walks those in strips.
+Long queries and entries (titin-class, over 2,048 aa): a query longer than
+2,048 scans the same resident slab in one launch of the strip kernel K19,
+and an entry longer than 2,048 is walked in strips (K20, then K21 and the
+K14 walk strip by strip), as the JAX package does; under ``--matrix
+uniform`` the strip kernels K11-K14 (K15-K18 with ``--gap-open``) take
+both.
+
+Not ported yet, and refused: queries longer than 2,048 under a matrix with
+``--gap-open`` (the affine profile strips, ROADMAP A10) and
+``--num-processes > 1`` (A13). There the scan takes entries of any length,
+but walking an entry longer than 2,048 (a top-K hit, or any entry under
+``--traceback-all``) raises NotImplementedError naming A10.
 
 Usage:
     python -m parallel_genomeseq_tpu_torch.cli.solve_uniprot \\
@@ -187,9 +194,9 @@ def run(argv=None) -> Run:
         p.error("--checkpoint/--resume require a single --query "
                 "(checkpoint rows are keyed by protein name only)")
     longest = max(len(to_bytes(q)) for _, q in queries)
-    if longest > MAX_M:
-        p.error(f"a {longest}-aa query needs the strip kernels, which are not "
-                "ported yet (ROADMAP A10)")
+    if longest > MAX_M and args.matrix != "uniform" and args.gap_open > 0:
+        p.error(f"a {longest}-aa query under a matrix with --gap-open needs the affine "
+                "profile strip kernels, which are not ported yet (ROADMAP A10)")
     query = queries[0][1]
     entries = list(iter_database(args.database))
     if args.limit:
@@ -234,7 +241,7 @@ def run(argv=None) -> Run:
             db = ResidentProteinDB(
                 [entries[k] for k in order], matrix=args.matrix,
                 gap_penalty=args.gap_penalty, gap_open=args.gap_open,
-                device=args.device, engine=args.engine,
+                max_query_len=longest, device=args.device, engine=args.engine,
             )
             prep = db.prep_s
             print(f"resident DB: {db.slab_mb:.1f} MB slab ({len(order)} entries, "

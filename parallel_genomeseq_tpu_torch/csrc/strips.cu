@@ -1,32 +1,48 @@
 // Long-read (strip) Smith-Waterman kernels for Hopper (sm_90a): uniform
-// match/mismatch scoring, linear or affine (Gotoh) gaps, exact int32 values,
-// reads of any length.
+// match/mismatch scoring with linear or affine (Gotoh) gaps, or a
+// substitution matrix with linear gaps; exact int32 values, reads of any
+// length.
 //
-// K11 `strip_sweep_kernel<false, false>` replaces the Pallas TPU kernel B9,
+// K11 `strip_sweep_kernel<false, false, false>` replaces the Pallas TPU kernel B9,
 //     parallel_genomeseq_tpu/ops/wavefront_pallas.py `_kernel_strips`
 //     (:1073, body `_strips_body` :1197) via `_call_strips` (:1347): per-lane
 //     best score and its cell, the column-major tie-break of
 //     `_reduce_best_strips` (:2188-2207).
-// K12 `strip_sweep_kernel<true, false>` replaces B13, `_kernel_strips_ckpt`
+// K12 `strip_sweep_kernel<true, false, false>` replaces B13, `_kernel_strips_ckpt`
 //     (:1134) via `_call_strips_ckpt` (:1550): K11 plus the H values of every
 //     strip's last row (rows kS - 1, S = 256), the checkpoints the strip
 //     traceback replays from.
-// K13 `strip_moves_kernel<false>` replaces B17, `_kernel_strip_moves` (:1792)
+// K13 `strip_moves_kernel<false, false>` replaces B17, `_kernel_strip_moves` (:1792)
 //     via `_call_strip_moves` (:1840): one strip's S rows recomputed from its
 //     incoming checkpoint row, emitting the linear move byte of :1825-1831
 //     for every cell.
-// K15 `strip_sweep_kernel<false, true>` replaces B10, `_kernel_strips_affine`
+// K15 `strip_sweep_kernel<false, true, false>` replaces B10, `_kernel_strips_affine`
 //     (:1102, the affine branch of `_strips_body` :1226, :1268-1276) via
 //     `_call_strips_affine` (:1389): K11 under the Gotoh recurrence
 //     E = max(H_west - open, E_west) - extend, F = max(H_north - open,
 //     F_north) - extend, H = max(diag + s, E, F, 0).
-// K16 `strip_sweep_kernel<true, true>` replaces B14,
+// K16 `strip_sweep_kernel<true, true, false>` replaces B14,
 //     `_kernel_strips_affine_ckpt` (:1147) via `_call_strips_affine_ckpt`
 //     (:1595): K15 plus the H and the F of every strip's last row.
-// K17 `strip_moves_kernel<true>` replaces B18, `_kernel_strip_affine_moves`
+// K17 `strip_moves_kernel<true, false>` replaces B18, `_kernel_strip_affine_moves`
 //     (:1870-1947) via `_call_strip_affine_moves` (:1953): one strip replayed
 //     from its incoming H and F rows, emitting the affine byte (H source
 //     ZERO > NW > E > F in bits 0-1, E extend bit 3, F extend bit 4).
+// K19 `strip_sweep_kernel<false, false, true>` replaces B11,
+//     `_kernel_strips_profile` (:1081, body `_strips_body` :1197) via
+//     `_call_strips_profile` (:1434): K11 with the cell score read from an
+//     (ncodes, ncodes) int32 table over compact codes, in two forms: per-lane
+//     x (B, M) and y (B, N), or B11's `shared=True` slab scan -- one query
+//     shared by every lane (x lane stride 0), each lane's entry read from a
+//     flat resident slab through its 64-bit offset (the protein database
+//     scan for queries over 2,048 aa, `score_db_slab_strips_jit` :2344).
+// K20 `strip_sweep_kernel<true, false, true>` replaces B15,
+//     `_kernel_strips_profile_ckpt` (:1642) via `_call_strips_profile_ckpt`
+//     (:1679): K19 plus each strip's last-row H, K12's int32 checkpoints (the
+//     TPU's int16 hi/lo row pairs are not ported).
+// K21 `strip_moves_kernel<false, true>` replaces B19,
+//     `_kernel_strip_profile_moves` (:1986) via `_call_strip_profile_moves`
+//     (:2036): K13's replay and move byte with the table's cell score.
 //
 // Design of K11/K12. One thread block per lane. Its T threads split the
 // lane's rows into bands of kBand = 32 consecutive rows, one band per thread,
@@ -75,11 +91,25 @@
 // registers, from -2^30 in column 0 as the full sweep does, so its bytes
 // equal the full sweep's on every cell of the lane's matrix.
 //
+// Design of K19-K21: K11-K13 with the score of a cell read from the table,
+// copied into shared memory transposed as K4 does (csrc/profile.cu,
+// tab[yc * ncodes + xc]), so each column takes its row pointer tab + yc *
+// ncodes once and each cell is one shared load at row[xb[k]]; a code >=
+// ncodes reads as code 0, the matrix minimum. In the slab form a lane's
+// length is clamped to the bytes the slab holds past its offset, as K4
+// clamps it, and the between-pass bound row of lane b (queries over 16,384
+// aa) starts at bound_off[b], an exclusive prefix sum of the lanes' n_b + 1
+// that the wrapper computes, so the row takes one int32 per slab residue
+// and lane, not the lanes times the longest entry.
+//
 // What bounds them on the H100: the integer ALU (about 7 operations per cell
-// for K11/K12, 12 for K13, 10 for K15/K16, 20 for K17) and, per column and
-// thread, one barrier (K11/K12/K15/K16) or shuffle (K13/K17) and one read of
-// the reference byte. K13/K17 at the winner re-run's shape are one warp per
-// lane, so they are latency-bound: the north chain down the 8 rows of a band.
+// for K11/K12, 12 for K13, 10 for K15/K16, 20 for K17, 5 for K19/K20, 10 for
+// K21) and, per column and thread, one barrier (K11/K12/K15/K16/K19/K20) or
+// shuffle (K13/K17/K21) and one read of the reference byte. K13/K17/K21 at
+// the winner re-run's shape are one warp per lane, so they are latency-bound:
+// the north chain down the 8 rows of a band. K19 on the slab is one block
+// per entry, so a block spends n_b + T - 1 steps, a barrier each, on n_b
+// columns of work: the pipeline's fill and drain weigh on short entries.
 
 #include <cstdint>
 #include <type_traits>
@@ -100,14 +130,42 @@ __device__ __forceinline__ bool better(int v1, int j1, int i1, int v2, int j2,
   return v1 > v2 || (v1 == v2 && (j1 < j2 || (j1 == j2 && i1 < i2)));
 }
 
+// The score of cell (x byte or code xc, y byte or code yc): uniform
+// match/mismatch, or (kProfile) the word xc of the column's table row.
+template <bool kProfile>
+__device__ __forceinline__ int cell_score(uint8_t xc, uint8_t yc, const int32_t* row,
+                                          int match, int mismatch) {
+  if constexpr (kProfile) {
+    return row[xc];
+  } else {
+    return xc == yc ? match : mismatch;
+  }
+}
+
+// A code >= ncodes reads as code 0 (the matrix minimum), as in K4.
+__device__ __forceinline__ uint8_t clamp_code(uint8_t c, int ncodes) {
+  return c < ncodes ? c : 0;
+}
+
+// Copy the (ncodes, ncodes) table into shared memory transposed:
+// tab[yc * ncodes + xc] = table[xc][yc]. The caller synchronises.
+__device__ __forceinline__ void load_table(int32_t* tab, const int32_t* __restrict__ table,
+                                           int ncodes) {
+  for (int k = threadIdx.x; k < ncodes * ncodes; k += blockDim.x) {
+    tab[(k % ncodes) * ncodes + k / ncodes] = table[k];
+  }
+}
+
 // One column of a band: H(i, j) for its rows, north-west `nw` = H(row0, j-1)
 // and north `north` = H(row0, j) (1-based row0 = the row above the band);
 // h holds H(., j - 1) on entry and H(., j) on return. Rows k >= nvalid are
-// outside the lane's matrix and hold 0 (kFull: all rows valid).
-template <bool kFull, int kRows>
+// outside the lane's matrix and hold 0 (kFull: all rows valid). The cell
+// score is cell_score<kProfile>(xb[k], yc, row, ...).
+template <bool kFull, bool kProfile, int kRows>
 __device__ __forceinline__ int band_column(int (&h)[kRows],
                                            const uint8_t (&xb)[kRows],
-                                           uint8_t yc, int match, int mismatch,
+                                           uint8_t yc, const int32_t* row,
+                                           int match, int mismatch,
                                            int gap, int nvalid, int nw,
                                            int north) {
   int diag = nw;
@@ -115,7 +173,7 @@ __device__ __forceinline__ int band_column(int (&h)[kRows],
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     const int west = h[k];
-    int v = max(max(diag + (xb[k] == yc ? match : mismatch),
+    int v = max(max(diag + cell_score<kProfile>(xb[k], yc, row, match, mismatch),
                     max(west, north) - gap), 0);
     if (!kFull) v = k < nvalid ? v : 0;
     diag = west;
@@ -158,32 +216,56 @@ __device__ __forceinline__ int band_column_affine(int (&h)[kRows], int (&e)[kRow
   return colmax;
 }
 
-// K11 (kCkpt = false) and K12 (kCkpt = true), and with kAffine K15 and K16.
-// x (B, M) and y (B, N) uint8 lane-major; bound (B, N + 1) scratch of the
-// hand-off type (int32, or int2 (H, F) when affine), used when passes > 1;
-// ck (B, nck, N) int32 zero-filled by the caller, ck[b][c][j - 1] =
+// K11 (kCkpt = false) and K12 (kCkpt = true), with kAffine K15 and K16, and
+// with kProfile K19 and K20. x: lane b's read at x + b * x_lane, uint8 bytes
+// (codes when kProfile; x_lane = 0 shares one query between lanes); y: lane
+// b's reference at y + b * N, or at y + y_off[b] when y_off is given (a flat
+// slab of y_len bytes; n_b is then clamped to the bytes past the offset).
+// bound: scratch of the hand-off type (int32, or int2 (H, F) when affine),
+// lane b's row at bound_off[b] if given, else b * (N + 1); used when passes
+// > 1. ck (B, nck, N) int32 zero-filled by the caller, ck[b][c][j - 1] =
 // H((c + 1) * kStrip, j) (1-based rows); fck the same shape, filled with
 // kNeg by the caller, fck[b][c][j - 1] = F((c + 1) * kStrip, j) (K16 only).
-template <bool kCkpt, bool kAffine>
+// table (ncodes, ncodes) int32 over compact codes (kProfile only; dynamic
+// shared memory of ncodes^2 int32).
+template <bool kCkpt, bool kAffine, bool kProfile>
 __global__ void __launch_bounds__(kAffine ? kMaxThreadsAffine : kMaxThreads)
-strip_sweep_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
-                   const int32_t* __restrict__ m, const int32_t* __restrict__ n,
-                   int M, int N, int match, int mismatch, int gap_open, int gap,
-                   int passes, void* __restrict__ bound, int32_t* __restrict__ ck,
-                   int32_t* __restrict__ fck, int nck, int32_t* __restrict__ score,
-                   int32_t* __restrict__ best_i, int32_t* __restrict__ best_j) {
+strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
+                   const uint8_t* __restrict__ y, const int64_t* __restrict__ y_off,
+                   long long y_len, const int32_t* __restrict__ m,
+                   const int32_t* __restrict__ n, int M, int N,
+                   const int32_t* __restrict__ table, int ncodes, int match,
+                   int mismatch, int gap_open, int gap, int passes,
+                   void* __restrict__ bound, const int64_t* __restrict__ bound_off,
+                   int32_t* __restrict__ ck, int32_t* __restrict__ fck, int nck,
+                   int32_t* __restrict__ score, int32_t* __restrict__ best_i,
+                   int32_t* __restrict__ best_j) {
+  static_assert(!(kAffine && kProfile), "no affine profile strips yet");
   using Carry = std::conditional_t<kAffine, int2, int>;  // hand-off: H, or (H, F)
   constexpr int kThreads = kAffine ? kMaxThreadsAffine : kMaxThreads;
   __shared__ Carry xfer[2][kThreads];
   __shared__ int red[3][kThreads / 32];
+  extern __shared__ int32_t tab[];  // kProfile: tab[yc * ncodes + xc]
   const int b = blockIdx.x;
   const int t = threadIdx.x;
   const int T = blockDim.x;
+  if constexpr (kProfile) load_table(tab, table, ncodes);
   const int mb = min(m[b], M);
-  const int nb = min(n[b], N);
-  const uint8_t* xl = x + (size_t)b * M;
-  const uint8_t* yl = y + (size_t)b * N;
-  Carry* bl = bound ? static_cast<Carry*>(bound) + (size_t)b * (N + 1) : nullptr;
+  int nb = min(n[b], N);
+  long long off = (long long)b * N;
+  if (y_off) {
+    off = y_off[b];
+    if (off < 0 || off > y_len) {
+      nb = 0;
+    } else if ((long long)nb > y_len - off) {
+      nb = (int)(y_len - off);
+    }
+  }
+  const uint8_t* xl = x + (size_t)b * x_lane;
+  const uint8_t* yl = y + off;
+  Carry* bl = bound ? static_cast<Carry*>(bound) +
+                          (bound_off ? (size_t)bound_off[b] : (size_t)b * (N + 1))
+                    : nullptr;
   int best = 0, bi = 0, bj = 0;
   for (int p = 0; p < passes; ++p) {
     const int row0 = (p * T + t) * kBand;  // 0-based first row of the band
@@ -194,6 +276,7 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
 #pragma unroll
     for (int k = 0; k < kBand; ++k) {
       xb[k] = row0 + k < M ? xl[row0 + k] : 0;
+      if (kProfile) xb[k] = clamp_code(xb[k], ncodes);
       h[k] = 0;
       e[k] = kNeg;
     }
@@ -202,13 +285,18 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
     const bool writes_ck = kCkpt && (row0 + kBand) % kStrip == 0 && c < nck;
     const bool writes_bound = p + 1 < passes && t == T - 1;
     int nw = 0;  // H(row0, j - 1): the previous column's north input
-    __syncthreads();  // the previous pass's bound row is complete
+    __syncthreads();  // the previous pass's bound row (and the table) is complete
     for (int s = 0; s < nb + T - 1; ++s) {
       const int j = s - t + 1;
       if (j >= 1 && j <= nb) {
         // Row 0's north: H = 0 and (affine) F = 0 above the first pass.
         const Carry in = t > 0 ? xfer[(s - 1) & 1][t - 1] : (p > 0 ? bl[j] : Carry{});
-        const uint8_t yc = yl[j - 1];
+        uint8_t yc = yl[j - 1];
+        const int32_t* row = nullptr;  // kProfile: the column's table row
+        if constexpr (kProfile) {
+          yc = clamp_code(yc, ncodes);
+          row = tab + yc * ncodes;
+        }
         int colmax = 0;
         int north;
         Carry last;
@@ -228,9 +316,11 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
         } else {
           north = in;
           if (nvalid == kBand) {
-            colmax = band_column<true>(h, xb, yc, match, mismatch, gap, kBand, nw, north);
+            colmax = band_column<true, kProfile>(h, xb, yc, row, match, mismatch, gap, kBand,
+                                                 nw, north);
           } else if (nvalid > 0) {
-            colmax = band_column<false>(h, xb, yc, match, mismatch, gap, nvalid, nw, north);
+            colmax = band_column<false, kProfile>(h, xb, yc, row, match, mismatch, gap,
+                                                  nvalid, nw, north);
           }
           last = h[kBand - 1];
         }
@@ -290,18 +380,26 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
   }
 }
 
-// K13 (kAffine = false) and K17 (kAffine = true): one warp per lane. x (B, M)
-// uint8 with the strip at rows [base, base + kStrip); rowin (B, .) int32 with
-// lane stride ld_row, rowin[b][j - 1] = H(base, j), or null for strip 0;
-// frowin (K17) the same for F(base, j), beside rowin with its stride; moves
-// (B, N, kStrip) uint8.
-template <bool kAffine>
+// K13 (kAffine = false) and K17 (kAffine = true), and with kProfile K21: one
+// warp per lane. x (B, M) uint8 (codes when kProfile) with the strip at rows
+// [base, base + kStrip); rowin (B, .) int32 with lane stride ld_row,
+// rowin[b][j - 1] = H(base, j), or null for strip 0; frowin (K17) the same
+// for F(base, j), beside rowin with its stride; moves (B, N, kStrip) uint8;
+// table (ncodes, ncodes) int32 (K21 only; dynamic shared memory).
+template <bool kAffine, bool kProfile>
 __global__ void __launch_bounds__(32)
 strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
                    const int32_t* __restrict__ m, const int32_t* __restrict__ n,
                    int M, int N, int base, const int32_t* __restrict__ rowin,
-                   const int32_t* __restrict__ frowin, long long ld_row, int match,
+                   const int32_t* __restrict__ frowin, long long ld_row,
+                   const int32_t* __restrict__ table, int ncodes, int match,
                    int mismatch, int gap_open, int gap, uint8_t* __restrict__ moves) {
+  static_assert(!(kAffine && kProfile), "no affine profile replay yet");
+  extern __shared__ int32_t tab[];  // kProfile: tab[yc * ncodes + xc]
+  if constexpr (kProfile) {
+    load_table(tab, table, ncodes);
+    __syncwarp();
+  }
   const int b = blockIdx.x;
   const int t = threadIdx.x;
   const int nb = min(n[b], N);
@@ -316,7 +414,8 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
 #pragma unroll
   for (int k = 0; k < kReplayBand; ++k) {
     const int r = base + row0 + k;
-    xb[k] = r < M ? xl[r] : 1;  // X_PAD past the read
+    xb[k] = r < M ? xl[r] : (kProfile ? 0 : 1);  // code 0, or X_PAD, past the read
+    if (kProfile) xb[k] = clamp_code(xb[k], ncodes);
     h[k] = 0;
     e[k] = kNeg;
   }
@@ -330,14 +429,19 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
     const int j = s - t + 1;
     if (j >= 1 && j <= nb) {
       const int north_in = t > 0 ? up : (rl ? rl[j - 1] : 0);
-      const uint8_t yc = y[(size_t)b * N + j - 1];
+      uint8_t yc = y[(size_t)b * N + j - 1];
+      const int32_t* row = nullptr;  // kProfile: the column's table row
+      if constexpr (kProfile) {
+        yc = clamp_code(yc, ncodes);
+        row = tab + yc * ncodes;
+      }
       int diag = nw, north = north_in;
       int f = t > 0 ? fup : (fl ? fl[j - 1] : 0);  // K17: F(row0, j), 0 above row 1
       uint32_t code[2] = {0u, 0u};
 #pragma unroll
       for (int k = 0; k < kReplayBand; ++k) {
         const int west = h[k];
-        const int s_xy = xb[k] == yc ? match : mismatch;
+        const int s_xy = cell_score<kProfile>(xb[k], yc, row, match, mismatch);
         uint32_t mv;
         int v;
         if constexpr (kAffine) {
@@ -387,32 +491,47 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
 }  // namespace
 
 // Plain C entry points, bound with ctypes. Device pointers to contiguous
-// tensors. pgs_strip_sweep: x (B, M), y (B, N) uint8, m, n (B,) int32; bound
-// scratch (B, N + 1) int32, or (B, N + 1, 2) int32 when gap_open > 0, or null
-// when one pass covers M (M <= 512 x kBand = 16,384 rows, affine 384 x kBand
-// = 12,288: ROWS_PER_PASS and ROWS_PER_PASS_AFFINE in ops/strips_cuda.py);
-// ck (B, nck, N) int32 zero-filled or null (K11/K15); fck the same shape
-// filled with -2^30, or null unless K16; score/best_i/best_j (B,) int32.
-// gap_open > 0 selects the affine kernels. Returns cudaGetLastError() after
-// the launch.
-extern "C" int pgs_strip_sweep(const void* x, const void* y, const void* m,
-                               const void* n, int M, int N, int B, int match,
-                               int mismatch, int gap_open, int gap, void* bound,
-                               void* ck, void* fck, int nck, void* score,
-                               void* best_i, void* best_j, void* stream) {
+// tensors. pgs_strip_sweep: lane b's read at x + b * x_lane (x_lane = M for
+// a (B, M) block, 0 for one query shared by every lane), uint8; y (B, N)
+// uint8 with y_off null, or a flat slab of y_len bytes in which lane b reads
+// from y_off[b] (int64; N is then only the bound on n_b); m, n (B,) int32;
+// bound scratch -- (B, N + 1) int32, or (B, N + 1, 2) int32 when gap_open >
+// 0, or lane b's row at bound_off[b] (int64) when bound_off is given -- or
+// null when one pass covers M (M <= 512 x kBand = 16,384 rows, affine 384 x
+// kBand = 12,288: ROWS_PER_PASS and ROWS_PER_PASS_AFFINE in
+// ops/strips_cuda.py); ck (B, nck, N) int32 zero-filled or null
+// (K11/K15/K19); fck the same shape filled with -2^30, or null unless K16;
+// score/best_i/best_j (B,) int32. gap_open > 0 selects the affine kernels; a
+// table ((ncodes, ncodes) int32, compact codes in x and y) the profile ones,
+// linear gaps only. Returns cudaGetLastError() after the launch (an invalid
+// argument when a table comes with gap_open > 0).
+extern "C" int pgs_strip_sweep(const void* x, long long x_lane, const void* y,
+                               const void* y_off, long long y_len, const void* m,
+                               const void* n, int M, int N, int B, const void* table,
+                               int ncodes, int match, int mismatch, int gap_open,
+                               int gap, void* bound, const void* bound_off, void* ck,
+                               void* fck, int nck, void* score, void* best_i,
+                               void* best_j, void* stream) {
+  const bool affine = gap_open > 0;
+  if (table && affine) return static_cast<int>(cudaErrorInvalidValue);
   if (B > 0) {
-    const bool affine = gap_open > 0;
     const int bands = (M + kBand - 1) / kBand;
     const int cap = affine ? kMaxThreadsAffine : kMaxThreads;
     const int threads = min(cap, max(32, (bands + 31) / 32 * 32));
     const int passes = (bands + threads - 1) / threads;
-    auto kernel = affine ? (ck ? &strip_sweep_kernel<true, true> : &strip_sweep_kernel<false, true>)
-                         : (ck ? &strip_sweep_kernel<true, false>
-                               : &strip_sweep_kernel<false, false>);
-    kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(y),
-        static_cast<const int32_t*>(m), static_cast<const int32_t*>(n), M, N,
-        match, mismatch, gap_open, gap, passes, bound, static_cast<int32_t*>(ck),
+    const size_t smem = table ? (size_t)ncodes * ncodes * sizeof(int32_t) : 0;
+    auto kernel = table ? (ck ? &strip_sweep_kernel<true, false, true>
+                              : &strip_sweep_kernel<false, false, true>)
+                  : affine ? (ck ? &strip_sweep_kernel<true, true, false>
+                                 : &strip_sweep_kernel<false, true, false>)
+                           : (ck ? &strip_sweep_kernel<true, false, false>
+                                 : &strip_sweep_kernel<false, false, false>);
+    kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(x), x_lane, static_cast<const uint8_t*>(y),
+        static_cast<const int64_t*>(y_off), y_len, static_cast<const int32_t*>(m),
+        static_cast<const int32_t*>(n), M, N, static_cast<const int32_t*>(table), ncodes,
+        match, mismatch, gap_open, gap, passes, bound,
+        static_cast<const int64_t*>(bound_off), static_cast<int32_t*>(ck),
         static_cast<int32_t*>(fck), nck, static_cast<int32_t*>(score),
         static_cast<int32_t*>(best_i), static_cast<int32_t*>(best_j));
   }
@@ -422,19 +541,27 @@ extern "C" int pgs_strip_sweep(const void* x, const void* y, const void* m,
 // pgs_strip_moves: x (B, M), y (B, N) uint8, m, n (B,) int32, base the
 // strip's first row (a multiple of 256), rowin (and, when gap_open > 0,
 // frowin) with lane stride ld_row or null, moves (B, N, 256) uint8 (columns
-// past a lane's n_b not written). gap_open > 0 selects K17.
+// past a lane's n_b not written). gap_open > 0 selects K17, a table
+// ((ncodes, ncodes) int32 over compact codes, linear gaps only) K21.
 extern "C" int pgs_strip_moves(const void* x, const void* y, const void* m,
                                const void* n, int M, int N, int B, int base,
                                const void* rowin, const void* frowin,
-                               long long ld_row, int match, int mismatch,
-                               int gap_open, int gap, void* moves, void* stream) {
+                               long long ld_row, const void* table, int ncodes,
+                               int match, int mismatch, int gap_open, int gap,
+                               void* moves, void* stream) {
+  const bool affine = gap_open > 0;
+  if (table && affine) return static_cast<int>(cudaErrorInvalidValue);
   if (B > 0) {
-    auto kernel = gap_open > 0 ? &strip_moves_kernel<true> : &strip_moves_kernel<false>;
-    kernel<<<B, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+    const size_t smem = table ? (size_t)ncodes * ncodes * sizeof(int32_t) : 0;
+    auto kernel = table ? &strip_moves_kernel<false, true>
+                  : affine ? &strip_moves_kernel<true, false>
+                           : &strip_moves_kernel<false, false>;
+    kernel<<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(y),
         static_cast<const int32_t*>(m), static_cast<const int32_t*>(n), M, N,
         base, static_cast<const int32_t*>(rowin), static_cast<const int32_t*>(frowin),
-        ld_row, match, mismatch, gap_open, gap, static_cast<uint8_t*>(moves));
+        ld_row, static_cast<const int32_t*>(table), ncodes, match, mismatch, gap_open,
+        gap, static_cast<uint8_t*>(moves));
   }
   return static_cast<int>(cudaGetLastError());
 }

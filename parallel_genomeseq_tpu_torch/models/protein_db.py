@@ -8,11 +8,15 @@ uploads only the query's codes and runs one K4 launch (K8 under affine gaps,
 the default 10/2) over every entry (one thread per entry; each thread's loops stop at its entry's true length, so
 the TPU's per-batch padding, ``pad_mult`` rounding, overrun rows and
 dispatch groups have no counterpart), and fetches the per-entry (score,
-pos_end) with one synchronisation.
+pos_end) with one synchronisation. A query longer than 2,048 aa (a
+database built with ``max_query_len`` past it) runs one launch of the strip
+kernel K19 over the same slab instead (one block per entry), as the JAX
+package's ``score_db_slab_strips_jit`` does.
 
 Not ported: the first-scan oracle gate (a guard against TPU miscompiles;
-``chip_smoke.py`` holds K4 and K8 against their plain versions instead), and
-queries longer than 2,048 (the strip kernels, A10), which raise.
+``chip_smoke.py`` holds K4, K8 and K19 against their plain versions
+instead), and queries longer than 2,048 under affine gaps (the affine
+profile strip kernels, ROADMAP A10d): such a database raises.
 """
 
 from __future__ import annotations
@@ -67,21 +71,21 @@ class ResidentProteinDB:
 
     Entries are (name, sequence) pairs; scans return each entry's DP score
     and pos_end (1-based entry index of the DP maximum), or the top-K hits.
-    ``engine`` is 'auto'/'cuda' (K4, or K8 when gap_open > 0, on a CUDA
-    device, the plain version on the CPU) or 'plain'; ``device`` defaults to
-    the card.
+    ``engine`` is 'auto'/'cuda' (K4, or K8 when gap_open > 0, or K19 for a
+    query longer than 2,048 aa, on a CUDA device, the plain version on the
+    CPU) or 'plain'; ``device`` defaults to the card.
     """
 
     def __init__(self, entries: List[Tuple[str, str]], matrix="blosum50",
                  gap_penalty=2.0, gap_open=10.0, max_query_len=None,
                  device=None, engine="auto"):
         self.max_query_len = max_query_len or MAX_M
-        if self.max_query_len > MAX_M:
-            raise NotImplementedError(
-                f"queries longer than {MAX_M} (strip kernels) are not ported "
-                "yet: ROADMAP A10"
-            )
         self.cfg = blosum_config(matrix, gap_penalty=gap_penalty, gap_open=gap_open)
+        if self.max_query_len > MAX_M and self.cfg.is_affine:
+            raise NotImplementedError(
+                f"queries longer than {MAX_M} under affine gaps (the affine profile "
+                "strip kernels) are not ported yet: ROADMAP A10"
+            )
         self.engine = make_score_engine(self.cfg, engine, device)
         self.device = self.engine.device
         self.entries = entries
@@ -109,8 +113,8 @@ class ResidentProteinDB:
         return torch.from_numpy(self.engine.encode_lut[qb]).to(self.device)
 
     def scan_lanes(self, query_codes: torch.Tensor):
-        """One K4 (K8) launch over every entry, in scan order: (score, i, j)
-        tensors on the device, not synchronised."""
+        """One K4 (K8, or K19 for a long query) launch over every entry, in
+        scan order: (score, i, j) tensors on the device, not synchronised."""
         return self.engine.score_slab(query_codes, self._slab, self._offs, self._lens)
 
     def scan_scores(self, query: str):

@@ -5,11 +5,12 @@ Per batch: K2 (uniform scoring) or K5 (a substitution matrix), through
 ``CudaEngine.score_batch_moves``, computes score, argmax and move codes in
 one pass for every read length up to 2,048, K3 (``walk_moves``) walks every
 lane (``engine="plain"`` runs the plain versions of all three). A traceback
-batch of longer reads (uniform scoring) takes the checkpointed strip
-traceback, ``score_batch_strip_moves`` (K12, then K13 and K14 strip by
-strip; under affine gaps K16, then K17 and K18, the JAX package's
-``score_batch_strip_affine_moves``), as swaligner.py:175-192 does, its
-per-strip times in ``Timings.levels_us``; a score-only one takes K11 (K15).
+batch of longer reads takes the checkpointed strip traceback,
+``score_batch_strip_moves`` (K12, then K13 and K14 strip by strip; under
+affine gaps K16, then K17 and K18, the JAX package's
+``score_batch_strip_affine_moves``; under a substitution matrix with linear
+gaps K20, then K21 and K14), as swaligner.py:175-192 does, its per-strip
+times in ``Timings.levels_us``; a score-only one takes K11 (K15, K19).
 Under affine gaps (``cfg.is_affine``) K7 or K9 emit the affine move bytes
 and K10 (``walk_moves_affine``) walks them, as swaligner.py:241, 264 choose.
 The

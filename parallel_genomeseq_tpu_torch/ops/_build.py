@@ -39,12 +39,14 @@ _SIGNATURES = {
     # moves, x_mb, y_bn, i0, j0, D, M, N, B, max_steps, pos, cx, cy, steps, stream
     "pgs_walk_moves": [_P] * 5 + [_I] * 5 + [_P] * 5,
     "pgs_walk_moves_affine": [_P] * 5 + [_I] * 5 + [_P] * 5,
-    # x, y, m, n, M, N, B, match, mismatch, gap_open, gap, bound, ck, fck,
-    # nck, score, best_i, best_j, stream
-    "pgs_strip_sweep": [_P] * 4 + [_I] * 7 + [_P] * 3 + [_I] + [_P] * 4,
-    # x, y, m, n, M, N, B, base, rowin, frowin, ld_row, match, mismatch,
-    # gap_open, gap, moves, stream
-    "pgs_strip_moves": [_P] * 4 + [_I] * 4 + [_P, _P, _L] + [_I] * 4 + [_P] * 2,
+    # x, x_lane, y, y_off, y_len, m, n, M, N, B, table, ncodes, match,
+    # mismatch, gap_open, gap, bound, bound_off, ck, fck, nck, score, best_i,
+    # best_j, stream
+    "pgs_strip_sweep": [_P, _L, _P, _P, _L, _P, _P] + [_I] * 3 + [_P] + [_I] * 5
+    + [_P] * 4 + [_I] + [_P] * 4,
+    # x, y, m, n, M, N, B, base, rowin, frowin, ld_row, table, ncodes, match,
+    # mismatch, gap_open, gap, moves, stream
+    "pgs_strip_moves": [_P] * 4 + [_I] * 4 + [_P, _P, _L, _P] + [_I] * 5 + [_P] * 2,
     # moves, x_mb, y_bn, M, N, B, base, max_steps, i, j, pos, active, steps,
     # cx, cy, stream
     "pgs_walk_strip": [_P] * 3 + [_I] * 5 + [_P] * 8,

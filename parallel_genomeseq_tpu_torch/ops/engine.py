@@ -7,11 +7,13 @@ counterpart of ``swaligner.py:33-56``.
 ``CudaEngine`` runs the kernel wrappers -- K1/K2 (``ops/wavefront_cuda``)
 for uniform scoring, K4/K5 (``ops/profile_cuda``) for a substitution matrix,
 and under affine (Gotoh) gaps their forms K6/K7 and K8/K9, walked by K3 or,
-affine, K10 (``ops/traceback``); reads longer than MAX_M under uniform
-scoring go to the strip kernels of ``ops/strips_cuda`` -- K11 (score), K12
-(checkpoints) and K13 (replay), walked strip by strip by K14, or under
-affine gaps K15, K16 (H and F checkpoints) and K17, walked by K18. CUDA
-tensors launch the kernels or raise, CPU tensors take the plain route.
+affine, K10 (``ops/traceback``); reads longer than MAX_M go to the strip
+kernels of ``ops/strips_cuda`` -- K11 (score), K12 (checkpoints) and K13
+(replay), walked strip by strip by K14; under affine gaps K15, K16 (H and F
+checkpoints) and K17, walked by K18; under a substitution matrix with
+linear gaps K19, K20 and K21, walked by K14 (K19 also scans a resident slab
+for a query longer than MAX_M). CUDA tensors launch the kernels or raise,
+CPU tensors take the plain route.
 ``PlainEngine`` always runs the plain PyTorch wavefront (``ops/scan_dp``)
 and walks (``ops/traceback``), on either device. Inputs may be numpy arrays
 or tensors of raw bytes; results are tensors on the engine's device,
@@ -36,21 +38,35 @@ from . import profile_cuda, scan_dp, strips_cuda, traceback, wavefront_cuda
 MAX_M = 2048
 STRIP_S = scan_dp.STRIP_S
 
-# The long-read (strip) functions of each gap model, keyed by
-# ``cfg.is_affine``: (sweep, checkpointing sweep, replay, walk). The kernels'
-# wrappers are K11-K14, affine K15-K18; their plain versions share the sweep.
+# The long-read (strip) functions of each scoring family, keyed by
+# ``strip_key(cfg)`` = (cfg.is_affine, cfg.is_uniform): (sweep,
+# checkpointing sweep, replay, walk). The kernels' wrappers are K11-K14,
+# affine K15-K18, and under a substitution matrix with linear gaps K19-K21
+# walked by K14; the plain versions share the uniform sweep. Affine matrix
+# strips (B12, B16, B20) have no entry yet: ROADMAP A10d.
 STRIP_KERNELS = {
-    False: (strips_cuda.sw_score_strips, strips_cuda.sw_score_strips_ckpt,
-            strips_cuda.strip_moves, traceback.walk_strip_level),
-    True: (strips_cuda.sw_score_strips_affine, strips_cuda.sw_score_strips_affine_ckpt,
-           strips_cuda.strip_affine_moves, traceback.walk_strip_level_affine),
+    (False, True): (strips_cuda.sw_score_strips, strips_cuda.sw_score_strips_ckpt,
+                    strips_cuda.strip_moves, traceback.walk_strip_level),
+    (True, True): (strips_cuda.sw_score_strips_affine,
+                   strips_cuda.sw_score_strips_affine_ckpt, strips_cuda.strip_affine_moves,
+                   traceback.walk_strip_level_affine),
+    (False, False): (strips_cuda.sw_score_strips_profile,
+                     strips_cuda.sw_score_strips_profile_ckpt,
+                     strips_cuda.strip_profile_moves, traceback.walk_strip_level),
 }
 STRIP_PLAIN = {
-    False: (scan_dp.sw_score_plain, scan_dp.sw_score_ckpt_plain, scan_dp.strip_moves_plain,
-            traceback._walk_strip_plain),
-    True: (scan_dp.sw_score_plain, scan_dp.sw_score_affine_ckpt_plain,
-           scan_dp.strip_affine_moves_plain, traceback._walk_strip_affine_plain),
+    (False, True): (scan_dp.sw_score_plain, scan_dp.sw_score_ckpt_plain,
+                    scan_dp.strip_moves_plain, traceback._walk_strip_plain),
+    (True, True): (scan_dp.sw_score_plain, scan_dp.sw_score_affine_ckpt_plain,
+                   scan_dp.strip_affine_moves_plain, traceback._walk_strip_affine_plain),
+    (False, False): (scan_dp.sw_profile_plain, scan_dp.sw_profile_ckpt_plain,
+                     scan_dp.strip_profile_moves_plain, traceback._walk_strip_plain),
 }
+
+
+def strip_key(cfg: ScoringConfig):
+    """The key of ``cfg``'s scoring family in STRIP_KERNELS / STRIP_PLAIN."""
+    return cfg.is_affine, cfg.is_uniform
 
 
 def check_supported(cfg: ScoringConfig, tie: str = "colmajor"):
@@ -73,12 +89,12 @@ def _as_tensor(a, dtype, device):
 
 
 def _check_length(cfg: ScoringConfig, rows: int, what: str):
-    """Strip-length inputs run under uniform scoring only, linear or
-    affine."""
-    if rows > MAX_M and not cfg.is_uniform:
+    """Strip-length inputs run under uniform scoring, linear or affine, and
+    under a substitution matrix with linear gaps."""
+    if rows > MAX_M and strip_key(cfg) not in STRIP_KERNELS:
         raise NotImplementedError(
-            f"{what} longer than {MAX_M} under substitution-matrix scoring "
-            "(its strip kernels) are not ported yet: ROADMAP A10"
+            f"{what} longer than {MAX_M} under substitution-matrix scoring with "
+            "affine gaps (its strip kernels) are not ported yet: ROADMAP A10"
         )
 
 
@@ -88,7 +104,8 @@ class _Engine:
     def __init__(self, cfg: ScoringConfig = ScoringConfig(), device=None):
         check_supported(cfg)
         self.cfg = cfg
-        self._st, self._st_ckpt, self._st_moves, self._st_walk = self._strip_fns[cfg.is_affine]
+        self._st, self._st_ckpt, self._st_moves, self._st_walk = self._strip_fns.get(
+            strip_key(cfg), (None,) * 4)
         self.device = resolve_device(device)
         self.gap = int(cfg.gap_penalty)
         gaps = {"gap": self.gap}
@@ -103,16 +120,18 @@ class _Engine:
             self.table = torch.from_numpy(table).to(self.device)
             self._kw = dict(table=self.table, **gaps)
 
-    def _inputs(self, x_bm, y_bn, m, n):
-        xs = _as_tensor(x_bm, torch.uint8, self.device)
-        _check_length(self.cfg, xs.shape[1], "reads")
-        ys = _as_tensor(y_bn, torch.uint8, self.device)
+    def _inputs(self, x_bm, y_bn, m, n, raw: bool = False):
+        """(xs, ys, m, n) on the engine's device, xs and ys as compact codes
+        under a matrix; ``raw`` appends the raw bytes (xs, ys) too."""
+        x_raw = _as_tensor(x_bm, torch.uint8, self.device)
+        _check_length(self.cfg, x_raw.shape[1], "reads")
+        y_raw = _as_tensor(y_bn, torch.uint8, self.device)
+        xs, ys = x_raw, y_raw
         if not self.cfg.is_uniform:  # raw bytes -> compact codes
-            xs, ys = self._lut[xs.long()], self._lut[ys.long()]
-        return (
-            xs, ys, _as_tensor(m, torch.int32, self.device),
-            _as_tensor(n, torch.int32, self.device),
-        )
+            xs, ys = self._lut[x_raw.long()], self._lut[y_raw.long()]
+        out = (xs, ys, _as_tensor(m, torch.int32, self.device),
+               _as_tensor(n, torch.int32, self.device))
+        return (*out, x_raw, y_raw) if raw else out
 
     def score_batch(self, x_bm, y_bn, m, n, need_pos: bool = True):
         """Per-lane 'score', 'i', 'j' (int32); need_pos=False gives
@@ -140,14 +159,16 @@ class _Engine:
 
     def score_batch_strip_moves(self, x_bm, y_bn, m, n, max_steps: int):
         """Score, argmax and the whole greedy walk for reads longer than
-        MAX_M (uniform scoring), in checkpoint memory rather than the
-        (M + N - 1, M, B) move tensor: one checkpointing sweep (K12), then
-        for each strip of STRIP_S rows from the bottom of the matrix up, its
-        moves replayed from the checkpoint above it (K13) and every lane
-        inside it walked (K14), as wavefront_pallas.py:2668-2764. Under
-        affine gaps the same loop is ``score_batch_strip_affine_moves``
-        (:2766-2871): K16 checkpoints H and F, K17 replays from both, and
-        K18 walks with the gap state carried from strip to strip.
+        MAX_M, in checkpoint memory rather than the (M + N - 1, M, B) move
+        tensor: one checkpointing sweep (K12), then for each strip of STRIP_S
+        rows from the bottom of the matrix up, its moves replayed from the
+        checkpoint above it (K13) and every lane inside it walked (K14), as
+        wavefront_pallas.py:2668-2764. Under affine gaps the same loop is
+        ``score_batch_strip_affine_moves`` (:2766-2871): K16 checkpoints H
+        and F, K17 replays from both, and K18 walks with the gap state
+        carried from strip to strip. Under a substitution matrix (linear
+        gaps) it is ``_strip_profile_moves`` (:2873-2991): K20 and K21 score
+        compact codes, and K14 walks the raw bytes.
 
         One host sync per strip decides whether any lane reaches it (a strip
         no lane reaches is skipped), and ends the previous strip's timing;
@@ -155,11 +176,11 @@ class _Engine:
         'steps' (B,) int32, 'cx', 'cy' (max_steps, B) uint8, and
         'level_us', each strip's replay-and-walk microseconds, top strip
         (largest rows) first, 0 where skipped."""
-        xs, ys, m, n = self._inputs(x_bm, y_bn, m, n)
+        xs, ys, m, n, x_raw, y_raw = self._inputs(x_bm, y_bn, m, n, raw=True)
         if xs.shape[1] <= MAX_M:
             raise ValueError(f"the strip path is for reads longer than {MAX_M}")
         score, i, j, *ck = self._st_ckpt(xs, ys, m, n, **self._kw)  # H (and F) checkpoints
-        x_mb = xs.T.contiguous()
+        x_mb = x_raw.T.contiguous()  # the walk emits raw bytes, not codes
         state = traceback.new_strip_state(i, j, max_steps, affine=self.cfg.is_affine)
         active, cur = state[3], state[0]
         nstrips = -(-xs.shape[1] // STRIP_S)
@@ -179,7 +200,7 @@ class _Engine:
             timing = (nstrips - 1 - s, time.perf_counter())
             rows = [c[:, s - 1] if s > 0 else None for c in ck]
             moves = self._st_moves(xs, ys, m, n, *rows, base, **self._kw)
-            self._st_walk(moves, x_mb, ys, base, state, max_steps=max_steps)
+            self._st_walk(moves, x_mb, y_raw, base, state, max_steps=max_steps)
             del moves
         if timing is not None:
             bool(active.any())  # sync: the last strip's work is done
@@ -191,19 +212,22 @@ class _Engine:
     def score_slab(self, query_codes, slab, y_off, lens):
         """The database scan: one query (M,) of compact codes against every
         lane of a resident (R,) code slab, lane b = ``slab[y_off[b] :
-        y_off[b] + lens[b]]``. Returns per-lane (score, i, j) int32, j the
-        1-based entry index of the maximum."""
+        y_off[b] + lens[b]]``, in one launch: K4 (K8 under affine gaps), or
+        for a query longer than MAX_M the strip sweep K19. Returns per-lane
+        (score, i, j) int32, j the 1-based entry index of the maximum."""
         if self.cfg.is_uniform:
             raise ValueError("the slab scan needs a substitution-matrix config")
         _check_length(self.cfg, query_codes.shape[0], "queries")
         m = torch.full_like(lens, query_codes.shape[0])
+        if query_codes.shape[0] > MAX_M:  # K19's slab form
+            return self._st(query_codes, slab, m, lens, y_off=y_off, **self._kw)
         return self._profile(query_codes, slab, m, lens, y_off)
 
 
 class CudaEngine(_Engine):
     """The kernels (plain route for CPU tensors): K1/K2/K4/K5, the K3 walk
-    and the strips K11-K14, or under affine gaps K6/K7/K8/K9, the K10 walk
-    and the strips K15-K18."""
+    and the strips K11-K14 (K19-K21 and K14 under a matrix), or under affine
+    gaps K6/K7/K8/K9, the K10 walk and the strips K15-K18."""
 
     def __init__(self, cfg: ScoringConfig = ScoringConfig(), device=None):
         super().__init__(cfg, device)

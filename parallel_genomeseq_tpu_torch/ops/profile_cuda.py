@@ -65,9 +65,10 @@ def _launch(x, x_lane, x_row, y, y_off, m, n, table, hcol_rows, N, gap_open, gap
     return score, bi, bj
 
 
-def _scores(x, y, m, n, table, gap_open, gap, y_off):
-    """K4/K8 route: validate, then the plain version on the CPU or the
-    kernel on the card. Returns (launched, (score, i, j))."""
+def check_scan_inputs(x, y, m, n, table, y_off) -> torch.device:
+    """Validate the inputs of a score-only profile kernel (K4, K8, and the
+    strip kernel K19): x (B, M) or (M,) and y (B, N), or a 1-D slab with
+    y_off (B,) int64, all uint8 codes. Returns their one device."""
     _check_common(m, n, table)
     if x.dtype != torch.uint8 or y.dtype != torch.uint8:
         raise TypeError("x and y must be uint8 codes")
@@ -80,7 +81,14 @@ def _scores(x, y, m, n, table, gap_open, gap, y_off):
     elif y.dim() != 1 or y_off.dtype != torch.int64 or y_off.shape != (B,):
         raise ValueError("a slab is a 1-D y with y_off (B,) int64")
     tensors = (x, y, m, n, table) + (() if y_off is None else (y_off,))
-    dev = device_of(*tensors)
+    return device_of(*tensors)
+
+
+def _scores(x, y, m, n, table, gap_open, gap, y_off):
+    """K4/K8 route: validate, then the plain version on the CPU or the
+    kernel on the card. Returns (launched, (score, i, j))."""
+    dev = check_scan_inputs(x, y, m, n, table, y_off)
+    B = m.shape[0]
     if dev.type == "cpu":
         return False, sw_profile_plain(x, y, m, n, table=table, gap_open=gap_open,
                                        gap=gap, y_off=y_off)

@@ -309,10 +309,11 @@ def sw_score_moves_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int,
     return (*reduce_best(best, bestd), moves)
 
 
-def _ckpt_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int, gap_open: int = 0):
-    """K1's (score, i, j) on xs (B, M), ys (B, N) plus the rows kept at
-    every STRIP_S-th row, each (B, K, N) int32, K = ceil(M / STRIP_S) - 1:
-    H, and under affine gaps F too."""
+def _ckpt_plain(xs, ys, m, n, *, score, gap: int, gap_open: int = 0):
+    """(score, i, j) on xs (B, M), ys (B, N) under the cell scores ``score``
+    (``uniform_scorer`` or ``table_scorer``) plus the rows kept at every
+    STRIP_S-th row, each (B, K, N) int32, K = ceil(M / STRIP_S) - 1: H, and
+    under affine gaps F too."""
     B, M = xs.shape
     N = ys.shape[1]
     K = max(0, -(-M // STRIP_S) - 1)
@@ -321,8 +322,7 @@ def _ckpt_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int, gap_open: 
     outs = [torch.zeros((K, M + N - 1, B), dtype=torch.int32, device=dev)
             for _ in range(2 if gap_open > 0 else 1)]
     best, bestd, _ = wavefront(
-        xs.T, ys, m, n, score=uniform_scorer(match, mismatch), gap=gap, gap_open=gap_open,
-        keep=(rows, *outs),
+        xs.T, ys, m, n, score=score, gap=gap, gap_open=gap_open, keep=(rows, *outs),
     )
     # Row r's cell in column j lies on diagonal r + j - 1.
     d = rows[:, None] + torch.arange(N, device=dev)[None, :]
@@ -336,7 +336,7 @@ def sw_score_ckpt_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
     (B, N) plus the checkpoint rows (B, K, N) int32, K = ceil(M / STRIP_S) -
     1: ck[b, k, j - 1] = H((k + 1) * STRIP_S, j) in 1-based rows, 0 outside
     the lane's matrix."""
-    return _ckpt_plain(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap)
+    return _ckpt_plain(xs, ys, m, n, score=uniform_scorer(match, mismatch), gap=gap)
 
 
 def sw_score_affine_ckpt_plain(xs, ys, m, n, *, match: int, mismatch: int, gap_open: int,
@@ -345,14 +345,21 @@ def sw_score_affine_ckpt_plain(xs, ys, m, n, *, match: int, mismatch: int, gap_o
     (B, N) plus the H checkpoint rows ck and the F rows fck, each (B, K, N)
     int32 as K12's: fck[b, k, j - 1] = F((k + 1) * STRIP_S, j), NEG outside
     the lane's matrix."""
-    return _ckpt_plain(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap,
+    return _ckpt_plain(xs, ys, m, n, score=uniform_scorer(match, mismatch), gap=gap,
                        gap_open=gap_open)
 
 
-def _strip_replay(xs, ys, m, n, base: int, north, *, match: int, mismatch: int, gap: int,
-                  gap_open: int = 0):
+def sw_profile_ckpt_plain(xs, ys, m, n, *, table, gap: int):
+    """Plain version of the K20 kernel: K12's checkpoint rows and K4's (score,
+    i, j) under the cell scores of ``table`` over the compact codes xs (B,
+    M) and ys (B, N)."""
+    return _ckpt_plain(xs, ys, m, n, score=table_scorer(table), gap=gap)
+
+
+def _strip_replay(xs, ys, m, n, base: int, north, *, score, gap: int, gap_open: int = 0):
     """The moves of the STRIP_S rows [base, base + STRIP_S) of xs against ys
-    from the row(s) ``north`` above them, as (B, N, STRIP_S) uint8."""
+    under the cell scores ``score``, from the row(s) ``north`` above them, as
+    (B, N, STRIP_S) uint8."""
     B, M = xs.shape
     N = ys.shape[1]
     S = STRIP_S
@@ -361,8 +368,8 @@ def _strip_replay(xs, ys, m, n, base: int, north, *, match: int, mismatch: int, 
     x[:, : max(0, min(S, M - base))] = xs[:, base : base + S]
     ms = (m.clamp(max=M) - base).clamp(0, S).to(torch.int32)
     _, _, moves = wavefront(
-        x.T, ys, ms, n, score=uniform_scorer(match, mismatch), gap=gap, gap_open=gap_open,
-        track_pos=False, emit_moves=True, north=north,
+        x.T, ys, ms, n, score=score, gap=gap, gap_open=gap_open, track_pos=False,
+        emit_moves=True, north=north,
     )
     r = torch.arange(S, device=dev)[None, :]
     d = r + torch.arange(N, device=dev)[:, None]  # cell (r, j) on diagonal r + j - 1
@@ -388,7 +395,15 @@ def strip_moves_plain(xs, ys, m, n, rowin, base: int, *, match: int, mismatch: i
     m and columns past its n hold codes no walk reads."""
     B, N = ys.shape
     return _strip_replay(xs, ys, m, n, base, _north_row(rowin, B, N, xs.device),
-                         match=match, mismatch=mismatch, gap=gap)
+                         score=uniform_scorer(match, mismatch), gap=gap)
+
+
+def strip_profile_moves_plain(xs, ys, m, n, rowin, base: int, *, table, gap: int):
+    """Plain version of the K21 kernel: ``strip_moves_plain`` under the cell
+    scores of ``table`` over the compact codes xs (B, M) and ys (B, N)."""
+    B, N = ys.shape
+    return _strip_replay(xs, ys, m, n, base, _north_row(rowin, B, N, xs.device),
+                         score=table_scorer(table), gap=gap)
 
 
 def strip_affine_moves_plain(xs, ys, m, n, rowin, frowin, base: int, *, match: int,
@@ -401,19 +416,24 @@ def strip_affine_moves_plain(xs, ys, m, n, rowin, frowin, base: int, *, match: i
     at NEG in column 0 of each row as there, and F and H come in exact."""
     B, N = ys.shape
     north = tuple(_north_row(row, B, N, xs.device) for row in (rowin, frowin))
-    return _strip_replay(xs, ys, m, n, base, north, match=match, mismatch=mismatch,
+    return _strip_replay(xs, ys, m, n, base, north, score=uniform_scorer(match, mismatch),
                          gap=gap, gap_open=gap_open)
+
+
+def slab_lengths(R: int, y_off, n):
+    """Each lane's n (int64) clamped to what an (R,) slab holds past its
+    offset; a lane whose offset lies outside [0, R] gets length 0 -- the
+    kernels clamp the same way."""
+    off = y_off.long()
+    inside = (off >= 0) & (off <= R)
+    return torch.where(inside, torch.minimum(n.long(), R - off), 0).clamp(min=0)
 
 
 def gather_lanes(slab, y_off, n):
     """Lanes of a flat (R,) code slab -> ((B, N) codes padded with 0, the
-    lengths clamped to what the slab holds past each offset), N = the
-    largest clamped length. A lane whose offset lies outside [0, R] gets
-    length 0 -- the kernels clamp the same way."""
-    R = slab.shape[0]
+    lengths clamped by ``slab_lengths``), N = the largest clamped length."""
     off = y_off.long()
-    inside = (off >= 0) & (off <= R)
-    n = torch.where(inside, torch.minimum(n.long(), R - off), 0).clamp(min=0)
+    n = slab_lengths(slab.shape[0], y_off, n)
     N = max(1, int(n.max())) if n.numel() else 1
     t = torch.arange(N, device=slab.device)
     valid = t[None, :] < n[:, None]

@@ -1,6 +1,6 @@
 """Wrappers of the CUDA long-read (strip) kernels (``csrc/strips.cu``):
-uniform match/mismatch scoring, linear or affine (Gotoh) gaps, reads of any
-length.
+uniform match/mismatch scoring with linear or affine (Gotoh) gaps, or a
+substitution matrix with linear gaps, reads (or queries) of any length.
 
 Linear: K11 ``sw_score_strips`` ports the Pallas kernel B9
 (``_kernel_strips``, TPU ``ops/wavefront_pallas.py:1073`` via
@@ -13,20 +13,30 @@ K16 ``sw_score_strips_affine_ckpt`` ports B14
 (``_kernel_strips_affine_ckpt`` :1147 via ``_call_strips_affine_ckpt``
 :1595), checkpointing F beside H; K17 ``strip_affine_moves`` ports B18
 (``_kernel_strip_affine_moves`` :1870 via ``_call_strip_affine_moves``
-:1953). They take the JAX package's batch-first layout -- xs (B, M), ys
-(B, N) uint8 padded with X_PAD / Y_PAD, m, n (B,) int32, clamped to M and N
--- and keep int32 boundary rows: the int16 rows, hi/lo pairs,
-``INT16_BOUND`` envelope and slot-packed argmax of the TPU kernels are not
-ported. The affine boundaries are the port's full sweep's
-(``scan_dp.wavefront_affine``): F = 0 above row 1 (B14/B18 start strip 0
-at -(gap_open + gap + 1); the two differ only on negative E or F, which no
-walk reads).
+:1953). Substitution matrix, linear gaps: K19 ``sw_score_strips_profile``
+ports B11 (``_kernel_strips_profile`` :1081 via ``_call_strips_profile``
+:1434), also in B11's ``shared=True`` slab form (one query against every
+entry of a resident slab, ``score_db_slab_strips_jit`` :2344); K20
+``sw_score_strips_profile_ckpt`` ports B15 (``_kernel_strips_profile_ckpt``
+:1642 via ``_call_strips_profile_ckpt`` :1679); K21 ``strip_profile_moves``
+ports B19 (``_kernel_strip_profile_moves`` :1986 via
+``_call_strip_profile_moves`` :2036). They take the JAX package's
+batch-first layout -- xs (B, M), ys (B, N) uint8 padded with X_PAD / Y_PAD
+(compact codes under a matrix, ``scan_dp.profile_tables``), m, n (B,)
+int32, clamped to M and N -- and keep int32 boundary rows: the int16 rows,
+hi/lo pairs, ``INT16_BOUND`` and 2^30 envelopes and slot-packed argmax of
+the TPU kernels are not ported. The affine boundaries are the port's full
+sweep's (``scan_dp.wavefront_affine``): F = 0 above row 1 (B14/B18 start
+strip 0 at -(gap_open + gap + 1); the two differ only on negative E or F,
+which no walk reads).
 
 Route: tensors on the CPU take the plain PyTorch versions (``ops/scan_dp``:
 ``sw_score_plain``, ``sw_score_ckpt_plain``, ``strip_moves_plain``,
-``sw_score_affine_ckpt_plain``, ``strip_affine_moves_plain``); tensors on a
-CUDA device launch the kernel, and a missing toolkit or a failed build or
-launch raises. Each wrapper's ``launches`` counts kernel launches only.
+``sw_score_affine_ckpt_plain``, ``strip_affine_moves_plain``,
+``sw_profile_plain``, ``sw_profile_ckpt_plain``,
+``strip_profile_moves_plain``); tensors on a CUDA device launch the
+kernel, and a missing toolkit or a failed build or launch raises. Each
+wrapper's ``launches`` counts kernel launches only.
 """
 
 from __future__ import annotations
@@ -34,11 +44,16 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .profile_cuda import check_scan_inputs
 from .scan_dp import (
     NEG,
     STRIP_S,
+    slab_lengths,
     strip_affine_moves_plain,
     strip_moves_plain,
+    strip_profile_moves_plain,
+    sw_profile_ckpt_plain,
+    sw_profile_plain,
     sw_score_affine_ckpt_plain,
     sw_score_ckpt_plain,
     sw_score_plain,
@@ -50,17 +65,22 @@ from .wavefront_cuda import _check_inputs
 # between passes.
 ROWS_PER_PASS = 512 * 32
 ROWS_PER_PASS_AFFINE = 384 * 32
+_NO_WIDTH = 2**31 - 1  # a slab has no padded width; its length bounds each lane
 
 
-def _sweep(xs, ys, m, n, *, match, mismatch, gap, ckpt, gap_open=0):
-    """Shared K11/K12 (gap_open > 0: K15/K16) launch on the current stream,
-    no sync; outputs and scratch allocated here. Returns (score, i, j), then
-    with ckpt the H checkpoints, and under affine gaps the F ones."""
-    B, M = xs.shape
-    N = ys.shape[1]
-    dev = xs.device
+def _sweep(xs, ys, m, n, *, gap, ckpt, match=0, mismatch=0, gap_open=0, table=None,
+           y_off=None):
+    """Shared K11/K12 (gap_open > 0: K15/K16; a table: K19/K20) launch on the
+    current stream, no sync; outputs and scratch allocated here. xs is (B, M)
+    or, shared by every lane, (M,); ys is (B, N) or, with ``y_off``, a flat
+    slab. Returns (score, i, j), then with ckpt the H checkpoints, and under
+    affine gaps the F ones."""
+    B = m.shape[0]
+    M = xs.shape[-1]
+    dev = m.device
     affine = gap_open > 0
     xs, ys, m, n = xs.contiguous(), ys.contiguous(), m.contiguous(), n.contiguous()
+    N = ys.shape[1] if y_off is None else _NO_WIDTH
     score, bi, bj = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
     nck = max(0, -(-M // STRIP_S) - 1)
     ck = fck = None
@@ -68,16 +88,27 @@ def _sweep(xs, ys, m, n, *, match, mismatch, gap, ckpt, gap_open=0):
         ck = torch.zeros((B, nck, N), dtype=torch.int32, device=dev)
         if affine:
             fck = torch.full((B, nck, N), NEG, dtype=torch.int32, device=dev)
-    # The between-pass row: H, or the (H, F) pair.
-    bound = (torch.empty((B, N + 1, 2) if affine else (B, N + 1), dtype=torch.int32, device=dev)
-             if M > (ROWS_PER_PASS_AFFINE if affine else ROWS_PER_PASS) else None)
+    # The between-pass row: H, or the (H, F) pair; in the slab form one row
+    # of n_b + 1 per lane, back to back (one sync for its size).
+    bound = bound_off = None
+    if M > (ROWS_PER_PASS_AFFINE if affine else ROWS_PER_PASS):
+        if y_off is None:
+            bound = torch.empty((B, N + 1, 2) if affine else (B, N + 1), dtype=torch.int32,
+                                device=dev)
+        else:
+            width = slab_lengths(ys.shape[0], y_off, n).long() + 1
+            ends = torch.cumsum(width, 0)
+            bound_off = (ends - width).contiguous()
+            bound = torch.empty(int(ends[-1]), dtype=torch.int32, device=dev)
     lib = _build.load()
     ptr = lambda t: t.data_ptr() if t is not None and t.numel() else None
     with torch.cuda.device(dev):
         err = lib.pgs_strip_sweep(
-            xs.data_ptr(), ys.data_ptr(), m.data_ptr(), n.data_ptr(), M, N, B,
-            int(match), int(mismatch), int(gap_open), int(gap), ptr(bound), ptr(ck),
-            ptr(fck), nck, score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
+            xs.data_ptr(), 0 if xs.dim() == 1 else M, ys.data_ptr(), ptr(y_off), ys.numel(),
+            m.data_ptr(), n.data_ptr(), M, N, B, ptr(table),
+            table.shape[0] if table is not None else 0, int(match), int(mismatch),
+            int(gap_open), int(gap), ptr(bound), ptr(bound_off), ptr(ck), ptr(fck), nck,
+            score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "pgs_strip_sweep")
@@ -117,8 +148,9 @@ def sw_score_strips_ckpt(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
 sw_score_strips_ckpt.launches = 0
 
 
-def _replay(xs, ys, m, n, rows, base: int, *, match, mismatch, gap, gap_open=0):
-    """Shared K13/K17 launch on CUDA tensors: checks, outputs allocated
+def _replay(xs, ys, m, n, rows, base: int, *, gap, match=0, mismatch=0, gap_open=0,
+            table=None):
+    """Shared K13/K17/K21 launch on CUDA tensors: checks, outputs allocated
     here, no sync. ``rows`` are the incoming H row (and, affine, F row), or
     Nones for the first strip. Returns the (B, N, STRIP_S) moves."""
     dev = xs.device
@@ -143,6 +175,8 @@ def _replay(xs, ys, m, n, rows, base: int, *, match, mismatch, gap, gap_open=0):
             rowin.data_ptr() if rowin is not None else None,
             frowin.data_ptr() if frowin is not None else None,
             rowin.stride(0) if rowin is not None else 0,
+            table.contiguous().data_ptr() if table is not None else None,
+            table.shape[0] if table is not None else 0,
             int(match), int(mismatch), int(gap_open), int(gap), moves.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -223,3 +257,61 @@ def strip_affine_moves(xs, ys, m, n, rowin, frowin, base: int, *, match: int, mi
 
 
 strip_affine_moves.launches = 0
+
+
+def sw_score_strips_profile(x, y, m, n, *, table, gap: int, y_off=None):
+    """K19: per-lane (score, i, j) int32 of linear-gap Smith-Waterman scored
+    by ``table`` (ncodes, ncodes) int32 over compact codes, for queries of any
+    length, with K11's column-major argmax tie-break.
+
+    x: (B, M) codes, or (M,) codes of one query shared by every lane (the
+    database scan). y: (B, N) codes, or -- with ``y_off`` (B,) int64 -- a
+    flat (R,) slab in which lane b reads ``y[y_off[b] : y_off[b] + n[b]]``.
+    m, n: (B,) int32 true lengths, clamped to M, N and to what y holds past
+    the offset. The arguments of ``profile_cuda.sw_profile``."""
+    if check_scan_inputs(x, y, m, n, table, y_off).type == "cpu":
+        return sw_profile_plain(x, y, m, n, table=table, gap=gap, y_off=y_off)
+    out = _sweep(x, y, m, n, gap=gap, ckpt=False, table=table.contiguous(),
+                 y_off=None if y_off is None else y_off.contiguous())
+    sw_score_strips_profile.launches += 1
+    return out
+
+
+sw_score_strips_profile.launches = 0
+
+
+def _check_lanes(xs, ys, m, n, table):
+    """Per-lane (B, M), (B, N) codes and a table; returns their device."""
+    if xs.dim() != 2:
+        raise ValueError(f"expected xs (B, M), got {tuple(xs.shape)}")
+    return check_scan_inputs(xs, ys, m, n, table, None)
+
+
+def sw_score_strips_profile_ckpt(xs, ys, m, n, *, table, gap: int):
+    """K20: K19's (score, i, j) on xs (B, M) and ys (B, N) codes plus the
+    checkpoint rows (B, K, N) int32 of K12, K = ceil(M / STRIP_S) - 1:
+    ck[b, k, j - 1] = H((k + 1) * STRIP_S, j) with 1-based rows, 0 outside
+    the lane's matrix."""
+    if _check_lanes(xs, ys, m, n, table).type == "cpu":
+        return sw_profile_ckpt_plain(xs, ys, m, n, table=table, gap=gap)
+    out = _sweep(xs, ys, m, n, gap=gap, ckpt=True, table=table.contiguous())
+    sw_score_strips_profile_ckpt.launches += 1
+    return out
+
+
+sw_score_strips_profile_ckpt.launches = 0
+
+
+def strip_profile_moves(xs, ys, m, n, rowin, base: int, *, table, gap: int):
+    """K21: ``strip_moves`` with the cell scores of ``table`` over the
+    compact codes xs (B, M) and ys (B, N): the linear move codes of the
+    STRIP_S rows [base, base + STRIP_S), replayed from ``rowin`` (a slice of
+    K20's checkpoints; None for the first strip), as (B, N, STRIP_S) uint8."""
+    if _check_lanes(xs, ys, m, n, table).type == "cpu":
+        return strip_profile_moves_plain(xs, ys, m, n, rowin, base, table=table, gap=gap)
+    moves = _replay(xs, ys, m, n, (rowin,), base, gap=gap, table=table)
+    strip_profile_moves.launches += 1
+    return moves
+
+
+strip_profile_moves.launches = 0

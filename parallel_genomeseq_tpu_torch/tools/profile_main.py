@@ -2,8 +2,8 @@
 
     python -m parallel_genomeseq_tpu_torch.tools.profile_main \\
         [--workload small|uniprot|big] [--seed 0] [--reads 5120] [--read-len 125]
-        [--batch-size 512] [--sweep 128,1024,2048] [--entries 561356] [--affine]
-        [--traceback]
+        [--batch-size 512] [--sweep 128,1024,2048] [--entries 561356]
+        [--query-len 145] [--affine] [--traceback]
 
 ``--workload small`` (default): ``solve_small`` on the data set of
 ``chip_smoke.py`` (a seeded 4,980-bp reference and 125-bp reads with
@@ -11,7 +11,10 @@ substitutions and small indels, written under ``data/profile/``).
 ``--workload uniprot``: ``solve_uniprot`` with the ``uniprot_e2e`` settings
 (BLOSUM50, gap 12, batch 4,096, top 10) on ``chip_smoke.py``'s protein data
 (``--entries`` generated entries with mutated copies of a seeded 145-aa
-query planted in them: 9 at the default size). ``--affine`` runs both with
+query planted in them: 9 at the default size); ``--query-len`` over 2,048
+(for example 4,096, a titin-class query) scans with the profile strip
+kernel K19 and walks the planted full-length copies in strips (K20, K21,
+K14). ``--affine`` runs both with
 affine (Gotoh) gaps: BWA-MEM's scoring for small (``--match 1 --mismatch -4
 --gap-open 6 --gap-penalty 1``), swps3's 10/2 for uniprot (``--gap-open 10
 --gap-penalty 2``), as ``chip_smoke.py`` does.

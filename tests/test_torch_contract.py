@@ -37,7 +37,8 @@ COUNTERS = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves, traceback.wa
             strips_cuda.sw_score_strips_ckpt, strips_cuda.strip_moves,
             traceback.walk_strip_level, strips_cuda.sw_score_strips_affine,
             strips_cuda.sw_score_strips_affine_ckpt, strips_cuda.strip_affine_moves,
-            traceback.walk_strip_level_affine)
+            traceback.walk_strip_level_affine, strips_cuda.sw_score_strips_profile,
+            strips_cuda.sw_score_strips_profile_ckpt, strips_cuda.strip_profile_moves)
 AFFINE = {
     "uniform": ScoringConfig(gap_open=10.0),
     "matrix": blosum_config("blosum50", gap_penalty=2.0, gap_open=10.0),
@@ -106,7 +107,8 @@ def test_affine_configs_run(kind):
 def test_matrix_configs_are_ported_but_long_queries_raise(tmp_path):
     """Linear substitution-matrix scoring runs (A8), and so does its affine
     form (A9): the resident database's default gaps are the affine 10/2 and
-    it scans; a database for queries past 2,048 raises A10."""
+    it scans. A database for queries past 2,048 scans them under linear gaps
+    (the profile strips, A10c) and raises naming A10 under affine ones."""
     eng = engine.make_score_engine(blosum_config("blosum62"), device="cpu")
     assert int(eng.table[1, 1]) == 4 and eng.table.shape == (len(ALPHABET) + 1,) * 2
     entries = [("a", "MKWVTFISLL"), ("b", "GVFRRDTHKS")]
@@ -115,8 +117,12 @@ def test_matrix_configs_are_ported_but_long_queries_raise(tmp_path):
     scores, pos, _ = db.scan_scores("MKWVTFISLL")
     # MKWVTFISLL against itself under BLOSUM50: 7+6+15+5+5+8+5+5+5+5.
     assert (int(scores[0]), int(pos[0])) == (66, 10)
+    long_db = ResidentProteinDB(entries, gap_open=0.0, max_query_len=engine.MAX_M + 1,
+                                device="cpu")
+    scores, pos, _ = long_db.scan_scores("P" * (engine.MAX_M - 9) + "MKWVTFISLL")
+    assert (int(scores[0]), int(pos[0])) == (66, 10)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        ResidentProteinDB(entries, gap_open=0.0, max_query_len=engine.MAX_M + 1, device="cpu")
+        ResidentProteinDB(entries, max_query_len=engine.MAX_M + 1, device="cpu")
 
 
 def test_make_score_engine_names():
@@ -144,32 +150,45 @@ def test_make_score_engine_names():
 
 def test_skewed_ties_and_strip_length_reads_raise():
     """Skewed ties raise naming A2. A read past MAX_M runs under uniform
-    scoring, linear or affine (the strip kernels, A10's first two parts);
-    under a substitution matrix it still raises naming A10."""
+    scoring, linear or affine, and under a substitution matrix with linear
+    gaps (the strip kernels, A10's first three parts); under a matrix with
+    affine gaps it still raises naming A10."""
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         BatchSWAligner(tie="skewed", device="cpu")
     long_read = np.full((1, engine.MAX_M + 8), ord("A"), np.uint8)
     lens = ([engine.MAX_M + 8], [engine.MAX_M + 8])
-    for cfg in (ScoringConfig(), AFFINE["uniform"]):
+    blosum = blosum_config("blosum50", gap_penalty=12.0)  # A-A scores 5
+    for cfg, match in ((ScoringConfig(), 3), (AFFINE["uniform"], 3), (blosum, 5)):
         got = engine.make_score_engine(cfg, device="cpu").score_batch(long_read, long_read, *lens)
         assert [int(got[k][0]) for k in ("score", "i", "j")] == \
-            [3 * (engine.MAX_M + 8)] + lens[0] * 2
-    for cfg in (AFFINE["matrix"], blosum_config("blosum50", gap_penalty=12.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            engine.make_score_engine(cfg, device="cpu").score_batch(long_read, long_read, *lens)
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            BatchSWAligner(cfg, device="cpu").align_batch(["A" * 2100], ["A" * 50])
+            [match * (engine.MAX_M + 8)] + lens[0] * 2
+    got = BatchSWAligner(blosum, device="cpu").align_batch(["A" * 2100], ["A" * 50])[0]
+    assert (got.score, got.pos, got.consensus_x) == (250, 1, "A" * 50)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        engine.make_score_engine(AFFINE["matrix"], device="cpu").score_batch(
+            long_read, long_read, *lens)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        BatchSWAligner(AFFINE["matrix"], device="cpu").align_batch(["A" * 2100], ["A" * 50])
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--gap-open", "6", "--matrix", "blosum62"], "A10"), (["--matrix", "blosum50"], "A10"),
+    (["--gap-open", "6", "--matrix", "blosum62"], "A10"), (["--matrix", "blosum50"], None),
     (["--semantics", "sat_uint8"], "A2"),
 ], ids=["gap_open", "matrix", "sat_uint8"])
-def test_solve_big_rejects_unported_modes(flags, item, capsys):
-    """Substitution matrices on long reads, with linear or affine gaps, need
-    the strip kernels of A10's next part (affine gaps alone run since its
-    second); sat_uint8 needs A2. Each exits 2 before any data is
+def test_solve_big_rejects_unported_modes(flags, item, capsys, tmp_path):
+    """A substitution matrix on long reads runs with linear gaps (the
+    profile strips, A10's third part) and needs A10's last part with affine
+    gaps; sat_uint8 needs A2. Each refusal exits 2 before any data is
     generated."""
+    if item is None:  # ported: one 2,100-bp read runs, and its affine form is refused
+        ref = "".join(np.random.default_rng(6).choice(list("ACGT"), 2400))
+        (tmp_path / "ref.fa").write_text(f">ref\n{ref}\n")
+        (tmp_path / "reads.csv").write_text(f"index,QNAME,SEQ,POS\n0,r0,{ref[150:2250]},151\n")
+        run = solve_big.run(["1", "1", "--ref", str(tmp_path / "ref.fa"), "--reads",
+                             str(tmp_path / "reads.csv"), "--overlap-ratio", "0.1",
+                             "--device", "cpu"] + flags)
+        assert run.rc == 0 and run.results[0].score > 5 * 1000  # 2 windows of 1,305 bp
+        flags, item = flags + ["--gap-open", "10"], "A10"
     with pytest.raises(SystemExit) as exc:
         solve_big.main(["--device", "cpu"] + flags)
     assert exc.value.code == 2
@@ -187,16 +206,28 @@ def test_solve_small_rejects_unported_modes(flags, tmp_path):
 
 @pytest.mark.parametrize("case, item", [("long_query", "A10"), ("num_processes", "A13")])
 def test_solve_uniprot_rejects_unported_modes(case, item, tmp_path, capsys):
-    """A query past the single-strip kernels' 2,048 rows and a sharded run
-    are refused, naming the ROADMAP item that ports them."""
+    """A query past the single-strip kernels' 2,048 rows runs under linear
+    gaps (the profile strips) and is refused under a matrix with affine
+    gaps; a sharded run is refused; each names the ROADMAP item that ports
+    it."""
     query = tmp_path / "q.fasta"
     query.write_text(">q\n" + "MKWVTFISLL" * (206 if case == "long_query" else 3) + "\n")
     db = tmp_path / "db.fasta"
     db.write_text(">a\nMKWVTFISLLGVFRR\n")
-    flags = {"long_query": [], "num_processes": ["--num-processes", "2"]}[case]
+    base = ["--query", str(query), "--database", str(db), "--device", "cpu", "--output",
+            str(tmp_path / "o.csv")]
+    flags = {"long_query": ["--gap-open", "10", "--gap-penalty", "2"],
+             "num_processes": ["--num-processes", "2"]}[case]
+    if case == "long_query":
+        assert solve_uniprot.main(base) == 0
+        rows = (tmp_path / "o.csv").read_text().splitlines()
+        # MKWVTFISLL's BLOSUM50 diagonal (66) plus GVFRR against the repeat's
+        # MKWVT (0 - 3 + 1 - 3 - 3) stays 66, ending in the entry's column 10.
+        assert rows[1].startswith("a,15,66,10,")
+        (tmp_path / "o.csv").unlink()
+        capsys.readouterr()
     with pytest.raises(SystemExit) as exc:
-        solve_uniprot.main(["--query", str(query), "--database", str(db), "--device",
-                            "cpu", "--output", str(tmp_path / "o.csv")] + flags)
+        solve_uniprot.main(base + flags)
     assert exc.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
     assert not (tmp_path / "o.csv").exists()
@@ -222,18 +253,27 @@ def test_solve_uniprot_runs_affine_gaps(tmp_path, capsys):
 
 def test_solve_uniprot_scans_long_entries_but_refuses_their_walk(tmp_path):
     """An entry past 2,048 aa is scanned (the entry is K4's y, which has no
-    row limit); walking it needs the strip kernels and raises naming A10."""
+    row limit). Under linear gaps its walk runs in strips (K20, K21, K14)
+    and emits the raw letters; under a matrix with affine gaps the walk
+    needs A10's last part and raises naming A10."""
     query = "MKWVTFISLLGVFRRDTHKSEIAHRFKDLGE"
     (tmp_path / "q.fasta").write_text(f">q\n{query}\n")
     (tmp_path / "db.fasta").write_text(
         f">short\n{query[:20]}\n>long\n{'GS' * 1040}{query}\n")
     base = ["--query", str(tmp_path / "q.fasta"), "--database", str(tmp_path / "db.fasta"),
             "--device", "cpu", "--output", str(tmp_path / "o.csv")]
+    L = 2080 + len(query)
     assert solve_uniprot.main(base + ["--traceback-top", "0"]) == 0
     rows = (tmp_path / "o.csv").read_text().splitlines()
-    assert rows[2].startswith(f"long,{2080 + len(query)},") and rows[2].endswith(f",{2080 + len(query)},,,")
+    assert rows[2].startswith(f"long,{L},") and rows[2].endswith(f",{L},,,")
+    assert solve_uniprot.main(base) == 0
+    name, length, score, pos_end, pos_pred, cx, cy = \
+        (tmp_path / "o.csv").read_text().splitlines()[2].split(",")
+    assert (name, int(length), int(pos_end)) == ("long", L, L)
+    # The entry ends with the query: the walk goes back along it, reversed.
+    assert cx == cy and len(cx) >= len(query) - 2 and query[::-1].startswith(cx)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        solve_uniprot.main(base)
+        solve_uniprot.main(base + ["--gap-open", "10", "--gap-penalty", "2"])
 
 
 def test_cpu_tensors_take_plain_route_without_launches():
@@ -274,6 +314,12 @@ def test_cpu_tensors_take_plain_route_without_launches():
     BatchSWAligner(AFFINE["uniform"], device="cpu").align_batch(long_reads, [long_ref])
     BatchSWAligner(AFFINE["uniform"], device="cpu").align_batch(long_reads, [long_ref],
                                                                 traceback=False)
+    # Its substitution-matrix form (K19, then K20, K21, K14), and K19's slab
+    # form on a long query.
+    BatchSWAligner(cfg, device="cpu").align_batch(long_reads, [long_ref[:40]])
+    BatchSWAligner(cfg, device="cpu").align_batch(long_reads, [long_ref[:40]], traceback=False)
+    ResidentProteinDB([(str(k), p) for k, p in enumerate(proteins)], gap_penalty=12.0,
+                      gap_open=0.0, max_query_len=2100, device="cpu").scan(long_reads[0])
     assert [fn.launches for fn in COUNTERS] == [0] * len(COUNTERS)
 
 

@@ -595,3 +595,158 @@ def test_solve_big_affine_cuda_matches_cpu(cuda):
         assert launched == ([True] * 4 if extra else [True, False, False, False]) + [False] * 4
         fields = lambda r: (r.score, r.pos, r.max_i, r.max_j, r.consensus_x, r.consensus_y)
         assert [fields(r) for r in gpu.results] == [fields(r) for r in cpu.results]
+
+
+def long_protein_slab(seed, dev, q_len):
+    """A long query and a flat slab of ragged entries in compact codes (codes
+    up to 29, past the table's 25, score as code 0): 60-900-aa entries and
+    one of 2,300 aa, mutated query segments planted in two of them, and
+    three lanes that start outside the slab or run past its end."""
+    rng = np.random.default_rng(seed)
+    _, table = scan_dp.profile_tables(blosum_config("blosum50"))
+    q = rng.integers(1, 30, q_len).astype(np.uint8)
+    lens = list(rng.integers(60, 900, 37)) + [2300]
+    ents = [rng.integers(1, 30, int(k)).astype(np.uint8) for k in lens]
+    for b, at in ((5, q_len - 700), (37, q_len // 3)):
+        seg = q[at : at + 500].copy()
+        seg[rng.integers(0, 500, 25)] = rng.integers(1, 30, 25)
+        ents[b][40 : 40 + min(500, len(ents[b]) - 40)] = seg[: len(ents[b]) - 40]
+    slab = np.concatenate(ents)
+    off = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    off = np.append(off, [-5, len(slab) - 30, len(slab) + 9])
+    n = np.append(np.array(lens, np.int32), [50, 400, 10]).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return t(q), t(slab), t(off), t(n), t(table)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k19_slab_matches_plain(cuda, seed):
+    """K19's slab form (one 2,600-aa query shared by every lane, each lane's
+    entry read through its offset) against its plain version: a planted
+    2,300-aa entry, lanes clamped at the slab's ends."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    q, slab, off, n, table = long_protein_slab(seed, cuda, 2600)
+    m = torch.full_like(n, q.shape[0])
+    before = strips_cuda.sw_score_strips_profile.launches
+    got = strips_cuda.sw_score_strips_profile(q, slab, m, n, table=table, gap=12, y_off=off)
+    want = scan_dp.sw_profile_plain(q, slab, m, n, table=table, gap=12, y_off=off)
+    torch.cuda.synchronize()
+    assert strips_cuda.sw_score_strips_profile.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert int(got[0][5]) > 1000 and int(got[0][37]) > 1000 and int(got[0][38]) == 0
+
+
+def test_k19_per_lane_matches_plain(cuda):
+    """K19 on per-lane long queries (protein codes, ragged true lengths,
+    one m past the padded shape) against its plain version."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    xs, ys, m, n, table = protein_lanes(2, cuda, B=9, M=2600, N=500)
+    m[0] += 4000
+    xs[3, 2000:2200] = ys[3, 100:300]
+    n[3] = 400
+    before = strips_cuda.sw_score_strips_profile.launches
+    got = strips_cuda.sw_score_strips_profile(xs, ys, m, n, table=table, gap=12)
+    want = scan_dp.sw_profile_plain(xs, ys, m, n, table=table, gap=12)
+    torch.cuda.synchronize()
+    assert strips_cuda.sw_score_strips_profile.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k19_beyond_one_pass_matches_plain(cuda):
+    """A 16,500-aa query on a small slab: past one block's pass (16,384
+    rows) the lanes' bound rows, back to back in the slab form, carry H
+    between passes; a segment planted across the pass edge is found."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    q, slab, off, n, table = long_protein_slab(3, cuda, 16_500)
+    edge = strips_cuda.ROWS_PER_PASS
+    slab[int(off[7]) + 10 : int(off[7]) + 210] = q[edge - 100 : edge + 100]
+    n[7] = max(int(n[7]), 220)
+    m = torch.full_like(n, q.shape[0])
+    got = strips_cuda.sw_score_strips_profile(q, slab, m, n, table=table, gap=12, y_off=off)
+    want = scan_dp.sw_profile_plain(q, slab, m, n, table=table, gap=12, y_off=off)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1][7]) > edge and int(got[0][7]) > 500
+
+
+def test_profile_strip_traceback_kernels_match_plain(cuda):
+    """K20 (checkpoints), K21 (every strip, valid cells) and the K14 walk
+    over raw letters against their plain versions, and the CUDA engine's
+    whole matrix strip traceback against the plain engine's on the card."""
+    from parallel_genomeseq_tpu_torch.ops import engine, strips_cuda
+
+    cfg = blosum_config("blosum50", gap_penalty=2.0)
+    lut, _ = scan_dp.profile_tables(cfg)
+    alpha = np.frombuffer(cfg.alphabet[:20].encode(), np.uint8)
+    rng = np.random.default_rng(4)
+    B, M, N = 7, 2600, 600
+    ref = rng.choice(alpha, N)
+    raw_x = rng.choice(alpha, (B, M)).astype(np.uint8)
+    for b in range(B - 1):
+        seg = ref[25 * b : 25 * b + 400].copy()
+        seg[rng.integers(0, 400, 20)] = rng.choice(alpha, 20)
+        raw_x[b, 300 + 250 * b : 700 + 250 * b] = seg
+    raw_y = np.broadcast_to(ref, (B, N)).copy()
+    m = rng.integers(2000, M + 1, B).astype(np.int32)
+    n = np.full(B, N, np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    rx, ry, m, n = t(raw_x), t(raw_y), t(m), t(n)
+    xs, ys = t(lut)[rx.long()], t(lut)[ry.long()]
+    kw = dict(table=t(scan_dp.profile_tables(cfg)[1]), gap=2)
+    got = strips_cuda.sw_score_strips_profile_ckpt(xs, ys, m, n, **kw)
+    want = scan_dp.sw_profile_ckpt_plain(xs, ys, m, n, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _, i, j, ck = got
+    x_mb = rx.T.contiguous()
+    state = traceback.new_strip_state(i, j, 1200)
+    plain_state = tuple(a.clone() for a in state)
+    r = torch.arange(256, device=cuda)
+    before = strips_cuda.strip_profile_moves.launches
+    nstrips = -(-M // 256)
+    for s in range(nstrips - 1, -1, -1):
+        rowin = ck[:, s - 1] if s else None
+        got = strips_cuda.strip_profile_moves(xs, ys, m, n, rowin, s * 256, **kw)
+        want = scan_dp.strip_profile_moves_plain(xs, ys, m, n, rowin, s * 256, **kw)
+        valid = ((s * 256 + r)[None, None, :] < m[:, None, None]) & \
+            (torch.arange(N, device=cuda)[None, :, None] < n[:, None, None])
+        assert torch.equal(got[valid], want[valid])
+        traceback.walk_strip_level(got, x_mb, ry, s * 256, state, max_steps=1200)
+        traceback._walk_strip_plain(want, x_mb, ry, s * 256, plain_state, 1200)
+        for g, w in zip(state, plain_state):
+            assert torch.equal(g, w)
+    assert strips_cuda.strip_profile_moves.launches == before + nstrips
+    assert int(state[4][: B - 1].min()) > 300 and not bool(state[3].any())
+    got = engine.CudaEngine(cfg, device=cuda).score_batch_strip_moves(rx, ry, m, n, max_steps=1200)
+    want = engine.PlainEngine(cfg, device=cuda).score_batch_strip_moves(rx, ry, m, n,
+                                                                        max_steps=1200)
+    for k in ("score", "i", "j", "pos", "cx", "cy", "steps"):
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got["cx"], state[5])  # raw letters, as the walk above emitted
+
+
+def test_solve_uniprot_long_query_cuda_matches_cpu(cuda, tmp_path):
+    """A 2,300-aa query: the card's CSV (K19's slab scan, then K20, K21 and
+    the K14 walk for the planted 2,300-aa entries in the top hits; no K4)
+    equals the CPU's, and ``--engine plain`` on the card gives it too
+    without a launch."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    query, db, _ = write_protein_dataset(tmp_path, n_entries=40, query_len=2300, seed=5)
+    base = ["--query", str(query), "--database", str(db), "--top", "4"]
+    counters = (strips_cuda.sw_score_strips_profile, strips_cuda.sw_score_strips_profile_ckpt,
+                strips_cuda.strip_profile_moves, traceback.walk_strip_level, profile_cuda.sw_profile)
+    before = [fn.launches for fn in counters]
+    assert solve_uniprot.main(base + ["--output", str(tmp_path / "gpu.csv")]) == 0
+    assert [fn.launches > b for fn, b in zip(counters, before)] == [True] * 4 + [False]
+    before = [fn.launches for fn in counters]
+    assert solve_uniprot.main(base + ["--engine", "plain", "--output", str(tmp_path / "p.csv")]) == 0
+    assert [fn.launches for fn in counters] == before
+    assert solve_uniprot.main(base + ["--device", "cpu", "--output", str(tmp_path / "cpu.csv")]) == 0
+    assert (tmp_path / "gpu.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
+    assert (tmp_path / "p.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
