@@ -23,9 +23,10 @@
    strings).
 5. Protein database scan path, at SwissProt scale: 561,356 generated entries
    (lognormal lengths, median ~290 aa, 60-2,048) with 9 mutated copies of a
-   seeded 145-aa query planted (every index k with k % 70,169 == 3). Holds K4 against its plain version on the
-   whole resident slab (the main path's single launch) and on the shortest
-   and longest 4,096-lane length groups; K5 and K3 on the top-10 traceback
+   seeded 145-aa query planted (every index k with k % 70,169 == 3). Holds
+   K4 against its plain version on every 4th lane of its whole-slab launch
+   (the main path's single launch) and on the shortest and longest
+   4,096-lane length groups; K5 and K3 on the top-10 traceback
    batch and on 256 of the longest entries (M = 2,048, about 1.2 GB of
    moves). Holds their affine forms under BLOSUM50 with gap 10/2 on the same
    slab: K8 on the two length groups and on every 16th lane of its
@@ -44,16 +45,18 @@
    substitutions and three 1-3 bp indels per read), 14 windows. Holds K11
    (the 1,400-lane window sweep on one read's 14 lanes, and every lane of a
    reduced 1,400 x 2,304 x 4,608 shape), K12 (the 100 winners, on 4 of
-   them), K13 and K14 (the top, a middle and the bottom strip of the
-   winners' traceback, every lane) against their plain versions. Runs
+   them), K13 (on every 4th lane) and K14 (every lane) on the top, a middle
+   and the bottom strip of the winners' traceback against their plain
+   versions. Runs
    ``solve_big 7 3`` on the exact reads and ``solve_big 7 1 --traceback`` on
    the mutated ones, checks that K11 (and K12, K13, K14) launched during
    them, and holds 2 sampled reads of the traceback run against the numpy
    oracle over their winning window (score, pos, both consensus strings).
 7. The long-read path with affine (Gotoh) gaps under BWA-MEM's scoring, on
    the same reference and reads: K15 (one read's 14 lanes, and the reduced
-   shape), K16 (the 100 winners, held on 4 of them), K17 and K18 (the top,
-   a middle and the bottom strip, every lane) against their plain versions;
+   shape), K16 (the 100 winners, held on 4 of them), K17 (every 4th lane)
+   and K18 (every lane) on the top, a middle and the bottom strip against
+   their plain versions;
    ``solve_big 7 3`` and ``solve_big 7 1 --traceback`` with the BWA-MEM
    flags, checking that K15 (and K16, K17, K18) launched during them and
    K11-K14 did not, and one sampled read of the traceback run against the
@@ -70,10 +73,21 @@
    seconds, scan seconds, GCUPS and proteins/s, checks that K19, K20, K21
    and K14 launched during the run and K4, K5 and K3 did not, and holds the
    planted entries, the top 10 and 32 sampled entries against the numpy
-   oracle. Runs ``solve_big --matrix blosum50 7 1 --traceback`` on phase 6's
-   mutated reads, checks its launches (K19, K20, K21, K14; none of K11-K13,
-   K15-K18) and holds one sampled read against the oracle.
-9. Prints the kernels' JSON line -- each kernel's time, its plain version's,
+   oracle. Holds K19, K20, K21 and K14 as phase 6 holds K11-K14, at
+   ``solve_big --matrix blosum50 7 1 --traceback``'s shapes on phase 6's
+   mutated reads; then runs it, checks its launches (K19, K20, K21, K14; none of K11-K13,
+   K15-K18, K22-K24) and holds one sampled read against the oracle.
+9. Phase 8 under swps3's affine gaps (BLOSUM50, ``--gap-open 10
+   --gap-penalty 2``) on the same query and database: K22 held against its
+   plain version as K19 is, K23, K24 and K18 on the top-10 traceback batch;
+   ``solve_uniprot`` with K22, K23, K24 and K18 launched and none of K3-K5,
+   K8-K10, K14 or K19-K21; the planted entries, the top 10 and 32 sampled
+   entries against the numpy Gotoh oracle; K22-K24 and K18 at
+   ``solve_big --matrix blosum50 --gap-open 10 --gap-penalty 2 7 1
+   --traceback``'s shapes, as phase 7 holds K15-K18; that run on phase 6's
+   mutated reads, checking its launches (K22, K23, K24, K18; none of K11-K17,
+   K19-K21, K14), and one sampled read against the Gotoh oracle.
+10. Prints the kernels' JSON line -- each kernel's time, its plain version's,
    and its bound: the larger of the integer operations its cells need over
    the card's int32 ALU peak and the bytes it must move over the memory
    rate -- then ``{"ok": true, "device": ...}`` last.
@@ -129,7 +143,9 @@ INT32_LANES = 132 * 64
 # K1 with its cell (K12's row store is bytes, not operations), K13 as K2
 # without the running best (a replay keeps none); affine, K15 and K16 as K6
 # with its cell, K17 as K7 without the running best; under a table, K19 and
-# K20 as K4 (0 + 3 + 2), K21 as K5 without the running best (0 + 3 + 7).
+# K20 as K4 (0 + 3 + 2), K21 as K5 without the running best (0 + 3 + 7),
+# and affine K22 and K23 as K8 (0 + 6 + 2), K24 as K9 without the running
+# best (0 + 6 + 12).
 OPS_PER_CELL = {
     ("sw_score", False): 2 + 3 + 1,
     ("sw_score", True): 2 + 3 + 2,
@@ -150,6 +166,9 @@ OPS_PER_CELL = {
     "sw_score_strips_profile": 0 + 3 + 2,
     "sw_score_strips_profile_ckpt": 0 + 3 + 2,
     "strip_profile_moves": 0 + 3 + 7,
+    "sw_score_strips_profile_affine": 0 + 6 + 2,
+    "sw_score_strips_profile_affine_ckpt": 0 + 6 + 2,
+    "strip_profile_affine_moves": 0 + 6 + 12,
 }
 # Per walk step (the code read is a load, not counted). K3: test the stop
 # bit and the two moves (3), select the two emitted bytes (2), update i, j,
@@ -171,6 +190,7 @@ BWA_FLAGS = ["--match", "1", "--mismatch", "-4", "--gap-open", "6", "--gap-penal
 # The protein path's gaps: the uniprot_e2e linear 12, and swps3's affine 10/2.
 PROTEIN_LINEAR = dict(gap=12)
 PROTEIN_AFFINE = dict(gap_open=10, gap=2)
+TABLE = {"table": None}  # strip_kernels' key for substitution-matrix scoring
 # solve_big's defaults: 100 reads of 10,000 bp against a 30,000-bp reference
 # in 2 x 7 windows of overlap ratio 2.0, linear 3/-3/2 scoring (and, in the
 # affine long-read phase, BWA-MEM's).
@@ -866,7 +886,7 @@ def protein_phase(args, card: str, clock: float, dev):
     # the BLOSUM50 table are the same, the gaps are the kernels' arguments.
     db = ResidentProteinDB(entries, matrix="blosum50", gap_penalty=12.0, gap_open=0.0,
                            device=dev)
-    measured = {"linear": check_protein_kernels(db, query, clock, PROTEIN_LINEAR)}
+    measured = {"linear": check_protein_kernels(db, query, clock, PROTEIN_LINEAR, stride=4)}
     print(f"-- protein scan, affine gaps: {PROTEIN_AFFINE}")
     measured["affine"] = check_protein_kernels(db, query, clock, PROTEIN_AFFINE, stride=16)
     del db
@@ -908,41 +928,54 @@ def mutated_reads(reads, seed: int):
 
 
 def strip_kernels(kw):
-    """(names, (sweep, checkpointing sweep, replay, walk), the plain
-    versions of the last three) of the long-read path under the scoring of
+    """(names, (sweep, checkpointing sweep, replay, walk), their plain
+    versions) of the long-read path under the scoring of
     ``kw``, from the engines' table: K11-K14, with gap_open K15-K18, with a
-    table K19-K21 and K14."""
+    table K19-K21 and K14, with both K22-K24 and K18."""
     from parallel_genomeseq_tpu_torch.ops import engine
 
     affine, uniform = "gap_open" in kw, "table" not in kw
-    names = (("K15", "K16", "K17", "K18") if affine else ("K11", "K12", "K13", "K14")
-             if uniform else ("K19", "K20", "K21", "K14"))
-    return (names, engine.STRIP_KERNELS[affine, uniform],
-            engine.STRIP_PLAIN[affine, uniform][1:])
+    names = {(False, True): ("K11", "K12", "K13", "K14"),
+             (True, True): ("K15", "K16", "K17", "K18"),
+             (False, False): ("K19", "K20", "K21", "K14"),
+             (True, False): ("K22", "K23", "K24", "K18")}[affine, uniform]
+    return names, engine.STRIP_KERNELS[affine, uniform], engine.STRIP_PLAIN[affine, uniform]
 
 
-def check_strip_kernels(reads, ref, clock: float, dev, kw):
-    """Long-read phase under the gaps of ``kw``: the sweep (K11, or K15; the
-    1,400-lane window sweep, held on one read's 14 lanes; and every lane of
-    a reduced 1,400 x 2,304 x 4,608 shape), the checkpointing sweep (K12,
+def check_strip_kernels(reads, ref, clock: float, dev, kw, cfg=None, prefix: str = ""):
+    """Long-read phase under the scoring of ``kw``: the sweep (K11, or K15;
+    the 1,400-lane window sweep, held on one read's 14 lanes; and every lane
+    of a reduced 1,400 x 2,304 x 4,608 shape), the checkpointing sweep (K12,
     K16; the 100 winners, held on 4), the replay and the walk (K13 and K14,
     K17 and K18; the top, a middle and the bottom strip of the winners'
-    traceback, every lane) against their plain versions at the main path's
-    shapes. Returns {kernel: {case: measurements}}."""
+    traceback, the replay held on every 4th lane, the walk on every lane)
+    against their plain versions at the main path's shapes. Under a
+    substitution matrix (``cfg``, and kw's table key; K19-K21 and K14, or
+    K22-K24 and K18) the same at ``solve_big --matrix``'s shapes, the
+    kernels on compact codes and the walk on the raw bytes; the long-query
+    phase holds the reduced shape itself. Returns {kernel: {prefix + case:
+    measurements}}."""
     import numpy as np
     import torch
 
     from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
-    from parallel_genomeseq_tpu_torch.ops import scan_dp
     from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkConfig, ChunkedAligner
 
-    names, (sweep, ckpt, replay, walk), (plain_ckpt, plain_replay, plain_walk) = \
+    names, (sweep, ckpt, replay, walk), (plain_sweep, plain_ckpt, plain_replay, plain_walk) = \
         strip_kernels(kw)
     affine = "gap_open" in kw
     out = {fn.__name__: {} for fn in (sweep, ckpt, replay, walk)}
-    cfg = dna_config(kw)
+    cfg = cfg or dna_config(kw)
     chunked = ChunkedAligner(cfg, chunk=ChunkConfig(npiece=2 * BIG["npiece"],
                                                     overlap_ratio=BIG["overlap"]), device=dev)
+    table_bytes = 0
+    if "table" in kw:  # raw bytes -> compact codes, as the engine scores them
+        kw = dict(kw, table=chunked.engine.table)
+        table_bytes = kw["table"].numel() * 4
+        lut = torch.from_numpy(chunked.engine.encode_lut).to(dev)
+        codes = lambda a: lut[a.long()]
+    else:
+        codes = lambda a: a
 
     def on_card(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
@@ -951,43 +984,45 @@ def check_strip_kernels(reads, ref, clock: float, dev, kw):
         """The sweep on every lane, held against the plain sweep on lanes
         ``held``."""
         got = sweep(xs, ys, m, n, **kw)
-        want, plain_ms = timed(lambda: scan_dp.sw_score_plain(
-            xs[held], ys[held], m[held], n[held], **kw))
+        want, plain_ms = timed(lambda: plain_sweep(xs[held], ys[held], m[held], n[held], **kw))
         cells, seq_bytes = lane_work(m, n)
         rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}",
                "max_abs_err": max_abs_err([g[held] for g in got], want),
                "ms": cuda_ms(lambda: sweep(xs, ys, m, n, **kw), 3), "plain_ms": plain_ms,
                "plain_lanes": int(m[held].shape[0])}
         rec["bound_ms"], rec["bound_by"] = bound(
-            cells * OPS_PER_CELL[sweep.__name__], seq_bytes + LANE_BYTES * xs.shape[0], clock)
-        out[sweep.__name__][label] = rec
-        report(f"{names[0]} {sweep.__name__}", label, rec)
+            cells * OPS_PER_CELL[sweep.__name__],
+            seq_bytes + LANE_BYTES * xs.shape[0] + table_bytes, clock)
+        out[sweep.__name__][prefix + label] = rec
+        report(f"{names[0]} {sweep.__name__}", prefix + label, rec)
         return got
 
     # The stage-A window sweep: 100 reads x 14 windows at full width.
     xs, ys, m, n, all_ranges = chunked.window_lanes(reads, ref)
     xs, ys, m, n = on_card(xs, ys, m, n)
-    got = sweep_case("sweep", xs, ys, m, n, slice(0, 2 * BIG["npiece"]))
+    got = sweep_case("sweep", codes(xs), codes(ys), m, n, slice(0, 2 * BIG["npiece"]))
     scores = got[0].cpu().numpy().reshape(len(reads), -1)
     del xs, ys
-    # A reduced shape whose every lane the plain sweep can hold: each read's
-    # first 2,304 bases against 14 windows of 4,608.
-    rng = np.random.default_rng(1)
-    lanes = [(r, int(rng.integers(0, len(ref) - 4608))) for r in range(len(reads))
-             for _ in range(2 * BIG["npiece"])]
-    xr = np.stack([np.frombuffer(reads[r][:2304].encode(), np.uint8) for r, _ in lanes])
-    yr = np.stack([np.frombuffer(ref[o : o + 4608].encode(), np.uint8) for _, o in lanes])
-    xr, yr, mr, nr = on_card(xr, yr, np.full(len(lanes), 2304, np.int32),
-                             np.full(len(lanes), 4608, np.int32))
-    sweep_case("reduced", xr, yr, mr, nr, slice(None))
-    del xr, yr
+    if "table" not in kw:
+        # A reduced shape whose every lane the plain sweep can hold: each
+        # read's first 2,304 bases against 14 windows of 4,608.
+        rng = np.random.default_rng(1)
+        lanes = [(r, int(rng.integers(0, len(ref) - 4608))) for r in range(len(reads))
+                 for _ in range(2 * BIG["npiece"])]
+        xr = np.stack([np.frombuffer(reads[r][:2304].encode(), np.uint8) for r, _ in lanes])
+        yr = np.stack([np.frombuffer(ref[o : o + 4608].encode(), np.uint8) for _, o in lanes])
+        xr, yr, mr, nr = on_card(xr, yr, np.full(len(lanes), 2304, np.int32),
+                                 np.full(len(lanes), 4608, np.int32))
+        sweep_case("reduced", xr, yr, mr, nr, slice(None))
+        del xr, yr
 
     # The winner re-run: the checkpointing sweep on the 100 winning windows,
     # held on 4 lanes.
     winner = scores.argmax(axis=1)
     win_refs = [ref[slice(*all_ranges[r][w])] for r, w in enumerate(winner)]
     aligner = BatchSWAligner(cfg, device=dev)
-    xs, ys, m, n = on_card(*aligner.pad_batch(reads, win_refs))
+    x_raw, y_raw, m, n = on_card(*aligner.pad_batch(reads, win_refs))
+    xs, ys = codes(x_raw), codes(y_raw)
     got = ckpt(xs, ys, m, n, **kw)
     held = slice(0, 4)
     want, plain_ms = timed(lambda: plain_ckpt(xs[held], ys[held], m[held], n[held], **kw))
@@ -1000,30 +1035,33 @@ def check_strip_kernels(reads, ref, clock: float, dev, kw):
     del want
     rec["ms"] = cuda_ms(lambda: ckpt(xs, ys, m, n, **kw), 3)
     rec["bound_ms"], rec["bound_by"] = bound(
-        cells * OPS_PER_CELL[ckpt.__name__], seq_bytes + LANE_BYTES * xs.shape[0] + ck_bytes,
-        clock)
-    out[ckpt.__name__]["winners"] = rec
-    report(f"{names[1]} {ckpt.__name__}", "winners", rec)
+        cells * OPS_PER_CELL[ckpt.__name__],
+        seq_bytes + LANE_BYTES * xs.shape[0] + ck_bytes + table_bytes, clock)
+    out[ckpt.__name__][prefix + "winners"] = rec
+    report(f"{names[1]} {ckpt.__name__}", prefix + "winners", rec)
 
     # The replay and the walk through every strip of the winners' traceback,
-    # top first; held against the plain replay and walk on the top, a middle
-    # and the bottom strip.
+    # top first; held against the plain replay (on every 4th lane) and walk
+    # on the top, a middle and the bottom strip.
     check_strip_traceback(names[2:], (replay, walk), (plain_replay, plain_walk), xs, ys, m, n,
-                          kw, got, xs, ys, aligner.max_steps(xs.shape[1], ys.shape[1]), clock,
-                          out, affine)
+                          kw, got, x_raw, y_raw, aligner.max_steps(xs.shape[1], ys.shape[1]),
+                          clock, out, affine, prefix=prefix, lane_step=4)
     torch.cuda.empty_cache()
     return out
 
 
 def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y_walk,
-                          steps_cap: int, clock: float, out, affine: bool = False, prefix=""):
-    """The replay and the walk (``fns``: K13 and K14, K17 and K18, or K21 and
-    K14) through every strip of a strip traceback, top first, from the
-    checkpointing sweep's output ``swept`` = (score, i, j, H checkpoints[, F
-    checkpoints]); each held against its plain version (``plains``) on the
-    top, a middle and the bottom strip, every lane. xs, ys are what the
-    replay scores (compact codes under a matrix), x_walk, y_walk the bytes
-    the walk emits. Measurements go to out[kernel][prefix + strip label]."""
+                          steps_cap: int, clock: float, out, affine: bool = False, prefix="",
+                          lane_step: int = 1):
+    """The replay and the walk (``fns``: K13 and K14, K17 and K18, K21 and
+    K14, or K24 and K18) through every strip of a strip traceback, top
+    first, from the checkpointing sweep's output ``swept`` = (score, i, j, H
+    checkpoints[, F checkpoints]); each held against its plain version
+    (``plains``) on the top, a middle and the bottom strip: the walk on
+    every lane, the replay on every ``lane_step``-th lane (lanes are
+    independent). xs, ys are what the replay scores (compact codes under a
+    matrix), x_walk, y_walk the bytes the walk emits. Measurements go to
+    out[kernel][prefix + strip label]."""
     import torch
 
     from parallel_genomeseq_tpu_torch.ops import scan_dp, traceback
@@ -1046,10 +1084,14 @@ def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y
             walk(moves, x_mb, y_walk, s * S, state, max_steps=steps_cap)
             continue
         label = prefix + checked[s]
-        want, plain_ms = timed(lambda: plain_replay(xs, ys, m, n, *rows, s * S, **kw))
-        valid = (((s * S + r)[None, None, :] < m[:, None, None])
-                 & (torch.arange(N, device=dev)[None, :, None] < n[:, None, None]))
-        err = int((moves[valid].int() - want[valid].int()).abs().max())
+        held = slice(None, None, lane_step)
+        mh, nh = m[held], n[held]
+        want, plain_ms = timed(lambda: plain_replay(
+            xs[held], ys[held], mh, nh, *[row if row is None else row[held] for row in rows],
+            s * S, **kw))
+        valid = (((s * S + r)[None, None, :] < mh[:, None, None])
+                 & (torch.arange(N, device=dev)[None, :, None] < nh[:, None, None]))
+        err = int((moves[held][valid].int() - want[valid].int()).abs().max())
         if err:
             raise AssertionError(f"{names[0]} strip {s}: move codes differ on valid cells")
         del want, valid
@@ -1059,6 +1101,8 @@ def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y
                         f"{moves.numel() / 1e9:.3f} GB", "max_abs_err": err,
                "ms": cuda_ms(lambda: replay(xs, ys, m, n, *rows, s * S, **kw), 3),
                "plain_ms": plain_ms}
+        if lane_step > 1:
+            rec["plain_lanes"] = int(mh.shape[0])
         # Read the strip's read bytes, the references and the checkpoint
         # row(s) (and a table); write one move byte per cell.
         rec["bound_ms"], rec["bound_by"] = bound(
@@ -1142,25 +1186,30 @@ def check_long_oracle(reads, ref, results, seed: int, count: int = 2, gap=2, sub
               f"{len(cx)} columns, {cx.count('-') + cy.count('-')} gap columns")
 
 
-def check_long_oracle_affine(reads, ref, results, seed: int, count: int = 1):
+def check_long_oracle_affine(reads, ref, results, seed: int, count: int = 1, sub=None,
+                             gaps=BWA):
     """Sampled reads of the affine traceback run against the numpy Gotoh
-    oracle under BWA-MEM's scoring: the winning window (first on ties) by
-    the best score in each, then on it the score, pos and both consensus
-    strings of the state-machine walk."""
+    oracle under BWA-MEM's scoring (or the byte-pair scores ``sub`` and the
+    gaps of ``gaps``): the winning window (first on ties) by the best score
+    in each, then on it the score, pos and both consensus strings of the
+    state-machine walk."""
     import numpy as np
 
     from parallel_genomeseq_tpu_torch.parallel.chunking import make_string_ranges
 
-    sub = uniform_pair_scores(BWA["match"], BWA["mismatch"])
+    if sub is None:
+        sub = uniform_pair_scores(BWA["match"], BWA["mismatch"])
     y = np.frombuffer(ref.encode(), np.uint8)
     for k in np.random.default_rng(seed + 2).choice(len(reads), count, replace=False):
         read = reads[k]
         x = np.frombuffer(read.encode(), np.uint8)[None]
         ranges = make_string_ranges(2 * BIG["npiece"], len(read), len(ref), BIG["overlap"])
-        best = [int(gotoh(x, y[l:r], sub, BWA["gap_open"], BWA["gap"])[0][0]) for l, r in ranges]
+        best = [int(gotoh(x, y[l:r], sub, gaps["gap_open"], gaps["gap"])[0][0])
+                for l, r in ranges]
         win = int(np.argmax(best))
         left, right = ranges[win]
-        score, pos, cx, cy = gotoh_align(read, ref[left:right], sub, BWA["gap_open"], BWA["gap"])
+        score, pos, cx, cy = gotoh_align(read, ref[left:right], sub, gaps["gap_open"],
+                                         gaps["gap"])
         pos = pos + left if pos > 0 else 0
         res = results[k]
         got = (int(res.score), res.pos, res.consensus_x, res.consensus_y)
@@ -1205,8 +1254,9 @@ def long_phase(args, card: str, clock: float, dev, data, kw):
 
     tb = strip_kernels(kw)[1]
     # Must not launch: the other gap model's strip kernels, and the profile
-    # strips' own (K19-K21).
-    other = strip_kernels(LINEAR if affine else BWA)[1] + strip_kernels({"table": None})[1][:3]
+    # strips' own (K19-K21, K22-K24).
+    other = (strip_kernels(LINEAR if affine else BWA)[1] + strip_kernels(TABLE)[1][:3]
+             + strip_kernels({**TABLE, **PROTEIN_AFFINE})[1][:3])
     base = [str(BIG["npiece"]), "--device", str(dev)] + (BWA_FLAGS if affine else [])
     score_run, score_launches = big_run(
         "7 3", base[:1] + ["3"] + base[1:], tb[:1], data_dir / "reads.csv", data_dir / "ref.fa",
@@ -1230,23 +1280,23 @@ def long_phase(args, card: str, clock: float, dev, data, kw):
                                 "solve_big_traceback": tb_launches}
 
 
-# Phase 8: a titin-class query (4,096 aa) over phase 5's entries, and
-# three planted entries over 2,048 aa (length, the query segment it holds),
-# so that the top-10 traceback walks in strips.
+# Phases 8 and 9: a titin-class query (4,096 aa) over phase 5's entries,
+# and three planted entries over 2,048 aa (length, the query segment it
+# holds), so that the top-10 traceback walks in strips.
 LONG_QUERY_LEN = 4096
 LONG_PLANTED = ((2600, 600), (3500, 1000), (4600, 1500))
-# K19's per-lane check: lanes, query and entry residues (phase 6's reduced
-# long-read shape).
+# K19's and K22's per-lane check: lanes, query and entry residues (phase
+# 6's reduced long-read shape).
 LONG_QUERY_REDUCED = (1400, 2304, 4608)
 
 
 def long_query_data(args, entries):
-    """Phase 8's database, apart from phase 5's: a seeded 4,096-aa query, and
-    phase 5's entries after three planted ones of ``LONG_PLANTED``, each
-    holding a segment of the query with 5% substitutions. Writes
-    ``query_long.fasta`` and ``database_long.fasta`` under
-    ``data/chip_smoke/protein``. Returns (query path, database path, query,
-    entries)."""
+    """Phases 8 and 9's database, apart from phase 5's: a seeded 4,096-aa
+    query, and phase 5's entries after three planted ones of
+    ``LONG_PLANTED``, each holding a segment of the query with 5%
+    substitutions. Writes ``query_long.fasta`` and ``database_long.fasta``
+    under ``data/chip_smoke/protein``. Returns (query path, database path,
+    query, entries)."""
     import numpy as np
 
     data = ROOT / "data" / "chip_smoke" / "protein"
@@ -1272,14 +1322,16 @@ def long_query_data(args, entries):
     return query_path, db_path, query, entries
 
 
-def check_long_query_kernels(db, query: str, clock: float, dev):
-    """Phase 8's kernel checks, each against its plain version: K19 on the
-    resident slab (the whole-database launch, held on the planted lanes and
-    every 1,024th lane; the shortest and longest 4,096-lane groups, every
-    lane) and per lane on a reduced BLOSUM50 shape of 1,400 x 2,304 x 4,608;
-    K20, K21 and K14 on the top-10 traceback batch (x = entry, y = query,
-    pad_m = 128; K21 and K14 on the top, a middle and the bottom strip,
-    every lane). Returns {kernel: {case: measurements}}."""
+def check_long_query_kernels(db, query: str, clock: float, dev, gaps):
+    """The kernel checks of phases 8 and 9 under ``gaps``, each against its
+    plain version: K19 (K22 under affine gaps) on the resident slab (the
+    whole-database launch, held on the planted lanes and every 1,024th
+    lane; the shortest and longest 4,096-lane groups, every lane) and per
+    lane on a reduced BLOSUM50 shape of 1,400 x 2,304 x 4,608; K20, K21 and
+    K14 (K23, K24 and K18) on the top-10 traceback batch (x = entry, y =
+    query, pad_m = 128; the replay and the walk on the top, a middle and
+    the bottom strip, every lane). Returns {kernel: {case:
+    measurements}}."""
     import numpy as np
     import torch
 
@@ -1287,17 +1339,18 @@ def check_long_query_kernels(db, query: str, clock: float, dev):
     from parallel_genomeseq_tpu_torch.ops import scan_dp
     from parallel_genomeseq_tpu_torch.utils.device import to_host
 
-    names, (sweep, ckpt, replay, walk), (plain_ckpt, plain_replay, plain_walk) = \
-        strip_kernels({"table": None})
+    names, (sweep, ckpt, replay, walk), (_, plain_ckpt, plain_replay, plain_walk) = \
+        strip_kernels({**TABLE, **gaps})
+    affine = "gap_open" in gaps
     out = {fn.__name__: {} for fn in (sweep, ckpt, replay, walk)}
     table, lut = db.engine.table, db.engine.encode_lut
-    kw = dict(table=table, **PROTEIN_LINEAR)
+    kw = dict(table=table, **gaps)
     q = db.encode_query(query)
     slab, offs, lens = db._slab, db._offs, db._lens
     m = torch.full_like(lens, q.shape[0])
 
     def sweep_case(label, x, y, mm, n, held, y_off=None):
-        """K19 on every lane, held against its plain version on lanes
+        """The sweep on every lane, held against its plain version on lanes
         ``held`` (an index tensor or a slice)."""
         call = lambda: sweep(x, y, mm, n, y_off=y_off, **kw)
         got = call()
@@ -1363,7 +1416,7 @@ def check_long_query_kernels(db, query: str, clock: float, dev):
     got = ckpt(xc, yc, mm, nn, **kw)
     want, plain_ms = timed(lambda: plain_ckpt(xc, yc, mm, nn, **kw))
     cells, seq_bytes = lane_work(mm, nn)
-    ck_bytes = got[3].numel() * 4
+    ck_bytes = sum(c.numel() * 4 for c in got[3:])  # H (and F) checkpoint planes
     rec = {"shape": f"{xc.shape[0]} lanes, M={xc.shape[1]}, N={yc.shape[1]}, checkpoints "
                     f"{ck_bytes / 1e9:.3f} GB",
            "max_abs_err": max_abs_err(got, want), "plain_ms": plain_ms,
@@ -1376,60 +1429,88 @@ def check_long_query_kernels(db, query: str, clock: float, dev):
     report(f"{names[1]} {ckpt.__name__}", "top10", rec)
     check_strip_traceback(names[2:], (replay, walk), (plain_replay, plain_walk), xc, yc, mm, nn,
                           kw, got, xs_raw, ys_raw,
-                          bat.max_steps(xc.shape[1], yc.shape[1]), clock, out, prefix="query_")
+                          bat.max_steps(xc.shape[1], yc.shape[1]), clock, out, affine,
+                          prefix="query_")
     torch.cuda.empty_cache()
     return out
 
 
-def long_query_phase(args, card: str, clock: float, dev, entries, long):
-    """Phase 8: the 4,096-aa query over ``long_query_data``'s database, and
-    ``solve_big --matrix blosum50 7 1 --traceback`` on the long-read phase's
-    data ``long``. Returns (measurements, launches keyed by kernel over both
+def long_query_phase(args, card: str, clock: float, dev, data, long, gaps):
+    """Phase 8 (linear ``gaps``) or 9 (affine): the 4,096-aa query over
+    ``long_query_data``'s database ``data``, and ``solve_big --matrix
+    blosum50 7 1 --traceback`` under the same gaps on the long-read phase's
+    data ``long``, its kernels first held to their plain versions at its
+    shapes (``check_strip_kernels``, cases prefixed ``big_``). Returns (measurements, launches keyed by kernel over both
     runs, the runs' launches)."""
     import torch
 
     from parallel_genomeseq_tpu_torch.models.protein_db import ResidentProteinDB
     from parallel_genomeseq_tpu_torch.ops import profile_cuda, traceback
-    from parallel_genomeseq_tpu_torch.ops.substitution import ALPHABET, BLOSUM50
+    from parallel_genomeseq_tpu_torch.ops.substitution import ALPHABET, BLOSUM50, blosum_config
 
     t_phase = time.perf_counter()
-    print(f"-- long protein query, linear gap {PROTEIN_LINEAR['gap']} (profile strips)")
-    query_path, db_path, query, entries = long_query_data(args, entries)
-    print(f"long-query data: {len(entries)} entries ({len(LONG_PLANTED)} planted of "
-          f"{', '.join(str(n) for n, _ in LONG_PLANTED)} aa), query {len(query)} aa, written "
-          f"in {time.perf_counter() - t_phase:.1f} s")
-    db = ResidentProteinDB(entries, matrix="blosum50", gap_penalty=12.0, gap_open=0.0,
-                           max_query_len=len(query), device=dev)
-    measured = check_long_query_kernels(db, query, clock, dev)
+    affine = "gap_open" in gaps
+    label = "affine" if affine else "linear"
+    print(f"-- long protein query, {label} gaps {gaps} (profile strips)")
+    query_path, db_path, query, entries = data
+    db = ResidentProteinDB(entries, matrix="blosum50", gap_penalty=float(gaps["gap"]),
+                           gap_open=float(gaps.get("gap_open", 0)), max_query_len=len(query),
+                           device=dev)
+    measured = check_long_query_kernels(db, query, clock, dev, gaps)
     del db
     torch.cuda.empty_cache()
 
-    tb = strip_kernels({"table": None})[1]
-    short = (profile_cuda.sw_profile, profile_cuda.sw_profile_moves, traceback.walk_moves)
-    out_csv = query_path.parent / "uniprot_output_long.csv"
+    tb = strip_kernels({**TABLE, **gaps})[1]
+    # Must not launch: the single-strip protein kernels (both gap models)
+    # and the other gap model's profile strips (the walks of the two models
+    # are K14 and K18).
+    other = strip_kernels({**TABLE, **(PROTEIN_LINEAR if affine else PROTEIN_AFFINE)})[1]
+    short = (profile_cuda.sw_profile, profile_cuda.sw_profile_moves, traceback.walk_moves,
+             profile_cuda.sw_profile_affine, profile_cuda.sw_profile_affine_moves,
+             traceback.walk_moves_affine, *other)
+    out_csv = query_path.parent / f"uniprot_output_long_{label}.csv"
+    gap_flags = ["--gap-penalty", str(gaps["gap"])] + (
+        ["--gap-open", str(gaps["gap_open"])] if affine else [])
     cli = ["--query", str(query_path), "--database", str(db_path), "--matrix", "blosum50",
-           "--gap-penalty", "12", "--batch-size", "4096", "--pad-mult", "128", "--top", "10",
-           "--device", str(dev), "--output", str(out_csv)]
-    uniprot = protein_run("long query", cli, PROTEIN_LINEAR, entries, query, out_csv, card,
+           "--batch-size", "4096", "--pad-mult", "128", "--top", "10", "--device", str(dev),
+           "--output", str(out_csv)] + gap_flags
+    uniprot = protein_run(f"long query, {label}", cli, gaps, entries, query, out_csv, card,
                           args.protein_seed, counters=tb, absent=short,
                           planted=range(len(LONG_PLANTED)))
     data_dir, ref, _, mutated = long
-    uniform = strip_kernels(LINEAR)[1][:3] + strip_kernels(BWA)[1]
+    # solve_big's linear run keeps its default gap of 2. Its kernels against
+    # their plain versions at its shapes, as the long-read phases hold them.
+    big_gaps = gaps if affine else dict(gap=2)
+    cfg = blosum_config("blosum50", gap_penalty=float(big_gaps["gap"]),
+                        gap_open=float(big_gaps.get("gap_open", 0)))
+    big_measured = check_strip_kernels(mutated, ref, clock, dev, {**TABLE, **big_gaps}, cfg=cfg,
+                                       prefix="big_")
+    for name, cases in big_measured.items():
+        measured[name].update(cases)
+    # Must not launch: the uniform strips' sweeps and replays (K11-K13,
+    # K15-K17; their walks are the profile strips' too) and the other gap
+    # model's profile strips.
+    uniform = strip_kernels(LINEAR)[1][:3] + strip_kernels(BWA)[1][:3]
+    big_cli = ["--matrix", "blosum50", *(gap_flags if affine else []), str(BIG["npiece"]),
+               "1", "--traceback"]
     big, big_launches = big_run(
-        "--matrix blosum50 7 1 --traceback",
-        [str(BIG["npiece"]), "1", "--traceback", "--matrix", "blosum50", "--device", str(dev)],
-        tb, data_dir / "mutated.csv", data_dir / "ref.fa", absent=uniform)
-    print(f"solve_big --matrix blosum50 on {card}: with traceback {big.seconds[0] * 1e3:.1f} ms, "
-          f"{big.gcups[0]:.3f} GCUPS")
-    check_long_oracle(mutated, ref, big.results, args.seed + 3, count=1,
-                      sub=byte_pair_scores(ALPHABET, BLOSUM50))
-    print(f"long-query phase: {time.perf_counter() - t_phase:.1f} s")
+        " ".join(big_cli), big_cli + ["--device", str(dev)], tb, data_dir / "mutated.csv",
+        data_dir / "ref.fa", absent=uniform + other)
+    print(f"solve_big --matrix blosum50 {label} on {card}: with traceback "
+          f"{big.seconds[0] * 1e3:.1f} ms, {big.gcups[0]:.3f} GCUPS")
+    sub = byte_pair_scores(ALPHABET, BLOSUM50)
+    if affine:
+        check_long_oracle_affine(mutated, ref, big.results, args.seed + 4, sub=sub, gaps=gaps)
+    else:
+        check_long_oracle(mutated, ref, big.results, args.seed + 3, count=1, sub=sub)
+    print(f"long-query phase ({label}): {time.perf_counter() - t_phase:.1f} s")
     launches = {fn.__name__: uniprot[fn.__name__] + big_launches[fn.__name__] for fn in tb}
-    return measured, launches, {"solve_uniprot_long": uniprot,
-                                "solve_big_matrix_traceback": big_launches}
+    suffix = "_affine" if affine else ""
+    return measured, launches, {f"solve_uniprot_long{suffix}": uniprot,
+                                f"solve_big_matrix{suffix}_traceback": big_launches}
 
 
-# K1-K21: (wrapper, source, the TPU code it replaces, gap model or phase,
+# K1-K24: (wrapper, source, the TPU code it replaces, gap model or phase,
 # the main path's case that the JSON line quotes first).
 KERNELS = [
     ("sw_score", "wavefront.cu", f"{PALLAS}:160", "linear", "score_only"),
@@ -1457,7 +1538,15 @@ KERNELS = [
     ("sw_score_strips_profile", "strips.cu", f"{PALLAS}:1081", "long_query", "db"),
     ("sw_score_strips_profile_ckpt", "strips.cu", f"{PALLAS}:1642", "long_query", "top10"),
     ("strip_profile_moves", "strips.cu", f"{PALLAS}:1986", "long_query", "query_top"),
+    ("sw_score_strips_profile_affine", "strips.cu", f"{PALLAS}:1116", "long_query_affine", "db"),
+    ("sw_score_strips_profile_affine_ckpt", "strips.cu", f"{PALLAS}:1657", "long_query_affine",
+     "top10"),
+    ("strip_profile_affine_moves", "strips.cu", f"{PALLAS}:2070", "long_query_affine",
+     "query_top"),
 ]
+# The strip walks run in a long-read phase and in a long-query phase.
+WALK_QUERY_PHASE = {"walk_strip_level": "long_query",
+                    "walk_strip_level_affine": "long_query_affine"}
 
 
 def card_info():
@@ -1489,16 +1578,17 @@ def kernel_line(name, src, replaces, cases, main, launches):
 
 
 def kernel_entries(dna, dna_launches, protein, protein_launches, long):
-    """The kernels JSON line's entries, K1-K21, from the phases'
+    """The kernels JSON line's entries, K1-K24, from the phases'
     measurements and launches (keyed by gap model, then kernel; the
-    long-read and long-query phases' keyed 'long', 'long_affine' and
-    'long_query', each (measurements by kernel, launches by kernel, each
-    run's launches)). K14 walks in the long-read and the long-query phases:
-    its entry sums both."""
+    long-read and long-query phases' keyed 'long', 'long_affine',
+    'long_query' and 'long_query_affine', each (measurements by kernel,
+    launches by kernel, each run's launches)). K14 and K18 walk in a
+    long-read and a long-query phase: their entries sum both."""
     kernels = []
     for name, src, replaces, gaps, main_case in KERNELS:
         if gaps.startswith("long"):
-            phases = [long[gaps]] + ([long["long_query"]] if name == "walk_strip_level" else [])
+            phases = [long[gaps]] + ([long[WALK_QUERY_PHASE[name]]]
+                                     if name in WALK_QUERY_PHASE else [])
             cases = {k: v for measured, _, _ in phases for k, v in measured[name].items()}
             entry = kernel_line(name, src, replaces, cases, main_case,
                                 sum(launches[name] for _, launches, _ in phases))
@@ -1555,8 +1645,17 @@ def main(argv=None) -> int:
     data = long_data(args)
     long = {"long": long_phase(args, card, clock, dev, data, LINEAR),
             "long_affine": long_phase(args, card, clock, dev, data, BWA)}
-    long["long_query"] = long_query_phase(args, card, clock, dev, entries, data)
+    t0 = time.perf_counter()
+    query_data = long_query_data(args, entries)
     del entries
+    print(f"long-query data: {len(query_data[3])} entries ({len(LONG_PLANTED)} planted of "
+          f"{', '.join(str(n) for n, _ in LONG_PLANTED)} aa), query {len(query_data[2])} aa, "
+          f"written in {time.perf_counter() - t0:.1f} s")
+    long["long_query"] = long_query_phase(args, card, clock, dev, query_data, data,
+                                          PROTEIN_LINEAR)
+    long["long_query_affine"] = long_query_phase(args, card, clock, dev, query_data, data,
+                                                 PROTEIN_AFFINE)
+    del query_data
 
     print(json.dumps({"kernels": kernel_entries(dna, dna_launches, protein, protein_launches,
                                                 long)}))

@@ -19,8 +19,9 @@ fastest batch's time. ``--kernel-gcups`` sets it. ``--device`` replaces
 ``--platform`` (default: the CUDA card; ``cpu`` runs the plain PyTorch
 route). ``--matrix blosum50|blosum62`` scores with a substitution matrix
 through K19, and with ``--traceback`` K20, K21 and K14; with ``--gap-open``
-it is refused, naming ROADMAP A10 (the affine substitution-matrix strip
-kernels are not ported yet), and ``--semantics sat_uint8`` naming A2.
+(swps3's protein gaps are ``--gap-open 10 --gap-penalty 2``) through K22,
+and K23, K24 and K18. ``--semantics sat_uint8`` is refused, naming ROADMAP
+A2.
 
 Generates its data when --ref/--reads are absent (``data/custom_ref_1.fa``,
 ``data/custom_reads_1.csv``).
@@ -88,9 +89,6 @@ def run(argv=None) -> Run:
     common.add_scoring_flags(p)
     common.add_device_flags(p)
     args = p.parse_args(argv)
-    if args.matrix != "uniform" and args.gap_open > 0:
-        p.error("--matrix with --gap-open (affine substitution-matrix strips) is not "
-                "ported yet (ROADMAP A10)")
     if Semantics(args.semantics) != Semantics.EXACT_INT32:
         p.error(f"--semantics {args.semantics} is not ported yet (ROADMAP A2)")
 

@@ -23,15 +23,12 @@ and K7 under ``--matrix uniform``.
 Long queries and entries (titin-class, over 2,048 aa): a query longer than
 2,048 scans the same resident slab in one launch of the strip kernel K19,
 and an entry longer than 2,048 is walked in strips (K20, then K21 and the
-K14 walk strip by strip), as the JAX package does; under ``--matrix
-uniform`` the strip kernels K11-K14 (K15-K18 with ``--gap-open``) take
-both.
+K14 walk strip by strip), as the JAX package does; with ``--gap-open`` the
+affine profile strips take both (K22 for the scan; K23, then K24 and the
+K18 walk); under ``--matrix uniform`` the strip kernels K11-K14 (K15-K18
+with ``--gap-open``).
 
-Not ported yet, and refused: queries longer than 2,048 under a matrix with
-``--gap-open`` (the affine profile strips, ROADMAP A10) and
-``--num-processes > 1`` (A13). There the scan takes entries of any length,
-but walking an entry longer than 2,048 (a top-K hit, or any entry under
-``--traceback-all``) raises NotImplementedError naming A10.
+Not ported yet, and refused: ``--num-processes > 1`` (ROADMAP A13).
 
 Usage:
     python -m parallel_genomeseq_tpu_torch.cli.solve_uniprot \\
@@ -53,7 +50,7 @@ import numpy as np
 
 from ..models.protein_db import ResidentProteinDB, write_uniprot_csv
 from ..models.swaligner import BatchSWAligner, round_up
-from ..ops.engine import MAX_M, make_score_engine
+from ..ops.engine import make_score_engine
 from ..ops.substitution import blosum_config
 from ..seqio.readers import read_fasta
 from ..seqio.uniprot import iter_database
@@ -194,9 +191,6 @@ def run(argv=None) -> Run:
         p.error("--checkpoint/--resume require a single --query "
                 "(checkpoint rows are keyed by protein name only)")
     longest = max(len(to_bytes(q)) for _, q in queries)
-    if longest > MAX_M and args.matrix != "uniform" and args.gap_open > 0:
-        p.error(f"a {longest}-aa query under a matrix with --gap-open needs the affine "
-                "profile strip kernels, which are not ported yet (ROADMAP A10)")
     query = queries[0][1]
     entries = list(iter_database(args.database))
     if args.limit:

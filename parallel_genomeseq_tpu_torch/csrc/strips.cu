@@ -1,7 +1,6 @@
 // Long-read (strip) Smith-Waterman kernels for Hopper (sm_90a): uniform
-// match/mismatch scoring with linear or affine (Gotoh) gaps, or a
-// substitution matrix with linear gaps; exact int32 values, reads of any
-// length.
+// match/mismatch scoring or a substitution matrix, each with linear or
+// affine (Gotoh) gaps; exact int32 values, reads of any length.
 //
 // K11 `strip_sweep_kernel<false, false, false>` replaces the Pallas TPU kernel B9,
 //     parallel_genomeseq_tpu/ops/wavefront_pallas.py `_kernel_strips`
@@ -43,6 +42,22 @@
 // K21 `strip_moves_kernel<false, true>` replaces B19,
 //     `_kernel_strip_profile_moves` (:1986) via `_call_strip_profile_moves`
 //     (:2036): K13's replay and move byte with the table's cell score.
+// K22 `strip_sweep_kernel<false, true, true>` replaces B12,
+//     `_kernel_strips_profile_affine` (:1116) via `_call_strips_profile_affine`
+//     (:1493): K15's Gotoh sweep with the table's cell score, in K19's two
+//     forms -- per lane, or B12's `shared=True` slab scan (the protein
+//     database scan for queries over 2,048 aa under affine gaps,
+//     `score_db_slab_strips_jit` :2363-2367). B12 sweeps 128-row strips
+//     (STRIP_S_PA); no result here depends on the strip height.
+// K23 `strip_sweep_kernel<true, true, true>` replaces B16,
+//     `_kernel_strips_profile_affine_ckpt` (:1657) via
+//     `_call_strips_profile_affine_ckpt` (:1734): K22 plus each 256-row
+//     strip's last-row H and F, K16's int32 planes (not B16's four int16
+//     hi/lo planes of 128-row strips).
+// K24 `strip_moves_kernel<true, true>` replaces B20,
+//     `_kernel_strip_profile_affine_moves` (:2070) via
+//     `_call_strip_profile_affine_moves` (:2149): K17's replay and affine
+//     byte with the table's cell score.
 //
 // Design of K11/K12. One thread block per lane. Its T threads split the
 // lane's rows into bands of kBand = 32 consecutive rows, one band per thread,
@@ -91,23 +106,25 @@
 // registers, from -2^30 in column 0 as the full sweep does, so its bytes
 // equal the full sweep's on every cell of the lane's matrix.
 //
-// Design of K19-K21: K11-K13 with the score of a cell read from the table,
-// copied into shared memory transposed as K4 does (csrc/profile.cu,
-// tab[yc * ncodes + xc]), so each column takes its row pointer tab + yc *
-// ncodes once and each cell is one shared load at row[xb[k]]; a code >=
-// ncodes reads as code 0, the matrix minimum. In the slab form a lane's
+// Design of K19-K21, and of K22-K24 (the same over K15-K17): K11-K13 with
+// the score of a cell read from the table, copied into shared memory
+// transposed as K4 does (csrc/profile.cu, tab[yc * ncodes + xc]), so each
+// column takes its row pointer tab + yc * ncodes once and each cell is one
+// shared load at row[xb[k]]; a code >= ncodes reads as code 0, the matrix
+// minimum. In the slab form a lane's
 // length is clamped to the bytes the slab holds past its offset, as K4
 // clamps it, and the between-pass bound row of lane b (queries over 16,384
 // aa) starts at bound_off[b], an exclusive prefix sum of the lanes' n_b + 1
 // that the wrapper computes, so the row takes one int32 per slab residue
-// and lane, not the lanes times the longest entry.
+// and lane, not the lanes times the longest entry (K22: an (H, F) int2 pair
+// a residue, bound_off then counting int2 units).
 //
 // What bounds them on the H100: the integer ALU (about 7 operations per cell
 // for K11/K12, 12 for K13, 10 for K15/K16, 20 for K17, 5 for K19/K20, 10 for
-// K21) and, per column and thread, one barrier (K11/K12/K15/K16/K19/K20) or
-// shuffle (K13/K17/K21) and one read of the reference byte. K13/K17/K21 at
-// the winner re-run's shape are one warp per lane, so they are latency-bound:
-// the north chain down the 8 rows of a band. K19 on the slab is one block
+// K21, 8 for K22/K23, 18 for K24) and, per column and thread, one barrier
+// (the sweeps) or shuffle (the replays) and one read of the reference byte.
+// The replays at the winner re-run's shape are one warp per lane, so they
+// are latency-bound: the north chain down the 8 rows of a band. K19 on the slab is one block
 // per entry, so a block spends n_b + T - 1 steps, a barrier each, on n_b
 // columns of work: the pipeline's fill and drain weigh on short entries.
 
@@ -119,10 +136,15 @@ namespace {
 
 constexpr int kBand = 32;               // rows per thread, K11/K12/K15/K16
 constexpr int kMaxThreads = 512;        // threads per block, K11/K12
-constexpr int kMaxThreadsAffine = 384;  // threads per block, K15/K16
+constexpr int kMaxThreadsAffine = 384;  // threads per block, K15/K16/K22/K23
 constexpr int kStrip = 256;             // strip height S (checkpoints, K13)
 constexpr int kReplayBand = kStrip / 32;  // rows per thread, K13/K17
 constexpr int kNeg = -(1 << 30);        // E and F where no gap run can reach
+
+// The thread cap of a sweep: the affine forms keep E beside H in registers.
+__host__ __device__ constexpr int max_threads(bool affine) {
+  return affine ? kMaxThreadsAffine : kMaxThreads;
+}
 
 // (v1, j1, i1) before (v2, j2, i2): higher score, then smaller j, then i.
 __device__ __forceinline__ bool better(int v1, int j1, int i1, int v2, int j2,
@@ -187,13 +209,13 @@ __device__ __forceinline__ int band_column(int (&h)[kRows],
 // The affine form of band_column: h and e hold H(., j - 1) and E(., j - 1)
 // on entry and H(., j), E(., j) on return; f is F(row0, j) on entry and F of
 // the band's last row on return. Rows k >= nvalid hold H = 0, E = F = kNeg.
-template <bool kFull, int kRows>
+template <bool kFull, bool kProfile, int kRows>
 __device__ __forceinline__ int band_column_affine(int (&h)[kRows], int (&e)[kRows],
                                                   const uint8_t (&xb)[kRows],
-                                                  uint8_t yc, int match,
-                                                  int mismatch, int gap_open,
-                                                  int gap, int nvalid, int nw,
-                                                  int north, int& f) {
+                                                  uint8_t yc, const int32_t* row,
+                                                  int match, int mismatch,
+                                                  int gap_open, int gap, int nvalid,
+                                                  int nw, int north, int& f) {
   int diag = nw;
   int colmax = 0;
 #pragma unroll
@@ -201,7 +223,8 @@ __device__ __forceinline__ int band_column_affine(int (&h)[kRows], int (&e)[kRow
     const int west = h[k];
     int ek = __viaddmax_s32(west, -gap_open, e[k]) - gap;
     f = __viaddmax_s32(north, -gap_open, f) - gap;
-    int v = __viaddmax_s32_relu(diag, xb[k] == yc ? match : mismatch, max(ek, f));
+    int v = __viaddmax_s32_relu(diag, cell_score<kProfile>(xb[k], yc, row, match, mismatch),
+                                max(ek, f));
     if (!kFull && k >= nvalid) {
       v = 0;
       ek = kNeg;
@@ -216,20 +239,21 @@ __device__ __forceinline__ int band_column_affine(int (&h)[kRows], int (&e)[kRow
   return colmax;
 }
 
-// K11 (kCkpt = false) and K12 (kCkpt = true), with kAffine K15 and K16, and
-// with kProfile K19 and K20. x: lane b's read at x + b * x_lane, uint8 bytes
-// (codes when kProfile; x_lane = 0 shares one query between lanes); y: lane
-// b's reference at y + b * N, or at y + y_off[b] when y_off is given (a flat
-// slab of y_len bytes; n_b is then clamped to the bytes past the offset).
+// K11 (kCkpt = false) and K12 (kCkpt = true), with kAffine K15 and K16,
+// with kProfile K19 and K20, with both K22 and K23. x: lane b's read at x +
+// b * x_lane, uint8 bytes (codes when kProfile; x_lane = 0 shares one query
+// between lanes); y: lane b's reference at y + b * N, or at y + y_off[b]
+// when y_off is given (a flat slab of y_len bytes; n_b is then clamped to
+// the bytes past the offset).
 // bound: scratch of the hand-off type (int32, or int2 (H, F) when affine),
 // lane b's row at bound_off[b] if given, else b * (N + 1); used when passes
 // > 1. ck (B, nck, N) int32 zero-filled by the caller, ck[b][c][j - 1] =
 // H((c + 1) * kStrip, j) (1-based rows); fck the same shape, filled with
-// kNeg by the caller, fck[b][c][j - 1] = F((c + 1) * kStrip, j) (K16 only).
-// table (ncodes, ncodes) int32 over compact codes (kProfile only; dynamic
-// shared memory of ncodes^2 int32).
+// kNeg by the caller, fck[b][c][j - 1] = F((c + 1) * kStrip, j) (K16 and
+// K23 only). table (ncodes, ncodes) int32 over compact codes (kProfile
+// only; dynamic shared memory of ncodes^2 int32).
 template <bool kCkpt, bool kAffine, bool kProfile>
-__global__ void __launch_bounds__(kAffine ? kMaxThreadsAffine : kMaxThreads)
+__global__ void __launch_bounds__(max_threads(kAffine))
 strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
                    const uint8_t* __restrict__ y, const int64_t* __restrict__ y_off,
                    long long y_len, const int32_t* __restrict__ m,
@@ -240,9 +264,8 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
                    int32_t* __restrict__ ck, int32_t* __restrict__ fck, int nck,
                    int32_t* __restrict__ score, int32_t* __restrict__ best_i,
                    int32_t* __restrict__ best_j) {
-  static_assert(!(kAffine && kProfile), "no affine profile strips yet");
   using Carry = std::conditional_t<kAffine, int2, int>;  // hand-off: H, or (H, F)
-  constexpr int kThreads = kAffine ? kMaxThreadsAffine : kMaxThreads;
+  constexpr int kThreads = max_threads(kAffine);
   __shared__ Carry xfer[2][kThreads];
   __shared__ int red[3][kThreads / 32];
   extern __shared__ int32_t tab[];  // kProfile: tab[yc * ncodes + xc]
@@ -304,11 +327,11 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
           north = in.x;
           int f = in.y;
           if (nvalid == kBand) {
-            colmax = band_column_affine<true>(h, e, xb, yc, match, mismatch, gap_open, gap,
-                                              kBand, nw, north, f);
+            colmax = band_column_affine<true, kProfile>(h, e, xb, yc, row, match, mismatch,
+                                                        gap_open, gap, kBand, nw, north, f);
           } else if (nvalid > 0) {
-            colmax = band_column_affine<false>(h, e, xb, yc, match, mismatch, gap_open, gap,
-                                               nvalid, nw, north, f);
+            colmax = band_column_affine<false, kProfile>(h, e, xb, yc, row, match, mismatch,
+                                                         gap_open, gap, nvalid, nw, north, f);
           } else {
             f = kNeg;  // a band wholly past m_b
           }
@@ -380,12 +403,12 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
   }
 }
 
-// K13 (kAffine = false) and K17 (kAffine = true), and with kProfile K21: one
-// warp per lane. x (B, M) uint8 (codes when kProfile) with the strip at rows
+// K13 (kAffine = false) and K17 (kAffine = true), and with kProfile K21 and
+// K24: one warp per lane. x (B, M) uint8 (codes when kProfile) with the strip at rows
 // [base, base + kStrip); rowin (B, .) int32 with lane stride ld_row,
 // rowin[b][j - 1] = H(base, j), or null for strip 0; frowin (K17) the same
 // for F(base, j), beside rowin with its stride; moves (B, N, kStrip) uint8;
-// table (ncodes, ncodes) int32 (K21 only; dynamic shared memory).
+// table (ncodes, ncodes) int32 (K21 and K24; dynamic shared memory).
 template <bool kAffine, bool kProfile>
 __global__ void __launch_bounds__(32)
 strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
@@ -394,7 +417,6 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
                    const int32_t* __restrict__ frowin, long long ld_row,
                    const int32_t* __restrict__ table, int ncodes, int match,
                    int mismatch, int gap_open, int gap, uint8_t* __restrict__ moves) {
-  static_assert(!(kAffine && kProfile), "no affine profile replay yet");
   extern __shared__ int32_t tab[];  // kProfile: tab[yc * ncodes + xc]
   if constexpr (kProfile) {
     load_table(tab, table, ncodes);
@@ -410,7 +432,7 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
   const int32_t* fl = frowin ? frowin + (size_t)b * ld_row : nullptr;
   uint8_t xb[kReplayBand];
   int h[kReplayBand];
-  int e[kReplayBand];  // K17: E(., j - 1), kNeg in column 0
+  int e[kReplayBand];  // affine: E(., j - 1), kNeg in column 0
 #pragma unroll
   for (int k = 0; k < kReplayBand; ++k) {
     const int r = base + row0 + k;
@@ -422,7 +444,7 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
   uint8_t* out = moves + (size_t)b * N * kStrip + row0;
   int nw = 0;      // H(row0, j - 1)
   int carry = 0;   // this band's last-row H of the column it finished last
-  int fcarry = 0;  // K17: the same row's F
+  int fcarry = 0;  // affine: the same row's F
   for (int s = 0; s < nb + 31; ++s) {
     const int up = __shfl_up_sync(0xffffffffu, carry, 1);
     const int fup = kAffine ? __shfl_up_sync(0xffffffffu, fcarry, 1) : 0;
@@ -436,7 +458,7 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
         row = tab + yc * ncodes;
       }
       int diag = nw, north = north_in;
-      int f = t > 0 ? fup : (fl ? fl[j - 1] : 0);  // K17: F(row0, j), 0 above row 1
+      int f = t > 0 ? fup : (fl ? fl[j - 1] : 0);  // affine: F(row0, j), 0 above row 1
       uint32_t code[2] = {0u, 0u};
 #pragma unroll
       for (int k = 0; k < kReplayBand; ++k) {
@@ -500,11 +522,10 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
 // null when one pass covers M (M <= 512 x kBand = 16,384 rows, affine 384 x
 // kBand = 12,288: ROWS_PER_PASS and ROWS_PER_PASS_AFFINE in
 // ops/strips_cuda.py); ck (B, nck, N) int32 zero-filled or null
-// (K11/K15/K19); fck the same shape filled with -2^30, or null unless K16;
-// score/best_i/best_j (B,) int32. gap_open > 0 selects the affine kernels; a
-// table ((ncodes, ncodes) int32, compact codes in x and y) the profile ones,
-// linear gaps only. Returns cudaGetLastError() after the launch (an invalid
-// argument when a table comes with gap_open > 0).
+// (K11/K15/K19/K22); fck the same shape filled with -2^30, or null unless
+// K16/K23; score/best_i/best_j (B,) int32. gap_open > 0 selects the affine
+// kernels, a table ((ncodes, ncodes) int32, compact codes in x and y) the
+// profile ones, both K22/K23. Returns cudaGetLastError() after the launch.
 extern "C" int pgs_strip_sweep(const void* x, long long x_lane, const void* y,
                                const void* y_off, long long y_len, const void* m,
                                const void* n, int M, int N, int B, const void* table,
@@ -513,19 +534,18 @@ extern "C" int pgs_strip_sweep(const void* x, long long x_lane, const void* y,
                                void* fck, int nck, void* score, void* best_i,
                                void* best_j, void* stream) {
   const bool affine = gap_open > 0;
-  if (table && affine) return static_cast<int>(cudaErrorInvalidValue);
   if (B > 0) {
     const int bands = (M + kBand - 1) / kBand;
-    const int cap = affine ? kMaxThreadsAffine : kMaxThreads;
-    const int threads = min(cap, max(32, (bands + 31) / 32 * 32));
+    const int threads = min(max_threads(affine), max(32, (bands + 31) / 32 * 32));
     const int passes = (bands + threads - 1) / threads;
     const size_t smem = table ? (size_t)ncodes * ncodes * sizeof(int32_t) : 0;
-    auto kernel = table ? (ck ? &strip_sweep_kernel<true, false, true>
-                              : &strip_sweep_kernel<false, false, true>)
-                  : affine ? (ck ? &strip_sweep_kernel<true, true, false>
-                                 : &strip_sweep_kernel<false, true, false>)
-                           : (ck ? &strip_sweep_kernel<true, false, false>
-                                 : &strip_sweep_kernel<false, false, false>);
+    // [kCkpt][kAffine][kProfile]
+    static const decltype(&strip_sweep_kernel<false, false, false>) kernels[2][2][2] = {
+        {{&strip_sweep_kernel<false, false, false>, &strip_sweep_kernel<false, false, true>},
+         {&strip_sweep_kernel<false, true, false>, &strip_sweep_kernel<false, true, true>}},
+        {{&strip_sweep_kernel<true, false, false>, &strip_sweep_kernel<true, false, true>},
+         {&strip_sweep_kernel<true, true, false>, &strip_sweep_kernel<true, true, true>}}};
+    auto kernel = kernels[ck != nullptr][affine][table != nullptr];
     kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(x), x_lane, static_cast<const uint8_t*>(y),
         static_cast<const int64_t*>(y_off), y_len, static_cast<const int32_t*>(m),
@@ -542,7 +562,7 @@ extern "C" int pgs_strip_sweep(const void* x, long long x_lane, const void* y,
 // strip's first row (a multiple of 256), rowin (and, when gap_open > 0,
 // frowin) with lane stride ld_row or null, moves (B, N, 256) uint8 (columns
 // past a lane's n_b not written). gap_open > 0 selects K17, a table
-// ((ncodes, ncodes) int32 over compact codes, linear gaps only) K21.
+// ((ncodes, ncodes) int32 over compact codes) K21, both K24.
 extern "C" int pgs_strip_moves(const void* x, const void* y, const void* m,
                                const void* n, int M, int N, int B, int base,
                                const void* rowin, const void* frowin,
@@ -550,12 +570,13 @@ extern "C" int pgs_strip_moves(const void* x, const void* y, const void* m,
                                int match, int mismatch, int gap_open, int gap,
                                void* moves, void* stream) {
   const bool affine = gap_open > 0;
-  if (table && affine) return static_cast<int>(cudaErrorInvalidValue);
   if (B > 0) {
     const size_t smem = table ? (size_t)ncodes * ncodes * sizeof(int32_t) : 0;
-    auto kernel = table ? &strip_moves_kernel<false, true>
-                  : affine ? &strip_moves_kernel<true, false>
-                           : &strip_moves_kernel<false, false>;
+    // [kAffine][kProfile]
+    static const decltype(&strip_moves_kernel<false, false>) kernels[2][2] = {
+        {&strip_moves_kernel<false, false>, &strip_moves_kernel<false, true>},
+        {&strip_moves_kernel<true, false>, &strip_moves_kernel<true, true>}};
+    auto kernel = kernels[affine][table != nullptr];
     kernel<<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(y),
         static_cast<const int32_t*>(m), static_cast<const int32_t*>(n), M, N,

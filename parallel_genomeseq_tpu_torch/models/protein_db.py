@@ -10,13 +10,12 @@ the TPU's per-batch padding, ``pad_mult`` rounding, overrun rows and
 dispatch groups have no counterpart), and fetches the per-entry (score,
 pos_end) with one synchronisation. A query longer than 2,048 aa (a
 database built with ``max_query_len`` past it) runs one launch of the strip
-kernel K19 over the same slab instead (one block per entry), as the JAX
-package's ``score_db_slab_strips_jit`` does.
+kernel K19 (K22 under affine gaps) over the same slab instead (one block
+per entry), as the JAX package's ``score_db_slab_strips_jit`` does.
 
 Not ported: the first-scan oracle gate (a guard against TPU miscompiles;
-``chip_smoke.py`` holds K4, K8 and K19 against their plain versions
-instead), and queries longer than 2,048 under affine gaps (the affine
-profile strip kernels, ROADMAP A10d): such a database raises.
+``chip_smoke.py`` holds K4, K8, K19 and K22 against their plain versions
+instead).
 """
 
 from __future__ import annotations
@@ -71,9 +70,9 @@ class ResidentProteinDB:
 
     Entries are (name, sequence) pairs; scans return each entry's DP score
     and pos_end (1-based entry index of the DP maximum), or the top-K hits.
-    ``engine`` is 'auto'/'cuda' (K4, or K8 when gap_open > 0, or K19 for a
-    query longer than 2,048 aa, on a CUDA device, the plain version on the
-    CPU) or 'plain'; ``device`` defaults to the card.
+    ``engine`` is 'auto'/'cuda' (K4, or K8 when gap_open > 0, or for a
+    query longer than 2,048 aa K19, or K22, on a CUDA device, the plain
+    version on the CPU) or 'plain'; ``device`` defaults to the card.
     """
 
     def __init__(self, entries: List[Tuple[str, str]], matrix="blosum50",
@@ -81,11 +80,6 @@ class ResidentProteinDB:
                  device=None, engine="auto"):
         self.max_query_len = max_query_len or MAX_M
         self.cfg = blosum_config(matrix, gap_penalty=gap_penalty, gap_open=gap_open)
-        if self.max_query_len > MAX_M and self.cfg.is_affine:
-            raise NotImplementedError(
-                f"queries longer than {MAX_M} under affine gaps (the affine profile "
-                "strip kernels) are not ported yet: ROADMAP A10"
-            )
         self.engine = make_score_engine(self.cfg, engine, device)
         self.device = self.engine.device
         self.entries = entries
@@ -113,7 +107,7 @@ class ResidentProteinDB:
         return torch.from_numpy(self.engine.encode_lut[qb]).to(self.device)
 
     def scan_lanes(self, query_codes: torch.Tensor):
-        """One K4 (K8, or K19 for a long query) launch over every entry, in
+        """One K4 (K8; K19 or K22 for a long query) launch over every entry, in
         scan order: (score, i, j) tensors on the device, not synchronised."""
         return self.engine.score_slab(query_codes, self._slab, self._offs, self._lens)
 

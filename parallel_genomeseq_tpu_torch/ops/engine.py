@@ -11,16 +11,19 @@ affine, K10 (``ops/traceback``); reads longer than MAX_M go to the strip
 kernels of ``ops/strips_cuda`` -- K11 (score), K12 (checkpoints) and K13
 (replay), walked strip by strip by K14; under affine gaps K15, K16 (H and F
 checkpoints) and K17, walked by K18; under a substitution matrix with
-linear gaps K19, K20 and K21, walked by K14 (K19 also scans a resident slab
-for a query longer than MAX_M). CUDA tensors launch the kernels or raise,
-CPU tensors take the plain route.
+linear gaps K19, K20 and K21, walked by K14, and with affine gaps K22, K23
+(H and F checkpoints) and K24, walked by K18 (K19, or K22, also scans a
+resident slab for a query longer than MAX_M). Every scoring family runs at
+every length. CUDA tensors launch the kernels or raise, CPU tensors take
+the plain route.
 ``PlainEngine`` always runs the plain PyTorch wavefront (``ops/scan_dp``)
 and walks (``ops/traceback``), on either device. Inputs may be numpy arrays
 or tensors of raw bytes; results are tensors on the engine's device,
 unpadded (B lanes, (M + N - 1, M, B) moves).
 
-Configurations outside the ported slices raise NotImplementedError naming
-the ROADMAP item that ports them; none is rerouted.
+Configurations outside the ported slices (``check_supported``) raise
+NotImplementedError naming the ROADMAP item that ports them; none is
+rerouted.
 """
 
 from __future__ import annotations
@@ -41,9 +44,9 @@ STRIP_S = scan_dp.STRIP_S
 # The long-read (strip) functions of each scoring family, keyed by
 # ``strip_key(cfg)`` = (cfg.is_affine, cfg.is_uniform): (sweep,
 # checkpointing sweep, replay, walk). The kernels' wrappers are K11-K14,
-# affine K15-K18, and under a substitution matrix with linear gaps K19-K21
-# walked by K14; the plain versions share the uniform sweep. Affine matrix
-# strips (B12, B16, B20) have no entry yet: ROADMAP A10d.
+# affine K15-K18, and under a substitution matrix K19-K21 walked by K14,
+# affine K22-K24 walked by K18; the plain versions share the full sweeps
+# (``sw_score_plain``, ``sw_profile_plain``).
 STRIP_KERNELS = {
     (False, True): (strips_cuda.sw_score_strips, strips_cuda.sw_score_strips_ckpt,
                     strips_cuda.strip_moves, traceback.walk_strip_level),
@@ -53,6 +56,10 @@ STRIP_KERNELS = {
     (False, False): (strips_cuda.sw_score_strips_profile,
                      strips_cuda.sw_score_strips_profile_ckpt,
                      strips_cuda.strip_profile_moves, traceback.walk_strip_level),
+    (True, False): (strips_cuda.sw_score_strips_profile_affine,
+                    strips_cuda.sw_score_strips_profile_affine_ckpt,
+                    strips_cuda.strip_profile_affine_moves,
+                    traceback.walk_strip_level_affine),
 }
 STRIP_PLAIN = {
     (False, True): (scan_dp.sw_score_plain, scan_dp.sw_score_ckpt_plain,
@@ -61,6 +68,9 @@ STRIP_PLAIN = {
                    scan_dp.strip_affine_moves_plain, traceback._walk_strip_affine_plain),
     (False, False): (scan_dp.sw_profile_plain, scan_dp.sw_profile_ckpt_plain,
                      scan_dp.strip_profile_moves_plain, traceback._walk_strip_plain),
+    (True, False): (scan_dp.sw_profile_plain, scan_dp.sw_profile_affine_ckpt_plain,
+                    scan_dp.strip_profile_affine_moves_plain,
+                    traceback._walk_strip_affine_plain),
 }
 
 
@@ -88,24 +98,14 @@ def _as_tensor(a, dtype, device):
     return t.to(device=device, dtype=dtype)
 
 
-def _check_length(cfg: ScoringConfig, rows: int, what: str):
-    """Strip-length inputs run under uniform scoring, linear or affine, and
-    under a substitution matrix with linear gaps."""
-    if rows > MAX_M and strip_key(cfg) not in STRIP_KERNELS:
-        raise NotImplementedError(
-            f"{what} longer than {MAX_M} under substitution-matrix scoring with "
-            "affine gaps (its strip kernels) are not ported yet: ROADMAP A10"
-        )
-
-
 class _Engine:
     _strip_fns = STRIP_KERNELS  # or STRIP_PLAIN
 
     def __init__(self, cfg: ScoringConfig = ScoringConfig(), device=None):
         check_supported(cfg)
         self.cfg = cfg
-        self._st, self._st_ckpt, self._st_moves, self._st_walk = self._strip_fns.get(
-            strip_key(cfg), (None,) * 4)
+        self._st, self._st_ckpt, self._st_moves, self._st_walk = \
+            self._strip_fns[strip_key(cfg)]
         self.device = resolve_device(device)
         self.gap = int(cfg.gap_penalty)
         gaps = {"gap": self.gap}
@@ -124,7 +124,6 @@ class _Engine:
         """(xs, ys, m, n) on the engine's device, xs and ys as compact codes
         under a matrix; ``raw`` appends the raw bytes (xs, ys) too."""
         x_raw = _as_tensor(x_bm, torch.uint8, self.device)
-        _check_length(self.cfg, x_raw.shape[1], "reads")
         y_raw = _as_tensor(y_bn, torch.uint8, self.device)
         xs, ys = x_raw, y_raw
         if not self.cfg.is_uniform:  # raw bytes -> compact codes
@@ -166,9 +165,11 @@ class _Engine:
         wavefront_pallas.py:2668-2764. Under affine gaps the same loop is
         ``score_batch_strip_affine_moves`` (:2766-2871): K16 checkpoints H
         and F, K17 replays from both, and K18 walks with the gap state
-        carried from strip to strip. Under a substitution matrix (linear
-        gaps) it is ``_strip_profile_moves`` (:2873-2991): K20 and K21 score
-        compact codes, and K14 walks the raw bytes.
+        carried from strip to strip. Under a substitution matrix it is
+        ``_strip_profile_moves`` (:2873-2991; affine from
+        ``score_batch_strip_affine_moves`` :2791-2794): K20 and K21 (affine
+        K23 and K24) score compact codes, and K14 (K18) walks the raw
+        bytes.
 
         One host sync per strip decides whether any lane reaches it (a strip
         no lane reaches is skipped), and ends the previous strip's timing;
@@ -213,13 +214,12 @@ class _Engine:
         """The database scan: one query (M,) of compact codes against every
         lane of a resident (R,) code slab, lane b = ``slab[y_off[b] :
         y_off[b] + lens[b]]``, in one launch: K4 (K8 under affine gaps), or
-        for a query longer than MAX_M the strip sweep K19. Returns per-lane
+        for a query longer than MAX_M the strip sweep K19 (K22). Returns per-lane
         (score, i, j) int32, j the 1-based entry index of the maximum."""
         if self.cfg.is_uniform:
             raise ValueError("the slab scan needs a substitution-matrix config")
-        _check_length(self.cfg, query_codes.shape[0], "queries")
         m = torch.full_like(lens, query_codes.shape[0])
-        if query_codes.shape[0] > MAX_M:  # K19's slab form
+        if query_codes.shape[0] > MAX_M:  # K19's (K22's) slab form
             return self._st(query_codes, slab, m, lens, y_off=y_off, **self._kw)
         return self._profile(query_codes, slab, m, lens, y_off)
 
@@ -227,7 +227,8 @@ class _Engine:
 class CudaEngine(_Engine):
     """The kernels (plain route for CPU tensors): K1/K2/K4/K5, the K3 walk
     and the strips K11-K14 (K19-K21 and K14 under a matrix), or under affine
-    gaps K6/K7/K8/K9, the K10 walk and the strips K15-K18."""
+    gaps K6/K7/K8/K9, the K10 walk and the strips K15-K18 (K22-K24 and K18
+    under a matrix)."""
 
     def __init__(self, cfg: ScoringConfig = ScoringConfig(), device=None):
         super().__init__(cfg, device)

@@ -356,6 +356,13 @@ def sw_profile_ckpt_plain(xs, ys, m, n, *, table, gap: int):
     return _ckpt_plain(xs, ys, m, n, score=table_scorer(table), gap=gap)
 
 
+def sw_profile_affine_ckpt_plain(xs, ys, m, n, *, table, gap_open: int, gap: int):
+    """Plain version of the K23 kernel: K16's H and F checkpoint rows and
+    K8's (score, i, j) under the cell scores of ``table`` over the compact
+    codes xs (B, M) and ys (B, N)."""
+    return _ckpt_plain(xs, ys, m, n, score=table_scorer(table), gap=gap, gap_open=gap_open)
+
+
 def _strip_replay(xs, ys, m, n, base: int, north, *, score, gap: int, gap_open: int = 0):
     """The moves of the STRIP_S rows [base, base + STRIP_S) of xs against ys
     under the cell scores ``score``, from the row(s) ``north`` above them, as
@@ -418,6 +425,16 @@ def strip_affine_moves_plain(xs, ys, m, n, rowin, frowin, base: int, *, match: i
     north = tuple(_north_row(row, B, N, xs.device) for row in (rowin, frowin))
     return _strip_replay(xs, ys, m, n, base, north, score=uniform_scorer(match, mismatch),
                          gap=gap, gap_open=gap_open)
+
+
+def strip_profile_affine_moves_plain(xs, ys, m, n, rowin, frowin, base: int, *, table,
+                                     gap_open: int, gap: int):
+    """Plain version of the K24 kernel: ``strip_affine_moves_plain`` under the
+    cell scores of ``table`` over the compact codes xs (B, M) and ys (B, N)."""
+    B, N = ys.shape
+    north = tuple(_north_row(row, B, N, xs.device) for row in (rowin, frowin))
+    return _strip_replay(xs, ys, m, n, base, north, score=table_scorer(table), gap=gap,
+                         gap_open=gap_open)
 
 
 def slab_lengths(R: int, y_off, n):

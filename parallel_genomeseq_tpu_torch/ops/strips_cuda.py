@@ -1,6 +1,6 @@
 """Wrappers of the CUDA long-read (strip) kernels (``csrc/strips.cu``):
-uniform match/mismatch scoring with linear or affine (Gotoh) gaps, or a
-substitution matrix with linear gaps, reads (or queries) of any length.
+uniform match/mismatch scoring or a substitution matrix, each with linear
+or affine (Gotoh) gaps, reads (or queries) of any length.
 
 Linear: K11 ``sw_score_strips`` ports the Pallas kernel B9
 (``_kernel_strips``, TPU ``ops/wavefront_pallas.py:1073`` via
@@ -20,23 +20,37 @@ entry of a resident slab, ``score_db_slab_strips_jit`` :2344); K20
 ``sw_score_strips_profile_ckpt`` ports B15 (``_kernel_strips_profile_ckpt``
 :1642 via ``_call_strips_profile_ckpt`` :1679); K21 ``strip_profile_moves``
 ports B19 (``_kernel_strip_profile_moves`` :1986 via
-``_call_strip_profile_moves`` :2036). They take the JAX package's
+``_call_strip_profile_moves`` :2036). Substitution matrix, affine gaps:
+K22 ``sw_score_strips_profile_affine`` ports B12
+(``_kernel_strips_profile_affine`` :1116 via
+``_call_strips_profile_affine`` :1493), per lane and in the slab form of
+``score_db_slab_strips_jit``'s ``gopen`` branch (:2363-2367); K23
+``sw_score_strips_profile_affine_ckpt`` ports B16
+(``_kernel_strips_profile_affine_ckpt`` :1657 via
+``_call_strips_profile_affine_ckpt`` :1734); K24
+``strip_profile_affine_moves`` ports B20
+(``_kernel_strip_profile_affine_moves`` :2070 via
+``_call_strip_profile_affine_moves`` :2149). B12/B16/B20 sweep 128-row
+strips (``STRIP_S_PA``), the port 256 (``STRIP_S``) as everywhere: no
+score, cell or walk depends on it. They take the JAX package's
 batch-first layout -- xs (B, M), ys (B, N) uint8 padded with X_PAD / Y_PAD
 (compact codes under a matrix, ``scan_dp.profile_tables``), m, n (B,)
 int32, clamped to M and N -- and keep int32 boundary rows: the int16 rows,
 hi/lo pairs, ``INT16_BOUND`` and 2^30 envelopes and slot-packed argmax of
 the TPU kernels are not ported. The affine boundaries are the port's full
-sweep's (``scan_dp.wavefront_affine``): F = 0 above row 1 (B14/B18 start
-strip 0 at -(gap_open + gap + 1); the two differ only on negative E or F,
-which no walk reads).
+sweep's (``scan_dp.wavefront_affine``): F = 0 above row 1 (B14/B18 and
+B16/B20 start strip 0 at -(gap_open + gap + 1); the two differ only on
+negative E or F, which no walk reads).
 
 Route: tensors on the CPU take the plain PyTorch versions (``ops/scan_dp``:
 ``sw_score_plain``, ``sw_score_ckpt_plain``, ``strip_moves_plain``,
 ``sw_score_affine_ckpt_plain``, ``strip_affine_moves_plain``,
 ``sw_profile_plain``, ``sw_profile_ckpt_plain``,
-``strip_profile_moves_plain``); tensors on a CUDA device launch the
-kernel, and a missing toolkit or a failed build or launch raises. Each
-wrapper's ``launches`` counts kernel launches only.
+``strip_profile_moves_plain``, and with gap_open ``sw_profile_plain``,
+``sw_profile_affine_ckpt_plain``, ``strip_profile_affine_moves_plain``);
+tensors on a CUDA device launch the kernel, and a missing toolkit or a
+failed build or launch raises. Each wrapper's ``launches`` counts kernel
+launches only.
 """
 
 from __future__ import annotations
@@ -51,7 +65,9 @@ from .scan_dp import (
     slab_lengths,
     strip_affine_moves_plain,
     strip_moves_plain,
+    strip_profile_affine_moves_plain,
     strip_profile_moves_plain,
+    sw_profile_affine_ckpt_plain,
     sw_profile_ckpt_plain,
     sw_profile_plain,
     sw_score_affine_ckpt_plain,
@@ -61,8 +77,8 @@ from .scan_dp import (
 from .wavefront_cuda import _check_inputs
 
 # Rows one block sweeps in a pass (kMaxThreads x kBand in csrc/strips.cu;
-# kMaxThreadsAffine x kBand for K15/K16); longer reads carry a boundary row
-# between passes.
+# kMaxThreadsAffine x kBand for K15/K16/K22/K23); longer reads carry a
+# boundary row between passes.
 ROWS_PER_PASS = 512 * 32
 ROWS_PER_PASS_AFFINE = 384 * 32
 _NO_WIDTH = 2**31 - 1  # a slab has no padded width; its length bounds each lane
@@ -70,11 +86,11 @@ _NO_WIDTH = 2**31 - 1  # a slab has no padded width; its length bounds each lane
 
 def _sweep(xs, ys, m, n, *, gap, ckpt, match=0, mismatch=0, gap_open=0, table=None,
            y_off=None):
-    """Shared K11/K12 (gap_open > 0: K15/K16; a table: K19/K20) launch on the
-    current stream, no sync; outputs and scratch allocated here. xs is (B, M)
-    or, shared by every lane, (M,); ys is (B, N) or, with ``y_off``, a flat
-    slab. Returns (score, i, j), then with ckpt the H checkpoints, and under
-    affine gaps the F ones."""
+    """Shared K11/K12 (gap_open > 0: K15/K16; a table: K19/K20; both:
+    K22/K23) launch on the current stream, no sync; outputs and scratch
+    allocated here. xs is (B, M) or, shared by every lane, (M,); ys is (B,
+    N) or, with ``y_off``, a flat slab. Returns (score, i, j), then with
+    ckpt the H checkpoints, and under affine gaps the F ones."""
     B = m.shape[0]
     M = xs.shape[-1]
     dev = m.device
@@ -89,7 +105,8 @@ def _sweep(xs, ys, m, n, *, gap, ckpt, match=0, mismatch=0, gap_open=0, table=No
         if affine:
             fck = torch.full((B, nck, N), NEG, dtype=torch.int32, device=dev)
     # The between-pass row: H, or the (H, F) pair; in the slab form one row
-    # of n_b + 1 per lane, back to back (one sync for its size).
+    # of n_b + 1 per lane, back to back (one sync for its size), its offsets
+    # counted in the row's elements (int32, or (H, F) pairs).
     bound = bound_off = None
     if M > (ROWS_PER_PASS_AFFINE if affine else ROWS_PER_PASS):
         if y_off is None:
@@ -99,7 +116,8 @@ def _sweep(xs, ys, m, n, *, gap, ckpt, match=0, mismatch=0, gap_open=0, table=No
             width = slab_lengths(ys.shape[0], y_off, n).long() + 1
             ends = torch.cumsum(width, 0)
             bound_off = (ends - width).contiguous()
-            bound = torch.empty(int(ends[-1]), dtype=torch.int32, device=dev)
+            bound = torch.empty((int(ends[-1]), 2) if affine else int(ends[-1]),
+                                dtype=torch.int32, device=dev)
     lib = _build.load()
     ptr = lambda t: t.data_ptr() if t is not None and t.numel() else None
     with torch.cuda.device(dev):
@@ -150,7 +168,7 @@ sw_score_strips_ckpt.launches = 0
 
 def _replay(xs, ys, m, n, rows, base: int, *, gap, match=0, mismatch=0, gap_open=0,
             table=None):
-    """Shared K13/K17/K21 launch on CUDA tensors: checks, outputs allocated
+    """Shared K13/K17/K21/K24 launch on CUDA tensors: checks, outputs allocated
     here, no sync. ``rows`` are the incoming H row (and, affine, F row), or
     Nones for the first strip. Returns the (B, N, STRIP_S) moves."""
     dev = xs.device
@@ -315,3 +333,60 @@ def strip_profile_moves(xs, ys, m, n, rowin, base: int, *, table, gap: int):
 
 
 strip_profile_moves.launches = 0
+
+
+def sw_score_strips_profile_affine(x, y, m, n, *, table, gap_open: int, gap: int,
+                                   y_off=None):
+    """K22: K19 under affine (Gotoh) gaps -- a gap of length L costs
+    gap_open + L * gap -- per lane or, with ``y_off``, one query against
+    every lane of a flat slab (the arguments of ``sw_score_strips_profile``);
+    per-lane (score, i, j) int32 with K11's column-major argmax tie-break."""
+    _check_gap_open(gap_open)
+    if check_scan_inputs(x, y, m, n, table, y_off).type == "cpu":
+        return sw_profile_plain(x, y, m, n, table=table, gap=gap, gap_open=gap_open,
+                                y_off=y_off)
+    out = _sweep(x, y, m, n, gap=gap, ckpt=False, gap_open=gap_open, table=table.contiguous(),
+                 y_off=None if y_off is None else y_off.contiguous())
+    sw_score_strips_profile_affine.launches += 1
+    return out
+
+
+sw_score_strips_profile_affine.launches = 0
+
+
+def sw_score_strips_profile_affine_ckpt(xs, ys, m, n, *, table, gap_open: int, gap: int):
+    """K23: K22's (score, i, j) on xs (B, M) and ys (B, N) codes plus K16's
+    H and F checkpoint rows, each (B, K, N) int32, K = ceil(M / STRIP_S) -
+    1: ck[b, k, j - 1] = H((k + 1) * STRIP_S, j), fck[b, k, j - 1] =
+    F((k + 1) * STRIP_S, j) with 1-based rows; outside the lane's matrix H =
+    0 and F = NEG."""
+    _check_gap_open(gap_open)
+    if _check_lanes(xs, ys, m, n, table).type == "cpu":
+        return sw_profile_affine_ckpt_plain(xs, ys, m, n, table=table, gap_open=gap_open,
+                                            gap=gap)
+    out = _sweep(xs, ys, m, n, gap=gap, ckpt=True, gap_open=gap_open, table=table.contiguous())
+    sw_score_strips_profile_affine_ckpt.launches += 1
+    return out
+
+
+sw_score_strips_profile_affine_ckpt.launches = 0
+
+
+def strip_profile_affine_moves(xs, ys, m, n, rowin, frowin, base: int, *, table,
+                               gap_open: int, gap: int):
+    """K24: ``strip_affine_moves`` with the cell scores of ``table`` over the
+    compact codes xs (B, M) and ys (B, N): the affine move bytes of the
+    STRIP_S rows [base, base + STRIP_S), replayed from the H row ``rowin``
+    and the F row ``frowin`` (slices of K23's checkpoints with one lane
+    stride; both None for the first strip), as (B, N, STRIP_S) uint8."""
+    _check_gap_open(gap_open)
+    if _check_lanes(xs, ys, m, n, table).type == "cpu":
+        return strip_profile_affine_moves_plain(xs, ys, m, n, rowin, frowin, base, table=table,
+                                                gap_open=gap_open, gap=gap)
+    moves = _replay(xs, ys, m, n, (rowin, frowin), base, gap=gap, gap_open=gap_open,
+                    table=table)
+    strip_profile_affine_moves.launches += 1
+    return moves
+
+
+strip_profile_affine_moves.launches = 0

@@ -14,10 +14,11 @@ substitutions and small indels, written under ``data/profile/``).
 query planted in them: 9 at the default size); ``--query-len`` over 2,048
 (for example 4,096, a titin-class query) scans with the profile strip
 kernel K19 and walks the planted full-length copies in strips (K20, K21,
-K14). ``--affine`` runs both with
-affine (Gotoh) gaps: BWA-MEM's scoring for small (``--match 1 --mismatch -4
---gap-open 6 --gap-penalty 1``), swps3's 10/2 for uniprot (``--gap-open 10
---gap-penalty 2``), as ``chip_smoke.py`` does.
+K14). ``--affine`` runs both with affine (Gotoh) gaps: BWA-MEM's scoring
+for small (``--match 1 --mismatch -4 --gap-open 6 --gap-penalty 1``),
+swps3's 10/2 for uniprot (``--gap-open 10 --gap-penalty 2``; a long query
+then scans with K22 and walks with K23, K24 and K18), as ``chip_smoke.py``
+does.
 ``--workload big``: ``solve_big 7 1`` at its default width on
 ``chip_smoke.py``'s long-read data (a 30,000-bp reference from seed 0, 100
 exact 10,000-bp substrings of it, 14 windows; written under
@@ -175,8 +176,8 @@ def main(argv=None) -> int:
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
         _, wall = quiet_run(cli_module, base)
-    events = prof.key_averages()
-    if dev.type == "cuda":
+    if dev.type == "cuda":  # on the CPU there is no device time to read
+        events = prof.key_averages()
         print(events.table(sort_by="self_device_time_total", row_limit=15))
         # Only the device's own events (kernels, copies, sets): a host op
         # such as aten::copy_ also carries the device time of what it

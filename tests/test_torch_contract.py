@@ -38,11 +38,20 @@ COUNTERS = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves, traceback.wa
             traceback.walk_strip_level, strips_cuda.sw_score_strips_affine,
             strips_cuda.sw_score_strips_affine_ckpt, strips_cuda.strip_affine_moves,
             traceback.walk_strip_level_affine, strips_cuda.sw_score_strips_profile,
-            strips_cuda.sw_score_strips_profile_ckpt, strips_cuda.strip_profile_moves)
+            strips_cuda.sw_score_strips_profile_ckpt, strips_cuda.strip_profile_moves,
+            strips_cuda.sw_score_strips_profile_affine,
+            strips_cuda.sw_score_strips_profile_affine_ckpt,
+            strips_cuda.strip_profile_affine_moves)
 AFFINE = {
     "uniform": ScoringConfig(gap_open=10.0),
     "matrix": blosum_config("blosum50", gap_penalty=2.0, gap_open=10.0),
 }
+
+
+def self_score(matrix: str, seq: str) -> int:
+    """The sum of ``seq``'s residues' scores against themselves."""
+    S = blosum_config(matrix).matrix
+    return sum(int(S[ALPHABET.index(c)][ALPHABET.index(c)]) for c in seq)
 
 
 def test_port_never_imports_jax():
@@ -104,11 +113,12 @@ def test_affine_configs_run(kind):
     assert "--" in res.consensus_x
 
 
-def test_matrix_configs_are_ported_but_long_queries_raise(tmp_path):
+def test_matrix_configs_are_ported_and_scan_long_queries(tmp_path):
     """Linear substitution-matrix scoring runs (A8), and so does its affine
     form (A9): the resident database's default gaps are the affine 10/2 and
     it scans. A database for queries past 2,048 scans them under linear gaps
-    (the profile strips, A10c) and raises naming A10 under affine ones."""
+    (the profile strips, A10c) and under its default affine ones (the affine
+    profile strips, A10d): nothing raises any more."""
     eng = engine.make_score_engine(blosum_config("blosum62"), device="cpu")
     assert int(eng.table[1, 1]) == 4 and eng.table.shape == (len(ALPHABET) + 1,) * 2
     entries = [("a", "MKWVTFISLL"), ("b", "GVFRRDTHKS")]
@@ -121,8 +131,10 @@ def test_matrix_configs_are_ported_but_long_queries_raise(tmp_path):
                                 device="cpu")
     scores, pos, _ = long_db.scan_scores("P" * (engine.MAX_M - 9) + "MKWVTFISLL")
     assert (int(scores[0]), int(pos[0])) == (66, 10)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        ResidentProteinDB(entries, max_query_len=engine.MAX_M + 1, device="cpu")
+    affine_db = ResidentProteinDB(entries, max_query_len=engine.MAX_M + 1, device="cpu")
+    assert affine_db.cfg.is_affine
+    scores, pos, _ = affine_db.scan_scores("P" * (engine.MAX_M - 9) + "MKWVTFISLL")
+    assert [(int(s), int(p)) for s, p in zip(scores, pos)] == [(66, 10), (8, 3)]
 
 
 def test_make_score_engine_names():
@@ -148,47 +160,51 @@ def test_make_score_engine_names():
         want.score, want.pos, want.consensus_x, want.consensus_y)
 
 
-def test_skewed_ties_and_strip_length_reads_raise():
-    """Skewed ties raise naming A2. A read past MAX_M runs under uniform
-    scoring, linear or affine, and under a substitution matrix with linear
-    gaps (the strip kernels, A10's first three parts); under a matrix with
-    affine gaps it still raises naming A10."""
+def test_skewed_ties_raise_and_strip_length_reads_align():
+    """Skewed ties raise naming A2. A read past MAX_M runs under every
+    scoring family -- uniform or a substitution matrix, each with linear or
+    affine gaps (the strip kernels, A10) -- and aligns."""
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         BatchSWAligner(tie="skewed", device="cpu")
     long_read = np.full((1, engine.MAX_M + 8), ord("A"), np.uint8)
     lens = ([engine.MAX_M + 8], [engine.MAX_M + 8])
     blosum = blosum_config("blosum50", gap_penalty=12.0)  # A-A scores 5
-    for cfg, match in ((ScoringConfig(), 3), (AFFINE["uniform"], 3), (blosum, 5)):
+    for cfg, match in ((ScoringConfig(), 3), (AFFINE["uniform"], 3), (blosum, 5),
+                       (AFFINE["matrix"], 5)):
         got = engine.make_score_engine(cfg, device="cpu").score_batch(long_read, long_read, *lens)
         assert [int(got[k][0]) for k in ("score", "i", "j")] == \
             [match * (engine.MAX_M + 8)] + lens[0] * 2
-    got = BatchSWAligner(blosum, device="cpu").align_batch(["A" * 2100], ["A" * 50])[0]
-    assert (got.score, got.pos, got.consensus_x) == (250, 1, "A" * 50)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        engine.make_score_engine(AFFINE["matrix"], device="cpu").score_batch(
-            long_read, long_read, *lens)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        BatchSWAligner(AFFINE["matrix"], device="cpu").align_batch(["A" * 2100], ["A" * 50])
+    for cfg in (blosum, AFFINE["matrix"]):
+        got = BatchSWAligner(cfg, device="cpu").align_batch(["A" * 2100], ["A" * 50])[0]
+        assert (got.score, got.pos, got.consensus_x, got.consensus_y) == \
+            (250, 1, "A" * 50, "A" * 50)
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--gap-open", "6", "--matrix", "blosum62"], "A10"), (["--matrix", "blosum50"], None),
-    (["--semantics", "sat_uint8"], "A2"),
-], ids=["gap_open", "matrix", "sat_uint8"])
-def test_solve_big_rejects_unported_modes(flags, item, capsys, tmp_path):
-    """A substitution matrix on long reads runs with linear gaps (the
-    profile strips, A10's third part) and needs A10's last part with affine
-    gaps; sat_uint8 needs A2. Each refusal exits 2 before any data is
+@pytest.mark.parametrize("flags", [
+    ["--matrix", "blosum50"], ["--gap-open", "6", "--matrix", "blosum62"],
+], ids=["linear", "affine"])
+def test_solve_big_matrix_runs_long_reads(flags, tmp_path):
+    """A substitution matrix on long reads runs, with linear gaps (the
+    profile strips, A10c) and with affine ones (A10d): a 2,100-bp read of
+    the reference scores its exact diagonal over its better window."""
+    ref = "".join(np.random.default_rng(6).choice(list("ACGT"), 2400))
+    (tmp_path / "ref.fa").write_text(f">ref\n{ref}\n")
+    (tmp_path / "reads.csv").write_text(f"index,QNAME,SEQ,POS\n0,r0,{ref[150:2250]},151\n")
+    run = solve_big.run(["1", "1", "--ref", str(tmp_path / "ref.fa"), "--reads",
+                         str(tmp_path / "reads.csv"), "--overlap-ratio", "0.1",
+                         "--device", "cpu"] + flags)
+    # 2 windows of 1,305 bp, [0, 1305) and [1095, 2400), each holding 1,155
+    # bp of the read; the second's diagonal scores higher.
+    matrix = flags[flags.index("--matrix") + 1]
+    assert run.rc == 0 and run.results[0].score == self_score(matrix, ref[1095:2250])
+    assert self_score(matrix, ref[1095:2250]) > self_score(matrix, ref[150:1305])
+
+
+@pytest.mark.parametrize("flags, item", [(["--semantics", "sat_uint8"], "A2")],
+                         ids=["sat_uint8"])
+def test_solve_big_rejects_unported_modes(flags, item, capsys):
+    """sat_uint8 needs A2: the refusal exits 2 before any data is
     generated."""
-    if item is None:  # ported: one 2,100-bp read runs, and its affine form is refused
-        ref = "".join(np.random.default_rng(6).choice(list("ACGT"), 2400))
-        (tmp_path / "ref.fa").write_text(f">ref\n{ref}\n")
-        (tmp_path / "reads.csv").write_text(f"index,QNAME,SEQ,POS\n0,r0,{ref[150:2250]},151\n")
-        run = solve_big.run(["1", "1", "--ref", str(tmp_path / "ref.fa"), "--reads",
-                             str(tmp_path / "reads.csv"), "--overlap-ratio", "0.1",
-                             "--device", "cpu"] + flags)
-        assert run.rc == 0 and run.results[0].score > 5 * 1000  # 2 windows of 1,305 bp
-        flags, item = flags + ["--gap-open", "10"], "A10"
     with pytest.raises(SystemExit) as exc:
         solve_big.main(["--device", "cpu"] + flags)
     assert exc.value.code == 2
@@ -204,28 +220,36 @@ def test_solve_small_rejects_unported_modes(flags, tmp_path):
     assert exc.value.code == 2
 
 
-@pytest.mark.parametrize("case, item", [("long_query", "A10"), ("num_processes", "A13")])
-def test_solve_uniprot_rejects_unported_modes(case, item, tmp_path, capsys):
+@pytest.mark.parametrize("gaps, row", [
+    ([], "a,15,66,10,2,LLSIFTVWK,LLSIFTVWK"),
+    (["--gap-open", "10", "--gap-penalty", "2"], "a,15,66,10,1,LLSIFTVWKM,LLSIFTVWKM"),
+], ids=["linear", "affine"])
+def test_solve_uniprot_runs_long_queries(gaps, row, tmp_path):
     """A query past the single-strip kernels' 2,048 rows runs under linear
-    gaps (the profile strips) and is refused under a matrix with affine
-    gaps; a sharded run is refused; each names the ROADMAP item that ports
-    it."""
+    gaps (the profile strips, A10c) and under affine ones (the affine
+    profile strips, A10d). MKWVTFISLL's BLOSUM50 diagonal (66) plus GVFRR
+    against the repeat's MKWVT (0 - 3 + 1 - 3 - 3) stays 66, ending in the
+    entry's column 10; no gap pays under either model. The linear walk
+    stops on the entry's second residue (a neighbour of that cell is 0), the
+    affine one on its first."""
+    (tmp_path / "q.fasta").write_text(">q\n" + "MKWVTFISLL" * 206 + "\n")
+    (tmp_path / "db.fasta").write_text(">a\nMKWVTFISLLGVFRR\n")
+    assert solve_uniprot.main(["--query", str(tmp_path / "q.fasta"), "--database",
+                               str(tmp_path / "db.fasta"), "--device", "cpu", "--output",
+                               str(tmp_path / "o.csv")] + gaps) == 0
+    assert (tmp_path / "o.csv").read_text().splitlines()[1] == row
+
+
+@pytest.mark.parametrize("case, item", [("num_processes", "A13")])
+def test_solve_uniprot_rejects_unported_modes(case, item, tmp_path, capsys):
+    """A sharded run is refused, naming the ROADMAP item that ports it."""
     query = tmp_path / "q.fasta"
-    query.write_text(">q\n" + "MKWVTFISLL" * (206 if case == "long_query" else 3) + "\n")
+    query.write_text(">q\n" + "MKWVTFISLL" * 3 + "\n")
     db = tmp_path / "db.fasta"
     db.write_text(">a\nMKWVTFISLLGVFRR\n")
     base = ["--query", str(query), "--database", str(db), "--device", "cpu", "--output",
             str(tmp_path / "o.csv")]
-    flags = {"long_query": ["--gap-open", "10", "--gap-penalty", "2"],
-             "num_processes": ["--num-processes", "2"]}[case]
-    if case == "long_query":
-        assert solve_uniprot.main(base) == 0
-        rows = (tmp_path / "o.csv").read_text().splitlines()
-        # MKWVTFISLL's BLOSUM50 diagonal (66) plus GVFRR against the repeat's
-        # MKWVT (0 - 3 + 1 - 3 - 3) stays 66, ending in the entry's column 10.
-        assert rows[1].startswith("a,15,66,10,")
-        (tmp_path / "o.csv").unlink()
-        capsys.readouterr()
+    flags = {"num_processes": ["--num-processes", "2"]}[case]
     with pytest.raises(SystemExit) as exc:
         solve_uniprot.main(base + flags)
     assert exc.value.code == 2
@@ -251,29 +275,34 @@ def test_solve_uniprot_runs_affine_gaps(tmp_path, capsys):
     assert len(rows) == 3 and "Scored" in capsys.readouterr().out
 
 
-def test_solve_uniprot_scans_long_entries_but_refuses_their_walk(tmp_path):
+@pytest.mark.parametrize("gaps", [[], ["--gap-open", "10", "--gap-penalty", "2"]],
+                         ids=["linear", "affine"])
+def test_solve_uniprot_scans_and_walks_long_entries(gaps, tmp_path):
     """An entry past 2,048 aa is scanned (the entry is K4's y, which has no
-    row limit). Under linear gaps its walk runs in strips (K20, K21, K14)
-    and emits the raw letters; under a matrix with affine gaps the walk
-    needs A10's last part and raises naming A10."""
+    row limit) and walked in strips, emitting the raw letters: under linear
+    gaps by K20, K21 and K14, under affine ones by K23, K24 and K18."""
     query = "MKWVTFISLLGVFRRDTHKSEIAHRFKDLGE"
     (tmp_path / "q.fasta").write_text(f">q\n{query}\n")
     (tmp_path / "db.fasta").write_text(
         f">short\n{query[:20]}\n>long\n{'GS' * 1040}{query}\n")
     base = ["--query", str(tmp_path / "q.fasta"), "--database", str(tmp_path / "db.fasta"),
-            "--device", "cpu", "--output", str(tmp_path / "o.csv")]
+            "--device", "cpu", "--output", str(tmp_path / "o.csv")] + gaps
     L = 2080 + len(query)
     assert solve_uniprot.main(base + ["--traceback-top", "0"]) == 0
     rows = (tmp_path / "o.csv").read_text().splitlines()
     assert rows[2].startswith(f"long,{L},") and rows[2].endswith(f",{L},,,")
     assert solve_uniprot.main(base) == 0
-    name, length, score, pos_end, pos_pred, cx, cy = \
-        (tmp_path / "o.csv").read_text().splitlines()[2].split(",")
-    assert (name, int(length), int(pos_end)) == ("long", L, L)
-    # The entry ends with the query: the walk goes back along it, reversed.
-    assert cx == cy and len(cx) >= len(query) - 2 and query[::-1].startswith(cx)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        solve_uniprot.main(base + ["--gap-open", "10", "--gap-penalty", "2"])
+    row = (tmp_path / "o.csv").read_text().splitlines()[2]
+    if gaps:
+        # Under swps3's affine gaps the whole query aligns to the entry's
+        # tail, its diagonal self-score, walked back to its first residue.
+        walk = query[::-1]
+        assert row == f"long,{L},{self_score('blosum50', query)},{L},1,{walk},{walk}"
+    else:
+        name, length, score, pos_end, pos_pred, cx, cy = row.split(",")
+        assert (name, int(length), int(pos_end)) == ("long", L, L)
+        # The entry ends with the query: the walk goes back along it, reversed.
+        assert cx == cy and len(cx) >= len(query) - 2 and query[::-1].startswith(cx)
 
 
 def test_cpu_tensors_take_plain_route_without_launches():
@@ -304,22 +333,21 @@ def test_cpu_tensors_take_plain_route_without_launches():
         proteins[1][10:60])
     BatchSWAligner(AFFINE["matrix"], pad_m=128, device="cpu").align_batch(
         proteins, [proteins[1][10:60]])
-    # The long-read path: the strip sweep (K11) and the strip traceback (K12,
-    # K13, K14).
+    # The long-read path, on one read past MAX_M against a 40-bp reference
+    # (the strips run on the rows; the route does not depend on the width):
+    # the strip sweep (K11) and the strip traceback (K12, K13, K14), their
+    # affine forms (K15; K16, K17, K18), their substitution-matrix forms
+    # (K19; K20, K21, K14) and those under affine gaps (K22; K23, K24, K18).
     long_ref = "".join(rng.choice(list("ACGT"), 2400))
-    long_reads = [long_ref[100:2200], long_ref[150:2250]]
-    BatchSWAligner(device="cpu").align_batch(long_reads, [long_ref])
-    BatchSWAligner(device="cpu").align_batch(long_reads, [long_ref], traceback=False)
-    # Its affine form (K15, then K16, K17, K18).
-    BatchSWAligner(AFFINE["uniform"], device="cpu").align_batch(long_reads, [long_ref])
-    BatchSWAligner(AFFINE["uniform"], device="cpu").align_batch(long_reads, [long_ref],
-                                                                traceback=False)
-    # Its substitution-matrix form (K19, then K20, K21, K14), and K19's slab
-    # form on a long query.
-    BatchSWAligner(cfg, device="cpu").align_batch(long_reads, [long_ref[:40]])
-    BatchSWAligner(cfg, device="cpu").align_batch(long_reads, [long_ref[:40]], traceback=False)
-    ResidentProteinDB([(str(k), p) for k, p in enumerate(proteins)], gap_penalty=12.0,
-                      gap_open=0.0, max_query_len=2100, device="cpu").scan(long_reads[0])
+    long_read, short_ref = long_ref[100:2200], long_ref[:40]
+    for scoring in (ScoringConfig(), AFFINE["uniform"], cfg, AFFINE["matrix"]):
+        for tb in (True, False):
+            BatchSWAligner(scoring, device="cpu").align_batch([long_read], [short_ref],
+                                                              traceback=tb)
+    # K19's and K22's slab forms, on a long query.
+    for gaps in (dict(gap_penalty=12.0, gap_open=0.0), {}):
+        ResidentProteinDB([(str(k), p) for k, p in enumerate(proteins)], max_query_len=2100,
+                          device="cpu", **gaps).scan(long_read)
     assert [fn.launches for fn in COUNTERS] == [0] * len(COUNTERS)
 
 

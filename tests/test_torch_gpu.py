@@ -750,3 +750,183 @@ def test_solve_uniprot_long_query_cuda_matches_cpu(cuda, tmp_path):
     assert solve_uniprot.main(base + ["--device", "cpu", "--output", str(tmp_path / "cpu.csv")]) == 0
     assert (tmp_path / "gpu.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
     assert (tmp_path / "p.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
+
+
+PROTEIN_AFFINE = dict(gap_open=10, gap=2)  # swps3's BLOSUM50 gaps
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k22_slab_matches_plain(cuda, seed):
+    """K22's slab form (one 2,600-aa query shared by every lane under gaps
+    10/2, each lane's entry read through its offset) against its plain
+    version: planted 500-aa segments, lanes clamped at the slab's ends."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    q, slab, off, n, table = long_protein_slab(seed, cuda, 2600)
+    m = torch.full_like(n, q.shape[0])
+    before = strips_cuda.sw_score_strips_profile_affine.launches
+    got = strips_cuda.sw_score_strips_profile_affine(q, slab, m, n, table=table, y_off=off,
+                                                     **PROTEIN_AFFINE)
+    want = scan_dp.sw_profile_plain(q, slab, m, n, table=table, y_off=off, **PROTEIN_AFFINE)
+    torch.cuda.synchronize()
+    assert strips_cuda.sw_score_strips_profile_affine.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g, w)
+    assert int(got[0][5]) > 1000 and int(got[0][37]) > 1000 and int(got[0][38]) == 0
+
+
+def test_k22_per_lane_matches_plain(cuda):
+    """K22 on per-lane long queries (protein codes, ragged true lengths, one
+    m past the padded shape, a segment planted with a 7-residue deletion)
+    against its plain version."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    xs, ys, m, n, table = protein_lanes(2, cuda, B=9, M=2600, N=500)
+    m[0] += 4000
+    # Lane 5 (m = 2,117, n = 441): the shared motif (its y's last 220
+    # codes) moved to x's rows 1,001-1,213 with 7 of its codes deleted.
+    xs[5, :220] = xs[6, 300:520]
+    xs[5, 1000:1100] = ys[5, 221:321]
+    xs[5, 1100:1213] = ys[5, 328:441]
+    got = strips_cuda.sw_score_strips_profile_affine(xs, ys, m, n, table=table, **PROTEIN_AFFINE)
+    want = scan_dp.sw_profile_plain(xs, ys, m, n, table=table, **PROTEIN_AFFINE)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1][5]) == 1213 and int(got[2][5]) == 441  # across the deletion
+
+
+def test_k22_beyond_one_pass_matches_plain(cuda):
+    """A 12,800-aa query on a small slab: past one affine block's pass
+    (12,288 rows) the lanes' (H, F) bound rows, back to back in the slab
+    form, carry between passes; a segment planted across the pass edge with
+    an 8-residue insertion (an F run over the edge) is found."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    q, slab, off, n, table = long_protein_slab(3, cuda, 12_800)
+    edge = strips_cuda.ROWS_PER_PASS_AFFINE
+    at = int(off[7]) + 10
+    slab[at : at + 100] = q[edge - 100 : edge]
+    slab[at + 100 : at + 200] = q[edge + 8 : edge + 108]
+    n[7] = max(int(n[7]), 220)
+    m = torch.full_like(n, q.shape[0])
+    got = strips_cuda.sw_score_strips_profile_affine(q, slab, m, n, table=table, y_off=off,
+                                                     **PROTEIN_AFFINE)
+    want = scan_dp.sw_profile_plain(q, slab, m, n, table=table, y_off=off, **PROTEIN_AFFINE)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1][7]) > edge + 50 and int(got[0][7]) > 700
+
+
+def test_affine_profile_strip_traceback_kernels_match_plain(cuda):
+    """K23 (H and F checkpoints), K24 (every strip, valid cells) and the K18
+    walk over raw letters against their plain versions under BLOSUM50 10/2,
+    and the CUDA engine's whole affine matrix strip traceback against the
+    plain engine's on the card."""
+    from parallel_genomeseq_tpu_torch.ops import engine, strips_cuda
+
+    cfg = blosum_config("blosum50", gap_penalty=2.0, gap_open=10.0)
+    lut, table = scan_dp.profile_tables(cfg)
+    alpha = np.frombuffer(cfg.alphabet[:20].encode(), np.uint8)
+    rng = np.random.default_rng(4)
+    B, M, N = 7, 2600, 600
+    ref = rng.choice(alpha, N)
+    raw_x = rng.choice(alpha, (B, M)).astype(np.uint8)
+    for b in range(B - 1):
+        seg = ref[25 * b : 25 * b + 400].copy()
+        seg[rng.integers(0, 400, 20)] = rng.choice(alpha, 20)
+        seg = np.concatenate([seg[:200], rng.choice(alpha, 3 * b), seg[200:]])  # an insertion
+        raw_x[b, 300 + 250 * b : 300 + 250 * b + len(seg)] = seg
+    raw_y = np.broadcast_to(ref, (B, N)).copy()
+    m = rng.integers(2000, M + 1, B).astype(np.int32)
+    m[:6] = M
+    n = np.full(B, N, np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    rx, ry, m, n = t(raw_x), t(raw_y), t(m), t(n)
+    xs, ys = t(lut)[rx.long()], t(lut)[ry.long()]
+    kw = dict(table=t(table), **PROTEIN_AFFINE)
+    got = strips_cuda.sw_score_strips_profile_affine_ckpt(xs, ys, m, n, **kw)
+    want = scan_dp.sw_profile_affine_ckpt_plain(xs, ys, m, n, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _, i, j, ck, fck = got
+    x_mb = rx.T.contiguous()
+    state = traceback.new_strip_state(i, j, 1200, affine=True)
+    plain_state = tuple(a.clone() for a in state)
+    r = torch.arange(256, device=cuda)
+    before = (strips_cuda.strip_profile_affine_moves.launches,
+              traceback.walk_strip_level_affine.launches)
+    nstrips = -(-M // 256)
+    for s in range(nstrips - 1, -1, -1):
+        rows = (ck[:, s - 1], fck[:, s - 1]) if s else (None, None)
+        got = strips_cuda.strip_profile_affine_moves(xs, ys, m, n, *rows, s * 256, **kw)
+        want = scan_dp.strip_profile_affine_moves_plain(xs, ys, m, n, *rows, s * 256, **kw)
+        valid = ((s * 256 + r)[None, None, :] < m[:, None, None]) & \
+            (torch.arange(N, device=cuda)[None, :, None] < n[:, None, None])
+        assert torch.equal(got[valid], want[valid])
+        traceback.walk_strip_level_affine(got, x_mb, ry, s * 256, state, max_steps=1200)
+        traceback._walk_strip_affine_plain(want, x_mb, ry, s * 256, plain_state, 1200)
+        for g, w in zip(state, plain_state):
+            assert torch.equal(g, w)
+    assert (strips_cuda.strip_profile_affine_moves.launches,
+            traceback.walk_strip_level_affine.launches) == (before[0] + nstrips,
+                                                            before[1] + nstrips)
+    assert int(state[4][: B - 1].min()) > 300 and not bool((state[3] & (state[0] > 0)).any())
+    got = engine.CudaEngine(cfg, device=cuda).score_batch_strip_moves(rx, ry, m, n, max_steps=1200)
+    want = engine.PlainEngine(cfg, device=cuda).score_batch_strip_moves(rx, ry, m, n,
+                                                                        max_steps=1200)
+    for k in ("score", "i", "j", "pos", "cx", "cy", "steps"):
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got["cx"], state[5])  # raw letters, as the walk above emitted
+    cons = traceback.decode_consensus(got["cx"].cpu(), got["cy"].cpu(), got["steps"].cpu())
+    assert "-" * 15 in cons[5][1]  # lane 5's 15-residue insertion
+
+
+def test_solve_uniprot_long_query_affine_cuda_matches_cpu(cuda, tmp_path):
+    """A 2,300-aa query under --gap-open 10 --gap-penalty 2: the card's CSV
+    (K22's slab scan, then K23, K24 and the K18 walk for the planted
+    2,300-aa entries in the top hits; no K8 and none of the linear profile
+    strips) equals the CPU's, and ``--engine plain`` on the card gives it
+    too without a launch."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    query, db, _ = write_protein_dataset(tmp_path, n_entries=40, query_len=2300, seed=5)
+    base = ["--query", str(query), "--database", str(db), "--top", "4"] + AFFINE_FLAGS
+    counters = (strips_cuda.sw_score_strips_profile_affine,
+                strips_cuda.sw_score_strips_profile_affine_ckpt,
+                strips_cuda.strip_profile_affine_moves, traceback.walk_strip_level_affine,
+                profile_cuda.sw_profile_affine, strips_cuda.sw_score_strips_profile,
+                strips_cuda.sw_score_strips_profile_ckpt, strips_cuda.strip_profile_moves)
+    before = [fn.launches for fn in counters]
+    assert solve_uniprot.main(base + ["--output", str(tmp_path / "gpu.csv")]) == 0
+    assert [fn.launches > b for fn, b in zip(counters, before)] == [True] * 4 + [False] * 4
+    before = [fn.launches for fn in counters]
+    assert solve_uniprot.main(base + ["--engine", "plain", "--output", str(tmp_path / "p.csv")]) == 0
+    assert [fn.launches for fn in counters] == before
+    assert solve_uniprot.main(base + ["--device", "cpu", "--output", str(tmp_path / "cpu.csv")]) == 0
+    assert (tmp_path / "gpu.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
+    assert (tmp_path / "p.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
+
+
+def test_solve_big_matrix_affine_cuda_matches_cpu(cuda):
+    """solve_big --matrix blosum50 --gap-open 10 --gap-penalty 2 on the card
+    (K22; with --traceback K23, K24, K18) gives the CPU's results, read for
+    read, and launches neither the uniform nor the linear profile strips."""
+    from parallel_genomeseq_tpu_torch.cli import solve_big
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    base = ["2", "1", "--ref-len", "9000", "--read-len", "2300", "--n-reads", "3",
+            "--matrix", "blosum50"] + AFFINE_FLAGS
+    counters = (strips_cuda.sw_score_strips_profile_affine,
+                strips_cuda.sw_score_strips_profile_affine_ckpt,
+                strips_cuda.strip_profile_affine_moves, traceback.walk_strip_level_affine)
+    others = (strips_cuda.sw_score_strips, strips_cuda.sw_score_strips_affine,
+              strips_cuda.sw_score_strips_profile, strips_cuda.sw_score_strips_profile_ckpt,
+              strips_cuda.strip_profile_moves, traceback.walk_strip_level)
+    for extra in ([], ["--traceback"]):
+        before = [fn.launches for fn in counters + others]
+        gpu = solve_big.run(base + extra)
+        cpu = solve_big.run(base + extra + ["--device", "cpu"])
+        launched = [fn.launches > b for fn, b in zip(counters + others, before)]
+        assert launched == ([True] * 4 if extra else [True, False, False, False]) + [False] * 6
+        fields = lambda r: (r.score, r.pos, r.max_i, r.max_j, r.consensus_x, r.consensus_y)
+        assert [fields(r) for r in gpu.results] == [fields(r) for r in cpu.results]
