@@ -5,7 +5,9 @@
                           [--entries 561356] [--protein-seed 7]
 
 1. Requires a CUDA card and prints its name, power limit and top SM clock.
-2. Builds the port's CUDA kernels from ``parallel_genomeseq_tpu_torch/csrc``.
+2. Builds the port's CUDA kernels from ``parallel_genomeseq_tpu_torch/csrc``
+   and prints their registers and spills, and the strip sweeps' static SASS
+   instruction mix (``cuobjdump -sass``, where the toolkit has it).
 3. DNA short-read path. Holds K1 (both modes, 512 reads x 17 windows), K2
    (the 512 winning windows and the full reference) and K3 (on K2's output)
    against their plain PyTorch versions on the card, on the same inputs,
@@ -90,7 +92,10 @@
 10. Prints the kernels' JSON line -- each kernel's time, its plain version's,
    and its bound: the larger of the integer operations its cells need over
    the card's int32 ALU peak and the bytes it must move over the memory
-   rate -- then ``{"ok": true, "device": ...}`` last.
+   rate; for the strip sweeps (K11, K12, K15, K16, K19, K20, K22, K23) also
+   the threads a block, the blocks an SM holds, the waves and the cycles a
+   block step takes (``sweep_steps``), printed beside each time as well --
+   then ``{"ok": true, "device": ...}`` last.
 
 Any failed phase raises and exits non-zero before the last line.
 """
@@ -237,6 +242,102 @@ def bound(ops: float, nbytes: float, clock_mhz: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def sweep_steps(sweep, rec, M: int, n, clock_mhz: float, table=None, slab: bool = False):
+    """Add a strip sweep's launch shape and its cost per block step to
+    ``rec``: rows a thread, threads a block, the blocks an SM holds (the CUDA
+    occupancy calculator), the waves and the cycles a block step takes, ms x
+    clock / (waves x steps). A block of T threads sweeps n_b + T - 1 steps a
+    pass. Per lane, waves = ceil(B / (blocks x SMs)) of passes x (max n_b +
+    T - 1) steps; in the slab form, where n_b varies, waves x steps is the
+    lanes' steps summed over the card's block slots."""
+    import torch
+
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    name = sweep.__name__
+    threads, passes, blocks, rows = strips_cuda.sweep_occupancy(
+        M, affine="affine" in name, ckpt=name.endswith("_ckpt"),
+        ncodes=0 if table is None else table.shape[0])
+    slots = blocks * torch.cuda.get_device_properties(0).multi_processor_count
+    B = n.shape[0]
+    if slab:
+        steps = passes * (float(n.double().mean()) + threads - 1)
+        waves = B / slots
+    else:
+        steps = passes * (int(n.max()) + threads - 1)
+        waves = -(-B // slots)
+    rec.update(band_rows=rows, threads=threads, blocks_per_sm=blocks,
+               warps_per_sm=blocks * threads // 32,
+               waves=waves, cycles_per_step=rec["ms"] * 1e-3 * clock_mhz * 1e6 / (waves * steps))
+
+
+def sass_kernels(text: str):
+    """Per strip sweep kernel in ``cuobjdump -sass`` output: {label: (mix of
+    the whole kernel, mix of its column-step loop)}, each {opcode: count}
+    with modifiers dropped. The step loop is the shortest backward branch's
+    body that holds 16 or more VIADDMNMX (one band's column of cells)."""
+    import re
+
+    kernels, label, body = {}, None, []
+
+    def close():
+        if label is None:
+            return
+        loops = [(int(m.group(1), 16), at) for at, op, args in body
+                 if op == "BRA" and (m := re.search(r"0x([0-9a-f]+)", args))
+                 and int(m.group(1), 16) < at]
+        loops = [(lo, hi) for lo, hi in loops
+                 if sum(op == "VIADDMNMX" for at, op, _ in body if lo <= at <= hi) >= 16]
+        lo, hi = min(loops, key=lambda r: r[1] - r[0], default=(1, 0))
+        mix = lambda keep: {o: sum(1 for at, op, _ in body if op == o and keep(at))
+                            for o in {op for _, op, _ in body}}
+        kernels[label] = (mix(lambda at: True), mix(lambda at: lo <= at <= hi))
+
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            close()
+            form = re.search(r"strip_sweep_kernel\D*?ILb(\d)ELb(\d)ELb(\d)E(?:Li(\d+)E)?",
+                             head.group(1))
+            label, body = None, []
+            if form:
+                args = ["true" if f == "1" else "false" for f in form.groups()[:3]]
+                args += [form.group(4)] if form.group(4) else []  # the band height
+                label = f"strip_sweep_kernel<{', '.join(args)}>"
+            continue
+        op = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)\S*\s*(.*)",
+                      line)
+        if label is not None and op:
+            body.append((int(op.group(1), 16), op.group(2), op.group(3)))
+    close()
+    return {k: v for k, v in kernels.items() if v}
+
+
+def print_sass_mix(lib, label: str = ""):
+    """Print the strip sweeps' SASS (``cuobjdump -sass`` of the built library
+    ``lib``, where the toolkit has it): per kernel the total and its step
+    loop's, by integer and DPX operations, shuffles, shared-memory, barrier
+    and fence instructions."""
+    import shutil
+
+    from parallel_genomeseq_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build.find_nvcc()).with_name("cuobjdump"))
+    if not Path(tool).exists():
+        return
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    groups = {"int": ("IADD3", "IMAD", "IMNMX", "ISETP", "SEL", "LOP3", "SHF", "LEA", "PRMT",
+                      "IABS", "VIMNMX", "VIMNMX3", "VIADDMNMX", "VIADD"),
+              "dpx": ("VIMNMX", "VIMNMX3", "VIADDMNMX"), "shfl": ("SHFL",),
+              "lds/sts": ("LDS", "STS", "ATOMS"), "ldg/stg": ("LDG", "STG"),
+              "bar": ("BAR",), "fence": ("MEMBAR", "FENCE")}
+    count = lambda mix: "; ".join([f"{sum(mix.values())}"] + [
+        f"{g} {sum(mix.get(o, 0) for o in ops)}" for g, ops in groups.items()])
+    for kernel, (whole, step) in sorted(sass_kernels(text).items()):
+        print(f"sass{label} {kernel}: total {count(whole)} | step loop {count(step)}")
+
+
 def lane_work(m, n):
     """(cells, input sequence bytes) of lanes with true lengths m, n."""
     m, n = m.long(), n.long()
@@ -272,8 +373,15 @@ def moves_err(got, want, m, n, chunk: int = 256) -> int:
 
 
 def report(name, label, rec):
+    steps = ""
+    if "cycles_per_step" in rec:
+        steps = (f"; {rec['band_rows']}-row bands, {rec['blocks_per_sm']} blocks/SM of "
+                 f"{rec['threads']} threads "
+                 f"({rec['warps_per_sm']} warps), {rec['waves']:.2f} waves, "
+                 f"{rec['cycles_per_step']:.0f} cycles a block step")
     print(f"{name}[{label}] {rec['shape']}: equal; kernel {rec['ms']:.3f} ms, plain "
-          f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})")
+          f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms ({rec['bound_by']})"
+          + steps)
 
 
 def walk_case(walk, plain_walk, moves, x_mb, y_bn, i0, j0, steps, clock, reps=10):
@@ -993,6 +1101,7 @@ def check_strip_kernels(reads, ref, clock: float, dev, kw, cfg=None, prefix: str
         rec["bound_ms"], rec["bound_by"] = bound(
             cells * OPS_PER_CELL[sweep.__name__],
             seq_bytes + LANE_BYTES * xs.shape[0] + table_bytes, clock)
+        sweep_steps(sweep, rec, xs.shape[1], n, clock, kw.get("table"))
         out[sweep.__name__][prefix + label] = rec
         report(f"{names[0]} {sweep.__name__}", prefix + label, rec)
         return got
@@ -1037,6 +1146,7 @@ def check_strip_kernels(reads, ref, clock: float, dev, kw, cfg=None, prefix: str
     rec["bound_ms"], rec["bound_by"] = bound(
         cells * OPS_PER_CELL[ckpt.__name__],
         seq_bytes + LANE_BYTES * xs.shape[0] + ck_bytes + table_bytes, clock)
+    sweep_steps(ckpt, rec, xs.shape[1], n, clock, kw.get("table"))
     out[ckpt.__name__][prefix + "winners"] = rec
     report(f"{names[1]} {ckpt.__name__}", prefix + "winners", rec)
 
@@ -1371,6 +1481,7 @@ def check_long_query_kernels(db, query: str, clock: float, dev, gaps):
         rec["bound_ms"], rec["bound_by"] = bound(
             cells * OPS_PER_CELL[sweep.__name__],
             seq_bytes + LANE_BYTES * n.shape[0] + table.numel() * 4, clock)
+        sweep_steps(sweep, rec, x.shape[-1], n, clock, table, slab=y_off is not None)
         out[sweep.__name__][label] = rec
         report(f"{names[0]} {sweep.__name__}", label, rec)
         return got
@@ -1425,6 +1536,7 @@ def check_long_query_kernels(db, query: str, clock: float, dev, gaps):
     rec["bound_ms"], rec["bound_by"] = bound(
         cells * OPS_PER_CELL[ckpt.__name__],
         seq_bytes + LANE_BYTES * xc.shape[0] + ck_bytes + table.numel() * 4, clock)
+    sweep_steps(ckpt, rec, xc.shape[1], nn, clock, table)
     out[ckpt.__name__]["top10"] = rec
     report(f"{names[1]} {ckpt.__name__}", "top10", rec)
     check_strip_traceback(names[2:], (replay, walk), (plain_replay, plain_walk), xc, yc, mm, nn,
@@ -1638,6 +1750,7 @@ def main(argv=None) -> int:
     for line in (lib.parent / "nvcc.log").read_text().splitlines():
         if "entry function" in line or "Used" in line or "spill" in line:
             print(f"  nvcc: {line.strip()}")
+    print_sass_mix(lib)
 
     dev = torch.device("cuda", 0)
     dna, dna_launches = dna_phase(args, card, clock, dev)

@@ -59,38 +59,69 @@
 //     `_call_strip_profile_affine_moves` (:2149): K17's replay and affine
 //     byte with the table's cell score.
 //
-// Design of K11/K12. One thread block per lane. Its T threads split the
-// lane's rows into bands of kBand = 32 consecutive rows, one band per thread,
-// and sweep the reference as a pipeline: at step s, thread t works on column
-// j = s - t + 1, so band t + 1 takes column j one step after band t has
-// finished it. The band's last-row H reaches the next thread through a
-// double-buffered word in shared memory, with one __syncthreads per step.
-// This is B9's strip and `lastrow` structure run in parallel instead of in
-// sequence. The band's column of H lives in registers (32 int32, and the 32
-// read bytes), not in shared or device memory: nothing but the 4-byte hand-off
-// leaves the thread per column. A block takes at most kMaxThreads x kBand =
-// 16,384 rows at once; longer reads run in passes, the last band of a pass
-// leaving its row in a device-memory row (B, N + 1) that the first band of
-// the next pass reads, in place (a read of column j always precedes the
-// write of column j).
+// Design of K11/K12, a column step without a block barrier. One thread
+// block per lane. Its T threads split the lane's rows into bands of kBand
+// consecutive rows (16 or 32, below), one band per thread, so a warp holds
+// 32 bands, and they sweep the reference as a pipeline: lane l of a warp
+// works on column j = s - l + 1 at the warp's own step s. The band's column
+// of H lives in registers (kBand int32 and the kBand read bytes).
+//   - Inside a warp, band l + 1 takes band l's last-row H by __shfl_up_sync,
+//     and the column's reference code travels down the warp with it: lane 0
+//     takes column j's code from a 32-column word that the warp loads one
+//     word ahead (one coalesced byte a lane), by one __shfl_sync. No thread
+//     reads device memory inside the step.
+//   - Between warps, lane 31 of warp w writes its output of column j into
+//     ring[w][j % kRing] in shared memory and lane 0 of warp w + 1 reads it.
+//     done[w] (columns written) and used[w + 1] (columns read) are published
+//     every kGroup = 8 columns by block-scope release stores and read by
+//     acquire loads (st.release.cta, ld.acquire.cta); a warp waits for them
+//     only at the head of each group of 8 steps, so the step itself neither
+//     waits nor tests. The warps drift up to kRing = 128 columns apart and a
+//     slow warp delays only the warps below it; a warp that waits sleeps
+//     (__nanosleep). There is no __syncthreads inside the column loop: the
+//     one barrier per pass makes the previous pass's bound row complete and
+//     resets the pass's counts.
+//   - The cell: the north-independent part a = max(diag + s, west - gap, 0)
+//     first (DPX __viaddmax_s32_relu), then one DPX a row carries the north
+//     chain, H = max(north - gap, a) (__viaddmax_s32); the column maximum,
+//     two rows a __vimax3_s32, and the first-best search stay off it.
+//   - The band height, chosen at launch from two instantiations of the one
+//     step: the one whose blocks keep more of the lanes' rows on an SM (the
+//     CUDA occupancy calculator), narrow 16-row bands on a tie. At 10,008
+//     rows (solve_big's windows) both keep 10,240 rows, and narrow bands give
+//     a block of 640 threads, 20 warps of at most 96 registers a thread, one
+//     block an SM: 11 waves of 132 blocks for the 1,400-lane launch, 96%
+//     full. At 4,096 rows (a long query's slab scan) wide 32-row bands give
+//     128-thread blocks, three or four an SM, whose pipeline fills and
+//     drains in half the steps.
+//   - Warps wholly past the lane's m_b do not run at all.
+// A block takes at most kRowsPerPass = 10,240 rows at once with either band
+// height; longer reads run in passes, the last band of a pass leaving its
+// row in a device-memory row (B, N + 1) that the first warp of the next pass
+// copies into a ring of its own a group ahead of its steps, in place (a read
+// of column j always precedes the write of column j).
 //
 // Design of K15/K16, the same pipeline: E runs along a row, so each thread
-// keeps its band's E column in registers beside H (32 more int32) and E never
+// keeps its band's E column in registers beside H (kBand more int32) and E never
 // leaves the thread; F runs down the rows like the north H, so the hand-off
-// between bands, the between-pass bound row and the checkpoints carry the
-// pair (H, F) -- an int2 in shared memory, (B, N + 1) int2 in device memory,
-// and a second (B, K, N) int32 plane of F beside K16's H checkpoints. The
-// extra 32 registers would spill under K11's 512-thread bound (128 registers
-// a thread), so the affine blocks take at most kMaxThreadsAffine = 384
-// threads (168 registers): 12,288 rows a pass, which still covers a 10,000-bp
-// read in one. DPX folds E and F (`__viaddmax_s32`) and H with its zero
-// (`__viaddmax_s32_relu`). Boundaries are the port's full sweep's
-// (ops/scan_dp.wavefront_affine): E = -2^30 in column 0, F = 0 above row 1,
-// and H = 0, E = F = -2^30 on rows past the lane's m_b, so every value,
-// the F checkpoints included, equals the plain sweep's.
+// between bands (two shuffles), the ring, the between-pass bound row and the
+// checkpoints carry the pair (H, F) -- an int2 in shared memory, (B, N + 1)
+// int2 in device memory, and a second (B, K, N) int32 plane of F beside K16's
+// H checkpoints. E and a = max(diag + s, E, 0) come first, off the chain;
+// since H(k - 1) = max(a(k - 1), F(k - 1)) and open > 0, F's chain is one DPX
+// a row, F(k) = max(F(k - 1) - extend, a(k - 1) - open - extend), and H(k) =
+// max(a(k), F(k)). The E column keeps the affine blocks at 640 threads (96
+// registers), and K15/K16 at narrow bands only. Boundaries are the port's
+// full sweep's (ops/scan_dp.wavefront_affine): E = -2^30 in column 0, F = 0
+// above row 1, so every value, the F checkpoints included, equals the plain
+// sweep's.
 //
-// Exactness: rows past the lane's m_b hold H = 0 and columns past n_b are not
-// swept, so every value equals the plain full-matrix sweep's. Ties: each
+// Exactness: columns past n_b are not swept, nor bands wholly past m_b. The
+// band that holds m_b sweeps its rows past m_b like the others (no masking
+// in the step); the DP runs down and right, so no row up to m_b reads them,
+// and that band's column maximum and checkpoint count only its rows up to
+// m_b (the caller's fill, H = 0 and F = -2^30, stands for the rows past it).
+// So every value equals the plain full-matrix sweep's. Ties: each
 // thread keeps the first maximum of its own cells in (j, i) order (a later
 // pass takes a strictly smaller j only), and the block reduces the threads'
 // bests by max score, then min j, then min i. An all-zero lane gives
@@ -113,7 +144,7 @@
 // shared load at row[xb[k]]; a code >= ncodes reads as code 0, the matrix
 // minimum. In the slab form a lane's
 // length is clamped to the bytes the slab holds past its offset, as K4
-// clamps it, and the between-pass bound row of lane b (queries over 16,384
+// clamps it, and the between-pass bound row of lane b (queries over 10,240
 // aa) starts at bound_off[b], an exclusive prefix sum of the lanes' n_b + 1
 // that the wrapper computes, so the row takes one int32 per slab residue
 // and lane, not the lanes times the longest entry (K22: an (H, F) int2 pair
@@ -121,12 +152,19 @@
 //
 // What bounds them on the H100: the integer ALU (about 7 operations per cell
 // for K11/K12, 12 for K13, 10 for K15/K16, 20 for K17, 5 for K19/K20, 10 for
-// K21, 8 for K22/K23, 18 for K24) and, per column and thread, one barrier
-// (the sweeps) or shuffle (the replays) and one read of the reference byte.
-// The replays at the winner re-run's shape are one warp per lane, so they
-// are latency-bound: the north chain down the 8 rows of a band. K19 on the slab is one block
-// per entry, so a block spends n_b + T - 1 steps, a barrier each, on n_b
-// columns of work: the pipeline's fill and drain weigh on short entries.
+// K21, 8 for K22/K23, 18 for K24). Per column and thread the sweeps add three
+// shuffles (affine four: the hand-off and the reference code), a ring access
+// on lanes 0 and 31 and the running-best test, and per group of 8 columns one
+// wait and one publish; the replays one shuffle and one read of the reference
+// byte. The sweep runs at the pace of its slowest warp, so work that one warp
+// does and the others do not (a masked band, a divergent branch) costs the
+// whole block: the band that holds m_b is swept unmasked for that reason.
+// The replays at the winner re-run's shape are one warp per lane, so they are
+// latency-bound: the north chain down the 8 rows of a band. K19 on the slab
+// is one block per entry: a warp starts about 40 steps after the warp above
+// it and runs n_b + 31 steps, and a warp that waits or has finished sleeps
+// (__nanosleep) and runs few instructions, so filling and draining the
+// pipeline costs the block time but few instructions.
 
 #include <cstdint>
 #include <type_traits>
@@ -134,16 +172,36 @@
 
 namespace {
 
-constexpr int kBand = 32;               // rows per thread, K11/K12/K15/K16
-constexpr int kMaxThreads = 512;        // threads per block, K11/K12
-constexpr int kMaxThreadsAffine = 384;  // threads per block, K15/K16/K22/K23
+constexpr int kNarrow = 16;             // rows per thread of a sweep: narrow bands,
+constexpr int kWide = 32;               // or wide ones (not K15/K16)
+constexpr int kRowsPerPass = 10240;     // rows a sweep's block takes at once
+constexpr int kMaxWarps = kRowsPerPass / kNarrow / 32;
+constexpr int kRing = 128;              // columns a warp's hand-off ring holds
+constexpr int kGroup = 8;               // columns a progress count covers
 constexpr int kStrip = 256;             // strip height S (checkpoints, K13)
 constexpr int kReplayBand = kStrip / 32;  // rows per thread, K13/K17
 constexpr int kNeg = -(1 << 30);        // E and F where no gap run can reach
+constexpr unsigned kAll = 0xffffffffu;
+static_assert(kStrip % kWide == 0 && kWide % kNarrow == 0 && kNarrow % 2 == 0,
+              "bands tile the strips, in row pairs");
+static_assert(kRing % kGroup == 0 && (kRing & (kRing - 1)) == 0 &&
+                  (kGroup & (kGroup - 1)) == 0, "the ring holds whole groups");
 
-// The thread cap of a sweep: the affine forms keep E beside H in registers.
-__host__ __device__ constexpr int max_threads(bool affine) {
-  return affine ? kMaxThreadsAffine : kMaxThreads;
+// The thread cap of a sweep with `rows`-row bands: 640 threads (96
+// registers a thread) or 320 (168).
+__host__ __device__ constexpr int max_threads(int rows) { return kRowsPerPass / rows; }
+
+// Wide bands are built for every form but the uniform affine one (K15/K16),
+// whose 32-row band needs more than the 168 registers a 320-thread block
+// leaves a thread.
+__host__ __device__ constexpr bool has_wide(bool affine, bool profile) {
+  return !affine || profile;
+}
+
+// Bytes of the (ncodes, ncodes) int32 table at the head of a sweep's dynamic
+// shared memory, rounded to 16 so that the ring after it is aligned.
+__host__ __device__ inline size_t table_bytes(int ncodes) {
+  return ((size_t)ncodes * ncodes * sizeof(int32_t) + 15) / 16 * 16;
 }
 
 // (v1, j1, i1) before (v2, j2, i2): higher score, then smaller j, then i.
@@ -155,7 +213,7 @@ __device__ __forceinline__ bool better(int v1, int j1, int i1, int v2, int j2,
 // The score of cell (x byte or code xc, y byte or code yc): uniform
 // match/mismatch, or (kProfile) the word xc of the column's table row.
 template <bool kProfile>
-__device__ __forceinline__ int cell_score(uint8_t xc, uint8_t yc, const int32_t* row,
+__device__ __forceinline__ int cell_score(int xc, int yc, const int32_t* row,
                                           int match, int mismatch) {
   if constexpr (kProfile) {
     return row[xc];
@@ -180,63 +238,116 @@ __device__ __forceinline__ void load_table(int32_t* tab, const int32_t* __restri
 
 // One column of a band: H(i, j) for its rows, north-west `nw` = H(row0, j-1)
 // and north `north` = H(row0, j) (1-based row0 = the row above the band);
-// h holds H(., j - 1) on entry and H(., j) on return. Rows k >= nvalid are
-// outside the lane's matrix and hold 0 (kFull: all rows valid). The cell
-// score is cell_score<kProfile>(xb[k], yc, row, ...).
-template <bool kFull, bool kProfile, int kRows>
+// h holds H(., j - 1) on entry and H(., j) on return. The cell score is
+// cell_score<kProfile>(xb[k], yc, row, ...). Returns the column's maximum
+// over the band. Rows past the lane's m_b are swept like the others: no row
+// above them reads them (see the kernel).
+template <bool kProfile, int kRows>
 __device__ __forceinline__ int band_column(int (&h)[kRows],
                                            const uint8_t (&xb)[kRows],
-                                           uint8_t yc, const int32_t* row,
+                                           int yc, const int32_t* row,
                                            int match, int mismatch,
-                                           int gap, int nvalid, int nw,
-                                           int north) {
+                                           int gap, int nw, int north) {
+  // The north-independent part first: a = max(diag + s, west - gap, 0).
+  int a[kRows];
   int diag = nw;
-  int colmax = 0;
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
-    const int west = h[k];
-    int v = max(max(diag + cell_score<kProfile>(xb[k], yc, row, match, mismatch),
-                    max(west, north) - gap), 0);
-    if (!kFull) v = k < nvalid ? v : 0;
-    diag = west;
-    h[k] = v;
-    north = v;
-    colmax = max(colmax, v);
+    a[k] = __viaddmax_s32_relu(diag, cell_score<kProfile>(xb[k], yc, row, match, mismatch),
+                               h[k] - gap);
+    diag = h[k];
   }
+  // The north chain, one DPX a row: H = max(north - gap, a).
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    h[k] = __viaddmax_s32(north, -gap, a[k]);
+    north = h[k];
+  }
+  int colmax = 0;
+#pragma unroll
+  for (int k = 0; k < kRows; k += 2) colmax = __vimax3_s32(colmax, h[k], h[k + 1]);
   return colmax;
 }
 
 // The affine form of band_column: h and e hold H(., j - 1) and E(., j - 1)
 // on entry and H(., j), E(., j) on return; f is F(row0, j) on entry and F of
-// the band's last row on return. Rows k >= nvalid hold H = 0, E = F = kNeg.
-template <bool kFull, bool kProfile, int kRows>
+// the band's last row on return.
+template <bool kProfile, int kRows>
 __device__ __forceinline__ int band_column_affine(int (&h)[kRows], int (&e)[kRows],
                                                   const uint8_t (&xb)[kRows],
-                                                  uint8_t yc, const int32_t* row,
+                                                  int yc, const int32_t* row,
                                                   int match, int mismatch,
-                                                  int gap_open, int gap, int nvalid,
-                                                  int nw, int north, int& f) {
+                                                  int gap_open, int gap, int nw, int north,
+                                                  int& f) {
+  // Off the chain: E = max(west - open, E_west) - extend, a = max(diag + s, E, 0).
+  int a[kRows];
   int diag = nw;
-  int colmax = 0;
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     const int west = h[k];
-    int ek = __viaddmax_s32(west, -gap_open, e[k]) - gap;
-    f = __viaddmax_s32(north, -gap_open, f) - gap;
-    int v = __viaddmax_s32_relu(diag, cell_score<kProfile>(xb[k], yc, row, match, mismatch),
-                                max(ek, f));
-    if (!kFull && k >= nvalid) {
-      v = 0;
-      ek = kNeg;
-      f = kNeg;
-    }
+    e[k] = __viaddmax_s32(west, -gap_open, e[k]) - gap;
+    a[k] = __viaddmax_s32_relu(diag, cell_score<kProfile>(xb[k], yc, row, match, mismatch),
+                               e[k]);
     diag = west;
-    h[k] = v;
-    e[k] = ek;
-    north = v;
-    colmax = max(colmax, v);
   }
+  // The F chain, one DPX a row: with H(k - 1) = max(a(k - 1), F(k - 1)) and
+  // open > 0, F(k) = max(F(k - 1) - extend, a(k - 1) - open - extend).
+  const int open_extend = gap_open + gap;
+  f = __viaddmax_s32(north, -gap_open, f) - gap;
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    if (k > 0) f = __viaddmax_s32(f, -gap, a[k - 1] - open_extend);
+    h[k] = max(a[k], f);
+  }
+  int colmax = 0;
+#pragma unroll
+  for (int k = 0; k < kRows; k += 2) colmax = __vimax3_s32(colmax, h[k], h[k + 1]);
   return colmax;
+}
+
+// The hand-off between warps: a count in shared memory, read with a
+// block-scope acquire load and published with a block-scope release store
+// (32-bit shared addresses, so the counts cost no 64-bit registers).
+__device__ __forceinline__ int load_acquire(const int* count) {
+  int v;
+  asm volatile("ld.acquire.cta.shared.b32 %0, [%1];"
+               : "=r"(v)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(count)))
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void publish_count(int* count, int value) {
+  asm volatile("st.release.cta.shared.b32 [%0], %1;"
+               :
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(count))), "r"(value)
+               : "memory");
+}
+
+// Wait until a count published by another warp of the block reaches `need`.
+// A count that has not come after 2^28 polls (over 8 s) is a fault in the
+// pipeline: the kernel traps rather than hang the card.
+__device__ __forceinline__ void wait_count(const int* count, int need) {
+  for (unsigned polls = 0; load_acquire(count) < need; ++polls) {
+    if (polls >= (1u << 28)) __trap();
+    __nanosleep(32);
+  }
+}
+
+__device__ __forceinline__ int shfl_up1(int v) { return __shfl_up_sync(kAll, v, 1); }
+__device__ __forceinline__ int2 shfl_up1(int2 v) {
+  return make_int2(__shfl_up_sync(kAll, v.x, 1), __shfl_up_sync(kAll, v.y, 1));
+}
+__device__ __forceinline__ int shfl_from(int v, int src) { return __shfl_sync(kAll, v, src); }
+__device__ __forceinline__ int2 shfl_from(int2 v, int src) {
+  return make_int2(__shfl_sync(kAll, v.x, src), __shfl_sync(kAll, v.y, src));
+}
+
+// Column k + 1's reference byte, or (kProfile) its clamped code.
+template <bool kProfile>
+__device__ __forceinline__ int y_code(const uint8_t* yl, int k, int ncodes) {
+  const uint8_t c = yl[k];
+  return kProfile ? clamp_code(c, ncodes) : c;
 }
 
 // K11 (kCkpt = false) and K12 (kCkpt = true), with kAffine K15 and K16,
@@ -251,9 +362,11 @@ __device__ __forceinline__ int band_column_affine(int (&h)[kRows], int (&e)[kRow
 // H((c + 1) * kStrip, j) (1-based rows); fck the same shape, filled with
 // kNeg by the caller, fck[b][c][j - 1] = F((c + 1) * kStrip, j) (K16 and
 // K23 only). table (ncodes, ncodes) int32 over compact codes (kProfile
-// only; dynamic shared memory of ncodes^2 int32).
-template <bool kCkpt, bool kAffine, bool kProfile>
-__global__ void __launch_bounds__(max_threads(kAffine))
+// only). kBand: rows per thread, kNarrow or kWide. Dynamic shared memory:
+// the table (table_bytes(ncodes), kProfile only), then each warp's ring of
+// kRing hand-off words and one more for the bound row.
+template <bool kCkpt, bool kAffine, bool kProfile, int kBand>
+__global__ void __launch_bounds__(max_threads(kBand))
 strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
                    const uint8_t* __restrict__ y, const int64_t* __restrict__ y_off,
                    long long y_len, const int32_t* __restrict__ m,
@@ -265,14 +378,25 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
                    int32_t* __restrict__ score, int32_t* __restrict__ best_i,
                    int32_t* __restrict__ best_j) {
   using Carry = std::conditional_t<kAffine, int2, int>;  // hand-off: H, or (H, F)
-  constexpr int kThreads = max_threads(kAffine);
-  __shared__ Carry xfer[2][kThreads];
-  __shared__ int red[3][kThreads / 32];
-  extern __shared__ int32_t tab[];  // kProfile: tab[yc * ncodes + xc]
+  // Per pass parity: done[.][w] counts the columns warp w has handed to warp
+  // w + 1, used[.][w] those warp w has taken from warp w - 1.
+  __shared__ int done[2][kMaxWarps];
+  __shared__ int used[2][kMaxWarps];
+  __shared__ int red[3][kMaxWarps];
+  extern __shared__ __align__(16) unsigned char dyn[];
+  int32_t* const tab = reinterpret_cast<int32_t*>(dyn);  // kProfile: tab[yc * ncodes + xc]
+  Carry* const ring = reinterpret_cast<Carry*>(dyn + (kProfile ? table_bytes(ncodes) : 0));
   const int b = blockIdx.x;
   const int t = threadIdx.x;
   const int T = blockDim.x;
+  const int lane = t & 31;
+  const int w = t >> 5;
+  const int W = T >> 5;
   if constexpr (kProfile) load_table(tab, table, ncodes);
+  if (lane == 0) {
+    done[0][w] = 0;
+    used[0][w] = 0;
+  }
   const int mb = min(m[b], M);
   int nb = min(n[b], N);
   long long off = (long long)b * N;
@@ -291,7 +415,25 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
                     : nullptr;
   int best = 0, bi = 0, bj = 0;
   for (int p = 0; p < passes; ++p) {
-    const int row0 = (p * T + t) * kBand;  // 0-based first row of the band
+    // The previous pass is over (its bound row complete), this pass's counts
+    // are 0 and the table is loaded.
+    __syncthreads();
+    if (lane == 0) {  // the next pass's counts, idle in this pass
+      done[(p + 1) & 1][w] = 0;
+      used[(p + 1) & 1][w] = 0;
+    }
+    const int wrow0 = (p * T + (w << 5)) * kBand;  // 0-based first row of the warp
+    if (nb == 0 || wrow0 >= mb) continue;         // no row of the lane's matrix here
+    const int q = p & 1;  // this pass's counts
+    const bool takes = w > 0;  // row0's north from warp w - 1's ring
+    const bool feeds = w + 1 < W && wrow0 + 32 * kBand < mb;  // warp w + 1 has rows
+    const bool reads_bound = w == 0 && p > 0;  // row0's north from the bound row
+    const bool writes_bound = w == W - 1 && lane == 31 && p + 1 < passes &&
+                              (p + 1) * T * kBand < mb;
+    // Rings in `ring`: warp w - 1's, or for warp 0 the bound row's (index W),
+    // which warp 0 fills from device memory a group at a time; this warp's.
+    const int ring_in = (takes ? w - 1 : W) * kRing;
+    const int row0 = wrow0 + lane * kBand;  // 0-based first row of the band
     const int nvalid = min(max(mb - row0, 0), kBand);
     uint8_t xb[kBand];
     int h[kBand];
@@ -303,98 +445,140 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
       h[k] = 0;
       e[k] = kNeg;
     }
-    // The band's last row closes strip c when (row0 + kBand) % kStrip == 0.
+    // The band's last row closes strip c when (row0 + kBand) % kStrip == 0;
+    // past the lane's m_b the caller's fill (H = 0, F = kNeg) stands.
     const int c = (row0 + kBand) / kStrip - 1;
-    const bool writes_ck = kCkpt && (row0 + kBand) % kStrip == 0 && c < nck;
-    const bool writes_bound = p + 1 < passes && t == T - 1;
-    int nw = 0;  // H(row0, j - 1): the previous column's north input
-    __syncthreads();  // the previous pass's bound row (and the table) is complete
-    for (int s = 0; s < nb + T - 1; ++s) {
-      const int j = s - t + 1;
-      if (j >= 1 && j <= nb) {
-        // Row 0's north: H = 0 and (affine) F = 0 above the first pass.
-        const Carry in = t > 0 ? xfer[(s - 1) & 1][t - 1] : (p > 0 ? bl[j] : Carry{});
-        uint8_t yc = yl[j - 1];
-        const int32_t* row = nullptr;  // kProfile: the column's table row
-        if constexpr (kProfile) {
-          yc = clamp_code(yc, ncodes);
-          row = tab + yc * ncodes;
-        }
-        int colmax = 0;
-        int north;
-        Carry last;
-        if constexpr (kAffine) {
-          north = in.x;
-          int f = in.y;
-          if (nvalid == kBand) {
-            colmax = band_column_affine<true, kProfile>(h, e, xb, yc, row, match, mismatch,
-                                                        gap_open, gap, kBand, nw, north, f);
-          } else if (nvalid > 0) {
-            colmax = band_column_affine<false, kProfile>(h, e, xb, yc, row, match, mismatch,
-                                                         gap_open, gap, nvalid, nw, north, f);
-          } else {
-            f = kNeg;  // a band wholly past m_b
-          }
-          last = make_int2(h[kBand - 1], f);
-        } else {
-          north = in;
-          if (nvalid == kBand) {
-            colmax = band_column<true, kProfile>(h, xb, yc, row, match, mismatch, gap, kBand,
-                                                 nw, north);
-          } else if (nvalid > 0) {
-            colmax = band_column<false, kProfile>(h, xb, yc, row, match, mismatch, gap,
-                                                  nvalid, nw, north);
-          }
-          last = h[kBand - 1];
-        }
-        if (colmax > best || (colmax == best && colmax > 0 && j < bj)) {
-          int kk = 0;
-#pragma unroll
-          for (int k = kBand - 1; k >= 0; --k) kk = h[k] == colmax ? k : kk;
-          best = colmax;
-          bj = j;
-          bi = row0 + kk + 1;
-        }
-        xfer[s & 1][t] = last;
-        if (writes_ck) {
-          const size_t at = ((size_t)b * nck + c) * N + (j - 1);
-          if constexpr (kAffine) {
-            ck[at] = last.x;
-            fck[at] = last.y;
-          } else {
-            ck[at] = last;
-          }
-        }
-        if (writes_bound) bl[j] = last;
-        nw = north;
+    const bool writes_ck = kCkpt && (row0 + kBand) % kStrip == 0 && c < nck &&
+                           nvalid == kBand;
+    int nw = 0;        // H(row0, j - 1): the previous column's north input
+    int flast = kNeg;  // affine: F of the band's last row in the column it finished last
+    int yc = 0;        // the code of this band's column
+    // The reference 32 columns a word, one a lane, loaded one word ahead:
+    // lane l of word k holds column 32k + l + 1's code.
+    int ycur = 0;
+    int ynext = lane < nb ? y_code<kProfile>(yl, lane, ncodes) : 0;
+    // Steps in groups of kGroup: lane 0 takes columns s0 + 1 .. s0 + kGroup of
+    // a group at step s0, lane 31 hands on columns s0 - 30 .. s0 - 23.
+    for (int s0 = 0; s0 < nb + 31; s0 += kGroup) {
+      if ((s0 & 31) == 0) {
+        ycur = ynext;
+        const int k = s0 + 32 + lane;
+        ynext = k < nb ? y_code<kProfile>(yl, k, ncodes) : 0;
       }
-      __syncthreads();
+      // Warp-uniform waits at the group's head: for warp w - 1's output of
+      // the columns lane 0 takes, and for warp w + 1 to have taken the
+      // columns whose ring slots lane 31 refills.
+      if (takes && s0 < nb) wait_count(&done[q][w - 1], min(s0 + kGroup, nb));
+      if (reads_bound) {
+        if (lane < kGroup && s0 + lane < nb) {
+          ring[ring_in + ((s0 + lane + 1) & (kRing - 1))] = bl[s0 + lane + 1];
+        }
+        __syncwarp();
+      }
+      if (feeds && s0 - 23 >= 1) wait_count(&used[q][w + 1], min(s0 - 23, nb) - kRing);
+#pragma unroll 1
+      for (int u = 0; u < kGroup; ++u) {
+        const int s = s0 + u;
+        const int j0 = s + 1;  // lane 0's column
+        // The band's last-row output of the column it finished last.
+        Carry in;
+        if constexpr (kAffine) {
+          in = shfl_up1(make_int2(h[kBand - 1], flast));
+        } else {
+          in = shfl_up1(h[kBand - 1]);
+        }
+        yc = shfl_up1(yc);
+        const int yfirst = shfl_from(ycur, s & 31);
+        if (lane == 0) {
+          yc = yfirst;
+          // Row 0's north: H = 0 and (affine) F = 0 above the first pass.
+          in = (takes || reads_bound) && j0 <= nb ? ring[ring_in + (j0 & (kRing - 1))]
+                                                  : Carry{};
+        }
+        const int j = s - lane + 1;
+        if (j >= 1 && j <= nb) {
+          const int32_t* row = nullptr;  // kProfile: the column's table row
+          if constexpr (kProfile) row = tab + yc * ncodes;
+          int colmax = 0;
+          int north;
+          Carry last;
+          if constexpr (kAffine) {
+            north = in.x;
+            int f = in.y;
+            if (nvalid > 0) {
+              colmax = band_column_affine<kProfile>(h, e, xb, yc, row, match, mismatch, gap_open,
+                                                    gap, nw, north, f);
+            } else {
+              f = kNeg;  // a band wholly past m_b
+            }
+            last = make_int2(h[kBand - 1], f);
+          } else {
+            north = in;
+            if (nvalid > 0) {
+              colmax = band_column<kProfile>(h, xb, yc, row, match, mismatch, gap, nw, north);
+            }
+            last = h[kBand - 1];
+          }
+          if (colmax > best || (colmax == best && colmax > 0 && j < bj)) {
+            if (nvalid < kBand) {  // the band holding m_b: its rows up to m_b only
+              colmax = 0;
+#pragma unroll
+              for (int k = 0; k < kBand; ++k) colmax = k < nvalid ? max(colmax, h[k]) : colmax;
+            }
+            if (colmax > best || (colmax == best && colmax > 0 && j < bj)) {
+              int kk = 0;
+#pragma unroll
+              for (int k = kBand - 1; k >= 0; --k) kk = h[k] == colmax ? k : kk;
+              best = colmax;
+              bj = j;
+              bi = row0 + kk + 1;
+            }
+          }
+          if constexpr (kAffine) flast = last.y;
+          if (feeds && lane == 31) ring[w * kRing + (j & (kRing - 1))] = last;
+          if (writes_ck) {
+            const size_t at = ((size_t)blockIdx.x * nck + c) * N + (j - 1);
+            if constexpr (kAffine) {
+              ck[at] = last.x;
+              fck[at] = last.y;
+            } else {
+              ck[at] = last;
+            }
+          }
+          if (writes_bound) bl[j] = last;
+          nw = north;
+        }
+      }
+      // Publish the group's columns: those lane 0 took, those lane 31 handed on.
+      if (takes && lane == 0 && s0 < nb) publish_count(&used[q][w], min(s0 + kGroup, nb));
+      if (feeds && lane == 31 && s0 - 23 >= 1) publish_count(&done[q][w], min(s0 - 23, nb));
     }
+    if (feeds && lane == 31) publish_count(&done[q][w], nb);  // the last columns
   }
   // Block reduction of (best, bj, bi): a warp by shuffles, then the warps.
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const int v2 = __shfl_down_sync(0xffffffffu, best, off);
-    const int j2 = __shfl_down_sync(0xffffffffu, bj, off);
-    const int i2 = __shfl_down_sync(0xffffffffu, bi, off);
+    const int v2 = __shfl_down_sync(kAll, best, off);
+    const int j2 = __shfl_down_sync(kAll, bj, off);
+    const int i2 = __shfl_down_sync(kAll, bi, off);
     if (better(v2, j2, i2, best, bj, bi)) {
       best = v2;
       bj = j2;
       bi = i2;
     }
   }
-  if ((t & 31) == 0) {
-    red[0][t >> 5] = best;
-    red[1][t >> 5] = bj;
-    red[2][t >> 5] = bi;
+  if (lane == 0) {
+    red[0][w] = best;
+    red[1][w] = bj;
+    red[2][w] = bi;
   }
   __syncthreads();
   if (t == 0) {
-    for (int w = 1; w < (T + 31) / 32; ++w) {
-      if (better(red[0][w], red[1][w], red[2][w], best, bj, bi)) {
-        best = red[0][w];
-        bj = red[1][w];
-        bi = red[2][w];
+    for (int v = 1; v < W; ++v) {
+      if (better(red[0][v], red[1][v], red[2][v], best, bj, bi)) {
+        best = red[0][v];
+        bj = red[1][v];
+        bi = red[2][v];
       }
     }
     score[b] = best;
@@ -510,6 +694,68 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
   }
 }
 
+using SweepKernel = decltype(&strip_sweep_kernel<false, false, false, kNarrow>);
+
+// The sweep kernel of a form with kBand = rows: [kCkpt][kAffine][kProfile];
+// null where has_wide is false.
+template <int kRows>
+SweepKernel sweep_kernel(bool ckpt, bool affine, bool profile) {
+  static const SweepKernel kernels[2][2][2] = {
+      {{&strip_sweep_kernel<false, false, false, kRows>,
+        &strip_sweep_kernel<false, false, true, kRows>},
+       {kRows == kNarrow ? &strip_sweep_kernel<false, true, false, kNarrow> : nullptr,
+        &strip_sweep_kernel<false, true, true, kRows>}},
+      {{&strip_sweep_kernel<true, false, false, kRows>,
+        &strip_sweep_kernel<true, false, true, kRows>},
+       {kRows == kNarrow ? &strip_sweep_kernel<true, true, false, kNarrow> : nullptr,
+        &strip_sweep_kernel<true, true, true, kRows>}}};
+  return kernels[ckpt][affine][profile];
+}
+
+// A sweep's block shape for M rows with `rows`-row bands: a thread a band,
+// whole warps, at most max_threads(rows) a block, passes of that many bands
+// (both band heights give the same passes); dynamic shared memory for the
+// table (profile forms), a ring per warp and one for the bound row; the
+// blocks an SM holds (the CUDA occupancy calculator).
+struct SweepShape {
+  SweepKernel kernel;
+  int rows;
+  int threads;
+  int passes;
+  size_t smem;
+  int blocks;
+};
+
+SweepShape shape_with(int rows, int M, bool ckpt, bool affine, bool profile, int ncodes) {
+  const int bands = (M + rows - 1) / rows;
+  const int threads = min(max_threads(rows), max(32, (bands + 31) / 32 * 32));
+  const size_t carry = affine ? sizeof(int2) : sizeof(int);
+  SweepShape shape{rows == kNarrow ? sweep_kernel<kNarrow>(ckpt, affine, profile)
+                                   : sweep_kernel<kWide>(ckpt, affine, profile),
+                   rows, threads, (bands + threads - 1) / threads,
+                   (profile ? table_bytes(ncodes) : 0) + (size_t)(threads / 32 + 1) * kRing * carry,
+                   0};
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&shape.blocks, shape.kernel, threads,
+                                                shape.smem);
+  return shape;
+}
+
+// The band height of a launch: the one whose blocks keep more rows of the
+// lanes on an SM at once, narrow bands (twice the warps) on a tie. At 10,008
+// rows both keep 10,240 and narrow bands run 20 warps an SM against 10; at
+// 4,096 (a long query's slab scan) or 2,304 rows the wide bands' blocks are
+// small enough to fit more rows, and spend half the steps filling and
+// draining the pipeline.
+SweepShape sweep_shape(int M, bool ckpt, bool affine, bool profile, int ncodes) {
+  const SweepShape narrow = shape_with(kNarrow, M, ckpt, affine, profile, ncodes);
+  if (!has_wide(affine, profile)) return narrow;
+  const SweepShape wide = shape_with(kWide, M, ckpt, affine, profile, ncodes);
+  return (long long)wide.blocks * wide.threads * kWide >
+                 (long long)narrow.blocks * narrow.threads * kNarrow
+             ? wide
+             : narrow;
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes. Device pointers to contiguous
@@ -519,13 +765,13 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
 // from y_off[b] (int64; N is then only the bound on n_b); m, n (B,) int32;
 // bound scratch -- (B, N + 1) int32, or (B, N + 1, 2) int32 when gap_open >
 // 0, or lane b's row at bound_off[b] (int64) when bound_off is given -- or
-// null when one pass covers M (M <= 512 x kBand = 16,384 rows, affine 384 x
-// kBand = 12,288: ROWS_PER_PASS and ROWS_PER_PASS_AFFINE in
-// ops/strips_cuda.py); ck (B, nck, N) int32 zero-filled or null
-// (K11/K15/K19/K22); fck the same shape filled with -2^30, or null unless
-// K16/K23; score/best_i/best_j (B,) int32. gap_open > 0 selects the affine
-// kernels, a table ((ncodes, ncodes) int32, compact codes in x and y) the
-// profile ones, both K22/K23. Returns cudaGetLastError() after the launch.
+// null when one pass covers M (M <= kRowsPerPass = 10,240 rows:
+// ROWS_PER_PASS and ROWS_PER_PASS_AFFINE in ops/strips_cuda.py); ck (B, nck,
+// N) int32 zero-filled or null (K11/K15/K19/K22); fck the same shape filled
+// with -2^30, or null unless K16/K23; score/best_i/best_j (B,) int32.
+// gap_open > 0 selects the affine kernels, a table ((ncodes, ncodes) int32,
+// compact codes in x and y) the profile ones, both K22/K23; sweep_shape the
+// band height. Returns cudaGetLastError() after the launch.
 extern "C" int pgs_strip_sweep(const void* x, long long x_lane, const void* y,
                                const void* y_off, long long y_len, const void* m,
                                const void* n, int M, int N, int B, const void* table,
@@ -535,26 +781,31 @@ extern "C" int pgs_strip_sweep(const void* x, long long x_lane, const void* y,
                                void* best_j, void* stream) {
   const bool affine = gap_open > 0;
   if (B > 0) {
-    const int bands = (M + kBand - 1) / kBand;
-    const int threads = min(max_threads(affine), max(32, (bands + 31) / 32 * 32));
-    const int passes = (bands + threads - 1) / threads;
-    const size_t smem = table ? (size_t)ncodes * ncodes * sizeof(int32_t) : 0;
-    // [kCkpt][kAffine][kProfile]
-    static const decltype(&strip_sweep_kernel<false, false, false>) kernels[2][2][2] = {
-        {{&strip_sweep_kernel<false, false, false>, &strip_sweep_kernel<false, false, true>},
-         {&strip_sweep_kernel<false, true, false>, &strip_sweep_kernel<false, true, true>}},
-        {{&strip_sweep_kernel<true, false, false>, &strip_sweep_kernel<true, false, true>},
-         {&strip_sweep_kernel<true, true, false>, &strip_sweep_kernel<true, true, true>}}};
-    auto kernel = kernels[ck != nullptr][affine][table != nullptr];
-    kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+    const SweepShape shape = sweep_shape(M, ck != nullptr, affine, table != nullptr, ncodes);
+    shape.kernel<<<B, shape.threads, shape.smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(x), x_lane, static_cast<const uint8_t*>(y),
         static_cast<const int64_t*>(y_off), y_len, static_cast<const int32_t*>(m),
         static_cast<const int32_t*>(n), M, N, static_cast<const int32_t*>(table), ncodes,
-        match, mismatch, gap_open, gap, passes, bound,
+        match, mismatch, gap_open, gap, shape.passes, bound,
         static_cast<const int64_t*>(bound_off), static_cast<int32_t*>(ck),
         static_cast<int32_t*>(fck), nck, static_cast<int32_t*>(score),
         static_cast<int32_t*>(best_i), static_cast<int32_t*>(best_j));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pgs_strip_sweep_occupancy: the launch pgs_strip_sweep makes for M rows
+// (ckpt, affine != 0 as its ck and gap_open select; ncodes > 0 a table of
+// that size) on the current device: out[0] threads a block, out[1] passes,
+// out[2] the blocks an SM holds at once, out[3] rows a thread. Returns
+// cudaGetLastError().
+extern "C" int pgs_strip_sweep_occupancy(int M, int ckpt, int affine, int ncodes, void* out) {
+  const SweepShape shape = sweep_shape(M, ckpt != 0, affine != 0, ncodes > 0, ncodes);
+  int* o = static_cast<int*>(out);
+  o[0] = shape.threads;
+  o[1] = shape.passes;
+  o[2] = shape.blocks;
+  o[3] = shape.rows;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -44,6 +44,8 @@ _SIGNATURES = {
     # best_j, stream
     "pgs_strip_sweep": [_P, _L, _P, _P, _L, _P, _P] + [_I] * 3 + [_P] + [_I] * 5
     + [_P] * 4 + [_I] + [_P] * 4,
+    # M, ckpt, affine, ncodes, out (int32 threads, passes, blocks per SM, rows)
+    "pgs_strip_sweep_occupancy": [_I] * 4 + [_P],
     # x, y, m, n, M, N, B, base, rowin, frowin, ld_row, table, ncodes, match,
     # mismatch, gap_open, gap, moves, stream
     "pgs_strip_moves": [_P] * 4 + [_I] * 4 + [_P, _P, _L, _P] + [_I] * 5 + [_P] * 2,

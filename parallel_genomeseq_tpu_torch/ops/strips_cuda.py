@@ -55,6 +55,8 @@ launches only.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -76,11 +78,12 @@ from .scan_dp import (
 )
 from .wavefront_cuda import _check_inputs
 
-# Rows one block sweeps in a pass (kMaxThreads x kBand in csrc/strips.cu;
-# kMaxThreadsAffine x kBand for K15/K16/K22/K23); longer reads carry a
-# boundary row between passes.
-ROWS_PER_PASS = 512 * 32
-ROWS_PER_PASS_AFFINE = 384 * 32
+# Rows one block sweeps in a pass (kRowsPerPass in csrc/strips.cu), under
+# linear and affine gaps alike; longer reads carry a boundary row between
+# passes. A warp sweeps 32 bands of 16 or 32 rows and hands its last row to
+# the next warp through a ring of SWEEP_RING columns (kRing).
+ROWS_PER_PASS = ROWS_PER_PASS_AFFINE = 10_240
+SWEEP_RING = 128
 _NO_WIDTH = 2**31 - 1  # a slab has no padded width; its length bounds each lane
 
 
@@ -131,6 +134,20 @@ def _sweep(xs, ys, m, n, *, gap, ckpt, match=0, mismatch=0, gap_open=0, table=No
         )
     _build.check(err, "pgs_strip_sweep")
     return tuple(t for t in (score, bi, bj, ck, fck) if t is not None)
+
+
+def sweep_occupancy(M: int, *, affine: bool = False, ckpt: bool = False, ncodes: int = 0):
+    """(threads a block, passes, resident blocks per SM, rows a thread) of
+    the sweep launch for M rows on the current CUDA device: K11 (K12 with
+    ``ckpt``), affine K15/K16, with ``ncodes`` > 0 (a table of that size)
+    K19/K20, K22/K23. Read by the CUDA occupancy calculator, as the launch
+    picks its band height; launches nothing."""
+    lib = _build.load()
+    out = (ctypes.c_int * 4)()
+    _build.check(lib.pgs_strip_sweep_occupancy(int(M), int(ckpt), int(affine), int(ncodes),
+                                               ctypes.addressof(out)),
+                 "pgs_strip_sweep_occupancy")
+    return tuple(out)
 
 
 def _check_gap_open(gap_open):

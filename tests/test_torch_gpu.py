@@ -388,7 +388,7 @@ def test_k11_and_k12_match_plain(cuda, seed):
 
 
 def test_k11_beyond_one_pass_matches_plain(cuda):
-    """A read longer than one block's pass (16,384 rows): the bound row
+    """A read longer than one block's pass (10,240 rows): the bound row
     carries between passes, and the argmax ties resolve across passes."""
     from parallel_genomeseq_tpu_torch.ops import strips_cuda
 
@@ -509,7 +509,7 @@ def test_k15_and_k16_match_plain(cuda, seed):
 
 
 def test_k15_beyond_one_pass_matches_plain(cuda):
-    """A read longer than one affine block's pass (12,288 rows): the (H, F)
+    """A read longer than one affine block's pass (10,240 rows): the (H, F)
     bound row carries between passes -- lane 1's insertion puts an F run
     across the pass edge -- and the argmax ties resolve across passes."""
     from parallel_genomeseq_tpu_torch.ops import strips_cuda
@@ -657,7 +657,7 @@ def test_k19_per_lane_matches_plain(cuda):
 
 
 def test_k19_beyond_one_pass_matches_plain(cuda):
-    """A 16,500-aa query on a small slab: past one block's pass (16,384
+    """A 16,500-aa query on a small slab: past one block's pass (10,240
     rows) the lanes' bound rows, back to back in the slab form, carry H
     between passes; a segment planted across the pass edge is found."""
     from parallel_genomeseq_tpu_torch.ops import strips_cuda
@@ -797,7 +797,7 @@ def test_k22_per_lane_matches_plain(cuda):
 
 def test_k22_beyond_one_pass_matches_plain(cuda):
     """A 12,800-aa query on a small slab: past one affine block's pass
-    (12,288 rows) the lanes' (H, F) bound rows, back to back in the slab
+    (10,240 rows) the lanes' (H, F) bound rows, back to back in the slab
     form, carry between passes; a segment planted across the pass edge with
     an 8-residue insertion (an F run over the edge) is found."""
     from parallel_genomeseq_tpu_torch.ops import strips_cuda
@@ -930,3 +930,155 @@ def test_solve_big_matrix_affine_cuda_matches_cpu(cuda):
         assert launched == ([True] * 4 if extra else [True, False, False, False]) + [False] * 6
         fields = lambda r: (r.score, r.pos, r.max_i, r.max_j, r.consensus_x, r.consensus_y)
         assert [fields(r) for r in gpu.results] == [fields(r) for r in cpu.results]
+
+
+# The sweeps' hand-offs (csrc/strips.cu): a band's last row goes down its
+# warp by shuffle and to the next warp through a ring of SWEEP_RING columns;
+# the forms of the one sweep kernel, and the cases that stress those edges.
+# Short reads take 32-row bands (a warp every 1,024 rows) in every form but
+# the uniform affine one, 10,008 rows and longer take 16-row bands (a warp
+# every 512).
+SWEEP_FORMS = ("uniform", "uniform_affine", "profile", "profile_affine", "slab", "slab_affine")
+HANDOFF_CASES = ("rows_1023", "rows_1024", "rows_1025", "rows_10008", "partial_last_warp",
+                 "short_n", "m_zero", "past_m_b", "tie_across_warps", "two_passes")
+
+
+def handoff_lanes(case, alphabet, rows_per_pass, ring, seed=0):
+    """Letters (indices below ``alphabet``) of one hand-off case: xs (B, M),
+    ys (B, N) uint8, m, n (B,) int32 numpy arrays, and {lane: (i, j)} where
+    the case pins the best cell. Each lane with rows and columns holds a
+    mutated stretch of its y across a warp edge (row 512) or the pass edge.
+      rows_1023/1024/1025: a band crossing a warp edge of 32-row bands (31 x
+        32 + 31 rows and so on); rows_10008: solve_big's window height,
+        16-row bands, the stretch across row 512 (a warp edge);
+      partial_last_warp: 1,700 rows, the last warp partly past m_b;
+      short_n: n_b of 1, 2, ring - 1, ring, ring + 1 and 0;
+      m_zero: m_b = 0 beside n_b = 0 and m_b = 1;
+      past_m_b: x is y shifted by 60 letters on every row, past m_b too (the
+        band holding m_b sweeps rows that would score higher), standard
+        residues under a table: the best cell is (m_b, m_b + 60);
+      tie_across_warps: y (120 letters, standard residues under a table) at
+        rows 281-400 (warp 0) and 1,281-1,400 (warp 2) of lane 0: both
+        copies reach the most column 120 can hold, the smaller i wins; lane
+        1 keeps only the second copy;
+      two_passes: one pass of rows plus 300, the stretch across the edge."""
+    rng = np.random.default_rng(seed)
+    letters = lambda *shape: rng.integers(0, alphabet, shape).astype(np.uint8)
+    M, N = 900, 300
+    if case.startswith("rows_"):
+        M = int(case[len("rows_"):])
+        m, n = [M, M, M - 1, 700], [N, 250, N, 200]
+        if M > 2048:
+            m, n = [M, M - 8, M - 18], [N, 250, N]
+    elif case == "partial_last_warp":
+        M = 1700
+        m, n = [M, 1650, 1540, 1100], [N, 280, N, 150]
+    elif case == "short_n":
+        M = 700
+        m, n = [M] * 7, [1, 2, ring - 1, ring, ring + 1, 0, N]
+    elif case == "m_zero":
+        m, n = [0, M, 1, 600], [N, 0, N, 250]
+    elif case == "past_m_b":
+        M, N = 1024, 1100
+        m, n = [1000, 993, 1007, 1023], [N] * 4
+    elif case == "tie_across_warps":
+        M, N = 1600, 120
+        m, n = [M, M], [N, N]
+    else:
+        M, N = rows_per_pass + 300, 200
+        m, n = [M, rows_per_pass - 3, M], [N, N, 150]
+    xs, ys = letters(len(m), M), letters(len(m), N)
+    pins = {}
+    if case == "past_m_b":
+        ys[:] = rng.integers(1 if alphabet > 4 else 0, min(alphabet, 21), ys.shape)
+        xs[:] = ys[:, 60 : 60 + M]
+        pins = {b: (mb, mb + 60) for b, mb in enumerate(m)}
+    elif case == "tie_across_warps":
+        ys[:] = rng.integers(1 if alphabet > 4 else 0, min(alphabet, 21), N)
+        xs[0, 280:400] = xs[0, 1280:1400] = ys[0]
+        xs[1] = xs[0]
+        xs[1, 280:400] = letters(120)
+        pins = {0: (400, 120), 1: (1400, 120)}
+    else:
+        for b in range(len(m)):
+            k = min(m[b], n[b], 250)
+            if k < 20:
+                continue
+            edge = rows_per_pass if m[b] > rows_per_pass else 512
+            at = max(0, min(m[b] - k, edge - k // 2))
+            seg = ys[b, :k].copy()
+            hit = rng.integers(0, k, k // 25)
+            seg[hit] = letters(len(hit))
+            xs[b, at : at + k] = seg
+    return xs, ys, np.array(m, np.int32), np.array(n, np.int32), pins
+
+
+@pytest.mark.parametrize("case", HANDOFF_CASES)
+@pytest.mark.parametrize("form", SWEEP_FORMS)
+def test_sweep_handoffs_match_plain(cuda, form, case):
+    """Every form of the sweep kernel (K11/K12, K15/K16, K19/K20, K22/K23,
+    K19 and K22 on a slab) against its plain version on the hand-off cases:
+    (score, i, j) and, where the form checkpoints, every H (and F) row."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    affine = form.endswith("affine")
+    protein = not form.startswith("uniform")
+    rows = strips_cuda.ROWS_PER_PASS_AFFINE if affine else strips_cuda.ROWS_PER_PASS
+    xs, ys, m, n, pins = handoff_lanes(case, 30 if protein else 4, rows,
+                                       strips_cuda.SWEEP_RING)
+    if not protein:
+        acgt = np.frombuffer(b"ACGT", np.uint8)
+        xs, ys = acgt[xs], acgt[ys]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    m, n = t(m), t(n)
+    if form.startswith("slab"):
+        # One query shared by every lane (lane 0's x); the lanes' y back to
+        # back in a flat slab.
+        off = np.concatenate([[0], np.cumsum(n.cpu().numpy())[:-1]]).astype(np.int64)
+        slab = np.concatenate([ys[b, : int(n[b])] for b in range(len(off))])
+        _, table = scan_dp.profile_tables(blosum_config("blosum50"))
+        kw = dict(table=t(table), **(PROTEIN_AFFINE if affine else dict(gap=12)))
+        sweep = (strips_cuda.sw_score_strips_profile_affine if affine
+                 else strips_cuda.sw_score_strips_profile)
+        before = sweep.launches
+        got = sweep(t(xs[0]), t(slab), m, n, y_off=t(off), **kw)
+        want = scan_dp.sw_profile_plain(t(xs[0]), t(slab), m, n, y_off=t(off), **kw)
+        torch.cuda.synchronize()
+        assert sweep.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g, w)
+        pins = {b: ij for b, ij in pins.items() if b == 0}
+    else:
+        if protein:
+            _, table = scan_dp.profile_tables(blosum_config("blosum50"))
+            kw = dict(table=t(table), **(PROTEIN_AFFINE if affine else dict(gap=12)))
+            sweep, ckpt, plain = (
+                (strips_cuda.sw_score_strips_profile_affine,
+                 strips_cuda.sw_score_strips_profile_affine_ckpt,
+                 scan_dp.sw_profile_affine_ckpt_plain) if affine else
+                (strips_cuda.sw_score_strips_profile, strips_cuda.sw_score_strips_profile_ckpt,
+                 scan_dp.sw_profile_ckpt_plain))
+        else:
+            kw = BWA if affine else KW
+            sweep, ckpt, plain = (
+                (strips_cuda.sw_score_strips_affine, strips_cuda.sw_score_strips_affine_ckpt,
+                 scan_dp.sw_score_affine_ckpt_plain) if affine else
+                (strips_cuda.sw_score_strips, strips_cuda.sw_score_strips_ckpt,
+                 scan_dp.sw_score_ckpt_plain))
+        before = (sweep.launches, ckpt.launches)
+        got = sweep(t(xs), t(ys), m, n, **kw)
+        got_ck = ckpt(t(xs), t(ys), m, n, **kw)
+        want = plain(t(xs), t(ys), m, n, **kw)
+        torch.cuda.synchronize()
+        assert (sweep.launches, ckpt.launches) == (before[0] + 1, before[1] + 1)
+        assert len(got) == 3 and len(got_ck) == len(want) == (5 if affine else 4)
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g, w)
+        for g, w in zip(got_ck, want):
+            assert torch.equal(g, w)
+        if case == "tie_across_warps":
+            assert int(want[0][0]) == int(want[0][1])
+    for b, (i, j) in pins.items():
+        assert (int(want[1][b]), int(want[2][b])) == (i, j)
+    live = (m > 0) & (n > 0)
+    assert bool((want[0][~live] == 0).all()) and int(want[0].max()) > 0
