@@ -6,8 +6,7 @@
 
 1. Requires a CUDA card and prints its name, power limit and top SM clock.
 2. Builds the port's CUDA kernels from ``parallel_genomeseq_tpu_torch/csrc``
-   and prints their registers and spills, and the strip sweeps' static SASS
-   instruction mix (``cuobjdump -sass``, where the toolkit has it).
+   and prints their registers and spills.
 3. DNA short-read path. Holds K1 (both modes, 512 reads x 17 windows), K2
    (the 512 winning windows and the full reference) and K3 (on K2's output)
    against their plain PyTorch versions on the card, on the same inputs,
@@ -269,73 +268,6 @@ def sweep_steps(sweep, rec, M: int, n, clock_mhz: float, table=None, slab: bool 
     rec.update(band_rows=rows, threads=threads, blocks_per_sm=blocks,
                warps_per_sm=blocks * threads // 32,
                waves=waves, cycles_per_step=rec["ms"] * 1e-3 * clock_mhz * 1e6 / (waves * steps))
-
-
-def sass_kernels(text: str):
-    """Per strip sweep kernel in ``cuobjdump -sass`` output: {label: (mix of
-    the whole kernel, mix of its column-step loop)}, each {opcode: count}
-    with modifiers dropped. The step loop is the shortest backward branch's
-    body that holds 16 or more VIADDMNMX (one band's column of cells)."""
-    import re
-
-    kernels, label, body = {}, None, []
-
-    def close():
-        if label is None:
-            return
-        loops = [(int(m.group(1), 16), at) for at, op, args in body
-                 if op == "BRA" and (m := re.search(r"0x([0-9a-f]+)", args))
-                 and int(m.group(1), 16) < at]
-        loops = [(lo, hi) for lo, hi in loops
-                 if sum(op == "VIADDMNMX" for at, op, _ in body if lo <= at <= hi) >= 16]
-        lo, hi = min(loops, key=lambda r: r[1] - r[0], default=(1, 0))
-        mix = lambda keep: {o: sum(1 for at, op, _ in body if op == o and keep(at))
-                            for o in {op for _, op, _ in body}}
-        kernels[label] = (mix(lambda at: True), mix(lambda at: lo <= at <= hi))
-
-    for line in text.splitlines():
-        head = re.search(r"Function : (\S+)", line)
-        if head:
-            close()
-            form = re.search(r"strip_sweep_kernel\D*?ILb(\d)ELb(\d)ELb(\d)E(?:Li(\d+)E)?",
-                             head.group(1))
-            label, body = None, []
-            if form:
-                args = ["true" if f == "1" else "false" for f in form.groups()[:3]]
-                args += [form.group(4)] if form.group(4) else []  # the band height
-                label = f"strip_sweep_kernel<{', '.join(args)}>"
-            continue
-        op = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)\S*\s*(.*)",
-                      line)
-        if label is not None and op:
-            body.append((int(op.group(1), 16), op.group(2), op.group(3)))
-    close()
-    return {k: v for k, v in kernels.items() if v}
-
-
-def print_sass_mix(lib, label: str = ""):
-    """Print the strip sweeps' SASS (``cuobjdump -sass`` of the built library
-    ``lib``, where the toolkit has it): per kernel the total and its step
-    loop's, by integer and DPX operations, shuffles, shared-memory, barrier
-    and fence instructions."""
-    import shutil
-
-    from parallel_genomeseq_tpu_torch.ops import _build
-
-    tool = shutil.which("cuobjdump") or str(Path(_build.find_nvcc()).with_name("cuobjdump"))
-    if not Path(tool).exists():
-        return
-    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    groups = {"int": ("IADD3", "IMAD", "IMNMX", "ISETP", "SEL", "LOP3", "SHF", "LEA", "PRMT",
-                      "IABS", "VIMNMX", "VIMNMX3", "VIADDMNMX", "VIADD"),
-              "dpx": ("VIMNMX", "VIMNMX3", "VIADDMNMX"), "shfl": ("SHFL",),
-              "lds/sts": ("LDS", "STS", "ATOMS"), "ldg/stg": ("LDG", "STG"),
-              "bar": ("BAR",), "fence": ("MEMBAR", "FENCE")}
-    count = lambda mix: "; ".join([f"{sum(mix.values())}"] + [
-        f"{g} {sum(mix.get(o, 0) for o in ops)}" for g, ops in groups.items()])
-    for kernel, (whole, step) in sorted(sass_kernels(text).items()):
-        print(f"sass{label} {kernel}: total {count(whole)} | step loop {count(step)}")
 
 
 def lane_work(m, n):
@@ -1750,7 +1682,6 @@ def main(argv=None) -> int:
     for line in (lib.parent / "nvcc.log").read_text().splitlines():
         if "entry function" in line or "Used" in line or "spill" in line:
             print(f"  nvcc: {line.strip()}")
-    print_sass_mix(lib)
 
     dev = torch.device("cuda", 0)
     dna, dna_launches = dna_phase(args, card, clock, dev)

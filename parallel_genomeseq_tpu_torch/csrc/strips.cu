@@ -150,15 +150,19 @@
 // and lane, not the lanes times the longest entry (K22: an (H, F) int2 pair
 // a residue, bound_off then counting int2 units).
 //
-// What bounds them on the H100: the integer ALU (about 7 operations per cell
+// What bounds them on the H100: the integer work (about 7 operations per cell
 // for K11/K12, 12 for K13, 10 for K15/K16, 20 for K17, 5 for K19/K20, 10 for
-// K21, 8 for K22/K23, 18 for K24). Per column and thread the sweeps add three
-// shuffles (affine four: the hand-off and the reference code), a ring access
-// on lanes 0 and 31 and the running-best test, and per group of 8 columns one
-// wait and one publish; the replays one shuffle and one read of the reference
-// byte. The sweep runs at the pace of its slowest warp, so work that one warp
-// does and the others do not (a masked band, a divergent branch) costs the
-// whole block: the band that holds m_b is swept unmasked for that reason.
+// K21, 8 for K22/K23, 18 for K24), and for the sweeps at 20 warps an SM the
+// issue of their instructions: the compiled column step of a 16-row band is
+// about 16 instructions a row (K11) and 19 (K15), and the SM issues four
+// warp-instructions a cycle, which the step nearly fills. Per column and
+// thread the sweeps add three shuffles (affine four: the hand-off and the
+// reference code), a ring access on lanes 0 and 31 and the running-best test,
+// and per group of 8 columns one wait and one publish; the replays one
+// shuffle and one read of the reference byte. The sweep runs at the pace of
+// its slowest warp, so work that one warp does and the others do not (a
+// masked band, a divergent branch) costs the whole block: the band that
+// holds m_b is swept unmasked for that reason.
 // The replays at the winner re-run's shape are one warp per lane, so they are
 // latency-bound: the north chain down the 8 rows of a band. K19 on the slab
 // is one block per entry: a warp starts about 40 steps after the warp above

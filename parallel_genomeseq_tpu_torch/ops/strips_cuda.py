@@ -79,7 +79,8 @@ from .scan_dp import (
 from .wavefront_cuda import _check_inputs
 
 # Rows one block sweeps in a pass (kRowsPerPass in csrc/strips.cu), under
-# linear and affine gaps alike; longer reads carry a boundary row between
+# linear and affine gaps alike (ROWS_PER_PASS_AFFINE is the same value, the
+# name the affine gpu tests use); longer reads carry a boundary row between
 # passes. A warp sweeps 32 bands of 16 or 32 rows and hands its last row to
 # the next warp through a ring of SWEEP_RING columns (kRing).
 ROWS_PER_PASS = ROWS_PER_PASS_AFFINE = 10_240
@@ -111,7 +112,7 @@ def _sweep(xs, ys, m, n, *, gap, ckpt, match=0, mismatch=0, gap_open=0, table=No
     # of n_b + 1 per lane, back to back (one sync for its size), its offsets
     # counted in the row's elements (int32, or (H, F) pairs).
     bound = bound_off = None
-    if M > (ROWS_PER_PASS_AFFINE if affine else ROWS_PER_PASS):
+    if M > ROWS_PER_PASS:
         if y_off is None:
             bound = torch.empty((B, N + 1, 2) if affine else (B, N + 1), dtype=torch.int32,
                                 device=dev)

@@ -947,20 +947,24 @@ def handoff_lanes(case, alphabet, rows_per_pass, ring, seed=0):
     """Letters (indices below ``alphabet``) of one hand-off case: xs (B, M),
     ys (B, N) uint8, m, n (B,) int32 numpy arrays, and {lane: (i, j)} where
     the case pins the best cell. Each lane with rows and columns holds a
-    mutated stretch of its y across a warp edge (row 512) or the pass edge.
+    mutated stretch of its y across a warp edge (row 1,024, a warp edge of
+    both band heights; in lanes too short for it row 512, one of 16-row
+    bands) or the pass edge. Every case but rows_1023 and rows_1024 launches
+    more than one warp, so its lanes cross the ring between warps.
       rows_1023/1024/1025: a band crossing a warp edge of 32-row bands (31 x
         32 + 31 rows and so on); rows_10008: solve_big's window height,
-        16-row bands, the stretch across row 512 (a warp edge);
+        16-row bands;
       partial_last_warp: 1,700 rows, the last warp partly past m_b;
-      short_n: n_b of 1, 2, ring - 1, ring, ring + 1 and 0;
-      m_zero: m_b = 0 beside n_b = 0 and m_b = 1;
+      short_n: 2,100 rows, n_b of 1, 2, ring - 1, ring, ring + 1 and 0;
+      m_zero: 2,100 rows, m_b = 0 beside n_b = 0 and m_b = 1;
       past_m_b: x is y shifted by 60 letters on every row, past m_b too (the
-        band holding m_b sweeps rows that would score higher), standard
-        residues under a table: the best cell is (m_b, m_b + 60);
+        band holding m_b, in the third warp of 32-row bands, sweeps rows that
+        would score higher), standard residues under a table: the best cell
+        is (m_b, m_b + 60);
       tie_across_warps: y (120 letters, standard residues under a table) at
-        rows 281-400 (warp 0) and 1,281-1,400 (warp 2) of lane 0: both
-        copies reach the most column 120 can hold, the smaller i wins; lane
-        1 keeps only the second copy;
+        rows 281-400 (warp 0) and 1,281-1,400 (warp 1 of 32-row bands, warp
+        2 of 16-row bands) of lane 0: both copies reach the most column 120
+        can hold, the smaller i wins; lane 1 keeps only the second copy;
       two_passes: one pass of rows plus 300, the stretch across the edge."""
     rng = np.random.default_rng(seed)
     letters = lambda *shape: rng.integers(0, alphabet, shape).astype(np.uint8)
@@ -974,13 +978,14 @@ def handoff_lanes(case, alphabet, rows_per_pass, ring, seed=0):
         M = 1700
         m, n = [M, 1650, 1540, 1100], [N, 280, N, 150]
     elif case == "short_n":
-        M = 700
+        M = 2100
         m, n = [M] * 7, [1, 2, ring - 1, ring, ring + 1, 0, N]
     elif case == "m_zero":
-        m, n = [0, M, 1, 600], [N, 0, N, 250]
+        M = 2100
+        m, n = [0, M, 1, 1800], [N, 0, N, 250]
     elif case == "past_m_b":
-        M, N = 1024, 1100
-        m, n = [1000, 993, 1007, 1023], [N] * 4
+        M, N = 2100, 2200
+        m, n = [2056, 2049, 2063, 2079], [N] * 4
     elif case == "tie_across_warps":
         M, N = 1600, 120
         m, n = [M, M], [N, N]
@@ -1004,7 +1009,8 @@ def handoff_lanes(case, alphabet, rows_per_pass, ring, seed=0):
             k = min(m[b], n[b], 250)
             if k < 20:
                 continue
-            edge = rows_per_pass if m[b] > rows_per_pass else 512
+            edge = (rows_per_pass if m[b] > rows_per_pass
+                    else 1024 if m[b] >= 1024 + k // 2 else 512)
             at = max(0, min(m[b] - k, edge - k // 2))
             seg = ys[b, :k].copy()
             hit = rng.integers(0, k, k // 25)
@@ -1023,9 +1029,14 @@ def test_sweep_handoffs_match_plain(cuda, form, case):
 
     affine = form.endswith("affine")
     protein = not form.startswith("uniform")
-    rows = strips_cuda.ROWS_PER_PASS_AFFINE if affine else strips_cuda.ROWS_PER_PASS
-    xs, ys, m, n, pins = handoff_lanes(case, 30 if protein else 4, rows,
+    xs, ys, m, n, pins = handoff_lanes(case, 30 if protein else 4, strips_cuda.ROWS_PER_PASS,
                                        strips_cuda.SWEEP_RING)
+    _, table = scan_dp.profile_tables(blosum_config("blosum50"))
+    # Every case but the two single-warp ones launches more than one warp.
+    for with_ckpt in (False, True)[: 1 if form.startswith("slab") else 2]:
+        threads = strips_cuda.sweep_occupancy(xs.shape[-1], affine=affine, ckpt=with_ckpt,
+                                              ncodes=table.shape[0] if protein else 0)[0]
+        assert threads > 32 or case in ("rows_1023", "rows_1024")
     if not protein:
         acgt = np.frombuffer(b"ACGT", np.uint8)
         xs, ys = acgt[xs], acgt[ys]
@@ -1036,7 +1047,6 @@ def test_sweep_handoffs_match_plain(cuda, form, case):
         # back in a flat slab.
         off = np.concatenate([[0], np.cumsum(n.cpu().numpy())[:-1]]).astype(np.int64)
         slab = np.concatenate([ys[b, : int(n[b])] for b in range(len(off))])
-        _, table = scan_dp.profile_tables(blosum_config("blosum50"))
         kw = dict(table=t(table), **(PROTEIN_AFFINE if affine else dict(gap=12)))
         sweep = (strips_cuda.sw_score_strips_profile_affine if affine
                  else strips_cuda.sw_score_strips_profile)
@@ -1050,7 +1060,6 @@ def test_sweep_handoffs_match_plain(cuda, form, case):
         pins = {b: ij for b, ij in pins.items() if b == 0}
     else:
         if protein:
-            _, table = scan_dp.profile_tables(blosum_config("blosum50"))
             kw = dict(table=t(table), **(PROTEIN_AFFINE if affine else dict(gap=12)))
             sweep, ckpt, plain = (
                 (strips_cuda.sw_score_strips_profile_affine,
