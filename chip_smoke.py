@@ -26,12 +26,14 @@
    (lognormal lengths, median ~290 aa, 60-2,048) with 9 mutated copies of a
    seeded 145-aa query planted (every index k with k % 70,169 == 3). Holds
    K4 against its plain version on every 4th lane of its whole-slab launch
-   (the main path's single launch) and on the shortest and longest
-   4,096-lane length groups; K5 and K3 on the top-10 traceback
+   (the main path's single launch), on the shortest and longest 4,096-lane
+   length groups, per lane on the longest (the query tiled over the lanes;
+   equal to the slab scan too) and with a seeded 2,048-aa query over the
+   shortest (the widest thread-group shape); K5 and K3 on the top-10 traceback
    batch and on 256 of the longest entries (M = 2,048, about 1.2 GB of
    moves). Holds their affine forms under BLOSUM50 with gap 10/2 on the same
-   slab: K8 on the two length groups and on every 16th lane of its
-   whole-slab launch, K9 and K10 on the affine top 10 and the 256 longest.
+   slab: K8 on the same cases, its whole-slab launch on every 16th lane,
+   K9 and K10 on the affine top 10 and the 256 longest.
    Runs ``solve_uniprot`` of the port with the ``uniprot_e2e`` settings
    (BLOSUM50, gap 12, batch 4,096, pad 128, top 10), then with ``--gap-open
    10 --gap-penalty 2``, each after a warm-up on 20,000 entries, prints
@@ -90,10 +92,12 @@
    K19-K21, K14), and one sampled read against the Gotoh oracle.
 10. Prints the kernels' JSON line -- each kernel's time, its plain version's,
    and its bound: the larger of the integer operations its cells need over
-   the card's int32 ALU peak and the bytes it must move over the memory
+   the card's integer issue peak and the bytes it must move over the memory
    rate; for the strip sweeps (K11, K12, K15, K16, K19, K20, K22, K23) also
    the threads a block, the blocks an SM holds, the waves and the cycles a
-   block step takes (``sweep_steps``), printed beside each time as well --
+   block step takes (``sweep_steps``), for the scans K4 and K8 the threads a
+   lane, the rows a thread, the warps an SM and the cycles a column step
+   takes (``scan_steps``), printed beside each time as well --
    then ``{"ok": true, "device": ...}`` last.
 
 Any failed phase raises and exits non-zero before the last line.
@@ -113,11 +117,15 @@ ROOT = Path(__file__).resolve().parent
 CSRC = "parallel_genomeseq_tpu_torch/csrc"
 PALLAS = "parallel_genomeseq_tpu/ops/wavefront_pallas.py"
 
-# The card's published memory rate (H100 SXM, 80 GB HBM3) and its int32 ALU
-# width (132 SMs x 64 INT32 lanes); the int32 peak is that width times the
-# top SM clock nvidia-smi reports.
+# The card's published memory rate (H100 SXM, 80 GB HBM3) and its integer
+# issue width: an SM's 4 schedulers each issue one warp-instruction of 32
+# lanes a cycle, 132 x 4 x 32 = 16,896 lanes, and every operation counted
+# below is one instruction, so no kernel can do them faster (the 64 INT32
+# lanes an SM of the data sheet are a floor that the strip sweep's step
+# beats: its integer instructions also issue to the FMA pipes). The int32
+# peak is that width times the top SM clock nvidia-smi reports.
 HBM_BYTES_PER_S = 3.35e12
-INT32_LANES = 132 * 64
+INT32_LANES = 132 * 4 * 32
 # Integer ALU operations per DP cell that the function needs on sm_90a,
 # counted from the recurrence H = max(diag + s, max(west, north) - gap, 0).
 # Memory traffic is not counted (the column scratch, the shared-memory table
@@ -234,8 +242,8 @@ def timed(fn):
 
 
 def bound(ops: float, nbytes: float, clock_mhz: float):
-    """(bound_ms, bound_by): the larger of the operations over the int32
-    ALU peak and the bytes over the memory rate."""
+    """(bound_ms, bound_by): the larger of the operations over the integer
+    issue peak and the bytes over the memory rate."""
     t_ops = ops / (INT32_LANES * clock_mhz * 1e6) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -268,6 +276,29 @@ def sweep_steps(sweep, rec, M: int, n, clock_mhz: float, table=None, slab: bool 
     rec.update(band_rows=rows, threads=threads, blocks_per_sm=blocks,
                warps_per_sm=blocks * threads // 32,
                waves=waves, cycles_per_step=rec["ms"] * 1e-3 * clock_mhz * 1e6 / (waves * steps))
+
+
+def scan_steps(rec, M: int, n, clock_mhz: float, ncodes: int, affine: bool, shared: bool):
+    """Add a K4/K8 scan launch's shape and its cost per column step to
+    ``rec``: threads a lane (g) and query rows a thread (r), the route (the
+    shared query's profile or the table), threads a block, warps an SM (the
+    CUDA occupancy calculator), and the cycles a warp's column step takes,
+    ms x clock / (the warps' steps over the warps the card runs at once). A
+    warp holds 32 / g consecutive lanes and steps to its longest lane's n_b
+    + g - 1."""
+    import torch
+
+    from parallel_genomeseq_tpu_torch.ops import profile_cuda
+
+    sh = profile_cuda.scan_shape(M, ncodes=ncodes, affine=affine, shared=shared)
+    g, per = sh["g"], 32 // sh["g"]
+    steps = torch.where(n > 0, n.long() + g - 1, 0)
+    steps = torch.nn.functional.pad(steps, (0, -steps.shape[0] % per)).view(-1, per).max(1).values
+    warps_per_sm = sh["blocks_per_sm"] * sh["threads"] // 32
+    slots = min(steps.shape[0], warps_per_sm * torch.cuda.get_device_properties(0).multi_processor_count)
+    rec.update(group_threads=g, band_rows=sh["r"], route="profile" if sh["profile"] else "table",
+               threads=sh["threads"], warps_per_sm=warps_per_sm,
+               cycles_per_step=rec["ms"] * 1e-3 * clock_mhz * 1e6 * slots / float(steps.sum()))
 
 
 def lane_work(m, n):
@@ -306,7 +337,11 @@ def moves_err(got, want, m, n, chunk: int = 256) -> int:
 
 def report(name, label, rec):
     steps = ""
-    if "cycles_per_step" in rec:
+    if "group_threads" in rec:
+        steps = (f"; g = {rec['group_threads']} threads a lane x r = {rec['band_rows']} rows, "
+                 f"{rec['route']} route, {rec['threads']}-thread blocks, {rec['warps_per_sm']} "
+                 f"warps/SM, {rec['cycles_per_step']:.0f} cycles a column step")
+    elif "cycles_per_step" in rec:
         steps = (f"; {rec['band_rows']}-row bands, {rec['blocks_per_sm']} blocks/SM of "
                  f"{rec['threads']} threads "
                  f"({rec['warps_per_sm']} warps), {rec['waves']:.2f} waves, "
@@ -758,17 +793,17 @@ def check_protein_kernels(db, query: str, clock: float, gaps, stride: int = 1):
     out = {scan_k.__name__: {}, moves_k.__name__: {}, walk_k.__name__: {}}
     q = db.encode_query(query)
     slab, offs, lens = db._slab, db._offs, db._lens
-    m = torch.full_like(lens, q.shape[0])
 
-    def scan_case(sl, step=1):
-        o, n, mm = offs[sl], lens[sl], m[sl]
-        call = lambda: scan_k(q, slab, mm, n, y_off=o, **kw)
+    def scan_case(sl, step=1, qc=q):
+        o, n = offs[sl], lens[sl]
+        mm = torch.full_like(n, qc.shape[0])
+        call = lambda: scan_k(qc, slab, mm, n, y_off=o, **kw)
         got = call()
         ps = slice(None, None, step)
         want, plain_ms = timed(lambda: scan_dp.sw_profile_plain(
-            q, slab, mm[ps], n[ps], y_off=o[ps], **kw))
+            qc, slab, mm[ps], n[ps], y_off=o[ps], **kw))
         cells, _ = lane_work(mm, n)
-        rec = {"shape": f"{n.shape[0]} lanes, query {q.shape[0]} aa, entries "
+        rec = {"shape": f"{n.shape[0]} lanes, query {qc.shape[0]} aa, entries "
                         f"{int(n.min())}-{int(n.max())} aa",
                "max_abs_err": max_abs_err([g[ps] for g in got], want), "ms": cuda_ms(call, 3),
                "plain_ms": plain_ms}
@@ -779,18 +814,48 @@ def check_protein_kernels(db, query: str, clock: float, gaps, stride: int = 1):
         # lane's offset, lengths and results.
         rec["bound_ms"], rec["bound_by"] = bound(
             cells * OPS_PER_CELL[scan_k.__name__],
-            int(n.long().sum()) + q.shape[0] + (LANE_BYTES + 8) * n.shape[0] + table.numel() * 4,
-            clock)
+            int(n.long().sum()) + qc.shape[0] + (LANE_BYTES + 8) * n.shape[0]
+            + table.numel() * 4, clock)
+        scan_steps(rec, qc.shape[0], n, clock, table.shape[0], affine, shared=True)
+        return rec, got
+
+    def per_lane_case(sl):
+        """The per-lane form at a batch of solve_uniprot's width: the query
+        tiled over the lanes (x (B, M)), the entries padded to a multiple of
+        128 (y (B, N)); its results equal the slab scan's on the same lanes."""
+        ys, n = scan_dp.gather_lanes(slab, offs[sl], lens[sl])
+        ys = torch.nn.functional.pad(ys, (0, -ys.shape[1] % 128))
+        xs = q[None, :].repeat(n.shape[0], 1)
+        mm = torch.full_like(n, q.shape[0])
+        call = lambda: scan_k(xs, ys, mm, n, **kw)
+        got = call()
+        want, plain_ms = timed(lambda: scan_dp.sw_profile_plain(xs, ys, mm, n, **kw))
+        cells, seq_bytes = lane_work(mm, n)
+        rec = {"shape": f"{n.shape[0]} lanes, x {tuple(xs.shape)}, y {tuple(ys.shape)}",
+               "max_abs_err": max_abs_err(got, want), "ms": cuda_ms(call, 3),
+               "plain_ms": plain_ms}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            cells * OPS_PER_CELL[scan_k.__name__],
+            seq_bytes + LANE_BYTES * n.shape[0] + table.numel() * 4, clock)
+        scan_steps(rec, q.shape[0], n, clock, table.shape[0], affine, shared=False)
         return rec, got
 
     L = lens.shape[0]
     rec, got = scan_case(slice(0, L), stride)
     out[scan_k.__name__]["db"] = rec
     report(f"{names[0]} {scan_k.__name__}", "db", rec)
-    for label, sl in (("short_group", slice(0, min(L, 4096))),
-                      ("long_group", slice(max(0, L - 4096), L))):
-        out[scan_k.__name__][label], _ = scan_case(sl)
+    short, long_ = slice(0, min(L, 4096)), slice(max(0, L - 4096), L)
+    # The widest scan shape: a seeded 2,048-aa query over the short group.
+    q2048 = torch.from_numpy(np.random.default_rng(2048).integers(
+        1, table.shape[0], 2048).astype(np.uint8)).to(dev)
+    for label, case in (("short_group", lambda: scan_case(short)),
+                        ("long_group", lambda: scan_case(long_)),
+                        ("per_lane", lambda: per_lane_case(long_)),
+                        ("query2048", lambda: scan_case(short, qc=q2048))):
+        out[scan_k.__name__][label], got_case = case()
         report(f"{names[0]} {scan_k.__name__}", label, out[scan_k.__name__][label])
+        if label == "per_lane" and not all(torch.equal(a, b[long_]) for a, b in zip(got_case, got)):
+            raise AssertionError("the per-lane scan disagrees with the slab scan")
 
     # The re-run with moves (and the walk on its codes) on the batches the
     # traceback runs: the top 10, and 256 of the longest entries. x = entry,

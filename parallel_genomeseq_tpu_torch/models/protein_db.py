@@ -5,10 +5,11 @@ The whole database is length-sorted, encoded to compact codes on the host
 (``ops/scan_dp.profile_tables``), concatenated into one flat slab with a
 64-bit offset per entry, and uploaded ONCE to the card. Each scan then
 uploads only the query's codes and runs one K4 launch (K8 under affine gaps,
-the default 10/2) over every entry (one thread per entry; each thread's loops stop at its entry's true length, so
-the TPU's per-batch padding, ``pad_mult`` rounding, overrun rows and
-dispatch groups have no counterpart), and fetches the per-entry (score,
-pos_end) with one synchronisation. A query longer than 2,048 aa (a
+the default 10/2) over every entry (a group of 8-32 threads per entry, each
+thread holding a band of the query's rows in registers; a group stops at
+its entry's true length, so the TPU's per-batch padding, ``pad_mult``
+rounding, overrun rows and dispatch groups have no counterpart), and
+fetches the per-entry (score, pos_end) with one synchronisation. A query longer than 2,048 aa (a
 database built with ``max_query_len`` past it) runs one launch of the strip
 kernel K19 (K22 under affine gaps) over the same slab instead (one block
 per entry), as the JAX package's ``score_db_slab_strips_jit`` does.

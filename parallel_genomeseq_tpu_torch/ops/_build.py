@@ -32,9 +32,14 @@ _SIGNATURES = {
     # x_mb, y_nb, m, n, hcol, M, N, B, match, mismatch, gap_open, gap,
     # track_pos, score, best_i, best_j, moves, stream
     "pgs_sw_score": [_P] * 5 + [_I] * 8 + [_P] * 5,
+    # x, x_lane, y, y_off, y_len, m, n, table, ncodes, M, N, B, gap_open,
+    # gap, score, best_i, best_j, stream
+    "pgs_sw_profile_scan": [_P, _L, _P, _P, _L, _P, _P, _P] + [_I] * 6 + [_P] * 4,
+    # M, ncodes, affine, shared, out (int32 g, r, threads, blocks per SM, profile)
+    "pgs_sw_profile_scan_shape": [_I] * 4 + [_P],
     # x, x_lane, x_row, y, y_off, y_len, m, n, table, ncodes, hcol, M, N, B,
     # gap_open, gap, score, best_i, best_j, moves, stream
-    "pgs_sw_profile": [_P, _I, _I, _P, _P, _L, _P, _P, _P, _I, _P]
+    "pgs_sw_profile_moves": [_P, _I, _I, _P, _P, _L, _P, _P, _P, _I, _P]
     + [_I] * 5 + [_P] * 5,
     # moves, x_mb, y_bn, i0, j0, D, M, N, B, max_steps, pos, cx, cy, steps, stream
     "pgs_walk_moves": [_P] * 5 + [_I] * 5 + [_P] * 5,

@@ -13,6 +13,12 @@ an (ncodes, ncodes) int32 table and return per-lane int32 (score, i, j); K5
 and K9 also return the (M + N - 1, M, B) uint8 move codes that K3 (K10 for
 K9's affine bytes) walks.
 
+K4 and K8 run the thread-group scan: g threads a lane, each holding r query
+rows in registers (``scan_shape``), for queries of up to
+``MAX_SCAN_M`` = 2,048 rows, with nothing in device memory but the inputs and
+the per-lane results. K5 and K9 run one thread per lane over an (M, B)
+column scratch that ``_moves`` allocates.
+
 Route: tensors on the CPU take the plain PyTorch version (``ops/scan_dp``);
 tensors on a CUDA device launch the kernel, and a missing toolkit or a failed
 build or launch raises. Each wrapper's ``launches`` counts kernel launches
@@ -21,6 +27,8 @@ only.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..utils.device import device_of
@@ -28,6 +36,7 @@ from . import _build
 from .scan_dp import sw_profile_moves_plain, sw_profile_plain
 
 MAX_CODES = 64  # the table lives in shared memory: 64 x 64 x 4 B = 16 KB
+MAX_SCAN_M = 2048  # query rows of the widest scan shape, 32 threads x 64 rows
 _NO_WIDTH = 2**31 - 1  # a slab has no padded width; y_len bounds each lane
 
 
@@ -40,29 +49,6 @@ def _check_common(m, n, table):
         raise ValueError("table must be a square int32 tensor")
     if not 1 <= table.shape[0] <= MAX_CODES:
         raise ValueError(f"table has {table.shape[0]} codes; the kernels take 1..{MAX_CODES}")
-
-
-def _launch(x, x_lane, x_row, y, y_off, m, n, table, hcol_rows, N, gap_open, gap, moves):
-    """Shared K4/K5/K8/K9 launch on the current stream, no sync. Outputs and
-    the column scratch -- (hcol_rows, B) H, or (hcol_rows, B, 2) (H, E) for
-    gap_open > 0 -- are allocated here."""
-    B = m.shape[0]
-    dev = m.device
-    lib = _build.load()
-    shape = (hcol_rows, B, 2) if gap_open > 0 else (hcol_rows, B)
-    hcol = torch.empty(shape, dtype=torch.int32, device=dev)
-    score, bi, bj = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
-    with torch.cuda.device(dev):
-        err = lib.pgs_sw_profile(
-            x.data_ptr(), x_lane, x_row, y.data_ptr(), y_off.data_ptr(),
-            y.numel(), m.data_ptr(), n.data_ptr(), table.data_ptr(),
-            table.shape[0], hcol.data_ptr(), hcol_rows, N, B, int(gap_open),
-            int(gap), score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
-            moves.data_ptr() if moves is not None else None,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(err, "pgs_sw_profile")
-    return score, bi, bj
 
 
 def check_scan_inputs(x, y, m, n, table, y_off) -> torch.device:
@@ -86,25 +72,48 @@ def check_scan_inputs(x, y, m, n, table, y_off) -> torch.device:
 
 def _scores(x, y, m, n, table, gap_open, gap, y_off):
     """K4/K8 route: validate, then the plain version on the CPU or the
-    kernel on the card. Returns (launched, (score, i, j))."""
+    thread-group scan on the card. Returns (launched, (score, i, j))."""
     dev = check_scan_inputs(x, y, m, n, table, y_off)
-    B = m.shape[0]
     if dev.type == "cpu":
         return False, sw_profile_plain(x, y, m, n, table=table, gap_open=gap_open,
                                        gap=gap, y_off=y_off)
-    M = x.shape[-1]
-    if x.dim() == 2:
-        x, x_lane, x_row = x.T.contiguous(), 1, B
-    else:
-        x, x_lane, x_row = x.contiguous(), 0, 1
+    B, M = m.shape[0], x.shape[-1]
+    if M > MAX_SCAN_M:
+        raise ValueError(f"the scan kernels take queries of up to {MAX_SCAN_M} rows, got {M}; "
+                         "longer ones run on strips_cuda.sw_score_strips_profile(_affine)")
+    x = x.contiguous()
     if y_off is None:
         N = y.shape[1]
         y_off = torch.arange(B, dtype=torch.int64, device=dev) * N
     else:
         N = _NO_WIDTH
-    return True, _launch(x, x_lane, x_row, y.contiguous(), y_off.contiguous(),
-                         m.contiguous(), n.contiguous(), table.contiguous(), M, N,
-                         gap_open, gap, None)
+    y, y_off, m, n, table = (t.contiguous() for t in (y, y_off, m, n, table))
+    score, bi, bj = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.pgs_sw_profile_scan(
+            x.data_ptr(), M if x.dim() == 2 else 0, y.data_ptr(), y_off.data_ptr(),
+            y.numel(), m.data_ptr(), n.data_ptr(), table.data_ptr(), table.shape[0], M, N,
+            B, int(gap_open), int(gap), score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "pgs_sw_profile_scan")
+    return True, (score, bi, bj)
+
+
+def scan_shape(M: int, *, ncodes: int, affine: bool = False, shared: bool = True):
+    """The K4 (``affine``: K8) launch for an M-row query on the current CUDA
+    device, the query shared by every lane (the slab scan) or per lane:
+    {g, r, threads (a block), blocks_per_sm (the CUDA occupancy
+    calculator), profile (the shared-memory query profile, else the
+    table)}. (g, r) is the shape of ``kShapes`` in ``csrc/profile.cu`` with
+    the fewest rows g x r >= M. Launches nothing."""
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    _build.check(lib.pgs_sw_profile_scan_shape(int(M), int(ncodes), int(affine), int(shared),
+                                               ctypes.addressof(out)),
+                 "pgs_sw_profile_scan_shape")
+    return dict(zip(("g", "r", "threads", "blocks_per_sm", "profile"), out))
 
 
 def _moves(xs, ys, m, n, table, gap_open, gap):
@@ -121,12 +130,22 @@ def _moves(xs, ys, m, n, table, gap_open, gap):
         return False, sw_profile_moves_plain(xs, ys, m, n, table=table,
                                              gap_open=gap_open, gap=gap)
     M, N = xs.shape[1], ys.shape[1]
-    moves = torch.empty((M + N - 1, M, B), dtype=torch.uint8, device=dev)
+    x_mb = xs.T.contiguous()
+    ys, m, n, table = ys.contiguous(), m.contiguous(), n.contiguous(), table.contiguous()
+    # The column scratch: (M, B) H, or (M, B, 2) (H, E) under affine gaps.
+    hcol = torch.empty((M, B, 2) if gap_open > 0 else (M, B), dtype=torch.int32, device=dev)
     y_off = torch.arange(B, dtype=torch.int64, device=dev) * N
-    score, bi, bj = _launch(
-        xs.T.contiguous(), 1, B, ys.contiguous(), y_off, m.contiguous(),
-        n.contiguous(), table.contiguous(), M, N, gap_open, gap, moves,
-    )
+    moves = torch.empty((M + N - 1, M, B), dtype=torch.uint8, device=dev)
+    score, bi, bj = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.pgs_sw_profile_moves(
+            x_mb.data_ptr(), 1, B, ys.data_ptr(), y_off.data_ptr(), ys.numel(),
+            m.data_ptr(), n.data_ptr(), table.data_ptr(), table.shape[0], hcol.data_ptr(),
+            M, N, B, int(gap_open), int(gap), score.data_ptr(), bi.data_ptr(),
+            bj.data_ptr(), moves.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "pgs_sw_profile_moves")
     return True, (score, bi, bj, moves)
 
 
@@ -143,7 +162,8 @@ def sw_profile(x, y, m, n, *, table, gap: int, y_off=None):
     (the database scan). y: (B, N) uint8 codes, or -- with ``y_off`` (B,)
     int64 -- a flat (R,) slab in which lane b reads ``y[y_off[b] :
     y_off[b] + n[b]]``. m, n: (B,) int32 true lengths, clamped to M, N and
-    to what y holds past the offset. table: (ncodes, ncodes) int32.
+    to what y holds past the offset. table: (ncodes, ncodes) int32. On the
+    card M <= MAX_SCAN_M (longer queries take ``strips_cuda``'s K19).
     """
     launched, out = _scores(x, y, m, n, table, 0, gap, y_off)
     sw_profile.launches += launched

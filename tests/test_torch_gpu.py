@@ -300,6 +300,114 @@ def test_k8_matches_plain(cuda, seed):
     assert got[0][:3].tolist() == [0, 0, 0]
 
 
+def scan_edge_lanes(M, g, seed):
+    """A query of M codes (some past the table) and entries of the lengths
+    that end a group's pipeline early or late -- 0, 1, g - 1, g, g + 1 and
+    longer, mixed inside one warp -- plus a planted copy of the query's tail."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 30, M).astype(np.uint8)
+    lengths = [0, 1, g - 1, g, g + 1, 2, 5, 2 * g + 3, 3 * g, 40]
+    entries = [rng.integers(0, 30, L).astype(np.uint8) for L in lengths]
+    k = min(M, 30)
+    entries.append(np.concatenate([rng.integers(0, 26, 3), q[M - k:],
+                                   rng.integers(0, 26, 4)]).astype(np.uint8))
+    return rng, q, entries
+
+
+def scan_tie_lanes(M):
+    """Two queries of code-0 filler (every cell scores the matrix minimum)
+    and entries whose maxima tie: H/H and P/P score 10 and W/W 15 under
+    BLOSUM50. Query 1 holds H in row 1 and P in row M, so entry P-H ties
+    (M, 1) with (1, 3), across bands and columns; query 2 holds W in rows 1
+    and M, so entry W ties two bands in one column and W--W also two
+    columns. The all-filler entry is an all-zero lane."""
+    lut = scan_dp.profile_tables(blosum_config("blosum50"))[0]
+    H, P, W = (int(lut[ord(c)]) for c in "HPW")
+    q1 = np.zeros(M, np.uint8)
+    q1[0], q1[-1] = H, P if M > 1 else H
+    q2 = np.zeros(M, np.uint8)
+    q2[0] = q2[-1] = W
+    entries = [np.array([P, 0, H], np.uint8), np.array([W], np.uint8),
+               np.array([W, 0, 0, W], np.uint8), np.zeros(7, np.uint8),
+               np.array([H, 0, P, 0, H], np.uint8)]
+    return (q1, q2), entries
+
+
+def pack_lanes(entries, pad=2):
+    """(slab, offsets, lengths) and the same entries as a padded (B, N) block."""
+    lens = np.array([len(e) for e in entries], np.int32)
+    offs = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
+    ys = np.zeros((len(entries), int(lens.max()) + pad), np.uint8)
+    for b, e in enumerate(entries):
+        ys[b, : len(e)] = e
+    return np.concatenate(entries), offs, lens, ys
+
+
+@pytest.mark.parametrize("gaps", [dict(gap=12), dict(gap_open=10, gap=2)],
+                         ids=["linear", "affine"])
+@pytest.mark.parametrize("form", ["slab", "lane"])
+def test_scan_shapes_match_plain(cuda, form, gaps):
+    """K4 (K8 under affine gaps), the thread-group scan, exactly equal to the
+    plain version at query lengths 1, r, g x r and g x r + 1 of every (g, r)
+    shape it launches and 2,048, in its slab form (one shared query, lanes
+    whose offset lies past the slab's end or before it) and per lane (each
+    lane its own query and m_b <= M), on ragged entries, codes past the
+    table, ties across bands and columns and an all-zero lane."""
+    scan = profile_cuda.sw_profile_affine if "gap_open" in gaps else profile_cuda.sw_profile
+    _, table = scan_dp.profile_tables(blosum_config("blosum50"))
+    table = torch.from_numpy(table).to(cuda)
+    kw = dict(table=table, **gaps)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    shape = {M: profile_cuda.scan_shape(M, ncodes=table.shape[0], affine="gap_open" in gaps,
+                                        shared=form == "slab")
+             for M in range(1, profile_cuda.MAX_SCAN_M + 1)}
+    shapes = sorted({(sh["g"], sh["r"]) for sh in shape.values()}, key=lambda s: s[0] * s[1])
+    assert shapes[-1][0] * shapes[-1][1] == profile_cuda.MAX_SCAN_M
+    assert all(sh["g"] * sh["r"] >= M for M, sh in shape.items())
+    lengths = sorted({v for g, r in shapes for v in (1, r, g * r, g * r + 1)
+                      if v <= profile_cuda.MAX_SCAN_M})
+    before = scan.launches
+    calls = 0
+    for M in lengths:
+        g = shape[M]["g"]
+        rng, q, entries = scan_edge_lanes(M, g, seed=M)
+        slab, offs, lens, ys = pack_lanes(entries)
+        if form == "slab":
+            offs = np.concatenate([offs, [len(slab) + 3, len(slab) - 2, -4]])
+            lens = np.concatenate([lens, [5, 9, 3]]).astype(np.int32)
+            args = (t(q), t(slab), t(np.full(len(lens), M, np.int32)), t(lens))
+            cases = [(args, dict(y_off=t(offs)))]
+        else:
+            xs = rng.integers(0, 30, (len(entries), M)).astype(np.uint8)
+            xs[0] = q
+            m = rng.integers(0, M + 1, len(entries)).astype(np.int32)
+            m[0] = m[-1] = M
+            cases = [((t(xs), t(ys), t(m), t(lens)), {})]
+        queries, tie_entries = scan_tie_lanes(M)
+        tslab, toffs, tlens, tys = pack_lanes(tie_entries)
+        for qq in queries:
+            mm = t(np.full(len(tie_entries), M, np.int32))
+            if form == "slab":
+                cases.append(((t(qq), t(tslab), mm, t(tlens)), dict(y_off=t(toffs))))
+            else:
+                cases.append(((t(np.tile(qq, (len(tie_entries), 1))), t(tys), mm, t(tlens)), {}))
+        for args, extra in cases:
+            got = scan(*args, **extra, **kw)
+            want = scan_dp.sw_profile_plain(*args, **extra, **kw)
+            calls += 1
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (M, shape[M], form, gaps)
+        ties, ties2 = (torch.stack(scan(*args, **extra, **kw)).T.tolist()
+                       for args, extra in cases[-2:])
+        calls += 2
+        if M > 4:  # no diagonal joins the planted cells
+            # P/P at (M, 1) comes before H/H at (1, 3): min j, not min i.
+            assert ties[0] == [10, M, 1]
+            assert ties2[1:4] == [[15, 1, 1], [15, 1, 1], [0, 0, 0]]
+    torch.cuda.synchronize()
+    assert scan.launches == before + calls
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_k9_and_k10_match_plain(cuda, seed):
     xs, ys, m, n, table = protein_lanes(seed, cuda)
