@@ -55,7 +55,14 @@
 //     passes would only serve queries over 1,024 aa, would write and re-read
 //     a row of (H, F) per residue of the database (1.6 GB for K8 at
 //     SwissProt scale), and 64-row bands fit the registers (ptxas, PERF.md
-//     section 6).
+//     section 6). Why every entry: a launch sweeps all kG x kR rows whatever
+//     M is, so a shape's time is flat over the queries it takes, and without
+//     it they run on the next, larger shape. tools/scan_shapes.py times each
+//     shape over the 561,356-entry database at its shortest and longest
+//     query (8 x 4 at 1 and 32 aa, 8 x 8 at 33 and 64, ..., 32 x 64 at 1,793
+//     and 2,048): on the H100 the next shape is 10-54% slower for every
+//     entry's queries, 10-37% at 97-1,024 aa (8 x 20 -> 8 x 24 at the 145-aa
+//     query: 17-18%), so each entry earns its build time (PERF.md section 6).
 //   - The cell, off the chain as in the strip sweep: a = max(diag + s,
 //     west - gap, 0) first (DPX __viaddmax_s32_relu), then one DPX a row
 //     carries the north chain, H = max(north - gap, a). K8: E = max(west -
@@ -90,9 +97,11 @@
 // 16-byte profile load) or 6.75 (K8), and a thread adds per column the
 // hand-off (two shuffles, K8 three), the code's shuffle, the running-best
 // test and the loop. Fill and drain cost kG - 1 steps a lane, idle rows
-// (kG x kR - M) / (kG x kR) of every step. The times, bounds and cycles a
-// column step at the main path's shapes are in PERF.md section 6
-// (chip_smoke.py).
+// (kG x kR - M) / (kG x kR) of every step. chip_smoke.py's bound counts 5
+// (K8 8) integer operations a cell, a running best costed per cell; it prints
+// beside it the bound at the 3.5 (K8 6.5) integer instructions a cell that
+// this body issues, without the profile load. The times, bounds and cycles a
+// column step at the main path's shapes are in PERF.md section 6.
 //
 // Design of K5/K9, the top-K re-run with moves: K1/K2's one thread per lane
 // (csrc/wavefront.cu). Each thread sweeps its own m_b x n_b matrix column by
