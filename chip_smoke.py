@@ -49,12 +49,16 @@
    (the 1,400-lane window sweep on one read's 14 lanes, and every lane of a
    reduced 1,400 x 2,304 x 4,608 shape), K12 (the 100 winners, on 4 of
    them), K13 (on every 4th lane) and K14 (every lane) on the top, a middle
-   and the bottom strip of the winners' traceback against their plain
-   versions. Runs
+   and the bottom strip of the winners' traceback's first group against
+   their plain versions: K13 as the engine launches it, G strips at once by
+   ``strips_cuda.replay_group``, on the cells the walk can read (timed, and
+   at G = 4, 8 and 16, with G, the warps an SM, the cycles a column step and
+   the moves' GB), and as the per-strip wrapper (G = 1, every column). Runs
    ``solve_big 7 3`` on the exact reads and ``solve_big 7 1 --traceback`` on
    the mutated ones, checks that K11 (and K12, K13, K14) launched during
-   them, and holds 2 sampled reads of the traceback run against the numpy
-   oracle over their winning window (score, pos, both consensus strings).
+   them (the replay in fewer launches than strips walked), and holds 2
+   sampled reads of the traceback run against the numpy oracle over their
+   winning window (score, pos, both consensus strings).
 7. The long-read path with affine (Gotoh) gaps under BWA-MEM's scoring, on
    the same reference and reads: K15 (one read's 14 lanes, and the reduced
    shape), K16 (the 100 winners, held on 4 of them), K17 (every 4th lane)
@@ -344,7 +348,12 @@ def moves_err(got, want, m, n, chunk: int = 256) -> int:
 
 def report(name, label, rec):
     steps = ""
-    if "group_threads" in rec:
+    if "G" in rec:
+        steps = (f"; G = {rec['G']} strips a launch (groups {rec.get('groups', '?')}), "
+                 f"{rec['strip_ms']:.3f} ms a strip, {rec['warps_per_sm']} warps/SM, "
+                 f"{rec['cycles_per_step']:.0f} cycles a column step, moves "
+                 f"{rec['moves_gb']:.3f} GB; plain on {rec['checked_cells']} cells of 3 strips")
+    elif "group_threads" in rec:
         steps = (f"; g = {rec['group_threads']} threads a lane x r = {rec['band_rows']} rows, "
                  f"{rec['route']} route, {rec['threads']}-thread blocks, {rec['warps_per_sm']} "
                  f"warps/SM, {rec['cycles_per_step']:.0f} cycles a column step; bound at the "
@@ -1059,6 +1068,25 @@ def strip_kernels(kw):
     return names, engine.STRIP_KERNELS[affine, uniform], engine.STRIP_PLAIN[affine, uniform]
 
 
+def strip_counters(kw):
+    """The launch counts a strip traceback under ``kw`` runs through: the
+    sweep, the checkpointing sweep, the replay kernel (its per-strip
+    wrapper's count, which every launch of the kernel adds to), the walk,
+    then the group replay's own count."""
+    sweep, ckpt, group, walk = strip_kernels(kw)[1]
+    return sweep, ckpt, replay_pair(group)[0], walk, group
+
+
+def check_groups(label, launches, counters):
+    """Raise unless a run's strip traceback replayed its strips in groups
+    of G >= 2: fewer group launches than walked strips."""
+    group, walk = counters[4].__name__, counters[3].__name__
+    print(f"solve_big/solve_uniprot {label}: {launches[group]} group replay launches for "
+          f"{launches[walk]} walked strips")
+    if not launches[group] < launches[walk]:
+        raise AssertionError(f"{label}: the replay ran a strip a launch")
+
+
 def check_strip_kernels(reads, ref, clock: float, dev, kw, cfg=None, prefix: str = ""):
     """Long-read phase under the scoring of ``kw``: the sweep (K11, or K15;
     the 1,400-lane window sweep, held on one read's 14 lanes; and every lane
@@ -1081,7 +1109,7 @@ def check_strip_kernels(reads, ref, clock: float, dev, kw, cfg=None, prefix: str
     names, (sweep, ckpt, replay, walk), (plain_sweep, plain_ckpt, plain_replay, plain_walk) = \
         strip_kernels(kw)
     affine = "gap_open" in kw
-    out = {fn.__name__: {} for fn in (sweep, ckpt, replay, walk)}
+    out = {fn.__name__: {} for fn in (sweep, ckpt, replay_pair(replay)[0], walk)}
     cfg = cfg or dna_config(kw)
     chunked = ChunkedAligner(cfg, chunk=ChunkConfig(npiece=2 * BIG["npiece"],
                                                     overlap_ratio=BIG["overlap"]), device=dev)
@@ -1169,93 +1197,208 @@ def check_strip_kernels(reads, ref, clock: float, dev, kw, cfg=None, prefix: str
     return out
 
 
+def replay_pair(group):
+    """(the per-strip wrapper, its plain version) of a group replay: the
+    G = 1 launch of the same kernel, whose ``launches`` counts every launch
+    of it, the group's too."""
+    from parallel_genomeseq_tpu_torch.ops import scan_dp, strips_cuda
+
+    name = group.__name__.removesuffix("_group")
+    return getattr(strips_cuda, name), getattr(scan_dp, f"{name}_plain")
+
+
+# The group sizes the replay is timed at beside the rule's (``PERF.md``'s
+# G-versus-time curve).
+REPLAY_CURVE = (4, 8, 16)
+
+
 def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y_walk,
                           steps_cap: int, clock: float, out, affine: bool = False, prefix="",
                           lane_step: int = 1):
-    """The replay and the walk (``fns``: K13 and K14, K17 and K18, K21 and
-    K14, or K24 and K18) through every strip of a strip traceback, top
-    first, from the checkpointing sweep's output ``swept`` = (score, i, j, H
-    checkpoints[, F checkpoints]); each held against its plain version
-    (``plains``) on the top, a middle and the bottom strip: the walk on
-    every lane, the replay on every ``lane_step``-th lane (lanes are
-    independent). xs, ys are what the replay scores (compact codes under a
-    matrix), x_walk, y_walk the bytes the walk emits. Measurements go to
-    out[kernel][prefix + strip label]."""
+    """The group replay and the walk (``fns``: K13 and K14, K17 and K18, K21
+    and K14, or K24 and K18) through every strip of a strip traceback, as
+    the engine runs them: groups of G strips by ``strips_cuda.replay_group``
+    from the top, one moves buffer, one walk launch a strip, from the
+    checkpointing sweep's output ``swept`` = (score, i, j, H checkpoints[, F
+    checkpoints]). The first group's launch is timed (and at the G of
+    REPLAY_CURVE), and its top, middle and bottom strips are held against
+    the plain per-strip replay on every ``lane_step``-th lane (lanes are
+    independent) on every cell the walk can read; the per-strip wrapper
+    (the same kernel at G = 1, every column) is held and timed on those
+    strips too; the walk is held against its plain version (``plains``) on
+    those strips, on every lane. xs, ys are what the replay scores (compact
+    codes under a matrix), x_walk, y_walk the bytes the walk emits.
+    Measurements go to out[kernel][prefix + label]: the group under
+    'group', the per-strip wrapper under 'top', 'middle' and 'bottom'."""
     import torch
 
-    from parallel_genomeseq_tpu_torch.ops import scan_dp, traceback
+    from parallel_genomeseq_tpu_torch.ops import scan_dp, strips_cuda, traceback
 
     S = scan_dp.STRIP_S
-    (replay, walk), (plain_replay, plain_walk) = fns, plains
+    (group, walk), (_, plain_walk) = fns, plains
+    replay, plain_replay = replay_pair(group)
     dev = xs.device
     _, i, j, *ck = swept
     B, M = xs.shape
     N = ys.shape[1]
     x_mb = x_walk.T.contiguous()
     state = traceback.new_strip_state(i, j, steps_cap, affine=affine)
+    cur, active = state[0], state[3]
     nstrips = -(-M // S)
-    checked = {nstrips - 1: "top", nstrips // 2: "middle", 0: "bottom"}
+    ncodes = kw["table"].shape[0] if "table" in kw else 0
+    table_bytes = kw["table"].numel() * 4 if "table" in kw else 0
     r = torch.arange(S, device=dev)
-    for s in range(nstrips - 1, -1, -1):
-        rows = [c[:, s - 1] if s else None for c in ck]
-        moves = replay(xs, ys, m, n, *rows, s * S, **kw)
-        if s not in checked:
-            walk(moves, x_mb, y_walk, s * S, state, max_steps=steps_cap)
-            continue
-        label = prefix + checked[s]
-        held = slice(None, None, lane_step)
-        mh, nh = m[held], n[held]
-        want, plain_ms = timed(lambda: plain_replay(
-            xs[held], ys[held], mh, nh, *[row if row is None else row[held] for row in rows],
-            s * S, **kw))
-        valid = (((s * S + r)[None, None, :] < mh[:, None, None])
-                 & (torch.arange(N, device=dev)[None, :, None] < nh[:, None, None]))
-        err = int((moves[held][valid].int() - want[valid].int()).abs().max())
-        if err:
-            raise AssertionError(f"{names[0]} strip {s}: move codes differ on valid cells")
-        del want, valid
-        lanes_rows = (m - s * S).clamp(0, S).long()
-        cells = int((lanes_rows * n.long()).sum())
-        rec = {"shape": f"strip {s} of {nstrips}, {B} lanes, N={N}, moves "
-                        f"{moves.numel() / 1e9:.3f} GB", "max_abs_err": err,
-               "ms": cuda_ms(lambda: replay(xs, ys, m, n, *rows, s * S, **kw), 3),
-               "plain_ms": plain_ms}
-        if lane_step > 1:
-            rec["plain_lanes"] = int(mh.shape[0])
-        # Read the strip's read bytes, the references and the checkpoint
-        # row(s) (and a table); write one move byte per cell.
-        rec["bound_ms"], rec["bound_by"] = bound(
-            cells * OPS_PER_CELL[replay.__name__],
-            int(lanes_rows.sum()) + int(n.long().sum()) * (1 + 4 * len(ck) if s else 1) + cells
-            + (kw["table"].numel() * 4 if "table" in kw else 0), clock)
-        out[replay.__name__][label] = rec
-        report(f"{names[0]} {replay.__name__}", label, rec)
-        # The walk on a copy of the state against the plain walk on another.
-        before = state[4].clone()
-        plain_state = tuple(a.clone() for a in state)
-        probe = tuple(a.clone() for a in state)
-        _, walk_ms = timed(lambda: walk(moves, x_mb, y_walk, s * S, probe, max_steps=steps_cap))
-        walk(moves, x_mb, y_walk, s * S, state, max_steps=steps_cap)
-        _, plain_ms = timed(lambda: plain_walk(moves, x_mb, y_walk, s * S, plain_state,
-                                               steps_cap))
-        walked = int((state[4] - before).sum())
-        rec = {"shape": f"strip {s}, {B} lanes, {walked} steps", "ms": walk_ms,
-               "plain_ms": plain_ms, "max_abs_err": max_abs_err(state, plain_state)}
-        max_abs_err(probe, state)
-        # Per step read one move code and two sequence bytes, write two
-        # consensus bytes; per lane the state in and out (i, j, pos, steps,
-        # the active flag, and affine the gap state).
-        rec["bound_ms"], rec["bound_by"] = bound(
-            walked * OPS_PER_STEP[walk.__name__], 5 * walked + 2 * (21 if affine else 17) * B,
-            clock)
-        out[walk.__name__][label] = rec
-        report(f"{names[1]} {walk.__name__}", label, rec)
-        del moves
+    held = slice(None, None, lane_step)
+    moves, groups, checked = None, [], {}
+    while True:
+        lanes, top = torch.stack([active.sum(),
+                                  torch.where(active, cur - 1, -1).max().long()]).tolist()
+        if not lanes or top < 0:
+            break
+        s = top // S
+        G = strips_cuda.replay_group(s + 1, lanes, B * N * S, dev, affine=affine, ncodes=ncodes,
+                                     held=moves.numel() if moves is not None else 0)
+        if moves is None:
+            moves = torch.empty((G, B, N, S), dtype=torch.uint8, device=dev)
+        G = min(G, moves.shape[0])
+        low = s - G + 1
+        walk_state = (cur, state[1], active)
+        call = lambda g=G, lo=s - G + 1: group(xs, ys, m, n, *ck, lo, moves[:g], walk_state, **kw)
+        if not groups:  # the first group: timed, then held
+            checked = {low: "bottom", low + G // 2: "middle", s: "top"}  # top wins a tie
+            rec = replay_group_case(group, xs, ys, m, n, ck, kw, walk_state, low, G, call, clock,
+                                    table_bytes)
+            out[replay.__name__][prefix + "group"] = rec
+            for g in REPLAY_CURVE:
+                if g <= min(s + 1, moves.shape[0]) and g != G:
+                    ms = cuda_ms(lambda g=g: call(g, s - g + 1), 3)
+                    rec[f"g{g}_ms"], rec[f"g{g}_strip_ms"] = ms, ms / g
+            print(f"{names[0]} {group.__name__}[{prefix}group] G-versus-time: "
+                  + ", ".join(f"G = {g}: {rec[f'g{g}_ms']:.3f} ms ({rec[f'g{g}_strip_ms']:.3f} "
+                              "a strip)" for g in REPLAY_CURVE if f"g{g}_ms" in rec)
+                  + f", G = {G} (rule): {rec['ms']:.3f} ms ({rec['strip_ms']:.3f} a strip)")
+        call()
+        at_launch = tuple(a.clone() for a in walk_state)  # what the launch read
+        groups.append(G)
+        for t in range(s, low - 1, -1):
+            if t not in checked:
+                walk(moves[t - low], x_mb, y_walk, t * S, state, max_steps=steps_cap)
+                continue
+            label = prefix + checked.pop(t)
+            rows = [c[:, t - 1] if t else None for c in ck]
+            mh, nh = m[held], n[held]
+            want, plain_ms = timed(lambda: plain_replay(
+                xs[held], ys[held], mh, nh, *[row if row is None else row[held] for row in rows],
+                t * S, **kw))
+            valid = (((t * S + r)[None, None, :] < mh[:, None, None])
+                     & (torch.arange(N, device=dev)[None, :, None] < nh[:, None, None]))
+            # The group's strip on the cells the walk can read.
+            i0, j0, active0 = (a[held] for a in at_launch)
+            readable = valid & ((active0 & (i0 - 1 >= t * S))[:, None, None]
+                                & (torch.arange(N, device=dev)[None, :, None]
+                                   < torch.minimum(nh, j0)[:, None, None]))
+            err = int((moves[t - low][held][readable].int() - want[readable].int()).abs().max()) \
+                if bool(readable.any()) else 0
+            one = replay(xs, ys, m, n, *rows, t * S, **kw)  # the G = 1 launch, every column
+            err = max(err, int((one[held][valid].int() - want[valid].int()).abs().max()))
+            if err:
+                raise AssertionError(f"{names[0]} strip {t}: move codes differ on valid cells")
+            out[replay.__name__][prefix + "group"]["plain_ms"] += plain_ms
+            out[replay.__name__][prefix + "group"]["checked_cells"] += int(readable.sum())
+            del want, valid, readable
+            lanes_rows = (m - t * S).clamp(0, S).long()
+            cells = int((lanes_rows * n.long()).sum())
+            rec = {"shape": f"strip {t} of {nstrips}, {B} lanes, N={N}, G = 1, moves "
+                            f"{one.numel() / 1e9:.3f} GB", "max_abs_err": err,
+                   "ms": cuda_ms(lambda: replay(xs, ys, m, n, *rows, t * S, **kw), 3),
+                   "plain_ms": plain_ms}
+            del one
+            if lane_step > 1:
+                rec["plain_lanes"] = int(mh.shape[0])
+            # Read the strip's read bytes, the references and the checkpoint
+            # row(s) (and a table); write one move byte per cell.
+            rec["bound_ms"], rec["bound_by"] = bound(
+                cells * OPS_PER_CELL[replay.__name__],
+                int(lanes_rows.sum()) + int(n.long().sum()) * (1 + 4 * len(ck) if t else 1)
+                + cells + table_bytes, clock)
+            out[replay.__name__][label] = rec
+            report(f"{names[0]} {replay.__name__}", label, rec)
+            # The walk on a copy of the state against the plain walk on another.
+            before = state[4].clone()
+            plain_state = tuple(a.clone() for a in state)
+            probe = tuple(a.clone() for a in state)
+            strip_moves = moves[t - low]
+            _, walk_ms = timed(lambda: walk(strip_moves, x_mb, y_walk, t * S, probe,
+                                            max_steps=steps_cap))
+            walk(strip_moves, x_mb, y_walk, t * S, state, max_steps=steps_cap)
+            _, plain_ms = timed(lambda: plain_walk(strip_moves, x_mb, y_walk, t * S, plain_state,
+                                                   steps_cap))
+            walked = int((state[4] - before).sum())
+            rec = {"shape": f"strip {t}, {B} lanes, {walked} steps", "ms": walk_ms,
+                   "plain_ms": plain_ms, "max_abs_err": max_abs_err(state, plain_state)}
+            max_abs_err(probe, state)
+            # Per step read one move code and two sequence bytes, write two
+            # consensus bytes; per lane the state in and out (i, j, pos, steps,
+            # the active flag, and affine the gap state).
+            rec["bound_ms"], rec["bound_by"] = bound(
+                walked * OPS_PER_STEP[walk.__name__], 5 * walked + 2 * (21 if affine else 17) * B,
+                clock)
+            out[walk.__name__][label] = rec
+            report(f"{names[1]} {walk.__name__}", label, rec)
+    rec = out[replay.__name__][prefix + "group"]
+    rec["groups"] = "+".join(map(str, groups))
+    report(f"{names[0]} {group.__name__}", prefix + "group", rec)
     # Every walk ended: it stopped, or (affine) ran through row 1, which
     # leaves a lane active at i = 0, in no strip.
     if bool((state[3] & (state[0] > 0)).any()):
         raise AssertionError("a lane's walk did not end at the bottom strip")
     return state
+
+
+def replay_group_case(group, xs, ys, m, n, ck, kw, walk_state, low: int, G: int, call,
+                      clock: float, table_bytes: int):
+    """The first group's launch (``call``, strips low .. low + G - 1) timed,
+    with its shape, and its bound counted on the cells it computes: the rows
+    of each (lane, strip) pair the walk reaches times min(n_b, j). Also the
+    replay's warps an SM (the CUDA occupancy calculator) and the cycles a
+    warp's column step takes, ms x clock over the pairs' column steps
+    (min(n_b, j) + 31 each) spread over the card's resident warp slots.
+    The held cells and the plain time are added as the group's strips are
+    checked. Returns the record, stored under its kernel's 'group' case by
+    the caller's ``out``."""
+    import torch
+
+    from parallel_genomeseq_tpu_torch.ops import scan_dp, strips_cuda
+
+    S = scan_dp.STRIP_S
+    B, N = ys.shape
+    cur, wj, active = walk_state
+    base = (low + torch.arange(G, device=xs.device)) * S
+    reached = active[None] & (cur[None] - 1 >= base[:, None])  # (G, B)
+    cols = torch.where(reached, torch.minimum(n.clamp(max=N), wj)[None].clamp(min=0), 0).long()
+    rows = (m.clamp(max=xs.shape[1])[None] - base[:, None]).clamp(0, S).long()
+    cells = int((rows * cols).sum())
+    pairs = int((cols > 0).sum())
+    per_block, blocks = strips_cuda.replay_occupancy(affine="gap_open" in kw,
+                                                     ncodes=kw["table"].shape[0]
+                                                     if "table" in kw else 0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = min(pairs, per_block * blocks * sms)
+    ms = cuda_ms(call, 3)
+    steps = int((torch.where(cols > 0, cols + 31, 0)).sum())
+    rec = {"shape": f"strips {low}-{low + G - 1} of {B} lanes, N={N}, {pairs} (lane, strip) "
+                    f"pairs reached, moves {G * B * N * S / 1e9:.3f} GB",
+           "G": G, "warps_per_sm": per_block * blocks, "moves_gb": G * B * N * S / 1e9,
+           "ms": ms, "strip_ms": ms / G, "max_abs_err": 0, "plain_ms": 0.0, "checked_cells": 0,
+           "cycles_per_step": ms * 1e-3 * clock * 1e6 * slots / max(1, steps)}
+    # Read each reached pair's read rows, its reference columns and their
+    # checkpoint values (H, and F; none for strip 0) and the table; write one
+    # move byte a computed cell.
+    ck_values = int((cols * (base[:, None] > 0)).sum()) * 4 * len(ck)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        cells * OPS_PER_CELL[replay_pair(group)[0].__name__],
+        int((rows * (cols > 0)).sum()) + int(cols.sum()) + ck_values + cells + table_bytes, clock)
+    return rec
 
 
 def big_run(label, flags, counters, reads_path, ref_path, absent=()):
@@ -1371,11 +1514,11 @@ def long_phase(args, card: str, clock: float, dev, data, kw):
     print(f"-- long reads, {'affine' if affine else 'linear'} gaps: {kw}")
     measured = check_strip_kernels(mutated, ref, clock, dev, kw)
 
-    tb = strip_kernels(kw)[1]
+    tb = strip_counters(kw)
     # Must not launch: the other gap model's strip kernels, and the profile
     # strips' own (K19-K21, K22-K24).
-    other = (strip_kernels(LINEAR if affine else BWA)[1] + strip_kernels(TABLE)[1][:3]
-             + strip_kernels({**TABLE, **PROTEIN_AFFINE})[1][:3])
+    other = (strip_counters(LINEAR if affine else BWA)[:4] + strip_counters(TABLE)[:3]
+             + strip_counters({**TABLE, **PROTEIN_AFFINE})[:3])
     base = [str(BIG["npiece"]), "--device", str(dev)] + (BWA_FLAGS if affine else [])
     score_run, score_launches = big_run(
         "7 3", base[:1] + ["3"] + base[1:], tb[:1], data_dir / "reads.csv", data_dir / "ref.fa",
@@ -1384,6 +1527,7 @@ def long_phase(args, card: str, clock: float, dev, data, kw):
         "7 1 --traceback", base[:1] + ["1", "--traceback"] + base[1:], tb,
         data_dir / "mutated.csv", data_dir / "ref.fa", absent=other)
     label = "affine" if affine else "linear"
+    check_groups(f"7 1 --traceback, {label}", tb_launches, tb)
     print(f"solve_big {label} on {card}: score-only {score_run.seconds[0] * 1e3:.1f} ms, "
           f"{score_run.gcups[0]:.3f} GCUPS; with traceback {tb_run.seconds[0] * 1e3:.1f} ms, "
           f"{tb_run.gcups[0]:.3f} GCUPS")
@@ -1461,7 +1605,7 @@ def check_long_query_kernels(db, query: str, clock: float, dev, gaps):
     names, (sweep, ckpt, replay, walk), (_, plain_ckpt, plain_replay, plain_walk) = \
         strip_kernels({**TABLE, **gaps})
     affine = "gap_open" in gaps
-    out = {fn.__name__: {} for fn in (sweep, ckpt, replay, walk)}
+    out = {fn.__name__: {} for fn in (sweep, ckpt, replay_pair(replay)[0], walk)}
     table, lut = db.engine.table, db.engine.encode_lut
     kw = dict(table=table, **gaps)
     q = db.encode_query(query)
@@ -1581,11 +1725,11 @@ def long_query_phase(args, card: str, clock: float, dev, data, long, gaps):
     del db
     torch.cuda.empty_cache()
 
-    tb = strip_kernels({**TABLE, **gaps})[1]
+    tb = strip_counters({**TABLE, **gaps})
     # Must not launch: the single-strip protein kernels (both gap models)
     # and the other gap model's profile strips (the walks of the two models
     # are K14 and K18).
-    other = strip_kernels({**TABLE, **(PROTEIN_LINEAR if affine else PROTEIN_AFFINE)})[1]
+    other = strip_counters({**TABLE, **(PROTEIN_LINEAR if affine else PROTEIN_AFFINE)})[:4]
     short = (profile_cuda.sw_profile, profile_cuda.sw_profile_moves, traceback.walk_moves,
              profile_cuda.sw_profile_affine, profile_cuda.sw_profile_affine_moves,
              traceback.walk_moves_affine, *other)
@@ -1611,12 +1755,14 @@ def long_query_phase(args, card: str, clock: float, dev, data, long, gaps):
     # Must not launch: the uniform strips' sweeps and replays (K11-K13,
     # K15-K17; their walks are the profile strips' too) and the other gap
     # model's profile strips.
-    uniform = strip_kernels(LINEAR)[1][:3] + strip_kernels(BWA)[1][:3]
+    uniform = strip_counters(LINEAR)[:3] + strip_counters(BWA)[:3]
     big_cli = ["--matrix", "blosum50", *(gap_flags if affine else []), str(BIG["npiece"]),
                "1", "--traceback"]
     big, big_launches = big_run(
         " ".join(big_cli), big_cli + ["--device", str(dev)], tb, data_dir / "mutated.csv",
         data_dir / "ref.fa", absent=uniform + other)
+    check_groups(f"--matrix blosum50 {label} --traceback", big_launches, tb)
+    check_groups(f"long query, {label}", uniprot, tb)
     print(f"solve_big --matrix blosum50 {label} on {card}: with traceback "
           f"{big.seconds[0] * 1e3:.1f} ms, {big.gcups[0]:.3f} GCUPS")
     sub = byte_pair_scores(ALPHABET, BLOSUM50)
@@ -1648,22 +1794,22 @@ KERNELS = [
      "windows"),
     ("sw_score_strips", "strips.cu", f"{PALLAS}:1073", "long", "sweep"),
     ("sw_score_strips_ckpt", "strips.cu", f"{PALLAS}:1134", "long", "winners"),
-    ("strip_moves", "strips.cu", f"{PALLAS}:1792", "long", "top"),
+    ("strip_moves", "strips.cu", f"{PALLAS}:1792", "long", "group"),
     ("walk_strip_level", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:167", "long",
      "top"),
     ("sw_score_strips_affine", "strips.cu", f"{PALLAS}:1102", "long_affine", "sweep"),
     ("sw_score_strips_affine_ckpt", "strips.cu", f"{PALLAS}:1147", "long_affine", "winners"),
-    ("strip_affine_moves", "strips.cu", f"{PALLAS}:1870", "long_affine", "top"),
+    ("strip_affine_moves", "strips.cu", f"{PALLAS}:1870", "long_affine", "group"),
     ("walk_strip_level_affine", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:221",
      "long_affine", "top"),
     ("sw_score_strips_profile", "strips.cu", f"{PALLAS}:1081", "long_query", "db"),
     ("sw_score_strips_profile_ckpt", "strips.cu", f"{PALLAS}:1642", "long_query", "top10"),
-    ("strip_profile_moves", "strips.cu", f"{PALLAS}:1986", "long_query", "query_top"),
+    ("strip_profile_moves", "strips.cu", f"{PALLAS}:1986", "long_query", "query_group"),
     ("sw_score_strips_profile_affine", "strips.cu", f"{PALLAS}:1116", "long_query_affine", "db"),
     ("sw_score_strips_profile_affine_ckpt", "strips.cu", f"{PALLAS}:1657", "long_query_affine",
      "top10"),
     ("strip_profile_affine_moves", "strips.cu", f"{PALLAS}:2070", "long_query_affine",
-     "query_top"),
+     "query_group"),
 ]
 # The strip walks run in a long-read phase and in a long-query phase.
 WALK_QUERY_PHASE = {"walk_strip_level": "long_query",

@@ -12,9 +12,10 @@
 //     strip's last row (rows kS - 1, S = 256), the checkpoints the strip
 //     traceback replays from.
 // K13 `strip_moves_kernel<false, false>` replaces B17, `_kernel_strip_moves` (:1792)
-//     via `_call_strip_moves` (:1840): one strip's S rows recomputed from its
+//     via `_call_strip_moves` (:1840): a strip's S rows recomputed from its
 //     incoming checkpoint row, emitting the linear move byte of :1825-1831
-//     for every cell.
+//     for every cell the strip walk can read; G strips of every lane a
+//     launch.
 // K15 `strip_sweep_kernel<false, true, false>` replaces B10, `_kernel_strips_affine`
 //     (:1102, the affine branch of `_strips_body` :1226, :1268-1276) via
 //     `_call_strips_affine` (:1389): K11 under the Gotoh recurrence
@@ -127,15 +128,31 @@
 // bests by max score, then min j, then min i. An all-zero lane gives
 // (0, 0, 0).
 //
-// Design of K13 and K17. One warp per lane: 32 threads x 8 rows cover the
-// strip's 256 rows, pipelined along the reference as above, the hand-off by
-// __shfl_up_sync (no barrier; K17 hands off H and F with two). Row 0's north
-// and north-west come from the checkpoint row (zeros for strip 0; K17's F
-// from the F row, 0 for strip 0). A thread packs its 8 move bytes of a
-// column into one 8-byte store into the lane-major (B, N, S) moves layout
-// (moves[b][j - 1][r]) that the strip walk reads. K17 keeps its 8 rows' E in
-// registers, from -2^30 in column 0 as the full sweep does, so its bytes
-// equal the full sweep's on every cell of the lane's matrix.
+// Design of K13 and K17, the replay. One warp per (lane, strip) pair, G
+// strips of every lane in one launch (the strips are independent: strip t
+// starts from its own checkpoint row ck[:, t - 1]), four independent warps a
+// block. The strip walk reads a strip's cells only from its current (i, j)
+// up and left, so a warp first reads the walk's state on the device and
+// returns at once when the lane is inactive or its i - 1 lies above the
+// strip's first row, and otherwise replays only columns 1 .. min(n_b, j):
+// every byte of a cell the walk can reach, stop bit included, depends only
+// on columns up to j. 32 threads x 8 rows cover the strip's 256 rows,
+// pipelined along the reference as the sweeps are, the hand-off by
+// __shfl_up_sync (K17 hands off H and F). Nothing read from device memory
+// is in the step's chain: the column's reference code, and row 0's incoming
+// H (and F) -- zeros for strip 0, F = 0 above row 1 as the full sweep has
+// it -- come from a 32-column word that the warp loads one word ahead, one
+// coalesced element a lane, and lane 0 takes by __shfl_sync. A thread stages
+// its 8 move bytes of a column in its own ring of kPiece slots in shared
+// memory and stores them when the other kPiece - 1 threads of its piece have
+// staged that column too, so that each warp store writes whole 128-byte runs
+// of finished columns into the lane-major (B, N, S) layout the strip walk
+// reads (moves[g][b][j - 1][r]), not 32 scattered 8-byte pieces. K17 keeps
+// its 8 rows' E in registers, from -2^30 in column 0 as the full sweep does,
+// so its bytes equal the full sweep's on every cell of the lane's matrix.
+// The replays issue about 14 (K13) and 18 (K17) instructions a cell; with a
+// whole strip a warp, a warp alone on its SM is latency-bound, which is why
+// a launch replays as many strips as give every SM its resident warps.
 //
 // Design of K19-K21, and of K22-K24 (the same over K15-K17): K11-K13 with
 // the score of a cell read from the table, copied into shared memory
@@ -158,15 +175,14 @@
 // warp-instructions a cycle, which the step nearly fills. Per column and
 // thread the sweeps add three shuffles (affine four: the hand-off and the
 // reference code), a ring access on lanes 0 and 31 and the running-best test,
-// and per group of 8 columns one wait and one publish; the replays one
-// shuffle and one read of the reference byte. The sweep runs at the pace of
+// and per group of 8 columns one wait and one publish; the replays four
+// shuffles (affine six: the hand-off, the code, row 0's inputs), a staged
+// store and a store of the staged bytes. The sweep runs at the pace of
 // its slowest warp, so work that one warp does and the others do not (a
 // masked band, a divergent branch) costs the whole block: the band that
-// holds m_b is swept unmasked for that reason.
-// The replays at the winner re-run's shape are one warp per lane, so they are
-// latency-bound: the north chain down the 8 rows of a band. K19 on the slab
-// is one block per entry: a warp starts about 40 steps after the warp above
-// it and runs n_b + 31 steps, and a warp that waits or has finished sleeps
+// holds m_b is swept unmasked for that reason. K19 on the slab is one block
+// per entry: a warp starts about 40 steps after the warp above it and runs
+// n_b + 31 steps, and a warp that waits or has finished sleeps
 // (__nanosleep) and runs few instructions, so filling and draining the
 // pipeline costs the block time but few instructions.
 
@@ -184,10 +200,14 @@ constexpr int kRing = 128;              // columns a warp's hand-off ring holds
 constexpr int kGroup = 8;               // columns a progress count covers
 constexpr int kStrip = 256;             // strip height S (checkpoints, K13)
 constexpr int kReplayBand = kStrip / 32;  // rows per thread, K13/K17
+constexpr int kReplayWarps = 4;         // independent (lane, strip) warps a replay block holds
+constexpr int kPiece = 16;              // threads whose staged codes leave as one run
 constexpr int kNeg = -(1 << 30);        // E and F where no gap run can reach
 constexpr unsigned kAll = 0xffffffffu;
 static_assert(kStrip % kWide == 0 && kWide % kNarrow == 0 && kNarrow % 2 == 0,
               "bands tile the strips, in row pairs");
+static_assert(kReplayBand == 8 && (kPiece & (kPiece - 1)) == 0 && 32 % kPiece == 0,
+              "a replay thread packs its rows' codes in two words; pieces tile a warp");
 static_assert(kRing % kGroup == 0 && (kRing & (kRing - 1)) == 0 &&
                   (kGroup & (kGroup - 1)) == 0, "the ring holds whole groups");
 
@@ -591,33 +611,121 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
   }
 }
 
+// One column of a replay band's kReplayBand rows: h (and, affine, e) hold
+// H(., j - 1) (E(., j - 1)) on entry and H(., j) (E(., j)) on return; diag
+// = H(row0, j - 1) and north = H(row0, j) of the row above the band; f is
+// F(row0, j) on entry and F of the band's last row on return (affine). Row
+// k's move byte goes to byte k of code. kMasked: rows k >= nvalid (past the
+// lane's m_b) hold H = 0 and, affine, E = F = kNeg, as the full sweep stores
+// them.
+template <bool kAffine, bool kProfile, bool kMasked>
+__device__ __forceinline__ void replay_column(int (&h)[kReplayBand], int (&e)[kReplayBand],
+                                              const uint8_t (&xb)[kReplayBand], int yc,
+                                              const int32_t* row, int match, int mismatch,
+                                              int gap_open, int gap, int diag, int north,
+                                              int& f, int nvalid, uint32_t (&code)[2]) {
+#pragma unroll
+  for (int k = 0; k < kReplayBand; ++k) {
+    const int west = h[k];
+    const int s_xy = cell_score<kProfile>(xb[k], yc, row, match, mismatch);
+    uint32_t mv;
+    int v;
+    if constexpr (kAffine) {
+      // The byte of ops/scan_dp.wavefront_affine: H's source by equality in
+      // the order ZERO, NW, E, F; the extend bits where the run's value
+      // reaches the opening one.
+      const int e_open = west - gap_open;
+      const int f_open = north - gap_open;
+      int ek = max(e_open, e[k]) - gap;
+      const int fk = max(f_open, f) - gap;
+      const int nwv = diag + s_xy;
+      v = __vimax3_s32_relu(nwv, ek, fk);
+      mv = v == 0 ? 3u : v == nwv ? 0u : v == ek ? 1u : 2u;
+      if (e[k] >= e_open) mv |= 8u;
+      if (f >= f_open) mv |= 16u;
+      f = fk;
+      if (kMasked && k >= nvalid) {
+        v = 0;
+        ek = kNeg;
+        f = kNeg;
+      }
+      e[k] = ek;
+    } else {
+      // Move code over the neighbours (nw, west, north): NW if nw >= west
+      // and nw >= north, else W if west >= north, else N; bit 2 (stop) when
+      // any of them is 0 (H is never negative, so when their minimum is).
+      const int wn = max(west, north);
+      mv = diag >= wn ? 0u : west >= north ? 1u : 2u;
+      if (__vimin3_s32(diag, west, north) == 0) mv |= 4u;
+      v = __viaddmax_s32_relu(wn, -gap, diag + s_xy);  // max(wn - gap, diag + s, 0)
+      if (kMasked && k >= nvalid) v = 0;
+    }
+    code[k >> 2] |= mv << (8 * (k & 3));
+    diag = west;
+    h[k] = v;
+    north = v;
+  }
+}
+
 // K13 (kAffine = false) and K17 (kAffine = true), and with kProfile K21 and
-// K24: one warp per lane. x (B, M) uint8 (codes when kProfile) with the strip at rows
-// [base, base + kStrip); rowin (B, .) int32 with lane stride ld_row,
-// rowin[b][j - 1] = H(base, j), or null for strip 0; frowin (K17) the same
-// for F(base, j), beside rowin with its stride; moves (B, N, kStrip) uint8;
-// table (ncodes, ncodes) int32 (K21 and K24; dynamic shared memory).
+// K24: one warp per (lane, strip) pair, kReplayWarps independent warps a
+// block; pair p = (blockIdx.x * kReplayWarps + warp) replays strip first + g
+// of lane b, b = p / G, g = p % G, into moves[g][b] of the (G, B, N, kStrip)
+// uint8 buffer (moves[g][b][j - 1][r] the byte of cell (base + r + 1, j)).
+// x (B, M) uint8 (codes when kProfile), y (B, N); the incoming H row of
+// strip t (its row base = t * kStrip, 1-based) for lane b at hrow + b *
+// ld_lane + (t - row_first) * ld_strip when hrow is given and t >=
+// row_first, else zeros; frow the same for F (affine; 0 above row 1). walk_i,
+// walk_j, walk_active (the strip walk's state, or null for every column of
+// every pair): a pair whose lane is inactive or whose i - 1 lies above the
+// strip's base does nothing, the others replay columns 1 .. min(n_b, j).
+// table (ncodes, ncodes) int32 (K21 and K24; dynamic shared memory, before
+// each warp's staging ring).
 template <bool kAffine, bool kProfile>
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(kReplayWarps * 32, kAffine ? 6 : 8)
 strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
-                   const int32_t* __restrict__ m, const int32_t* __restrict__ n,
-                   int M, int N, int base, const int32_t* __restrict__ rowin,
-                   const int32_t* __restrict__ frowin, long long ld_row,
-                   const int32_t* __restrict__ table, int ncodes, int match,
-                   int mismatch, int gap_open, int gap, uint8_t* __restrict__ moves) {
-  extern __shared__ int32_t tab[];  // kProfile: tab[yc * ncodes + xc]
+                   const int32_t* __restrict__ m, const int32_t* __restrict__ n, int M,
+                   int N, int B, int G, int first, const int32_t* __restrict__ hrow,
+                   const int32_t* __restrict__ frow, long long ld_lane, long long ld_strip,
+                   int row_first, const int32_t* __restrict__ walk_i,
+                   const int32_t* __restrict__ walk_j,
+                   const uint8_t* __restrict__ walk_active,
+                   const int32_t* __restrict__ table, int ncodes, int match, int mismatch,
+                   int gap_open, int gap, uint8_t* __restrict__ moves) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  int32_t* const tab = reinterpret_cast<int32_t*>(dyn);  // kProfile: tab[yc * ncodes + xc]
   if constexpr (kProfile) {
     load_table(tab, table, ncodes);
-    __syncwarp();
+    __syncthreads();  // the block's only barrier: its warps are independent
   }
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const int nb = min(n[b], N);
+  const int t = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  // This thread's ring of kPiece staged 8-byte codes, slot j % kPiece.
+  uint2* const stage =
+      reinterpret_cast<uint2*>(dyn + (kProfile ? table_bytes(ncodes) : 0)) + w * kPiece * 32 + t;
+  const long long pair = (long long)blockIdx.x * kReplayWarps + w;
+  if (pair >= (long long)B * G) return;
+  const int b = (int)(pair / G);
+  const int g = (int)(pair % G);
+  const int strip = first + g;
+  const int base = strip * kStrip;
+  int nb = min(n[b], N);
+  if (walk_i) {  // only what the walk can still read
+    if (!walk_active[b] || walk_i[b] - 1 < base) return;
+    nb = min(nb, walk_j[b]);
+  }
+  if (nb <= 0) return;
   const int row0 = t * kReplayBand;  // strip-local first row of the band
   const int nvalid = min(max(min(m[b], M) - base - row0, 0), kReplayBand);
+  // The strip that holds m_b masks its rows past it in every thread, so
+  // that the warp takes one path: masking a full band changes nothing.
+  const bool masked = __any_sync(kAll, nvalid < kReplayBand);
   const uint8_t* xl = x + (size_t)b * M;
-  const int32_t* rl = rowin ? rowin + (size_t)b * ld_row : nullptr;
-  const int32_t* fl = frowin ? frowin + (size_t)b * ld_row : nullptr;
+  const uint8_t* yl = y + (size_t)b * N;
+  const bool has_row = hrow != nullptr && strip >= row_first;
+  const size_t row_at = has_row ? (size_t)b * ld_lane + (size_t)(strip - row_first) * ld_strip : 0;
+  const int32_t* rl = has_row ? hrow + row_at : nullptr;
+  const int32_t* fl = kAffine && has_row ? frow + row_at : nullptr;
   uint8_t xb[kReplayBand];
   int h[kReplayBand];
   int e[kReplayBand];  // affine: E(., j - 1), kNeg in column 0
@@ -629,71 +737,60 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
     h[k] = 0;
     e[k] = kNeg;
   }
-  uint8_t* out = moves + (size_t)b * N * kStrip + row0;
+  // Row 0's inputs 32 columns a word, one a lane, loaded one word ahead:
+  // lane l of word k holds column 32k + l + 1's reference code and incoming
+  // H (and F); lane 0 takes them by __shfl_sync.
+  int ycur = 0, hcur = 0, fcur = 0;
+  int ynext = t < nb ? y_code<kProfile>(yl, t, ncodes) : 0;
+  int hnext = rl && t < nb ? rl[t] : 0;
+  int fnext = fl && t < nb ? fl[t] : 0;
+  // Piece p = t / kPiece of column c leaves the warp at step c + lag, when
+  // its last thread has staged it: one 8-byte store a thread, kPiece threads
+  // writing one contiguous 8 * kPiece-byte run of the column.
+  const int lag = (t / kPiece + 1) * kPiece - 2;
+  uint8_t* const out = moves + ((size_t)g * B + b) * N * kStrip + row0;
+  int yc = 0;      // this band's column's code
   int nw = 0;      // H(row0, j - 1)
   int carry = 0;   // this band's last-row H of the column it finished last
   int fcarry = 0;  // affine: the same row's F
   for (int s = 0; s < nb + 31; ++s) {
-    const int up = __shfl_up_sync(0xffffffffu, carry, 1);
-    const int fup = kAffine ? __shfl_up_sync(0xffffffffu, fcarry, 1) : 0;
+    if ((s & 31) == 0) {
+      ycur = ynext;
+      hcur = hnext;
+      fcur = fnext;
+      const int k = s + 32 + t;
+      ynext = k < nb ? y_code<kProfile>(yl, k, ncodes) : 0;
+      hnext = rl && k < nb ? rl[k] : 0;
+      fnext = fl && k < nb ? fl[k] : 0;
+    }
+    const int up = shfl_up1(carry);
+    const int fup = kAffine ? shfl_up1(fcarry) : 0;
+    yc = shfl_up1(yc);
+    const int hfirst = shfl_from(hcur, s & 31);
+    const int ffirst = kAffine ? shfl_from(fcur, s & 31) : 0;
+    const int yfirst = shfl_from(ycur, s & 31);
+    if (t == 0) yc = yfirst;
     const int j = s - t + 1;
     if (j >= 1 && j <= nb) {
-      const int north_in = t > 0 ? up : (rl ? rl[j - 1] : 0);
-      uint8_t yc = y[(size_t)b * N + j - 1];
-      const int32_t* row = nullptr;  // kProfile: the column's table row
-      if constexpr (kProfile) {
-        yc = clamp_code(yc, ncodes);
-        row = tab + yc * ncodes;
-      }
-      int diag = nw, north = north_in;
-      int f = t > 0 ? fup : (fl ? fl[j - 1] : 0);  // affine: F(row0, j), 0 above row 1
+      const int north_in = t > 0 ? up : hfirst;
+      int f = t > 0 ? fup : ffirst;  // affine: F(row0, j)
+      const int32_t* row = kProfile ? tab + yc * ncodes : nullptr;
       uint32_t code[2] = {0u, 0u};
-#pragma unroll
-      for (int k = 0; k < kReplayBand; ++k) {
-        const int west = h[k];
-        const int s_xy = cell_score<kProfile>(xb[k], yc, row, match, mismatch);
-        uint32_t mv;
-        int v;
-        if constexpr (kAffine) {
-          // The byte of ops/scan_dp.wavefront_affine: H's source by equality
-          // in the order ZERO, NW, E, F; the extend bits where the run's
-          // value reaches the opening one.
-          const int e_open = west - gap_open;
-          const int f_open = north - gap_open;
-          int ek = max(e_open, e[k]) - gap;
-          const int fk = max(f_open, f) - gap;
-          const int nwv = diag + s_xy;
-          v = max(max(nwv, ek), max(fk, 0));
-          mv = v == 0 ? 3u : v == nwv ? 0u : v == ek ? 1u : 2u;
-          if (e[k] >= e_open) mv |= 8u;
-          if (f >= f_open) mv |= 16u;
-          f = fk;
-          if (k >= nvalid) {
-            v = 0;
-            ek = kNeg;
-            f = kNeg;
-          }
-          e[k] = ek;
-        } else {
-          // Move code over the neighbours (nw, west, north): NW if nw >= west
-          // and nw >= north, else W if west >= both, else N; bit 2 (stop)
-          // when any of them is 0.
-          mv = (diag >= west && diag >= north) ? 0u
-               : (west >= diag && west >= north) ? 1u : 2u;
-          if (diag == 0 || west == 0 || north == 0) mv |= 4u;
-          v = max(max(diag + s_xy, max(west, north) - gap), 0);
-          v = k < nvalid ? v : 0;
-        }
-        code[k >> 2] |= mv << (8 * (k & 3));
-        diag = west;
-        h[k] = v;
-        north = v;
+      if (!masked) {
+        replay_column<kAffine, kProfile, false>(h, e, xb, yc, row, match, mismatch, gap_open,
+                                                gap, nw, north_in, f, nvalid, code);
+      } else {
+        replay_column<kAffine, kProfile, true>(h, e, xb, yc, row, match, mismatch, gap_open,
+                                               gap, nw, north_in, f, nvalid, code);
       }
-      *reinterpret_cast<uint2*>(out + (size_t)(j - 1) * kStrip) =
-          make_uint2(code[0], code[1]);
+      stage[(j & (kPiece - 1)) * 32] = make_uint2(code[0], code[1]);
       carry = h[kReplayBand - 1];
       fcarry = f;
       nw = north_in;
+    }
+    const int c = s - lag;
+    if (c >= 1 && c <= nb) {
+      *reinterpret_cast<uint2*>(out + (size_t)(c - 1) * kStrip) = stage[(c & (kPiece - 1)) * 32];
     }
   }
 }
@@ -760,6 +857,23 @@ SweepShape sweep_shape(int M, bool ckpt, bool affine, bool profile, int ncodes) 
              : narrow;
 }
 
+using ReplayKernel = decltype(&strip_moves_kernel<false, false>);
+
+// The replay kernel of a form: K13, K17, K21 or K24.
+ReplayKernel replay_kernel(bool affine, bool profile) {
+  static const ReplayKernel kernels[2][2] = {
+      {&strip_moves_kernel<false, false>, &strip_moves_kernel<false, true>},
+      {&strip_moves_kernel<true, false>, &strip_moves_kernel<true, true>}};
+  return kernels[affine][profile];
+}
+
+// A replay block's dynamic shared memory: the table (ncodes > 0), then each
+// warp's staging ring, kPiece 8-byte slots a thread.
+size_t replay_smem(int ncodes) {
+  return (ncodes > 0 ? table_bytes(ncodes) : 0) +
+         (size_t)kReplayWarps * kPiece * 32 * sizeof(uint2);
+}
+
 }  // namespace
 
 // Plain C entry points, bound with ctypes. Device pointers to contiguous
@@ -813,31 +927,48 @@ extern "C" int pgs_strip_sweep_occupancy(int M, int ckpt, int affine, int ncodes
   return static_cast<int>(cudaGetLastError());
 }
 
-// pgs_strip_moves: x (B, M), y (B, N) uint8, m, n (B,) int32, base the
-// strip's first row (a multiple of 256), rowin (and, when gap_open > 0,
-// frowin) with lane stride ld_row or null, moves (B, N, 256) uint8 (columns
-// past a lane's n_b not written). gap_open > 0 selects K17, a table
-// ((ncodes, ncodes) int32 over compact codes) K21, both K24.
-extern "C" int pgs_strip_moves(const void* x, const void* y, const void* m,
-                               const void* n, int M, int N, int B, int base,
-                               const void* rowin, const void* frowin,
-                               long long ld_row, const void* table, int ncodes,
-                               int match, int mismatch, int gap_open, int gap,
-                               void* moves, void* stream) {
-  const bool affine = gap_open > 0;
-  if (B > 0) {
-    const size_t smem = table ? (size_t)ncodes * ncodes * sizeof(int32_t) : 0;
-    // [kAffine][kProfile]
-    static const decltype(&strip_moves_kernel<false, false>) kernels[2][2] = {
-        {&strip_moves_kernel<false, false>, &strip_moves_kernel<false, true>},
-        {&strip_moves_kernel<true, false>, &strip_moves_kernel<true, true>}};
-    auto kernel = kernels[affine][table != nullptr];
-    kernel<<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+// pgs_strip_moves: G strips [first, first + G) of every lane replayed in
+// one launch into moves (G, B, N, 256) uint8 (columns a pair does not
+// replay left unwritten). x (B, M), y (B, N) uint8, m, n (B,) int32; hrow
+// (and, when gap_open > 0, frow) the incoming rows, strip t's for lane b at
+// b * ld_lane + (t - row_first) * ld_strip int32s in, for t >= row_first, or
+// null (zeros): K12/K16's (B, nck, N) checkpoints with row_first 1, or one
+// (B, N) row with row_first = first and G = 1; walk_i, walk_j (B,) int32 and
+// walk_active (B,) bool, the strip walk's state, or null (every column of
+// every pair). gap_open > 0 selects K17, a table ((ncodes, ncodes) int32
+// over compact codes) K21, both K24.
+extern "C" int pgs_strip_moves(const void* x, const void* y, const void* m, const void* n,
+                               int M, int N, int B, int G, int first, const void* hrow,
+                               const void* frow, long long ld_lane, long long ld_strip,
+                               int row_first, const void* walk_i, const void* walk_j,
+                               const void* walk_active, const void* table, int ncodes,
+                               int match, int mismatch, int gap_open, int gap, void* moves,
+                               void* stream) {
+  if (B > 0 && G > 0) {
+    const int nc = table ? ncodes : 0;
+    const long long blocks = ((long long)B * G + kReplayWarps - 1) / kReplayWarps;
+    const ReplayKernel kernel = replay_kernel(gap_open > 0, nc > 0);
+    kernel<<<(unsigned)blocks, kReplayWarps * 32, replay_smem(nc),
+             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(y),
-        static_cast<const int32_t*>(m), static_cast<const int32_t*>(n), M, N,
-        base, static_cast<const int32_t*>(rowin), static_cast<const int32_t*>(frowin),
-        ld_row, static_cast<const int32_t*>(table), ncodes, match, mismatch, gap_open,
-        gap, static_cast<uint8_t*>(moves));
+        static_cast<const int32_t*>(m), static_cast<const int32_t*>(n), M, N, B, G, first,
+        static_cast<const int32_t*>(hrow), static_cast<const int32_t*>(frow), ld_lane,
+        ld_strip, row_first, static_cast<const int32_t*>(walk_i),
+        static_cast<const int32_t*>(walk_j), static_cast<const uint8_t*>(walk_active),
+        static_cast<const int32_t*>(table), nc, match, mismatch, gap_open, gap,
+        static_cast<uint8_t*>(moves));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pgs_strip_moves_occupancy: the replay launch of pgs_strip_moves (affine !=
+// 0 as gap_open > 0 selects it; ncodes > 0 a table of that size) on the
+// current device: out[0] warps a block, out[1] the blocks an SM holds at
+// once (the CUDA occupancy calculator). Returns cudaGetLastError().
+extern "C" int pgs_strip_moves_occupancy(int affine, int ncodes, void* out) {
+  int* o = static_cast<int*>(out);
+  o[0] = kReplayWarps;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o[1], replay_kernel(affine != 0, ncodes > 0),
+                                                kReplayWarps * 32, replay_smem(ncodes));
   return static_cast<int>(cudaGetLastError());
 }

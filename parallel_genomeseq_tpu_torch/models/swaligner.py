@@ -10,7 +10,8 @@ batch of longer reads takes the checkpointed strip traceback,
 affine gaps K16, then K17 and K18, the JAX package's
 ``score_batch_strip_affine_moves``; under a substitution matrix with linear
 gaps K20, then K21 and K14, and with affine gaps K23, then K24 and K18), as
-swaligner.py:175-192 does, its per-strip times in ``Timings.levels_us``; a
+swaligner.py:175-192 does (the replays a group of strips a launch), its
+per-strip times in ``Timings.levels_us`` (a group's on its first strip); a
 score-only one takes K11 (K15, K19, K22).
 Under affine gaps (``cfg.is_affine``) K7 or K9 emit the affine move bytes
 and K10 (``walk_moves_affine``) walks them, as swaligner.py:241, 264 choose.

@@ -51,9 +51,13 @@ _SIGNATURES = {
     + [_P] * 4 + [_I] + [_P] * 4,
     # M, ckpt, affine, ncodes, out (int32 threads, passes, blocks per SM, rows)
     "pgs_strip_sweep_occupancy": [_I] * 4 + [_P],
-    # x, y, m, n, M, N, B, base, rowin, frowin, ld_row, table, ncodes, match,
-    # mismatch, gap_open, gap, moves, stream
-    "pgs_strip_moves": [_P] * 4 + [_I] * 4 + [_P, _P, _L, _P] + [_I] * 5 + [_P] * 2,
+    # x, y, m, n, M, N, B, G, first, hrow, frow, ld_lane, ld_strip, row_first,
+    # walk_i, walk_j, walk_active, table, ncodes, match, mismatch, gap_open,
+    # gap, moves, stream
+    "pgs_strip_moves": [_P] * 4 + [_I] * 5 + [_P, _P, _L, _L, _I] + [_P] * 4 + [_I] * 5
+    + [_P] * 2,
+    # affine, ncodes, out (int32 warps a block, blocks per SM)
+    "pgs_strip_moves_occupancy": [_I] * 2 + [_P],
     # moves, x_mb, y_bn, M, N, B, base, max_steps, i, j, pos, active, steps,
     # cx, cy, stream
     "pgs_walk_strip": [_P] * 3 + [_I] * 5 + [_P] * 8,

@@ -9,13 +9,13 @@ for uniform scoring, K4/K5 (``ops/profile_cuda``) for a substitution matrix,
 and under affine (Gotoh) gaps their forms K6/K7 and K8/K9, walked by K3 or,
 affine, K10 (``ops/traceback``); reads longer than MAX_M go to the strip
 kernels of ``ops/strips_cuda`` -- K11 (score), K12 (checkpoints) and K13
-(replay), walked strip by strip by K14; under affine gaps K15, K16 (H and F
-checkpoints) and K17, walked by K18; under a substitution matrix with
-linear gaps K19, K20 and K21, walked by K14, and with affine gaps K22, K23
-(H and F checkpoints) and K24, walked by K18 (K19, or K22, also scans a
-resident slab for a query longer than MAX_M). Every scoring family runs at
-every length. CUDA tensors launch the kernels or raise, CPU tensors take
-the plain route.
+(replay, a group of strips a launch), walked strip by strip by K14; under
+affine gaps K15, K16 (H and F checkpoints) and K17, walked by K18; under a
+substitution matrix with linear gaps K19, K20 and K21, walked by K14, and
+with affine gaps K22, K23 (H and F checkpoints) and K24, walked by K18
+(K19, or K22, also scans a resident slab for a query longer than MAX_M).
+Every scoring family runs at every length. CUDA tensors launch the kernels
+or raise, CPU tensors take the plain route.
 ``PlainEngine`` always runs the plain PyTorch wavefront (``ops/scan_dp``)
 and walks (``ops/traceback``), on either device. Inputs may be numpy arrays
 or tensors of raw bytes; results are tensors on the engine's device,
@@ -43,33 +43,33 @@ STRIP_S = scan_dp.STRIP_S
 
 # The long-read (strip) functions of each scoring family, keyed by
 # ``strip_key(cfg)`` = (cfg.is_affine, cfg.is_uniform): (sweep,
-# checkpointing sweep, replay, walk). The kernels' wrappers are K11-K14,
+# checkpointing sweep, group replay, walk). The kernels' wrappers are K11-K14,
 # affine K15-K18, and under a substitution matrix K19-K21 walked by K14,
 # affine K22-K24 walked by K18; the plain versions share the full sweeps
 # (``sw_score_plain``, ``sw_profile_plain``).
 STRIP_KERNELS = {
     (False, True): (strips_cuda.sw_score_strips, strips_cuda.sw_score_strips_ckpt,
-                    strips_cuda.strip_moves, traceback.walk_strip_level),
+                    strips_cuda.strip_moves_group, traceback.walk_strip_level),
     (True, True): (strips_cuda.sw_score_strips_affine,
-                   strips_cuda.sw_score_strips_affine_ckpt, strips_cuda.strip_affine_moves,
+                   strips_cuda.sw_score_strips_affine_ckpt, strips_cuda.strip_affine_moves_group,
                    traceback.walk_strip_level_affine),
     (False, False): (strips_cuda.sw_score_strips_profile,
                      strips_cuda.sw_score_strips_profile_ckpt,
-                     strips_cuda.strip_profile_moves, traceback.walk_strip_level),
+                     strips_cuda.strip_profile_moves_group, traceback.walk_strip_level),
     (True, False): (strips_cuda.sw_score_strips_profile_affine,
                     strips_cuda.sw_score_strips_profile_affine_ckpt,
-                    strips_cuda.strip_profile_affine_moves,
+                    strips_cuda.strip_profile_affine_moves_group,
                     traceback.walk_strip_level_affine),
 }
 STRIP_PLAIN = {
     (False, True): (scan_dp.sw_score_plain, scan_dp.sw_score_ckpt_plain,
-                    scan_dp.strip_moves_plain, traceback._walk_strip_plain),
+                    scan_dp.strip_moves_group_plain, traceback._walk_strip_plain),
     (True, True): (scan_dp.sw_score_plain, scan_dp.sw_score_affine_ckpt_plain,
-                   scan_dp.strip_affine_moves_plain, traceback._walk_strip_affine_plain),
+                   scan_dp.strip_affine_moves_group_plain, traceback._walk_strip_affine_plain),
     (False, False): (scan_dp.sw_profile_plain, scan_dp.sw_profile_ckpt_plain,
-                     scan_dp.strip_profile_moves_plain, traceback._walk_strip_plain),
+                     scan_dp.strip_profile_moves_group_plain, traceback._walk_strip_plain),
     (True, False): (scan_dp.sw_profile_plain, scan_dp.sw_profile_affine_ckpt_plain,
-                    scan_dp.strip_profile_affine_moves_plain,
+                    scan_dp.strip_profile_affine_moves_group_plain,
                     traceback._walk_strip_affine_plain),
 }
 
@@ -159,9 +159,9 @@ class _Engine:
     def score_batch_strip_moves(self, x_bm, y_bn, m, n, max_steps: int):
         """Score, argmax and the whole greedy walk for reads longer than
         MAX_M, in checkpoint memory rather than the (M + N - 1, M, B) move
-        tensor: one checkpointing sweep (K12), then for each strip of STRIP_S
-        rows from the bottom of the matrix up, its moves replayed from the
-        checkpoint above it (K13) and every lane inside it walked (K14), as
+        tensor: one checkpointing sweep (K12), then the strips of STRIP_S
+        rows from the bottom of the matrix up, their moves replayed from the
+        checkpoints (K13) and every lane inside each walked (K14), as
         wavefront_pallas.py:2668-2764. Under affine gaps the same loop is
         ``score_batch_strip_affine_moves`` (:2766-2871): K16 checkpoints H
         and F, K17 replays from both, and K18 walks with the gap state
@@ -171,44 +171,58 @@ class _Engine:
         K23 and K24) score compact codes, and K14 (K18) walks the raw
         bytes.
 
-        One host sync per strip decides whether any lane reaches it (a strip
-        no lane reaches is skipped), and ends the previous strip's timing;
-        one more ends the last. Returns per-lane 'score', 'i', 'j', 'pos',
-        'steps' (B,) int32, 'cx', 'cy' (max_steps, B) uint8, and
-        'level_us', each strip's replay-and-walk microseconds, top strip
-        (largest rows) first, 0 where skipped."""
+        The strips go in groups: one host sync reads the lanes still
+        walking and the highest strip any of them can reach (and ends the
+        loop when none can), ``strips_cuda.replay_group`` takes G, one
+        replay launch writes the group's G strips, each only where the walk
+        can still read it, into one moves buffer allocated for the call, and
+        one walk launch a strip follows in walk order, with no sync between.
+        On CPU tensors G = 1, a strip a group. Returns per-lane 'score',
+        'i', 'j', 'pos', 'steps' (B,) int32, 'cx', 'cy' (max_steps, B) uint8,
+        'level_us', one entry a strip, top strip (largest rows) first: a
+        group's replay-and-walk microseconds on its first-walked strip and
+        0 on its other strips and on strips no group replayed, and 'groups',
+        each group's G."""
         xs, ys, m, n, x_raw, y_raw = self._inputs(x_bm, y_bn, m, n, raw=True)
         if xs.shape[1] <= MAX_M:
             raise ValueError(f"the strip path is for reads longer than {MAX_M}")
         score, i, j, *ck = self._st_ckpt(xs, ys, m, n, **self._kw)  # H (and F) checkpoints
         x_mb = x_raw.T.contiguous()  # the walk emits raw bytes, not codes
         state = traceback.new_strip_state(i, j, max_steps, affine=self.cfg.is_affine)
-        active, cur = state[3], state[0]
-        nstrips = -(-xs.shape[1] // STRIP_S)
+        cur, active = state[0], state[3]
+        (B, M), N = xs.shape, ys.shape[1]
+        nstrips = -(-M // STRIP_S)
         level_us = [0.0] * nstrips
-        timing = None  # (level, start) of the strip in flight
-        for s in range(nstrips - 1, -1, -1):
-            base = s * STRIP_S
-            reach, any_active = torch.stack(
-                [(active & (cur - 1 >= base)).any(), active.any()]).tolist()
+        groups = []
+        moves = None  # (G, B, N, STRIP_S), allocated by the first group
+        timing = None  # (level, start) of the group in flight
+        ncodes = 0 if self.cfg.is_uniform else self.table.shape[0]
+        while True:
+            lanes, top = torch.stack([active.sum(),
+                                      torch.where(active, cur - 1, -1).max().long()]).tolist()
             if timing is not None:
                 level_us[timing[0]] = (time.perf_counter() - timing[1]) * 1e6
-                timing = None
-            if not any_active:
+            if not lanes or top < 0:  # every walk ended (affine: some at i = 0)
                 break
-            if not reach:
-                continue
+            s = top // STRIP_S
+            held = moves.numel() if moves is not None else 0
+            G = max(1, min(s + 1, strips_cuda.replay_group(
+                s + 1, lanes, B * N * STRIP_S, self.device, affine=self.cfg.is_affine,
+                ncodes=ncodes, held=held)))
+            if moves is None:
+                moves = torch.empty((G, B, N, STRIP_S), dtype=torch.uint8, device=self.device)
+            G = min(G, moves.shape[0])
+            low = s - G + 1
             timing = (nstrips - 1 - s, time.perf_counter())
-            rows = [c[:, s - 1] if s > 0 else None for c in ck]
-            moves = self._st_moves(xs, ys, m, n, *rows, base, **self._kw)
-            self._st_walk(moves, x_mb, y_raw, base, state, max_steps=max_steps)
-            del moves
-        if timing is not None:
-            bool(active.any())  # sync: the last strip's work is done
-            level_us[timing[0]] = (time.perf_counter() - timing[1]) * 1e6
+            group = self._st_moves(xs, ys, m, n, *ck, low, moves[:G], (cur, state[1], active),
+                                   **self._kw)
+            for g in range(G - 1, -1, -1):
+                self._st_walk(group[g], x_mb, y_raw, (low + g) * STRIP_S, state,
+                              max_steps=max_steps)
+            groups.append(G)
         pos, steps, cx, cy = state[2], state[4], state[5], state[6]
         return {"score": score, "i": i, "j": j, "pos": pos, "cx": cx, "cy": cy,
-                "steps": steps, "level_us": tuple(level_us)}
+                "steps": steps, "level_us": tuple(level_us), "groups": tuple(groups)}
 
     def score_slab(self, query_codes, slab, y_off, lens):
         """The database scan: one query (M,) of compact codes against every

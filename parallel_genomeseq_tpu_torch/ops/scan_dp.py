@@ -437,6 +437,74 @@ def strip_profile_affine_moves_plain(xs, ys, m, n, rowin, frowin, base: int, *, 
                          gap_open=gap_open)
 
 
+def _strip_group_plain(replay, xs, ys, m, n, planes, first: int, moves, walk, **kw):
+    """The plain group replay: strip first + g of every lane into moves[g]
+    of ``moves`` (G, B, N, STRIP_S) uint8 with the per-strip plain function
+    ``replay``, from the rows ``planes`` (the (B, K, N) H, and affine F,
+    checkpoints; strip t starts from row t - 1, strip 0 from zeros). Only the
+    cells the kernels write: with ``walk`` = (i, j, active) a lane replays a
+    strip only when active and i - 1 >= its first row, and then columns 1 ..
+    min(n, j); without, every lane columns 1 .. n. Each strip runs once over
+    the lanes it replays, at the width of their widest bound."""
+    G, B, N, S = moves.shape
+    cols = n.clamp(0, N).long()
+    reached = torch.ones(B, dtype=torch.bool, device=moves.device)
+    for g in range(G):
+        t = first + g
+        base = t * S
+        if walk is not None:
+            i, j, active = walk
+            reached = active & (i - 1 >= base)
+            cols = torch.minimum(n.clamp(0, N), j).long()
+        lanes = (reached & (cols > 0)).nonzero().flatten()
+        if not lanes.numel():
+            continue
+        width = cols[lanes]
+        J = int(width.max())
+        rows = [p[lanes, t - 1, :J] if t >= 1 else None for p in planes]
+        got = replay(xs[lanes], ys[lanes, :J], m[lanes], n[lanes], *rows, base, **kw)
+        keep = (torch.arange(J, device=moves.device)[None, :] < width[:, None])[..., None]
+        moves[g, lanes, :J] = torch.where(keep, got, moves[g, lanes, :J])
+    return moves
+
+
+def strip_moves_group_plain(xs, ys, m, n, ck, first: int, moves, walk=None, *, match: int,
+                            mismatch: int, gap: int):
+    """Plain version of the K13 kernel's group launch
+    (``strips_cuda.strip_moves_group``): the moves of strips first .. first +
+    G - 1 of xs (B, M) against ys (B, N) into ``moves`` (G, B, N, STRIP_S)
+    uint8, moves[g] as ``strip_moves_plain`` gives strip first + g, each from
+    its checkpoint row of ``ck`` (B, K, N); the cells outside the bounds of
+    ``_strip_group_plain`` keep what they held."""
+    return _strip_group_plain(strip_moves_plain, xs, ys, m, n, (ck,), first, moves, walk,
+                              match=match, mismatch=mismatch, gap=gap)
+
+
+def strip_profile_moves_group_plain(xs, ys, m, n, ck, first: int, moves, walk=None, *, table,
+                                    gap: int):
+    """Plain version of the K21 kernel's group launch:
+    ``strip_moves_group_plain`` under the cell scores of ``table``."""
+    return _strip_group_plain(strip_profile_moves_plain, xs, ys, m, n, (ck,), first, moves,
+                              walk, table=table, gap=gap)
+
+
+def strip_affine_moves_group_plain(xs, ys, m, n, ck, fck, first: int, moves, walk=None, *,
+                                   match: int, mismatch: int, gap_open: int, gap: int):
+    """Plain version of the K17 kernel's group launch:
+    ``strip_moves_group_plain`` under affine gaps, each strip from its H and
+    F checkpoint rows of ``ck`` and ``fck`` (B, K, N)."""
+    return _strip_group_plain(strip_affine_moves_plain, xs, ys, m, n, (ck, fck), first, moves,
+                              walk, match=match, mismatch=mismatch, gap_open=gap_open, gap=gap)
+
+
+def strip_profile_affine_moves_group_plain(xs, ys, m, n, ck, fck, first: int, moves,
+                                           walk=None, *, table, gap_open: int, gap: int):
+    """Plain version of the K24 kernel's group launch:
+    ``strip_affine_moves_group_plain`` under the cell scores of ``table``."""
+    return _strip_group_plain(strip_profile_affine_moves_plain, xs, ys, m, n, (ck, fck), first,
+                              moves, walk, table=table, gap_open=gap_open, gap=gap)
+
+
 def slab_lengths(R: int, y_off, n):
     """Each lane's n (int64) clamped to what an (R,) slab holds past its
     offset; a lane whose offset lies outside [0, R] gets length 0 -- the

@@ -42,12 +42,20 @@ sweep's (``scan_dp.wavefront_affine``): F = 0 above row 1 (B14/B18 and
 B16/B20 start strip 0 at -(gap_open + gap + 1); the two differ only on
 negative E or F, which no walk reads).
 
+The replays K13/K17/K21/K24 are one kernel with one entry point, which
+replays G strips of every lane in one launch, each only where the strip
+walk can still read it: the ``*_group`` wrappers, whose G the strip
+traceback takes from ``replay_group``; the per-strip wrappers are its G = 1
+launch over every column. A per-strip wrapper's ``launches`` counts every
+launch of its kernel, the group wrapper's too.
+
 Route: tensors on the CPU take the plain PyTorch versions (``ops/scan_dp``:
 ``sw_score_plain``, ``sw_score_ckpt_plain``, ``strip_moves_plain``,
 ``sw_score_affine_ckpt_plain``, ``strip_affine_moves_plain``,
 ``sw_profile_plain``, ``sw_profile_ckpt_plain``,
 ``strip_profile_moves_plain``, and with gap_open ``sw_profile_plain``,
-``sw_profile_affine_ckpt_plain``, ``strip_profile_affine_moves_plain``);
+``sw_profile_affine_ckpt_plain``, ``strip_profile_affine_moves_plain``; the
+group replays' ``strip_*moves_group_plain``);
 tensors on a CUDA device launch the kernel, and a missing toolkit or a
 failed build or launch raises. Each wrapper's ``launches`` counts kernel
 launches only.
@@ -65,9 +73,13 @@ from .scan_dp import (
     NEG,
     STRIP_S,
     slab_lengths,
+    strip_affine_moves_group_plain,
     strip_affine_moves_plain,
+    strip_moves_group_plain,
     strip_moves_plain,
+    strip_profile_affine_moves_group_plain,
     strip_profile_affine_moves_plain,
+    strip_profile_moves_group_plain,
     strip_profile_moves_plain,
     sw_profile_affine_ckpt_plain,
     sw_profile_ckpt_plain,
@@ -184,40 +196,119 @@ def sw_score_strips_ckpt(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
 sw_score_strips_ckpt.launches = 0
 
 
-def _replay(xs, ys, m, n, rows, base: int, *, gap, match=0, mismatch=0, gap_open=0,
-            table=None):
-    """Shared K13/K17/K21/K24 launch on CUDA tensors: checks, outputs allocated
-    here, no sync. ``rows`` are the incoming H row (and, affine, F row), or
-    Nones for the first strip. Returns the (B, N, STRIP_S) moves."""
+def _replay(xs, ys, m, n, planes, first: int, moves, walk=None, *, gap, match=0, mismatch=0,
+            gap_open=0, table=None):
+    """Shared K13/K17/K21/K24 launch on CUDA tensors, no sync: G =
+    moves.shape[0] strips from ``first`` into ``moves`` (G, B, N, STRIP_S)
+    uint8. ``planes``: the incoming H (and, affine, F) rows, one lane
+    stride -- (B, K, N) checkpoints (strip t from row t - 1, strip 0 from
+    zeros), or for one strip (G = 1) its (B, N) rows -- or Nones (zeros).
+    ``walk``: the strip walk's (i, j, active), or None."""
     dev = xs.device
-    if base % STRIP_S or base < 0:
-        raise ValueError(f"base must be a non-negative multiple of {STRIP_S}, got {base}")
-    if any(r is None for r in rows) != all(r is None for r in rows):
-        raise ValueError("the H and F rows come together")
-    if rows[0] is not None and any(
-            r.dtype != torch.int32 or r.shape != ys.shape or r.stride(1) != 1
-            or r.stride(0) != rows[0].stride(0) or r.device != dev for r in rows):
-        raise ValueError("rowin (and frowin) must be (B, N) int32 row-contiguous tensors "
-                         "of one lane stride beside ys")
     B, M = xs.shape
     N = ys.shape[1]
+    G = moves.shape[0]
+    if first < 0:
+        raise ValueError(f"first must be a non-negative strip index, got {first}")
+    if (moves.dtype != torch.uint8 or moves.shape != (G, B, N, STRIP_S) or G < 1
+            or not moves.is_contiguous() or moves.device != dev):
+        raise ValueError(f"moves must be a contiguous (G, {B}, {N}, {STRIP_S}) uint8 tensor "
+                         f"on {dev}, got {tuple(moves.shape)}")
+    if any(p is None for p in planes) != all(p is None for p in planes):
+        raise ValueError("the H and F rows come together")
+    hrow = frow = None
+    ld_lane = ld_strip = row_first = 0
+    if planes[0] is not None:
+        ref = planes[0]
+        if ref.dim() == 2:  # one strip's rows
+            shape, ld_lane, row_first = ys.shape, ref.stride(0), first
+            if G != 1:
+                raise ValueError("(B, N) rows replay one strip")
+        else:  # checkpoints: strip t reads row t - 1
+            shape, ld_lane, ld_strip, row_first = (B, ref.shape[1], N), ref.stride(0), \
+                ref.stride(1), 1
+            if first + G - 1 > ref.shape[1]:
+                raise ValueError(f"strips {first}..{first + G - 1} need {first + G - 1} "
+                                 f"checkpoint rows, got {ref.shape[1]}")
+        if any(p.dtype != torch.int32 or p.shape != shape or p.stride(-1) != 1
+               or p.stride() != ref.stride() or p.device != dev for p in planes):
+            raise ValueError("the H (and F) rows must be int32 tensors of one layout beside ys, "
+                             "each row contiguous")
+        hrow, frow = (tuple(planes) + (None,))[:2]
+    walk_ptrs = (None, None, None)
+    if walk is not None:
+        i, j, active = walk
+        if (any(a.shape != (B,) or not a.is_contiguous() or a.device != dev for a in walk)
+                or i.dtype != torch.int32 or j.dtype != torch.int32
+                or active.dtype != torch.bool):
+            raise ValueError("walk must be the strip walk's contiguous (B,) int32 i, j and "
+                             "bool active")
+        walk_ptrs = (i.data_ptr(), j.data_ptr(), active.data_ptr())
     xs, ys, m, n = xs.contiguous(), ys.contiguous(), m.contiguous(), n.contiguous()
-    moves = torch.empty((B, N, STRIP_S), dtype=torch.uint8, device=dev)
-    rowin, frowin = (rows + (None,))[:2]
+    table = table.contiguous() if table is not None else None
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.pgs_strip_moves(
-            xs.data_ptr(), ys.data_ptr(), m.data_ptr(), n.data_ptr(), M, N, B, base,
-            rowin.data_ptr() if rowin is not None else None,
-            frowin.data_ptr() if frowin is not None else None,
-            rowin.stride(0) if rowin is not None else 0,
-            table.contiguous().data_ptr() if table is not None else None,
+            xs.data_ptr(), ys.data_ptr(), m.data_ptr(), n.data_ptr(), M, N, B, G, int(first),
+            hrow.data_ptr() if hrow is not None else None,
+            frow.data_ptr() if frow is not None else None, ld_lane, ld_strip, row_first,
+            *walk_ptrs, table.data_ptr() if table is not None else None,
             table.shape[0] if table is not None else 0,
             int(match), int(mismatch), int(gap_open), int(gap), moves.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "pgs_strip_moves")
     return moves
+
+
+def _replay_strip(xs, ys, m, n, rows, base: int, **kw):
+    """One strip's replay (the per-strip wrappers): the G = 1 launch of
+    ``_replay`` into a new (B, N, STRIP_S) tensor."""
+    if base % STRIP_S or base < 0:
+        raise ValueError(f"base must be a non-negative multiple of {STRIP_S}, got {base}")
+    moves = torch.empty((1, *ys.shape, STRIP_S), dtype=torch.uint8, device=xs.device)
+    return _replay(xs, ys, m, n, rows, base // STRIP_S, moves, **kw)[0]
+
+
+def replay_occupancy(*, affine: bool = False, ncodes: int = 0):
+    """(warps a block, resident blocks per SM) of the replay launch (K13, K17
+    with ``affine``, K21 / K24 with ``ncodes`` > 0, a table of that size) on
+    the current CUDA device, from the CUDA occupancy calculator; launches
+    nothing."""
+    lib = _build.load()
+    out = (ctypes.c_int * 2)()
+    _build.check(lib.pgs_strip_moves_occupancy(int(affine), int(ncodes), ctypes.addressof(out)),
+                 "pgs_strip_moves_occupancy")
+    return tuple(out)
+
+
+# The share of the device memory free at a strip traceback's group that the
+# replayed moves may take (``replay_group``).
+MOVES_SHARE = 0.5
+
+
+def replay_group(reach: int, lanes: int, strip_bytes: int, device, *, affine: bool = False,
+                 ncodes: int = 0, held: int = 0) -> int:
+    """G, the strips a strip traceback replays in one launch: the smallest
+    of ``reach``, the strips the walk can still reach; the strips that give
+    every warp slot of the card a (lane, strip) pair over the ``lanes``
+    still walking (SMs x the replay's resident warps an SM, the occupancy
+    calculator's, ``affine`` and ``ncodes`` as in ``replay_occupancy``); and
+    the strips whose moves, ``strip_bytes`` each, fit in MOVES_SHARE of the
+    device memory free now, counting as free the ``held`` bytes of the
+    caller's moves buffer and the caching allocator's unused blocks. At
+    least 1; 1 on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 1
+    with torch.cuda.device(device):
+        per_block, blocks = replay_occupancy(affine=affine, ncodes=ncodes)
+        free, _ = torch.cuda.mem_get_info(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    fill = -(-sms * per_block * blocks // max(1, lanes))
+    free += held + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    fits = int(MOVES_SHARE * free) // max(1, strip_bytes)
+    return max(1, min(reach, fill, fits))
 
 
 def strip_moves(xs, ys, m, n, rowin, base: int, *, match: int, mismatch: int, gap: int):
@@ -230,12 +321,38 @@ def strip_moves(xs, ys, m, n, rowin, base: int, *, match: int, mismatch: int, ga
     if _check_inputs(xs, ys, m, n).type == "cpu":
         return strip_moves_plain(xs, ys, m, n, rowin, base, match=match, mismatch=mismatch,
                                  gap=gap)
-    moves = _replay(xs, ys, m, n, (rowin,), base, match=match, mismatch=mismatch, gap=gap)
+    moves = _replay_strip(xs, ys, m, n, (rowin,), base, match=match, mismatch=mismatch, gap=gap)
     strip_moves.launches += 1
     return moves
 
 
 strip_moves.launches = 0
+
+
+def strip_moves_group(xs, ys, m, n, ck, first: int, moves, walk=None, *, match: int,
+                      mismatch: int, gap: int):
+    """K13 on G = moves.shape[0] strips in one launch: the move codes of
+    strips first .. first + G - 1 of xs (B, M) against ys (B, N) into
+    ``moves`` (G, B, N, STRIP_S) uint8, moves[g] laid out as ``strip_moves``
+    gives strip first + g, each replayed from its row of K12's checkpoints
+    ``ck`` (B, K, N) (strip t from ck[:, t - 1], strip 0 from zeros).
+    ``walk`` = (i, j, active), the strip walk's state
+    (``traceback.new_strip_state``), read on the device: a lane that is
+    inactive or whose i - 1 lies above a strip's first row replays nothing
+    of that strip, the others columns 1 .. min(n, j), every cell the walk
+    can still read; the cells outside keep what they held (no ``walk``:
+    columns 1 .. n of every strip). No sync. Counts its launches, and into
+    ``strip_moves.launches``, K13's count. Returns ``moves``."""
+    if _check_inputs(xs, ys, m, n).type == "cpu":
+        return strip_moves_group_plain(xs, ys, m, n, ck, first, moves, walk, match=match,
+                                       mismatch=mismatch, gap=gap)
+    _replay(xs, ys, m, n, (ck,), first, moves, walk, match=match, mismatch=mismatch, gap=gap)
+    strip_moves_group.launches += 1
+    strip_moves.launches += 1
+    return moves
+
+
+strip_moves_group.launches = 0
 
 
 def sw_score_strips_affine(xs, ys, m, n, *, match: int, mismatch: int, gap_open: int,
@@ -286,13 +403,34 @@ def strip_affine_moves(xs, ys, m, n, rowin, frowin, base: int, *, match: int, mi
     if _check_inputs(xs, ys, m, n).type == "cpu":
         return strip_affine_moves_plain(xs, ys, m, n, rowin, frowin, base, match=match,
                                         mismatch=mismatch, gap_open=gap_open, gap=gap)
-    moves = _replay(xs, ys, m, n, (rowin, frowin), base, match=match, mismatch=mismatch,
-                    gap=gap, gap_open=gap_open)
+    moves = _replay_strip(xs, ys, m, n, (rowin, frowin), base, match=match, mismatch=mismatch,
+                          gap=gap, gap_open=gap_open)
     strip_affine_moves.launches += 1
     return moves
 
 
 strip_affine_moves.launches = 0
+
+
+def strip_affine_moves_group(xs, ys, m, n, ck, fck, first: int, moves, walk=None, *,
+                             match: int, mismatch: int, gap_open: int, gap: int):
+    """K17 on G = moves.shape[0] strips in one launch: ``strip_moves_group``
+    under affine gaps, strip t replayed from K16's H and F checkpoint rows
+    ck[:, t - 1] and fck[:, t - 1] (strip 0 from H = F = 0). Counts into
+    ``strip_affine_moves.launches`` too."""
+    _check_gap_open(gap_open)
+    if _check_inputs(xs, ys, m, n).type == "cpu":
+        return strip_affine_moves_group_plain(xs, ys, m, n, ck, fck, first, moves, walk,
+                                              match=match, mismatch=mismatch,
+                                              gap_open=gap_open, gap=gap)
+    _replay(xs, ys, m, n, (ck, fck), first, moves, walk, match=match, mismatch=mismatch,
+            gap=gap, gap_open=gap_open)
+    strip_affine_moves_group.launches += 1
+    strip_affine_moves.launches += 1
+    return moves
+
+
+strip_affine_moves_group.launches = 0
 
 
 def sw_score_strips_profile(x, y, m, n, *, table, gap: int, y_off=None):
@@ -345,12 +483,30 @@ def strip_profile_moves(xs, ys, m, n, rowin, base: int, *, table, gap: int):
     K20's checkpoints; None for the first strip), as (B, N, STRIP_S) uint8."""
     if _check_lanes(xs, ys, m, n, table).type == "cpu":
         return strip_profile_moves_plain(xs, ys, m, n, rowin, base, table=table, gap=gap)
-    moves = _replay(xs, ys, m, n, (rowin,), base, gap=gap, table=table)
+    moves = _replay_strip(xs, ys, m, n, (rowin,), base, gap=gap, table=table)
     strip_profile_moves.launches += 1
     return moves
 
 
 strip_profile_moves.launches = 0
+
+
+def strip_profile_moves_group(xs, ys, m, n, ck, first: int, moves, walk=None, *, table,
+                              gap: int):
+    """K21 on G = moves.shape[0] strips in one launch: ``strip_moves_group``
+    with the cell scores of ``table`` over the compact codes xs and ys, from
+    K20's checkpoints ``ck``. Counts into ``strip_profile_moves.launches``
+    too."""
+    if _check_lanes(xs, ys, m, n, table).type == "cpu":
+        return strip_profile_moves_group_plain(xs, ys, m, n, ck, first, moves, walk,
+                                               table=table, gap=gap)
+    _replay(xs, ys, m, n, (ck,), first, moves, walk, gap=gap, table=table)
+    strip_profile_moves_group.launches += 1
+    strip_profile_moves.launches += 1
+    return moves
+
+
+strip_profile_moves_group.launches = 0
 
 
 def sw_score_strips_profile_affine(x, y, m, n, *, table, gap_open: int, gap: int,
@@ -401,10 +557,30 @@ def strip_profile_affine_moves(xs, ys, m, n, rowin, frowin, base: int, *, table,
     if _check_lanes(xs, ys, m, n, table).type == "cpu":
         return strip_profile_affine_moves_plain(xs, ys, m, n, rowin, frowin, base, table=table,
                                                 gap_open=gap_open, gap=gap)
-    moves = _replay(xs, ys, m, n, (rowin, frowin), base, gap=gap, gap_open=gap_open,
-                    table=table)
+    moves = _replay_strip(xs, ys, m, n, (rowin, frowin), base, gap=gap, gap_open=gap_open,
+                          table=table)
     strip_profile_affine_moves.launches += 1
     return moves
 
 
 strip_profile_affine_moves.launches = 0
+
+
+def strip_profile_affine_moves_group(xs, ys, m, n, ck, fck, first: int, moves, walk=None, *,
+                                     table, gap_open: int, gap: int):
+    """K24 on G = moves.shape[0] strips in one launch:
+    ``strip_affine_moves_group`` with the cell scores of ``table`` over the
+    compact codes xs and ys, from K23's H and F checkpoints. Counts into
+    ``strip_profile_affine_moves.launches`` too."""
+    _check_gap_open(gap_open)
+    if _check_lanes(xs, ys, m, n, table).type == "cpu":
+        return strip_profile_affine_moves_group_plain(xs, ys, m, n, ck, fck, first, moves, walk,
+                                                      table=table, gap_open=gap_open, gap=gap)
+    _replay(xs, ys, m, n, (ck, fck), first, moves, walk, gap=gap, gap_open=gap_open,
+            table=table)
+    strip_profile_affine_moves_group.launches += 1
+    strip_profile_affine_moves.launches += 1
+    return moves
+
+
+strip_profile_affine_moves_group.launches = 0

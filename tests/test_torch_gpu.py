@@ -705,6 +705,101 @@ def test_solve_big_affine_cuda_matches_cpu(cuda):
         assert [fields(r) for r in gpu.results] == [fields(r) for r in cpu.results]
 
 
+# The group replay (csrc/strips.cu strip_moves_kernel, G strips of every
+# lane in one launch, each only where the strip walk can still read it): its
+# four forms, and the groups and walk states of its edges. Lanes are
+# affine_lanes' (lane 0 carries an F run across row 512) cut to 2,328 rows,
+# so that the top strip holds 24 rows and ragged m_b end inside strips.
+REPLAY_ROWS = 9 * 256 + 24
+REPLAY_CASES = ("one", "two", "all", "unreached", "inactive_short_j", "no_walk", "engine_g2",
+                "engine_rule")
+
+
+def replay_form(form):
+    """(config, kernel keyword arguments without the table) of a replay form."""
+    from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
+
+    return {"K13": (ScoringConfig(), KW),
+            "K17": (ScoringConfig(match=1.0, mismatch=-4.0, gap_open=6.0, gap_penalty=1.0), BWA),
+            "K21": (blosum_config("blosum50", gap_penalty=2.0), dict(gap=2)),
+            "K24": (blosum_config("blosum50", gap_penalty=2.0, gap_open=10.0),
+                    PROTEIN_AFFINE)}[form]
+
+
+@pytest.mark.parametrize("case", REPLAY_CASES)
+@pytest.mark.parametrize("form", ("K13", "K17", "K21", "K24"))
+def test_strip_replay_groups_match_plain(cuda, form, case, monkeypatch):
+    """The group replay of each form against its plain version on every
+    cell the walk can read, with nothing written outside them: one strip
+    (the 24-row top one), two, all ten, a group whose lower strips no lane
+    reaches, an inactive lane beside one whose j is far below its n_b, and no
+    walk state (every column); then the CUDA engine's whole strip traceback
+    against the plain engine's with G forced to 2 and with G left to the
+    rule (which replays every strip in one launch here)."""
+    from parallel_genomeseq_tpu_torch.ops import engine, strips_cuda
+
+    cfg, kw = replay_form(form)
+    rx, ry, m, n = affine_lanes(2, cuda)
+    rx, m = rx[:, :REPLAY_ROWS].contiguous(), m.clamp(max=REPLAY_ROWS)
+    xs, ys = rx, ry
+    if not cfg.is_uniform:  # A, C, G and T are BLOSUM50 letters; the pads code 0
+        lut, table = (torch.from_numpy(a).to(cuda) for a in scan_dp.profile_tables(cfg))
+        xs, ys, kw = lut[rx.long()], lut[ry.long()], dict(kw, table=table)
+    key = engine.strip_key(cfg)
+    _, ckpt, group, _ = engine.STRIP_KERNELS[key]
+    plain_group = engine.STRIP_PLAIN[key][2]
+    kernel = getattr(strips_cuda, group.__name__.removesuffix("_group"))
+    if case.startswith("engine"):
+        if case == "engine_g2":
+            monkeypatch.setattr(strips_cuda, "replay_group", lambda reach, *a, **k: 2)
+        before = group.launches
+        got = engine.CudaEngine(cfg, device=cuda).score_batch_strip_moves(rx, ry, m, n, 900)
+        want = engine.PlainEngine(cfg, device=cuda).score_batch_strip_moves(rx, ry, m, n, 900)
+        for k in ("score", "i", "j", "pos", "cx", "cy", "steps"):
+            assert torch.equal(got[k], want[k]), k
+        assert group.launches == before + len(got["groups"]) and len(got["level_us"]) == 10
+        assert got["groups"] == want["groups"]
+        if case == "engine_g2":
+            assert got["groups"][0] == 2 and max(got["groups"]) == 2
+        else:
+            assert got["groups"][0] >= 2
+        assert int(got["steps"].min()) > 100
+        return
+    _, _, _, *ck = ckpt(xs, ys, m, n, **kw)
+    B, N = ys.shape
+    wi, wj, active = m.clone(), n.clone(), torch.ones(B, dtype=torch.bool, device=cuda)
+    wj[3] = n[3] // 2
+    first, G = {"one": (9, 1), "two": (8, 2), "all": (0, 10), "unreached": (0, 10),
+                "inactive_short_j": (3, 4), "no_walk": (1, 3)}[case]
+    if case == "unreached":  # strips 4-9 lie below every lane's row
+        wi = wi.clamp(max=3 * 256 + 100)
+    if case == "inactive_short_j":
+        active[1] = False
+        wj[2] = 3
+    walk = None if case == "no_walk" else (wi, wj, active)
+    got = torch.full((G, B, N, 256), 0xA5, dtype=torch.uint8, device=cuda)
+    want = got.clone()
+    before = (group.launches, kernel.launches)
+    assert group(xs, ys, m, n, *ck, first, got, walk, **kw) is got
+    plain_group(xs, ys, m, n, *ck, first, want, walk, **kw)
+    torch.cuda.synchronize()
+    assert (group.launches, kernel.launches) == (before[0] + 1, before[1] + 1)
+    base = (first + torch.arange(G, device=cuda)) * 256
+    bound = n if walk is None else torch.minimum(n, wj)
+    reached = torch.ones((G, B), dtype=torch.bool, device=cuda) if walk is None else \
+        active[None] & (wi[None] - 1 >= base[:, None])
+    cols = reached[..., None] & (torch.arange(N, device=cuda) < bound[:, None])[None]
+    rows = (base[:, None, None] + torch.arange(256, device=cuda)) < m[None, :, None]
+    readable = cols[..., None] & rows[:, :, None, :]
+    assert torch.equal(got[readable], want[readable])
+    assert bool((got[~cols] == 0xA5).all())  # nothing outside the bounds
+    assert int(readable.sum()) > 0 and bool((reached[-1] if case == "one" else reached).any())
+    if case == "unreached":
+        assert not bool(reached[4:].any())
+    if case == "inactive_short_j":
+        assert not bool(cols[:, 1].any()) and int(cols[:, 2].sum(dim=1).max()) == 3
+
+
 def long_protein_slab(seed, dev, q_len):
     """A long query and a flat slab of ragged entries in compact codes (codes
     up to 29, past the table's 25, score as code 0): 60-900-aa entries and
