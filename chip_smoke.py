@@ -97,7 +97,14 @@
 10. Prints the kernels' JSON line -- each kernel's time, its plain version's,
    and its bound: the larger of the integer operations its cells need over
    the card's integer issue peak and the bytes it must move over the memory
-   rate; for the strip sweeps (K11, K12, K15, K16, K19, K20, K22, K23) also
+   rate; for K1, K2, K6 and K7 (a warp a lane) also the rows a thread, warps
+   a lane, lanes a block, warps an SM, the cycles a column step takes
+   (``wave_steps``) and the bound at the instructions the step issues a cell
+   (``WAVE_ISSUED_PER_CELL``), and for K2 and K7 at both shapes the curve of
+   lanes a block (L = 1..16, each held against the plain version), two warps
+   a lane (2 rows a thread) and, on the winning windows, the lanes' first 64
+   rows (2 rows a thread, one warp); for the strip sweeps (K11, K12, K15,
+   K16, K19, K20, K22, K23) also
    the threads a block, the blocks an SM holds, the waves and the cycles a
    block step takes (``sweep_steps``), for the scans K4 and K8 the threads a
    lane, the rows a thread, the warps an SM, the cycles a column step
@@ -193,6 +200,21 @@ OPS_PER_CELL = {
 # cell taken once a column. Their bound at that count is printed beside the
 # bound (``issued_bound_ms``), the shares it gives are the lower ones.
 SCAN_ISSUED_PER_CELL = {"sw_profile": 3 + 0.5, "sw_profile_affine": 6 + 0.5}
+# The short-read kernels K1/K2/K6/K7 (csrc/wavefront.cu, a warp a lane)
+# likewise: the cell as issued -- the score's compare and select (2), west -
+# gap and the two DPX of the linear cell (3); affine, E as one DPX and the
+# extend subtract (2), the score (2), a (1), the F chain's subtract and DPX
+# (2), H = max(a, F) (1) -- plus one __vimax3_s32 per two rows of a column
+# for the running best (0.5), the cell taken once a column in either mode;
+# K2/K7 add the move code as OPS_PER_CELL counts it (7, 12).
+WAVE_ISSUED_PER_CELL = {
+    ("sw_score", False): 5 + 0.5, ("sw_score", True): 5 + 0.5, "sw_score_moves": 5 + 0.5 + 7,
+    ("sw_score_affine", False): 8 + 0.5, ("sw_score_affine", True): 8 + 0.5,
+    "sw_score_affine_moves": 8 + 0.5 + 12,
+}
+# K2/K7's lanes a block measured beside the kernel's rule (the L curve; 16
+# is the block's limit at the main path's 4 rows a thread).
+LANES_CURVE = (1, 2, 4, 8, 16)
 # Per walk step (the code read is a load, not counted). K3: test the stop
 # bit and the two moves (3), select the two emitted bytes (2), update i, j,
 # pos, steps and the active flag (5). K10: the op in force, a state test and
@@ -312,6 +334,40 @@ def scan_steps(rec, M: int, n, clock_mhz: float, ncodes: int, affine: bool, shar
                cycles_per_step=rec["ms"] * 1e-3 * clock_mhz * 1e6 * slots / float(steps.sum()))
 
 
+def wave_steps(rec, fn, M: int, N: int, m, n, clock_mhz: float, mode: str, lanes: int = 0,
+               warps: int = 0):
+    """Add a K1/K2/K6/K7 launch's shape and its cost per column step to
+    ``rec``: rows a thread, lanes a block, warps a lane, the warps the
+    busiest SM holds at once (the CUDA occupancy calculator's blocks an SM,
+    or fewer when the launch has fewer blocks), and the cycles a warp's
+    column step takes, ms x clock x the warps the card runs at once / the
+    warps' steps summed. A lane steps n_b + the place of the thread holding
+    row m_b in its warp + 40 for each warp before it; the warps of a block
+    that meets at barriers (K2/K7, or more than one warp a lane) step
+    together to its longest lane, in groups of 8."""
+    import torch
+
+    from parallel_genomeseq_tpu_torch.ops import wavefront_cuda
+
+    B = m.shape[0]
+    sh = wavefront_cuda.launch_shape(M, B, affine="affine" in fn.__name__, mode=mode,
+                                     lanes=lanes, warps=warps)
+    rows, L, W = sh["rows"], sh["lanes"], sh["warps"]
+    mb, nb = m.clamp(0, M).long(), n.clamp(0, N).long()
+    g = (mb - 1).clamp(min=0) // rows  # the thread holding row m_b, over the lane's warps
+    steps = torch.where((mb > 0) & (nb > 0), nb + g % 32 + g // 32 * 40, 0)
+    if mode == "moves" or W > 1:
+        steps = torch.nn.functional.pad(steps, (0, -B % L)).view(-1, L).max(1).values
+        steps = (steps + 7) // 8 * 8 * L * W
+    blocks = -(-B // L)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = min(sh["blocks_per_sm"], -(-blocks // sms))
+    resident = min(blocks, per_sm * sms) * L * W
+    rec.update(rows_a_thread=rows, lanes_a_block=L, warps_a_lane=W, warps_per_sm=per_sm * L * W,
+               cycles_per_step=rec["ms"] * 1e-3 * clock_mhz * 1e6 * resident
+               / float(steps.sum()))
+
+
 def lane_work(m, n):
     """(cells, input sequence bytes) of lanes with true lengths m, n."""
     m, n = m.long(), n.long()
@@ -348,7 +404,24 @@ def moves_err(got, want, m, n, chunk: int = 256) -> int:
 
 def report(name, label, rec):
     steps = ""
-    if "G" in rec:
+    if "lanes_a_block" in rec:
+        steps = (f"; {rec['rows_a_thread']} rows a thread, {rec['warps_a_lane']} warps a "
+                 f"lane, {rec['lanes_a_block']} lanes a block, {rec['warps_per_sm']} warps/SM, "
+                 f"{rec['cycles_per_step']:.0f} cycles a column step; bound at the "
+                 f"instructions the step issues {rec['issued_bound_ms']:.3f} ms")
+        if "lanes_curve" in rec:
+            steps += "; L curve " + ", ".join(
+                f"L={L} {c['ms']:.3f} ms ({c['cycles_per_step']:.0f} cycles)"
+                for L, c in rec["lanes_curve"].items())
+        if "warps2_ms" in rec:
+            steps += (f"; two warps a lane (2 rows a thread, {rec['warps2_lanes']} lanes a block) "
+                      f"{rec['warps2_ms']:.3f} ms, {rec['warps2_cycles_per_step']:.0f} cycles a "
+                      f"column step")
+        if "rows2_ms" in rec:
+            steps += (f"; 2 rows a thread (M=64, the lanes' first 64 rows) "
+                      f"{rec['rows2_ms']:.3f} ms, {rec['rows2_cycles_per_step']:.0f} cycles a "
+                      f"column step")
+    elif "G" in rec:
         steps = (f"; G = {rec['G']} strips a launch (groups {rec.get('groups', '?')}), "
                  f"{rec['strip_ms']:.3f} ms a strip, {rec['warps_per_sm']} warps/SM, "
                  f"{rec['cycles_per_step']:.0f} cycles a column step, moves "
@@ -411,7 +484,7 @@ def check_kernels(reads, ref, batch: int, clock: float, dev, kw):
     import torch
 
     from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
-    from parallel_genomeseq_tpu_torch.ops import scan_dp
+    from parallel_genomeseq_tpu_torch.ops import scan_dp, wavefront_cuda
     from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkConfig, ChunkedAligner
     from parallel_genomeseq_tpu_torch.utils.device import to_host
 
@@ -442,6 +515,10 @@ def check_kernels(reads, ref, batch: int, clock: float, dev, kw):
         rec["bound_ms"], rec["bound_by"] = bound(
             cells * OPS_PER_CELL[(score_k.__name__, track_pos)],
             seq_bytes + LANE_BYTES * xs.shape[0], clock)
+        rec["issued_bound_ms"] = bound(
+            cells * WAVE_ISSUED_PER_CELL[(score_k.__name__, track_pos)],
+            seq_bytes + LANE_BYTES * xs.shape[0], clock)[0]
+        wave_steps(rec, score_k, xs.shape[1], ys.shape[1], m, n, clock, label)
         out[score_k.__name__][label] = rec
         report(tag, label, rec)
 
@@ -464,6 +541,40 @@ def check_kernels(reads, ref, batch: int, clock: float, dev, kw):
         rec["bound_ms"], rec["bound_by"] = bound(
             cells * OPS_PER_CELL[moves_k.__name__],
             seq_bytes + LANE_BYTES * xs.shape[0] + cells, clock)  # + one move byte per cell
+        rec["issued_bound_ms"] = bound(cells * WAVE_ISSUED_PER_CELL[moves_k.__name__],
+                                       seq_bytes + LANE_BYTES * xs.shape[0] + cells, clock)[0]
+        M, N = xs.shape[1], ys.shape[1]
+        wave_steps(rec, moves_k, M, N, m, n, clock, "moves")
+        # The L curve and two warps a lane (2 rows a thread at M = 128), each
+        # held against the plain version too.
+        rec["lanes_curve"] = {}
+        for L, W in [(L, 0) for L in LANES_CURVE] + [(0, 2)]:
+            try:
+                wavefront_cuda.launch_shape(M, xs.shape[0], affine="gap_open" in kw,
+                                            mode="moves", lanes=L, warps=W)
+            except RuntimeError:  # past the block's limit
+                continue
+            g = moves_k(xs, ys, m, n, lanes=L, warps=W, **kw)
+            rec["max_abs_err"] = max(rec["max_abs_err"], max_abs_err(g[:3], want[:3]),
+                                     moves_err(g[3], want[3], m, n))
+            del g
+            c = {"ms": cuda_ms(lambda: moves_k(xs, ys, m, n, lanes=L, warps=W, **kw), 10)}
+            wave_steps(c, moves_k, M, N, m, n, clock, "moves", lanes=L, warps=W)
+            if W:
+                rec.update(warps2_ms=c["ms"], warps2_lanes=c["lanes_a_block"],
+                           warps2_cycles_per_step=c["cycles_per_step"])
+            else:
+                rec["lanes_curve"][L] = {k: c[k] for k in ("ms", "cycles_per_step")}
+        if label == "windows":  # fewer rows a thread: the lanes' first 64 rows
+            x64, m64 = xs[:, :64].contiguous(), m.clamp(max=64)
+            g = moves_k(x64, ys, m64, n, **kw)
+            w = scan_dp.sw_score_moves_plain(x64, ys, m64, n, **kw)
+            rec["max_abs_err"] = max(rec["max_abs_err"], max_abs_err(g[:3], w[:3]),
+                                     moves_err(g[3], w[3], m64, n))
+            del g, w
+            c = {"ms": cuda_ms(lambda: moves_k(x64, ys, m64, n, **kw), 10)}
+            wave_steps(c, moves_k, 64, N, m64, n, clock, "moves")
+            rec.update(rows2_ms=c["ms"], rows2_cycles_per_step=c["cycles_per_step"])
         out[moves_k.__name__][label] = rec
         report(tag, label, rec)
         if walk_inputs is None:

@@ -1,177 +1,608 @@
 // Smith-Waterman score kernels for Hopper (sm_90a), uniform match/mismatch
 // scoring, linear or affine (Gotoh) gaps, exact int32 values.
 //
-// K1 `sw_kernel<track_pos, false, false>` replaces the Pallas TPU kernel B1,
-//    parallel_genomeseq_tpu/ops/wavefront_pallas.py `_kernel_uniform` (:160)
-//    via `_call_uniform` (:924): per-lane best score, plus the argmax cell
-//    when track_pos is set (score-only for the chunked window sweep).
-// K2 `sw_kernel<true, true, false>` replaces B2, `_kernel_uniform_moves` (:535) via
-//    `_call_uniform_moves` (:596): K1's argmax plus one uint8 move/stop code
-//    per DP cell, written in the JAX package's (D, M, B) diagonal-major layout
-//    (d = i + j - 2, r = i - 1) that the traceback walk reads.
-// K6 `sw_kernel<track_pos, false, true>` replaces B5, `_kernel_uniform_affine`
-//    (:208) via `_call_uniform_affine` (:280): K1 under the Gotoh recurrence
-//    (a gap of length L costs gap_open + L * gap), score-only or argmax.
-// K7 `sw_kernel<true, true, true>` replaces B6, `_kernel_uniform_affine_moves`
-//    (:710, body `_affine_moves_body` :630) via `_call_uniform_affine_moves`
-//    (:740): K6's argmax plus the affine move byte of the JAX scan
-//    (ops/scan_dp.py:273-290) per DP cell, same layout as K2.
+// K1 `sw_warp_kernel<track_pos, false, false, kRows, kWarps>` replaces the Pallas TPU
+//    kernel B1, parallel_genomeseq_tpu/ops/wavefront_pallas.py
+//    `_kernel_uniform` (:160) via `_call_uniform` (:924): per-lane best
+//    score, plus the argmax cell when track_pos is set (score-only for the
+//    chunked window sweep).
+// K2 `sw_warp_kernel<true, true, false, kRows, kWarps>` replaces B2,
+//    `_kernel_uniform_moves` (:535) via `_call_uniform_moves` (:596): K1's
+//    argmax plus one uint8 move/stop code per DP cell, written in the JAX
+//    package's (D, M, B) diagonal-major layout (d = i + j - 2, r = i - 1)
+//    that the traceback walk reads.
+// K6 `sw_warp_kernel<track_pos, false, true, kRows, kWarps>` replaces B5,
+//    `_kernel_uniform_affine` (:208) via `_call_uniform_affine` (:280): K1
+//    under the Gotoh recurrence (a gap of length L costs gap_open + L * gap),
+//    score-only or argmax.
+// K7 `sw_warp_kernel<true, true, true, kRows, kWarps>` replaces B6,
+//    `_kernel_uniform_affine_moves` (:710, body `_affine_moves_body` :630) via
+//    `_call_uniform_affine_moves` (:740): K6's argmax plus the affine move byte
+//    of the JAX scan (ops/scan_dp.py:273-290) per DP cell, same layout as K2.
 //
-// Design: one CUDA thread per lane (one independent (read, reference window)
-// alignment). Each thread sweeps its own m_b x n_b matrix column by column
-// (j outer, i inner), so its loops are bounded by the lane's true lengths and
-// no pad byte is ever scored. A length beyond the padded shape is clamped to
-// it (m_b <= M, n_b <= N), as the plain version clamps it, so no lane reads or
-// writes outside its tensors whatever the caller passes. The previous column lives in a scratch plane
-// hcol (M, B) int32 owned by the wrapper; every per-row access (hcol, the read
-// bytes x (M, B), the moves plane) has the lane index fastest, so the 32
-// threads of a warp touch 32 neighbouring words or bytes and each access is
-// one coalesced transaction.
+// Design: a warp per lane (one independent (read, reference window)
+// alignment), the pipeline of csrc/strips.cu's sweeps inside the warp.
+//   - Thread l holds kRows consecutive rows of the lane's read, rows l * kRows
+//     + 1 .. (l + 1) * kRows: their H (and, affine, E) of the last column in
+//     registers, the read bytes packed four a register. At warp step s thread
+//     l works on column j = s - l + 1. Thread l + 1 takes thread l's last-row
+//     H (affine: H and F) of the previous step by __shfl_up_sync, and the
+//     column's reference byte travels down the warp with it: thread 0 takes
+//     column s + 1's byte from a 32-column word that the warp loads one word
+//     ahead from the lane's own row of ys (B, N), one coalesced byte a thread,
+//     by __shfl_sync. Thread 0's north is the zero row (H = 0, F(0, j) = 0).
+//     No device memory is read or written in the step; the kernel reads xs
+//     (B, M) and ys (B, N) as they are. A group of kGroup = 8 steps is
+//     unrolled (up to 8 rows a thread), so that one step's move code, best
+//     test and stores overlap the next step's chain.
+//   - The cell: the north-independent part a = max(diag + s, west - gap, 0)
+//     by DPX __viaddmax_s32_relu, then one __viaddmax_s32 a row on the north
+//     chain, H = max(north - gap, a); affine, E = max(west - open, E_west) -
+//     extend (one DPX and a subtract) and a = max(diag + s, E, 0) off the
+//     chain, and the F chain in strips.cu's form, one DPX a row: with H(k - 1)
+//     = max(a(k - 1), F(k - 1)) and open > 0, F(k) = max(F(k - 1) - extend,
+//     a(k - 1) - open - extend), H(k) = max(a(k), F(k)). The F extend bit,
+//     F(k - 1) >= H(k - 1) - open, is then F(k - 1) >= a(k - 1) - open.
+//   - Rows a thread and warps a lane, at launch: one warp a lane and the
+//     fewest of 1, 2, 4, 8, 16, 32 rows a thread that cover M, up to 1,024
+//     rows (4 at the main path's M = 128); two warps a lane of 32 rows a
+//     thread up to MAX_M = 2,048 (ops/engine.py; longer reads go to the
+//     strips), so that no thread holds 64 rows. Warp q + 1 of a lane trails
+//     warp q by kLag = 40 steps and takes its last row's (H, F) from a
+//     kRing-column ring in shared memory, written kLag - 31 >= 8 steps before
+//     it is read, so that the barrier every kGroup steps orders the two (no
+//     counts to poll). A lane steps n_b + (the place of the thread holding
+//     row m_b in its warp) + kLag for each warp before it.
+//   - K1/K6 with one warp a lane: no barrier, kScoreLanes warps a block.
+//   - K2/K7 store their move bytes in runs. A block holds L consecutive lanes
+//     that step together. Each thread writes its rows' bytes of a step into
+//     shared memory laid out [step][row][lane] (rows ordered (k, warp,
+//     thread), each row's lane words swizzled by thread so that a warp's byte
+//     stores hit 32 banks), kGroup steps a buffer, two buffers. After each
+//     group's barrier the block stores that buffer: each cell's L lanes leave
+//     together as an L-byte run of the (D, M, B) layout, in 4-byte words when
+//     B and L allow (2 or 1 otherwise), only the bytes of cells inside their
+//     lane's m_b x n_b, a thread's 8 steps of one row loaded first, then
+//     stored. The next group fills the other buffer, so one barrier a group
+//     suffices. L: the largest power of two up to max_warps(kRows) / W whose
+//     busiest SM holds no more warps than with L = 1 -- 4 at 512 lanes on 132
+//     SMs (one block of 4 warps on 128 SMs), where L = 8 would put 8 warps on
+//     64 SMs; chip_smoke.py prints the L = 1..16 curve.
 //
-// Affine (K6/K7): the scratch plane holds (H, E)(i, j - 1) as one int2, so a
-// cell costs one 8-byte load and one 8-byte store; F(i - 1, j) and the north
-// H stay in registers down the column. The boundaries are the JAX scan's
-// (scan_dp.py:245-264, the ones its CPU route and the CSVs follow):
-// H = 0 outside the matrix, E(i, 0) = -2^30, F(0, j) = 0. The move byte: bits
-// 0-1 the source of H, tested by equality in the order ZERO (H = 0), NW
-// (H = diag + s), E, F; bit 3 when E extends (E(i, j-1) >= H(i, j-1) -
-// gap_open); bit 4 when F extends (F(i-1, j) >= H(i-1, j) - gap_open).
+// Exactness. Columns past n_b are not computed, nor warps wholly past m_b;
+// the rows of a thread past m_b are, unmasked (they lie below every row <=
+// m_b, so no such row reads them), but they count neither in the best nor
+// in the stored bytes; rows past M read byte 0 and are never stored. A
+// length beyond the padded shape is clamped to it (m_b <= M, n_b <= N), as
+// the plain version clamps it, so no lane reads or writes outside its
+// tensors. Boundaries are the JAX scan's (scan_dp.py:245-264, the ones its
+// CPU route and the CSVs follow): H = 0 outside the matrix, E(i, 0) =
+// -2^30, F(0, j) = 0. The move byte, linear: NW if diag >= max(west, north),
+// else W if west >= north, else N, plus the stop bit 4 when any of the three
+// is 0 (wavefront_pallas.py:574-579); affine: bits 0-1 the source of H,
+// tested by equality in the order ZERO (H = 0), NW (H = diag + s), E, F; bit
+// 3 when E extends (E(i, j-1) >= H(i, j-1) - gap_open); bit 4 when F extends
+// (F(i-1, j) >= H(i-1, j) - gap_open).
 //
-// Tie-break: a strict `h > best` in column-major sweep order keeps the first
-// maximum in (j, i) order -- max score, then smallest j, then smallest i --
-// the column-major rule of scan_dp._reduce_best (scan_dp.py:303-321). An
-// all-zero lane keeps (0, 0, 0).
+// Tie-break: each thread keeps the first maximum of its own cells in (j, i)
+// order (a strict > in column order, the lowest row of the column), and the
+// warp, then the lane's warps, reduce by max score, then min j, then min i
+// -- the column-major rule of scan_dp._reduce_best (scan_dp.py:303-321). An
+// all-zero lane keeps (0, 0, 0); score-only launches return i = j = 0.
 //
-// What bounds it on the H100: the integer ALU latency of each thread's serial
-// chain (north -> h -> north, and F -> F) over m*n cells, with few warps per
-// SM at the main path's lane counts; K2/K7 also store m*n move bytes per lane.
-// The faster
-// design, left to a later change, gives each lane a warp: the lanes of a warp
-// hold consecutive read rows, pass the anti-diagonal carry with
-// __shfl_up_sync, and fold the three-way max with the DPX intrinsic
-// __vimax3_s32_relu.
+// What bounds them on the H100. K1/K6 at the window sweep's 8,704 lanes put
+// 48-64 warps on an SM, so the SMs' issue of the step's instructions bounds
+// them: about 5 integer instructions a cell (K6 about 8), and per step the
+// three or four shuffles, the column maximum and the best test (PERF.md §6
+// gives the cycles a column step against the count). K2/K7 at 512 lanes put
+// 4 warps on an SM, one a scheduler, so the step's latency bounds them: each
+// of the (n_b + 31) steps is the hand-off shuffle, the 4-deep chain, the
+// move code (about 8 more instructions a cell, 12 affine), a shared-memory
+// byte a cell and, a group at a time, the barrier and the runs' stores.
+// Neither more lanes a block nor two warps a lane (2 rows a thread) shortens
+// the main path's windows (PERF.md §6).
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 32;  // one warp per block spreads small batches over more SMs
 constexpr int kNeg = -(1 << 30);  // E and F where no gap run can reach
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kRowChoices[] = {1, 2, 4, 8, 16, 32};  // rows a thread
+constexpr int kNumRowChoices = sizeof(kRowChoices) / sizeof(kRowChoices[0]);
+constexpr int kScoreLanes = 4;  // K1/K6: lanes a block at most
+constexpr int kGroup = 8;       // steps between two barriers (and a staged buffer's steps)
+constexpr int kLag = 40;        // steps warp q + 1 of a lane trails warp q
+constexpr int kRing = 32;       // columns a hand-off ring between two warps holds
+static_assert(kLag % kGroup == 0 && kLag - 31 >= kGroup && kRing >= kLag - 31 + 2 * kGroup,
+              "a column handed on is read a barrier after it is written, and its slot "
+              "rewritten a barrier after it is read");
 
-// One body for K1 (kMoves = false) and K2 (kMoves = true, which implies
-// kTrackPos), and with kAffine for K6 and K7. moves is (M + N - 1, M, B) and
-// unused by K1/K6. hcol is (M, B) int32 for K1/K2 and (M, B) int2 (H, E) for
-// K6/K7.
-template <bool kTrackPos, bool kMoves, bool kAffine>
-__global__ void sw_kernel(const uint8_t* __restrict__ x_mb,
-                          const uint8_t* __restrict__ y_nb,
-                          const int32_t* __restrict__ m,
-                          const int32_t* __restrict__ n,
-                          int32_t* __restrict__ hcol,
-                          int M, int N, int B, int match, int mismatch,
-                          int gap_open, int gap, int32_t* __restrict__ score,
-                          int32_t* __restrict__ best_i,
-                          int32_t* __restrict__ best_j,
-                          uint8_t* __restrict__ moves) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int mb = min(m[b], M);
-  const int nb = min(n[b], N);
-  int32_t* h = hcol + b;
-  int2* he = reinterpret_cast<int2*>(hcol) + b;
-  const uint8_t* x = x_mb + b;
-  for (int r = 0; r < mb; ++r) {  // column j = 0
-    if (kAffine) {
-      he[(size_t)r * B] = make_int2(0, kNeg);
-    } else {
-      h[(size_t)r * B] = 0;
+// Warps a block at most with kRows rows a thread: 128 registers a thread
+// up to 8 rows, 255 beyond. It also keeps K2/K7's two staged buffers, 2 x
+// kGroup x 32 * kRows x warps bytes, within 64 KB.
+__host__ __device__ constexpr int max_warps(int rows) {
+  return rows <= 8 ? 16 : 128 / rows;
+}
+
+// (v1, j1, i1) before (v2, j2, i2): higher score, then smaller j, then i.
+__device__ __forceinline__ bool better(int v1, int j1, int i1, int v2, int j2, int i2) {
+  return v1 > v2 || (v1 == v2 && (j1 < j2 || (j1 == j2 && i1 < i2)));
+}
+
+// Row k's read byte equals the column's: ybc holds the column's byte in all
+// four bytes, xw the thread's read bytes four a word.
+template <int kWords>
+__device__ __forceinline__ bool same_byte(const uint32_t (&xw)[kWords], uint32_t ybc, int k) {
+  return ((xw[k >> 2] ^ ybc) & (0xffu << (8 * (k & 3)))) == 0;
+}
+
+// One column of a thread's kRows rows, linear gaps: h holds H(., j - 1) on
+// entry and H(., j) on return; nw = H(row0, j - 1) and north = H(row0, j)
+// of the row above the thread's first (row0, 1-based). With kMoves, row k's
+// move code is written to out[k * stride].
+template <bool kMoves, int kRows, int kWords>
+__device__ __forceinline__ void column_linear(int (&h)[kRows], const uint32_t (&xw)[kWords],
+                                              uint32_t ybc, int match, int mismatch, int gap,
+                                              int nw, int north, uint8_t* out, int stride) {
+  int diag = nw;
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int west = h[k];
+    const int s = same_byte(xw, ybc, k) ? match : mismatch;
+    const int a = __viaddmax_s32_relu(diag, s, west - gap);  // off the chain
+    const int v = __viaddmax_s32(north, -gap, a);            // the north chain
+    if constexpr (kMoves) {
+      const int wn = max(west, north);
+      uint32_t mv = diag >= wn ? 0u : west >= north ? 1u : 2u;
+      if (__vimin3_s32(diag, west, north) == 0) mv |= 4u;  // H >= 0: any of them 0
+      out[k * stride] = static_cast<uint8_t>(mv);
+    }
+    diag = west;
+    h[k] = v;
+    north = v;
+  }
+}
+
+// The affine form: h and e hold H(., j - 1) and E(., j - 1) on entry and
+// H(., j), E(., j) on return; f is F(row0, j) on entry and F of the thread's
+// last row on return.
+template <bool kMoves, int kRows, int kWords>
+__device__ __forceinline__ void column_affine(int (&h)[kRows], int (&e)[kRows],
+                                              const uint32_t (&xw)[kWords], uint32_t ybc,
+                                              int match, int mismatch, int gap_open, int gap,
+                                              int nw, int north, int& f, uint8_t* out,
+                                              int stride) {
+  const int open_extend = gap_open + gap;
+  bool fext = f >= north - gap_open;              // row0 + 1's F extend bit
+  f = __viaddmax_s32(north, -gap_open, f) - gap;  // F(row0 + 1, j)
+  int diag = nw;
+  int a_prev = 0;
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int west = h[k];
+    const int ek = __viaddmax_s32(west, -gap_open, e[k]) - gap;
+    const int s = same_byte(xw, ybc, k) ? match : mismatch;
+    const int a = __viaddmax_s32_relu(diag, s, ek);
+    if (k > 0) {
+      fext = f >= a_prev - gap_open;
+      f = __viaddmax_s32(f, -gap, a_prev - open_extend);  // the F chain
+    }
+    const int v = max(a, f);
+    if constexpr (kMoves) {
+      uint32_t mv = v == 0 ? 3u : v == diag + s ? 0u : v == ek ? 1u : 2u;
+      if (e[k] >= west - gap_open) mv |= 8u;
+      if (fext) mv |= 16u;
+      out[k * stride] = static_cast<uint8_t>(mv);
+    }
+    e[k] = ek;
+    diag = west;
+    h[k] = v;
+    a_prev = a;
+  }
+}
+
+// The byte offset of lane w in a staged row of L lane bytes written by
+// thread l: for L >= 8 the row's 4-byte words are swizzled by l, so that the
+// 32 threads of a warp (32 rows, one lane) write 32 banks.
+__device__ __forceinline__ int lane_offset(int w, int l, int L) {
+  if (L < 8) return w;
+  const int g = (l * (L >> 2)) >> 5;  // 0 .. L/4 - 1, constant over 32 / (L/4) threads
+  return (((w >> 2) ^ g) << 2) | (w & 3);
+}
+
+// The block's store of one staged group (K2/K7): the bytes of steps s0 ..
+// s0 + kGroup - 1 from buf (rows ((u * kRows + k) * W + qq) * 32 + l of L
+// lane bytes) to moves (D, M, B), V lanes a store (V | L, V | B). Thread t
+// stores lanes c * V .. c * V + V - 1 (c = t % (L / V)) of the rows that
+// thread l of warp qq holds at their k-th row, for idx = k * W + qq in
+// {idx0, idx0 + V * W, ...}, every step of the group; a unit whose lanes do
+// not all hold the cell is stored byte by byte. lane_m and lane_n hold the
+// block's clamped lengths.
+template <int V, int kRows, int W>
+__device__ __forceinline__ void store_group(const uint8_t* buf, uint8_t* __restrict__ moves,
+                                            const int* lane_m, const int* lane_n, int s0,
+                                            int M, int B, int b0, int L) {
+  using Word = typename std::conditional<
+      V == 4, uint32_t, typename std::conditional<V == 2, uint16_t, uint8_t>::type>::type;
+  const int per = L / V;
+  const int rest = threadIdx.x / per;
+  const int w0 = (threadIdx.x - rest * per) * V;
+  const int l = rest & 31;
+  int mlo = lane_m[w0], mhi = mlo, nlo = lane_n[w0], nhi = nlo;
+#pragma unroll
+  for (int v = 1; v < V; ++v) {
+    mlo = min(mlo, lane_m[w0 + v]);
+    mhi = max(mhi, lane_m[w0 + v]);
+    nlo = min(nlo, lane_n[w0 + v]);
+    nhi = max(nhi, lane_n[w0 + v]);
+  }
+  const long long MB = (long long)M * B;
+  const int off = lane_offset(w0, l, L);
+  const int step_bytes = kRows * W * 32 * L;  // staged step u to u + 1 of one row
+  for (int idx = rest >> 5; idx < kRows * W; idx += V * W) {
+    const int k = idx / W;
+    const int qq = idx - k * W;
+    const int r = (qq * 32 + l) * kRows + k;  // 0-based row
+    if (r >= mhi) continue;
+    const int j0 = s0 - l + 1 - qq * kLag;  // the column of step s0
+    const long long at = ((long long)(r + j0 - 1) * M + r) * B + b0 + w0;
+    const uint8_t* src = buf + (idx * 32 + l) * L + off;
+    Word word[kGroup];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) word[u] = *reinterpret_cast<const Word*>(src + u * step_bytes);
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const int j = j0 + u;
+      if (j < 1 || j > nhi) continue;
+      if (r < mlo && j <= nlo) {
+        *reinterpret_cast<Word*>(moves + at + u * MB) = word[u];
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          if (r < lane_m[w0 + v] && j <= lane_n[w0 + v]) {
+            moves[at + u * MB + v] = src[u * step_bytes + v];
+          }
+        }
+      }
     }
   }
+}
+
+// The steps a lane of lengths (mm, nn) takes: n_b + the place of the thread
+// holding row m_b in its warp + kLag a warp before it.
+__device__ __forceinline__ int lane_steps(int mm, int nn, int rows) {
+  if (mm <= 0 || nn <= 0) return 0;
+  const int g = (mm - 1) / rows;  // that thread, counted over the lane's warps
+  return nn + (g & 31) + (g >> 5) * kLag;
+}
+
+// K1 (kMoves = false) and K2 (kMoves = true, which implies kTrackPos), and
+// with kAffine K6 and K7; kRows rows a thread, W warps a lane (32 * W *
+// kRows >= M). xs (B, M) and ys (B, N) uint8, m and n (B,) int32; moves (M +
+// N - 1, M, B) uint8 (K2/K7 only). A block holds blockDim.x / (32 W)
+// consecutive lanes, lane w's W warps consecutive. Dynamic shared memory:
+// the hand-off rings, (W - 1) x L x kRing int2, then (K2/K7) the two staged
+// buffers, 2 x kGroup x W * 32 * kRows x L bytes.
+template <bool kTrackPos, bool kMoves, bool kAffine, int kRows, int kWarps>
+__global__ void __launch_bounds__(32 * max_warps(kRows))
+sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
+               const int32_t* __restrict__ m, const int32_t* __restrict__ n, int M, int N,
+               int B, int match, int mismatch, int gap_open, int gap,
+               int32_t* __restrict__ score, int32_t* __restrict__ best_i,
+               int32_t* __restrict__ best_j, uint8_t* __restrict__ moves) {
+  constexpr int kWords = (kRows + 3) / 4;
+  constexpr int W = kWarps;
+  // A group's steps unrolled, so that one step's moves, best and stores
+  // overlap the next one's chain; not for the long reads' wide threads,
+  // whose steps are long enough alone (and whose unrolled code is large).
+  constexpr int kUnroll = kRows <= 8 ? kGroup : 1;
+  extern __shared__ __align__(16) uint8_t dyn[];
+  __shared__ int lane_m[32];  // the block's clamped lengths (barrier launches)
+  __shared__ int lane_n[32];
+  __shared__ int red[3][kWarps > 1 ? 32 : 1];  // each warp's (best, j, i)
+  const int wi = threadIdx.x >> 5;
+  const int l = threadIdx.x & 31;
+  const int L = (blockDim.x >> 5) / W;
+  const int w = wi / W;       // the lane's place in the block
+  const int q = wi - w * W;   // the warp's place in its lane
+  const int b0 = blockIdx.x * L;
+  const int b = b0 + w;
+  constexpr bool sync = kMoves || W > 1;  // a barrier every kGroup steps
+  int2* const ring = reinterpret_cast<int2*>(dyn);  // [W - 1][L][kRing]
+  uint8_t* const stage = dyn + (size_t)(W - 1) * L * kRing * sizeof(int2);
+  int mb = 0, nb = 0;
+  if (b < B) {
+    mb = max(min(m[b], M), 0);
+    nb = max(min(n[b], N), 0);
+  }
+  int steps = lane_steps(mb, nb, kRows);
+  int V = 1;
+  if constexpr (sync) {
+    // Every warp of the block takes the block's step count (its barriers).
+    if (q == 0 && l == 0) {
+      lane_m[w] = mb;
+      lane_n[w] = nb;
+    }
+    __syncthreads();
+    for (int v = 0; v < L; ++v) steps = max(steps, lane_steps(lane_m[v], lane_n[v], kRows));
+    V = (L % 4 == 0 && B % 4 == 0) ? 4 : (L % 2 == 0 && B % 2 == 0) ? 2 : 1;
+  } else if (b >= B) {
+    return;
+  }
+  const uint8_t* xl = xs + (size_t)(b < B ? b : 0) * M;
+  const uint8_t* yl = ys + (size_t)(b < B ? b : 0) * N;
+  const int row0 = (q * 32 + l) * kRows;  // 0-based first row of the thread
+  const int nvalid = min(max(mb - row0, 0), kRows);
+  const bool active = q * 32 * kRows < mb;  // warp-uniform: the warp holds a row <= m_b
+  uint32_t xw[kWords];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) xw[i] = 0;
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    if (k < nvalid) xw[k >> 2] |= static_cast<uint32_t>(xl[row0 + k]) << (8 * (k & 3));
+  }
+  int h[kRows];
+  int e[kAffine ? kRows : 1];  // affine: E(., j - 1), kNeg in column 0
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) h[k] = 0;
+#pragma unroll
+  for (int k = 0; k < (kAffine ? kRows : 1); ++k) e[k] = kNeg;
+  int nw = 0;     // H(row0, j - 1): the previous column's north input
+  int flast = 0;  // affine: F of the thread's last row in its last column
+  int yc = 0;     // the byte of this thread's column
   int best = 0, bi = 0, bj = 0;
-  for (int j = 1; j <= nb; ++j) {
-    const uint8_t yc = y_nb[(size_t)(j - 1) * B + b];
-    int diag = 0;   // H(i-1, j-1); row 0 is the zero boundary
-    int north = 0;  // H(i-1, j)
-    int fn = 0;     // F(i-1, j); F(0, j) = 0, the scan's boundary
-    for (int i = 1; i <= mb; ++i) {
-      const size_t at = (size_t)(i - 1) * B;
-      const int s = (x[at] == yc) ? match : mismatch;
-      int v, west;
-      if (kAffine) {
-        const int2 w = he[at];  // (H, E)(i, j-1)
-        west = w.x;
-        const int e_open = west - gap_open;
-        const int f_open = north - gap_open;
-        const int e = max(e_open, w.y) - gap;
-        const int f = max(f_open, fn) - gap;
-        const int nw = diag + s;
-        v = max(max(nw, e), max(f, 0));
-        if (kMoves) {
-          uint8_t mv = v == 0 ? 3 : v == nw ? 0 : v == e ? 1 : 2;
-          if (w.y >= e_open) mv |= 8;
-          if (fn >= f_open) mv |= 16;
-          moves[((size_t)(i + j - 2) * M + (i - 1)) * B + b] = mv;
+  int ycur = 0;   // thread t of word k holds column 32k + t + 1's byte
+  int ynext = l < nb ? yl[l] : 0;
+  const int lag = q * kLag;
+  const int stride = W * 32 * L;  // staged rows k and k + 1 of one thread
+  int2* const ring_in = ring + (max(q - 1, 0) * L + w) * kRing;  // q > 0: warp q - 1's last row
+  int2* const ring_out = ring + (q * L + w) * kRing;       // q + 1 < W: this warp's
+  for (int s0 = 0; s0 < steps; s0 += kGroup) {
+    const int sl0 = s0 - lag;  // the warp's own step count at the group's head
+    if (sl0 >= 0 && (sl0 & 31) == 0) {
+      ycur = ynext;
+      const int k = sl0 + 32 + l;
+      ynext = k < nb ? yl[k] : 0;
+    }
+    uint8_t* buf = stage + ((s0 / kGroup) & 1) * (kGroup * kRows * W * 32 * L);
+#pragma unroll kUnroll
+    for (int u = 0; u < kGroup; ++u) {
+      const int sl = sl0 + u;
+      int north = __shfl_up_sync(kAll, h[kRows - 1], 1);
+      int f = kAffine ? __shfl_up_sync(kAll, flast, 1) : 0;
+      yc = __shfl_up_sync(kAll, yc, 1);
+      const int yfirst = __shfl_sync(kAll, ycur, sl & 31);
+      const int j = sl - l + 1;
+      const bool on = active && j >= 1 && j <= nb;
+      if (l == 0) {  // the row above the warp: zero above row 1, else warp q - 1's
+        yc = yfirst;
+        north = 0;
+        f = 0;
+        if constexpr (W > 1) {
+          if (q > 0 && on) {
+            const int2 v = ring_in[j & (kRing - 1)];
+            north = v.x;
+            f = v.y;
+          }
         }
-        he[at] = make_int2(v, e);
-        fn = f;
-      } else {
-        west = h[at];  // H(i, j-1)
-        v = max(max(diag + s, max(west, north) - gap), 0);
-        if (kMoves) {
-          // Move code of wavefront_pallas.py:574-579 over the neighbours
-          // (nw, west, north): NW if nw >= west and nw >= north, else W if
-          // west >= both, else N; plus the stop bit 4 if any of them is 0.
-          uint8_t mv = (diag >= west && diag >= north) ? 0
-                       : (west >= diag && west >= north) ? 1 : 2;
-          if (diag == 0 || west == 0 || north == 0) mv |= 4;
-          moves[((size_t)(i + j - 2) * M + (i - 1)) * B + b] = mv;
+      }
+      if (on) {
+        const uint32_t ybc = static_cast<uint32_t>(yc) * 0x01010101u;
+        uint8_t* out = kMoves ? buf + ((u * kRows * W + q) * 32 + l) * L + lane_offset(w, l, L)
+                              : nullptr;
+        if constexpr (kAffine) {
+          column_affine<kMoves>(h, e, xw, ybc, match, mismatch, gap_open, gap, nw, north, f,
+                                out, stride);
+          flast = f;
+        } else {
+          column_linear<kMoves>(h, xw, ybc, match, mismatch, gap, nw, north, out, stride);
         }
-        h[at] = v;
+        if constexpr (W > 1) {
+          if (l == 31 && q + 1 < W) ring_out[j & (kRing - 1)] = make_int2(h[kRows - 1], f);
+        }
+        int colmax = h[0];
+#pragma unroll
+        for (int k = 1; k + 1 < kRows; k += 2) colmax = __vimax3_s32(colmax, h[k], h[k + 1]);
+        if (kRows % 2 == 0 && kRows > 1) colmax = max(colmax, h[kRows - 1]);
+        if (colmax > best) {
+          if (nvalid < kRows) {  // the thread holding m_b: its rows up to m_b only
+            colmax = 0;
+#pragma unroll
+            for (int k = 0; k < kRows; ++k) colmax = k < nvalid ? max(colmax, h[k]) : colmax;
+          }
+          if (colmax > best) {
+            best = colmax;
+            if (kTrackPos) {
+              int kk = 0;
+#pragma unroll
+              for (int k = kRows - 1; k >= 0; --k) kk = h[k] == colmax ? k : kk;
+              bi = row0 + kk + 1;
+              bj = j;
+            }
+          }
+        }
+        nw = north;
       }
-      if (kTrackPos) {
-        if (v > best) { best = v; bi = i; bj = j; }
+    }
+    if constexpr (sync) __syncthreads();  // the group's columns handed on, its buffer whole
+    if constexpr (kMoves) {
+      if (V == 4) {
+        store_group<4, kRows, W>(buf, moves, lane_m, lane_n, s0, M, B, b0, L);
+      } else if (V == 2) {
+        store_group<2, kRows, W>(buf, moves, lane_m, lane_n, s0, M, B, b0, L);
       } else {
-        best = max(best, v);
+        store_group<1, kRows, W>(buf, moves, lane_m, lane_n, s0, M, B, b0, L);
       }
-      diag = west;
-      north = v;
     }
   }
-  score[b] = best;
-  best_i[b] = bi;
-  best_j[b] = bj;
+  // Warp reduction of (best, bj, bi), then (W > 1) over the lane's warps.
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const int v2 = __shfl_down_sync(kAll, best, off);
+    const int j2 = __shfl_down_sync(kAll, bj, off);
+    const int i2 = __shfl_down_sync(kAll, bi, off);
+    if (better(v2, j2, i2, best, bj, bi)) {
+      best = v2;
+      bj = j2;
+      bi = i2;
+    }
+  }
+  if constexpr (W > 1) {
+    if (l == 0) {
+      red[0][wi] = best;
+      red[1][wi] = bj;
+      red[2][wi] = bi;
+    }
+    __syncthreads();
+    if (l == 0 && q == 0) {
+      for (int v = wi + 1; v < wi + W; ++v) {
+        if (better(red[0][v], red[1][v], red[2][v], best, bj, bi)) {
+          best = red[0][v];
+          bj = red[1][v];
+          bi = red[2][v];
+        }
+      }
+    }
+  }
+  if (l == 0 && q == 0 && b < B) {
+    score[b] = best;
+    best_i[b] = best > 0 ? bi : 0;
+    best_j[b] = best > 0 ? bj : 0;
+  }
+}
+
+using SwKernel = void (*)(const uint8_t*, const uint8_t*, const int32_t*, const int32_t*, int,
+                          int, int, int, int, int, int, int32_t*, int32_t*, int32_t*, uint8_t*);
+
+template <bool kAffine, int kWarps, int I = 0>
+void fill_kernels(SwKernel (*out)[kNumRowChoices]) {
+  if constexpr (I < kNumRowChoices) {
+    out[0][I] = &sw_warp_kernel<false, false, kAffine, kRowChoices[I], kWarps>;
+    out[1][I] = &sw_warp_kernel<true, false, kAffine, kRowChoices[I], kWarps>;
+    out[2][I] = &sw_warp_kernel<true, true, kAffine, kRowChoices[I], kWarps>;
+    fill_kernels<kAffine, kWarps, I + 1>(out);
+  }
+}
+
+// Every instantiation, [warps a lane - 1][affine][score-only, argmax,
+// moves][rows a thread].
+struct SwKernels {
+  SwKernel at[2][2][3][kNumRowChoices];
+  SwKernels() {
+    fill_kernels<false, 1>(at[0][0]);
+    fill_kernels<true, 1>(at[0][1]);
+    fill_kernels<false, 2>(at[1][0]);
+    fill_kernels<true, 2>(at[1][1]);
+  }
+};
+
+struct SwLaunch {
+  SwKernel kernel;
+  int rows, lanes, warps, blocks;  // rows a thread, lanes a block, warps a lane, blocks an SM
+  size_t smem;
+};
+
+// The warps on the busiest SM when B lanes of W warps run L to a block on
+// `sms` SMs.
+int busiest_sm(int B, int L, int W, int sms) {
+  const int blocks = (B + L - 1) / L;
+  return (blocks + sms - 1) / sms * L * W;
+}
+
+// The launch for B lanes of M rows (mode 0 score-only, 1 argmax, 2 moves).
+// W, the warps a lane: `warps` if given (1 or 2), else 1 up to 1,024 rows
+// and 2 beyond. kRows: the least choice with 32 * W * kRows >= M. L, the
+// lanes a block: `lanes` if given, else the largest power of two up to
+// kScoreLanes (K1/K6) or max_warps(kRows) / W (K2/K7) whose busiest SM holds
+// no more warps than with L = 1. The blocks an SM from the CUDA occupancy
+// calculator.
+cudaError_t sw_launch(int M, int B, bool affine, int mode, int lanes, int warps,
+                      SwLaunch* out) {
+  if (M < 0 || B < 0 || mode < 0 || mode > 2 || lanes < 0 || warps < 0) {
+    return cudaErrorInvalidValue;
+  }
+  const bool moves = mode == 2;
+  int W = warps;
+  if (W == 0) W = M > 32 * 32 ? 2 : 1;
+  int i = 0;
+  while (i < kNumRowChoices && 32 * W * kRowChoices[i] < M) ++i;
+  if (i == kNumRowChoices || W > 2) return cudaErrorInvalidValue;
+  const int rows = kRowChoices[i];
+  const int lmax = moves ? max_warps(rows) / W : min(kScoreLanes, max_warps(rows) / W);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  int L = lanes;
+  if (L == 0) {
+    L = 1;
+    for (int c = 2; c <= lmax; c *= 2) {
+      if (busiest_sm(B, c, W, sms) <= busiest_sm(B, 1, W, sms)) L = c;
+    }
+  }
+  if (L < 1 || L > lmax || (L & (L - 1)) != 0) return cudaErrorInvalidValue;
+  static const SwKernels kernels;
+  const size_t ring = (size_t)(W - 1) * L * kRing * 8;
+  SwLaunch S{kernels.at[W - 1][affine][mode][i], rows, L, W, 0,
+             ring + (moves ? (size_t)2 * kGroup * W * 32 * rows * L : 0)};
+  err = cudaFuncSetAttribute(S.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)S.smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&S.blocks, S.kernel, 32 * L * W, S.smem);
+  if (err != cudaSuccess) return err;
+  *out = S;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. Every pointer is a device pointer to
-// a contiguous tensor: x_mb (M, B) uint8, y_nb (N, B) uint8, m and n (B,)
-// int32, hcol scratch ((M, B) int32, or (M, B, 2) int32 when gap_open > 0),
+// a contiguous tensor: xs (B, M) uint8, ys (B, N) uint8, m and n (B,) int32,
 // score/best_i/best_j (B,) int32, and moves (M + N - 1, M, B) uint8 for K2/K7
-// or null for K1/K6. gap_open > 0 selects the affine kernels. Returns
-// cudaGetLastError() after the launch.
-extern "C" int pgs_sw_score(const void* x_mb, const void* y_nb, const void* m,
-                            const void* n, void* hcol, int M, int N, int B,
-                            int match, int mismatch, int gap_open, int gap,
-                            int track_pos, void* score, void* best_i,
-                            void* best_j, void* moves, void* stream) {
+// or null for K1/K6. gap_open > 0 selects the affine kernels; lanes (a
+// block) and warps (a lane) are 0 for the rules of sw_launch. M may be at
+// most 32 x 32 x the warps a lane (2,048 by the rule). Returns a
+// cudaError_t: cudaGetLastError() after the launch.
+extern "C" int pgs_sw_score(const void* xs, const void* ys, const void* m, const void* n,
+                            int M, int N, int B, int match, int mismatch, int gap_open,
+                            int gap, int track_pos, int lanes, int warps, void* score,
+                            void* best_i, void* best_j, void* moves, void* stream) {
   if (B > 0) {
-    auto kernel = gap_open > 0
-        ? (moves ? &sw_kernel<true, true, true>
-           : track_pos ? &sw_kernel<true, false, true>
-                       : &sw_kernel<false, false, true>)
-        : (moves ? &sw_kernel<true, true, false>
-           : track_pos ? &sw_kernel<true, false, false>
-                       : &sw_kernel<false, false, false>);
-    kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(x_mb), static_cast<const uint8_t*>(y_nb),
-        static_cast<const int32_t*>(m), static_cast<const int32_t*>(n),
-        static_cast<int32_t*>(hcol), M, N, B, match, mismatch, gap_open, gap,
-        static_cast<int32_t*>(score), static_cast<int32_t*>(best_i),
-        static_cast<int32_t*>(best_j), static_cast<uint8_t*>(moves));
+    SwLaunch S;
+    const int mode = moves ? 2 : track_pos ? 1 : 0;
+    const cudaError_t err = sw_launch(M, B, gap_open > 0, mode, lanes, warps, &S);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    S.kernel<<<(B + S.lanes - 1) / S.lanes, 32 * S.lanes * S.warps, S.smem,
+               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(xs), static_cast<const uint8_t*>(ys),
+        static_cast<const int32_t*>(m), static_cast<const int32_t*>(n), M, N, B, match,
+        mismatch, gap_open, gap, static_cast<int32_t*>(score),
+        static_cast<int32_t*>(best_i), static_cast<int32_t*>(best_j),
+        static_cast<uint8_t*>(moves));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pgs_sw_score_shape: the launch pgs_sw_score makes for B lanes of M rows
+// (affine as gap_open > 0 selects it; mode 0 score-only, 1 argmax, 2 moves;
+// lanes and warps as there) on the current device: out[0] rows a thread,
+// out[1] lanes a block, out[2] warps a lane, out[3] blocks an SM (the
+// occupancy calculator), out[4] dynamic shared bytes a block. Returns a
+// cudaError_t.
+extern "C" int pgs_sw_score_shape(int M, int B, int affine, int mode, int lanes, int warps,
+                                  void* out) {
+  SwLaunch S;
+  const cudaError_t err = sw_launch(M, B, affine != 0, mode, lanes, warps, &S);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int* o = static_cast<int*>(out);
+  o[0] = S.rows;
+  o[1] = S.lanes;
+  o[2] = S.warps;
+  o[3] = S.blocks;
+  o[4] = static_cast<int>(S.smem);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,9 +29,12 @@ _L = ctypes.c_longlong
 # name -> argtypes; every pointer and the stream are c_void_p (a c_int would
 # truncate a 64-bit address), every size and score an int, byte counts 64-bit.
 _SIGNATURES = {
-    # x_mb, y_nb, m, n, hcol, M, N, B, match, mismatch, gap_open, gap,
-    # track_pos, score, best_i, best_j, moves, stream
-    "pgs_sw_score": [_P] * 5 + [_I] * 8 + [_P] * 5,
+    # xs, ys, m, n, M, N, B, match, mismatch, gap_open, gap, track_pos,
+    # lanes, warps, score, best_i, best_j, moves, stream
+    "pgs_sw_score": [_P] * 4 + [_I] * 10 + [_P] * 5,
+    # M, B, affine, mode, lanes, warps, out (int32 rows, lanes, warps,
+    # blocks per SM, smem)
+    "pgs_sw_score_shape": [_I] * 6 + [_P],
     # x, x_lane, y, y_off, y_len, m, n, table, ncodes, M, N, B, gap_open,
     # gap, score, best_i, best_j, stream
     "pgs_sw_profile_scan": [_P, _L, _P, _P, _L, _P, _P, _P] + [_I] * 6 + [_P] * 4,

@@ -19,9 +19,19 @@ Route: tensors on the CPU take the plain PyTorch version (``ops/scan_dp``);
 tensors on a CUDA device launch the kernel, and a missing toolkit or a failed
 build or launch raises. Each wrapper's ``launches`` counts kernel launches
 only.
+
+The kernels give each lane one or more warps (``csrc/wavefront.cu``): they
+read xs and ys as they are, with no scratch, for reads of up to
+``MAX_ROWS`` = 2,048 rows (longer ones run on ``ops/strips_cuda``);
+``launch_shape`` reports the launch a call makes (rows a thread, lanes a
+block, warps a lane, blocks an SM). K2 and K7 take ``lanes``, the lanes a
+block that store their move bytes together, and ``warps``, the warps a lane
+(0: the kernel's rules).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -42,26 +52,47 @@ def _check_inputs(xs, ys, m, n):
     return device_of(xs, ys, m, n)
 
 
-def _launch(xs, ys, m, n, *, match, mismatch, gap_open, gap, track_pos, moves):
-    """Shared K1/K2/K6/K7 launch: lane-fastest copies of the inputs, scratch
-    and outputs allocated here, kernel on the current stream, no sync. The
-    column scratch is (M, B) H, or (M, B, 2) (H, E) for gap_open > 0."""
+# Read rows the rules cover: 2 warps of 32 threads x 32 rows (the engine's
+# MAX_M; longer reads take the strip kernels).
+MAX_ROWS = 2 * 32 * 32
+# ``launch_shape``'s modes: score-only (K1/K6), argmax, moves (K2/K7).
+MODES = {"score_only": 0, "track_pos": 1, "moves": 2}
+
+
+def launch_shape(M: int, B: int, *, affine: bool, mode: str, lanes: int = 0,
+                 warps: int = 0):
+    """The launch of K1/K2/K6/K7 for B lanes of M rows on the current CUDA
+    device (``mode`` one of MODES; ``lanes``, ``warps`` as K2 takes them):
+    {rows (a thread), lanes (a block), warps (a lane), blocks_per_sm (the
+    CUDA occupancy calculator), smem (dynamic shared bytes a block)}.
+    Launches nothing; raises for a shape the kernels do not take."""
+    lib = _build.load()
+    out = (ctypes.c_int * 5)()
+    _build.check(lib.pgs_sw_score_shape(int(M), int(B), int(affine), MODES[mode], int(lanes),
+                                        int(warps), ctypes.addressof(out)),
+                 "pgs_sw_score_shape")
+    return dict(zip(("rows", "lanes", "warps", "blocks_per_sm", "smem"), out))
+
+
+def _launch(xs, ys, m, n, *, match, mismatch, gap_open, gap, track_pos, moves, lanes=0,
+            warps=0):
+    """Shared K1/K2/K6/K7 launch: outputs allocated here, kernel on the
+    current stream, no sync."""
     B, M = xs.shape
     N = ys.shape[1]
+    if M > MAX_ROWS:
+        raise ValueError(f"reads of {M} rows exceed MAX_ROWS = {MAX_ROWS}; "
+                         "longer ones run on strips_cuda.sw_score_strips(_affine)")
     dev = xs.device
     lib = _build.load()
-    x_mb = xs.T.contiguous()
-    y_nb = ys.T.contiguous()
-    m = m.contiguous()
-    n = n.contiguous()
-    hcol = torch.empty((M, B, 2) if gap_open > 0 else (M, B), dtype=torch.int32, device=dev)
+    xs, ys, m, n = (t.contiguous() for t in (xs, ys, m, n))
     score, bi, bj = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pgs_sw_score(
-            x_mb.data_ptr(), y_nb.data_ptr(), m.data_ptr(), n.data_ptr(),
-            hcol.data_ptr(), M, N, B, int(match), int(mismatch), int(gap_open),
-            int(gap), int(track_pos), score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
+            xs.data_ptr(), ys.data_ptr(), m.data_ptr(), n.data_ptr(), M, N, B, int(match),
+            int(mismatch), int(gap_open), int(gap), int(track_pos), int(lanes), int(warps),
+            score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
             moves.data_ptr() if moves is not None else None, stream,
         )
     _build.check(err, "pgs_sw_score")
@@ -90,10 +121,13 @@ def sw_score(xs, ys, m, n, *, match: int, mismatch: int, gap: int,
 sw_score.launches = 0
 
 
-def sw_score_moves(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
+def sw_score_moves(xs, ys, m, n, *, match: int, mismatch: int, gap: int, lanes: int = 0,
+                   warps: int = 0):
     """K2: K1's (score, i, j) plus (M + N - 1, M, B) uint8 move/stop codes.
     Only cells inside each lane's m_b x n_b matrix are written; the rest of
-    the moves tensor is left uninitialised (the walk never reads it)."""
+    the moves tensor is left uninitialised (the walk never reads it).
+    ``lanes``, ``warps``: the lanes a block and the warps a lane on the card
+    (0: the kernel's rules)."""
     dev = _check_inputs(xs, ys, m, n)
     if dev.type == "cpu":
         return sw_score_moves_plain(
@@ -104,7 +138,7 @@ def sw_score_moves(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
     moves = torch.empty((M + N - 1, M, B), dtype=torch.uint8, device=dev)
     score, bi, bj = _launch(
         xs, ys, m, n, match=match, mismatch=mismatch, gap_open=0, gap=gap,
-        track_pos=True, moves=moves,
+        track_pos=True, moves=moves, lanes=lanes, warps=warps,
     )
     sw_score_moves.launches += 1
     return score, bi, bj, moves
@@ -142,10 +176,11 @@ sw_score_affine.launches = 0
 
 
 def sw_score_affine_moves(xs, ys, m, n, *, match: int, mismatch: int,
-                          gap_open: int, gap: int):
+                          gap_open: int, gap: int, lanes: int = 0, warps: int = 0):
     """K7: K6's (score, i, j) plus the (M + N - 1, M, B) uint8 affine move
     bytes (``scan_dp.H_*``, ``E_EXT_BIT``, ``F_EXT_BIT``). Only cells inside
-    each lane's m_b x n_b matrix are written, as in K2."""
+    each lane's m_b x n_b matrix are written, as in K2; ``lanes`` and
+    ``warps`` as there."""
     dev = _check_inputs(xs, ys, m, n)
     _check_gap_open(gap_open)
     if dev.type == "cpu":
@@ -157,7 +192,7 @@ def sw_score_affine_moves(xs, ys, m, n, *, match: int, mismatch: int,
     moves = torch.empty((M + N - 1, M, B), dtype=torch.uint8, device=dev)
     score, bi, bj = _launch(
         xs, ys, m, n, match=match, mismatch=mismatch, gap_open=gap_open,
-        gap=gap, track_pos=True, moves=moves,
+        gap=gap, track_pos=True, moves=moves, lanes=lanes, warps=warps,
     )
     sw_score_affine_moves.launches += 1
     return score, bi, bj, moves

@@ -29,9 +29,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def ragged(seed, dev, B=67, M=96, N=300):
+def ragged(seed, dev, B=67, M=96, N=300, motif=False):
     """Random DNA lanes of ragged true lengths, each read partly planted in
-    its reference so that alignments carry gaps and mismatches."""
+    its reference so that alignments carry gaps and mismatches; with
+    ``motif``, read and reference repeat one short motif, so that the best
+    score ties across many cells, rows and threads' bands."""
     rng = np.random.default_rng(seed)
     acgt = np.frombuffer(b"ACGT", np.uint8)
     m = rng.integers(1, M + 1, B).astype(np.int32)
@@ -39,6 +41,11 @@ def ragged(seed, dev, B=67, M=96, N=300):
     xs = np.full((B, M), 1, np.uint8)
     ys = np.full((B, N), 2, np.uint8)
     for b in range(B):
+        if motif:
+            unit = rng.choice(acgt, int(rng.integers(2, 5)))
+            ys[b, : n[b]] = np.resize(unit, n[b])
+            xs[b, : m[b]] = np.resize(unit, m[b])
+            continue
         ys[b, : n[b]] = rng.choice(acgt, n[b])
         xs[b, : m[b]] = rng.choice(acgt, m[b])
         k = min(m[b], n[b]) // 2
@@ -47,10 +54,53 @@ def ragged(seed, dev, B=67, M=96, N=300):
     return [torch.from_numpy(a).to(dev) for a in (xs, ys, m, n)]
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+# K1/K2/K6/K7 cases (csrc/wavefront.cu, a warp a lane, kRows rows a thread
+# for 32 * kRows >= M, L lanes a block for the moves): (ragged's arguments,
+# L for K2/K7 or 0 for the kernel's rule, a change to the lanes). M at each
+# rows-a-thread boundary; B of 1, 67 and one past a multiple of L, and B
+# that take the moves in 4-, 2- and 1-byte runs; lanes of
+# very different n_b in one block; m_b or n_b of 1 or 0 and an all-zero
+# lane; ties across bands from repeated motifs.
+WAVE_CASES = {
+    "seed0": (dict(seed=0), 0, None),
+    "seed1": (dict(seed=1), 0, None),
+    "rows_1": (dict(seed=2, M=1, N=120), 0, None),
+    "rows_32": (dict(seed=3, M=32, N=200), 0, None),
+    "rows_33": (dict(seed=4, B=70, M=33, N=200), 4, None),
+    "rows_128": (dict(seed=5, B=513, M=128, N=640), 4, None),
+    "main_shape": (dict(seed=14, B=512, M=128, N=640), 0, None),
+    "rows_129": (dict(seed=6, B=33, M=129, N=300), 16, None),
+    "rows_512": (dict(seed=7, B=9, M=512, N=300), 8, None),
+    "rows_513": (dict(seed=8, B=5, M=513, N=200), 4, None),
+    "rows_2048": (dict(seed=9, B=3, M=2048, N=150), 2, None),
+    "b1": (dict(seed=10, B=1), 0, None),
+    "mixed_n": (dict(seed=11, B=68, M=128, N=640), 16, "mixed_n"),
+    "edges": (dict(seed=12, B=37, M=64, N=100), 2, "edges"),
+    "motif_ties": (dict(seed=13, B=40, M=256, N=400, motif=True), 8, None),
+}
+
+
+def wave_lanes(case, dev):
+    """(xs, ys, m, n, L) of a WAVE_CASES case on ``dev``."""
+    kwargs, lanes, change = WAVE_CASES[case]
+    xs, ys, m, n = ragged(dev=dev, **kwargs)
+    N = ys.shape[1]
+    if change == "mixed_n":  # 1, 2, 31, 32, 33 columns beside full ones in each block
+        short = torch.tensor([1, 2, 31, 32, 33, N, N - 1], dtype=torch.int32, device=dev)
+        n.copy_(short[torch.arange(n.shape[0], device=dev) % short.shape[0]])
+    elif change == "edges":  # m_b = 1, n_b = 1, m_b = 0, n_b = 0, both 1, all-zero lanes
+        m[0], n[1], m[2], n[3] = 1, 1, 0, 0
+        m[4] = n[4] = 1
+        xs[5], ys[5] = 7, 9
+        ys[6, : int(n[6])] = xs[6, 0]  # one read byte against a run of it
+        m[6] = 1
+    return xs, ys, m, n, lanes
+
+
+@pytest.mark.parametrize("case", list(WAVE_CASES))
 @pytest.mark.parametrize("track_pos", [False, True])
-def test_k1_matches_plain(cuda, seed, track_pos):
-    xs, ys, m, n = ragged(seed, cuda)
+def test_k1_matches_plain(cuda, case, track_pos):
+    xs, ys, m, n, _ = wave_lanes(case, cuda)
     before = wavefront_cuda.sw_score.launches
     got = wavefront_cuda.sw_score(xs, ys, m, n, track_pos=track_pos, **KW)
     want = scan_dp.sw_score_plain(xs, ys, m, n, track_pos=track_pos, **KW)
@@ -60,18 +110,14 @@ def test_k1_matches_plain(cuda, seed, track_pos):
         assert g.is_cuda and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_k2_and_k3_match_plain(cuda, seed):
-    xs, ys, m, n = ragged(seed, cuda)
-    got = wavefront_cuda.sw_score_moves(xs, ys, m, n, **KW)
+@pytest.mark.parametrize("case", list(WAVE_CASES))
+def test_k2_and_k3_match_plain(cuda, case):
+    xs, ys, m, n, lanes = wave_lanes(case, cuda)
+    got = wavefront_cuda.sw_score_moves(xs, ys, m, n, lanes=lanes, **KW)
     want = scan_dp.sw_score_moves_plain(xs, ys, m, n, **KW)
     for g, w in zip(got[:3], want[:3]):
         assert torch.equal(g, w)
-    D, M, B = got[3].shape
-    d = torch.arange(D, device=cuda)[:, None, None]
-    r = torch.arange(M, device=cuda)[None, :, None]
-    valid = (r < m) & (d >= r) & (d - r < n)
-    assert torch.equal(got[3][valid], want[3][valid])
+    assert valid_moves(got[3], want[3], m, n)
     x_mb = xs.T.contiguous()
     before = traceback.walk_moves.launches
     walked = traceback.walk_moves(got[3], x_mb, ys, got[1], got[2], max_steps=250)
@@ -79,6 +125,52 @@ def test_k2_and_k3_match_plain(cuda, seed):
     assert traceback.walk_moves.launches == before + 1
     for g, w in zip(walked, plain):
         assert torch.equal(g, w)
+
+
+def test_wavefront_launch_shapes(cuda):
+    """The launch rules of csrc/wavefront.cu: one warp a lane up to 1,024
+    rows and two beyond; the fewest rows a thread (1 to 32) that cover M;
+    the lanes a block the largest power of two (up to 4 for K1/K6, up to
+    the stage's limit for K2/K7) whose busiest SM holds no more warps than
+    with one lane a block. An M past 2,048 raises."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def busiest(B, L, W):
+        return -(-(-(-B // L)) // sms) * L * W
+
+    for M, W, rows in ((1, 1, 1), (32, 1, 1), (33, 1, 2), (128, 1, 4), (129, 1, 8),
+                       (512, 1, 16), (513, 1, 32), (1024, 1, 32), (1025, 2, 32), (2048, 2, 32)):
+        warps_cap = 16 if rows <= 8 else 128 // rows
+        for mode in ("score_only", "track_pos", "moves"):
+            cap = warps_cap // W if mode == "moves" else min(4, warps_cap // W)
+            for B in (1, 67, 512, 8704):
+                shape = wavefront_cuda.launch_shape(M, B, affine=False, mode=mode)
+                want = max(L for L in (1, 2, 4, 8, 16)
+                           if L <= cap and busiest(B, L, W) <= busiest(B, 1, W))
+                assert (shape["rows"], shape["warps"], shape["lanes"]) == (rows, W, want), \
+                    (M, mode, B, shape)
+                assert shape["blocks_per_sm"] >= 1
+    xs = torch.zeros((2, 2049), dtype=torch.uint8, device=cuda)
+    ys = torch.zeros((2, 8), dtype=torch.uint8, device=cuda)
+    m = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="MAX_ROWS"):
+        wavefront_cuda.sw_score(xs, ys, m, m, **KW)
+
+
+@pytest.mark.parametrize("case", ["seed0", "rows_33", "rows_128", "mixed_n", "edges",
+                                  "motif_ties"])
+def test_k2_and_k7_two_warps_a_lane_match_plain(cuda, case):
+    """K2 and K7 with two warps a lane (the rows handed from warp to warp
+    through shared memory) where the rule takes one: equal to the plain
+    version, moves cell for cell."""
+    xs, ys, m, n, lanes = wave_lanes(case, cuda)
+    for fn, kw in ((wavefront_cuda.sw_score_moves, KW),
+                   (wavefront_cuda.sw_score_affine_moves, BWA)):
+        got = fn(xs, ys, m, n, lanes=max(1, lanes // 2), warps=2, **kw)
+        want = scan_dp.sw_score_moves_plain(xs, ys, m, n, **kw)
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g, w)
+        assert valid_moves(got[3], want[3], m, n)
 
 
 def test_lengths_beyond_the_padded_shape_match_plain(cuda):
@@ -114,10 +206,10 @@ def test_lengths_beyond_the_padded_shape_match_plain(cuda):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", list(WAVE_CASES))
 @pytest.mark.parametrize("track_pos", [False, True])
-def test_k6_matches_plain(cuda, seed, track_pos):
-    xs, ys, m, n = ragged(seed, cuda)
+def test_k6_matches_plain(cuda, case, track_pos):
+    xs, ys, m, n, _ = wave_lanes(case, cuda)
     before = wavefront_cuda.sw_score_affine.launches
     got = wavefront_cuda.sw_score_affine(xs, ys, m, n, track_pos=track_pos, **BWA)
     want = scan_dp.sw_score_plain(xs, ys, m, n, track_pos=track_pos, **BWA)
@@ -127,11 +219,11 @@ def test_k6_matches_plain(cuda, seed, track_pos):
         assert g.is_cuda and torch.equal(g, w)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_k7_and_k10_match_plain(cuda, seed):
-    xs, ys, m, n = ragged(seed, cuda)
+@pytest.mark.parametrize("case", list(WAVE_CASES))
+def test_k7_and_k10_match_plain(cuda, case):
+    xs, ys, m, n, lanes = wave_lanes(case, cuda)
     before = (wavefront_cuda.sw_score_affine_moves.launches, traceback.walk_moves_affine.launches)
-    got = wavefront_cuda.sw_score_affine_moves(xs, ys, m, n, **BWA)
+    got = wavefront_cuda.sw_score_affine_moves(xs, ys, m, n, lanes=lanes, **BWA)
     want = scan_dp.sw_score_moves_plain(xs, ys, m, n, **BWA)
     for g, w in zip(got[:3], want[:3]):
         assert torch.equal(g, w)
