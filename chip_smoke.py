@@ -31,9 +31,11 @@
    equal to the slab scan too) and with a seeded 2,048-aa query over the
    shortest (the widest thread-group shape); K5 and K3 on the top-10 traceback
    batch and on 256 of the longest entries (M = 2,048, about 1.2 GB of
-   moves). Holds their affine forms under BLOSUM50 with gap 10/2 on the same
-   slab: K8 on the same cases, its whole-slab launch on every 16th lane,
-   K9 and K10 on the affine top 10 and the 256 longest.
+   moves), K5 also at every lanes a block (L = 1..16) and warps a lane (1,
+   2) its launch takes. Holds their affine forms under BLOSUM50 with gap
+   10/2 on the same slab: K8 on the same cases, its whole-slab launch on
+   every 16th lane, K9 and K10 on the affine top 10 and the 256 longest
+   (K9's curves as K5's).
    Runs ``solve_uniprot`` of the port with the ``uniprot_e2e`` settings
    (BLOSUM50, gap 12, batch 4,096, pad 128, top 10), then with ``--gap-open
    10 --gap-penalty 2``, each after a warm-up on 20,000 entries, prints
@@ -97,11 +99,13 @@
 10. Prints the kernels' JSON line -- each kernel's time, its plain version's,
    and its bound: the larger of the integer operations its cells need over
    the card's integer issue peak and the bytes it must move over the memory
-   rate; for K1, K2, K6 and K7 (a warp a lane) also the rows a thread, warps
-   a lane, lanes a block, warps an SM, the cycles a column step takes
-   (``wave_steps``) and the bound at the instructions the step issues a cell
-   (``WAVE_ISSUED_PER_CELL``), and for K2 and K7 at both shapes the curve of
-   lanes a block (L = 1..16, each held against the plain version), two warps
+   rate; for K1, K2, K6 and K7, and K5 and K9 (a warp a lane) also the rows
+   a thread, warps a lane, lanes a block, warps an SM, the cycles a column
+   step takes (``wave_steps``) and the bound at the instructions the step
+   issues a cell (``WAVE_ISSUED_PER_CELL``), for K5 and K9 at both shapes
+   the curves of lanes a block and warps a lane, and for K2 and K7 at both
+   shapes the curve of lanes a block (L = 1..16, each held against the plain
+   version), two warps
    a lane (2 rows a thread) and, on the winning windows, the lanes' first 64
    rows (2 rows a thread, one warp); for the strip sweeps (K11, K12, K15,
    K16, K19, K20, K22, K23) also
@@ -207,10 +211,14 @@ SCAN_ISSUED_PER_CELL = {"sw_profile": 3 + 0.5, "sw_profile_affine": 6 + 0.5}
 # (2), H = max(a, F) (1) -- plus one __vimax3_s32 per two rows of a column
 # for the running best (0.5), the cell taken once a column in either mode;
 # K2/K7 add the move code as OPS_PER_CELL counts it (7, 12).
+# K5/K9, the same template scored from a table, issue the code's extract (1)
+# in place of the compare and select, and a shared-memory load that this
+# count leaves out, as K4/K8's leaves out the profile load.
 WAVE_ISSUED_PER_CELL = {
     ("sw_score", False): 5 + 0.5, ("sw_score", True): 5 + 0.5, "sw_score_moves": 5 + 0.5 + 7,
     ("sw_score_affine", False): 8 + 0.5, ("sw_score_affine", True): 8 + 0.5,
     "sw_score_affine_moves": 8 + 0.5 + 12,
+    "sw_profile_moves": 4 + 0.5 + 7, "sw_profile_affine_moves": 7 + 0.5 + 12,
 }
 # K2/K7's lanes a block measured beside the kernel's rule (the L curve; 16
 # is the block's limit at the main path's 4 rows a thread).
@@ -335,9 +343,9 @@ def scan_steps(rec, M: int, n, clock_mhz: float, ncodes: int, affine: bool, shar
 
 
 def wave_steps(rec, fn, M: int, N: int, m, n, clock_mhz: float, mode: str, lanes: int = 0,
-               warps: int = 0):
-    """Add a K1/K2/K6/K7 launch's shape and its cost per column step to
-    ``rec``: rows a thread, lanes a block, warps a lane, the warps the
+               warps: int = 0, ncodes: int = 0):
+    """Add a K1/K2/K6/K7 (``ncodes`` > 0: K5/K9) launch's shape and its cost
+    per column step to ``rec``: rows a thread, lanes a block, warps a lane, the warps the
     busiest SM holds at once (the CUDA occupancy calculator's blocks an SM,
     or fewer when the launch has fewer blocks), and the cycles a warp's
     column step takes, ms x clock x the warps the card runs at once / the
@@ -351,7 +359,7 @@ def wave_steps(rec, fn, M: int, N: int, m, n, clock_mhz: float, mode: str, lanes
 
     B = m.shape[0]
     sh = wavefront_cuda.launch_shape(M, B, affine="affine" in fn.__name__, mode=mode,
-                                     lanes=lanes, warps=warps)
+                                     lanes=lanes, warps=warps, ncodes=ncodes)
     rows, L, W = sh["rows"], sh["lanes"], sh["warps"]
     mb, nb = m.clamp(0, M).long(), n.clamp(0, N).long()
     g = (mb - 1).clamp(min=0) // rows  # the thread holding row m_b, over the lane's warps
@@ -413,6 +421,10 @@ def report(name, label, rec):
             steps += "; L curve " + ", ".join(
                 f"L={L} {c['ms']:.3f} ms ({c['cycles_per_step']:.0f} cycles)"
                 for L, c in rec["lanes_curve"].items())
+        if "warps_curve" in rec:
+            steps += "; W curve " + ", ".join(
+                f"W={W} {c['ms']:.3f} ms ({c['cycles_per_step']:.0f} cycles)"
+                for W, c in rec["warps_curve"].items())
         if "warps2_ms" in rec:
             steps += (f"; two warps a lane (2 rows a thread, {rec['warps2_lanes']} lanes a block) "
                       f"{rec['warps2_ms']:.3f} ms, {rec['warps2_cycles_per_step']:.0f} cycles a "
@@ -908,7 +920,7 @@ def check_protein_kernels(db, query: str, clock: float, gaps, stride: int = 1):
     import torch
 
     from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
-    from parallel_genomeseq_tpu_torch.ops import scan_dp
+    from parallel_genomeseq_tpu_torch.ops import scan_dp, wavefront_cuda
     from parallel_genomeseq_tpu_torch.ops.substitution import blosum_config
     from parallel_genomeseq_tpu_torch.utils.device import to_host
 
@@ -997,26 +1009,52 @@ def check_protein_kernels(db, query: str, clock: float, gaps, stride: int = 1):
     longest = db.order[-256:]
     cfg = blosum_config("blosum50", gap_penalty=gaps["gap"], gap_open=gaps.get("gap_open", 0))
     bat = BatchSWAligner(cfg, pad_m=128, device=dev)
+    ncodes = table.shape[0]
     for label, idxs in (("top10", top), ("long256", longest)):
         xs, ys, mm, nn = bat.pad_batch([db.entries[k][1] for k in idxs], [query])
         xs, ys = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
         mm, nn = torch.from_numpy(mm).to(dev), torch.from_numpy(nn).to(dev)
         xc = torch.from_numpy(lut).to(dev)[xs.long()]
         yc = torch.from_numpy(lut).to(dev)[ys.long()]
+        B, M, N = xs.shape[0], xs.shape[1], ys.shape[1]
         call = lambda: moves_k(xc, yc, mm, nn, **kw)
         got5 = call()
         want5, plain_ms = timed(lambda: scan_dp.sw_profile_moves_plain(xc, yc, mm, nn, **kw))
         cells, seq_bytes = lane_work(mm, nn)
-        rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}, "
-                        f"moves {got5[3].numel() / 1e9:.3f} GB",
+        rec = {"shape": f"{B} lanes, M={M}, N={N}, moves {got5[3].numel() / 1e9:.3f} GB",
                "max_abs_err": max(max_abs_err(got5[:3], want5[:3]),
                                   moves_err(got5[3], want5[3], mm, nn)),
                "plain_ms": plain_ms}
+        # The curves of lanes a block (at the rule's warps a lane) and of
+        # warps a lane (at the rule's lanes a block), each launch held
+        # against the plain version too.
+        rule = wavefront_cuda.launch_shape(M, B, affine=affine, mode="moves", ncodes=ncodes)
+        rec["lanes_curve"], rec["warps_curve"] = {}, {}
+        for lc, wc, curve in ([(lc, rule["warps"], "lanes_curve") for lc in LANES_CURVE]
+                              + [(rule["lanes"], wc, "warps_curve") for wc in (1, 2)]):
+            try:
+                wavefront_cuda.launch_shape(M, B, affine=affine, mode="moves", lanes=lc,
+                                            warps=wc, ncodes=ncodes)
+            except RuntimeError:  # past the block's limit, or fewer warps than M needs
+                continue
+            g = moves_k(xc, yc, mm, nn, lanes=lc, warps=wc, **kw)
+            rec["max_abs_err"] = max(rec["max_abs_err"], max_abs_err(g[:3], want5[:3]),
+                                     moves_err(g[3], want5[3], mm, nn))
+            del g
+            c = {"ms": cuda_ms(lambda: moves_k(xc, yc, mm, nn, lanes=lc, warps=wc, **kw), 3)}
+            wave_steps(c, moves_k, M, N, mm, nn, clock, "moves", lanes=lc, warps=wc,
+                       ncodes=ncodes)
+            rec[curve][lc if curve == "lanes_curve" else wc] = {
+                k: c[k] for k in ("ms", "cycles_per_step")}
         del want5
         rec["ms"] = cuda_ms(call, 3)
         rec["bound_ms"], rec["bound_by"] = bound(
             cells * OPS_PER_CELL[moves_k.__name__],
-            seq_bytes + LANE_BYTES * xs.shape[0] + cells + table.numel() * 4, clock)
+            seq_bytes + LANE_BYTES * B + cells + table.numel() * 4, clock)
+        rec["issued_bound_ms"] = bound(
+            cells * WAVE_ISSUED_PER_CELL[moves_k.__name__],
+            seq_bytes + LANE_BYTES * B + cells + table.numel() * 4, clock)[0]
+        wave_steps(rec, moves_k, M, N, mm, nn, clock, "moves", ncodes=ncodes)
         out[moves_k.__name__][label] = rec
         report(f"{names[1]} {moves_k.__name__}", label, rec)
         steps = bat.max_steps(xs.shape[1], ys.shape[1])
@@ -1896,11 +1934,11 @@ KERNELS = [
     ("walk_moves", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:31", "linear",
      "windows"),
     ("sw_profile", "profile.cu", f"{PALLAS}:418", "linear", "db"),
-    ("sw_profile_moves", "profile.cu", f"{PALLAS}:815", "linear", "top10"),
+    ("sw_profile_moves", "wavefront.cu", f"{PALLAS}:815", "linear", "top10"),
     ("sw_score_affine", "wavefront.cu", f"{PALLAS}:208", "affine", "score_only"),
     ("sw_score_affine_moves", "wavefront.cu", f"{PALLAS}:710", "affine", "windows"),
     ("sw_profile_affine", "profile.cu", f"{PALLAS}:442", "affine", "db"),
-    ("sw_profile_affine_moves", "profile.cu", f"{PALLAS}:724", "affine", "top10"),
+    ("sw_profile_affine_moves", "wavefront.cu", f"{PALLAS}:724", "affine", "top10"),
     ("walk_moves_affine", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:93", "affine",
      "windows"),
     ("sw_score_strips", "strips.cu", f"{PALLAS}:1073", "long", "sweep"),

@@ -8,17 +8,12 @@
 //    `shared=True`, :986-988) and each lane's entry read straight from a
 //    flat resident slab through a 64-bit offset; it also takes per-lane
 //    queries.
-// K5 `moves_kernel<false>` replaces B4, `_kernel_profile_moves` (:815) via
-//    `_call_profile_moves` (:874): K4's argmax plus one uint8 move/stop code
-//    per DP cell in the (D, M, B) diagonal-major layout (d = i + j - 2,
-//    r = i - 1) that K3 walks, with the codes of K2 (:818-822).
 // K8 `scan_kernel<true, kG, kR, ·>` replaces B7, `_kernel_profile_affine`
 //    (:442) via `_call_profile_affine` (:500): K4 under the Gotoh recurrence,
 //    the database scan with gap_open + L * gap gaps (B7's `shared` form).
-// K9 `moves_kernel<true>` replaces B8, `_kernel_profile_affine_moves`
-//    (:724, body `_affine_moves_body` :630) via `_call_profile_affine_moves`
-//    (:779): K8's argmax plus the affine move byte of the JAX scan
-//    (ops/scan_dp.py:273-290), the one that K10 walks.
+//
+// The top-K re-runs with moves, K5 and K9 (B4, B8), are the table form of
+// csrc/wavefront.cu's warp-a-lane template.
 //
 // Scores come from an (ncodes, ncodes) int32 table over compact codes (code
 // c + 1 = alphabet[c], code 0 = any other byte; see ops/scan_dp.py); a code
@@ -103,19 +98,6 @@
 // this body issues, without the profile load. The times, bounds and cycles a
 // column step at the main path's shapes are in PERF.md section 6.
 //
-// Design of K5/K9, the top-K re-run with moves: K1/K2's one thread per lane
-// (csrc/wavefront.cu). Each thread sweeps its own m_b x n_b matrix column by
-// column (j outer over y, i inner over x), so its loops are bounded by the
-// lane's true lengths and no pad cell is ever scored. The previous column
-// lives in a scratch plane hcol (M, B) int32 owned by the wrapper, lane index
-// fastest, so a warp's accesses coalesce; x is an (M, B) block (lane stride
-// 1, row stride B). Tie-break as K4. Affine (K9): as K6/K7 in
-// csrc/wavefront.cu -- an int2 (H, E) scratch plane, F and the north H in
-// registers, the JAX scan's boundaries (E(i, 0) = -2^30, F(0, j) = 0, H = 0)
-// and its move byte. The top-K re-run launches one thread per hit (10 at the
-// protein scan's default), so it is latency-bound and leaves most of the card
-// idle.
-
 #include <cstdint>
 #include <initializer_list>
 #include <cuda_runtime.h>
@@ -424,98 +406,6 @@ cudaError_t scan_launch(int M, int ncodes, bool affine, bool shared, ScanLaunch*
   return cudaSuccess;
 }
 
-// hcol is (M, B) int32 for K5 and (M, B) int2 (H, E) for K9.
-template <bool kAffine>
-__global__ void moves_kernel(const uint8_t* __restrict__ x, int x_lane, int x_row,
-                             const uint8_t* __restrict__ y,
-                             const int64_t* __restrict__ y_off, long long y_len,
-                             const int32_t* __restrict__ m,
-                             const int32_t* __restrict__ n,
-                             const int32_t* __restrict__ table, int ncodes,
-                             int32_t* __restrict__ hcol, int M, int N, int B,
-                             int gap_open, int gap, int32_t* __restrict__ score,
-                             int32_t* __restrict__ best_i,
-                             int32_t* __restrict__ best_j,
-                             uint8_t* __restrict__ moves) {
-  extern __shared__ int32_t tab[];  // tab[yc * ncodes + xc] = table[xc][yc]
-  for (int k = threadIdx.x; k < ncodes * ncodes; k += blockDim.x) {
-    tab[(k % ncodes) * ncodes + k / ncodes] = table[k];
-  }
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int mb = min(m[b], M);
-  const long long off = y_off[b];
-  int nb = min(n[b], N);
-  if (off < 0 || off > y_len) {
-    nb = 0;
-  } else if ((long long)nb > y_len - off) {
-    nb = (int)(y_len - off);
-  }
-  int32_t* h = hcol + b;
-  int2* he = reinterpret_cast<int2*>(hcol) + b;
-  const uint8_t* xb = x + (size_t)b * x_lane;
-  const uint8_t* yb = y + off;
-  for (int r = 0; r < mb; ++r) {  // column j = 0
-    if (kAffine) {
-      he[(size_t)r * B] = make_int2(0, kNeg);
-    } else {
-      h[(size_t)r * B] = 0;
-    }
-  }
-  int best = 0, bi = 0, bj = 0;
-  for (int j = 1; j <= nb; ++j) {
-    int yc = yb[j - 1];
-    if (yc >= ncodes) yc = 0;
-    const int32_t* trow = tab + yc * ncodes;
-    int diag = 0;   // H(i-1, j-1); row 0 is the zero boundary
-    int north = 0;  // H(i-1, j)
-    int fn = 0;     // F(i-1, j); F(0, j) = 0, the scan's boundary
-    for (int i = 1; i <= mb; ++i) {
-      const size_t at = (size_t)(i - 1) * B;
-      int xc = xb[(size_t)(i - 1) * x_row];
-      if (xc >= ncodes) xc = 0;
-      const int s = trow[xc];
-      int v, west;
-      if (kAffine) {
-        const int2 w = he[at];  // (H, E)(i, j-1)
-        west = w.x;
-        const int e_open = west - gap_open;
-        const int f_open = north - gap_open;
-        const int e = max(e_open, w.y) - gap;
-        const int f = max(f_open, fn) - gap;
-        const int nw = diag + s;
-        v = max(max(nw, e), max(f, 0));
-        // The affine move byte of scan_dp.py:273-290: H's source by
-        // equality, ZERO > NW > E > F; E and F extend bits, extend on ties.
-        uint8_t mv = v == 0 ? 3 : v == nw ? 0 : v == e ? 1 : 2;
-        if (w.y >= e_open) mv |= 8;
-        if (fn >= f_open) mv |= 16;
-        moves[((size_t)(i + j - 2) * M + (i - 1)) * B + b] = mv;
-        he[at] = make_int2(v, e);
-        fn = f;
-      } else {
-        west = h[at];  // H(i, j-1)
-        v = max(max(diag + s, max(west, north) - gap), 0);
-        // Move code of wavefront_pallas.py:850-855 over the neighbours
-        // (nw, west, north): NW if nw >= west and nw >= north, else W if
-        // west >= both, else N; plus the stop bit 4 if any of them is 0.
-        uint8_t mv = (diag >= west && diag >= north) ? 0
-                     : (west >= diag && west >= north) ? 1 : 2;
-        if (diag == 0 || west == 0 || north == 0) mv |= 4;
-        moves[((size_t)(i + j - 2) * M + (i - 1)) * B + b] = mv;
-        h[at] = v;
-      }
-      if (v > best) { best = v; bi = i; bj = j; }
-      diag = west;
-      north = v;
-    }
-  }
-  score[b] = best;
-  best_i[b] = bi;
-  best_j[b] = bj;
-}
-
 }  // namespace
 
 // Plain C entry points, bound with ctypes. Every pointer is a device pointer
@@ -566,34 +456,5 @@ extern "C" int pgs_sw_profile_scan_shape(int M, int ncodes, int affine, int shar
   o[2] = L.threads;
   o[3] = L.blocks;
   o[4] = L.prof;
-  return static_cast<int>(cudaGetLastError());
-}
-
-// pgs_sw_profile_moves (K5; K9 when gap_open > 0): x codes read at x[b *
-// x_lane + (i - 1) * x_row]; y, y_off, y_len, m, n, table as above; hcol
-// scratch ((M, B) int32, or (M, B, 2) int32 when gap_open > 0);
-// score/best_i/best_j (B,) int32; moves (M + N - 1, M, B) uint8. Returns
-// cudaGetLastError() after the launch.
-extern "C" int pgs_sw_profile_moves(const void* x, int x_lane, int x_row, const void* y,
-                                    const void* y_off, long long y_len, const void* m,
-                                    const void* n, const void* table, int ncodes,
-                                    void* hcol, int M, int N, int B, int gap_open, int gap,
-                                    void* score, void* best_i, void* best_j, void* moves,
-                                    void* stream) {
-  if (B > 0) {
-    // One warp per block spreads a small batch over more SMs.
-    const int threads = B >= 65536 ? 128 : 32;
-    const size_t smem = (size_t)ncodes * ncodes * sizeof(int32_t);
-    auto kernel = gap_open > 0 ? &moves_kernel<true> : &moves_kernel<false>;
-    kernel<<<(B + threads - 1) / threads, threads, smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(x), x_lane, x_row,
-        static_cast<const uint8_t*>(y), static_cast<const int64_t*>(y_off),
-        y_len, static_cast<const int32_t*>(m), static_cast<const int32_t*>(n),
-        static_cast<const int32_t*>(table), ncodes,
-        static_cast<int32_t*>(hcol), M, N, B, gap_open, gap,
-        static_cast<int32_t*>(score), static_cast<int32_t*>(best_i),
-        static_cast<int32_t*>(best_j), static_cast<uint8_t*>(moves));
-  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,40 +1,62 @@
-// Smith-Waterman score kernels for Hopper (sm_90a), uniform match/mismatch
-// scoring, linear or affine (Gotoh) gaps, exact int32 values.
+// Smith-Waterman kernels for Hopper (sm_90a) of a warp per lane: uniform
+// match/mismatch scoring (K1/K2, K6/K7) or an (ncodes, ncodes) substitution
+// table over compact codes (K5/K9), linear or affine (Gotoh) gaps, exact
+// int32 values.
 //
-// K1 `sw_warp_kernel<track_pos, false, false, kRows, kWarps>` replaces the Pallas TPU
-//    kernel B1, parallel_genomeseq_tpu/ops/wavefront_pallas.py
+// K1 `sw_warp_kernel<track_pos, false, false, kRows, kWarps, false>` replaces
+//    the Pallas TPU kernel B1, parallel_genomeseq_tpu/ops/wavefront_pallas.py
 //    `_kernel_uniform` (:160) via `_call_uniform` (:924): per-lane best
 //    score, plus the argmax cell when track_pos is set (score-only for the
 //    chunked window sweep).
-// K2 `sw_warp_kernel<true, true, false, kRows, kWarps>` replaces B2,
+// K2 `sw_warp_kernel<true, true, false, kRows, kWarps, false>` replaces B2,
 //    `_kernel_uniform_moves` (:535) via `_call_uniform_moves` (:596): K1's
 //    argmax plus one uint8 move/stop code per DP cell, written in the JAX
 //    package's (D, M, B) diagonal-major layout (d = i + j - 2, r = i - 1)
 //    that the traceback walk reads.
-// K6 `sw_warp_kernel<track_pos, false, true, kRows, kWarps>` replaces B5,
-//    `_kernel_uniform_affine` (:208) via `_call_uniform_affine` (:280): K1
-//    under the Gotoh recurrence (a gap of length L costs gap_open + L * gap),
-//    score-only or argmax.
-// K7 `sw_warp_kernel<true, true, true, kRows, kWarps>` replaces B6,
+// K6 `sw_warp_kernel<track_pos, false, true, kRows, kWarps, false>` replaces
+//    B5, `_kernel_uniform_affine` (:208) via `_call_uniform_affine` (:280):
+//    K1 under the Gotoh recurrence (a gap of length L costs gap_open + L *
+//    gap), score-only or argmax.
+// K7 `sw_warp_kernel<true, true, true, kRows, kWarps, false>` replaces B6,
 //    `_kernel_uniform_affine_moves` (:710, body `_affine_moves_body` :630) via
 //    `_call_uniform_affine_moves` (:740): K6's argmax plus the affine move byte
 //    of the JAX scan (ops/scan_dp.py:273-290) per DP cell, same layout as K2.
+// K5 `sw_warp_kernel<true, true, false, kRows, kWarps, true>` replaces B4,
+//    `_kernel_profile_moves` (:815) via `_call_profile_moves` (:874): K2 with
+//    each cell scored from the table (the protein top-K re-run, x = entry, y
+//    = query), its codes K2's (:818-822).
+// K9 `sw_warp_kernel<true, true, true, kRows, kWarps, true>` replaces B8,
+//    `_kernel_profile_affine_moves` (:724, body `_affine_moves_body` :630) via
+//    `_call_profile_affine_moves` (:779): K7 with the table's scores, the
+//    bytes that K10 walks.
+//
+// The last template flag, kTable, says how a cell is scored (`UniformScore`,
+// `TableScore`): uniform, match if the read byte equals the reference byte,
+// else mismatch; table, s = tab[yc * ncodes + xc] from the transposed table
+// in shared memory, one shared load a cell off the north chain (the chain
+// needs s only through a), as the strip sweeps score a cell. Compact codes:
+// code c + 1 = alphabet[c], code 0 any other byte (ops/scan_dp.py); a code
+// >= ncodes reads as code 0 on both sides, as the plain version reads it.
+// The table form is built for the moves mode only (K5/K9); the database
+// scan K4/K8 is csrc/profile.cu's.
 //
 // Design: a warp per lane (one independent (read, reference window)
 // alignment), the pipeline of csrc/strips.cu's sweeps inside the warp.
 //   - Thread l holds kRows consecutive rows of the lane's read, rows l * kRows
 //     + 1 .. (l + 1) * kRows: their H (and, affine, E) of the last column in
-//     registers, the read bytes packed four a register. At warp step s thread
-//     l works on column j = s - l + 1. Thread l + 1 takes thread l's last-row
-//     H (affine: H and F) of the previous step by __shfl_up_sync, and the
-//     column's reference byte travels down the warp with it: thread 0 takes
-//     column s + 1's byte from a 32-column word that the warp loads one word
-//     ahead from the lane's own row of ys (B, N), one coalesced byte a thread,
-//     by __shfl_sync. Thread 0's north is the zero row (H = 0, F(0, j) = 0).
-//     No device memory is read or written in the step; the kernel reads xs
-//     (B, M) and ys (B, N) as they are. A group of kGroup = 8 steps is
-//     unrolled (up to 8 rows a thread), so that one step's move code, best
-//     test and stores overlap the next step's chain.
+//     registers, the read bytes (K5/K9: the entry's codes) packed four a
+//     register. At warp step s thread l works on column j = s - l + 1. Thread
+//     l + 1 takes thread l's last-row H (affine: H and F) of the previous step
+//     by __shfl_up_sync, and the column's reference byte (K5/K9: the query's
+//     code) travels down the warp with it: thread 0 takes column s + 1's byte
+//     from a 32-column word that the warp loads one word ahead from the lane's
+//     own row of ys (B, N), one coalesced byte a thread, by __shfl_sync.
+//     Thread 0's north is the zero row (H = 0, F(0, j) = 0). No device
+//     memory is read or written in the step (K5/K9's table lives in shared
+//     memory, loaded once a block); the kernel reads xs (B, M) and ys (B, N)
+//     as they are. A group of kGroup = 8 steps is unrolled (up to 8 rows a
+//     thread), so that one step's move code, best test and stores overlap
+//     the next step's chain.
 //   - The cell: the north-independent part a = max(diag + s, west - gap, 0)
 //     by DPX __viaddmax_s32_relu, then one __viaddmax_s32 a row on the north
 //     chain, H = max(north - gap, a); affine, E = max(west - open, E_west) -
@@ -52,19 +74,22 @@
 //     kRing-column ring in shared memory, written kLag - 31 >= 8 steps before
 //     it is read, so that the barrier every kGroup steps orders the two (no
 //     counts to poll). A lane steps n_b + (the place of the thread holding
-//     row m_b in its warp) + kLag for each warp before it.
+//     row m_b in its warp) + kLag for each warp before it. K5/K9 take two
+//     warps a lane past 64 rows too when there are no more lanes than SMs
+//     (the protein top 10 on 10 SMs): the kLag steps cost less than the
+//     half of each step's rows they save.
 //   - K1/K6 with one warp a lane: no barrier, kScoreLanes warps a block.
-//   - K2/K7 store their move bytes in runs. A block holds L consecutive lanes
-//     that step together. Each thread writes its rows' bytes of a step into
-//     shared memory laid out [step][row][lane] (rows ordered (k, warp,
-//     thread), each row's lane words swizzled by thread so that a warp's byte
-//     stores hit 32 banks), kGroup steps a buffer, two buffers. After each
-//     group's barrier the block stores that buffer: each cell's L lanes leave
-//     together as an L-byte run of the (D, M, B) layout, in 4-byte words when
-//     B and L allow (2 or 1 otherwise), only the bytes of cells inside their
-//     lane's m_b x n_b, a thread's 8 steps of one row loaded first, then
-//     stored. The next group fills the other buffer, so one barrier a group
-//     suffices. L: the largest power of two up to max_warps(kRows) / W whose
+//   - K2/K7 (and K5/K9) store their move bytes in runs. A block holds L
+//     consecutive lanes that step together. Each thread writes its rows'
+//     bytes of a step into shared memory laid out [step][row][lane] (rows
+//     ordered (k, warp, thread), each row's lane words swizzled by thread so
+//     that a warp's byte stores hit 32 banks), kGroup steps a buffer, two
+//     buffers. After each group's barrier the block stores that buffer: each
+//     cell's L lanes leave together as an L-byte run of the (D, M, B) layout,
+//     in 4-byte words when B and L allow (2 or 1 otherwise), only the bytes
+//     of cells inside their lane's m_b x n_b, a thread's 8 steps of one row
+//     loaded first, then stored. The next group fills the other buffer, so
+//     one barrier a group suffices. L: the largest power of two up to max_warps(kRows) / W whose
 //     busiest SM holds no more warps than with L = 1 -- 4 at 512 lanes on 132
 //     SMs (one block of 4 warps on 128 SMs), where L = 8 would put 8 warps on
 //     64 SMs; chip_smoke.py prints the L = 1..16 curve.
@@ -100,7 +125,11 @@
 // move code (about 8 more instructions a cell, 12 affine), a shared-memory
 // byte a cell and, a group at a time, the barrier and the runs' stores.
 // Neither more lanes a block nor two warps a lane (2 rows a thread) shortens
-// the main path's windows (PERF.md §6).
+// the main path's windows (PERF.md §6). K5/K9 re-run the protein top 10: 10
+// lanes of two warps (8 to 32 rows a thread), 20 warps on 10 SMs, so the
+// latency of a step bounds them, about as long with the table's scores as
+// with uniform ones (tools/warp_curves.py; chip_smoke.py prints the cycles
+// a column step and the curves of lanes a block and warps a lane).
 
 #include <cstdint>
 #include <type_traits>
@@ -132,27 +161,64 @@ __device__ __forceinline__ bool better(int v1, int j1, int i1, int v2, int j2, i
   return v1 > v2 || (v1 == v2 && (j1 < j2 || (j1 == j2 && i1 < i2)));
 }
 
-// Row k's read byte equals the column's: ybc holds the column's byte in all
-// four bytes, xw the thread's read bytes four a word.
-template <int kWords>
-__device__ __forceinline__ bool same_byte(const uint32_t (&xw)[kWords], uint32_t ybc, int k) {
-  return ((xw[k >> 2] ^ ybc) & (0xffu << (8 * (k & 3)))) == 0;
+__device__ __forceinline__ uint32_t clamp_code(uint32_t c, int ncodes) {
+  return c < static_cast<uint32_t>(ncodes) ? c : 0u;
+}
+
+// The score s of row k in the thread's column, xw the thread's read bytes
+// (or codes) four a word. Uniform: ybc holds the column's byte in all four
+// bytes. Table: row is the column's code's row of the transposed table.
+struct UniformScore {
+  static constexpr bool kLoads = false;
+  uint32_t ybc;
+  int match, mismatch;
+  template <int kWords>
+  __device__ __forceinline__ int operator()(const uint32_t (&xw)[kWords], int k) const {
+    return ((xw[k >> 2] ^ ybc) & (0xffu << (8 * (k & 3)))) == 0 ? match : mismatch;
+  }
+};
+struct TableScore {
+  static constexpr bool kLoads = true;
+  const int32_t* row;
+  template <int kWords>
+  __device__ __forceinline__ int operator()(const uint32_t (&xw)[kWords], int k) const {
+    return row[(xw[k >> 2] >> (8 * (k & 3))) & 0xffu];
+  }
+};
+
+// The scores of the thread's kRows rows in its column. A table's are all
+// read before the column stores its first move byte: the table and the
+// staged bytes share the dynamic shared memory, so a load after a byte
+// store could not start before it. Uniform scores are left to the loop.
+template <int kRows, int kWords, class Score>
+__device__ __forceinline__ void column_scores(int (&s)[kRows], const uint32_t (&xw)[kWords],
+                                              const Score& score) {
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) s[k] = Score::kLoads ? score(xw, k) : 0;
+}
+
+template <int kRows, int kWords, class Score>
+__device__ __forceinline__ int row_score(const int (&s)[kRows], const uint32_t (&xw)[kWords],
+                                         const Score& score, int k) {
+  return Score::kLoads ? s[k] : score(xw, k);
 }
 
 // One column of a thread's kRows rows, linear gaps: h holds H(., j - 1) on
 // entry and H(., j) on return; nw = H(row0, j - 1) and north = H(row0, j)
 // of the row above the thread's first (row0, 1-based). With kMoves, row k's
 // move code is written to out[k * stride].
-template <bool kMoves, int kRows, int kWords>
+template <bool kMoves, int kRows, int kWords, class Score>
 __device__ __forceinline__ void column_linear(int (&h)[kRows], const uint32_t (&xw)[kWords],
-                                              uint32_t ybc, int match, int mismatch, int gap,
-                                              int nw, int north, uint8_t* out, int stride) {
+                                              const Score& score, int gap, int nw, int north,
+                                              uint8_t* out, int stride) {
+  int s[kRows];
+  column_scores(s, xw, score);
   int diag = nw;
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     const int west = h[k];
-    const int s = same_byte(xw, ybc, k) ? match : mismatch;
-    const int a = __viaddmax_s32_relu(diag, s, west - gap);  // off the chain
+    const int sk = row_score(s, xw, score, k);
+    const int a = __viaddmax_s32_relu(diag, sk, west - gap);  // off the chain
     const int v = __viaddmax_s32(north, -gap, a);            // the north chain
     if constexpr (kMoves) {
       const int wn = max(west, north);
@@ -169,12 +235,13 @@ __device__ __forceinline__ void column_linear(int (&h)[kRows], const uint32_t (&
 // The affine form: h and e hold H(., j - 1) and E(., j - 1) on entry and
 // H(., j), E(., j) on return; f is F(row0, j) on entry and F of the thread's
 // last row on return.
-template <bool kMoves, int kRows, int kWords>
+template <bool kMoves, int kRows, int kWords, class Score>
 __device__ __forceinline__ void column_affine(int (&h)[kRows], int (&e)[kRows],
-                                              const uint32_t (&xw)[kWords], uint32_t ybc,
-                                              int match, int mismatch, int gap_open, int gap,
-                                              int nw, int north, int& f, uint8_t* out,
-                                              int stride) {
+                                              const uint32_t (&xw)[kWords], const Score& score,
+                                              int gap_open, int gap, int nw, int north, int& f,
+                                              uint8_t* out, int stride) {
+  int s[kRows];
+  column_scores(s, xw, score);
   const int open_extend = gap_open + gap;
   bool fext = f >= north - gap_open;              // row0 + 1's F extend bit
   f = __viaddmax_s32(north, -gap_open, f) - gap;  // F(row0 + 1, j)
@@ -184,15 +251,15 @@ __device__ __forceinline__ void column_affine(int (&h)[kRows], int (&e)[kRows],
   for (int k = 0; k < kRows; ++k) {
     const int west = h[k];
     const int ek = __viaddmax_s32(west, -gap_open, e[k]) - gap;
-    const int s = same_byte(xw, ybc, k) ? match : mismatch;
-    const int a = __viaddmax_s32_relu(diag, s, ek);
+    const int sk = row_score(s, xw, score, k);
+    const int a = __viaddmax_s32_relu(diag, sk, ek);
     if (k > 0) {
       fext = f >= a_prev - gap_open;
       f = __viaddmax_s32(f, -gap, a_prev - open_extend);  // the F chain
     }
     const int v = max(a, f);
     if constexpr (kMoves) {
-      uint32_t mv = v == 0 ? 3u : v == diag + s ? 0u : v == ek ? 1u : 2u;
+      uint32_t mv = v == 0 ? 3u : v == diag + sk ? 0u : v == ek ? 1u : 2u;
       if (e[k] >= west - gap_open) mv |= 8u;
       if (fext) mv |= 16u;
       out[k * stride] = static_cast<uint8_t>(mv);
@@ -279,20 +346,30 @@ __device__ __forceinline__ int lane_steps(int mm, int nn, int rows) {
   return nn + (g & 31) + (g >> 5) * kLag;
 }
 
+// The bytes of K5/K9's transposed (ncodes, ncodes) int32 table at the head
+// of the dynamic shared memory, rounded up to 16 (0 for uniform scoring).
+__host__ __device__ constexpr int table_bytes(int ncodes) {
+  return (ncodes * ncodes * 4 + 15) & ~15;
+}
+
 // K1 (kMoves = false) and K2 (kMoves = true, which implies kTrackPos), and
-// with kAffine K6 and K7; kRows rows a thread, W warps a lane (32 * W *
-// kRows >= M). xs (B, M) and ys (B, N) uint8, m and n (B,) int32; moves (M +
-// N - 1, M, B) uint8 (K2/K7 only). A block holds blockDim.x / (32 W)
-// consecutive lanes, lane w's W warps consecutive. Dynamic shared memory:
-// the hand-off rings, (W - 1) x L x kRing int2, then (K2/K7) the two staged
-// buffers, 2 x kGroup x W * 32 * kRows x L bytes.
-template <bool kTrackPos, bool kMoves, bool kAffine, int kRows, int kWarps>
+// with kAffine K6 and K7; with kTable (moves only) K5 and K9. kRows rows a
+// thread, W warps a lane (32 * W * kRows >= M). xs (B, M) and ys (B, N)
+// uint8 (K5/K9: compact codes, table (ncodes, ncodes) int32), m and n (B,)
+// int32; moves (M + N - 1, M, B) uint8 (K2/K7, K5/K9). A block holds
+// blockDim.x / (32 W) consecutive lanes, lane w's W warps consecutive.
+// Dynamic shared memory: (K5/K9) the transposed table, table_bytes(ncodes),
+// then the hand-off rings, (W - 1) x L x kRing int2, then (moves) the two
+// staged buffers, 2 x kGroup x W * 32 * kRows x L bytes.
+template <bool kTrackPos, bool kMoves, bool kAffine, int kRows, int kWarps, bool kTable>
 __global__ void __launch_bounds__(32 * max_warps(kRows))
 sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
                const int32_t* __restrict__ m, const int32_t* __restrict__ n, int M, int N,
                int B, int match, int mismatch, int gap_open, int gap,
-               int32_t* __restrict__ score, int32_t* __restrict__ best_i,
-               int32_t* __restrict__ best_j, uint8_t* __restrict__ moves) {
+               const int32_t* __restrict__ table, int ncodes, int32_t* __restrict__ score,
+               int32_t* __restrict__ best_i, int32_t* __restrict__ best_j,
+               uint8_t* __restrict__ moves) {
+  static_assert(kMoves || !kTable, "the table form is the moves mode's (K5/K9)");
   constexpr int kWords = (kRows + 3) / 4;
   constexpr int W = kWarps;
   // A group's steps unrolled, so that one step's moves, best and stores
@@ -311,8 +388,17 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
   const int b0 = blockIdx.x * L;
   const int b = b0 + w;
   constexpr bool sync = kMoves || W > 1;  // a barrier every kGroup steps
-  int2* const ring = reinterpret_cast<int2*>(dyn);  // [W - 1][L][kRing]
-  uint8_t* const stage = dyn + (size_t)(W - 1) * L * kRing * sizeof(int2);
+  int32_t* const tab = reinterpret_cast<int32_t*>(dyn);  // kTable: tab[yc * ncodes + xc]
+  const int tbytes = kTable ? table_bytes(ncodes) : 0;
+  int2* const ring = reinterpret_cast<int2*>(dyn + tbytes);  // [W - 1][L][kRing]
+  uint8_t* const stage = dyn + tbytes + (size_t)(W - 1) * L * kRing * sizeof(int2);
+  if constexpr (kTable) {  // table[xc][yc], transposed; the barrier below orders it
+    for (int k = threadIdx.x; k < ncodes * ncodes; k += blockDim.x) {
+      tab[(k % ncodes) * ncodes + k / ncodes] = table[k];
+    }
+  }
+  // A byte of the read or the reference (K5/K9: a code, clamped to the table).
+  const auto code = [ncodes](uint32_t c) { return kTable ? clamp_code(c, ncodes) : c; };
   int mb = 0, nb = 0;
   if (b < B) {
     mb = max(min(m[b], M), 0);
@@ -342,7 +428,7 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
   for (int i = 0; i < kWords; ++i) xw[i] = 0;
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
-    if (k < nvalid) xw[k >> 2] |= static_cast<uint32_t>(xl[row0 + k]) << (8 * (k & 3));
+    if (k < nvalid) xw[k >> 2] |= code(xl[row0 + k]) << (8 * (k & 3));
   }
   int h[kRows];
   int e[kAffine ? kRows : 1];  // affine: E(., j - 1), kNeg in column 0
@@ -355,7 +441,7 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
   int yc = 0;     // the byte of this thread's column
   int best = 0, bi = 0, bj = 0;
   int ycur = 0;   // thread t of word k holds column 32k + t + 1's byte
-  int ynext = l < nb ? yl[l] : 0;
+  int ynext = l < nb ? code(yl[l]) : 0;
   const int lag = q * kLag;
   const int stride = W * 32 * L;  // staged rows k and k + 1 of one thread
   int2* const ring_in = ring + (max(q - 1, 0) * L + w) * kRing;  // q > 0: warp q - 1's last row
@@ -365,7 +451,7 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
     if (sl0 >= 0 && (sl0 & 31) == 0) {
       ycur = ynext;
       const int k = sl0 + 32 + l;
-      ynext = k < nb ? yl[k] : 0;
+      ynext = k < nb ? code(yl[k]) : 0;
     }
     uint8_t* buf = stage + ((s0 / kGroup) & 1) * (kGroup * kRows * W * 32 * L);
 #pragma unroll kUnroll
@@ -390,15 +476,20 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
         }
       }
       if (on) {
-        const uint32_t ybc = static_cast<uint32_t>(yc) * 0x01010101u;
+        const auto sc = [&] {
+          if constexpr (kTable) {
+            return TableScore{tab + yc * ncodes};
+          } else {
+            return UniformScore{static_cast<uint32_t>(yc) * 0x01010101u, match, mismatch};
+          }
+        }();
         uint8_t* out = kMoves ? buf + ((u * kRows * W + q) * 32 + l) * L + lane_offset(w, l, L)
                               : nullptr;
         if constexpr (kAffine) {
-          column_affine<kMoves>(h, e, xw, ybc, match, mismatch, gap_open, gap, nw, north, f,
-                                out, stride);
+          column_affine<kMoves>(h, e, xw, sc, gap_open, gap, nw, north, f, out, stride);
           flast = f;
         } else {
-          column_linear<kMoves>(h, xw, ybc, match, mismatch, gap, nw, north, out, stride);
+          column_linear<kMoves>(h, xw, sc, gap, nw, north, out, stride);
         }
         if constexpr (W > 1) {
           if (l == 31 && q + 1 < W) ring_out[j & (kRing - 1)] = make_int2(h[kRows - 1], f);
@@ -475,22 +566,28 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
 }
 
 using SwKernel = void (*)(const uint8_t*, const uint8_t*, const int32_t*, const int32_t*, int,
-                          int, int, int, int, int, int, int32_t*, int32_t*, int32_t*, uint8_t*);
+                          int, int, int, int, int, int, const int32_t*, int, int32_t*, int32_t*,
+                          int32_t*, uint8_t*);
+
+// The kernels' modes: score-only, argmax and moves scored uniformly (K1/K6,
+// K2/K7), and moves scored from a table (K5/K9).
+enum Mode { kScoreOnly, kArgmax, kMovesMode, kTableMoves, kNumModes };
 
 template <bool kAffine, int kWarps, int I = 0>
 void fill_kernels(SwKernel (*out)[kNumRowChoices]) {
   if constexpr (I < kNumRowChoices) {
-    out[0][I] = &sw_warp_kernel<false, false, kAffine, kRowChoices[I], kWarps>;
-    out[1][I] = &sw_warp_kernel<true, false, kAffine, kRowChoices[I], kWarps>;
-    out[2][I] = &sw_warp_kernel<true, true, kAffine, kRowChoices[I], kWarps>;
+    constexpr int R = kRowChoices[I];
+    out[kScoreOnly][I] = &sw_warp_kernel<false, false, kAffine, R, kWarps, false>;
+    out[kArgmax][I] = &sw_warp_kernel<true, false, kAffine, R, kWarps, false>;
+    out[kMovesMode][I] = &sw_warp_kernel<true, true, kAffine, R, kWarps, false>;
+    out[kTableMoves][I] = &sw_warp_kernel<true, true, kAffine, R, kWarps, true>;
     fill_kernels<kAffine, kWarps, I + 1>(out);
   }
 }
 
-// Every instantiation, [warps a lane - 1][affine][score-only, argmax,
-// moves][rows a thread].
+// Every instantiation, [warps a lane - 1][affine][mode][rows a thread].
 struct SwKernels {
-  SwKernel at[2][2][3][kNumRowChoices];
+  SwKernel at[2][2][kNumModes][kNumRowChoices];
   SwKernels() {
     fill_kernels<false, 1>(at[0][0]);
     fill_kernels<true, 1>(at[0][1]);
@@ -512,30 +609,36 @@ int busiest_sm(int B, int L, int W, int sms) {
   return (blocks + sms - 1) / sms * L * W;
 }
 
-// The launch for B lanes of M rows (mode 0 score-only, 1 argmax, 2 moves).
-// W, the warps a lane: `warps` if given (1 or 2), else 1 up to 1,024 rows
-// and 2 beyond. kRows: the least choice with 32 * W * kRows >= M. L, the
-// lanes a block: `lanes` if given, else the largest power of two up to
-// kScoreLanes (K1/K6) or max_warps(kRows) / W (K2/K7) whose busiest SM holds
-// no more warps than with L = 1. The blocks an SM from the CUDA occupancy
-// calculator.
-cudaError_t sw_launch(int M, int B, bool affine, int mode, int lanes, int warps,
+constexpr int kMaxCodes = 64;  // K5/K9's table: 64 x 64 int32, 16 KB of shared memory
+
+// The launch for B lanes of M rows (mode 0 score-only, 1 argmax, 2 moves;
+// ncodes > 0, moves only, the table form K5/K9). W, the warps a lane:
+// `warps` if given (1 or 2), else 1 up to 1,024 rows and 2 beyond; the
+// table form also takes 2 past 64 rows when there are no more lanes than
+// SMs (the protein top 10: two warps of half the rows run faster there,
+// tools/warp_curves.py, PERF.md §6). kRows: the least choice with 32 * W *
+// kRows >= M. L, the lanes a block: `lanes` if given, else the
+// largest power of two up to kScoreLanes (K1/K6) or max_warps(kRows) / W
+// (the moves) whose busiest SM holds no more warps than with L = 1. The
+// blocks an SM from the CUDA occupancy calculator.
+cudaError_t sw_launch(int M, int B, bool affine, int mode, int ncodes, int lanes, int warps,
                       SwLaunch* out) {
-  if (M < 0 || B < 0 || mode < 0 || mode > 2 || lanes < 0 || warps < 0) {
+  if (M < 0 || B < 0 || mode < 0 || mode > 2 || lanes < 0 || warps < 0 || ncodes < 0 ||
+      ncodes > kMaxCodes || (ncodes > 0 && mode != kMovesMode)) {
     return cudaErrorInvalidValue;
   }
-  const bool moves = mode == 2;
+  const bool moves = mode == kMovesMode;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
   int W = warps;
-  if (W == 0) W = M > 32 * 32 ? 2 : 1;
+  if (W == 0) W = M > 32 * 32 || (ncodes > 0 && B <= sms && M > 32 * 2) ? 2 : 1;
   int i = 0;
   while (i < kNumRowChoices && 32 * W * kRowChoices[i] < M) ++i;
   if (i == kNumRowChoices || W > 2) return cudaErrorInvalidValue;
   const int rows = kRowChoices[i];
   const int lmax = moves ? max_warps(rows) / W : min(kScoreLanes, max_warps(rows) / W);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
   int L = lanes;
   if (L == 0) {
     L = 1;
@@ -546,8 +649,9 @@ cudaError_t sw_launch(int M, int B, bool affine, int mode, int lanes, int warps,
   if (L < 1 || L > lmax || (L & (L - 1)) != 0) return cudaErrorInvalidValue;
   static const SwKernels kernels;
   const size_t ring = (size_t)(W - 1) * L * kRing * 8;
-  SwLaunch S{kernels.at[W - 1][affine][mode][i], rows, L, W, 0,
-             ring + (moves ? (size_t)2 * kGroup * W * 32 * rows * L : 0)};
+  SwLaunch S{kernels.at[W - 1][affine][ncodes > 0 ? kTableMoves : mode][i], rows, L, W, 0,
+             (ncodes > 0 ? table_bytes(ncodes) : 0) + ring +
+                 (moves ? (size_t)2 * kGroup * W * 32 * rows * L : 0)};
   err = cudaFuncSetAttribute(S.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)S.smem);
   if (err != cudaSuccess) return err;
@@ -561,41 +665,45 @@ cudaError_t sw_launch(int M, int B, bool affine, int mode, int lanes, int warps,
 
 // Plain C entry point, bound with ctypes. Every pointer is a device pointer to
 // a contiguous tensor: xs (B, M) uint8, ys (B, N) uint8, m and n (B,) int32,
-// score/best_i/best_j (B,) int32, and moves (M + N - 1, M, B) uint8 for K2/K7
-// or null for K1/K6. gap_open > 0 selects the affine kernels; lanes (a
-// block) and warps (a lane) are 0 for the rules of sw_launch. M may be at
-// most 32 x 32 x the warps a lane (2,048 by the rule). Returns a
-// cudaError_t: cudaGetLastError() after the launch.
+// score/best_i/best_j (B,) int32, and moves (M + N - 1, M, B) uint8 for
+// K2/K7 and K5/K9 or null for K1/K6. table null and ncodes 0 score uniformly
+// (match, mismatch); else table (ncodes, ncodes) int32 scores xs and ys as
+// compact codes, moves only (K5/K9). gap_open > 0 selects the affine
+// kernels; lanes (a block) and warps (a lane) are 0 for the rules of
+// sw_launch. M may be at most 32 x 32 x the warps a lane (2,048 by the
+// rule). Returns a cudaError_t: cudaGetLastError() after the launch.
 extern "C" int pgs_sw_score(const void* xs, const void* ys, const void* m, const void* n,
                             int M, int N, int B, int match, int mismatch, int gap_open,
-                            int gap, int track_pos, int lanes, int warps, void* score,
-                            void* best_i, void* best_j, void* moves, void* stream) {
+                            int gap, const void* table, int ncodes, int track_pos, int lanes,
+                            int warps, void* score, void* best_i, void* best_j, void* moves,
+                            void* stream) {
+  if ((table == nullptr) != (ncodes == 0)) return static_cast<int>(cudaErrorInvalidValue);
   if (B > 0) {
     SwLaunch S;
-    const int mode = moves ? 2 : track_pos ? 1 : 0;
-    const cudaError_t err = sw_launch(M, B, gap_open > 0, mode, lanes, warps, &S);
+    const int mode = moves ? kMovesMode : track_pos ? kArgmax : kScoreOnly;
+    const cudaError_t err = sw_launch(M, B, gap_open > 0, mode, ncodes, lanes, warps, &S);
     if (err != cudaSuccess) return static_cast<int>(err);
     S.kernel<<<(B + S.lanes - 1) / S.lanes, 32 * S.lanes * S.warps, S.smem,
                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(xs), static_cast<const uint8_t*>(ys),
         static_cast<const int32_t*>(m), static_cast<const int32_t*>(n), M, N, B, match,
-        mismatch, gap_open, gap, static_cast<int32_t*>(score),
-        static_cast<int32_t*>(best_i), static_cast<int32_t*>(best_j),
-        static_cast<uint8_t*>(moves));
+        mismatch, gap_open, gap, static_cast<const int32_t*>(table), ncodes,
+        static_cast<int32_t*>(score), static_cast<int32_t*>(best_i),
+        static_cast<int32_t*>(best_j), static_cast<uint8_t*>(moves));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // pgs_sw_score_shape: the launch pgs_sw_score makes for B lanes of M rows
 // (affine as gap_open > 0 selects it; mode 0 score-only, 1 argmax, 2 moves;
-// lanes and warps as there) on the current device: out[0] rows a thread,
-// out[1] lanes a block, out[2] warps a lane, out[3] blocks an SM (the
-// occupancy calculator), out[4] dynamic shared bytes a block. Returns a
-// cudaError_t.
-extern "C" int pgs_sw_score_shape(int M, int B, int affine, int mode, int lanes, int warps,
-                                  void* out) {
+// ncodes > 0 the table form, moves only; lanes and warps as there) on the
+// current device: out[0] rows a thread, out[1] lanes a block, out[2] warps a
+// lane, out[3] blocks an SM (the occupancy calculator), out[4] dynamic
+// shared bytes a block. Returns a cudaError_t.
+extern "C" int pgs_sw_score_shape(int M, int B, int affine, int mode, int ncodes, int lanes,
+                                  int warps, void* out) {
   SwLaunch S;
-  const cudaError_t err = sw_launch(M, B, affine != 0, mode, lanes, warps, &S);
+  const cudaError_t err = sw_launch(M, B, affine != 0, mode, ncodes, lanes, warps, &S);
   if (err != cudaSuccess) return static_cast<int>(err);
   int* o = static_cast<int*>(out);
   o[0] = S.rows;

@@ -29,21 +29,17 @@ _L = ctypes.c_longlong
 # name -> argtypes; every pointer and the stream are c_void_p (a c_int would
 # truncate a 64-bit address), every size and score an int, byte counts 64-bit.
 _SIGNATURES = {
-    # xs, ys, m, n, M, N, B, match, mismatch, gap_open, gap, track_pos,
-    # lanes, warps, score, best_i, best_j, moves, stream
-    "pgs_sw_score": [_P] * 4 + [_I] * 10 + [_P] * 5,
-    # M, B, affine, mode, lanes, warps, out (int32 rows, lanes, warps,
-    # blocks per SM, smem)
-    "pgs_sw_score_shape": [_I] * 6 + [_P],
+    # xs, ys, m, n, M, N, B, match, mismatch, gap_open, gap, table, ncodes,
+    # track_pos, lanes, warps, score, best_i, best_j, moves, stream
+    "pgs_sw_score": [_P] * 4 + [_I] * 7 + [_P] + [_I] * 4 + [_P] * 5,
+    # M, B, affine, mode, ncodes, lanes, warps, out (int32 rows, lanes,
+    # warps, blocks per SM, smem)
+    "pgs_sw_score_shape": [_I] * 7 + [_P],
     # x, x_lane, y, y_off, y_len, m, n, table, ncodes, M, N, B, gap_open,
     # gap, score, best_i, best_j, stream
     "pgs_sw_profile_scan": [_P, _L, _P, _P, _L, _P, _P, _P] + [_I] * 6 + [_P] * 4,
     # M, ncodes, affine, shared, out (int32 g, r, threads, blocks per SM, profile)
     "pgs_sw_profile_scan_shape": [_I] * 4 + [_P],
-    # x, x_lane, x_row, y, y_off, y_len, m, n, table, ncodes, hcol, M, N, B,
-    # gap_open, gap, score, best_i, best_j, moves, stream
-    "pgs_sw_profile_moves": [_P, _I, _I, _P, _P, _L, _P, _P, _P, _I, _P]
-    + [_I] * 5 + [_P] * 5,
     # moves, x_mb, y_bn, i0, j0, D, M, N, B, max_steps, pos, cx, cy, steps, stream
     "pgs_walk_moves": [_P] * 5 + [_I] * 5 + [_P] * 5,
     "pgs_walk_moves_affine": [_P] * 5 + [_I] * 5 + [_P] * 5,

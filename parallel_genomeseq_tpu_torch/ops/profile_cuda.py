@@ -1,5 +1,5 @@
 """Wrappers of the CUDA substitution-matrix kernels K4, K5, K8 and K9
-(``csrc/profile.cu``).
+(``csrc/profile.cu``: K4/K8; ``csrc/wavefront.cu``: K5/K9).
 
 K4 ``sw_profile`` ports the Pallas kernel B3 (``_kernel_profile``, TPU
 ``ops/wavefront_pallas.py:418`` via ``_call_profile`` :984); K5
@@ -16,8 +16,12 @@ K9's affine bytes) walks.
 K4 and K8 run the thread-group scan: g threads a lane, each holding r query
 rows in registers (``scan_shape``), for queries of up to
 ``MAX_SCAN_M`` = 2,048 rows, with nothing in device memory but the inputs and
-the per-lane results. K5 and K9 run one thread per lane over an (M, B)
-column scratch that ``_moves`` allocates.
+the per-lane results. K5 and K9 are the table-scored form of the short-read
+re-run K2/K7 (``wavefront_cuda``): a warp per lane (two past 1,024 rows),
+up to 32 entry rows a thread in registers, the table in shared memory, for
+entries of up to ``wavefront_cuda.MAX_ROWS`` = 2,048 rows, reading xs and ys
+as they are with no scratch; ``wavefront_cuda.launch_shape(..., ncodes=)``
+reports their launch, and ``lanes`` / ``warps`` set it as K2's do.
 
 Route: tensors on the CPU take the plain PyTorch version (``ops/scan_dp``);
 tensors on a CUDA device launch the kernel, and a missing toolkit or a failed
@@ -34,6 +38,7 @@ import torch
 from ..utils.device import device_of
 from . import _build
 from .scan_dp import sw_profile_moves_plain, sw_profile_plain
+from .wavefront_cuda import _launch
 
 MAX_CODES = 64  # the table lives in shared memory: 64 x 64 x 4 B = 16 KB
 MAX_SCAN_M = 2048  # query rows of the widest scan shape, 32 threads x 64 rows
@@ -116,7 +121,7 @@ def scan_shape(M: int, *, ncodes: int, affine: bool = False, shared: bool = True
     return dict(zip(("g", "r", "threads", "blocks_per_sm", "profile"), out))
 
 
-def _moves(xs, ys, m, n, table, gap_open, gap):
+def _moves(xs, ys, m, n, table, gap_open, gap, lanes, warps):
     """K5/K9 route, as ``_scores``. Returns (launched, (score, i, j, moves))."""
     _check_common(m, n, table)
     if xs.dtype != torch.uint8 or ys.dtype != torch.uint8:
@@ -130,22 +135,9 @@ def _moves(xs, ys, m, n, table, gap_open, gap):
         return False, sw_profile_moves_plain(xs, ys, m, n, table=table,
                                              gap_open=gap_open, gap=gap)
     M, N = xs.shape[1], ys.shape[1]
-    x_mb = xs.T.contiguous()
-    ys, m, n, table = ys.contiguous(), m.contiguous(), n.contiguous(), table.contiguous()
-    # The column scratch: (M, B) H, or (M, B, 2) (H, E) under affine gaps.
-    hcol = torch.empty((M, B, 2) if gap_open > 0 else (M, B), dtype=torch.int32, device=dev)
-    y_off = torch.arange(B, dtype=torch.int64, device=dev) * N
     moves = torch.empty((M + N - 1, M, B), dtype=torch.uint8, device=dev)
-    score, bi, bj = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        err = lib.pgs_sw_profile_moves(
-            x_mb.data_ptr(), 1, B, ys.data_ptr(), y_off.data_ptr(), ys.numel(),
-            m.data_ptr(), n.data_ptr(), table.data_ptr(), table.shape[0], hcol.data_ptr(),
-            M, N, B, int(gap_open), int(gap), score.data_ptr(), bi.data_ptr(),
-            bj.data_ptr(), moves.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(err, "pgs_sw_profile_moves")
+    score, bi, bj = _launch(xs, ys, m, n, match=0, mismatch=0, gap_open=gap_open, gap=gap,
+                            track_pos=True, moves=moves, lanes=lanes, warps=warps, table=table)
     return True, (score, bi, bj, moves)
 
 
@@ -173,12 +165,14 @@ def sw_profile(x, y, m, n, *, table, gap: int, y_off=None):
 sw_profile.launches = 0
 
 
-def sw_profile_moves(xs, ys, m, n, *, table, gap: int):
+def sw_profile_moves(xs, ys, m, n, *, table, gap: int, lanes: int = 0, warps: int = 0):
     """K5: K4's (score, i, j) on xs (B, M) and ys (B, N) uint8 codes plus
     (M + N - 1, M, B) uint8 move/stop codes. Only cells inside each lane's
     m_b x n_b matrix are written; the rest of the moves tensor is left
-    uninitialised (the walk never reads it)."""
-    launched, out = _moves(xs, ys, m, n, table, 0, gap)
+    uninitialised (the walk never reads it). ``lanes``, ``warps``: the
+    lanes a block and the warps a lane on the card (0: the kernel's rules);
+    on the card M <= ``wavefront_cuda.MAX_ROWS``."""
+    launched, out = _moves(xs, ys, m, n, table, 0, gap, lanes, warps)
     sw_profile_moves.launches += launched
     return out
 
@@ -199,13 +193,14 @@ def sw_profile_affine(x, y, m, n, *, table, gap_open: int, gap: int, y_off=None)
 sw_profile_affine.launches = 0
 
 
-def sw_profile_affine_moves(xs, ys, m, n, *, table, gap_open: int, gap: int):
+def sw_profile_affine_moves(xs, ys, m, n, *, table, gap_open: int, gap: int,
+                            lanes: int = 0, warps: int = 0):
     """K9: K8's (score, i, j) on xs (B, M) and ys (B, N) uint8 codes plus
     the (M + N - 1, M, B) uint8 affine move bytes that
     ``traceback.walk_moves_affine`` walks; only in-matrix cells are
-    written, as in K5."""
+    written, as in K5; ``lanes`` and ``warps`` as there."""
     _check_gap_open(gap_open)
-    launched, out = _moves(xs, ys, m, n, table, gap_open, gap)
+    launched, out = _moves(xs, ys, m, n, table, gap_open, gap, lanes, warps)
     sw_profile_affine_moves.launches += launched
     return out
 

@@ -26,7 +26,10 @@ read xs and ys as they are, with no scratch, for reads of up to
 ``launch_shape`` reports the launch a call makes (rows a thread, lanes a
 block, warps a lane, blocks an SM). K2 and K7 take ``lanes``, the lanes a
 block that store their move bytes together, and ``warps``, the warps a lane
-(0: the kernel's rules).
+(0: the kernel's rules). The same template, scored from a substitution
+table, is the protein top-K re-run K5/K9 (``profile_cuda.sw_profile_moves``,
+``sw_profile_affine_moves``), which launches through ``_launch`` with its
+table.
 """
 
 from __future__ import annotations
@@ -60,38 +63,46 @@ MODES = {"score_only": 0, "track_pos": 1, "moves": 2}
 
 
 def launch_shape(M: int, B: int, *, affine: bool, mode: str, lanes: int = 0,
-                 warps: int = 0):
-    """The launch of K1/K2/K6/K7 for B lanes of M rows on the current CUDA
-    device (``mode`` one of MODES; ``lanes``, ``warps`` as K2 takes them):
-    {rows (a thread), lanes (a block), warps (a lane), blocks_per_sm (the
-    CUDA occupancy calculator), smem (dynamic shared bytes a block)}.
-    Launches nothing; raises for a shape the kernels do not take."""
+                 warps: int = 0, ncodes: int = 0):
+    """The launch of K1/K2/K6/K7 -- or, with ``ncodes`` > 0 (mode "moves"),
+    of K5/K9 over an (ncodes, ncodes) table -- for B lanes of M rows on the
+    current CUDA device (``mode`` one of MODES; ``lanes``, ``warps`` as K2
+    takes them): {rows (a thread), lanes (a block), warps (a lane),
+    blocks_per_sm (the CUDA occupancy calculator), smem (dynamic shared
+    bytes a block)}. Launches nothing; raises for a shape the kernels do
+    not take."""
     lib = _build.load()
     out = (ctypes.c_int * 5)()
-    _build.check(lib.pgs_sw_score_shape(int(M), int(B), int(affine), MODES[mode], int(lanes),
-                                        int(warps), ctypes.addressof(out)),
+    _build.check(lib.pgs_sw_score_shape(int(M), int(B), int(affine), MODES[mode], int(ncodes),
+                                        int(lanes), int(warps), ctypes.addressof(out)),
                  "pgs_sw_score_shape")
     return dict(zip(("rows", "lanes", "warps", "blocks_per_sm", "smem"), out))
 
 
 def _launch(xs, ys, m, n, *, match, mismatch, gap_open, gap, track_pos, moves, lanes=0,
-            warps=0):
-    """Shared K1/K2/K6/K7 launch: outputs allocated here, kernel on the
+            warps=0, table=None):
+    """Shared K1/K2/K6/K7 launch, and K5/K9's with a ``table`` (ncodes,
+    ncodes) int32 over compact codes: outputs allocated here, kernel on the
     current stream, no sync."""
     B, M = xs.shape
     N = ys.shape[1]
     if M > MAX_ROWS:
-        raise ValueError(f"reads of {M} rows exceed MAX_ROWS = {MAX_ROWS}; "
-                         "longer ones run on strips_cuda.sw_score_strips(_affine)")
+        longer = ("entries run on the strip path, engine.CudaEngine.score_batch_strip_moves"
+                  if table is not None else "reads run on strips_cuda.sw_score_strips(_affine)")
+        raise ValueError(f"{M} rows exceed MAX_ROWS = {MAX_ROWS}; longer {longer}")
     dev = xs.device
     lib = _build.load()
     xs, ys, m, n = (t.contiguous() for t in (xs, ys, m, n))
+    if table is not None:
+        table = table.contiguous()
     score, bi, bj = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pgs_sw_score(
             xs.data_ptr(), ys.data_ptr(), m.data_ptr(), n.data_ptr(), M, N, B, int(match),
-            int(mismatch), int(gap_open), int(gap), int(track_pos), int(lanes), int(warps),
+            int(mismatch), int(gap_open), int(gap),
+            table.data_ptr() if table is not None else None,
+            table.shape[0] if table is not None else 0, int(track_pos), int(lanes), int(warps),
             score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
             moves.data_ptr() if moves is not None else None, stream,
         )

@@ -132,7 +132,9 @@ def test_wavefront_launch_shapes(cuda):
     rows and two beyond; the fewest rows a thread (1 to 32) that cover M;
     the lanes a block the largest power of two (up to 4 for K1/K6, up to
     the stage's limit for K2/K7) whose busiest SM holds no more warps than
-    with one lane a block. An M past 2,048 raises."""
+    with one lane a block. The table form (K5/K9), moves only, takes K2/K7's
+    rules, but two warps a lane past 64 rows when the lanes are no more than
+    the SMs. An M past 2,048 raises, for K5/K9 naming the strip path."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def busiest(B, L, W):
@@ -150,11 +152,34 @@ def test_wavefront_launch_shapes(cuda):
                 assert (shape["rows"], shape["warps"], shape["lanes"]) == (rows, W, want), \
                     (M, mode, B, shape)
                 assert shape["blocks_per_sm"] >= 1
+                if mode == "moves":  # K5/K9: two warps also past 64 rows on few lanes
+                    Wt = 2 if M > 1024 or (B <= sms and M > 64) else 1
+                    rows_t = min(r for r in (1, 2, 4, 8, 16, 32) if 32 * Wt * r >= M)
+                    cap_t = (16 if rows_t <= 8 else 128 // rows_t) // Wt
+                    L = max(L for L in (1, 2, 4, 8, 16)
+                            if L <= cap_t and busiest(B, L, Wt) <= busiest(B, 1, Wt))
+                    for affine in (False, True):
+                        table = wavefront_cuda.launch_shape(M, B, affine=affine, mode=mode,
+                                                            ncodes=25)
+                        assert (table["rows"], table["warps"], table["lanes"]) == \
+                               (rows_t, Wt, L), (M, B, table)
+                        # 25 x 25 x 4 table bytes (to 16), the rings, the staged bytes
+                        assert table["smem"] == (2512 + (Wt - 1) * L * 32 * 8
+                                                 + 2 * 8 * Wt * 32 * rows_t * L)
+                        assert table["blocks_per_sm"] >= 1
+                else:
+                    with pytest.raises(RuntimeError):
+                        wavefront_cuda.launch_shape(M, B, affine=False, mode=mode, ncodes=25)
     xs = torch.zeros((2, 2049), dtype=torch.uint8, device=cuda)
     ys = torch.zeros((2, 8), dtype=torch.uint8, device=cuda)
     m = torch.ones(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="MAX_ROWS"):
         wavefront_cuda.sw_score(xs, ys, m, m, **KW)
+    table = torch.zeros((25, 25), dtype=torch.int32, device=cuda)
+    for fn, gaps in ((profile_cuda.sw_profile_moves, dict(gap=12)),
+                     (profile_cuda.sw_profile_affine_moves, dict(gap_open=10, gap=2))):
+        with pytest.raises(ValueError, match="MAX_ROWS.*strip path"):
+            fn(xs, ys, m, m, table=table, **gaps)
 
 
 @pytest.mark.parametrize("case", ["seed0", "rows_33", "rows_128", "mixed_n", "edges",
@@ -341,23 +366,6 @@ def test_k4_matches_plain(cuda, seed):
     assert got[0][:3].tolist() == [0, 0, 0]
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_k5_and_k3_match_plain(cuda, seed):
-    xs, ys, m, n, table = protein_lanes(seed, cuda)
-    before = profile_cuda.sw_profile_moves.launches
-    got = profile_cuda.sw_profile_moves(xs, ys, m, n, table=table, gap=12)
-    want = scan_dp.sw_profile_moves_plain(xs, ys, m, n, table=table, gap=12)
-    assert profile_cuda.sw_profile_moves.launches == before + 1
-    for g, w in zip(got[:3], want[:3]):
-        assert torch.equal(g, w)
-    assert valid_moves(got[3], want[3], m, n)
-    x_mb = xs.T.contiguous()
-    walked = traceback.walk_moves(got[3], x_mb, ys, got[1], got[2], max_steps=400)
-    plain = traceback._walk_moves_plain(got[3], x_mb, ys, got[1], got[2], 400)
-    for g, w in zip(walked, plain):
-        assert torch.equal(g, w)
-
-
 def test_solve_uniprot_cuda_matches_cpu(cuda, tmp_path):
     query, db, _ = write_protein_dataset(tmp_path, n_entries=300, query_len=145, seed=4)
     base = ["--query", str(query), "--database", str(db), "--batch-size", "64"]
@@ -500,20 +508,102 @@ def test_scan_shapes_match_plain(cuda, form, gaps):
     assert scan.launches == before + calls
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_k9_and_k10_match_plain(cuda, seed):
-    xs, ys, m, n, table = protein_lanes(seed, cuda)
-    kw = dict(table=table, gap_open=10, gap=2)
-    before = profile_cuda.sw_profile_affine_moves.launches
-    got = profile_cuda.sw_profile_affine_moves(xs, ys, m, n, **kw)
+# K5/K9 cases (csrc/wavefront.cu's table form, x = entry, y = query):
+# (protein_lanes' arguments, a change to the lanes). M at the rules' edges
+# (1 -> 2 rows a thread at 33, 4 -> 8 at 129, one warp of 32 rows up to
+# 1,024, two warps beyond, 2,048 the last); B of 1, 10 (the top 10), 77 and
+# 600; codes past the table in every case; lanes with m_b or n_b 0 or 1,
+# all-zero lanes and lengths past the padded shape; BLOSUM50 ties across
+# threads and warps.
+PROFILE_MOVES_CASES = {
+    "rows_32": (dict(seed=0, B=10, M=32, N=200), None),
+    "rows_33": (dict(seed=1, B=77, M=33, N=150), None),
+    "rows_128_b600": (dict(seed=2, B=600, M=128, N=90), None),
+    "rows_129": (dict(seed=3, B=10, M=129, N=256), None),
+    "top10": (dict(seed=4, B=10, M=384, N=256), None),
+    "rows_1024": (dict(seed=5, B=10, M=1024, N=120), None),
+    "rows_1025": (dict(seed=6, B=10, M=1025, N=120), None),
+    "rows_2048": (dict(seed=7, B=5, M=2048, N=100), None),
+    "b1": (dict(seed=8, B=1, M=150, N=300), None),
+    "edges": (dict(seed=9, B=37, M=64, N=100), "edges"),
+    "ties_129": (dict(seed=10, B=4, M=129, N=8), "ties"),
+    "ties_1025": (dict(seed=11, B=4, M=1025, N=8), "ties"),
+}
+# The (score, i, j) of the "ties" lanes: P/P at (M, 1) before H/H at (1, 3)
+# (min j); W/W at (1, 1) before (M, 1) (min i), and before (1, 4) and (M,
+# 4); an all-zero lane.
+TIES = lambda M: [[10, M, 1], [15, 1, 1], [15, 1, 1], [0, 0, 0]]
+
+
+def profile_moves_lanes(case, dev):
+    """(xs, ys, m, n, table) of a PROFILE_MOVES_CASES case on ``dev``."""
+    kwargs, change = PROFILE_MOVES_CASES[case]
+    xs, ys, m, n, table = protein_lanes(dev=dev, **kwargs)
+    M, N = xs.shape[1], ys.shape[1]
+    if change == "edges":  # m_b 0, n_b 0, 1, 1, both 1, all-zero lanes, past the shape
+        m[0], n[1], m[2], n[3] = 0, 0, 1, 1
+        m[4] = n[4] = 1
+        xs[5], ys[5] = 0, 7  # code 0 scores the matrix minimum everywhere
+        xs[6] = 27  # past the table: reads as code 0
+        m[7], n[8] = M + 5, N + 100
+        m[9], n[9] = 2**30, 2**30
+    elif change == "ties":
+        lut = scan_dp.profile_tables(blosum_config("blosum50"))[0]
+        H, P, W = (int(lut[ord(c)]) for c in "HPW")
+        xs.zero_()
+        ys.zero_()
+        xs[0, 0], xs[0, M - 1] = H, P
+        ys[0, :3] = torch.tensor([P, 0, H], device=dev)
+        xs[1:3, 0] = xs[1:3, M - 1] = W
+        ys[1, 0] = W
+        ys[2, :4] = torch.tensor([W, 0, 0, W], device=dev)
+        m.fill_(M)
+        n.copy_(torch.tensor([3, 1, 4, 7], device=dev))
+    return xs, ys, m, n, table
+
+
+@pytest.mark.parametrize("case", list(PROFILE_MOVES_CASES))
+@pytest.mark.parametrize("gaps", [dict(gap=12), dict(gap_open=10, gap=2)], ids=["k5", "k9"])
+def test_k5_k9_and_their_walks_match_plain(cuda, gaps, case):
+    """K5 (K9 under affine gaps) against the plain version: (score, i, j)
+    equal and the moves cell for cell inside each lane's m_b x n_b, at the
+    kernels' rule and at every lanes a block the rule allows, with one warp
+    a lane and with two; and the K3 (K10) walk on the kernel's moves equal
+    to the plain walk on the plain version's."""
+    affine = "gap_open" in gaps
+    fn = profile_cuda.sw_profile_affine_moves if affine else profile_cuda.sw_profile_moves
+    xs, ys, m, n, table = profile_moves_lanes(case, cuda)
+    B, M = xs.shape
+    N = ys.shape[1]
+    kw = dict(table=table, **gaps)
     want = scan_dp.sw_profile_moves_plain(xs, ys, m, n, **kw)
-    assert profile_cuda.sw_profile_affine_moves.launches == before + 1
-    for g, w in zip(got[:3], want[:3]):
-        assert torch.equal(g, w)
-    assert valid_moves(got[3], want[3], m, n)
+    if case.startswith("ties"):
+        assert torch.stack(want[:3]).T.tolist() == TIES(M)
+    launches = [(0, 0)]
+    for W in (1, 2):
+        for L in (1, 2, 4, 8, 16):
+            try:
+                wavefront_cuda.launch_shape(M, B, affine=affine, mode="moves", lanes=L, warps=W,
+                                            ncodes=table.shape[0])
+            except RuntimeError:  # past the block's limit, or fewer warps than M needs
+                continue
+            launches.append((L, W))
+    before = fn.launches
+    mc, nc = m.clamp(max=M), n.clamp(max=N)
+    for lanes, warps in launches:
+        got = fn(xs, ys, m, n, lanes=lanes, warps=warps, **kw)
+        for g, w in zip(got[:3], want[:3]):
+            assert g.is_cuda and torch.equal(g, w), (lanes, warps)
+        assert valid_moves(got[3], want[3], mc, nc), (lanes, warps)
+        if (lanes, warps) == (0, 0):
+            rule = got
+    torch.cuda.synchronize()
+    assert fn.launches == before + len(launches)
+    walk, plain_walk = ((traceback.walk_moves_affine, traceback._walk_moves_affine_plain)
+                        if affine else (traceback.walk_moves, traceback._walk_moves_plain))
     x_mb = xs.T.contiguous()
-    walked = traceback.walk_moves_affine(got[3], x_mb, ys, got[1], got[2], max_steps=400)
-    plain = traceback._walk_moves_affine_plain(got[3], x_mb, ys, got[1], got[2], 400)
+    walked = walk(rule[3], x_mb, ys, rule[1], rule[2], max_steps=M + N)
+    plain = plain_walk(want[3], x_mb, ys, want[1], want[2], M + N)
     for g, w in zip(walked, plain):
         assert torch.equal(g, w)
 
