@@ -216,6 +216,24 @@ def test_sw_profile_moves_matches_jax(long_entries):
     assert int(score[-1]) == 0
 
 
+def test_k5_k9_launch_arguments_leave_the_cpu_route_unchanged():
+    """``lanes`` and ``warps`` pick K5/K9's launch on the card; on CPU
+    tensors the wrappers run the plain version, the same with or without
+    them, and launch nothing."""
+    xs, ys, m, n = raw_lanes(moves_pairs(1, False))
+    lut, table = port_tables()
+    args = (torch.from_numpy(lut[xs]), torch.from_numpy(lut[ys]), torch.from_numpy(m),
+            torch.from_numpy(n))
+    for fn, gaps in ((profile_cuda.sw_profile_moves, dict(gap=GAP)),
+                     (profile_cuda.sw_profile_affine_moves, dict(gap_open=10, gap=2))):
+        before = fn.launches
+        want = fn(*args, table=table, **gaps)
+        got = fn(*args, table=table, lanes=4, warps=2, **gaps)
+        assert fn.launches == before
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 def test_resident_db_scan_matches_jax(rng):
     entries = [(f"p{k}", mutate(rng, random_protein(rng, int(rng.integers(30, 260))), 2))
                for k in range(17)]
