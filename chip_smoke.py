@@ -55,10 +55,16 @@
    their plain versions: K13 as the engine launches it, G strips at once by
    ``strips_cuda.replay_group``, on the cells the walk can read (timed, and
    at G = 4, 8 and 16, with G, the warps an SM, the cycles a column step and
-   the moves' GB), and as the per-strip wrapper (G = 1, every column). Runs
+   the moves' GB), and as the per-strip wrapper (G = 1, every column); K14
+   as the engine launches it, the group's G strips in one launch, its end
+   state held on every lane against the plain per-strip walks over the same
+   strips, and as the per-strip launch (G = 1) on those three strips, each
+   timed by CUDA events with the longest lane's steps, the ns a step on that
+   chain, the tile shape and the lanes a block. Runs
    ``solve_big 7 3`` on the exact reads and ``solve_big 7 1 --traceback`` on
    the mutated ones, checks that K11 (and K12, K13, K14) launched during
-   them (the replay in fewer launches than strips walked), and holds 2
+   them (one walk launch a replay group, and fewer groups than strips
+   walked), and holds 2
    sampled reads of the traceback run against the numpy oracle over their
    winning window (score, pos, both consensus strings).
 7. The long-read path with affine (Gotoh) gaps under BWA-MEM's scoring, on
@@ -234,6 +240,8 @@ LANES_CURVE = (1, 2, 4, 8, 16)
 # (18); their in-strip and slot tests are loop control.
 OPS_PER_STEP = {"walk_moves": 10, "walk_moves_affine": 18, "walk_strip_level": 10,
                 "walk_strip_level_affine": 18}
+# The card's name and power limit as nvidia-smi prints them (set by main).
+CARD = ""
 LANE_BYTES = 8 + 12  # per lane: two int32 lengths in, (score, i, j) out
 # The DNA path's scoring: solve_small's defaults, and BWA-MEM's affine
 # scoring (a gap of length L costs gap_open + L * gap).
@@ -265,6 +273,30 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def state_ms(fn, pre, reps: int = 10) -> float:
+    """Mean milliseconds of ``fn(state)`` over ``reps`` runs after a warm-up,
+    by CUDA events around the one launch of each: the state is restored
+    from ``pre`` before each run, outside the events, and a spin on the
+    stream holds the start event until the launch is queued, so that the
+    host's launch time stays out."""
+    import torch
+
+    work = tuple(a.clone() for a in pre)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for k in range(reps + 1):
+        for w, a in zip(work, pre):
+            w.copy_(a)
+        torch.cuda._sleep(200_000)
+        start.record()
+        fn(work)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end) if k else 0.0
+    return total / reps
 
 
 def timed(fn):
@@ -412,7 +444,11 @@ def moves_err(got, want, m, n, chunk: int = 256) -> int:
 
 def report(name, label, rec):
     steps = ""
-    if "lanes_a_block" in rec:
+    if "ns_per_step" in rec:
+        steps = (f"; longest lane {rec['longest_steps']} steps, {rec['ns_per_step']:.1f} ns a "
+                 f"step on it, {rec['tile']} tiles, {rec['block_lanes']} lanes a block; "
+                 f"{CARD}")
+    elif "lanes_a_block" in rec:
         steps = (f"; {rec['rows_a_thread']} rows a thread, {rec['warps_a_lane']} warps a "
                  f"lane, {rec['lanes_a_block']} lanes a block, {rec['warps_per_sm']} warps/SM, "
                  f"{rec['cycles_per_step']:.0f} cycles a column step; bound at the "
@@ -1086,10 +1122,9 @@ def protein_run(label, cli, gaps, entries, query, out_csv, card, seed, counters=
 
     solve_uniprot.run(cli + ["--limit", "20000"])  # warm-up
     counters = counters or protein_kernels(gaps)[:3]
-    for fn in (*counters, *absent):
-        fn.launches = 0
+    zero_counts((*counters, *absent))
     run = solve_uniprot.run(cli)
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_counts(counters)
     others = {fn.__name__: fn.launches for fn in absent}
     print(f"launches during solve_uniprot {label}: {launches}, of other kernels {others}")
     if run.rc != 0 or min(launches.values()) < 1 or any(others.values()):
@@ -1203,8 +1238,8 @@ def mutated_reads(reads, seed: int):
 
 
 def strip_kernels(kw):
-    """(names, (sweep, checkpointing sweep, replay, walk), their plain
-    versions) of the long-read path under the scoring of
+    """(names, (sweep, checkpointing sweep, group replay, group walk), their
+    plain versions) of the long-read path under the scoring of
     ``kw``, from the engines' table: K11-K14, with gap_open K15-K18, with a
     table K19-K21 and K14, with both K22-K24 and K18."""
     from parallel_genomeseq_tpu_torch.ops import engine
@@ -1219,21 +1254,42 @@ def strip_kernels(kw):
 
 def strip_counters(kw):
     """The launch counts a strip traceback under ``kw`` runs through: the
-    sweep, the checkpointing sweep, the replay kernel (its per-strip
-    wrapper's count, which every launch of the kernel adds to), the walk,
-    then the group replay's own count."""
+    sweep, the checkpointing sweep, the replay kernel and the walk kernel
+    (their per-strip wrappers' counts, which every launch of the kernel
+    adds to; the walk's ``strips`` counts the strips it walked), then the
+    group replay's own count."""
     sweep, ckpt, group, walk = strip_kernels(kw)[1]
-    return sweep, ckpt, replay_pair(group)[0], walk, group
+    return sweep, ckpt, replay_pair(group)[0], walk_pair(walk)[0], group
+
+
+def zero_counts(fns):
+    """Set the launch counts of ``fns`` (and the strip walks' ``strips``) to 0."""
+    for fn in fns:
+        fn.launches = 0
+        if hasattr(fn, "strips"):
+            fn.strips = 0
+
+
+def read_counts(fns):
+    """{name: launches} of ``fns``, and {name}_strips for the strip walks."""
+    out = {fn.__name__: fn.launches for fn in fns}
+    out.update({f"{fn.__name__}_strips": fn.strips for fn in fns if hasattr(fn, "strips")})
+    return out
 
 
 def check_groups(label, launches, counters):
-    """Raise unless a run's strip traceback replayed its strips in groups
-    of G >= 2: fewer group launches than walked strips."""
+    """Raise unless a run's strip traceback went a replay group at a time:
+    fewer group replay launches than strips walked (groups of G >= 2), and
+    one walk launch a group."""
     group, walk = counters[4].__name__, counters[3].__name__
-    print(f"solve_big/solve_uniprot {label}: {launches[group]} group replay launches for "
-          f"{launches[walk]} walked strips")
-    if not launches[group] < launches[walk]:
+    strips = launches[f"{walk}_strips"]
+    print(f"solve_big/solve_uniprot {label}: {launches[group]} group replay launches and "
+          f"{launches[walk]} walk launches for {strips} walked strips")
+    if not launches[group] < strips:
         raise AssertionError(f"{label}: the replay ran a strip a launch")
+    if launches[walk] != launches[group]:
+        raise AssertionError(f"{label}: {launches[walk]} walk launches for {launches[group]} "
+                             "replay groups")
 
 
 def check_strip_kernels(reads, ref, clock: float, dev, kw, cfg=None, prefix: str = ""):
@@ -1258,7 +1314,7 @@ def check_strip_kernels(reads, ref, clock: float, dev, kw, cfg=None, prefix: str
     names, (sweep, ckpt, replay, walk), (plain_sweep, plain_ckpt, plain_replay, plain_walk) = \
         strip_kernels(kw)
     affine = "gap_open" in kw
-    out = {fn.__name__: {} for fn in (sweep, ckpt, replay_pair(replay)[0], walk)}
+    out = {fn.__name__: {} for fn in (sweep, ckpt, replay_pair(replay)[0], walk_pair(walk)[0])}
     cfg = cfg or dna_config(kw)
     chunked = ChunkedAligner(cfg, chunk=ChunkConfig(npiece=2 * BIG["npiece"],
                                                     overlap_ratio=BIG["overlap"]), device=dev)
@@ -1356,6 +1412,17 @@ def replay_pair(group):
     return getattr(strips_cuda, name), getattr(scan_dp, f"{name}_plain")
 
 
+def walk_pair(group_walk):
+    """(the per-strip wrapper, its plain version) of a group walk (K14,
+    K18): the G = 1 launch of the same kernel, whose ``launches`` and
+    ``strips`` count every launch of it, the group's too."""
+    from parallel_genomeseq_tpu_torch.ops import traceback
+
+    affine = group_walk.__name__.endswith("_affine")
+    return ((traceback.walk_strip_level_affine, traceback._walk_strip_affine_plain) if affine
+            else (traceback.walk_strip_level, traceback._walk_strip_plain))
+
+
 # The group sizes the replay is timed at beside the rule's (``PERF.md``'s
 # G-versus-time curve).
 REPLAY_CURVE = (4, 8, 16)
@@ -1364,28 +1431,33 @@ REPLAY_CURVE = (4, 8, 16)
 def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y_walk,
                           steps_cap: int, clock: float, out, affine: bool = False, prefix="",
                           lane_step: int = 1):
-    """The group replay and the walk (``fns``: K13 and K14, K17 and K18, K21
-    and K14, or K24 and K18) through every strip of a strip traceback, as
-    the engine runs them: groups of G strips by ``strips_cuda.replay_group``
-    from the top, one moves buffer, one walk launch a strip, from the
-    checkpointing sweep's output ``swept`` = (score, i, j, H checkpoints[, F
-    checkpoints]). The first group's launch is timed (and at the G of
-    REPLAY_CURVE), and its top, middle and bottom strips are held against
-    the plain per-strip replay on every ``lane_step``-th lane (lanes are
-    independent) on every cell the walk can read; the per-strip wrapper
-    (the same kernel at G = 1, every column) is held and timed on those
-    strips too; the walk is held against its plain version (``plains``) on
-    those strips, on every lane. xs, ys are what the replay scores (compact
-    codes under a matrix), x_walk, y_walk the bytes the walk emits.
-    Measurements go to out[kernel][prefix + label]: the group under
-    'group', the per-strip wrapper under 'top', 'middle' and 'bottom'."""
+    """The group replay and the group walk (``fns``: K13 and K14, K17 and
+    K18, K21 and K14, or K24 and K18) through every strip of a strip
+    traceback, as the engine runs them: groups of G strips by
+    ``strips_cuda.replay_group`` from the top, one moves buffer, one replay
+    and one walk launch a group, from the checkpointing sweep's output
+    ``swept`` = (score, i, j, H checkpoints[, F checkpoints]). The first
+    group's replay is timed (and at the G of REPLAY_CURVE), and its top,
+    middle and bottom strips are held against the plain per-strip replay on
+    every ``lane_step``-th lane (lanes are independent) on every cell the
+    walk can read; the per-strip wrapper (the same kernel at G = 1, every
+    column) is held and timed on those strips too. The first group's walk is
+    held on every lane against the plain per-strip walks (``walk_pair``)
+    over the group's strips, top first, and timed by CUDA events
+    (``state_ms``); its per-strip launch (G = 1) is held against the plain
+    walk and timed on the top, middle and bottom strips. xs, ys are what
+    the replay scores (compact codes under a matrix), x_walk, y_walk the
+    bytes the walk emits. Measurements go to out[kernel][prefix + label]:
+    each kernel's group under 'group', the per-strip launches under 'top',
+    'middle' and 'bottom'."""
     import torch
 
     from parallel_genomeseq_tpu_torch.ops import scan_dp, strips_cuda, traceback
 
     S = scan_dp.STRIP_S
-    (group, walk), (_, plain_walk) = fns, plains
+    group, group_walk = fns
     replay, plain_replay = replay_pair(group)
+    walk, plain_walk = walk_pair(group_walk)
     dev = xs.device
     _, i, j, *ck = swept
     B, M = xs.shape
@@ -1398,7 +1470,7 @@ def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y
     table_bytes = kw["table"].numel() * 4 if "table" in kw else 0
     r = torch.arange(S, device=dev)
     held = slice(None, None, lane_step)
-    moves, groups, checked = None, [], {}
+    moves, groups = None, []
     while True:
         lanes, top = torch.stack([active.sum(),
                                   torch.where(active, cur - 1, -1).max().long()]).tolist()
@@ -1413,27 +1485,29 @@ def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y
         low = s - G + 1
         walk_state = (cur, state[1], active)
         call = lambda g=G, lo=s - G + 1: group(xs, ys, m, n, *ck, lo, moves[:g], walk_state, **kw)
-        if not groups:  # the first group: timed, then held
-            checked = {low: "bottom", low + G // 2: "middle", s: "top"}  # top wins a tie
-            rec = replay_group_case(group, xs, ys, m, n, ck, kw, walk_state, low, G, call, clock,
-                                    table_bytes)
-            out[replay.__name__][prefix + "group"] = rec
-            for g in REPLAY_CURVE:
-                if g <= min(s + 1, moves.shape[0]) and g != G:
-                    ms = cuda_ms(lambda g=g: call(g, s - g + 1), 3)
-                    rec[f"g{g}_ms"], rec[f"g{g}_strip_ms"] = ms, ms / g
-            print(f"{names[0]} {group.__name__}[{prefix}group] G-versus-time: "
-                  + ", ".join(f"G = {g}: {rec[f'g{g}_ms']:.3f} ms ({rec[f'g{g}_strip_ms']:.3f} "
-                              "a strip)" for g in REPLAY_CURVE if f"g{g}_ms" in rec)
-                  + f", G = {G} (rule): {rec['ms']:.3f} ms ({rec['strip_ms']:.3f} a strip)")
+        if groups:
+            call()
+            group_walk(moves[:G], x_mb, y_walk, low, state, max_steps=steps_cap)
+            groups.append(G)
+            continue
+        # The first group: timed, then held.
+        checked = {low: "bottom", low + G // 2: "middle", s: "top"}  # top wins a tie
+        rec = replay_group_case(group, xs, ys, m, n, ck, kw, walk_state, low, G, call, clock,
+                                table_bytes)
+        out[replay.__name__][prefix + "group"] = rec
+        for g in REPLAY_CURVE:
+            if g <= min(s + 1, moves.shape[0]) and g != G:
+                ms = cuda_ms(lambda g=g: call(g, s - g + 1), 3)
+                rec[f"g{g}_ms"], rec[f"g{g}_strip_ms"] = ms, ms / g
+        print(f"{names[0]} {group.__name__}[{prefix}group] G-versus-time: "
+              + ", ".join(f"G = {g}: {rec[f'g{g}_ms']:.3f} ms ({rec[f'g{g}_strip_ms']:.3f} "
+                          "a strip)" for g in REPLAY_CURVE if f"g{g}_ms" in rec)
+              + f", G = {G} (rule): {rec['ms']:.3f} ms ({rec['strip_ms']:.3f} a strip)")
         call()
         at_launch = tuple(a.clone() for a in walk_state)  # what the launch read
         groups.append(G)
-        for t in range(s, low - 1, -1):
-            if t not in checked:
-                walk(moves[t - low], x_mb, y_walk, t * S, state, max_steps=steps_cap)
-                continue
-            label = prefix + checked.pop(t)
+        for t, label in sorted(checked.items(), reverse=True):
+            label = prefix + label
             rows = [c[:, t - 1] if t else None for c in ck]
             mh, nh = m[held], n[held]
             want, plain_ms = timed(lambda: plain_replay(
@@ -1452,56 +1526,105 @@ def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y
             err = max(err, int((one[held][valid].int() - want[valid].int()).abs().max()))
             if err:
                 raise AssertionError(f"{names[0]} strip {t}: move codes differ on valid cells")
-            out[replay.__name__][prefix + "group"]["plain_ms"] += plain_ms
-            out[replay.__name__][prefix + "group"]["checked_cells"] += int(readable.sum())
+            rec["plain_ms"] += plain_ms
+            rec["checked_cells"] += int(readable.sum())
             del want, valid, readable
             lanes_rows = (m - t * S).clamp(0, S).long()
             cells = int((lanes_rows * n.long()).sum())
-            rec = {"shape": f"strip {t} of {nstrips}, {B} lanes, N={N}, G = 1, moves "
-                            f"{one.numel() / 1e9:.3f} GB", "max_abs_err": err,
-                   "ms": cuda_ms(lambda: replay(xs, ys, m, n, *rows, t * S, **kw), 3),
-                   "plain_ms": plain_ms}
+            one_rec = {"shape": f"strip {t} of {nstrips}, {B} lanes, N={N}, G = 1, moves "
+                                f"{one.numel() / 1e9:.3f} GB", "max_abs_err": err,
+                       "ms": cuda_ms(lambda: replay(xs, ys, m, n, *rows, t * S, **kw), 3),
+                       "plain_ms": plain_ms}
             del one
             if lane_step > 1:
-                rec["plain_lanes"] = int(mh.shape[0])
+                one_rec["plain_lanes"] = int(mh.shape[0])
             # Read the strip's read bytes, the references and the checkpoint
             # row(s) (and a table); write one move byte per cell.
-            rec["bound_ms"], rec["bound_by"] = bound(
+            one_rec["bound_ms"], one_rec["bound_by"] = bound(
                 cells * OPS_PER_CELL[replay.__name__],
                 int(lanes_rows.sum()) + int(n.long().sum()) * (1 + 4 * len(ck) if t else 1)
                 + cells + table_bytes, clock)
-            out[replay.__name__][label] = rec
-            report(f"{names[0]} {replay.__name__}", label, rec)
-            # The walk on a copy of the state against the plain walk on another.
-            before = state[4].clone()
-            plain_state = tuple(a.clone() for a in state)
-            probe = tuple(a.clone() for a in state)
-            strip_moves = moves[t - low]
-            _, walk_ms = timed(lambda: walk(strip_moves, x_mb, y_walk, t * S, probe,
-                                            max_steps=steps_cap))
-            walk(strip_moves, x_mb, y_walk, t * S, state, max_steps=steps_cap)
-            _, plain_ms = timed(lambda: plain_walk(strip_moves, x_mb, y_walk, t * S, plain_state,
-                                                   steps_cap))
-            walked = int((state[4] - before).sum())
-            rec = {"shape": f"strip {t}, {B} lanes, {walked} steps", "ms": walk_ms,
-                   "plain_ms": plain_ms, "max_abs_err": max_abs_err(state, plain_state)}
-            max_abs_err(probe, state)
-            # Per step read one move code and two sequence bytes, write two
-            # consensus bytes; per lane the state in and out (i, j, pos, steps,
-            # the active flag, and affine the gap state).
-            rec["bound_ms"], rec["bound_by"] = bound(
-                walked * OPS_PER_STEP[walk.__name__], 5 * walked + 2 * (21 if affine else 17) * B,
-                clock)
-            out[walk.__name__][label] = rec
-            report(f"{names[1]} {walk.__name__}", label, rec)
-    rec = out[replay.__name__][prefix + "group"]
-    rec["groups"] = "+".join(map(str, groups))
-    report(f"{names[0]} {group.__name__}", prefix + "group", rec)
+            out[replay.__name__][label] = one_rec
+            report(f"{names[0]} {replay.__name__}", label, one_rec)
+        walk_group_case(names[1], walk, plain_walk, group_walk, moves[:G], x_mb, y_walk, low,
+                        state, steps_cap, checked, clock, out, affine, prefix)
+    out[replay.__name__][prefix + "group"]["groups"] = "+".join(map(str, groups))
+    report(f"{names[0]} {group.__name__}", prefix + "group", out[replay.__name__][prefix + "group"])
     # Every walk ended: it stopped, or (affine) ran through row 1, which
     # leaves a lane active at i = 0, in no strip.
     if bool((state[3] & (state[0] > 0)).any()):
         raise AssertionError("a lane's walk did not end at the bottom strip")
     return state
+
+
+def walk_record(walk, pre, post, ms, plain_ms, err, shape, clock, affine):
+    """A walk launch's record: its time and the plain version's, the steps
+    its lanes took from ``pre`` to ``post`` (the longest lane's, and the ns a
+    step on that chain), its tile shape and lanes a block, and its bound."""
+    from parallel_genomeseq_tpu_torch.ops import traceback
+
+    taken = post[4] - pre[4]
+    walked, longest = int(taken.sum()), int(taken.max())
+    B = taken.shape[0]
+    sh = traceback.walk_shape(B)
+    rec = {"shape": f"{shape}, {B} lanes, {walked} steps", "ms": ms, "plain_ms": plain_ms,
+           "max_abs_err": err, "steps": walked, "longest_steps": longest,
+           "ns_per_step": ms * 1e6 / max(1, longest),
+           "tile": f"{sh['tile_rows']}x{sh['tile_cols']}", "block_lanes": sh["lanes"]}
+    # Per step read one move code and two sequence bytes, write two
+    # consensus bytes; per lane the state in and out (i, j, pos, steps, the
+    # active flag, and affine the gap state).
+    rec["bound_ms"], rec["bound_by"] = bound(
+        walked * OPS_PER_STEP[walk.__name__], 5 * walked + 2 * (21 if affine else 17) * B, clock)
+    return rec
+
+
+def walk_group_case(name, walk, plain_walk, group_walk, moves, x_mb, y_walk, low: int, state,
+                    steps_cap: int, checked, clock: float, out, affine: bool, prefix: str):
+    """The first group's walk: the plain per-strip walks over its G strips
+    (moves (G, B, N, S)), top first, from ``state`` on a copy; on the
+    ``checked`` strips ({strip: label}) the per-strip launch (G = 1) held
+    against the plain walk from the same state and timed; then the group
+    walk (one launch) timed from ``state``, run on it, and held on every
+    lane against the plain walks' end state."""
+    import torch
+
+    from parallel_genomeseq_tpu_torch.ops import scan_dp
+
+    S = scan_dp.STRIP_S
+    G = moves.shape[0]
+    pre = tuple(a.clone() for a in state)
+    plain_state = tuple(a.clone() for a in state)
+    plain_total = 0.0
+    for g in range(G - 1, -1, -1):
+        t = low + g
+        if t not in checked:
+            _, ms = timed(lambda: plain_walk(moves[g], x_mb, y_walk, t * S, plain_state,
+                                             steps_cap))
+            plain_total += ms
+            continue
+        before = tuple(a.clone() for a in plain_state)
+        probe = tuple(a.clone() for a in before)
+        walk(moves[g], x_mb, y_walk, t * S, probe, max_steps=steps_cap)
+        _, plain_ms = timed(lambda: plain_walk(moves[g], x_mb, y_walk, t * S, plain_state,
+                                               steps_cap))
+        plain_total += plain_ms
+        err = max_abs_err(probe, plain_state)
+        ms = state_ms(lambda st: walk(moves[g], x_mb, y_walk, t * S, st, max_steps=steps_cap),
+                      before)
+        rec = walk_record(walk, before, plain_state, ms, plain_ms, err, f"strip {t}, G = 1",
+                          clock, affine)
+        out[walk.__name__][prefix + checked[t]] = rec
+        report(f"{name} {walk.__name__}", prefix + checked[t], rec)
+    ms = state_ms(lambda st: group_walk(moves, x_mb, y_walk, low, st, max_steps=steps_cap), pre)
+    group_walk(moves, x_mb, y_walk, low, state, max_steps=steps_cap)
+    err = max_abs_err(state, plain_state)
+    rec = walk_record(walk, pre, state, ms, plain_total, err,
+                      f"strips {low}-{low + G - 1}, G = {G}, one launch", clock, affine)
+    rec.update(G=G, strip_ms=ms / G)
+    out[walk.__name__][prefix + "group"] = rec
+    report(f"{name} {group_walk.__name__}", prefix + "group", rec)
+    torch.cuda.synchronize()
 
 
 def replay_group_case(group, xs, ys, m, n, ck, kw, walk_state, low: int, G: int, call,
@@ -1557,11 +1680,10 @@ def big_run(label, flags, counters, reads_path, ref_path, absent=()):
     the launches of ``counters``)."""
     from parallel_genomeseq_tpu_torch.cli import solve_big
 
-    for fn in (*counters, *absent):
-        fn.launches = 0
+    zero_counts((*counters, *absent))
     t0 = time.perf_counter()
     run = solve_big.run(flags + ["--ref", str(ref_path), "--reads", str(reads_path)])
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_counts(counters)
     others = {fn.__name__: fn.launches for fn in absent}
     print(f"launches during solve_big {label}: {launches}, of other kernels {others} "
           f"({time.perf_counter() - t0:.1f} s with data reading)")
@@ -1754,7 +1876,7 @@ def check_long_query_kernels(db, query: str, clock: float, dev, gaps):
     names, (sweep, ckpt, replay, walk), (_, plain_ckpt, plain_replay, plain_walk) = \
         strip_kernels({**TABLE, **gaps})
     affine = "gap_open" in gaps
-    out = {fn.__name__: {} for fn in (sweep, ckpt, replay_pair(replay)[0], walk)}
+    out = {fn.__name__: {} for fn in (sweep, ckpt, replay_pair(replay)[0], walk_pair(walk)[0])}
     table, lut = db.engine.table, db.engine.encode_lut
     kw = dict(table=table, **gaps)
     q = db.encode_query(query)
@@ -1945,12 +2067,12 @@ KERNELS = [
     ("sw_score_strips_ckpt", "strips.cu", f"{PALLAS}:1134", "long", "winners"),
     ("strip_moves", "strips.cu", f"{PALLAS}:1792", "long", "group"),
     ("walk_strip_level", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:167", "long",
-     "top"),
+     "group"),
     ("sw_score_strips_affine", "strips.cu", f"{PALLAS}:1102", "long_affine", "sweep"),
     ("sw_score_strips_affine_ckpt", "strips.cu", f"{PALLAS}:1147", "long_affine", "winners"),
     ("strip_affine_moves", "strips.cu", f"{PALLAS}:1870", "long_affine", "group"),
     ("walk_strip_level_affine", "traceback.cu", "parallel_genomeseq_tpu/ops/traceback.py:221",
-     "long_affine", "top"),
+     "long_affine", "group"),
     ("sw_score_strips_profile", "strips.cu", f"{PALLAS}:1081", "long_query", "db"),
     ("sw_score_strips_profile_ckpt", "strips.cu", f"{PALLAS}:1642", "long_query", "top10"),
     ("strip_profile_moves", "strips.cu", f"{PALLAS}:1986", "long_query", "query_group"),
@@ -2010,6 +2132,8 @@ def kernel_entries(dna, dna_launches, protein, protein_launches, long):
                                 sum(launches[name] for _, launches, _ in phases))
             for _, _, runs in phases:
                 entry.update({f"launches_{run}": n[name] for run, n in runs.items() if name in n})
+                entry.update({f"strips_walked_{run}": n[f"{name}_strips"]
+                              for run, n in runs.items() if f"{name}_strips" in n})
         elif name.startswith("walk_moves"):  # both paths walk
             cases = {**dna[gaps][name], **protein[gaps][name]}
             on_dna, on_protein = dna_launches[gaps][name], protein_launches[gaps][name]
@@ -2039,7 +2163,9 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
               file=sys.stderr)
         return 1
+    global CARD
     card, clock = card_info()
+    CARD = card
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, "

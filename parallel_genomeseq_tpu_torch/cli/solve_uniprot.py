@@ -23,7 +23,7 @@ and K7 under ``--matrix uniform``.
 Long queries and entries (titin-class, over 2,048 aa): a query longer than
 2,048 scans the same resident slab in one launch of the strip kernel K19,
 and an entry longer than 2,048 is walked in strips (K20, then K21 and the
-K14 walk strip by strip), as the JAX package does; with ``--gap-open`` the
+K14 walk, a group of strips a launch), as the JAX package does; with ``--gap-open`` the
 affine profile strips take both (K22 for the scan; K23, then K24 and the
 K18 walk); under ``--matrix uniform`` the strip kernels K11-K14 (K15-K18
 with ``--gap-open``).

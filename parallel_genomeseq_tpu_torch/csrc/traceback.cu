@@ -31,32 +31,49 @@
 //
 // K14 replaces `walk_strip_level` (parallel_genomeseq_tpu/ops/traceback.py
 // :167-218), the JAX `fori_loop` that advances the walk through one row-strip
-// of a long read's matrix: K3's rule, one thread per lane, over the moves of
-// one strip (K13's (B, N, 256) layout, moves[b][j - 1][i - 1 - base]), with
-// the lane's state (i, j, pos, active, steps, cx, cy) read and written back
-// in place so that it carries from one strip to the next, top strip first.
-// A lane walks while it is active and its row lies in the strip; the slot of
-// an emission is the lane's step count (lanes progress unevenly), and an
-// emission past max_steps is dropped while the count goes on, as
-// traceback.py:206-209 does. The JAX loop's fixed trip count (S + west_slack)
-// and the rerun loop around it (wavefront_pallas.py:2746-2756) are TPU
-// artefacts: this loop ends when the lane leaves the strip or stops. It is
-// capped at S + N steps per strip, more than any walk inside the matrix takes
-// there, so that a walk started outside a lane's matrix still ends.
+// of a long read's matrix: K3's rule over the moves of one strip (K13's
+// layout, moves[b][j - 1][i - 1 - base]), with the lane's state (i, j, pos,
+// active, steps, cx, cy) read and written back in place so that it carries
+// from one strip to the next, top strip first. A lane walks while it is
+// active and its row lies in the strip; the slot of an emission is the
+// lane's step count (lanes progress unevenly), and an emission past
+// max_steps is dropped while the count goes on, as traceback.py:206-209
+// does. The JAX loop's fixed trip count (S + west_slack) and the rerun loop
+// around it (wavefront_pallas.py:2746-2756) are TPU artefacts: this loop
+// ends when the lane leaves the strip or stops. It is capped at S + N steps
+// per strip, more than any walk inside the matrix takes there, so that a
+// walk started outside a lane's matrix still ends.
 //
 // K18 replaces `walk_strip_level_affine` (parallel_genomeseq_tpu/ops/
-// traceback.py:221-286), the affine form of that loop: K14's shape (one
-// thread per lane over one strip's (B, N, 256) bytes, the state read and
-// written back in place, no fixed trip count, capped at S + N steps) with
-// K10's state machine. The gap state (0 = H, 1 = E run, 2 = F run) is a
-// (B,) int32 plane of the carried state, so a run that crosses a strip edge
-// -- an F run always does -- resumes in the next strip. A lane stops only in
-// the H state, on H_ZERO or at j <= 0, and the stopping cell emits nothing;
-// pos is the j of the last NW emission.
+// traceback.py:221-286), the affine form of that loop, with K10's state
+// machine. The gap state (0 = H, 1 = E run, 2 = F run) is a (B,) int32
+// plane of the carried state, so a run that crosses a strip edge -- an F
+// run always does -- resumes in the next strip. A lane stops only in the H
+// state, on H_ZERO or at j <= 0, and the stopping cell emits nothing; pos
+// is the j of the last NW emission.
 //
-// What bounds the walks on the H100: one dependent gather from the moves
-// plane per step and lane (a latency chain, not bandwidth); a walk is a few
-// hundred steps, microseconds beside the sweep that feeds it.
+// K14 and K18 are one template, walk_strip_kernel<kAffine>, that walks a
+// replay group: the G strips of K13/K17/K21/K24's (G, B, N, 256) buffer in
+// one launch, strip G - 1 down to strip 0, each with its own S + N cap, so
+// that the result equals G per-strip walks; the state is read once and
+// written once. What bounds a walk on the H100 is latency: each step's cell
+// depends on the move byte read the step before. A thread a lane paid a
+// DRAM round trip for that byte (and its read and reference bytes) every
+// step. Here a warp serves one lane: it stages a tile of kTileRows x
+// kTileCols move bytes whose bottom-right corner is the walk's cell -- a
+// tile column is 64 contiguous bytes of the (..., N, 256) layout, so the
+// warp's 32 threads load the tile with 16-byte loads in one round trip,
+// with the tile's reference bytes (contiguous) and read bytes (a strided
+// gather) -- and the walk then reads its moves from shared memory. Each
+// step moves i or j or both, so a walk stays at least 49 steps in a tile
+// (its rows start on a 16-byte boundary) and at most 127; the tile's
+// emissions are staged in shared memory and stored at the tile's end. The
+// group replay writes only cells the walk can still reach: a tile holds
+// stale bytes of earlier groups off the walk's path, never read, and no
+// load leaves the strip's columns 0 .. N - 1 and rows 0 .. 255. Lanes a
+// block follow walk_lanes_per_block; a walk outside the strip's rows, the
+// read or the reference (one started outside its lane's matrix) steps from
+// device memory, clamped as the per-strip walk clamps.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -175,150 +192,221 @@ __global__ void walk_moves_affine_kernel(const uint8_t* __restrict__ moves,
 }
 
 constexpr int kStrip = 256;  // strip height of K13's moves
+// K14/K18's staged tile: kTileRows x kTileCols move bytes whose bottom-right
+// corner is the walk's cell, with the tile's read and reference bytes and
+// its emissions (at most kTileRows + kTileCols - 1 steps stay in a tile).
+constexpr int kTileRows = 64;
+constexpr int kTileCols = 64;
+constexpr int kVec = 16;  // bytes of one vector load of a tile column
+constexpr int kMaxLanesPerBlock = 4;
 
+// The rule for lanes (warps) a block: one until every SM holds a lane, then
+// up to kMaxLanesPerBlock, so that few lanes spread over as many SMs as
+// there are lanes.
+__host__ __device__ inline int walk_lanes_per_block(int B, int sms) {
+  return max(1, min(kMaxLanesPerBlock, B / max(1, sms)));
+}
+
+struct __align__(16) WalkTile {
+  uint8_t mv[kTileCols * kTileRows];  // mv[c * kTileRows + r], as K13 lays a column
+  uint8_t x[kTileRows];               // the read byte of each tile row
+  uint8_t y[kTileCols];               // the reference byte of each tile column
+  uint8_t ex[kTileRows + kTileCols];  // staged emissions, one a step
+  uint8_t ey[kTileRows + kTileCols];
+};
+
+// One warp walks one lane through strips base0 + (G - 1) * kStrip down to
+// base0, top first, strip g's moves at moves + (g * B + b) * N * kStrip.
+// Every thread of the warp runs the same serial walk on the same shared
+// bytes (a broadcast read); the warp's 32 threads load a tile together and
+// store its emissions together.
+template <bool kAffine>
 __global__ void walk_strip_kernel(const uint8_t* __restrict__ moves,
                                   const uint8_t* __restrict__ x_mb,
                                   const uint8_t* __restrict__ y_bn, int M,
-                                  int N, int B, int base, int max_steps,
-                                  int32_t* __restrict__ I,
+                                  int N, int B, int G, int base0,
+                                  int max_steps, int32_t* __restrict__ I,
                                   int32_t* __restrict__ J,
                                   int32_t* __restrict__ pos,
                                   uint8_t* __restrict__ active,
                                   int32_t* __restrict__ steps,
+                                  int32_t* __restrict__ gstate,
                                   uint8_t* __restrict__ cx,
                                   uint8_t* __restrict__ cy) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int t = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;
+  WalkTile& w = reinterpret_cast<WalkTile*>(smem)[warp];
   int i = I[b];
   int j = J[b];
   int p = pos[b];
   int count = steps[b];
+  int state = kAffine ? gstate[b] : 0;  // 0 = H, 1 = E run, 2 = F run
   bool act = active[b] != 0;
-  const uint8_t* mvl = moves + (size_t)b * N * kStrip;
-  for (int it = 0; act && i - 1 >= base && it < kStrip + N; ++it) {
-    const int r = clampi(i - 1 - base, 0, kStrip - 1);
-    const int c = clampi(j - 1, 0, N - 1);
-    const uint8_t mv = mvl[(size_t)c * kStrip + r];
-    const bool stop = (mv & 4) != 0;
-    const int code = mv & 3;
-    const bool go_w = code == 1 && !stop;
-    const bool go_n = code == 2 && !stop;
-    if (count < max_steps) {
-      cx[(size_t)count * B + b] = go_w ? kGap : x_mb[(size_t)clampi(i - 1, 0, M - 1) * B + b];
-      cy[(size_t)count * B + b] = go_n ? kGap : y_bn[(size_t)b * N + c];
-    }
-    ++count;
-    if (stop) {
-      p = j;
-      act = false;
-    } else {
-      i -= go_w ? 0 : 1;
-      j -= go_n ? 0 : 1;
+  const int cap = kStrip + N;  // steps a strip, as the per-strip walk caps it
+  for (int g = G - 1; g >= 0 && act; --g) {
+    const int base = base0 + g * kStrip;
+    const uint8_t* mvl = moves + ((size_t)g * B + b) * N * kStrip;
+    int it = 0;
+    while (act && i - 1 >= base && it < cap) {
+      const int r = i - 1 - base;
+      const int c = j - 1;
+      // Inside the strip's rows, the read and the reference the walk reads
+      // a staged tile; elsewhere (a walk started outside its lane's matrix)
+      // it takes one step at a time from device memory, clamped as the
+      // per-strip walk clamps.
+      const bool fast = r < kStrip && i - 1 < M && c >= 0 && c < N;
+      int r0 = 0, c0 = 0;  // the tile's first row and column in the strip
+      if (fast) {
+        r0 = max(0, (r - kTileRows + kVec) & ~(kVec - 1));
+        c0 = max(0, c - kTileCols + 1);
+        // Columns c0 .. c, rows r0 .. r0 + 63 (inside the strip's 256): one
+        // round trip of 16-byte loads, with the tile's read and reference
+        // bytes. Bytes off the walk's path may be stale; it never reads them.
+        constexpr int kParts = kTileRows / kVec;
+        for (int q = t; q < kTileCols * kParts; q += 32) {
+          if (c0 + q / kParts <= c) {
+            reinterpret_cast<uint4*>(w.mv)[q] = *reinterpret_cast<const uint4*>(
+                mvl + (size_t)(c0 + q / kParts) * kStrip + r0 + (q % kParts) * kVec);
+          }
+        }
+        for (int k = t; k < kTileRows; k += 32) {
+          if (base + r0 + k < M) w.x[k] = x_mb[(size_t)(base + r0 + k) * B + b];
+        }
+        for (int k = t; k < kTileCols; k += 32) {
+          if (c0 + k <= c) w.y[k] = y_bn[(size_t)b * N + c0 + k];
+        }
+        __syncwarp();
+      }
+      const int count0 = count;
+      int k = 0;  // emissions staged in this tile
+      do {
+        const int rr = i - 1 - base;
+        const int cc = j - 1;
+        uint8_t mv, xb, yb;
+        if (fast) {
+          mv = w.mv[(cc - c0) * kTileRows + (rr - r0)];
+          xb = w.x[rr - r0];
+          yb = w.y[cc - c0];
+        } else {
+          const int cl = clampi(cc, 0, N - 1);
+          mv = mvl[(size_t)cl * kStrip + clampi(rr, 0, kStrip - 1)];
+          xb = x_mb[(size_t)clampi(i - 1, 0, M - 1) * B + b];
+          yb = y_bn[(size_t)b * N + cl];
+        }
+        uint8_t ex, ey;
+        if (kAffine) {
+          const int hsrc = mv & 3;
+          if (state == 0 && (hsrc == 3 || j <= 0)) {  // stops, emitting nothing
+            act = false;
+            break;
+          }
+          const int op = state == 0 ? hsrc : state;  // in a run the op is the run
+          ex = op == 1 ? kGap : xb;
+          ey = op == 2 ? kGap : yb;
+          if (op == 0) {
+            p = j;
+            --i;
+            --j;
+          } else if (op == 1) {
+            state = (mv & 8) ? 1 : 0;
+            --j;
+          } else {
+            state = (mv & 16) ? 2 : 0;
+            --i;
+          }
+        } else {
+          const bool stop = (mv & 4) != 0;
+          const int code = mv & 3;
+          const bool go_w = code == 1 && !stop;
+          const bool go_n = code == 2 && !stop;
+          ex = go_w ? kGap : xb;
+          ey = go_n ? kGap : yb;
+          if (stop) {
+            p = j;
+            act = false;
+          } else {
+            i -= go_w ? 0 : 1;
+            j -= go_n ? 0 : 1;
+          }
+        }
+        if (t == 0) {
+          w.ex[k] = ex;
+          w.ey[k] = ey;
+        }
+        ++k;
+        ++count;
+        ++it;
+      } while (fast && act && it < cap && i - 1 - base >= r0 && j - 1 >= c0);
+      // The tile's emissions to slots count0 .. count0 + k - 1 of cx/cy,
+      // those past max_steps dropped.
+      __syncwarp();
+      for (int q = t; q < k; q += 32) {
+        if (count0 + q < max_steps) {
+          cx[(size_t)(count0 + q) * B + b] = w.ex[q];
+          cy[(size_t)(count0 + q) * B + b] = w.ey[q];
+        }
+      }
+      __syncwarp();  // before the next tile overwrites what was read
     }
   }
-  I[b] = i;
-  J[b] = j;
-  pos[b] = p;
-  steps[b] = count;
-  active[b] = act ? 1 : 0;
+  if (t == 0) {
+    I[b] = i;
+    J[b] = j;
+    pos[b] = p;
+    steps[b] = count;
+    if (kAffine) gstate[b] = state;
+    active[b] = act ? 1 : 0;
+  }
 }
 
-__global__ void walk_strip_affine_kernel(const uint8_t* __restrict__ moves,
-                                         const uint8_t* __restrict__ x_mb,
-                                         const uint8_t* __restrict__ y_bn,
-                                         int M, int N, int B, int base,
-                                         int max_steps, int32_t* __restrict__ I,
-                                         int32_t* __restrict__ J,
-                                         int32_t* __restrict__ pos,
-                                         uint8_t* __restrict__ active,
-                                         int32_t* __restrict__ steps,
-                                         int32_t* __restrict__ gstate,
-                                         uint8_t* __restrict__ cx,
-                                         uint8_t* __restrict__ cy) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int i = I[b];
-  int j = J[b];
-  int p = pos[b];
-  int count = steps[b];
-  int state = gstate[b];  // 0 = H, 1 = E run, 2 = F run
-  bool act = active[b] != 0;
-  const uint8_t* mvl = moves + (size_t)b * N * kStrip;
-  for (int it = 0; act && i - 1 >= base && it < kStrip + N; ++it) {
-    const int c = clampi(j - 1, 0, N - 1);
-    const uint8_t mv = mvl[(size_t)c * kStrip + clampi(i - 1 - base, 0, kStrip - 1)];
-    const int hsrc = mv & 3;
-    if (state == 0 && (hsrc == 3 || j <= 0)) {
-      act = false;
-      break;
-    }
-    const int op = state == 0 ? hsrc : state;  // in a run the op is the run
-    if (count < max_steps) {
-      cx[(size_t)count * B + b] = op == 1 ? kGap : x_mb[(size_t)clampi(i - 1, 0, M - 1) * B + b];
-      cy[(size_t)count * B + b] = op == 2 ? kGap : y_bn[(size_t)b * N + c];
-    }
-    ++count;
-    if (op == 0) {
-      p = j;
-      --i;
-      --j;
-    } else if (op == 1) {
-      state = (mv & 8) ? 1 : 0;
-      --j;
-    } else {
-      state = (mv & 16) ? 2 : 0;
-      --i;
-    }
-  }
-  I[b] = i;
-  J[b] = j;
-  pos[b] = p;
-  steps[b] = count;
-  gstate[b] = state;
-  active[b] = act ? 1 : 0;
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
 }
 
 }  // namespace
 
-// K18's entry point: K14's arguments and the gap state gstate (B,) int32,
-// also updated in place. Returns cudaGetLastError() after the launch.
-extern "C" int pgs_walk_strip_affine(const void* moves, const void* x_mb,
-                                     const void* y_bn, int M, int N, int B,
-                                     int base, int max_steps, void* i, void* j,
-                                     void* pos, void* active, void* steps,
-                                     void* gstate, void* cx, void* cy,
-                                     void* stream) {
-  if (B > 0) {
-    walk_strip_affine_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+// K14/K18's launch shape for B lanes: out = (tile rows, tile columns, lanes
+// a block, blocks, shared bytes a block). Returns cudaGetLastError().
+extern "C" int pgs_walk_strip_shape(int B, int* out) {
+  const int lanes = walk_lanes_per_block(B, sm_count());
+  out[0] = kTileRows;
+  out[1] = kTileCols;
+  out[2] = lanes;
+  out[3] = (B + lanes - 1) / lanes;
+  out[4] = lanes * static_cast<int>(sizeof(WalkTile));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K14's (gstate null) and K18's entry point: moves (G, B, N, 256) uint8,
+// 16-byte aligned, strip g of the group starting at row base0 + g * 256;
+// x_mb (M, B), y_bn (B, N) uint8; the state i, j, pos, steps (B,) int32,
+// active (B,) bool, K18's gap state gstate (B,) int32 and cx, cy
+// (max_steps, B) uint8, all updated in place, each lane walking strip G - 1
+// down to strip 0. Returns cudaGetLastError() after the launch.
+extern "C" int pgs_walk_strip_group(const void* moves, const void* x_mb,
+                                    const void* y_bn, int M, int N, int B,
+                                    int G, int base0, int max_steps, void* i,
+                                    void* j, void* pos, void* active,
+                                    void* steps, void* gstate, void* cx,
+                                    void* cy, void* stream) {
+  if (B > 0 && G > 0) {
+    const int lanes = walk_lanes_per_block(B, sm_count());
+    const int blocks = (B + lanes - 1) / lanes;
+    const size_t smem = lanes * sizeof(WalkTile);
+    auto kernel = gstate ? walk_strip_kernel<true> : walk_strip_kernel<false>;
+    kernel<<<blocks, lanes * 32, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(moves), static_cast<const uint8_t*>(x_mb),
-        static_cast<const uint8_t*>(y_bn), M, N, B, base, max_steps,
+        static_cast<const uint8_t*>(y_bn), M, N, B, G, base0, max_steps,
         static_cast<int32_t*>(i), static_cast<int32_t*>(j),
         static_cast<int32_t*>(pos), static_cast<uint8_t*>(active),
         static_cast<int32_t*>(steps), static_cast<int32_t*>(gstate),
         static_cast<uint8_t*>(cx), static_cast<uint8_t*>(cy));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K14's entry point: moves (B, N, 256) uint8, x_mb (M, B), y_bn (B, N) uint8,
-// base the strip's first row; the state i, j, pos, steps (B,) int32, active
-// (B,) bool and cx, cy (max_steps, B) uint8 are updated in place. Returns
-// cudaGetLastError() after the launch.
-extern "C" int pgs_walk_strip(const void* moves, const void* x_mb,
-                              const void* y_bn, int M, int N, int B, int base,
-                              int max_steps, void* i, void* j, void* pos,
-                              void* active, void* steps, void* cx, void* cy,
-                              void* stream) {
-  if (B > 0) {
-    walk_strip_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(moves), static_cast<const uint8_t*>(x_mb),
-        static_cast<const uint8_t*>(y_bn), M, N, B, base, max_steps,
-        static_cast<int32_t*>(i), static_cast<int32_t*>(j),
-        static_cast<int32_t*>(pos), static_cast<uint8_t*>(active),
-        static_cast<int32_t*>(steps), static_cast<uint8_t*>(cx),
-        static_cast<uint8_t*>(cy));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,11 +6,12 @@ Per batch: K2 (uniform scoring) or K5 (a substitution matrix), through
 one pass for every read length up to 2,048, K3 (``walk_moves``) walks every
 lane (``engine="plain"`` runs the plain versions of all three). A traceback
 batch of longer reads takes the checkpointed strip traceback,
-``score_batch_strip_moves`` (K12, then K13 and K14 strip by strip; under
+``score_batch_strip_moves`` (K12, then K13 and K14 a group of strips a
+launch; under
 affine gaps K16, then K17 and K18, the JAX package's
 ``score_batch_strip_affine_moves``; under a substitution matrix with linear
 gaps K20, then K21 and K14, and with affine gaps K23, then K24 and K18), as
-swaligner.py:175-192 does (the replays a group of strips a launch), its
+swaligner.py:175-192 does, its
 per-strip times in ``Timings.levels_us`` (a group's on its first strip); a
 score-only one takes K11 (K15, K19, K22).
 Under affine gaps (``cfg.is_affine``) K7 or K9 emit the affine move bytes

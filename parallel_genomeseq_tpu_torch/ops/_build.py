@@ -57,12 +57,12 @@ _SIGNATURES = {
     + [_P] * 2,
     # affine, ncodes, out (int32 warps a block, blocks per SM)
     "pgs_strip_moves_occupancy": [_I] * 2 + [_P],
-    # moves, x_mb, y_bn, M, N, B, base, max_steps, i, j, pos, active, steps,
-    # cx, cy, stream
-    "pgs_walk_strip": [_P] * 3 + [_I] * 5 + [_P] * 8,
-    # moves, x_mb, y_bn, M, N, B, base, max_steps, i, j, pos, active, steps,
-    # gstate, cx, cy, stream
-    "pgs_walk_strip_affine": [_P] * 3 + [_I] * 5 + [_P] * 9,
+    # moves, x_mb, y_bn, M, N, B, G, base0, max_steps, i, j, pos, active,
+    # steps, gstate (null for K14), cx, cy, stream
+    "pgs_walk_strip_group": [_P] * 3 + [_I] * 6 + [_P] * 9,
+    # B, out (int32 tile rows, tile columns, lanes a block, blocks, shared
+    # bytes a block)
+    "pgs_walk_strip_shape": [_I, _P],
 }
 
 _lib = None

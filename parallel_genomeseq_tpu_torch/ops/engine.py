@@ -9,7 +9,7 @@ for uniform scoring, K4/K5 (``ops/profile_cuda``) for a substitution matrix,
 and under affine (Gotoh) gaps their forms K6/K7 and K8/K9, walked by K3 or,
 affine, K10 (``ops/traceback``); reads longer than MAX_M go to the strip
 kernels of ``ops/strips_cuda`` -- K11 (score), K12 (checkpoints) and K13
-(replay, a group of strips a launch), walked strip by strip by K14; under
+(replay, a group of strips a launch), walked a group a launch by K14; under
 affine gaps K15, K16 (H and F checkpoints) and K17, walked by K18; under a
 substitution matrix with linear gaps K19, K20 and K21, walked by K14, and
 with affine gaps K22, K23 (H and F checkpoints) and K24, walked by K18
@@ -43,34 +43,35 @@ STRIP_S = scan_dp.STRIP_S
 
 # The long-read (strip) functions of each scoring family, keyed by
 # ``strip_key(cfg)`` = (cfg.is_affine, cfg.is_uniform): (sweep,
-# checkpointing sweep, group replay, walk). The kernels' wrappers are K11-K14,
-# affine K15-K18, and under a substitution matrix K19-K21 walked by K14,
-# affine K22-K24 walked by K18; the plain versions share the full sweeps
+# checkpointing sweep, group replay, group walk). The kernels' wrappers are
+# K11-K14, affine K15-K18, and under a substitution matrix K19-K21 walked by
+# K14, affine K22-K24 walked by K18; the plain versions share the full sweeps
 # (``sw_score_plain``, ``sw_profile_plain``).
 STRIP_KERNELS = {
     (False, True): (strips_cuda.sw_score_strips, strips_cuda.sw_score_strips_ckpt,
-                    strips_cuda.strip_moves_group, traceback.walk_strip_level),
+                    strips_cuda.strip_moves_group, traceback.walk_strip_group),
     (True, True): (strips_cuda.sw_score_strips_affine,
                    strips_cuda.sw_score_strips_affine_ckpt, strips_cuda.strip_affine_moves_group,
-                   traceback.walk_strip_level_affine),
+                   traceback.walk_strip_group_affine),
     (False, False): (strips_cuda.sw_score_strips_profile,
                      strips_cuda.sw_score_strips_profile_ckpt,
-                     strips_cuda.strip_profile_moves_group, traceback.walk_strip_level),
+                     strips_cuda.strip_profile_moves_group, traceback.walk_strip_group),
     (True, False): (strips_cuda.sw_score_strips_profile_affine,
                     strips_cuda.sw_score_strips_profile_affine_ckpt,
                     strips_cuda.strip_profile_affine_moves_group,
-                    traceback.walk_strip_level_affine),
+                    traceback.walk_strip_group_affine),
 }
 STRIP_PLAIN = {
     (False, True): (scan_dp.sw_score_plain, scan_dp.sw_score_ckpt_plain,
-                    scan_dp.strip_moves_group_plain, traceback._walk_strip_plain),
+                    scan_dp.strip_moves_group_plain, traceback._walk_strip_group_plain),
     (True, True): (scan_dp.sw_score_plain, scan_dp.sw_score_affine_ckpt_plain,
-                   scan_dp.strip_affine_moves_group_plain, traceback._walk_strip_affine_plain),
+                   scan_dp.strip_affine_moves_group_plain,
+                   traceback._walk_strip_group_affine_plain),
     (False, False): (scan_dp.sw_profile_plain, scan_dp.sw_profile_ckpt_plain,
-                     scan_dp.strip_profile_moves_group_plain, traceback._walk_strip_plain),
+                     scan_dp.strip_profile_moves_group_plain, traceback._walk_strip_group_plain),
     (True, False): (scan_dp.sw_profile_plain, scan_dp.sw_profile_affine_ckpt_plain,
                     scan_dp.strip_profile_affine_moves_group_plain,
-                    traceback._walk_strip_affine_plain),
+                    traceback._walk_strip_group_affine_plain),
 }
 
 
@@ -176,7 +177,8 @@ class _Engine:
         loop when none can), ``strips_cuda.replay_group`` takes G, one
         replay launch writes the group's G strips, each only where the walk
         can still read it, into one moves buffer allocated for the call, and
-        one walk launch a strip follows in walk order, with no sync between.
+        one walk launch (K14, K18) walks the group's strips, top first, with
+        no sync between.
         On CPU tensors G = 1, a strip a group. Returns per-lane 'score',
         'i', 'j', 'pos', 'steps' (B,) int32, 'cx', 'cy' (max_steps, B) uint8,
         'level_us', one entry a strip, top strip (largest rows) first: a
@@ -216,9 +218,7 @@ class _Engine:
             timing = (nstrips - 1 - s, time.perf_counter())
             group = self._st_moves(xs, ys, m, n, *ck, low, moves[:G], (cur, state[1], active),
                                    **self._kw)
-            for g in range(G - 1, -1, -1):
-                self._st_walk(group[g], x_mb, y_raw, (low + g) * STRIP_S, state,
-                              max_steps=max_steps)
+            self._st_walk(group, x_mb, y_raw, low, state, max_steps=max_steps)
             groups.append(G)
         pos, steps, cx, cy = state[2], state[4], state[5], state[6]
         return {"score": score, "i": i, "j": j, "pos": pos, "cx": cx, "cy": cy,

@@ -6,14 +6,18 @@ state-machine walk ``walk_moves_affine`` (:92-164), ``walk_strip_level``
 of the long-read walk through one row-strip (:167-218) and
 ``walk_strip_level_affine`` of its affine form (:221-286): on CPU tensors
 each runs the plain PyTorch loop below, line for line the JAX body; on CUDA
-tensors they launch K3, K10, K14 and K18 (``csrc/traceback.cu``), one
-thread per lane, since the eager loop would be about fifteen launches per
-step.
+tensors they launch K3, K10, K14 and K18 (``csrc/traceback.cu``), since the
+eager loop would be about fifteen launches per step -- K3/K10 a thread per
+lane, K14/K18 a warp per lane over move tiles staged in shared memory.
+``walk_strip_group`` and ``walk_strip_group_affine`` walk a replay group's
+strips, top first, in one K14 or K18 launch; on CPU tensors they loop the
+per-strip plain walks.
 ``decode_consensus`` is copied from traceback.py:289-307 and stays numpy.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import List, Tuple
 
 import numpy as np
@@ -21,7 +25,8 @@ import torch
 
 from ..utils.device import device_of
 from . import _build
-from .scan_dp import E_EXT_BIT, F_EXT_BIT, H_E, H_F, H_NW, H_ZERO, MOVE_N, MOVE_W, STOP_BIT
+from .scan_dp import (E_EXT_BIT, F_EXT_BIT, H_E, H_F, H_NW, H_ZERO, MOVE_N, MOVE_W, STOP_BIT,
+                      STRIP_S)
 
 GAP_BYTE = ord("-")
 
@@ -190,16 +195,17 @@ def new_strip_state(i0, j0, max_steps: int, affine: bool = False):
 
 
 def _check_strip_state(moves, x_mb, y_bn, state, max_steps: int):
-    """Raise unless the strip walks' kernels (K14, K18) take these tensors:
-    uint8 (B, N, 256) moves, (M, B) and (B, N) sequences, and the state of
-    ``new_strip_state``, all contiguous."""
+    """Raise unless the strip walk's kernel (K14, K18) takes these tensors:
+    uint8 (G, B, N, 256) moves, 16-byte aligned, (M, B) and (B, N)
+    sequences, and the state of ``new_strip_state``, all contiguous."""
     if moves.dtype != torch.uint8 or x_mb.dtype != torch.uint8 or y_bn.dtype != torch.uint8:
         raise TypeError("moves, x_mb and y_bn must be uint8")
     i, j, pos, active, steps, cx, cy, *g = state
-    B, N, S = moves.shape
-    if (S != 256 or y_bn.shape != (B, N) or x_mb.shape[1] != B or active.dtype != torch.bool
+    _, B, N, S = moves.shape
+    if (S != STRIP_S or y_bn.shape != (B, N) or x_mb.shape[1] != B or active.dtype != torch.bool
             or cx.shape != (max_steps, B) or cy.shape != (max_steps, B)
             or not all(t.is_contiguous() for t in (moves, x_mb, y_bn, *state))
+            or moves.data_ptr() % 16
             or any(t.dtype != torch.int32 or t.shape != (B,) for t in (i, j, pos, steps, *g))):
         raise ValueError("strip walk: inconsistent shapes, types or layout")
 
@@ -271,6 +277,55 @@ def _walk_strip_affine_plain(moves, x_mb, y_bn, base: int, state, max_steps: int
     return state
 
 
+def _walk_strip_group_plain(moves, x_mb, y_bn, low: int, state, max_steps: int):
+    """The group walk's plain version: ``_walk_strip_plain`` over strips low
+    + G - 1 down to low of moves (G, B, N, STRIP_S), top first."""
+    for g in range(moves.shape[0] - 1, -1, -1):
+        _walk_strip_plain(moves[g], x_mb, y_bn, (low + g) * STRIP_S, state, max_steps)
+    return state
+
+
+def _walk_strip_group_affine_plain(moves, x_mb, y_bn, low: int, state, max_steps: int):
+    """``_walk_strip_group_plain`` under affine gaps, over
+    ``_walk_strip_affine_plain``."""
+    for g in range(moves.shape[0] - 1, -1, -1):
+        _walk_strip_affine_plain(moves[g], x_mb, y_bn, (low + g) * STRIP_S, state, max_steps)
+    return state
+
+
+def walk_shape(B: int):
+    """K14/K18's launch shape for B lanes on the current CUDA device, by the
+    kernel's rule: {'tile_rows', 'tile_cols', 'lanes' (a block), 'blocks',
+    'smem' (bytes a block)}; launches nothing."""
+    out = (ctypes.c_int * 5)()
+    lib = _build.load()
+    _build.check(lib.pgs_walk_strip_shape(int(B), ctypes.addressof(out)), "pgs_walk_strip_shape")
+    return dict(zip(("tile_rows", "tile_cols", "lanes", "blocks", "smem"), out))
+
+
+def _launch_strip_walk(counter, moves, x_mb, y_bn, base: int, state, max_steps: int):
+    """One launch of K14 (a 7-tensor state) or K18 (8, the gap state last)
+    over the G strips of moves (G, B, N, STRIP_S), strip g starting at row
+    base + g * STRIP_S; adds one to ``counter.launches`` and G to
+    ``counter.strips``."""
+    _check_strip_state(moves, x_mb, y_bn, state, max_steps)
+    i, j, pos, active, steps, cx, cy, *g = state
+    G, B, N, _ = moves.shape
+    dev = moves.device
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.pgs_walk_strip_group(
+            moves.data_ptr(), x_mb.data_ptr(), y_bn.data_ptr(), x_mb.shape[0], N, B, G,
+            int(base), int(max_steps), i.data_ptr(), j.data_ptr(), pos.data_ptr(),
+            active.data_ptr(), steps.data_ptr(), g[0].data_ptr() if g else None,
+            cx.data_ptr(), cy.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "pgs_walk_strip_group")
+    counter.launches += 1
+    counter.strips += G
+    return state
+
+
 def walk_strip_level(moves, x_mb, y_bn, base: int, state, *, max_steps: int):
     """Advance the walk through one strip of STRIP_S rows starting at row
     ``base`` (0-based): the counterpart of traceback.py:167-218.
@@ -280,28 +335,34 @@ def walk_strip_level(moves, x_mb, y_bn, base: int, state, *, max_steps: int):
     place and returned. Each active lane whose row lies in the strip walks
     K3's rule until it stops (pos = j) or leaves the strip; its k-th
     emission goes to row k of cx/cy, dropped past max_steps while steps goes
-    on counting. The counter ``walk_strip_level.launches`` counts K14
-    launches."""
-    dev = device_of(moves, x_mb, y_bn, *state)
-    if dev.type == "cpu":
+    on counting. On CUDA tensors the G = 1 launch of K14. The counter
+    ``walk_strip_level.launches`` counts every K14 launch, the group walk's
+    too, and ``walk_strip_level.strips`` the strips those launches walked."""
+    if device_of(moves, x_mb, y_bn, *state).type == "cpu":
         return _walk_strip_plain(moves, x_mb, y_bn, base, state, max_steps)
-    _check_strip_state(moves, x_mb, y_bn, state, max_steps)
-    i, j, pos, active, steps, cx, cy = state
-    B, N, _ = moves.shape
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        err = lib.pgs_walk_strip(
-            moves.data_ptr(), x_mb.data_ptr(), y_bn.data_ptr(), x_mb.shape[0], N, B,
-            int(base), int(max_steps), i.data_ptr(), j.data_ptr(), pos.data_ptr(),
-            active.data_ptr(), steps.data_ptr(), cx.data_ptr(), cy.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(err, "pgs_walk_strip")
-    walk_strip_level.launches += 1
-    return state
+    return _launch_strip_walk(walk_strip_level, moves.unsqueeze(0), x_mb, y_bn, base, state,
+                              max_steps)
 
 
 walk_strip_level.launches = 0
+walk_strip_level.strips = 0
+
+
+def walk_strip_group(moves, x_mb, y_bn, low: int, state, *, max_steps: int):
+    """K14 over a replay group: ``walk_strip_level`` through strips low + G
+    - 1 down to low of moves (G, B, N, STRIP_S) (``strips_cuda.
+    strip_moves_group``'s buffer), top first, in one launch, each strip
+    capped as the per-strip walk caps it, so that the state equals G
+    per-strip walks'. Counts its launches, and into
+    ``walk_strip_level.launches`` and ``.strips``."""
+    if device_of(moves, x_mb, y_bn, *state).type == "cpu":
+        return _walk_strip_group_plain(moves, x_mb, y_bn, low, state, max_steps)
+    _launch_strip_walk(walk_strip_level, moves, x_mb, y_bn, low * STRIP_S, state, max_steps)
+    walk_strip_group.launches += 1
+    return state
+
+
+walk_strip_group.launches = 0
 
 
 def walk_strip_level_affine(moves, x_mb, y_bn, base: int, state, *, max_steps: int):
@@ -315,28 +376,32 @@ def walk_strip_level_affine(moves, x_mb, y_bn, base: int, state, *, max_steps: i
     returned. Each active lane whose row lies in the strip walks K10's rule
     until it stops (in the H state, on H_ZERO or at j <= 0, emitting
     nothing) or leaves the strip; emissions go to the lane's step slot and
-    drop past max_steps. The counter ``walk_strip_level_affine.launches``
-    counts K18 launches."""
-    dev = device_of(moves, x_mb, y_bn, *state)
-    if dev.type == "cpu":
+    drop past max_steps. On CUDA tensors the G = 1 launch of K18. The
+    counters ``walk_strip_level_affine.launches`` and ``.strips`` count
+    every K18 launch and the strips it walked, the group walk's too."""
+    if device_of(moves, x_mb, y_bn, *state).type == "cpu":
         return _walk_strip_affine_plain(moves, x_mb, y_bn, base, state, max_steps)
-    _check_strip_state(moves, x_mb, y_bn, state, max_steps)
-    i, j, pos, active, steps, cx, cy, g = state
-    B, N, _ = moves.shape
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        err = lib.pgs_walk_strip_affine(
-            moves.data_ptr(), x_mb.data_ptr(), y_bn.data_ptr(), x_mb.shape[0], N, B,
-            int(base), int(max_steps), i.data_ptr(), j.data_ptr(), pos.data_ptr(),
-            active.data_ptr(), steps.data_ptr(), g.data_ptr(), cx.data_ptr(), cy.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(err, "pgs_walk_strip_affine")
-    walk_strip_level_affine.launches += 1
-    return state
+    return _launch_strip_walk(walk_strip_level_affine, moves.unsqueeze(0), x_mb, y_bn, base,
+                              state, max_steps)
 
 
 walk_strip_level_affine.launches = 0
+walk_strip_level_affine.strips = 0
+
+
+def walk_strip_group_affine(moves, x_mb, y_bn, low: int, state, *, max_steps: int):
+    """K18 over a replay group: ``walk_strip_group`` under affine gaps, the
+    gap state carried across the group's strip edges. Counts its launches,
+    and into ``walk_strip_level_affine.launches`` and ``.strips``."""
+    if device_of(moves, x_mb, y_bn, *state).type == "cpu":
+        return _walk_strip_group_affine_plain(moves, x_mb, y_bn, low, state, max_steps)
+    _launch_strip_walk(walk_strip_level_affine, moves, x_mb, y_bn, low * STRIP_S, state,
+                       max_steps)
+    walk_strip_group_affine.launches += 1
+    return state
+
+
+walk_strip_group_affine.launches = 0
 
 
 def decode_consensus(cx, cy, steps) -> List[Tuple[str, str]]:

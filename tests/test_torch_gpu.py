@@ -982,6 +982,74 @@ def test_strip_replay_groups_match_plain(cuda, form, case, monkeypatch):
         assert not bool(cols[:, 1].any()) and int(cols[:, 2].sum(dim=1).max()) == 3
 
 
+# The group walk (csrc/traceback.cu walk_strip_kernel, K14 and K18: a warp a
+# lane over staged move tiles, a replay group's strips in one launch)
+# against the plain per-strip walks. Lanes are the replay cases' (N = 700,
+# not a multiple of the 64-column tile; ragged n_b < N); the moves buffer
+# starts as random bytes, so that a read of any cell the replay did not
+# write shows. Cases: the top strip any walk reaches (G = 1), the top two,
+# all ten strips (every walk starts in a lower strip of the group, at most
+# the fifth), strips 2-9 (walks that leave the group active), an
+# inactive lane beside one whose j is 3, a 50-step buffer, and walks forced
+# along column 1 through every strip and along a strip's first row.
+WALK_CASES = ("one", "two", "all", "lower_start", "inactive", "short_buffer", "edges")
+
+
+@pytest.mark.parametrize("case", WALK_CASES)
+@pytest.mark.parametrize("form", ("K14", "K18"))
+def test_strip_walk_groups_match_plain(cuda, form, case):
+    from parallel_genomeseq_tpu_torch.ops import engine
+
+    affine = form == "K18"
+    cfg, kw = replay_form("K17" if affine else "K13")
+    xs, ys, m, n = affine_lanes(2, cuda)
+    xs, m = xs[:, :REPLAY_ROWS].contiguous(), m.clamp(max=REPLAY_ROWS)
+    _, ckpt, group, walk = engine.STRIP_KERNELS[engine.strip_key(cfg)]
+    per_strip = traceback.walk_strip_level_affine if affine else traceback.walk_strip_level
+    plain = traceback._walk_strip_affine_plain if affine else traceback._walk_strip_plain
+    _, i, j, *ck = ckpt(xs, ys, m, n, **kw)
+    B, N = ys.shape
+    max_steps = 50 if case == "short_buffer" else 1200
+    state = traceback.new_strip_state(i, j, max_steps, affine=affine)
+    top = int((i - 1).max()) // 256
+    first, G = {"one": (top, 1), "two": (top - 1, 2), "lower_start": (2, 8)}.get(case, (0, 10))
+    if case == "inactive":
+        state[3][1] = False
+        state[1][2] = 3
+    moves = torch.randint(0, 256, (G, B, N, 256), dtype=torch.uint8, device=cuda)
+    group(xs, ys, m, n, *ck, first, moves, (state[0], state[1], state[3]), **kw)
+    if case == "edges":
+        # Lane 5 climbs column 1 from the top row through every strip (an F
+        # run under affine gaps); lane 6 runs west along strip 5's first row
+        # and stops at column 1 (affine: ends its E run there, stops at j = 0).
+        up = scan_dp.H_F | scan_dp.F_EXT_BIT if affine else scan_dp.MOVE_N
+        west = scan_dp.H_E | scan_dp.E_EXT_BIT if affine else scan_dp.MOVE_W
+        moves[:, 5, 0, :] = up
+        moves[5, 6, :, 0] = west
+        moves[5, 6, 0, 0] = scan_dp.H_E if affine else scan_dp.STOP_BIT
+        state[0][5], state[1][5], state[3][5] = REPLAY_ROWS, 1, True
+        state[0][6], state[1][6], state[3][6] = 5 * 256 + 1, N, True
+    x_mb = xs.T.contiguous()
+    want = tuple(a.clone() for a in state)
+    before = (per_strip.launches, per_strip.strips, walk.launches)
+    assert walk(moves, x_mb, ys, first, state, max_steps=max_steps) is state
+    for g in range(G - 1, -1, -1):
+        plain(moves[g], x_mb, ys, (first + g) * 256, want, max_steps)
+    torch.cuda.synchronize()
+    assert (per_strip.launches, per_strip.strips, walk.launches) == (
+        before[0] + 1, before[1] + G, before[2] + 1)
+    for g, w in zip(state, want):
+        assert torch.equal(g, w)
+    assert int(state[4].max()) > 0
+    if case == "inactive":
+        assert int(state[4][1]) == 0
+    if case == "short_buffer":
+        assert int(state[4].max()) > max_steps
+    if case == "edges":
+        assert int(state[4][5]) == REPLAY_ROWS and int(state[4][6]) == N
+        assert int(state[1][6]) == int(state[2][6]) == (0 if affine else 1)
+
+
 def long_protein_slab(seed, dev, q_len):
     """A long query and a flat slab of ragged entries in compact codes (codes
     up to 29, past the table's 25, score as code 0): 60-900-aa entries and
