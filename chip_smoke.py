@@ -275,30 +275,6 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def state_ms(fn, pre, reps: int = 10) -> float:
-    """Mean milliseconds of ``fn(state)`` over ``reps`` runs after a warm-up,
-    by CUDA events around the one launch of each: the state is restored
-    from ``pre`` before each run, outside the events, and a spin on the
-    stream holds the start event until the launch is queued, so that the
-    host's launch time stays out."""
-    import torch
-
-    work = tuple(a.clone() for a in pre)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    total = 0.0
-    for k in range(reps + 1):
-        for w, a in zip(work, pre):
-            w.copy_(a)
-        torch.cuda._sleep(200_000)
-        start.record()
-        fn(work)
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end) if k else 0.0
-    return total / reps
-
-
 def timed(fn):
     """(fn(), milliseconds of that one call by CUDA events): for plain
     versions too slow to run twice."""
@@ -1585,11 +1561,13 @@ def walk_group_case(name, walk, plain_walk, group_walk, moves, x_mb, y_walk, low
     (moves (G, B, N, S)), top first, from ``state`` on a copy; on the
     ``checked`` strips ({strip: label}) the per-strip launch (G = 1) held
     against the plain walk from the same state and timed; then the group
-    walk (one launch) timed from ``state``, run on it, and held on every
-    lane against the plain walks' end state."""
+    walk (one launch) timed from ``state`` (``walk_tiles.state_ms``: CUDA
+    events around each of 10 launches, the state restored between them),
+    run on it, and held on every lane against the plain walks' end state."""
     import torch
 
     from parallel_genomeseq_tpu_torch.ops import scan_dp
+    from parallel_genomeseq_tpu_torch.tools.walk_tiles import state_ms
 
     S = scan_dp.STRIP_S
     G = moves.shape[0]
@@ -1611,12 +1589,13 @@ def walk_group_case(name, walk, plain_walk, group_walk, moves, x_mb, y_walk, low
         plain_total += plain_ms
         err = max_abs_err(probe, plain_state)
         ms = state_ms(lambda st: walk(moves[g], x_mb, y_walk, t * S, st, max_steps=steps_cap),
-                      before)
+                      before, 10)[0]
         rec = walk_record(walk, before, plain_state, ms, plain_ms, err, f"strip {t}, G = 1",
                           clock, affine)
         out[walk.__name__][prefix + checked[t]] = rec
         report(f"{name} {walk.__name__}", prefix + checked[t], rec)
-    ms = state_ms(lambda st: group_walk(moves, x_mb, y_walk, low, st, max_steps=steps_cap), pre)
+    ms = state_ms(lambda st: group_walk(moves, x_mb, y_walk, low, st, max_steps=steps_cap), pre,
+                  10)[0]
     group_walk(moves, x_mb, y_walk, low, state, max_steps=steps_cap)
     err = max_abs_err(state, plain_state)
     rec = walk_record(walk, pre, state, ms, plain_total, err,

@@ -62,12 +62,17 @@
 // step. Here a warp serves one lane: it stages a tile of kTileRows x
 // kTileCols move bytes whose bottom-right corner is the walk's cell -- a
 // tile column is 64 contiguous bytes of the (..., N, 256) layout, so the
-// warp's 32 threads load the tile with 16-byte loads in one round trip,
-// with the tile's reference bytes (contiguous) and read bytes (a strided
-// gather) -- and the walk then reads its moves from shared memory. Each
-// step moves i or j or both, so a walk stays at least 49 steps in a tile
-// (its rows start on a 16-byte boundary) and at most 127; the tile's
-// emissions are staged in shared memory and stored at the tile's end. The
+// warp's 32 threads load the tile with 16-byte loads, every load issued
+// before any is stored (one round trip), with the tile's reference bytes
+// (contiguous) and read bytes (a strided gather) -- and the walk then reads
+// its moves from shared memory, every thread of the warp running the same
+// step on the same bytes and storing the same emission byte, so that no
+// branch depends on the thread. Each step moves i or j or both, so a walk
+// stays at least 49 steps in a tile (its rows start on a 16-byte boundary)
+// and at most 127; the tile's emissions are staged in shared memory and
+// stored at the tile's end. Of the shapes tools/walk_tiles.py times (32 x
+// 32 to 128 x 128), 64 x 64 was the fastest for K14 and 6% behind 128 x
+// 128 for K18, whose loads take twice the registers. The
 // group replay writes only cells the walk can still reach: a tile holds
 // stale bytes of earlier groups off the walk's path, never read, and no
 // load leaves the strip's columns 0 .. N - 1 and rows 0 .. 255. Lanes a
@@ -195,9 +200,21 @@ constexpr int kStrip = 256;  // strip height of K13's moves
 // K14/K18's staged tile: kTileRows x kTileCols move bytes whose bottom-right
 // corner is the walk's cell, with the tile's read and reference bytes and
 // its emissions (at most kTileRows + kTileCols - 1 steps stay in a tile).
-constexpr int kTileRows = 64;
-constexpr int kTileCols = 64;
+// The shape is set here; tools/walk_tiles.py builds other shapes to time
+// them (rows a multiple of kVec, at most kStrip).
+#ifndef PGS_WALK_TILE_ROWS
+#define PGS_WALK_TILE_ROWS 64
+#endif
+#ifndef PGS_WALK_TILE_COLS
+#define PGS_WALK_TILE_COLS 64
+#endif
+constexpr int kTileRows = PGS_WALK_TILE_ROWS;
+constexpr int kTileCols = PGS_WALK_TILE_COLS;
 constexpr int kVec = 16;  // bytes of one vector load of a tile column
+constexpr int kParts = kTileRows / kVec;           // vector loads a tile column
+constexpr int kLoads = kTileCols * kParts / 32;   // vector loads a thread
+static_assert(kTileRows % 32 == 0 && kTileRows <= kStrip && kTileCols % 32 == 0,
+              "a tile's rows and columns are whole warps");
 constexpr int kMaxLanesPerBlock = 4;
 
 // The rule for lanes (warps) a block: one until every SM holds a lane, then
@@ -214,6 +231,40 @@ struct __align__(16) WalkTile {
   uint8_t ex[kTileRows + kTileCols];  // staged emissions, one a step
   uint8_t ey[kTileRows + kTileCols];
 };
+
+// One step of the strip walk's rule on the move byte mv of the lane's cell,
+// whose read and reference bytes are xb and yb (j_out: K18's j <= 0).
+// Returns false where the lane stops without emitting (K18 in the H state,
+// on H_ZERO or j_out); else sets the step's emission (ex, ey), the rows and
+// columns it moves (di, dj), whether the walk ends after it (K14's stop
+// bit: the stopping cell emits) and whether pos takes the cell's j (K14's
+// stop, K18's NW).
+template <bool kAffine>
+__device__ __forceinline__ bool walk_step(int mv, uint8_t xb, uint8_t yb, bool j_out,
+                                          int& state, uint8_t& ex, uint8_t& ey, int& di,
+                                          int& dj, bool& ends, bool& sets_pos) {
+  if (kAffine) {
+    const int hsrc = mv & 3;
+    if (state == 0 && (hsrc == 3 || j_out)) return false;
+    const int op = state == 0 ? hsrc : state;  // in a run the op is the run
+    ex = op == 1 ? kGap : xb;
+    ey = op == 2 ? kGap : yb;
+    di = op != 1;
+    dj = op != 2;
+    ends = false;
+    sets_pos = op == 0;
+    state = op == 0 ? 0 : op == 1 ? ((mv & 8) ? 1 : 0) : ((mv & 16) ? 2 : 0);
+  } else {
+    const bool stop = (mv & 4) != 0;
+    const int code = mv & 3;
+    ex = code == 1 && !stop ? kGap : xb;
+    ey = code == 2 && !stop ? kGap : yb;
+    di = !stop && code != 1;
+    dj = !stop && code != 2;
+    ends = sets_pos = stop;
+  }
+  return true;
+}
 
 // One warp walks one lane through strips base0 + (G - 1) * kStrip down to
 // base0, top first, strip g's moves at moves + (g * B + b) * N * kStrip.
@@ -262,84 +313,91 @@ __global__ void walk_strip_kernel(const uint8_t* __restrict__ moves,
       if (fast) {
         r0 = max(0, (r - kTileRows + kVec) & ~(kVec - 1));
         c0 = max(0, c - kTileCols + 1);
-        // Columns c0 .. c, rows r0 .. r0 + 63 (inside the strip's 256): one
-        // round trip of 16-byte loads, with the tile's read and reference
-        // bytes. Bytes off the walk's path may be stale; it never reads them.
-        constexpr int kParts = kTileRows / kVec;
-        for (int q = t; q < kTileCols * kParts; q += 32) {
+        // Columns c0 .. c, rows r0 .. r0 + kTileRows - 1 (inside the
+        // strip's 256; r0 is the first multiple of kVec past r -
+        // kTileRows), with the tile's read and reference bytes: every load
+        // issued before any is stored, so that the tile costs one round
+        // trip. Bytes off the walk's path may be stale; it never reads them.
+        uint4 mv[kLoads];
+        uint8_t xv[kTileRows / 32], yv[kTileCols / 32];
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          const int q = t + 32 * u;
           if (c0 + q / kParts <= c) {
-            reinterpret_cast<uint4*>(w.mv)[q] = *reinterpret_cast<const uint4*>(
+            mv[u] = *reinterpret_cast<const uint4*>(
                 mvl + (size_t)(c0 + q / kParts) * kStrip + r0 + (q % kParts) * kVec);
           }
         }
-        for (int k = t; k < kTileRows; k += 32) {
-          if (base + r0 + k < M) w.x[k] = x_mb[(size_t)(base + r0 + k) * B + b];
+#pragma unroll
+        for (int u = 0; u < kTileRows / 32; ++u) {
+          if (base + r0 + t + 32 * u < M) xv[u] = x_mb[(size_t)(base + r0 + t + 32 * u) * B + b];
         }
-        for (int k = t; k < kTileCols; k += 32) {
-          if (c0 + k <= c) w.y[k] = y_bn[(size_t)b * N + c0 + k];
+#pragma unroll
+        for (int u = 0; u < kTileCols / 32; ++u) {
+          if (c0 + t + 32 * u <= c) yv[u] = y_bn[(size_t)b * N + c0 + t + 32 * u];
+        }
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          if (c0 + (t + 32 * u) / kParts <= c) reinterpret_cast<uint4*>(w.mv)[t + 32 * u] = mv[u];
+        }
+#pragma unroll
+        for (int u = 0; u < kTileRows / 32; ++u) {
+          if (base + r0 + t + 32 * u < M) w.x[t + 32 * u] = xv[u];
+        }
+#pragma unroll
+        for (int u = 0; u < kTileCols / 32; ++u) {
+          if (c0 + t + 32 * u <= c) w.y[t + 32 * u] = yv[u];
         }
         __syncwarp();
       }
-      const int count0 = count;
       int k = 0;  // emissions staged in this tile
-      do {
-        const int rr = i - 1 - base;
-        const int cc = j - 1;
-        uint8_t mv, xb, yb;
-        if (fast) {
-          mv = w.mv[(cc - c0) * kTileRows + (rr - r0)];
-          xb = w.x[rr - r0];
-          yb = w.y[cc - c0];
-        } else {
-          const int cl = clampi(cc, 0, N - 1);
-          mv = mvl[(size_t)cl * kStrip + clampi(rr, 0, kStrip - 1)];
-          xb = x_mb[(size_t)clampi(i - 1, 0, M - 1) * B + b];
-          yb = y_bn[(size_t)b * N + cl];
-        }
-        uint8_t ex, ey;
-        if (kAffine) {
-          const int hsrc = mv & 3;
-          if (state == 0 && (hsrc == 3 || j <= 0)) {  // stops, emitting nothing
+      uint8_t ex, ey;
+      int di, dj;
+      bool ends, sets_pos;
+      if (fast) {
+        // dr, dc: the cell's row and column in the tile; the walk stays
+        // while both are >= 0, and at most the strip's cap.
+        int dr = r - r0;
+        int dc = c - c0;
+        const int room = cap - it;
+        for (;;) {
+          if (!walk_step<kAffine>(w.mv[dc * kTileRows + dr], w.x[dr], w.y[dc], false, state,
+                                  ex, ey, di, dj, ends, sets_pos)) {
             act = false;
             break;
           }
-          const int op = state == 0 ? hsrc : state;  // in a run the op is the run
-          ex = op == 1 ? kGap : xb;
-          ey = op == 2 ? kGap : yb;
-          if (op == 0) {
-            p = j;
-            --i;
-            --j;
-          } else if (op == 1) {
-            state = (mv & 8) ? 1 : 0;
-            --j;
-          } else {
-            state = (mv & 16) ? 2 : 0;
-            --i;
-          }
-        } else {
-          const bool stop = (mv & 4) != 0;
-          const int code = mv & 3;
-          const bool go_w = code == 1 && !stop;
-          const bool go_n = code == 2 && !stop;
-          ex = go_w ? kGap : xb;
-          ey = go_n ? kGap : yb;
-          if (stop) {
-            p = j;
-            act = false;
-          } else {
-            i -= go_w ? 0 : 1;
-            j -= go_n ? 0 : 1;
-          }
-        }
-        if (t == 0) {
+          if (sets_pos) p = c0 + dc + 1;
+          // Every thread stores the same byte: no branch on the thread.
           w.ex[k] = ex;
           w.ey[k] = ey;
+          ++k;
+          dr -= di;
+          dc -= dj;
+          if (ends) act = false;
+          if (ends || k == room || (dr | dc) < 0) break;
         }
-        ++k;
-        ++count;
-        ++it;
-      } while (fast && act && it < cap && i - 1 - base >= r0 && j - 1 >= c0);
+        i = base + r0 + dr + 1;
+        j = c0 + dc + 1;
+      } else {
+        const int cl = clampi(c, 0, N - 1);
+        if (!walk_step<kAffine>(mvl[(size_t)cl * kStrip + clampi(r, 0, kStrip - 1)],
+                                x_mb[(size_t)clampi(i - 1, 0, M - 1) * B + b],
+                                y_bn[(size_t)b * N + cl], j <= 0, state, ex, ey, di, dj, ends,
+                                sets_pos)) {
+          act = false;
+        } else {
+          if (sets_pos) p = j;
+          w.ex[0] = ex;
+          w.ey[0] = ey;
+          k = 1;
+          i -= di;
+          j -= dj;
+          if (ends) act = false;
+        }
+      }
+      const int count0 = count;
+      count += k;
+      it += k;
       // The tile's emissions to slots count0 .. count0 + k - 1 of cx/cy,
       // those past max_steps dropped.
       __syncwarp();
