@@ -119,8 +119,10 @@
    block step takes (``sweep_steps``), for the scans K4 and K8 the threads a
    lane, the rows a thread, the warps an SM, the cycles a column step
    takes (``scan_steps``) and the bound at the instructions the scan issues
-   a cell (``SCAN_ISSUED_PER_CELL``), printed beside each time as well --
-   then ``{"ok": true, "device": ...}`` last.
+   a cell (``SCAN_ISSUED_PER_CELL``), for the walks (K3, K10, K14, K18) the
+   longest lane's steps, the ns a step on that chain, the band segment (K3,
+   K10) or tile (K14, K18) they stage and the lanes a block, printed beside
+   each time as well -- then ``{"ok": true, "device": ...}`` last.
 
 Any failed phase raises and exits non-zero before the last line.
 """
@@ -421,9 +423,9 @@ def moves_err(got, want, m, n, chunk: int = 256) -> int:
 def report(name, label, rec):
     steps = ""
     if "ns_per_step" in rec:
+        staged = rec["band"] if "band" in rec else f"{rec['tile']} tiles"
         steps = (f"; longest lane {rec['longest_steps']} steps, {rec['ns_per_step']:.1f} ns a "
-                 f"step on it, {rec['tile']} tiles, {rec['block_lanes']} lanes a block; "
-                 f"{CARD}")
+                 f"step on it, {staged}, {rec['block_lanes']} lanes a block; {CARD}")
     elif "lanes_a_block" in rec:
         steps = (f"; {rec['rows_a_thread']} rows a thread, {rec['warps_a_lane']} warps a "
                  f"lane, {rec['lanes_a_block']} lanes a block, {rec['warps_per_sm']} warps/SM, "
@@ -466,14 +468,23 @@ def report(name, label, rec):
 
 
 def walk_case(walk, plain_walk, moves, x_mb, y_bn, i0, j0, steps, clock, reps=10):
-    """K3 or K10 (``walk``) against its plain walk on the same move codes."""
+    """K3 or K10 (``walk``) against its plain walk on the same move codes,
+    with the longest lane's steps, the ns a step on that chain, the band
+    segment it gathers and the lanes a block."""
+    from parallel_genomeseq_tpu_torch.ops import traceback
+
     got = walk(moves, x_mb, y_bn, i0, j0, max_steps=steps)
     want, plain_ms = timed(lambda: plain_walk(moves, x_mb, y_bn, i0, j0, steps))
     B = x_mb.shape[1]
-    walked = int(got[3].long().sum())
-    rec = {"shape": f"{B} lanes, max_steps={steps}", "max_abs_err": max_abs_err(got, want),
+    walked, longest = int(got[3].long().sum()), int(got[3].max())
+    sh = traceback.walk_shape(B)
+    rec = {"shape": f"{B} lanes, max_steps={steps}, {walked} steps",
+           "max_abs_err": max_abs_err(got, want),
            "ms": cuda_ms(lambda: walk(moves, x_mb, y_bn, i0, j0, max_steps=steps), reps),
-           "plain_ms": plain_ms}
+           "plain_ms": plain_ms, "steps": walked, "longest_steps": longest,
+           "band": f"{sh['seg_rows']}-row segments of a {2 * sh['band'] + 1}-cell band",
+           "block_lanes": sh["lanes"]}
+    rec["ns_per_step"] = rec["ms"] * 1e6 / max(1, longest)
     # Read per step: one move code and two sequence bytes; write both
     # (max_steps, B) consensus buffers, and per lane (i0, j0) in, (pos, steps) out.
     rec["bound_ms"], rec["bound_by"] = bound(

@@ -3,31 +3,51 @@
 // K14: the walk through one row-strip of a long read (K13's moves).
 // K18: the affine walk through one row-strip (K17's moves).
 //
-// Not a Pallas kernel. It replaces the JAX `lax.fori_loop` of per-step
+// Not a Pallas kernel. K3 replaces the JAX `lax.fori_loop` of per-step
 // gathers in parallel_genomeseq_tpu/ops/traceback.py `walk_moves` (:31), which
 // in eager PyTorch would be about fifteen small launches per step and
-// max_steps (~330 at 125 bp) steps per batch. Here one thread walks one lane
-// from its argmax cell (i0, j0) with the same per-step rule:
+// max_steps (~330 at 125 bp) steps per batch. Each lane walks from its argmax
+// cell (i0, j0) with the same per-step rule:
 //   code = moves[i + j - 2, i - 1, b]; stop if bit 4 is set (emit the cell's
 //   read and reference chars, pos = j); else NW emits both chars and steps
 //   (i-1, j-1), W emits ('-', y) and steps j-1, N emits (x, '-') and steps i-1.
-// Iteration `it` writes row `it` of cx/cy (max_steps, B), NUL once the lane is
-// done, so the buffers need no clearing and a warp's row stores coalesce.
-// Lanes with i0 == 0 (all-zero matrix) stay inactive: pos = steps = 0.
+// Step `it` writes row `it` of cx/cy (max_steps, B), NUL once the lane is
+// done, so the buffers need no clearing. Lanes with i0 == 0 (all-zero
+// matrix) stay inactive: pos = steps = 0.
 //
 // K10 replaces `walk_moves_affine` (parallel_genomeseq_tpu/ops/traceback.py
-// :93-164), a `lax.fori_loop` too, with the same one-thread-per-lane design
-// and the same per-step rule. Each lane carries a state, 0 = H, 1 = in an E
-// (west gap) run, 2 = in an F (north gap) run. In H the op is the cell's H
-// source (bits 0-1); in a run the op is the run and the H source is ignored.
-// The walk stops only in the H state, on H_ZERO (3) or at i <= 0 or j <= 0,
-// and the stopping cell emits nothing. NW emits (x, y), steps (i-1, j-1) and
-// sets pos = j: pos is the j of the LAST NW emission, not where the walk
-// stops. E emits ('-', y) and steps j-1, staying in the run while the cell's
-// E-extend bit 3 is set; F emits (x, '-') and steps i-1 while bit 4 is set.
-// Entering a run from H emits its first gap column in the same step, so
-// every active step emits one column and row `it` of cx/cy is still the
-// step's slot.
+// :93-164), a `lax.fori_loop` too, with the same per-step rule. Each lane
+// carries a state, 0 = H, 1 = in an E (west gap) run, 2 = in an F (north gap)
+// run. In H the op is the cell's H source (bits 0-1); in a run the op is the
+// run and the H source is ignored. The walk stops only in the H state, on
+// H_ZERO (3) or at i <= 0 or j <= 0, and the stopping cell emits nothing. NW
+// emits (x, y), steps (i-1, j-1) and sets pos = j: pos is the j of the LAST
+// NW emission, not where the walk stops. E emits ('-', y) and steps j-1,
+// staying in the run while the cell's E-extend bit 3 is set; F emits (x, '-')
+// and steps i-1 while bit 4 is set. Entering a run from H emits its first
+// gap column in the same step, so every active step emits one column and row
+// `it` of cx/cy is still the step's slot.
+//
+// K3 and K10 are one template, walk_band_kernel<kAffine>. What bounds them
+// on the H100 is latency: a step's cell depends on the move byte read the
+// step before, and a lane's bytes lie B apart in the (D, M, B) layout (lane
+// innermost, as K2/K7/K5/K9 write it), so no tile of one lane is contiguous.
+// A warp serves one lane. Each step lowers i, j or both, so the walk from a
+// cell (i, j) only reaches cells (i - A, j - C) with A, C >= 0, and a read
+// that matches walks near the diagonal A = C. The warp gathers the band
+// |C - A| <= kBand of that diagonal, kSegRows rows (A) a segment: its move
+// bytes (each its own sector), read and reference bytes, every index
+// clamped as the JAX walk clamps it and every load issued before any is
+// stored, into shared memory. Every thread of the warp then runs the same
+// steps on the same bytes (walk_step, shared with K14/K18). While the walk
+// is in one segment the next segment's loads are in flight, so a walk along
+// the diagonal pays one round trip, at its start; where it leaves the band
+// sideways (a net gap of more than kBand columns) the band is anchored anew
+// at its cell, one round trip more. Emissions are kept in registers, step t
+// of each 32 by thread t, and stored 32 at a time; once the lane is done the
+// warp fills the rest of its cx/cy column with NUL, 32 rows at a time, so
+// the kernel's time follows the lane's own walk and not max_steps. Lanes a
+// block follow walk_lanes_per_block.
 //
 // K14 replaces `walk_strip_level` (parallel_genomeseq_tpu/ops/traceback.py
 // :167-218), the JAX `fori_loop` that advances the walk through one row-strip
@@ -85,115 +105,10 @@
 
 namespace {
 
-constexpr int kThreads = 32;
 constexpr uint8_t kGap = '-';
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
-}
-
-__global__ void walk_moves_kernel(const uint8_t* __restrict__ moves,
-                                  const uint8_t* __restrict__ x_mb,
-                                  const uint8_t* __restrict__ y_bn,
-                                  const int32_t* __restrict__ i0,
-                                  const int32_t* __restrict__ j0,
-                                  int D, int M, int N, int B, int max_steps,
-                                  int32_t* __restrict__ pos,
-                                  uint8_t* __restrict__ cx,
-                                  uint8_t* __restrict__ cy,
-                                  int32_t* __restrict__ steps) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int i = i0[b];
-  int j = j0[b];
-  bool active = i > 0;
-  int p = 0;
-  int count = 0;
-  for (int it = 0; it < max_steps; ++it) {
-    uint8_t ex = 0, ey = 0;
-    if (active) {
-      // Same clipping as the JAX walk; a walk inside its lane's matrix never
-      // needs it, since it stops at the first cell with a zero neighbour,
-      // and it keeps every read in bounds whatever i0 and j0 the caller
-      // passes.
-      const int d = clampi(i + j - 2, 0, D - 1);
-      const int r = clampi(i - 1, 0, M - 1);
-      const uint8_t mv = moves[((size_t)d * M + r) * B + b];
-      const bool stop = (mv & 4) != 0;
-      const int code = mv & 3;
-      const bool go_w = code == 1 && !stop;
-      const bool go_n = code == 2 && !stop;
-      ex = go_w ? kGap : x_mb[(size_t)r * B + b];
-      ey = go_n ? kGap : y_bn[(size_t)b * N + clampi(j - 1, 0, N - 1)];
-      ++count;
-      if (stop) {
-        p = j;
-        active = false;
-      } else {
-        i -= go_w ? 0 : 1;
-        j -= go_n ? 0 : 1;
-      }
-    }
-    cx[(size_t)it * B + b] = ex;
-    cy[(size_t)it * B + b] = ey;
-  }
-  pos[b] = p;
-  steps[b] = count;
-}
-
-__global__ void walk_moves_affine_kernel(const uint8_t* __restrict__ moves,
-                                         const uint8_t* __restrict__ x_mb,
-                                         const uint8_t* __restrict__ y_bn,
-                                         const int32_t* __restrict__ i0,
-                                         const int32_t* __restrict__ j0,
-                                         int D, int M, int N, int B,
-                                         int max_steps,
-                                         int32_t* __restrict__ pos,
-                                         uint8_t* __restrict__ cx,
-                                         uint8_t* __restrict__ cy,
-                                         int32_t* __restrict__ steps) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int i = i0[b];
-  int j = j0[b];
-  bool active = i > 0;
-  int state = 0;  // 0 = H, 1 = E run, 2 = F run
-  int p = 0;
-  int count = 0;
-  for (int it = 0; it < max_steps; ++it) {
-    uint8_t ex = 0, ey = 0;
-    if (active) {
-      // Clipped as the JAX walk clips, so every read stays in bounds.
-      const int d = clampi(i + j - 2, 0, D - 1);
-      const int r = clampi(i - 1, 0, M - 1);
-      const uint8_t mv = moves[((size_t)d * M + r) * B + b];
-      const int hsrc = mv & 3;
-      const int op = state == 0 ? hsrc : state;
-      if (state == 0 && (hsrc == 3 || i <= 0 || j <= 0)) {
-        active = false;
-      } else {
-        ex = op == 1 ? kGap : x_mb[(size_t)r * B + b];
-        ey = op == 2 ? kGap : y_bn[(size_t)b * N + clampi(j - 1, 0, N - 1)];
-        ++count;
-        if (op == 0) {
-          p = j;
-          state = 0;
-          --i;
-          --j;
-        } else if (op == 1) {
-          state = (mv & 8) ? 1 : 0;
-          --j;
-        } else {
-          state = (mv & 16) ? 2 : 0;
-          --i;
-        }
-      }
-    }
-    cx[(size_t)it * B + b] = ex;
-    cy[(size_t)it * B + b] = ey;
-  }
-  pos[b] = p;
-  steps[b] = count;
 }
 
 constexpr int kStrip = 256;  // strip height of K13's moves
@@ -232,20 +147,21 @@ struct __align__(16) WalkTile {
   uint8_t ey[kTileRows + kTileCols];
 };
 
-// One step of the strip walk's rule on the move byte mv of the lane's cell,
-// whose read and reference bytes are xb and yb (j_out: K18's j <= 0).
-// Returns false where the lane stops without emitting (K18 in the H state,
-// on H_ZERO or j_out); else sets the step's emission (ex, ey), the rows and
-// columns it moves (di, dj), whether the walk ends after it (K14's stop
-// bit: the stopping cell emits) and whether pos takes the cell's j (K14's
-// stop, K18's NW).
+// One step of the walks' rule on the move byte mv of the lane's cell, whose
+// read and reference bytes are xb and yb (edge: the cell lies where the
+// affine walk stops in the H state, K18's j <= 0, K10's i <= 0 or j <= 0).
+// Returns false where the lane stops without emitting (K10/K18 in the H
+// state, on H_ZERO or edge); else sets the step's emission (ex, ey), the
+// rows and columns it moves (di, dj), whether the walk ends after it (K3/
+// K14's stop bit: the stopping cell emits) and whether pos takes the cell's
+// j (K3/K14's stop, K10/K18's NW).
 template <bool kAffine>
-__device__ __forceinline__ bool walk_step(int mv, uint8_t xb, uint8_t yb, bool j_out,
+__device__ __forceinline__ bool walk_step(int mv, uint8_t xb, uint8_t yb, bool edge,
                                           int& state, uint8_t& ex, uint8_t& ey, int& di,
                                           int& dj, bool& ends, bool& sets_pos) {
   if (kAffine) {
     const int hsrc = mv & 3;
-    if (state == 0 && (hsrc == 3 || j_out)) return false;
+    if (state == 0 && (hsrc == 3 || edge)) return false;
     const int op = state == 0 ? hsrc : state;  // in a run the op is the run
     ex = op == 1 ? kGap : xb;
     ey = op == 2 ? kGap : yb;
@@ -420,6 +336,186 @@ __global__ void walk_strip_kernel(const uint8_t* __restrict__ moves,
   }
 }
 
+// K3/K10's band segment: the cells within kBand columns of the diagonal
+// through the walk's anchor cell, kSegRows rows of it a segment. Set here;
+// tools/walk_tiles.py builds other shapes to time them. Of 4-128 rows and
+// bands of 1-3 (and a K x K box a round, no prefetch), 16 rows and a band
+// of 1 took the least time at the short-read path's 512 lanes and the top
+// 10 together.
+#ifndef PGS_WALK_SEG_ROWS
+#define PGS_WALK_SEG_ROWS 16
+#endif
+#ifndef PGS_WALK_BAND
+#define PGS_WALK_BAND 1
+#endif
+constexpr int kSegRows = PGS_WALK_SEG_ROWS;
+constexpr int kBand = PGS_WALK_BAND;
+constexpr int kRowCells = 2 * kBand + 1;
+constexpr int kSegCells = kSegRows * kRowCells;
+constexpr int kSegCols = kSegRows + 2 * kBand;      // reference columns a segment spans
+constexpr int kCellLoads = (kSegCells + 31) / 32;  // gathered move bytes a thread
+constexpr int kRowLoads = (kSegRows + 31) / 32;    // read bytes a thread
+constexpr int kColLoads = (kSegCols + 31) / 32;    // reference bytes a thread
+static_assert(kSegRows >= 2 && kBand >= 1 && kCellLoads <= 32, "a segment is 32 loads a thread");
+
+struct WalkSeg {
+  uint8_t mv[kSegCells];  // mv[a * kRowCells + e + kBand]: cell (A0 + a, A0 + a + e)
+  uint8_t x[kSegRows];    // the read byte of row a
+  uint8_t y[kSegCols];    // the reference byte of column A0 + c - kBand
+};
+
+// A segment's bytes in flight: loaded into registers, stored to shared
+// memory once the walk needs them.
+struct SegLoads {
+  uint8_t mv[kCellLoads], x[kRowLoads], y[kColLoads];
+};
+
+// Issue the loads of segment n of the band anchored at (I, J): cells (I - A,
+// J - C) with A = n kSegRows + a, C = A + e, 0 <= a < kSegRows, |e| <=
+// kBand, each index clamped as the JAX walk clamps it (so a walk started
+// outside its lane's matrix reads what it always read).
+__device__ __forceinline__ void seg_load(SegLoads& l, const uint8_t* __restrict__ moves,
+                                         const uint8_t* __restrict__ x_mb,
+                                         const uint8_t* __restrict__ y_bn, int D, int M,
+                                         int N, int B, int b, int t, int I, int J, int n) {
+  const int A0 = n * kSegRows;
+#pragma unroll
+  for (int u = 0; u < kCellLoads; ++u) {
+    const int q = t + 32 * u;
+    const int A = A0 + q / kRowCells;
+    const int C = A + q % kRowCells - kBand;
+    if (q < kSegCells) {
+      const int d = clampi(I - A + J - C - 2, 0, D - 1);
+      l.mv[u] = moves[((size_t)d * M + clampi(I - A - 1, 0, M - 1)) * B + b];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kRowLoads; ++u) {
+    const int a = t + 32 * u;
+    if (a < kSegRows) l.x[u] = x_mb[(size_t)clampi(I - A0 - a - 1, 0, M - 1) * B + b];
+  }
+#pragma unroll
+  for (int u = 0; u < kColLoads; ++u) {
+    const int c = t + 32 * u;
+    if (c < kSegCols) l.y[u] = y_bn[(size_t)b * N + clampi(J - A0 - c + kBand - 1, 0, N - 1)];
+  }
+}
+
+__device__ __forceinline__ void seg_store(WalkSeg& s, const SegLoads& l, int t) {
+#pragma unroll
+  for (int u = 0; u < kCellLoads; ++u) {
+    if (t + 32 * u < kSegCells) s.mv[t + 32 * u] = l.mv[u];
+  }
+#pragma unroll
+  for (int u = 0; u < kRowLoads; ++u) {
+    if (t + 32 * u < kSegRows) s.x[t + 32 * u] = l.x[u];
+  }
+#pragma unroll
+  for (int u = 0; u < kColLoads; ++u) {
+    if (t + 32 * u < kSegCols) s.y[t + 32 * u] = l.y[u];
+  }
+}
+
+// One warp walks lane b of the (D, M, B) moves from (i0[b], j0[b]) (the
+// file's header). The band is anchored at the walk's start cell, and
+// again wherever the walk leaves it sideways (a gap run longer than kBand
+// columns net). While the walk is in segment n, segment n + 1's loads are
+// in flight, so that a walk along the diagonal waits for one round trip at
+// each anchor only. Every thread runs the same serial walk on the same
+// shared bytes and keeps step t's emission (of the 32 between stores) in
+// registers; the warp's 32 threads store them together.
+template <bool kAffine>
+__global__ void walk_band_kernel(const uint8_t* __restrict__ moves,
+                                 const uint8_t* __restrict__ x_mb,
+                                 const uint8_t* __restrict__ y_bn,
+                                 const int32_t* __restrict__ i0,
+                                 const int32_t* __restrict__ j0, int D, int M, int N, int B,
+                                 int max_steps, int32_t* __restrict__ pos,
+                                 uint8_t* __restrict__ cx, uint8_t* __restrict__ cy,
+                                 int32_t* __restrict__ steps) {
+  __shared__ WalkSeg segs[kMaxLanesPerBlock][2];
+  const int t = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;
+  int i = i0[b];
+  int j = j0[b];
+  bool act = i > 0;
+  int state = 0;  // 0 = H, 1 = E run, 2 = F run
+  int p = 0;
+  int count = 0;
+  // (a, e): the walk's cell in the current segment, (I - A0 - a, J - A0 -
+  // a - e) with A0 = n kSegRows; the walk stays in the segment while 0 <= a
+  // < kSegRows and |e| <= kBand (a never falls, since no step raises i).
+  int a = 0, e = 0, buf = 0;
+  int I = i, J = j, n = 0;
+  SegLoads next;
+  bool anchor = true;
+  while (act && count < max_steps) {
+    if (anchor) {  // segment 0 at the walk's cell, one round trip; then segment 1
+      I = i;
+      J = j;
+      n = a = e = 0;
+      SegLoads first;
+      seg_load(first, moves, x_mb, y_bn, D, M, N, B, b, t, I, J, 0);
+      seg_load(next, moves, x_mb, y_bn, D, M, N, B, b, t, I, J, 1);
+      seg_store(segs[warp][buf], first, t);
+      __syncwarp();
+      anchor = false;
+    } else if (a == kSegRows) {  // on into segment n + 1, already loaded
+      buf ^= 1;
+      seg_store(segs[warp][buf], next, t);
+      __syncwarp();
+      ++n;
+      a = 0;
+      seg_load(next, moves, x_mb, y_bn, D, M, N, B, b, t, I, J, n + 1);
+    }
+    const WalkSeg& s = segs[warp][buf];
+    // Up to 32 steps (one emission a thread) inside the segment.
+    int k = 0;
+    uint8_t ex_t = 0, ey_t = 0;
+    const int room = min(32, max_steps - count);
+    for (;;) {
+      uint8_t ex, ey;
+      int di, dj;
+      bool ends, sets_pos;
+      if (!walk_step<kAffine>(s.mv[a * kRowCells + e + kBand], s.x[a], s.y[a + e + kBand],
+                              i <= 0 || j <= 0, state, ex, ey, di, dj, ends, sets_pos)) {
+        act = false;
+        break;
+      }
+      if (sets_pos) p = j;
+      if (k == t) {
+        ex_t = ex;
+        ey_t = ey;
+      }
+      ++k;
+      i -= di;
+      j -= dj;
+      a += di;
+      e += dj - di;
+      if (ends) act = false;
+      if (ends || k == room || a == kSegRows || e > kBand || e < -kBand) break;
+    }
+    if (t < k) {
+      cx[(size_t)(count + t) * B + b] = ex_t;
+      cy[(size_t)(count + t) * B + b] = ey_t;
+    }
+    count += k;
+    anchor = e > kBand || e < -kBand;
+    __syncwarp();  // before a segment overwrites what was read
+  }
+  // The rest of the lane's column: NUL, 32 rows at a time.
+  for (int r = count + t; r < max_steps; r += 32) {
+    cx[(size_t)r * B + b] = 0;
+    cy[(size_t)r * B + b] = 0;
+  }
+  if (t == 0) {
+    pos[b] = p;
+    steps[b] = count;
+  }
+}
+
 int sm_count() {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -429,15 +525,19 @@ int sm_count() {
 
 }  // namespace
 
-// K14/K18's launch shape for B lanes: out = (tile rows, tile columns, lanes
-// a block, blocks, shared bytes a block). Returns cudaGetLastError().
-extern "C" int pgs_walk_strip_shape(int B, int* out) {
+// The walks' launch shape for B lanes: out = (K14/K18's tile rows, tile
+// columns, lanes a block, blocks, K14/K18's shared bytes a block, K3/K10's
+// segment rows and band). Lanes a block and blocks are both templates'.
+// Returns cudaGetLastError().
+extern "C" int pgs_walk_shape(int B, int* out) {
   const int lanes = walk_lanes_per_block(B, sm_count());
   out[0] = kTileRows;
   out[1] = kTileCols;
   out[2] = lanes;
   out[3] = (B + lanes - 1) / lanes;
   out[4] = lanes * static_cast<int>(sizeof(WalkTile));
+  out[5] = kSegRows;
+  out[6] = kBand;
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -469,6 +569,26 @@ extern "C" int pgs_walk_strip_group(const void* moves, const void* x_mb,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+template <bool kAffine>
+int launch_walk_band(const void* moves, const void* x_mb, const void* y_bn, const void* i0,
+                    const void* j0, int D, int M, int N, int B, int max_steps, void* pos,
+                    void* cx, void* cy, void* steps, void* stream) {
+  if (B > 0) {
+    const int lanes = walk_lanes_per_block(B, sm_count());
+    walk_band_kernel<kAffine><<<(B + lanes - 1) / lanes, lanes * 32, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(moves), static_cast<const uint8_t*>(x_mb),
+        static_cast<const uint8_t*>(y_bn), static_cast<const int32_t*>(i0),
+        static_cast<const int32_t*>(j0), D, M, N, B, max_steps, static_cast<int32_t*>(pos),
+        static_cast<uint8_t*>(cx), static_cast<uint8_t*>(cy), static_cast<int32_t*>(steps));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // Plain C entry points, bound with ctypes, one per walk (K3, K10). Device
 // pointers to contiguous tensors: moves (D, M, B) uint8, x_mb (M, B) uint8,
 // y_bn (B, N) uint8, i0/j0 (B,) int32; outputs pos/steps (B,) int32 and
@@ -479,16 +599,8 @@ extern "C" int pgs_walk_moves(const void* moves, const void* x_mb,
                               int D, int M, int N, int B, int max_steps,
                               void* pos, void* cx, void* cy, void* steps,
                               void* stream) {
-  if (B > 0) {
-    walk_moves_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(moves), static_cast<const uint8_t*>(x_mb),
-        static_cast<const uint8_t*>(y_bn), static_cast<const int32_t*>(i0),
-        static_cast<const int32_t*>(j0), D, M, N, B, max_steps,
-        static_cast<int32_t*>(pos), static_cast<uint8_t*>(cx),
-        static_cast<uint8_t*>(cy), static_cast<int32_t*>(steps));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_walk_band<false>(moves, x_mb, y_bn, i0, j0, D, M, N, B, max_steps, pos, cx, cy,
+                                steps, stream);
 }
 
 extern "C" int pgs_walk_moves_affine(const void* moves, const void* x_mb,
@@ -496,14 +608,6 @@ extern "C" int pgs_walk_moves_affine(const void* moves, const void* x_mb,
                                      const void* j0, int D, int M, int N,
                                      int B, int max_steps, void* pos, void* cx,
                                      void* cy, void* steps, void* stream) {
-  if (B > 0) {
-    walk_moves_affine_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(moves), static_cast<const uint8_t*>(x_mb),
-        static_cast<const uint8_t*>(y_bn), static_cast<const int32_t*>(i0),
-        static_cast<const int32_t*>(j0), D, M, N, B, max_steps,
-        static_cast<int32_t*>(pos), static_cast<uint8_t*>(cx),
-        static_cast<uint8_t*>(cy), static_cast<int32_t*>(steps));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_walk_band<true>(moves, x_mb, y_bn, i0, j0, D, M, N, B, max_steps, pos, cx, cy,
+                               steps, stream);
 }

@@ -60,9 +60,9 @@ _SIGNATURES = {
     # moves, x_mb, y_bn, M, N, B, G, base0, max_steps, i, j, pos, active,
     # steps, gstate (null for K14), cx, cy, stream
     "pgs_walk_strip_group": [_P] * 3 + [_I] * 6 + [_P] * 9,
-    # B, out (int32 tile rows, tile columns, lanes a block, blocks, shared
-    # bytes a block)
-    "pgs_walk_strip_shape": [_I, _P],
+    # B, out (int32 K14/K18's tile rows, tile columns, lanes a block,
+    # blocks, K14/K18's shared bytes a block, K3/K10's segment rows and band)
+    "pgs_walk_shape": [_I, _P],
 }
 
 _lib = None

@@ -7,8 +7,9 @@ of the long-read walk through one row-strip (:167-218) and
 ``walk_strip_level_affine`` of its affine form (:221-286): on CPU tensors
 each runs the plain PyTorch loop below, line for line the JAX body; on CUDA
 tensors they launch K3, K10, K14 and K18 (``csrc/traceback.cu``), since the
-eager loop would be about fifteen launches per step -- K3/K10 a thread per
-lane, K14/K18 a warp per lane over move tiles staged in shared memory.
+eager loop would be about fifteen launches per step -- a warp a lane, K3/K10
+over gathered segments of the diagonal band of move bytes the walk can
+reach, K14/K18 over move tiles staged in shared memory.
 ``walk_strip_group`` and ``walk_strip_group_affine`` walk a replay group's
 strips, top first, in one K14 or K18 launch; on CPU tensors they loop the
 per-strip plain walks.
@@ -294,13 +295,16 @@ def _walk_strip_group_affine_plain(moves, x_mb, y_bn, low: int, state, max_steps
 
 
 def walk_shape(B: int):
-    """K14/K18's launch shape for B lanes on the current CUDA device, by the
-    kernel's rule: {'tile_rows', 'tile_cols', 'lanes' (a block), 'blocks',
-    'smem' (bytes a block)}; launches nothing."""
-    out = (ctypes.c_int * 5)()
+    """The walks' launch shape for B lanes on the current CUDA device, by the
+    kernels' rule: {'tile_rows', 'tile_cols' (K14/K18's tile), 'lanes' (a
+    block), 'blocks', 'smem' (K14/K18's bytes a block), 'seg_rows', 'band'
+    (K3/K10's gathered band segment: its rows, and its columns each side of
+    the diagonal)}; launches nothing."""
+    out = (ctypes.c_int * 7)()
     lib = _build.load()
-    _build.check(lib.pgs_walk_strip_shape(int(B), ctypes.addressof(out)), "pgs_walk_strip_shape")
-    return dict(zip(("tile_rows", "tile_cols", "lanes", "blocks", "smem"), out))
+    _build.check(lib.pgs_walk_shape(int(B), ctypes.addressof(out)), "pgs_walk_shape")
+    return dict(zip(("tile_rows", "tile_cols", "lanes", "blocks", "smem", "seg_rows", "band"),
+                    out))
 
 
 def _launch_strip_walk(counter, moves, x_mb, y_bn, base: int, state, max_steps: int):

@@ -289,6 +289,112 @@ def test_affine_lengths_beyond_the_padded_shape_match_plain(cuda):
         assert torch.equal(g, w)
 
 
+# K3/K10 cases (csrc/traceback.cu walk_band_kernel, a warp a lane over
+# gathered segments of K rows of the diagonal band of move bytes):
+# name -> (B, M, N, max_steps or an offset from K as "K-1", moves). B of 1,
+# 10, 132, 133, 512 and 600, across the lanes-a-block rule (one lane a block
+# up to the SMs, at most 4); max_steps of 1, K - 1, K, K + 1 and 33 (past
+# the first 32-step store); M = 2,048
+# walks of over 2,000 steps; affine E and F runs that leave the band and
+# cross segments and 32-step stores; all-zero lanes.
+WALK_BAND_CASES = {
+    "b1": (1, 64, 200, None, "random"), "b10": (10, 96, 300, None, "random"),
+    "b132": (132, 64, 256, None, "random"), "b133": (133, 64, 256, None, "random"),
+    "b512": (512, 128, 640, None, "random"), "b600": (600, 128, 640, None, "random"),
+    "steps_1": (67, 64, 200, 1, "random"), "steps_k_minus_1": (67, 64, 200, "K-1", "random"),
+    "steps_k": (67, 64, 200, "K", "random"), "steps_k_plus_1": (67, 64, 200, "K+1", "random"),
+    "steps_33": (67, 64, 200, 33, "random"),
+    "m2048": (12, 2048, 2100, None, "long"), "gap_runs": (140, 96, 400, None, "gaps"),
+    "zero": (40, 64, 200, None, "zero"),
+}
+
+
+def band_walk_inputs(case, K, affine, seed=0):
+    """numpy (moves (D, M, B), x_mb (M, B), y_bn (B, N), i0, j0, max_steps)
+    for a WALK_BAND_CASES case, K the segment's rows. Random moves: linear codes
+    mostly NW with 1% stop bits, affine H sources with 1% H_ZERO and random
+    extend bits, the unused high bits random; "gaps" 40% E and 40% F with
+    extend bits at 90%; "long" no stop but on row 1 (linear; affine stops at
+    i or j <= 0). Starts anywhere in [-2, M + 6] x [-2, N + 6], with one lane
+    each at i0 = 1, j0 = 1, i0 past M, j0 past N, i0 = 0 and i0 < 0, one
+    whose moves are all 0 and, in "zero", every lane at (0, 0)."""
+    B, M, N, steps, kind = WALK_BAND_CASES[case]
+    rng = np.random.default_rng([seed, B, M, N, int(affine)])
+    D = M + N - 1
+    p = [0.2, 0.4, 0.4] if kind == "gaps" else [0.7, 0.15, 0.15]
+    code = rng.choice(3, (D, M, B), p=p).astype(np.uint8)
+    stop_p = 0.0 if kind == "long" else 0.01
+    high = rng.integers(0, 256, (D, M, B), dtype=np.uint8) & np.uint8(0xE0)
+    if affine:
+        code[rng.random((D, M, B)) < stop_p] = scan_dp.H_ZERO
+        ext_p = 0.9 if kind == "gaps" else 0.5
+        ext = ((rng.random((D, M, B)) < ext_p) * scan_dp.E_EXT_BIT
+               | (rng.random((D, M, B)) < ext_p) * scan_dp.F_EXT_BIT).astype(np.uint8)
+        moves = code | ext | high
+    else:
+        stop = ((rng.random((D, M, B)) < stop_p) * scan_dp.STOP_BIT).astype(np.uint8)
+        moves = code | stop | high | (rng.integers(0, 2, (D, M, B), dtype=np.uint8) << 3)
+        if kind == "long":
+            moves[:, 0, :] |= scan_dp.STOP_BIT
+    x_mb = rng.integers(65, 91, (M, B), dtype=np.uint8)
+    y_bn = rng.integers(97, 123, (B, N), dtype=np.uint8)
+    if kind == "long":
+        i0 = rng.integers(M - 20, M + 1, B).astype(np.int32)
+        j0 = rng.integers(N - 40, N + 1, B).astype(np.int32)
+    else:
+        i0 = rng.integers(-2, M + 7, B).astype(np.int32)
+        j0 = rng.integers(-2, N + 7, B).astype(np.int32)
+    for b, (i, j) in enumerate([(1, N // 2), (M // 2, 1), (M + 5, N // 2), (M // 2, N + 9),
+                                (0, 5), (-3, 7)][: max(0, B - 1)]):
+        i0[b], j0[b] = i, j
+    if B > 1:
+        moves[:, :, B - 1] = 0
+        i0[B - 1], j0[B - 1] = M, N
+    if kind == "zero":
+        i0[:] = 0
+        j0[:] = 0
+    if steps is None:
+        steps = M + N + 1
+    elif isinstance(steps, str):
+        steps = K + int(steps[1:] or 0)
+    return moves, x_mb, y_bn, i0, j0, steps
+
+
+def longest_run(flags):
+    """The longest run of True down any column of a (steps, B) bool array."""
+    run = best = np.zeros(flags.shape[1], np.int64)
+    for row in flags:
+        run = np.where(row, run + 1, 0)
+        best = np.maximum(best, run)
+    return int(best.max())
+
+
+@pytest.mark.parametrize("case", list(WALK_BAND_CASES))
+@pytest.mark.parametrize("form", ("K3", "K10"))
+def test_band_walks_match_plain(cuda, form, case):
+    """K3 (K10 under affine moves) against the plain walk on the same move
+    bytes and starts: pos, cx, cy and steps equal, one launch counted."""
+    affine = form == "K10"
+    walk, plain_walk = ((traceback.walk_moves_affine, traceback._walk_moves_affine_plain)
+                        if affine else (traceback.walk_moves, traceback._walk_moves_plain))
+    K = traceback.walk_shape(1)["seg_rows"]
+    *arrays, steps = band_walk_inputs(case, K, affine)
+    moves, x_mb, y_bn, i0, j0 = (torch.from_numpy(a).to(cuda) for a in arrays)
+    before = walk.launches
+    got = walk(moves, x_mb, y_bn, i0, j0, max_steps=steps)
+    want = plain_walk(moves, x_mb, y_bn, i0, j0, steps)
+    torch.cuda.synchronize()
+    assert walk.launches == before + 1
+    for name, g, w in zip(("pos", "cx", "cy", "steps"), got, want):
+        assert g.is_cuda and torch.equal(g, w), name
+    if case == "m2048":
+        assert int(got[3].max()) > 2000
+    if case == "zero":
+        assert int(got[3].max()) == 0 and int(got[1].max()) == 0
+    if case == "gap_runs" and affine:  # an E run past the band and a 32-step store
+        assert longest_run(got[1].cpu().numpy() == traceback.GAP_BYTE) > 32
+
+
 def test_solve_small_cuda_matches_cpu(cuda, tmp_path):
     ref_path, csv_path = write_dataset(tmp_path, ref_len=2000, n_reads=96, seed=5)
     base = ["--ref", str(ref_path), "--input", str(csv_path), "--batch-size", "32"]
