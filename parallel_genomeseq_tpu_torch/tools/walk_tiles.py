@@ -139,7 +139,7 @@ def state_ms(launch, pre, reps: int):
     for k in range(reps + 1):
         for w, a in zip(work, pre):
             w.copy_(a)
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(1_000_000)
         start.record()
         launch(work)
         end.record()
