@@ -102,7 +102,26 @@
    --traceback``'s shapes, as phase 7 holds K15-K18; that run on phase 6's
    mutated reads, checking its launches (K22, K23, K24, K18; none of K11-K17,
    K19-K21, K14), and one sampled read against the Gotoh oracle.
-10. Prints the kernels' JSON line -- each kernel's time, its plain version's,
+10. The serving entry points, on phase 3's reads and phase 5's database.
+   ``solve_small --matrix blosum50`` (gap 2, then ``--gap-open 10
+   --gap-penalty 2``) at ``--npiece 17``, batch 512: K4 (K8) per lane, the
+   table route, held against its plain version on the window sweep's 8,704
+   lanes, K5 (K9) on the 512 winning windows and K3 (K10) on its output;
+   the run, with K4, K5 and K3 (K8, K9, K10) launched and none of K1, K2,
+   K6 or K7, and 32 sampled reads against the numpy oracle (Gotoh for
+   10/2) under BLOSUM50. Then the port's server on a thread of this
+   process (``cli/serve.py``: phase 3's reference, phase 5's database,
+   ``--npiece 17``, ``--output-dir`` a scratch directory), talked to over
+   its Unix socket: ping, 10 ``align`` requests of 512 reads (equal to
+   phase 3's CSV rows), 5 top-10 ``scan_db`` requests with traceback (equal
+   to phase 5's affine top 10), one ``scan_db`` with ``output`` (its name,
+   len, score and pos_end equal to phase 5's affine CSV), shutdown; K1,
+   K2, K3, K8, K9 and K10 launched during the requests and none of K4-K7.
+   Prints the server's load and warm-up seconds and each request kind's
+   median and range of ``wall_s``, reads/s, GCUPS and proteins/s. Then
+   ``solve_batch 5120 --traceback`` (K2 and K3 launched, its timing row
+   written).
+11. Prints the kernels' JSON line -- each kernel's time, its plain version's,
    and its bound: the larger of the integer operations its cells need over
    the card's integer issue peak and the bytes it must move over the memory
    rate; for K1, K2, K6 and K7, and K5 and K9 (a warp a lane) also the rows
@@ -122,7 +141,9 @@
    a cell (``SCAN_ISSUED_PER_CELL``), for the walks (K3, K10, K14, K18) the
    longest lane's steps, the ns a step on that chain, the band segment (K3,
    K10) or tile (K14, K18) they stage and the lanes a block, printed beside
-   each time as well -- then ``{"ok": true, "device": ...}`` last.
+   each time as well; phase 10's cases under their labels and each run's
+   launches as ``launches_<run>``, added to ``launches`` -- then ``{"ok":
+   true, "device": ...}`` last.
 
 Any failed phase raises and exits non-zero before the last line.
 """
@@ -808,9 +829,10 @@ def uniform_pair_scores(match: int, mismatch: int):
     return np.where(np.eye(256, dtype=bool), match, mismatch).astype(np.int64)
 
 
-def check_sampled(reads, ref, rows, results, seed: int, count: int = 32):
-    """DNA check: sampled reads of the timed run against the numpy oracle.
-    ``rows`` is the run's CSV, ``results`` its AlignResults."""
+def check_sampled(reads, ref, rows, results, seed: int, count: int = 32, gap=2, sub=None):
+    """DNA check: sampled reads of the timed run against the numpy oracle
+    (+3/-3, or the pair scores ``sub``, with linear gap ``gap``). ``rows`` is
+    the run's CSV, ``results`` its AlignResults."""
     import numpy as np
 
     from parallel_genomeseq_tpu_torch.parallel.chunking import make_string_ranges
@@ -818,11 +840,11 @@ def check_sampled(reads, ref, rows, results, seed: int, count: int = 32):
     picks = np.random.default_rng(seed).choice(len(reads), count, replace=False)
     for k in picks:
         read, res = reads[k], results[k]
-        full = int(oracle_matrix(read, ref).max())
+        full = int(oracle_matrix(read, ref, gap, sub).max())
         ranges = make_string_ranges(17, len(read), len(ref), 2.0)
-        win = int(np.argmax([oracle_matrix(read, ref[l:r]).max() for l, r in ranges]))
+        win = int(np.argmax([oracle_matrix(read, ref[l:r], gap, sub).max() for l, r in ranges]))
         left, right = ranges[win]
-        score, pos, cx, cy = oracle_align(read, ref[left:right])
+        score, pos, cx, cy = oracle_align(read, ref[left:right], gap, sub)
         pos = pos + left if pos > 0 else 0
         got = (int(rows[k]["score"]), int(rows[k]["pos_pred"]), int(res.score),
                res.pos, res.consensus_x, res.consensus_y)
@@ -833,29 +855,31 @@ def check_sampled(reads, ref, rows, results, seed: int, count: int = 32):
           "the full reference; pos and consensus on the winning window)")
 
 
-def check_sampled_affine(reads, ref, rows, results, seed: int, count: int = 32):
+def check_sampled_affine(reads, ref, rows, results, seed: int, count: int = 32, sub=None,
+                         gaps=None):
     """The affine DNA check: sampled reads (all of one length, so one batch
-    of numpy columns) against the Gotoh oracle under BWA-MEM's scoring --
-    the best over the full reference, the winning window (first on ties),
-    and on it (score, i, j), pos and both consensus strings."""
+    of numpy columns) against the Gotoh oracle under BWA-MEM's scoring (or
+    the pair scores ``sub`` with ``gaps``) -- the best over the full
+    reference, the winning window (first on ties), and on it (score, i, j),
+    pos and both consensus strings."""
     import numpy as np
 
     from parallel_genomeseq_tpu_torch.parallel.chunking import make_string_ranges
 
-    sub = uniform_pair_scores(BWA["match"], BWA["mismatch"])
+    if sub is None:
+        sub = uniform_pair_scores(BWA["match"], BWA["mismatch"])
+    gap_open, gap = (gaps or BWA)["gap_open"], (gaps or BWA)["gap"]
     picks = np.random.default_rng(seed).choice(len(reads), count, replace=False)
     if len({len(reads[k]) for k in picks}) != 1:
         raise AssertionError("the affine oracle batches reads of one length")
     X = np.stack([np.frombuffer(reads[k].encode(), np.uint8) for k in picks])
     y = np.frombuffer(ref.encode(), np.uint8)
-    full = gotoh(X, y, sub, BWA["gap_open"], BWA["gap"])[0]
+    full = gotoh(X, y, sub, gap_open, gap)[0]
     ranges = make_string_ranges(17, X.shape[1], len(ref), 2.0)
-    per_window = np.stack([gotoh(X, y[l:r], sub, BWA["gap_open"], BWA["gap"])[0]
-                           for l, r in ranges], axis=1)
+    per_window = np.stack([gotoh(X, y[l:r], sub, gap_open, gap)[0] for l, r in ranges], axis=1)
     for r, k in enumerate(picks):
         left, right = ranges[int(np.argmax(per_window[r]))]
-        score, pos, cx, cy = gotoh_align(reads[k], ref[left:right], sub, BWA["gap_open"],
-                                         BWA["gap"])
+        score, pos, cx, cy = gotoh_align(reads[k], ref[left:right], sub, gap_open, gap)
         pos = pos + left if pos > 0 else 0
         res = results[k]
         got = (int(rows[k]["score"]), int(rows[k]["pos_pred"]), int(res.score),
@@ -868,25 +892,28 @@ def check_sampled_affine(reads, ref, rows, results, seed: int, count: int = 32):
           f"({gapped} of them gapped)")
 
 
-def dna_run(label, cli, kw, reads, ref, out_csv, card, seed):
+def dna_run(label, cli, kw, reads, ref, out_csv, card, seed, counters=None, absent=(),
+            check=None):
     """Drive the port's solve_small once for ``label`` after a warm-up on
-    one batch, with the counts of its kernels set to 0 just before the run
-    and read just after; check its output and sampled reads. Returns the
-    launches."""
+    one batch, with the counts of its kernels (``counters``, by default the
+    sweep, re-run and walk of ``kw``) and of ``absent`` set to 0 just before
+    the run and read just after: each of ``counters`` must have launched,
+    none of ``absent``. Check its output and sampled reads (``check``, by
+    default the oracle of ``kw``'s scoring). Returns the launches."""
     from parallel_genomeseq_tpu_torch.cli import solve_small
 
     if solve_small.main(cli + ["--limit", cli[cli.index("--batch-size") + 1]]) != 0:  # warm-up
         raise AssertionError(f"solve_small {label} warm-up failed")
-    counters = dna_kernels(kw)[:3]
-    for fn in counters:
-        fn.launches = 0
+    counters = counters or dna_kernels(kw)[:3]
+    zero_counts((*counters, *absent))
     run = solve_small.run(cli)
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_counts(counters)
+    others = read_counts(absent)
     if run.rc != 0:
         raise AssertionError(f"solve_small {label} exited {run.rc}")
-    print(f"launches during solve_small {label}: {launches}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the {label} path never launched: {launches}")
+    print(f"launches during solve_small {label}: {launches}, of other kernels {others}")
+    if min(launches.values()) < 1 or any(others.values()):
+        raise AssertionError(f"solve_small {label}: launches {launches}, {others}")
     with open(out_csv, newline="") as f:
         rows = list(csv.DictReader(f))
     if len(run.results) != len(reads) or len(rows) != len(reads):
@@ -895,14 +922,15 @@ def dna_run(label, cli, kw, reads, ref, out_csv, card, seed):
     print(f"solve_small {label}: {len(reads) / run.seconds:.1f} reads/s, "
           f"{run.cells / run.seconds / 1e9:.3f} GCUPS (full-reference cells, "
           f"{run.seconds:.3f} s) on {card}")
-    check = check_sampled_affine if "gap_open" in kw else check_sampled
+    check = check or (check_sampled_affine if "gap_open" in kw else check_sampled)
     check(reads, ref, rows, run.results, seed)
     return launches
 
 
 def dna_phase(args, card: str, clock: float, dev):
     """Phases 3 and 4. Returns (measurements, launches during each
-    solve_small run), both keyed by 'linear' and 'affine'."""
+    solve_small run), both keyed by 'linear' and 'affine', and the data
+    (reference and reads paths, reference, reads)."""
     from parallel_genomeseq_tpu_torch.utils.synth import write_dataset
 
     data = ROOT / "data" / "chip_smoke"
@@ -922,7 +950,7 @@ def dna_phase(args, card: str, clock: float, dev):
         cli = ["--ref", str(ref_path), "--input", str(csv_path), "--output", str(out_csv),
                "--batch-size", str(args.batch_size), "--device", str(dev)] + flags
         launches[label] = dna_run(label, cli, kw, reads, ref, out_csv, card, args.seed)
-    return measured, launches
+    return measured, launches, (ref_path, csv_path, ref, reads)
 
 
 def protein_kernels(gaps):
@@ -1165,8 +1193,8 @@ def protein_run(label, cli, gaps, entries, query, out_csv, card, seed, counters=
 
 def protein_phase(args, card: str, clock: float, dev):
     """Phase 5. Returns (measurements, launches during each solve_uniprot
-    run), both keyed by 'linear' and 'affine', and the database's
-    entries."""
+    run), both keyed by 'linear' and 'affine', the database's entries, and
+    the query, the database's path and each run's CSV path."""
     import torch
 
     from parallel_genomeseq_tpu_torch.models.protein_db import ResidentProteinDB
@@ -1193,17 +1221,17 @@ def protein_phase(args, card: str, clock: float, dev):
     del db
     torch.cuda.empty_cache()
 
-    launches = {}
+    launches, csvs = {}, {}
     base = ["--query", str(query_path), "--database", str(db_path), "--matrix", "blosum50",
             "--batch-size", "4096", "--pad-mult", "128", "--top", "10", "--device", str(dev)]
     for label, gaps, flags in (
         ("linear", PROTEIN_LINEAR, ["--gap-penalty", "12"]),
         ("affine", PROTEIN_AFFINE, ["--gap-open", "10", "--gap-penalty", "2"]),
     ):
-        out_csv = data / f"uniprot_output_{label}.csv"
+        out_csv = csvs[label] = data / f"uniprot_output_{label}.csv"
         launches[label] = protein_run(label, base + flags + ["--output", str(out_csv)], gaps,
                                       entries, query, out_csv, card, args.protein_seed)
-    return measured, launches, entries
+    return measured, launches, entries, (query, db_path, csvs)
 
 
 def mutated_reads(reads, seed: int):
@@ -1686,6 +1714,22 @@ def big_run(label, flags, counters, reads_path, ref_path, absent=()):
     return run, launches
 
 
+def first_best_window(best_of, ranges, full_best: int) -> int:
+    """The window a chunked aligner picks, the first with the best score,
+    given ``best_of(l, r)``, the oracle's best score in ref[l:r], and
+    ``full_best``, the best over the whole reference, which bounds every
+    window's: the windows are scored in order until one reaches it (all of
+    them if none does), and the first maximum of those scored wins."""
+    import numpy as np
+
+    best = []
+    for l, r in ranges:
+        best.append(best_of(l, r))
+        if best[-1] >= full_best:
+            break
+    return int(np.argmax(best))
+
+
 def check_long_oracle(reads, ref, results, seed: int, count: int = 2, gap=2, sub=None):
     """Sampled reads of the traceback run against the numpy oracle (uniform
     3/-3, or the byte-pair scores ``sub``, and a linear ``gap``): the
@@ -1698,9 +1742,9 @@ def check_long_oracle(reads, ref, results, seed: int, count: int = 2, gap=2, sub
     for k in np.random.default_rng(seed).choice(len(reads), count, replace=False):
         read = reads[k]
         ranges = make_string_ranges(2 * BIG["npiece"], len(read), len(ref), BIG["overlap"])
-        best = [max(int(c.max()) for c in oracle_columns(read, ref[l:r], gap, sub, np.int32))
-                for l, r in ranges]
-        win = int(np.argmax(best))
+        best_of = lambda l, r: max(int(c.max()) for c in oracle_columns(read, ref[l:r], gap, sub,
+                                                                      np.int32))
+        win = first_best_window(best_of, ranges, best_of(0, len(ref)))
         left, right = ranges[win]
         score, pos, cx, cy = oracle_align(read, ref[left:right], gap, sub, np.int32)
         pos = pos + left if pos > 0 else 0
@@ -1731,9 +1775,8 @@ def check_long_oracle_affine(reads, ref, results, seed: int, count: int = 1, sub
         read = reads[k]
         x = np.frombuffer(read.encode(), np.uint8)[None]
         ranges = make_string_ranges(2 * BIG["npiece"], len(read), len(ref), BIG["overlap"])
-        best = [int(gotoh(x, y[l:r], sub, gaps["gap_open"], gaps["gap"])[0][0])
-                for l, r in ranges]
-        win = int(np.argmax(best))
+        best_of = lambda l, r: int(gotoh(x, y[l:r], sub, gaps["gap_open"], gaps["gap"])[0][0])
+        win = first_best_window(best_of, ranges, best_of(0, len(ref)))
         left, right = ranges[win]
         score, pos, cx, cy = gotoh_align(read, ref[left:right], sub, gaps["gap_open"],
                                          gaps["gap"])
@@ -2042,6 +2085,313 @@ def long_query_phase(args, card: str, clock: float, dev, data, long, gaps):
                                 f"solve_big_matrix{suffix}_traceback": big_launches}
 
 
+# Phase 10: the serving entry points. solve_small --matrix scores the DNA
+# letters from BLOSUM50 (A, C, G and T are amino-acid codes too), with the
+# default gap 2 or swps3's 10/2; the server serves phase 3's reads at 17
+# windows and phase 5's database under its default 10/2.
+MATRIX_DNA = {"linear": dict(gap=2), "affine": dict(gap_open=10, gap=2)}
+ALIGN_REQUESTS, SCAN_REQUESTS = 10, 5
+
+
+def check_matrix_kernels(reads, ref, batch: int, clock: float, dev, gaps):
+    """``solve_small --matrix blosum50``'s kernels under ``gaps`` at its
+    shapes, each against its plain version: K4 (K8) per lane, the table
+    route, on the window sweep's 17 x ``batch`` lanes; K5 (K9) on the
+    winning windows and K3 (K10) on its output. Returns {kernel: {case:
+    measurements}}."""
+    import numpy as np
+    import torch
+
+    from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
+    from parallel_genomeseq_tpu_torch.ops import scan_dp
+    from parallel_genomeseq_tpu_torch.ops.substitution import blosum_config
+    from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkConfig, ChunkedAligner
+    from parallel_genomeseq_tpu_torch.utils.device import to_host
+
+    scan_k, moves_k, walk_k, plain_walk = protein_kernels(gaps)
+    affine = "gap_open" in gaps
+    names = ("K8", "K9", "K10") if affine else ("K4", "K5", "K3")
+    cfg = blosum_config("blosum50", gap_penalty=gaps["gap"], gap_open=gaps.get("gap_open", 0))
+    chunked = ChunkedAligner(cfg, chunk=ChunkConfig(npiece=17, overlap_ratio=2.0), device=dev)
+    aligner = BatchSWAligner(cfg, device=dev)
+    table = chunked.engine.table
+    lut = torch.from_numpy(chunked.engine.encode_lut).to(dev)
+    kw = dict(table=table, **gaps)
+    ncodes = table.shape[0]
+
+    def on_card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+    batch_reads = reads[:batch]
+    xs, ys, m, n, all_ranges = chunked.window_lanes(batch_reads, ref)
+    xs, ys, m, n = on_card(xs, ys, m, n)
+    xc, yc = lut[xs.long()], lut[ys.long()]
+    call = lambda: scan_k(xc, yc, m, n, **kw)
+    got = call()
+    want, plain_ms = timed(lambda: scan_dp.sw_profile_plain(xc, yc, m, n, **kw))
+    cells, seq_bytes = lane_work(m, n)
+    rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}",
+           "max_abs_err": max_abs_err(got, want), "ms": cuda_ms(call, 10), "plain_ms": plain_ms}
+    rec["bound_ms"], rec["bound_by"] = bound(
+        cells * OPS_PER_CELL[scan_k.__name__],
+        seq_bytes + LANE_BYTES * xs.shape[0] + table.numel() * 4, clock)
+    rec["issued_bound_ms"] = bound(cells * SCAN_ISSUED_PER_CELL[scan_k.__name__], 0, clock)[0]
+    scan_steps(rec, xs.shape[1], n, clock, ncodes, affine, shared=False)
+    out = {scan_k.__name__: {"dna_windows": rec}, moves_k.__name__: {}, walk_k.__name__: {}}
+    report(f"{names[0]} {scan_k.__name__}", "dna_windows", rec)
+
+    (scores,) = to_host([got[0]])
+    winner = scores.reshape(len(batch_reads), -1).argmax(axis=1)
+    win_refs = [ref[slice(*all_ranges[r][w])] for r, w in enumerate(winner)]
+    xs, ys, m, n = on_card(*aligner.pad_batch(batch_reads, win_refs))
+    xc, yc = lut[xs.long()], lut[ys.long()]
+    call = lambda: moves_k(xc, yc, m, n, **kw)
+    got = call()
+    want, plain_ms = timed(lambda: scan_dp.sw_profile_moves_plain(xc, yc, m, n, **kw))
+    cells, seq_bytes = lane_work(m, n)
+    M, N, B = xs.shape[1], ys.shape[1], xs.shape[0]
+    rec = {"shape": f"{B} lanes, M={M}, N={N}",
+           "max_abs_err": max(max_abs_err(got[:3], want[:3]), moves_err(got[3], want[3], m, n)),
+           "ms": cuda_ms(call, 10), "plain_ms": plain_ms}
+    del want
+    nbytes = seq_bytes + LANE_BYTES * B + cells + table.numel() * 4  # + a move byte a cell
+    rec["bound_ms"], rec["bound_by"] = bound(cells * OPS_PER_CELL[moves_k.__name__], nbytes,
+                                             clock)
+    rec["issued_bound_ms"] = bound(cells * WAVE_ISSUED_PER_CELL[moves_k.__name__], nbytes,
+                                   clock)[0]
+    wave_steps(rec, moves_k, M, N, m, n, clock, "moves", ncodes=ncodes)
+    out[moves_k.__name__]["dna_winners"] = rec
+    report(f"{names[1]} {moves_k.__name__}", "dna_winners", rec)
+    rec = walk_case(walk_k, plain_walk, got[3], xs.T.contiguous(), ys, got[1], got[2],
+                    aligner.max_steps(M, N), clock)
+    out[walk_k.__name__]["dna_matrix_winners"] = rec
+    report(f"{names[2]} {walk_k.__name__}", "dna_matrix_winners", rec)
+    return out
+
+
+def start_server(argv, sock: str):
+    """``serve.main(argv)`` on a thread of this process (so that the launch
+    counts see its kernels); returns (thread, its first ping reply, the
+    seconds until it answered). Raises if the thread ends first."""
+    import threading
+
+    from parallel_genomeseq_tpu_torch.cli import serve
+
+    failed = []
+
+    def run():
+        try:
+            serve.main(argv)
+        except BaseException as e:
+            failed.append(e)
+            raise
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    while True:
+        if failed or not thread.is_alive():
+            raise RuntimeError(f"the server thread ended before it answered: {failed}")
+        try:
+            return thread, serve.request(sock, {"op": "ping"}, timeout=30.0), \
+                time.perf_counter() - t0
+        except (OSError, json.JSONDecodeError):
+            if time.perf_counter() - t0 > 600:
+                raise
+            time.sleep(0.25)
+
+
+def spread(values):
+    """'median (min-max)' of ``values``."""
+    import numpy as np
+
+    return f"{float(np.median(values)):.6f} ({min(values):.6f}-{max(values):.6f})"
+
+
+def serve_run(card, dev, dna_data, protein_data):
+    """The port's server on a thread of this process, loaded with phase 3's
+    reference and phase 5's database, ``--output-dir`` a scratch directory,
+    driven over its Unix socket with the counts of K1-K3 and K8-K10 (and of
+    K4-K7, which must not launch) set to 0 just before the requests and read
+    just after: ping; 10 align requests of 512 reads at 17 windows, equal to
+    phase 3's CSV rows; 5 top-10 scan_db requests with traceback, equal to
+    phase 5's affine top 10; one scan_db with output, its CSV's name, len,
+    score and pos_end equal to phase 5's affine CSV; shutdown. Returns the
+    launches."""
+    import os
+
+    import numpy as np
+
+    from parallel_genomeseq_tpu_torch.cli import serve
+    from parallel_genomeseq_tpu_torch.ops import profile_cuda, traceback, wavefront_cuda
+
+    ref_path, csv_path, _, reads = dna_data
+    query, db_path, csvs = protein_data
+    data = ROOT / "data" / "chip_smoke"
+    out_dir = data / "serve_out"
+    sock = os.path.relpath(data / "serve.sock")  # short: a socket path has 108 bytes
+    argv = ["--socket", sock, "--ref", str(ref_path), "--protein-db", str(db_path),
+            "--output-dir", str(out_dir), "--npiece", "17", "--batch-size", "512",
+            "--warm-read-len", "125", "--db-warm-len", str(len(query)), "--device", str(dev)]
+    thread, ping, ready_s = start_server(argv, sock)
+    if not (ping["ok"] and ping["backend"].startswith("cuda (") and ping["reads_served"] == 0):
+        raise AssertionError(f"unexpected ping reply {ping}")
+    print(f"serve: ready in {ready_s:.3f} s, load {ping['load_s']:.3f} s (reference and "
+          f"{ping['protein_db_entries']} entries read, slab packed and uploaded), warm-up "
+          f"{ping['warmup_s']:.3f} s; backend {ping['backend']}; {card}")
+
+    with open(csv_path.parent / "align_output_linear.csv", newline="") as f:
+        dna_rows = list(csv.DictReader(f))
+    with open(csvs["affine"], newline="") as f:
+        protein_rows = list(csv.DictReader(f))
+    counters = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves, traceback.walk_moves,
+                profile_cuda.sw_profile_affine, profile_cuda.sw_profile_affine_moves,
+                traceback.walk_moves_affine)
+    absent = (profile_cuda.sw_profile, profile_cuda.sw_profile_moves,
+              wavefront_cuda.sw_score_affine, wavefront_cuda.sw_score_affine_moves)
+    zero_counts((*counters, *absent))
+    align_walls = []
+    for k in range(ALIGN_REQUESTS):
+        lo, hi = k * 512, (k + 1) * 512
+        rep = serve.request(sock, {"op": "align", "reads": reads[lo:hi], "npiece": 17})
+        if not rep["ok"] or len(rep["results"]) != hi - lo:
+            raise AssertionError(f"align request {k}: {str(rep)[:300]}")
+        got = [(r["pos"], r["score"]) for r in rep["results"]]
+        want = [(int(row["pos_pred"]), float(row["score"])) for row in dna_rows[lo:hi]]
+        if got != want:
+            bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+            raise AssertionError(f"align request {k}, read {lo + bad}: served {got[bad]} != "
+                                 f"solve_small's {want[bad]}")
+        align_walls.append(rep["wall_s"])
+    ranked = sorted(range(len(protein_rows)), key=lambda k: -int(protein_rows[k]["score"]))[:10]
+    want_hits = [{"name": protein_rows[k]["name"], "len": int(protein_rows[k]["len"]),
+                  "score": int(protein_rows[k]["score"]),
+                  "pos_end": int(protein_rows[k]["pos_end"]),
+                  "pos_pred": int(protein_rows[k]["pos_pred"]),
+                  "consensus_x": protein_rows[k]["consensus_x"],
+                  "consensus_y": protein_rows[k]["consensus_y"]} for k in ranked]
+    scan_walls = []
+    for k in range(SCAN_REQUESTS):
+        rep = serve.request(sock, {"op": "scan_db", "query": query, "top": 10,
+                                   "traceback": True})
+        if not rep["ok"] or rep["hits"] != want_hits:
+            raise AssertionError(f"scan_db request {k}: {str(rep)[:600]} != phase 5's top 10 "
+                                 f"{want_hits}")
+        scan_walls.append(rep["wall_s"])
+    rep = serve.request(sock, {"op": "scan_db", "query": query, "top": 10,
+                               "output": "uniprot_served.csv"})
+    launches, others = read_counts(counters), read_counts(absent)
+    print(f"launches during the server's requests: {launches}, of other kernels {others}")
+    if min(launches.values()) < 1 or any(others.values()):
+        raise AssertionError(f"serve: launches {launches}, {others}")
+    served = out_dir / "uniprot_served.csv"
+    if not rep["ok"] or rep["output"] != str(served) or rep["n_rows"] != len(protein_rows):
+        raise AssertionError(f"scan_db with output: {str(rep)[:300]}")
+    with open(served, newline="") as f:
+        served_rows = list(csv.DictReader(f))
+    cols = ("name", "len", "score", "pos_end")
+    if [[r[c] for c in cols] for r in served_rows] != [[r[c] for c in cols]
+                                                       for r in protein_rows]:
+        raise AssertionError("the served CSV's name, len, score, pos_end differ from phase 5's")
+    if serve.request(sock, {"op": "shutdown"}) != {"ok": True}:
+        raise AssertionError("shutdown refused")
+    thread.join(60)
+    if thread.is_alive():
+        raise AssertionError("the server thread did not stop")
+
+    residues = sum(int(r["len"]) for r in protein_rows)
+    walls = np.array(align_walls)
+    print(f"serve align ({ALIGN_REQUESTS} x 512 reads, 17 windows, traceback): wall_s "
+          f"{spread(align_walls)}, {512 / float(np.median(walls)):.1f} reads/s (median; "
+          f"{512 / walls.max():.1f}-{512 / walls.min():.1f}); equal to solve_small's rows; {card}")
+    walls = np.array(scan_walls)
+    print(f"serve scan_db ({SCAN_REQUESTS} x top 10 with traceback, {len(protein_rows)} "
+          f"entries, 10/2): wall_s {spread(scan_walls)}, "
+          f"{len(query) * residues / float(np.median(walls)) / 1e9:.3f} GCUPS, "
+          f"{len(protein_rows) / float(np.median(walls)):.1f} proteins/s (median; GCUPS "
+          f"{len(query) * residues / walls.max() / 1e9:.3f}-"
+          f"{len(query) * residues / walls.min() / 1e9:.3f}); hits equal to phase 5's; {card}")
+    print(f"serve scan_db with output: wall_s {rep['wall_s']:.6f}, {rep['n_rows']} rows, "
+          f"name/len/score/pos_end equal to phase 5's CSV; {card}")
+    return launches
+
+
+def serving_phase(args, card: str, clock: float, dev, dna_data, protein_data):
+    """Phase 10: ``solve_small --matrix blosum50`` (linear, then 10/2) with
+    its kernels held at its shapes, the server, then ``solve_batch
+    --traceback``. Returns (measurements by kernel, launches by run)."""
+    import functools
+
+    from parallel_genomeseq_tpu_torch.cli import solve_batch
+    from parallel_genomeseq_tpu_torch.ops import traceback, wavefront_cuda
+    from parallel_genomeseq_tpu_torch.ops.substitution import ALPHABET, BLOSUM50
+
+    t_phase = time.perf_counter()
+    ref_path, csv_path, ref, reads = dna_data
+    data = ROOT / "data" / "chip_smoke"
+    sub = byte_pair_scores(ALPHABET, BLOSUM50)
+    uniform = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves,
+               wavefront_cuda.sw_score_affine, wavefront_cuda.sw_score_affine_moves)
+    measured, runs = {}, {}
+    for label, gaps in MATRIX_DNA.items():
+        print(f"-- solve_small --matrix blosum50, {label} gaps: {gaps}")
+        for name, cases in check_matrix_kernels(reads, ref, args.batch_size, clock, dev,
+                                                gaps).items():
+            measured.setdefault(name, {}).update(cases)
+        out_csv = data / f"align_output_matrix_{label}.csv"
+        flags = ["--matrix", "blosum50", "--gap-penalty", str(gaps["gap"])]
+        if "gap_open" in gaps:
+            flags += ["--gap-open", str(gaps["gap_open"])]
+            check = functools.partial(check_sampled_affine, sub=sub, gaps=gaps)
+        else:
+            check = functools.partial(check_sampled, gap=gaps["gap"], sub=sub)
+        cli = ["--ref", str(ref_path), "--input", str(csv_path), "--output", str(out_csv),
+               "--batch-size", str(args.batch_size), "--device", str(dev)] + flags
+        runs[f"solve_small_matrix_{label}"] = dna_run(
+            f"--matrix blosum50 {label}", cli, gaps, reads, ref, out_csv, card, args.seed,
+            counters=protein_kernels(gaps)[:3], absent=uniform, check=check)
+
+    print("-- the server")
+    runs["serve"] = serve_run(card, dev, dna_data, protein_data)
+
+    print("-- solve_batch --traceback")
+    timing = data / "timing_batch.csv"
+    timing.unlink(missing_ok=True)
+    counters = (wavefront_cuda.sw_score_moves, traceback.walk_moves)
+    zero_counts(counters)
+    if solve_batch.main([str(len(reads)), "--traceback", "--batch-size", str(args.batch_size),
+                         "--ref", str(ref_path), "--reads", str(csv_path), "--timing-file",
+                         str(timing), "--device", str(dev)]) != 0:
+        raise AssertionError("solve_batch failed")
+    runs["solve_batch"] = read_counts(counters)
+    with open(timing, newline="") as f:
+        rows = list(csv.reader(f))
+    if (len(rows) != 2 or rows[1][:3] != [str(len(reads)), str(args.batch_size), "auto"]
+            or not all(float(v) > 0 for v in rows[1][3:])
+            or min(runs["solve_batch"].values()) < 1):
+        raise AssertionError(f"solve_batch: timing rows {rows}, launches {runs['solve_batch']}")
+    print(f"solve_batch {len(reads)} --traceback: launches {runs['solve_batch']}; timing row "
+          f"{dict(zip(rows[0], rows[1]))} (us a read); {card}")
+    print(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return measured, runs
+
+
+def add_serving(kernels, measured, runs):
+    """Merge phase 10 into the kernels' entries: its cases under their
+    labels, and each run's launches (``launches_<run>``, added to the
+    entry's ``launches``)."""
+    for entry in kernels:
+        name = entry["name"]
+        for label, c in measured.get(name, {}).items():
+            entry["max_abs_err"] = max(entry["max_abs_err"], c["max_abs_err"])
+            entry.update({f"{label}_{k}": v for k, v in c.items() if k != "max_abs_err"})
+        for run, counts in runs.items():
+            if name in counts:
+                entry[f"launches_{run}"] = counts[name]
+                entry["launches"] += counts[name]
+    return kernels
+
+
 # K1-K24: (wrapper, source, the TPU code it replaces, gap model or phase,
 # the main path's case that the JSON line quotes first).
 KERNELS = [
@@ -2176,8 +2526,8 @@ def main(argv=None) -> int:
             print(f"  nvcc: {line.strip()}")
 
     dev = torch.device("cuda", 0)
-    dna, dna_launches = dna_phase(args, card, clock, dev)
-    protein, protein_launches, entries = protein_phase(args, card, clock, dev)
+    dna, dna_launches, dna_data = dna_phase(args, card, clock, dev)
+    protein, protein_launches, entries, protein_data = protein_phase(args, card, clock, dev)
     data = long_data(args)
     long = {"long": long_phase(args, card, clock, dev, data, LINEAR),
             "long_affine": long_phase(args, card, clock, dev, data, BWA)}
@@ -2192,9 +2542,11 @@ def main(argv=None) -> int:
     long["long_query_affine"] = long_query_phase(args, card, clock, dev, query_data, data,
                                                  PROTEIN_AFFINE)
     del query_data
+    serving, serving_runs = serving_phase(args, card, clock, dev, dna_data, protein_data)
 
-    print(json.dumps({"kernels": kernel_entries(dna, dna_launches, protein, protein_launches,
-                                                long)}))
+    print(json.dumps({"kernels": add_serving(
+        kernel_entries(dna, dna_launches, protein, protein_launches, long), serving,
+        serving_runs)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

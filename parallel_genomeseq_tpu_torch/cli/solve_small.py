@@ -8,12 +8,15 @@ same output file, byte for byte, with ``--device`` in place of
 PyTorch route). ``--gap-open`` > 0 runs affine (Gotoh) gaps: a gap of
 length L costs gap_open + L * gap_penalty (BWA-MEM's scoring is ``--match 1
 --mismatch -4 --gap-open 6 --gap-penalty 1``), through the affine kernels
-K6, K7 and K10. ``--seed-extend``, ``--parity-mode skewed`` and ``--matrix``
-are not ported yet.
+K6, K7 and K10. ``--matrix blosum50|blosum62`` scores from a substitution
+table: the window sweep runs K4 per lane (the table route), the winners K5
+and the K3 walk, or with ``--gap-open`` K8, K9 and K10. ``--seed-extend``
+and ``--parity-mode skewed`` are not ported yet.
 
 Usage:
     python -m parallel_genomeseq_tpu_torch.cli.solve_small [--npiece 17] [--eval]
         [--match 1 --mismatch -4 --gap-open 6 --gap-penalty 1]
+        [--matrix blosum50 [--gap-open 10 --gap-penalty 2]]
 """
 
 from __future__ import annotations
@@ -75,8 +78,6 @@ def run(argv=None) -> Run:
         p.error("--seed-extend is not ported yet (ROADMAP A12)")
     if args.parity_mode == "skewed":
         p.error("--parity-mode skewed is not ported yet (ROADMAP A2)")
-    if args.matrix != "uniform":
-        p.error("--matrix is not ported for solve_small yet (ROADMAP A6)")
 
     ref = read_fasta(args.ref)
     rows = read_ground_truth(args.input)

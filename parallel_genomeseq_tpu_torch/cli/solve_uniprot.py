@@ -126,7 +126,7 @@ def _parser():
     return p
 
 
-def _tb_chunks(tb_idx, entries, B: int, Nq: int):
+def tb_chunks(tb_idx, entries, B: int, Nq: int):
     """Traceback batches, as solve_uniprot.py:419-451: lanes per batch capped
     by min(B, 1024) and by the moves budget for the batch's longest entry,
     the budget-bound tail rounded to a coarse granule."""
@@ -318,7 +318,7 @@ def _traceback(args, cfg, entries, results, ranked, query) -> Dict[int, tuple]:
     else:
         return {}
     bat = BatchSWAligner(cfg, pad_m=128, device=args.device, engine=args.engine)
-    chunks = _tb_chunks(tb_idx, entries, args.batch_size, round_up(len(to_bytes(query)), 128))
+    chunks = tb_chunks(tb_idx, entries, args.batch_size, round_up(len(to_bytes(query)), 128))
     batches = ([entries[k][1] for k in chunk] for chunk in chunks)
     tb_rows = {}
     for ci, (chunk, res_tb) in enumerate(zip(chunks, bat.align_stream(batches, [query]))):

@@ -68,11 +68,18 @@ class BatchSWAligner:
         tie: str = "colmajor",
         device=None,
         engine: str = "auto",
+        detail_timing: bool = False,
     ):
+        """``detail_timing=True`` (solve_batch's timing CSV) makes
+        ``submit_batch`` synchronous, as swaligner.py:219-255 does: it
+        fetches (score, i, j) with one synchronisation (``sweep_us``), then
+        runs the walk, fetches its outputs and decodes them (``walk_us``).
+        False keeps one fetch a batch for the pipelined path."""
         check_supported(cfg, tie)
         self.cfg = cfg
         self.pad_m = pad_m
         self.pad_n = pad_n
+        self.detail_timing = detail_timing
         self.engine = make_score_engine(cfg, engine, device)
         self.device = self.engine.device
 
@@ -124,33 +131,52 @@ class BatchSWAligner:
 
     def submit_batch(self, reads, refs, traceback: bool = True) -> "_PendingBatch":
         """Dispatch one batch without waiting for its results; pair with
-        ``collect``."""
+        ``collect``. Under ``detail_timing`` the batch comes back already
+        collected."""
         xs, ys, m, n = self.pad_batch(reads, refs)
         t0 = time.perf_counter()
         dev = self.device
         xs_d = torch.from_numpy(xs).to(dev)
         ys_d = torch.from_numpy(ys).to(dev)
         levels_us = ()
+        walk = None  # launches the walk (or reads the strip walk's outputs)
         max_steps = self.max_steps(xs.shape[1], ys.shape[1])
         if traceback and xs.shape[1] > MAX_M:
             res = self.engine.score_batch_strip_moves(xs_d, ys_d, m, n, max_steps)
-            arrays = tuple(res[k] for k in ("score", "i", "j", "pos", "cx", "cy", "steps"))
             levels_us = res["level_us"]
+            walk = lambda: tuple(res[k] for k in ("pos", "cx", "cy", "steps"))
         elif traceback:
             res = self.engine.score_batch_moves(xs_d, ys_d, m, n)
-            pos, cx, cy, steps = self.engine.walk(
+            walk = lambda: self.engine.walk(
                 res["moves"], xs_d.T.contiguous(), ys_d, res["i"], res["j"],
                 max_steps=max_steps,
             )
-            arrays = (res["score"], res["i"], res["j"], pos, cx, cy, steps)
         else:
             res = self.engine.score_batch(xs_d, ys_d, m, n)
-            arrays = (res["score"], res["i"], res["j"])
-        return _PendingBatch(len(reads), traceback, t0, arrays, levels_us)
+        sweep = (res["score"], res["i"], res["j"])
+        if not self.detail_timing:
+            arrays = sweep + (tuple(walk()) if walk else ())
+            return _PendingBatch(len(reads), traceback, t0, arrays, levels_us)
+        score, ii, jj = to_host(sweep)
+        sweep_us = (time.perf_counter() - t0) * 1e6
+        pos = consensus = None
+        walk_us = 0.0
+        if walk:
+            t1 = time.perf_counter()
+            pos, cx, cy, steps = to_host(walk())
+            consensus = decode_consensus(cx, cy, steps)
+            walk_us = (time.perf_counter() - t1) * 1e6
+        results = _assemble(
+            len(reads), traceback, score, ii, jj, pos, consensus,
+            Timings(sweep_us=sweep_us, walk_us=walk_us, levels_us=levels_us),
+        )
+        return _PendingBatch(len(reads), traceback, t0, results=results)
 
     def collect(self, pending: "_PendingBatch") -> List[AlignResult]:
         """Wait for a pending batch: one host copy of every output, one
         synchronisation, then host string assembly."""
+        if pending.results is not None:
+            return pending.results
         fetched = to_host(pending.arrays)
         sweep_us = (time.perf_counter() - pending.t0) * 1e6
         if pending.traceback:
@@ -169,18 +195,19 @@ class BatchSWAligner:
 
 
 class _PendingBatch:
-    """An in-flight batch: dispatched device tensors awaiting one fetch
-    (copied from swaligner.py:299-310, without the synchronous variant), and
-    the strip traceback's per-strip times."""
+    """An in-flight batch: dispatched device tensors awaiting one fetch and
+    the strip traceback's per-strip times, or (``detail_timing``) results
+    already collected (copied from swaligner.py:299-310)."""
 
-    __slots__ = ("nreads", "traceback", "t0", "arrays", "levels_us")
+    __slots__ = ("nreads", "traceback", "t0", "arrays", "levels_us", "results")
 
-    def __init__(self, nreads, traceback, t0, arrays, levels_us=()):
+    def __init__(self, nreads, traceback, t0, arrays=None, levels_us=(), results=None):
         self.nreads = nreads
         self.traceback = traceback
         self.t0 = t0
         self.arrays = arrays
         self.levels_us = levels_us
+        self.results = results
 
 
 def _assemble(nreads, traceback, score, ii, jj, pos, consensus, t: Timings):

@@ -1,6 +1,7 @@
 """Alignment output CSV in the reference's schema (copied from the JAX
 package's ``parallel_genomeseq_tpu/seqio/writers.py``; behaviour unchanged):
-each ground-truth row gains ``pos_pred`` and ``score`` columns.
+each ground-truth row gains ``pos_pred`` and ``score`` columns; and
+``solve_batch``'s timing rows.
 """
 
 from __future__ import annotations
@@ -33,3 +34,16 @@ def write_align_output(
             w.writerow(
                 [row[k] for k in fieldnames] + [res.pos, _fmt_score(res.score)]
             )
+
+
+def append_timing_row(path, header: Sequence[str], row: Sequence):
+    """Append one CSV row, writing the header if the file is new or empty
+    (copied from writers.py:42-52, the reference's CSVWriter pattern)."""
+    import os
+
+    new = not os.path.exists(path) or os.path.getsize(path) == 0
+    with open(path, "a", newline="") as f:
+        w = csv.writer(f)
+        if new:
+            w.writerow(header)
+        w.writerow(row)

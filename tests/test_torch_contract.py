@@ -67,6 +67,8 @@ def test_port_never_imports_jax():
         "assert 'parallel_genomeseq_tpu_torch.cli.solve_uniprot' in mods\n"
         "assert 'parallel_genomeseq_tpu_torch.cli.solve_big' in mods\n"
         "assert 'parallel_genomeseq_tpu_torch.ops.strips_cuda' in mods\n"
+        "assert 'parallel_genomeseq_tpu_torch.cli.serve' in mods\n"
+        "assert 'parallel_genomeseq_tpu_torch.cli.solve_batch' in mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'parallel_genomeseq_tpu'\n"
         "             or m.startswith('parallel_genomeseq_tpu.'))\n"
@@ -212,7 +214,7 @@ def test_solve_big_rejects_unported_modes(flags, item, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--seed-extend"], ["--parity-mode", "skewed"], ["--matrix", "blosum62"],
+    ["--seed-extend"], ["--parity-mode", "skewed"],
 ])
 def test_solve_small_rejects_unported_modes(flags, tmp_path):
     with pytest.raises(SystemExit) as exc:

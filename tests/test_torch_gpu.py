@@ -423,6 +423,65 @@ def test_solve_small_affine_cuda_matches_cpu(cuda, tmp_path):
     assert wavefront_cuda.sw_score_affine.launches > 0
 
 
+@pytest.mark.parametrize("gaps", [[], AFFINE_FLAGS], ids=["linear", "affine"])
+def test_solve_small_matrix_cuda_matches_cpu(cuda, tmp_path, gaps):
+    """``solve_small --matrix blosum50``: the card's CSV (K4 per lane, K5,
+    K3; under 10/2 K8, K9, K10) equals the CPU's byte for byte, windowed
+    and whole, and none of the uniform kernels launched."""
+    ref_path, csv_path = write_dataset(tmp_path, ref_len=2000, n_reads=96, seed=11)
+    base = ["--ref", str(ref_path), "--input", str(csv_path), "--batch-size", "32",
+            "--matrix", "blosum50"] + gaps
+    counters = ((profile_cuda.sw_profile_affine, profile_cuda.sw_profile_affine_moves,
+                 traceback.walk_moves_affine) if gaps else
+                (profile_cuda.sw_profile, profile_cuda.sw_profile_moves, traceback.walk_moves))
+    uniform = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves,
+               wavefront_cuda.sw_score_affine, wavefront_cuda.sw_score_affine_moves)
+    for extra in (["--npiece", "17"], ["--npiece", "1"]):
+        before = [fn.launches for fn in counters + uniform]
+        assert solve_small.main(base + extra + ["--output", str(tmp_path / "gpu.csv")]) == 0
+        after = [fn.launches for fn in counters + uniform]
+        assert all(a > b for a, b in zip(after[1:3], before[1:3])) and after[3:] == before[3:]
+        assert (after[0] > before[0]) == (extra[1] == "17")
+        assert solve_small.main(
+            base + extra + ["--device", "cpu", "--output", str(tmp_path / "cpu.csv")]) == 0
+        assert (tmp_path / "gpu.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
+
+
+def test_serve_cuda_matches_cpu(cuda, tmp_path):
+    """The server on the card and on the CPU, each on a thread of this
+    process, give the same align results (windowed, whole, without
+    traceback) and scan_db hits with traceback; the card's ping names it."""
+    import threading
+
+    from parallel_genomeseq_tpu_torch.cli import serve
+
+    ref_path, csv_path = write_dataset(tmp_path, ref_len=2000, n_reads=64, seed=12)
+    reads = [line.split(",")[2] for line in csv_path.read_text().splitlines()[1:]]
+    query, db, query_seq = write_protein_dataset(tmp_path / "p", n_entries=200, query_len=145,
+                                                 seed=13)
+    replies = {}
+    for device in ("cuda", "cpu"):
+        sock = str(tmp_path / f"{device}.sock")
+        thread = threading.Thread(target=serve.main, daemon=True, args=([
+            "--socket", sock, "--ref", str(ref_path), "--protein-db", str(db), "--npiece", "17",
+            "--batch-size", "32", "--warm-read-len", "125", "--device", device],))
+        thread.start()
+        ping = serve.wait_ready(sock, timeout=300)
+        assert ping["backend"].startswith("cuda (") == (device == "cuda")
+        replies[device] = [serve.request(sock, req) for req in (
+            {"op": "align", "reads": reads},
+            {"op": "align", "reads": reads, "npiece": 1},
+            {"op": "align", "reads": reads, "traceback": False},
+            {"op": "scan_db", "query": query_seq, "top": 10, "traceback": True},
+        )]
+        assert serve.request(sock, {"op": "shutdown"}) == {"ok": True}
+        thread.join(60)
+        assert not thread.is_alive()
+    for got, want in zip(*replies.values()):
+        assert got["ok"] and want["ok"]
+        assert got.get("results") == want.get("results") and got.get("hits") == want.get("hits")
+
+
 def protein_lanes(seed, dev, B=77, M=150, N=420):
     """Random protein lanes of ragged true lengths with a shared motif, in
     compact codes, with some codes at or past the table's size (they score

@@ -1,8 +1,8 @@
 """The short-read slice end to end: the port (plain route, CPU) against the
 JAX package on the same generated reads -- ChunkedAligner and
 BatchSWAligner results field by field, and solve_small's align_output.csv
-byte for byte, with linear gaps and with BWA-MEM's affine scoring (match 1,
-mismatch -4, gap open 6, extend 1)."""
+byte for byte, with linear gaps, with BWA-MEM's affine scoring (match 1,
+mismatch -4, gap open 6, extend 1) and under BLOSUM50 (``--matrix``)."""
 
 import csv
 
@@ -23,6 +23,10 @@ from parallel_genomeseq_tpu_torch.utils.synth import write_dataset
 FIELDS = ("score", "pos", "consensus_x", "consensus_y", "max_i", "max_j")
 BWA = dict(match=1.0, mismatch=-4.0, gap_open=6.0, gap_penalty=1.0)
 BWA_FLAGS = ["--match", "1", "--mismatch", "-4", "--gap-open", "6", "--gap-penalty", "1"]
+# solve_small --matrix: BLOSUM50 scores the DNA letters (A, C, G and T are
+# amino-acid codes too), with the default gap 2 or swps3's affine 10/2.
+BLOSUM_FLAGS = ["--matrix", "blosum50"]
+SWPS3_GAPS = ["--gap-open", "10", "--gap-penalty", "2"]
 
 
 @pytest.fixture(scope="module")
@@ -96,8 +100,13 @@ def test_batch_aligner_matches_jax(dataset):
     BWA_FLAGS + ["--npiece", "17"],
     BWA_FLAGS + ["--npiece", "1", "--eval"],
     BWA_FLAGS + ["--npiece", "17", "--both-strands", "--limit", "20"],
+    BLOSUM_FLAGS + ["--npiece", "17", "--limit", "16"],
+    BLOSUM_FLAGS + ["--npiece", "1", "--eval", "--limit", "16"],
+    BLOSUM_FLAGS + SWPS3_GAPS + ["--npiece", "17", "--limit", "16"],
+    BLOSUM_FLAGS + SWPS3_GAPS + ["--npiece", "1", "--eval", "--limit", "16"],
 ], ids=["npiece17", "npiece1-eval", "both-strands-limit", "bwa-npiece17", "bwa-npiece1-eval",
-        "bwa-both-strands"])
+        "bwa-both-strands", "blosum-npiece17", "blosum-npiece1-eval", "blosum-affine-npiece17",
+        "blosum-affine-npiece1-eval"])
 def test_solve_small_csv_byte_identical(dataset, tmp_path, capsys, extra):
     ref_path, csv_path, _, _ = dataset
     base = ["--ref", str(ref_path), "--input", str(csv_path), "--batch-size", "16"] + extra
@@ -107,3 +116,4 @@ def test_solve_small_csv_byte_identical(dataset, tmp_path, capsys, extra):
     assert rc_port == rc_jax
     assert port_out.read_bytes() == jax_out.read_bytes()
     assert "Aligned" in capsys.readouterr().out
+
