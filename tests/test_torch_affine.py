@@ -35,6 +35,10 @@ from parallel_genomeseq_tpu_torch.ops import (
 from parallel_genomeseq_tpu_torch.ops.substitution import blosum_config
 from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default pool of a thread a core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 BWA = dict(match=1, mismatch=-4, gap_open=6, gap=1)
 BLOSUM = dict(gap_open=10, gap=2)
 JAX_CFG = {

@@ -5,6 +5,7 @@ pipelined path (plain route, CPU)."""
 import csv
 
 import pytest
+import torch
 
 from parallel_genomeseq_tpu.cli import solve_batch as jax_batch_cli
 from parallel_genomeseq_tpu.seqio.readers import read_fasta
@@ -13,6 +14,10 @@ from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
 from parallel_genomeseq_tpu_torch.ops.substitution import blosum_config
 from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
 from parallel_genomeseq_tpu_torch.utils.synth import write_dataset
+
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default pool of a thread a core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
 
 FIELDS = ("score", "pos", "consensus_x", "consensus_y", "max_i", "max_j")
 

@@ -4,6 +4,7 @@ naming their ROADMAP item while the ported ones (affine gaps among them)
 run, CPU tensors take the plain route without counting a kernel launch, and
 a missing CUDA toolkit or card raises instead of falling back."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -27,6 +28,10 @@ from parallel_genomeseq_tpu_torch.ops.substitution import ALPHABET, blosum_confi
 from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkedAligner
 from parallel_genomeseq_tpu_torch.utils import device as device_mod
 from parallel_genomeseq_tpu_torch.utils.config import ChunkConfig, ScoringConfig, Semantics
+
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default pool of a thread a core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 COUNTERS = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves, traceback.walk_moves,
@@ -76,7 +81,7 @@ def test_port_never_imports_jax():
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
-        check=True, timeout=120,
+        check=True, timeout=120, env={**os.environ, "OMP_NUM_THREADS": "1"},
     ).stdout.split()
     assert int(out[0]) >= 20 and out[1] == "-", out
 

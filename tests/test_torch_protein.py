@@ -26,6 +26,10 @@ from parallel_genomeseq_tpu_torch.models import protein_db as port_db
 from parallel_genomeseq_tpu_torch.ops import profile_cuda, scan_dp, substitution
 from parallel_genomeseq_tpu_torch.seqio.datagen import gen_protein_db
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default pool of a thread a core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 GAP = 12
 ODD = "xJOUb*-"  # bytes outside the 24-letter alphabet, and '*', which is in it
 

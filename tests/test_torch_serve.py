@@ -18,6 +18,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from parallel_genomeseq_tpu.cli import solve_uniprot as jax_uniprot
 from parallel_genomeseq_tpu.cli.serve import AlignServer as JaxServer
@@ -27,6 +28,10 @@ from parallel_genomeseq_tpu.utils.config import ChunkConfig as JaxChunkConfig
 from parallel_genomeseq_tpu.utils.config import ScoringConfig as JaxScoringConfig
 from parallel_genomeseq_tpu_torch.cli import serve
 from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
+
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default pool of a thread a core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AMINO = list("ARNDCQEGHILKMFPSTWYV")
@@ -321,6 +326,7 @@ def test_serve_entry_point_subprocess(data, tmp_path, capsys):
          "--batch-size", "8", "--protein-db", str(d / "db.fasta"), "--db-warm-len", "16",
          "--db-batch-size", "4", "--db-pad-mult", "64", "--output-dir", str(tmp_path / "o")],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env={**os.environ, "OMP_NUM_THREADS": "1"},
     )
     try:
         serve.wait_ready(sock, timeout=120.0)

@@ -7,6 +7,7 @@ mismatch -4, gap open 6, extend 1) and under BLOSUM50 (``--matrix``)."""
 import csv
 
 import pytest
+import torch
 
 from parallel_genomeseq_tpu.cli import solve_small as jax_cli
 from parallel_genomeseq_tpu.models.swaligner import BatchSWAligner as JaxBatch
@@ -19,6 +20,10 @@ from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
 from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkedAligner
 from parallel_genomeseq_tpu_torch.utils.config import ChunkConfig, ScoringConfig
 from parallel_genomeseq_tpu_torch.utils.synth import write_dataset
+
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default pool of a thread a core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
 
 FIELDS = ("score", "pos", "consensus_x", "consensus_y", "max_i", "max_j")
 BWA = dict(match=1.0, mismatch=-4.0, gap_open=6.0, gap_penalty=1.0)

@@ -16,6 +16,10 @@ from parallel_genomeseq_tpu_torch.ops import engine, scan_dp, strips_cuda
 from parallel_genomeseq_tpu_torch.ops.substitution import blosum_config
 from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default pool of a thread a core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 S = scan_dp.STRIP_S
 DNA = np.frombuffer(b"ACGT", np.uint8)
 FORMS = {

@@ -17,6 +17,10 @@ import torch
 from parallel_genomeseq_tpu.ops import traceback as jax_traceback
 from parallel_genomeseq_tpu_torch.ops import scan_dp, traceback
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default pool of a thread a core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 DNA = np.frombuffer(b"ACGT", np.uint8)
 S = scan_dp.STRIP_S
 B, N, NSTRIPS = 4, 64, 3

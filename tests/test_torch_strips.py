@@ -27,6 +27,10 @@ from parallel_genomeseq_tpu_torch.ops import engine, scan_dp, strips_cuda, trace
 from parallel_genomeseq_tpu_torch.seqio.datagen import gen_reads_custom, gen_ref_custom
 from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default pool of a thread a core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 DNA = np.frombuffer(b"ACGT", np.uint8)
 KW = dict(match=3, mismatch=-3, gap=2)
 PADW = wp.STRIP_PADW  # B13's rows hold column j at p = j + PADW

@@ -39,6 +39,10 @@ from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
 from parallel_genomeseq_tpu_torch.ops import engine, scan_dp, strips_cuda, traceback
 from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default pool of a thread a core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 DNA = np.frombuffer(b"ACGT", np.uint8)
 PADW = wp.STRIP_PADW  # B14's rows hold column j at p = j + PADW
 S = scan_dp.STRIP_S

@@ -32,6 +32,10 @@ from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
 from parallel_genomeseq_tpu_torch.ops import engine, scan_dp, strips_cuda
 from parallel_genomeseq_tpu_torch.ops.substitution import blosum_config
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default pool of a thread a core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 PADW = wp.STRIP_PADW  # B15's rows hold column j at p = j + PADW
 S = scan_dp.STRIP_S
 GAP = 12  # the uniprot_e2e linear gap

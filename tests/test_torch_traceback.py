@@ -12,6 +12,10 @@ from parallel_genomeseq_tpu.ops.scan_dp import ScanEngine
 from parallel_genomeseq_tpu.utils.encoding import X_PAD, Y_PAD, batch_pad, to_bytes
 from parallel_genomeseq_tpu_torch.ops import traceback as port_tb
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default pool of a thread a core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 
 def moves_batch(seed: int):
     """Move codes from the JAX scan engine over mutated reads (gaps

@@ -7,10 +7,15 @@ and 8 mutated copies of the query. The affine runs take swps3's BLOSUM50
 10/2 gaps (``--gap-open 10 --gap-penalty 2``)."""
 
 import pytest
+import torch
 
 from parallel_genomeseq_tpu.cli import solve_uniprot as jax_cli
 from parallel_genomeseq_tpu_torch.cli import solve_uniprot as port_cli
 from parallel_genomeseq_tpu_torch.utils.synth import write_protein_dataset
+
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default pool of a thread a core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

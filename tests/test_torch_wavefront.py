@@ -11,6 +11,10 @@ from parallel_genomeseq_tpu.ops.wavefront_pallas import PallasEngine
 from parallel_genomeseq_tpu.utils.encoding import X_PAD, Y_PAD, batch_pad, to_bytes
 from parallel_genomeseq_tpu_torch.ops import wavefront_cuda
 
+# One intra-op thread: the suite runs in several worker processes at once, and
+# torch's default pool of a thread a core in each of them oversubscribes the CPU.
+torch.set_num_threads(1)
+
 KW = dict(match=3, mismatch=-3, gap=2)
 
 
