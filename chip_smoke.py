@@ -265,6 +265,8 @@ OPS_PER_STEP = {"walk_moves": 10, "walk_moves_affine": 18, "walk_strip_level": 1
                 "walk_strip_level_affine": 18}
 # The card's name and power limit as nvidia-smi prints them (set by main).
 CARD = ""
+# solve_small's reads/s by run label (set by dna_run).
+READS_PER_S = {}
 LANE_BYTES = 8 + 12  # per lane: two int32 lengths in, (score, i, j) out
 # The DNA path's scoring: solve_small's defaults, and BWA-MEM's affine
 # scoring (a gap of length L costs gap_open + L * gap).
@@ -919,6 +921,7 @@ def dna_run(label, cli, kw, reads, ref, out_csv, card, seed, counters=None, abse
     if len(run.results) != len(reads) or len(rows) != len(reads):
         raise AssertionError(f"expected {len(reads)} results and rows, got "
                              f"{len(run.results)} and {len(rows)}")
+    READS_PER_S[label] = len(reads) / run.seconds
     print(f"solve_small {label}: {len(reads) / run.seconds:.1f} reads/s, "
           f"{run.cells / run.seconds / 1e9:.3f} GCUPS (full-reference cells, "
           f"{run.seconds:.3f} s) on {card}")
@@ -1445,6 +1448,9 @@ def walk_pair(group_walk):
 # The group sizes the replay is timed at beside the rule's (``PERF.md``'s
 # G-versus-time curve).
 REPLAY_CURVE = (4, 8, 16)
+# The columns of a strip the plain replay replays to hold the replay kernels
+# on (their first ones; ~1/8 of solve_big's 20,736).
+PLAIN_REPLAY_COLS = 2560
 
 
 def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y_walk,
@@ -1528,21 +1534,27 @@ def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y
         for t, label in sorted(checked.items(), reverse=True):
             label = prefix + label
             rows = [c[:, t - 1] if t else None for c in ck]
-            mh, nh = m[held], n[held]
+            # The plain replay is a loop over columns: it replays the first
+            # PLAIN_REPLAY_COLS columns of the held lanes (a column's codes
+            # depend only on the columns to its left, so they are the full
+            # replay's), and the kernels are held on those columns.
+            C = min(N, PLAIN_REPLAY_COLS)
+            mh, nh = m[held], n[held].clamp(max=C)
             want, plain_ms = timed(lambda: plain_replay(
-                xs[held], ys[held], mh, nh, *[row if row is None else row[held] for row in rows],
+                xs[held], ys[held, :C].contiguous(), mh, nh,
+                *[row if row is None else row[held, :C].contiguous() for row in rows],
                 t * S, **kw))
             valid = (((t * S + r)[None, None, :] < mh[:, None, None])
-                     & (torch.arange(N, device=dev)[None, :, None] < nh[:, None, None]))
+                     & (torch.arange(C, device=dev)[None, :, None] < nh[:, None, None]))
             # The group's strip on the cells the walk can read.
             i0, j0, active0 = (a[held] for a in at_launch)
             readable = valid & ((active0 & (i0 - 1 >= t * S))[:, None, None]
-                                & (torch.arange(N, device=dev)[None, :, None]
+                                & (torch.arange(C, device=dev)[None, :, None]
                                    < torch.minimum(nh, j0)[:, None, None]))
-            err = int((moves[t - low][held][readable].int() - want[readable].int()).abs().max()) \
-                if bool(readable.any()) else 0
+            err = int((moves[t - low][held][:, :C][readable].int()
+                       - want[readable].int()).abs().max()) if bool(readable.any()) else 0
             one = replay(xs, ys, m, n, *rows, t * S, **kw)  # the G = 1 launch, every column
-            err = max(err, int((one[held][valid].int() - want[valid].int()).abs().max()))
+            err = max(err, int((one[held][:, :C][valid].int() - want[valid].int()).abs().max()))
             if err:
                 raise AssertionError(f"{names[0]} strip {t}: move codes differ on valid cells")
             rec["plain_ms"] += plain_ms
@@ -1557,6 +1569,7 @@ def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y
             del one
             if lane_step > 1:
                 one_rec["plain_lanes"] = int(mh.shape[0])
+            one_rec["plain_cols"] = C
             # Read the strip's read bytes, the references and the checkpoint
             # row(s) (and a table); write one move byte per cell.
             one_rec["bound_ms"], one_rec["bound_by"] = bound(
@@ -2376,10 +2389,290 @@ def serving_phase(args, card: str, clock: float, dev, dna_data, protein_data):
     return measured, runs
 
 
-def add_serving(kernels, measured, runs):
-    """Merge phase 10 into the kernels' entries: its cases under their
-    labels, and each run's launches (``launches_<run>``, added to the
-    entry's ``launches``)."""
+# K25's operations a cell: max(diag + s, north - gap) as the gap subtract and
+# one DPX __viaddmax_s32 (2), the west chain max(u, west - gap) one DPX (1);
+# the score is a shared-memory load (0).
+NW_OPS_PER_CELL = 3
+
+
+def check_seeded_kernels(se, reads, batch: int, clock: float, dev, kw):
+    """K2 and K3 (K7 and K10) against their plain versions at the seeded
+    windows' shape: the first batch's seeded reads against their windows.
+    Returns {kernel: {'seeded': measurements}}."""
+    import numpy as np
+    import torch
+
+    from parallel_genomeseq_tpu_torch.ops import scan_dp
+
+    _, moves_k, walk_k, plain_walk = dna_kernels(kw)
+    first = reads[:batch]
+    windows = se.windows_batch(first)
+    seeded = [k for k, w in enumerate(windows) if w is not None]
+    xs, ys, m, n = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+                    se.aligner.pad_batch([first[k] for k in seeded],
+                                         [se.ref[slice(*windows[k])] for k in seeded]))
+    got = moves_k(xs, ys, m, n, **kw)
+    want, plain_ms = timed(lambda: scan_dp.sw_score_moves_plain(xs, ys, m, n, **kw))
+    cells, seq_bytes = lane_work(m, n)
+    rec = {"shape": f"{xs.shape[0]} seeded lanes, M={xs.shape[1]}, N={ys.shape[1]} (windows "
+                    f"of {int(n.min())}-{int(n.max())} bp)",
+           "max_abs_err": max(max_abs_err(got[:3], want[:3]), moves_err(got[3], want[3], m, n)),
+           "ms": cuda_ms(lambda: moves_k(xs, ys, m, n, **kw), 10), "plain_ms": plain_ms}
+    nbytes = seq_bytes + LANE_BYTES * xs.shape[0] + cells  # + one move byte a cell
+    rec["bound_ms"], rec["bound_by"] = bound(cells * OPS_PER_CELL[moves_k.__name__], nbytes,
+                                             clock)
+    rec["issued_bound_ms"] = bound(cells * WAVE_ISSUED_PER_CELL[moves_k.__name__], nbytes,
+                                   clock)[0]
+    wave_steps(rec, moves_k, xs.shape[1], ys.shape[1], m, n, clock, "moves")
+    affine = "gap_open" in kw
+    report(f"K{'7' if affine else '2'} {moves_k.__name__}", "seeded", rec)
+    wrec = walk_case(walk_k, plain_walk, got[3], xs.T.contiguous(), ys, got[1], got[2],
+                     se.aligner.max_steps(xs.shape[1], ys.shape[1]), clock)
+    report(f"K{'10' if affine else '3'} {walk_k.__name__}", "seeded", wrec)
+    return {moves_k.__name__: {"seeded": rec}, walk_k.__name__: {"seeded": wrec}}
+
+
+def check_seeded_sampled(se, kw, reads, ref, rows, results, seed: int, count: int = 32):
+    """Sampled reads of a ``--seed-extend`` run against the numpy oracle
+    (Gotoh under affine gaps) inside the window the seeds give them (the
+    whole reference for an unseeded read): score, pos, both consensus
+    strings."""
+    import numpy as np
+
+    sub = uniform_pair_scores(kw["match"], kw["mismatch"])
+    picks = np.random.default_rng(seed).choice(len(reads), count, replace=False)
+    for k in picks:
+        left, right = se.window(reads[k]) or (0, len(ref))
+        if "gap_open" in kw:
+            score, pos, cx, cy = gotoh_align(reads[k], ref[left:right], sub, kw["gap_open"],
+                                             kw["gap"])
+        else:
+            score, pos, cx, cy = oracle_align(reads[k], ref[left:right], kw["gap"], sub)
+        pos = pos + left if pos > 0 else 0
+        res = results[k]
+        got = (int(rows[k]["score"]), int(rows[k]["pos_pred"]), int(res.score), res.pos,
+               res.consensus_x, res.consensus_y)
+        if got != (score, pos, score, pos, cx, cy):
+            raise AssertionError(f"seeded read {k}: port {got} != oracle "
+                                 f"{(score, pos, cx, cy)} in window {(left, right)}")
+    print(f"oracle check: {count} sampled reads of the seeded run agree inside their windows")
+
+
+def seeded_runs(args, card: str, clock: float, dev, dna_data):
+    """Phase 11's seed-and-extend half: ``solve_small --seed-extend`` on phase
+    3's data, linear and BWA-MEM's, each with K2/K3 (K7/K10) held at the
+    windows' shape, its launches (none of K1 and K6: no window sweep), its
+    plain route's CSV on the first batch, its scores against phase 3's
+    full-width CSV and 32 sampled reads against the oracle. Returns
+    (measurements by kernel, launches by run)."""
+    import functools
+
+    from parallel_genomeseq_tpu_torch.cli import solve_small
+    from parallel_genomeseq_tpu_torch.models.fm_index import FMIndex
+    from parallel_genomeseq_tpu_torch.models.seed_extend import SeedExtendAligner
+    from parallel_genomeseq_tpu_torch.ops import wavefront_cuda
+
+    ref_path, csv_path, ref, reads = dna_data
+    data = ROOT / "data" / "chip_smoke"
+    t0 = time.perf_counter()
+    FMIndex(ref)
+    fm_s = time.perf_counter() - t0
+    measured, runs = {}, {}
+    for label, kw, flags in (("linear", LINEAR, []), ("affine", BWA, BWA_FLAGS)):
+        print(f"-- solve_small --seed-extend, {label} gaps: {kw}")
+        se = SeedExtendAligner(ref, dna_config(kw), device=dev)
+        batches = [reads[k : k + args.batch_size] for k in range(0, len(reads), args.batch_size)]
+        t0 = time.perf_counter()
+        seeds = [se.fm.seeds_batch(b, se.k, se.step) for b in batches]
+        seeds_s = (time.perf_counter() - t0) / len(batches)
+        unseeded = sum(se._window_from_seeds(r, s) is None
+                       for b, ss in zip(batches, seeds) for r, s in zip(b, ss))
+        print(f"host: FM-index build {fm_s:.3f} s ({len(ref)} bp), seeds_batch "
+              f"{seeds_s:.4f} s a batch of {args.batch_size}; {unseeded} of {len(reads)} "
+              "reads unseeded")
+        for name, cases in check_seeded_kernels(se, reads, args.batch_size, clock, dev,
+                                                kw).items():
+            measured.setdefault(name, {}).update(cases)
+        out_csv = data / f"align_output_seeded_{label}.csv"
+        cli = ["--ref", str(ref_path), "--input", str(csv_path), "--output", str(out_csv),
+               "--batch-size", str(args.batch_size), "--device", str(dev),
+               "--seed-extend"] + flags
+        _, moves_k, walk_k = dna_kernels(kw)[:3]
+        run = f"solve_small_seed_extend_{label}"
+        runs[run] = dna_run(
+            f"--seed-extend {label}", cli, kw, reads, ref, out_csv, card, args.seed,
+            counters=(moves_k, walk_k),
+            absent=(wavefront_cuda.sw_score, wavefront_cuda.sw_score_affine),
+            check=functools.partial(check_seeded_sampled, se, kw))
+        print(f"solve_small --seed-extend {label}: {READS_PER_S[f'--seed-extend {label}']:.1f} "
+              f"reads/s against phase {3 if label == 'linear' else 4}'s full width "
+              f"{READS_PER_S[label]:.1f}; {card}")
+        # The plain route on the first batch: the same CSV rows, byte for byte.
+        plain_csv = data / f"align_output_seeded_{label}_plain.csv"
+        cli_plain = [a if a != str(out_csv) else str(plain_csv) for a in cli]
+        if solve_small.main(cli_plain + ["--engine", "plain", "--limit",
+                                         str(args.batch_size)]) != 0:
+            raise AssertionError(f"solve_small --seed-extend --engine plain {label} failed")
+        card_lines = out_csv.read_bytes().splitlines(keepends=True)[: args.batch_size + 1]
+        if plain_csv.read_bytes() != b"".join(card_lines):
+            raise AssertionError(f"--seed-extend {label}: the card's CSV differs from the "
+                                 "plain route's on the first batch")
+        with open(out_csv, newline="") as f:
+            seeded_rows = list(csv.DictReader(f))
+        with open(data / f"align_output_{label}.csv", newline="") as f:
+            full_rows = list(csv.DictReader(f))
+        higher = [k for k, (s, w) in enumerate(zip(seeded_rows, full_rows))
+                  if int(s["score"]) > int(w["score"])]
+        if higher:
+            raise AssertionError(f"--seed-extend {label}: seeded scores above the full-width "
+                                 f"ones at rows {higher[:10]}")
+        differ = sum(s != w for s, w in zip(seeded_rows, full_rows))
+        lower = sum(int(s["score"]) < int(w["score"]) for s, w in zip(seeded_rows, full_rows))
+        print(f"--seed-extend {label}: the card's first {args.batch_size} rows equal the plain "
+              f"route's; no seeded score above the full-width one; {differ} of "
+              f"{len(full_rows)} rows differ from phase {3 if label == 'linear' else 4}'s CSV "
+              f"({lower} with a lower score)")
+    return measured, runs
+
+
+def nw_case(label, x, y, m, n, table, gap: int, clock: float, reps: int = 3):
+    """K25 on (x, y, m, n) against its plain version, exactly: times, bound."""
+    from parallel_genomeseq_tpu_torch.ops import global_dp
+
+    got = global_dp.nw_lastrow(x, y, m, n, table=table, gap=gap)
+    want, plain_ms = timed(lambda: global_dp.nw_lastrow_plain(x, y, m, n, table=table, gap=gap))
+    cells, seq_bytes = lane_work(m, n)
+    B, N = y.shape
+    rec = {"shape": f"{B} lanes, M={x.shape[1]}, N={N}, {cells:.3e} cells, rows in "
+                    f"{'shared memory' if global_dp.rows_in_shared(N) else 'a global scratch'}",
+           "max_abs_err": max_abs_err([got], [want]), "plain_ms": plain_ms,
+           "ms": cuda_ms(lambda: global_dp.nw_lastrow(x, y, m, n, table=table, gap=gap), reps),
+           "cells": cells, "threads": global_dp.NW_THREADS, "run": global_dp.NW_RUN}
+    # Read each lane's bytes and the table once, write the (B, N + 1) rows.
+    rec["bound_ms"], rec["bound_by"] = bound(
+        cells * NW_OPS_PER_CELL, seq_bytes + 8 * B + table.numel() * 4 + 4 * B * (N + 1), clock)
+    rec["gcups"] = cells / rec["ms"] / 1e6
+    print(f"K25 nw_lastrow[{label}] {rec['shape']}: equal; kernel {rec['ms']:.3f} ms "
+          f"({rec['gcups']:.2f} GCUPS, {B} blocks of {rec['threads']} threads), plain "
+          f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); {CARD}")
+    return got, rec
+
+
+def global_runs(card: str, clock: float, dev, long):
+    """Phase 11's global half, on phase 6's long-read data: K25 held exactly
+    against its plain version on Hirschberg's top launch (2 lanes, a
+    mutated read's halves against its source read), an ``nw_score_batch`` of
+    the 100 mutated reads against their sources, and a ragged 64-lane batch;
+    two of those scores against the host row sweep; ``hirschberg_align`` on
+    two reads with every subproblem on the card (device_cells=0), its K25
+    launches counted from 0, against the host-only run; the demo on the
+    card. Returns (K25's cases, its launches in the Hirschberg runs)."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from parallel_genomeseq_tpu_torch.cli import demo
+    from parallel_genomeseq_tpu_torch.models import hirschberg
+    from parallel_genomeseq_tpu_torch.ops import global_dp
+    from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
+
+    _, _, exact, mutated = long
+    cfg = ScoringConfig()
+    gap = int(cfg.gap_penalty)
+    table = global_dp.byte_table(cfg, dev)
+
+    def lanes(xs, ys):
+        x = np.zeros((len(xs), max(map(len, xs))), np.uint8)
+        y = np.zeros((len(ys), max(map(len, ys))), np.uint8)
+        for k, (a, b) in enumerate(zip(xs, ys)):
+            x[k, : len(a)] = np.frombuffer(a.encode(), np.uint8)
+            y[k, : len(b)] = np.frombuffer(b.encode(), np.uint8)
+        t = lambda a: torch.from_numpy(a).to(dev)
+        return (t(x), t(y), t(np.array([len(a) for a in xs], np.int32)),
+                t(np.array([len(b) for b in ys], np.int32)))
+
+    cases = {}
+    x0, y0 = mutated[0], exact[0]
+    mid = len(x0) // 2
+    _, cases["hirschberg_top"] = nw_case(
+        "hirschberg_top", *lanes([x0[:mid], x0[mid:][::-1]], [y0, y0[::-1]]), table, gap, clock)
+    got, cases["score_batch"] = nw_case("score_batch", *lanes(mutated, exact), table, gap, clock)
+    rng = np.random.default_rng(11)
+    rx, ry = [], []
+    for k in range(64):
+        a, b = (int(v) for v in rng.integers(0, 10_000, 2))
+        lo = int(rng.integers(0, 10_000 - b + 1))
+        rx.append(mutated[k % 100][:a])
+        ry.append(exact[k % 100][lo : lo + b])
+    _, cases["ragged"] = nw_case("ragged", *lanes(rx, ry), table, gap, clock)
+    tab = cfg.byte_table().astype(np.float64)
+    for k in (0, 57):
+        host = hirschberg._nw_lastrow(np.frombuffer(mutated[k].encode(), np.uint8),
+                                      np.frombuffer(exact[k].encode(), np.uint8), tab, gap)
+        if int(got[k, len(exact[k])]) != host[-1]:
+            raise AssertionError(f"K25 score of read {k} {int(got[k, len(exact[k])])} != host "
+                                 f"row sweep {host[-1]}")
+    print(f"K25 scores of reads 0 and 57 equal the host row sweep's "
+          f"({int(got[0, len(exact[0])])}, {int(got[57, len(exact[57])])})")
+
+    global_dp.nw_lastrow.launches = 0
+    t_dev = t_host = 0.0
+    for k in (0, 1):
+        t0 = time.perf_counter()
+        on_card = hirschberg.hirschberg_align(mutated[k], exact[k], cfg, device_cells=0,
+                                              device=dev)
+        t_dev += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = hirschberg.hirschberg_align(mutated[k], exact[k], cfg, device_cells=1 << 60,
+                                           device=dev)
+        t_host += time.perf_counter() - t0
+        cx, cy = on_card.consensus_x[::-1], on_card.consensus_y[::-1]
+        if (on_card.score != host.score or cx.replace("-", "") != mutated[k]
+                or cy.replace("-", "") != exact[k]
+                or hirschberg.alignment_score(cx, cy, cfg) != on_card.score):
+            raise AssertionError(f"hirschberg read {k}: card {on_card.score} vs host "
+                                 f"{host.score}, or not a valid alignment of that score")
+        same = (on_card.consensus_x, on_card.consensus_y) == (host.consensus_x,
+                                                              host.consensus_y)
+        print(f"hirschberg read {k}: score {on_card.score:.0f} on the card and on the host, "
+              f"{len(cx)} columns, a valid alignment of that score; consensus "
+              f"{'identical' if same else 'different'} to the host run's")
+    launches = global_dp.nw_lastrow.launches
+    if launches < 2:
+        raise AssertionError(f"hirschberg_align launched K25 {launches} times")
+    print(f"hirschberg_align, 2 reads of ~10 kb, device_cells=0: {t_dev:.2f} s, {launches} K25 "
+          f"launches; host-only: {t_host:.2f} s; {card}")
+
+    outs = []
+    for device in (str(dev), "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if demo.main(["--device", device]) != 0:
+                raise AssertionError(f"demo on {device} failed")
+        outs.append(buf.getvalue())
+    if outs[0] != outs[1]:
+        raise AssertionError(f"demo on the card printed {outs[0]!r}, on the CPU {outs[1]!r}")
+    print("demo on the card (the CPU's lines):\n" + outs[0].rstrip())
+    return cases, launches
+
+
+def a12_phase(args, card: str, clock: float, dev, dna_data, long):
+    """Phase 11: seed-and-extend and global alignment. Returns (the
+    seeded measurements by kernel, the seeded runs' launches, K25's cases,
+    K25's launches)."""
+    t_phase = time.perf_counter()
+    measured, runs = seeded_runs(args, card, clock, dev, dna_data)
+    nw_cases, nw_launches = global_runs(card, clock, dev, long)
+    print(f"seed-extend and global phase: {time.perf_counter() - t_phase:.1f} s")
+    return measured, runs, nw_cases, nw_launches
+
+
+def add_phase(kernels, measured, runs):
+    """Merge a later phase (10, 11) into the kernels' entries: its cases
+    under their labels, and each run's launches (``launches_<run>``, added
+    to the entry's ``launches``)."""
     for entry in kernels:
         name = entry["name"]
         for label, c in measured.get(name, {}).items():
@@ -2426,6 +2719,8 @@ KERNELS = [
     ("strip_profile_affine_moves", "strips.cu", f"{PALLAS}:2070", "long_query_affine",
      "query_group"),
 ]
+# K25, phase 11's kernel: (wrapper, source, the JAX device code it replaces).
+NW_KERNEL = ("nw_lastrow", "global_dp.cu", "parallel_genomeseq_tpu/ops/global_dp.py:33")
 # The strip walks run in a long-read phase and in a long-query phase.
 WALK_QUERY_PHASE = {"walk_strip_level": "long_query",
                     "walk_strip_level_affine": "long_query_affine"}
@@ -2526,12 +2821,23 @@ def main(argv=None) -> int:
             print(f"  nvcc: {line.strip()}")
 
     dev = torch.device("cuda", 0)
+    seconds = {}
+    t0 = t_all = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
     dna, dna_launches, dna_data = dna_phase(args, card, clock, dev)
+    lap("3-4 short reads")
     protein, protein_launches, entries, protein_data = protein_phase(args, card, clock, dev)
+    lap("5 protein scan")
     data = long_data(args)
-    long = {"long": long_phase(args, card, clock, dev, data, LINEAR),
-            "long_affine": long_phase(args, card, clock, dev, data, BWA)}
-    t0 = time.perf_counter()
+    long = {"long": long_phase(args, card, clock, dev, data, LINEAR)}
+    lap("6 long reads")
+    long["long_affine"] = long_phase(args, card, clock, dev, data, BWA)
+    lap("7 long reads affine")
     query_data = long_query_data(args, entries)
     del entries
     print(f"long-query data: {len(query_data[3])} entries ({len(LONG_PLANTED)} planted of "
@@ -2539,14 +2845,26 @@ def main(argv=None) -> int:
           f"written in {time.perf_counter() - t0:.1f} s")
     long["long_query"] = long_query_phase(args, card, clock, dev, query_data, data,
                                           PROTEIN_LINEAR)
+    lap("8 long query")
     long["long_query_affine"] = long_query_phase(args, card, clock, dev, query_data, data,
                                                  PROTEIN_AFFINE)
+    lap("9 long query affine")
     del query_data
     serving, serving_runs = serving_phase(args, card, clock, dev, dna_data, protein_data)
+    lap("10 serving")
+    seeded, seeded_runs_, nw_cases, nw_launches = a12_phase(args, card, clock, dev, dna_data,
+                                                             data)
+    lap("11 seed-extend and global")
 
-    print(json.dumps({"kernels": add_serving(
+    kernels = add_phase(add_phase(
         kernel_entries(dna, dna_launches, protein, protein_launches, long), serving,
-        serving_runs)}))
+        serving_runs), seeded, seeded_runs_)
+    name, src, replaces = NW_KERNEL
+    kernels.append(kernel_line(name, src, replaces, nw_cases, "hirschberg_top", nw_launches))
+    kernels[-1]["launches_hirschberg_align"] = nw_launches
+    print(f"phase seconds: {seconds}; total {time.perf_counter() - t_all:.1f} s "
+          "(the build before them)")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

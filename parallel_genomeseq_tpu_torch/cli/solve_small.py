@@ -11,12 +11,17 @@ length L costs gap_open + L * gap_penalty (BWA-MEM's scoring is ``--match 1
 K6, K7 and K10. ``--matrix blosum50|blosum62`` scores from a substitution
 table: the window sweep runs K4 per lane (the table route), the winners K5
 and the K3 walk, or with ``--gap-open`` K8, K9 and K10. ``--seed-extend``
-and ``--parity-mode skewed`` are not ported yet.
+seeds every read with the FM index on the host and extends it only inside
+its seeded reference window (``models/seed_extend.py``: K2 and K3, or K7
+and K10, at the window's width; no window sweep), unseeded reads at full
+width; it reports full-matrix-equivalent GCUPS. ``--engine plain`` runs the
+plain PyTorch version of every kernel of the ``--seed-extend`` and
+``--npiece 1`` paths. ``--parity-mode skewed`` is not ported yet.
 
 Usage:
     python -m parallel_genomeseq_tpu_torch.cli.solve_small [--npiece 17] [--eval]
         [--match 1 --mismatch -4 --gap-open 6 --gap-penalty 1]
-        [--matrix blosum50 [--gap-open 10 --gap-penalty 2]]
+        [--matrix blosum50 [--gap-open 10 --gap-penalty 2]] [--seed-extend]
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import sys
 import time
 from typing import List
 
+from ..models.seed_extend import SeedExtendAligner
 from ..models.swaligner import BatchSWAligner, merge_strand_pairs
 from ..parallel.chunking import ChunkedAligner
 from ..seqio.evaluate import check_parity
@@ -63,7 +69,12 @@ def run(argv=None) -> Run:
         "--parity-mode", choices=["exact", "skewed"], default="exact",
         help="exact = true int32 scores (the only mode ported so far)",
     )
-    p.add_argument("--seed-extend", action="store_true", help="not ported yet (ROADMAP A12)")
+    p.add_argument(
+        "--seed-extend", action="store_true",
+        help="FM-index exact-seed the reads and extend only inside the "
+        "seeded reference window (banded SW); unseeded reads fall back to "
+        "full-width",
+    )
     p.add_argument(
         "--both-strands", action="store_true",
         help="also align the reverse complement of each read and keep the "
@@ -72,12 +83,19 @@ def run(argv=None) -> Run:
     common.add_scoring_flags(p)
     common.add_chunk_flags(p, npiece_default=17)
     common.add_device_flags(p)
+    p.add_argument(
+        "--engine", default="auto", choices=["auto", "cuda", "plain"],
+        help="the --seed-extend and --npiece 1 paths' engine: plain runs the "
+        "plain PyTorch version of every kernel on the chosen device",
+    )
     args = p.parse_args(argv)
 
-    if args.seed_extend:
-        p.error("--seed-extend is not ported yet (ROADMAP A12)")
+    if args.seed_extend and args.parity_mode == "skewed":
+        p.error("--seed-extend implies exact int32 scoring; drop --parity-mode skewed")
     if args.parity_mode == "skewed":
         p.error("--parity-mode skewed is not ported yet (ROADMAP A2)")
+    if args.engine != "auto" and not args.seed_extend and args.npiece > 1:
+        p.error("--engine applies to --seed-extend and --npiece 1")
 
     ref = read_fasta(args.ref)
     rows = read_ground_truth(args.input)
@@ -87,13 +105,17 @@ def run(argv=None) -> Run:
     print(f"solve_small: {len(reads)} reads vs {len(ref)}-bp reference")
 
     cfg = common.scoring_from_args(args)
-    if args.npiece > 1:
+    if args.seed_extend:
+        aligner = SeedExtendAligner(ref, aligner=BatchSWAligner(
+            cfg, device=args.device, engine=args.engine))
+        stream = lambda batches: aligner.align_stream(batches)
+    elif args.npiece > 1:
         aligner = ChunkedAligner(
             cfg=cfg, chunk=common.chunk_from_args(args), device=args.device
         )
         stream = lambda batches: aligner.align_stream(batches, ref)
     else:
-        aligner = BatchSWAligner(cfg, device=args.device)
+        aligner = BatchSWAligner(cfg, device=args.device, engine=args.engine)
         stream = lambda batches: aligner.align_stream(batches, [ref])
 
     if args.both_strands:
@@ -120,9 +142,12 @@ def run(argv=None) -> Run:
 
     os.makedirs(os.path.dirname(args.output) or ".", exist_ok=True)
     write_align_output(args.output, rows, results)
+    # Under --seed-extend the DP work done is far smaller than the full
+    # matrix; the figure is matrix-equivalent throughput, as in JAX.
+    label = "full-matrix-equivalent GCUPS" if args.seed_extend else "GCUPS"
     print(
         f"Aligned {len(results)} reads in {t_total:.3f}s "
-        f"({cells/1e9:.3f} Gcells): {cells / t_total / 1e9:.3f} GCUPS "
+        f"({cells/1e9:.3f} Gcells): {cells / t_total / 1e9:.3f} {label} "
         f"(incl. traceback+host IO) on {aligner.engine.device}"
     )
     print(f"Done, output file see: {args.output}")

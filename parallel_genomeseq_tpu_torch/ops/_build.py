@@ -63,6 +63,11 @@ _SIGNATURES = {
     # B, out (int32 K14/K18's tile rows, tile columns, lanes a block,
     # blocks, K14/K18's shared bytes a block, K3/K10's segment rows and band)
     "pgs_walk_shape": [_I, _P],
+    # x, y, m, n, M, N, B, table, gap, scratch (null: the rows in shared
+    # memory), out, stream
+    "pgs_nw_lastrow": [_P] * 4 + [_I] * 3 + [_P, _I] + [_P] * 3,
+    # out (int32 threads a block, columns a thread, shared-memory limit)
+    "pgs_nw_shape": [_P],
 }
 
 _lib = None

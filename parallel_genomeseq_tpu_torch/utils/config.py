@@ -97,6 +97,16 @@ class ScoringConfig:
             return float(np.min(self.matrix))
         return float(self.matrix[ia, ib])
 
+    def byte_table(self) -> np.ndarray:
+        """(256, 256) float32 score lookup over raw byte values (config.py:117)."""
+        tab = np.full((256, 256), self.mismatch if self.is_uniform else float(np.min(self.matrix)), np.float32)
+        if self.is_uniform:
+            np.fill_diagonal(tab, self.match)
+        else:
+            idx = np.frombuffer(self.alphabet.encode("ascii"), np.uint8)
+            tab[np.ix_(idx, idx)] = np.asarray(self.matrix, np.float32)
+        return tab
+
 
 @dataclasses.dataclass(frozen=True)
 class ChunkConfig:

@@ -74,6 +74,9 @@ def test_port_never_imports_jax():
         "assert 'parallel_genomeseq_tpu_torch.ops.strips_cuda' in mods\n"
         "assert 'parallel_genomeseq_tpu_torch.cli.serve' in mods\n"
         "assert 'parallel_genomeseq_tpu_torch.cli.solve_batch' in mods\n"
+        "for m in ('models.fm_index', 'models.seed_extend', 'models.hirschberg',\n"
+        "          'ops.global_dp', 'ops.oracle', 'cli.demo'):\n"
+        "    assert 'parallel_genomeseq_tpu_torch.' + m in mods, m\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'parallel_genomeseq_tpu'\n"
         "             or m.startswith('parallel_genomeseq_tpu.'))\n"
@@ -219,9 +222,11 @@ def test_solve_big_rejects_unported_modes(flags, item, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--seed-extend"], ["--parity-mode", "skewed"],
+    ["--seed-extend", "--parity-mode", "skewed"], ["--parity-mode", "skewed"],
 ])
 def test_solve_small_rejects_unported_modes(flags, tmp_path):
+    """The skewed parity mode needs A2; with --seed-extend it is refused
+    first, with the JAX CLI's message (seed-extend scores exact int32)."""
     with pytest.raises(SystemExit) as exc:
         solve_small.main(flags + ["--device", "cpu", "--output", str(tmp_path / "o.csv")])
     assert exc.value.code == 2

@@ -1709,3 +1709,192 @@ def test_sweep_handoffs_match_plain(cuda, form, case):
         assert (int(want[1][b]), int(want[2][b])) == (i, j)
     live = (m > 0) & (n > 0)
     assert bool((want[0][~live] == 0).all()) and int(want[0].max()) > 0
+
+
+# K25 cases (csrc/global_dp.cu: a block a lane, 512 threads of 8 columns,
+# tiles of 4,096 columns, the rows in shared memory up to N of about 22,700):
+# (B, M, N, seed, ragged lengths, protein letters under BLOSUM62 gap 4).
+# m = 1 and n = 1; N + 1 at one run (8 columns) and one past it; at the tile
+# width and one past; a row past the shared limit (a global scratch); lanes of
+# very different lengths with m_b = 0 and n_b = 0 among them; B of 1, 2, 100.
+NW_CASES = {
+    "m1": (5, 1, 300, 0, False, False),
+    "n1": (5, 200, 1, 1, False, False),
+    "n_one_run": (3, 50, 7, 2, False, False),
+    "n_past_run": (3, 50, 8, 3, False, False),
+    "n_tile": (2, 40, 4095, 4, False, False),
+    "n_past_tile": (2, 40, 4096, 5, False, False),
+    "global_rows": (2, 30, 25_000, 6, False, False),
+    "ragged_100": (100, 600, 700, 7, True, False),
+    "b1": (1, 300, 5000, 8, False, False),
+    "b2_related": (2, 1000, 2000, 9, False, False),
+    "blosum62": (17, 300, 400, 10, True, True),
+}
+
+
+def nw_lanes(case, dev):
+    """(x, y, m, n, table, gap) of an NW_CASES case on ``dev``: each read a
+    mutated copy of a stretch of its reference, lengths ragged or full."""
+    from parallel_genomeseq_tpu_torch.ops import global_dp
+    from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
+
+    B, M, N, seed, ragged_lens, protein = NW_CASES[case]
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV" if protein else b"ACGT", np.uint8)
+    m = rng.integers(0, M + 1, B) if ragged_lens else np.full(B, M)
+    n = rng.integers(0, N + 1, B) if ragged_lens else np.full(B, N)
+    if ragged_lens:
+        m[:3], n[:3] = [0, M, 1], [N, 0, N]
+    x = rng.choice(letters, (B, M))
+    y = rng.choice(letters, (B, N))
+    for b in range(B):
+        k = min(m[b], n[b])
+        seg = y[b, :k].copy()
+        seg[rng.random(k) < 0.1] = rng.choice(letters)
+        x[b, :k] = seg
+    cfg = blosum_config("blosum62", gap_penalty=4.0) if protein else ScoringConfig()
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a).astype(dt)).to(dev)
+    return (t(x, np.uint8), t(y, np.uint8), t(m, np.int32), t(n, np.int32),
+            global_dp.byte_table(cfg, dev), int(cfg.gap_penalty))
+
+
+@pytest.mark.parametrize("case", list(NW_CASES))
+def test_k25_matches_plain(cuda, case):
+    """K25's last rows equal the plain row scan's on every column (0 past
+    n_b), and its launch constants are the wrapper's."""
+    from parallel_genomeseq_tpu_torch.ops import global_dp
+
+    assert global_dp.nw_shape() == (global_dp.NW_THREADS, global_dp.NW_RUN,
+                                    global_dp.NW_SHARED_BYTES)
+    x, y, m, n, table, gap = nw_lanes(case, cuda)
+    assert global_dp.rows_in_shared(y.shape[1]) == (case != "global_rows")
+    before = global_dp.nw_lastrow.launches
+    got = global_dp.nw_lastrow(x, y, m, n, table=table, gap=gap)
+    want = global_dp.nw_lastrow_plain(x, y, m, n, table=table, gap=gap)
+    torch.cuda.synchronize()
+    assert global_dp.nw_lastrow.launches == before + 1
+    assert got.is_cuda and got.shape == (x.shape[0], y.shape[1] + 1)
+    assert torch.equal(got, want)
+
+
+def seeded_dataset(tmp_path):
+    from parallel_genomeseq_tpu_torch.seqio.readers import read_fasta, read_ground_truth
+
+    ref_path, csv_path = write_dataset(tmp_path, ref_len=3000, n_reads=96, seed=4)
+    reads = [r["SEQ"] for r in read_ground_truth(str(csv_path))]
+    return ref_path, csv_path, read_fasta(str(ref_path)), reads
+
+
+@pytest.mark.parametrize("kw", [{}, dict(match=1, mismatch=-4, gap_open=6, gap_penalty=1)],
+                         ids=["linear", "bwa"])
+def test_seed_extend_cuda_matches_cpu(cuda, tmp_path, kw):
+    """SeedExtendAligner on the card (K2 and K3, or K7 and K10, at the
+    windows' width, no window sweep) gives the CPU's results, field by
+    field, and ``solve_small --seed-extend`` the CPU's CSV."""
+    from parallel_genomeseq_tpu_torch.models.seed_extend import SeedExtendAligner
+    from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
+
+    ref_path, csv_path, ref, reads = seeded_dataset(tmp_path)
+    cfg = ScoringConfig(**kw)
+    affine = bool(kw)
+    moves = wavefront_cuda.sw_score_affine_moves if affine else wavefront_cuda.sw_score_moves
+    walk = traceback.walk_moves_affine if affine else traceback.walk_moves
+    sweep = wavefront_cuda.sw_score_affine if affine else wavefront_cuda.sw_score
+    batch = reads[:64] + ["WYWYWYWYWYWYWYWYWYWYWYWYWYWYWYWY"]
+    before = (moves.launches, walk.launches, sweep.launches)
+    got = SeedExtendAligner(ref, cfg, device=cuda).align_batch(batch)
+    assert (moves.launches - before[0], walk.launches - before[1]) == (2, 2)  # seeded, full
+    assert sweep.launches == before[2]
+    want = SeedExtendAligner(ref, cfg, device="cpu").align_batch(batch)
+    fields = ("score", "pos", "consensus_x", "consensus_y", "max_i", "max_j")
+    for g, w in zip(got, want):
+        assert [getattr(g, f) for f in fields] == [getattr(w, f) for f in fields]
+    flags = BWA_FLAGS if affine else []
+    base = ["--ref", str(ref_path), "--input", str(csv_path), "--batch-size", "32",
+            "--seed-extend"] + flags
+    assert solve_small.main(base + ["--output", str(tmp_path / "gpu.csv")]) == 0
+    assert solve_small.main(base + ["--device", "cpu", "--output", str(tmp_path / "cpu.csv")]) == 0
+    assert (tmp_path / "gpu.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
+
+
+def test_hirschberg_cuda_matches_cpu(cuda):
+    """hirschberg_align with every subproblem on the card (device_cells=0,
+    2-lane K25 launches) gives the CPU's score and consensus strings."""
+    from parallel_genomeseq_tpu_torch.models import hirschberg
+    from parallel_genomeseq_tpu_torch.ops import global_dp
+    from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
+
+    rng = np.random.default_rng(3)
+    y = "".join(rng.choice(list("ACGT"), 900))
+    x = "".join(c if rng.random() > 0.08 else "ACGT"[int(rng.integers(4))] for c in y[50:800])
+    prot = "".join(rng.choice(list("ARNDCQEGHILKMFPSTWYV"), 400))
+    for a, b, cfg in ((x, y, ScoringConfig()),
+                      (prot[:300], prot[40:], blosum_config("blosum62", gap_penalty=4.0))):
+        before = global_dp.nw_lastrow.launches
+        got = hirschberg.hirschberg_align(a, b, cfg, device_cells=0, device=cuda)
+        assert global_dp.nw_lastrow.launches > before + len(a) // 2
+        want = hirschberg.hirschberg_align(a, b, cfg, device_cells=0, device="cpu")
+        assert (got.score, got.consensus_x, got.consensus_y) == \
+            (want.score, want.consensus_x, want.consensus_y)
+        host = hirschberg.hirschberg_align(a, b, cfg, device_cells=1 << 60, device="cpu")
+        assert got.score == host.score
+
+
+# The randomized campaign on the card: BatchSWAligner's CUDA route against
+# its plain route on the same card, random scoring (uniform or a random
+# matrix, linear or affine, bytes outside the alphabet), with M drawn from
+# the launch rules' edges -- rows a thread (1-32, 32 * rows), warps a lane
+# (past 1,024 rows), the strip path past 2,048 rows (G strips a replay
+# group) -- and B from lanes-a-block edges. PGS_TORCH_FUZZ_GPU_TRIALS sets
+# the count, PGS_TORCH_FUZZ_SEED offsets the trials' seeds.
+GPU_FUZZ_TRIALS = int(__import__("os").environ.get("PGS_TORCH_FUZZ_GPU_TRIALS", 24))
+GPU_FUZZ_M = (1, 2, 32, 33, 64, 65, 128, 129, 256, 257, 512, 513, 1024, 1025, 2048, 2049,
+              2304, 2600, 4100)
+GPU_FUZZ_B = (1, 2, 3, 5, 16, 17, 67, 133)
+
+
+@pytest.mark.parametrize("trial", range(GPU_FUZZ_TRIALS))
+def test_fuzz_cuda_matches_plain(cuda, trial):
+    from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
+    from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
+
+    seed = trial + int(__import__("os").environ.get("PGS_TORCH_FUZZ_SEED", 0))
+    rng = np.random.default_rng(1000 + seed)
+    affine = bool(rng.integers(2))
+    gaps = dict(gap_penalty=float(rng.integers(1, 8)),
+                gap_open=float(rng.integers(2, 12)) if affine else 0.0)
+    if rng.integers(2):
+        cfg = ScoringConfig(match=float(rng.integers(1, 6)), mismatch=-float(rng.integers(1, 6)),
+                            **gaps)
+        alpha = "ACGT"
+    else:
+        A = int(rng.integers(4, 24))
+        alpha = "ARNDCQEGHILKMFPSTWYVBZX*"[:A]
+        mat = rng.integers(-6, 13, size=(A, A))
+        mat = (mat + mat.T) // 2
+        np.fill_diagonal(mat, rng.integers(1, 13, size=A))
+        cfg = ScoringConfig(matrix=mat.astype(np.float64), alphabet=alpha, **gaps)
+    letters = list(alpha + "#j")  # two bytes outside every alphabet
+    M = int(rng.choice(GPU_FUZZ_M))
+    B = int(rng.choice(GPU_FUZZ_B)) if M <= 2048 else int(rng.integers(1, 4))
+    reads, refs = [], []
+    for b in range(B):
+        m = M if b == 0 else int(rng.integers(1, M + 1))
+        n = int(rng.integers(1, 700))
+        y = "".join(rng.choice(letters, n))
+        x = "".join(rng.choice(letters, m))
+        if rng.integers(2):  # plant a mutated stretch of the reference
+            s = int(rng.integers(0, n))
+            seg = list(y[s : s + m])
+            for p in rng.integers(0, max(1, len(seg)), int(rng.integers(0, 4))):
+                if seg:
+                    seg[p] = rng.choice(letters)
+            x = ("".join(seg) + x)[:m]
+        reads.append(x)
+        refs.append(y)
+    got = BatchSWAligner(cfg, device=cuda).align_batch(reads, refs)
+    want = BatchSWAligner(cfg, device=cuda, engine="plain").align_batch(reads, refs)
+    fields = ("score", "pos", "consensus_x", "consensus_y", "max_i", "max_j")
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert [getattr(g, f) for f in fields] == [getattr(w, f) for f in fields], \
+            (trial, k, M, B, cfg.is_uniform, affine)
