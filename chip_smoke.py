@@ -55,8 +55,9 @@
    their plain versions: K13 as the engine launches it, G strips at once by
    ``strips_cuda.replay_group``, on the cells the walk can read (timed, and
    at G = 4, 8 and 16, with G, the warps an SM, the cycles a column step and
-   the moves' GB), and as the per-strip wrapper (G = 1, every column); K14
-   as the engine launches it, the group's G strips in one launch, its end
+   the moves' GB), and as the per-strip wrapper (G = 1, every column), each
+   held on the strip's first PLAIN_REPLAY_COLS (2,560) columns, which the
+   plain replay (a loop over columns) replays; K14 as the engine launches it, the group's G strips in one launch, its end
    state held on every lane against the plain per-strip walks over the same
    strips, and as the per-strip launch (G = 1) on those three strips, each
    timed by CUDA events with the longest lane's steps, the ns a step on that
@@ -121,7 +122,25 @@
    median and range of ``wall_s``, reads/s, GCUPS and proteins/s. Then
    ``solve_batch 5120 --traceback`` (K2 and K3 launched, its timing row
    written).
-11. Prints the kernels' JSON line -- each kernel's time, its plain version's,
+11. Seed-and-extend and global alignment. ``solve_small --seed-extend`` on
+   phase 3's reads, with linear gaps and with BWA-MEM's: the host's FM-index
+   build and ``seeds_batch`` seconds; K2 and K3 (K7 and K10) held against
+   their plain versions at the seeded windows' shape (the first batch's
+   seeded reads against their windows); the run, with K2 and K3 (K7, K10)
+   launched and neither K1 nor K6 (no window sweep), its reads/s beside
+   phase 3's (4's), 32 sampled reads against the numpy oracle (Gotoh) inside
+   their windows, no score above phase 3's (4's) full-width CSV and the
+   rows that differ from it counted, and ``--engine plain``'s CSV on the
+   first batch equal to the card's. Then K25, the NW last-row sweep, held
+   exactly against its plain version on phase 6's data: Hirschberg's top
+   launch (2 lanes: a mutated read's halves against its source read), an
+   ``nw_score_batch`` of the 100 mutated reads against their sources and a
+   ragged 64-lane batch, two of those scores against the host row sweep;
+   ``hirschberg_align`` on 2 reads with every subproblem on the card
+   (``device_cells=0``; K25's launches counted from 0) against the
+   host-only run (the same score, a valid alignment of it); ``cli/demo.py``
+   on the card, its lines equal to the CPU's.
+12. Prints the seconds of each phase, then the kernels' JSON line -- each kernel's time, its plain version's,
    and its bound: the larger of the integer operations its cells need over
    the card's integer issue peak and the bytes it must move over the memory
    rate; for K1, K2, K6 and K7, and K5 and K9 (a warp a lane) also the rows
@@ -142,8 +161,12 @@
    longest lane's steps, the ns a step on that chain, the band segment (K3,
    K10) or tile (K14, K18) they stage and the lanes a block, printed beside
    each time as well; phase 10's cases under their labels and each run's
-   launches as ``launches_<run>``, added to ``launches`` -- then ``{"ok":
-   true, "device": ...}`` last.
+   launches as ``launches_<run>``, added to ``launches``, phase 11's
+   seeded cases under ``seeded`` and its runs' launches the same way, and
+   K25's entry (its Hirschberg top launch first, the 100-lane and ragged
+   batches under their labels, its launches those of the two
+   ``hirschberg_align`` runs) -- then ``{"ok": true, "device": ...}``
+   last.
 
 Any failed phase raises and exits non-zero before the last line.
 """
@@ -2568,10 +2591,10 @@ def global_runs(card: str, clock: float, dev, long):
     launches counted from 0, against the host-only run; the demo on the
     card. Returns (K25's cases, its launches in the Hirschberg runs)."""
     import contextlib
+    import functools
     import io
 
     import numpy as np
-    import torch
 
     from parallel_genomeseq_tpu_torch.cli import demo
     from parallel_genomeseq_tpu_torch.models import hirschberg
@@ -2583,15 +2606,7 @@ def global_runs(card: str, clock: float, dev, long):
     gap = int(cfg.gap_penalty)
     table = global_dp.byte_table(cfg, dev)
 
-    def lanes(xs, ys):
-        x = np.zeros((len(xs), max(map(len, xs))), np.uint8)
-        y = np.zeros((len(ys), max(map(len, ys))), np.uint8)
-        for k, (a, b) in enumerate(zip(xs, ys)):
-            x[k, : len(a)] = np.frombuffer(a.encode(), np.uint8)
-            y[k, : len(b)] = np.frombuffer(b.encode(), np.uint8)
-        t = lambda a: torch.from_numpy(a).to(dev)
-        return (t(x), t(y), t(np.array([len(a) for a in xs], np.int32)),
-                t(np.array([len(b) for b in ys], np.int32)))
+    lanes = functools.partial(global_dp.pack_lanes, device=dev)
 
     cases = {}
     x0, y0 = mutated[0], exact[0]

@@ -28,9 +28,9 @@ import torch
 
 from ..utils.config import ScoringConfig
 from ..utils.device import device_of, resolve_device, to_host
-from ..utils.encoding import to_bytes
 from . import _build
 from .engine import check_supported
+from .oracle import _as_bytes
 
 # K25's launch constants (csrc/global_dp.cu, read back by ``nw_shape``):
 # threads a block, columns a thread, and the shared memory the two rows and
@@ -144,8 +144,21 @@ def nw_lastrow(x, y, m, n, *, table, gap: int):
 nw_lastrow.launches = 0
 
 
-def _as_bytes(v) -> np.ndarray:
-    return to_bytes(v) if isinstance(v, str) else np.asarray(v, np.uint8)
+def pack_lanes(xs, ys, device):
+    """Ragged lists of strings or byte arrays -> (x (B, M), y (B, N) uint8
+    zero-padded, m, n (B,) int32) on ``device``, M and N the longest (at
+    least 1)."""
+    xb = [_as_bytes(v) for v in xs]
+    yb = [_as_bytes(v) for v in ys]
+    B = len(xb)
+    x = np.zeros((B, max([1] + [len(v) for v in xb])), np.uint8)
+    y = np.zeros((B, max([1] + [len(v) for v in yb])), np.uint8)
+    for k, (a, c) in enumerate(zip(xb, yb)):
+        x[k, : len(a)] = a
+        y[k, : len(c)] = c
+    m = np.array([len(v) for v in xb], np.int32)
+    n = np.array([len(v) for v in yb], np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (x, y, m, n))
 
 
 def nw_lastrow_batch(xs, ys, cfg: ScoringConfig = ScoringConfig(), device=None, table=None):
@@ -155,24 +168,11 @@ def nw_lastrow_batch(xs, ys, cfg: ScoringConfig = ScoringConfig(), device=None, 
     ``table`` is ``byte_table(cfg, device)`` when the caller holds one."""
     check_config(cfg)
     dev = resolve_device(device)
-    xb = [_as_bytes(v) for v in xs]
-    yb = [_as_bytes(v) for v in ys]
-    B = len(xb)
-    M = max([1] + [len(v) for v in xb])
-    N = max([1] + [len(v) for v in yb])
-    x = np.zeros((B, M), np.uint8)
-    y = np.zeros((B, N), np.uint8)
-    for k, (a, c) in enumerate(zip(xb, yb)):
-        x[k, : len(a)] = a
-        y[k, : len(c)] = c
-    m = np.array([len(v) for v in xb], np.int32)
-    n = np.array([len(v) for v in yb], np.int32)
+    x, y, m, n = pack_lanes(xs, ys, dev)
     if table is None:
         table = byte_table(cfg, dev)
-    x_d, y_d, m_d, n_d = (torch.from_numpy(a).to(dev) for a in (x, y, m, n))
-    (last,) = to_host([nw_lastrow(x_d, y_d, m_d, n_d, table=table,
-                                  gap=int(cfg.gap_penalty))])
-    return [last[k, : len(yb[k]) + 1] for k in range(B)]
+    last, n = to_host([nw_lastrow(x, y, m, n, table=table, gap=int(cfg.gap_penalty)), n])
+    return [last[k, : n[k] + 1] for k in range(len(n))]
 
 
 def nw_score_batch(xs, ys, cfg: ScoringConfig = ScoringConfig(), device=None, table=None):

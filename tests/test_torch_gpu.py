@@ -6,6 +6,8 @@ on a machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1847,7 +1849,7 @@ def test_hirschberg_cuda_matches_cpu(cuda):
 # (past 1,024 rows), the strip path past 2,048 rows (G strips a replay
 # group) -- and B from lanes-a-block edges. PGS_TORCH_FUZZ_GPU_TRIALS sets
 # the count, PGS_TORCH_FUZZ_SEED offsets the trials' seeds.
-GPU_FUZZ_TRIALS = int(__import__("os").environ.get("PGS_TORCH_FUZZ_GPU_TRIALS", 24))
+GPU_FUZZ_TRIALS = int(os.environ.get("PGS_TORCH_FUZZ_GPU_TRIALS", 24))
 GPU_FUZZ_M = (1, 2, 32, 33, 64, 65, 128, 129, 256, 257, 512, 513, 1024, 1025, 2048, 2049,
               2304, 2600, 4100)
 GPU_FUZZ_B = (1, 2, 3, 5, 16, 17, 67, 133)
@@ -1858,7 +1860,7 @@ def test_fuzz_cuda_matches_plain(cuda, trial):
     from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
     from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
 
-    seed = trial + int(__import__("os").environ.get("PGS_TORCH_FUZZ_SEED", 0))
+    seed = trial + int(os.environ.get("PGS_TORCH_FUZZ_SEED", 0))
     rng = np.random.default_rng(1000 + seed)
     affine = bool(rng.integers(2))
     gaps = dict(gap_penalty=float(rng.integers(1, 8)),
