@@ -447,7 +447,7 @@ def test_build_command_targets_hopper(monkeypatch, tmp_path):
     calls = [line.split() for line in (tmp_path / "args").read_text().splitlines()]
     compiles, links = [c for c in calls if "-c" in c], [c for c in calls if "-c" not in c]
     assert [Path(c[-1]).name for c in sorted(compiles, key=lambda c: c[-1])] == \
-        ["profile.cu", "strips.cu", "traceback.cu", "wavefront.cu"]
+        ["global_dp.cu", "profile.cu", "strips.cu", "traceback.cu", "wavefront.cu"]
     assert len(links) == 1 and "-shared" in links[0]
     assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
     assert "compiled" in (tmp_path / "build" / "nvcc.log").read_text()
