@@ -50,14 +50,19 @@
    substitutions and three 1-3 bp indels per read), 14 windows. Holds K11
    (the 1,400-lane window sweep on one read's 14 lanes, and every lane of a
    reduced 1,400 x 2,304 x 4,608 shape), K12 (the 100 winners, on 4 of
-   them), K13 (on every 4th lane) and K14 (every lane) on the top, a middle
+   them), K13 (on every 4th lane and a lane that reaches the top strip) and
+   K14 (every lane) on the top, a middle
    and the bottom strip of the winners' traceback's first group against
    their plain versions: K13 as the engine launches it, G strips at once by
    ``strips_cuda.replay_group``, on the cells the walk can read (timed, and
    at G = 4, 8 and 16, with G, the warps an SM, the cycles a column step and
    the moves' GB), and as the per-strip wrapper (G = 1, every column), each
    held on the strip's first PLAIN_REPLAY_COLS (2,560) columns, which the
-   plain replay (a loop over columns) replays; K14 as the engine launches it, the group's G strips in one launch, its end
+   plain replay (a loop over columns) replays; the group launch's right
+   edges, min(n_b, j) and n_b, which lie past those columns here, held by
+   launching it again into a buffer of 0xFF with each lane's n and walk j
+   moved inside them (``replay_edges``: equal codes below the edge, no byte
+   written past it); K14 as the engine launches it, the group's G strips in one launch, its end
    state held on every lane against the plain per-strip walks over the same
    strips, and as the per-strip launch (G = 1) on those three strips, each
    timed by CUDA events with the longest lane's steps, the ns a step on that
@@ -288,8 +293,6 @@ OPS_PER_STEP = {"walk_moves": 10, "walk_moves_affine": 18, "walk_strip_level": 1
                 "walk_strip_level_affine": 18}
 # The card's name and power limit as nvidia-smi prints them (set by main).
 CARD = ""
-# solve_small's reads/s by run label (set by dna_run).
-READS_PER_S = {}
 LANE_BYTES = 8 + 12  # per lane: two int32 lengths in, (score, i, j) out
 # The DNA path's scoring: solve_small's defaults, and BWA-MEM's affine
 # scoring (a gap of length L costs gap_open + L * gap).
@@ -924,7 +927,7 @@ def dna_run(label, cli, kw, reads, ref, out_csv, card, seed, counters=None, abse
     sweep, re-run and walk of ``kw``) and of ``absent`` set to 0 just before
     the run and read just after: each of ``counters`` must have launched,
     none of ``absent``. Check its output and sampled reads (``check``, by
-    default the oracle of ``kw``'s scoring). Returns the launches."""
+    default the oracle of ``kw``'s scoring). Returns (the launches, reads/s)."""
     from parallel_genomeseq_tpu_torch.cli import solve_small
 
     if solve_small.main(cli + ["--limit", cli[cli.index("--batch-size") + 1]]) != 0:  # warm-up
@@ -944,19 +947,19 @@ def dna_run(label, cli, kw, reads, ref, out_csv, card, seed, counters=None, abse
     if len(run.results) != len(reads) or len(rows) != len(reads):
         raise AssertionError(f"expected {len(reads)} results and rows, got "
                              f"{len(run.results)} and {len(rows)}")
-    READS_PER_S[label] = len(reads) / run.seconds
-    print(f"solve_small {label}: {len(reads) / run.seconds:.1f} reads/s, "
+    rate = len(reads) / run.seconds
+    print(f"solve_small {label}: {rate:.1f} reads/s, "
           f"{run.cells / run.seconds / 1e9:.3f} GCUPS (full-reference cells, "
           f"{run.seconds:.3f} s) on {card}")
     check = check or (check_sampled_affine if "gap_open" in kw else check_sampled)
     check(reads, ref, rows, run.results, seed)
-    return launches
+    return launches, rate
 
 
 def dna_phase(args, card: str, clock: float, dev):
     """Phases 3 and 4. Returns (measurements, launches during each
-    solve_small run), both keyed by 'linear' and 'affine', and the data
-    (reference and reads paths, reference, reads)."""
+    solve_small run, its reads/s), each keyed by 'linear' and 'affine', and
+    the data (reference and reads paths, reference, reads)."""
     from parallel_genomeseq_tpu_torch.utils.synth import write_dataset
 
     data = ROOT / "data" / "chip_smoke"
@@ -968,15 +971,16 @@ def dna_phase(args, card: str, clock: float, dev):
         reads = [r["SEQ"] for r in csv.DictReader(f)]
     print(f"data: {len(reads)} reads x 125 bp vs {len(ref)}-bp reference (seed {args.seed})")
 
-    measured, launches = {}, {}
+    measured, launches, rates = {}, {}, {}
     for label, kw, flags in (("linear", LINEAR, []), ("affine", BWA, BWA_FLAGS)):
         print(f"-- DNA short reads, {label} gaps: {kw}")
         measured[label] = check_kernels(reads, ref, args.batch_size, clock, dev, kw)
         out_csv = data / f"align_output_{label}.csv"
         cli = ["--ref", str(ref_path), "--input", str(csv_path), "--output", str(out_csv),
                "--batch-size", str(args.batch_size), "--device", str(dev)] + flags
-        launches[label] = dna_run(label, cli, kw, reads, ref, out_csv, card, args.seed)
-    return measured, launches, (ref_path, csv_path, ref, reads)
+        launches[label], rates[label] = dna_run(label, cli, kw, reads, ref, out_csv, card,
+                                                args.seed)
+    return measured, launches, rates, (ref_path, csv_path, ref, reads)
 
 
 def protein_kernels(gaps):
@@ -1487,8 +1491,10 @@ def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y
     ``swept`` = (score, i, j, H checkpoints[, F checkpoints]). The first
     group's replay is timed (and at the G of REPLAY_CURVE), and its top,
     middle and bottom strips are held against the plain per-strip replay on
-    every ``lane_step``-th lane (lanes are independent) on every cell the
-    walk can read; the per-strip wrapper (the same kernel at G = 1, every
+    every ``lane_step``-th lane (lanes are independent) and the first lane
+    that reaches the top strip, on every cell the walk can read among the
+    first PLAIN_REPLAY_COLS columns, and its right edges by ``replay_edges``
+    (the real launch is then made again for the walk); the per-strip wrapper (the same kernel at G = 1, every
     column) is held and timed on those strips too. The first group's walk is
     held on every lane against the plain per-strip walks (``walk_pair``)
     over the group's strips, top first, and timed by CUDA events
@@ -1517,7 +1523,6 @@ def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y
     ncodes = kw["table"].shape[0] if "table" in kw else 0
     table_bytes = kw["table"].numel() * 4 if "table" in kw else 0
     r = torch.arange(S, device=dev)
-    held = slice(None, None, lane_step)
     moves, groups = None, []
     while True:
         lanes, top = torch.stack([active.sum(),
@@ -1540,6 +1545,10 @@ def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y
             continue
         # The first group: timed, then held.
         checked = {low: "bottom", low + G // 2: "middle", s: "top"}  # top wins a tie
+        # Every lane_step-th lane, and the first lane whose walk reads the top strip.
+        reach_top = torch.nonzero(active & (cur - 1 >= s * S)).flatten()[:1]
+        held = torch.unique(torch.cat([torch.arange(0, B, lane_step, device=dev), reach_top]))
+        wants = {}
         rec = replay_group_case(group, xs, ys, m, n, ck, kw, walk_state, low, G, call, clock,
                                 table_bytes)
         out[replay.__name__][prefix + "group"] = rec
@@ -1582,7 +1591,8 @@ def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y
                 raise AssertionError(f"{names[0]} strip {t}: move codes differ on valid cells")
             rec["plain_ms"] += plain_ms
             rec["checked_cells"] += int(readable.sum())
-            del want, valid, readable
+            wants[t] = want
+            del valid, readable
             lanes_rows = (m - t * S).clamp(0, S).long()
             cells = int((lanes_rows * n.long()).sum())
             one_rec = {"shape": f"strip {t} of {nstrips}, {B} lanes, N={N}, G = 1, moves "
@@ -1601,6 +1611,10 @@ def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y
                 + cells + table_bytes, clock)
             out[replay.__name__][label] = one_rec
             report(f"{names[0]} {replay.__name__}", label, one_rec)
+        rec.update(replay_edges(names[0], group, xs, ys, m, n, ck, kw, low, moves[:G], at_launch,
+                                held, wants, C))
+        del wants
+        call()  # the walk reads the real launch's bytes
         walk_group_case(names[1], walk, plain_walk, group_walk, moves[:G], x_mb, y_walk, low,
                         state, steps_cap, checked, clock, out, affine, prefix)
     out[replay.__name__][prefix + "group"]["groups"] = "+".join(map(str, groups))
@@ -1610,6 +1624,85 @@ def check_strip_traceback(names, fns, plains, xs, ys, m, n, kw, swept, x_walk, y
     if bool((state[3] & (state[0] > 0)).any()):
         raise AssertionError("a lane's walk did not end at the bottom strip")
     return state
+
+
+def replay_edges(name, group, xs, ys, m, n, ck, kw, low: int, moves, at_launch, held, wants,
+                 C: int):
+    """The group replay's right edges, which lie past the C columns the plain
+    replay holds on solve_big's data. The launch replays columns 1 ..
+    min(n_b, j) of the lanes the walk reaches (walk state (i, j, active) =
+    ``at_launch``), and with no walk state columns 1 .. n_b. It is launched
+    again at the same shapes, into ``moves`` filled with 0xFF (no move code:
+    bits 0-4), once with every lane's n and walk j moved inside the window
+    and once with those n and no walk state. On each checked strip
+    (``wants``: strip -> the plain replay's codes of the ``held`` lanes on C
+    columns) every held lane is held: below its edge the codes equal the
+    plain ones on the read's rows, and no byte at or past its edge, nor of a
+    lane the walk does not reach, is written. The moved edges are drawn so
+    that j binds in a third of the held lanes, n in a third, and the two tie
+    in the rest; the first held lane's sit on column C. Fails when a strip has no held lane
+    with its edge in the window, or no strip a j-bound or an n-bound one.
+    Returns the counts of held lanes with their edge in the window: in the
+    real launch, and moved (j-bound, n-bound). Leaves ``moves`` for the
+    caller to rewrite."""
+    import torch
+
+    from parallel_genomeseq_tpu_torch.ops import scan_dp
+
+    S = scan_dp.STRIP_S
+    dev = xs.device
+    B, N = ys.shape
+    i0, j0, active0 = at_launch
+    gen = torch.Generator().manual_seed(16)
+    e = torch.randint(1, C // 2 + 1, (B,), generator=gen)
+    d = torch.randint(1, C // 2 + 1, (B,), generator=gen)
+    kind = torch.zeros(B, dtype=torch.long)  # 0: tied, 1: j binds, 2: n binds
+    kind[held.cpu()] = torch.arange(held.numel()) % 3
+    j_e = torch.where(kind == 2, e + d, e)
+    n_e = torch.where(kind == 1, e + d, e)
+    j_e[int(held[0])] = n_e[int(held[0])] = C
+    j_e = j_e.to(device=dev, dtype=j0.dtype)
+    n_e = torch.minimum(n_e.to(device=dev, dtype=n.dtype), n)
+    cols = torch.arange(N, device=dev)[None, :, None]
+    rows = torch.arange(S, device=dev)
+    mh = m[held][:, None, None]
+    counts = dict(edge_lanes_real=0, edge_lanes_moved=0, edge_lanes_j=0, edge_lanes_n=0)
+    for walk in ((i0, j_e, active0), None):
+        moves.fill_(0xFF)
+        group(xs, ys, m, n_e, *ck, low, moves, walk, **kw)
+        for t, want in sorted(wants.items(), reverse=True):
+            reach = active0 & (i0 - 1 >= t * S)
+            edge = n_e if walk is None else torch.where(reach, torch.minimum(n_e, j_e), 0)
+            eh = edge[held]
+            got = moves[t - low][held]
+            written = cols < eh[:, None, None]
+            on_read = written[:, :C] & ((t * S + rows)[None, None, :] < mh)
+            if (bool((got[:, :C][on_read] != want[on_read]).any())
+                    or bool((torch.where(written, 0xFF, got) != 0xFF).any())):
+                raise AssertionError(f"{name} {group.__name__} strip {t}: the launch with moved "
+                                     f"edges ({'walk state' if walk else 'every column'}) "
+                                     "differs from the plain codes or wrote past an edge")
+            lanes = int((eh > 0).sum())
+            if walk is None:
+                print(f"{name} {group.__name__} strip {t} right edge n_b, no walk state: "
+                      f"{lanes} held lanes equal below it, nothing written past it")
+                continue
+            real = int((reach & (torch.minimum(n, j0) <= C))[held].sum())
+            j_bound = int(((eh > 0) & (j_e < n_e)[held]).sum())
+            n_bound = int(((eh > 0) & (n_e < j_e)[held]).sum())
+            print(f"{name} {group.__name__} strip {t} right edge min(n_b, j): {real} held lanes "
+                  f"have it in the {C} compared columns in the launch; moved inside them, "
+                  f"{lanes} held lanes ({j_bound} j-bound, {n_bound} n-bound) equal below it, "
+                  "nothing written past it")
+            if not lanes:
+                raise AssertionError(f"{name} strip {t}: no held lane has its edge in the window")
+            counts["edge_lanes_real"] += real
+            counts["edge_lanes_moved"] += lanes
+            counts["edge_lanes_j"] += j_bound
+            counts["edge_lanes_n"] += n_bound
+    if not counts["edge_lanes_j"] or not counts["edge_lanes_n"]:
+        raise AssertionError(f"{name} {group.__name__}: the moved edges missed a kind: {counts}")
+    return counts
 
 
 def walk_record(walk, pre, post, ms, plain_ms, err, shape, clock, affine):
@@ -2383,7 +2476,7 @@ def serving_phase(args, card: str, clock: float, dev, dna_data, protein_data):
             check = functools.partial(check_sampled, gap=gaps["gap"], sub=sub)
         cli = ["--ref", str(ref_path), "--input", str(csv_path), "--output", str(out_csv),
                "--batch-size", str(args.batch_size), "--device", str(dev)] + flags
-        runs[f"solve_small_matrix_{label}"] = dna_run(
+        runs[f"solve_small_matrix_{label}"], _ = dna_run(
             f"--matrix blosum50 {label}", cli, gaps, reads, ref, out_csv, card, args.seed,
             counters=protein_kernels(gaps)[:3], absent=uniform, check=check)
 
@@ -2481,12 +2574,13 @@ def check_seeded_sampled(se, kw, reads, ref, rows, results, seed: int, count: in
     print(f"oracle check: {count} sampled reads of the seeded run agree inside their windows")
 
 
-def seeded_runs(args, card: str, clock: float, dev, dna_data):
+def seeded_runs(args, card: str, clock: float, dev, dna_data, full_rates):
     """Phase 11's seed-and-extend half: ``solve_small --seed-extend`` on phase
     3's data, linear and BWA-MEM's, each with K2/K3 (K7/K10) held at the
     windows' shape, its launches (none of K1 and K6: no window sweep), its
     plain route's CSV on the first batch, its scores against phase 3's
-    full-width CSV and 32 sampled reads against the oracle. Returns
+    full-width CSV and 32 sampled reads against the oracle, and its reads/s
+    beside phase 3's and 4's (``full_rates``, by label). Returns
     (measurements by kernel, launches by run)."""
     import functools
 
@@ -2522,14 +2616,13 @@ def seeded_runs(args, card: str, clock: float, dev, dna_data):
                "--seed-extend"] + flags
         _, moves_k, walk_k = dna_kernels(kw)[:3]
         run = f"solve_small_seed_extend_{label}"
-        runs[run] = dna_run(
+        runs[run], rate = dna_run(
             f"--seed-extend {label}", cli, kw, reads, ref, out_csv, card, args.seed,
             counters=(moves_k, walk_k),
             absent=(wavefront_cuda.sw_score, wavefront_cuda.sw_score_affine),
             check=functools.partial(check_seeded_sampled, se, kw))
-        print(f"solve_small --seed-extend {label}: {READS_PER_S[f'--seed-extend {label}']:.1f} "
-              f"reads/s against phase {3 if label == 'linear' else 4}'s full width "
-              f"{READS_PER_S[label]:.1f}; {card}")
+        print(f"solve_small --seed-extend {label}: {rate:.1f} reads/s against phase "
+              f"{3 if label == 'linear' else 4}'s full width {full_rates[label]:.1f}; {card}")
         # The plain route on the first batch: the same CSV rows, byte for byte.
         plain_csv = data / f"align_output_seeded_{label}_plain.csv"
         cli_plain = [a if a != str(out_csv) else str(plain_csv) for a in cli]
@@ -2567,16 +2660,16 @@ def nw_case(label, x, y, m, n, table, gap: int, clock: float, reps: int = 3):
     cells, seq_bytes = lane_work(m, n)
     B, N = y.shape
     rec = {"shape": f"{B} lanes, M={x.shape[1]}, N={N}, {cells:.3e} cells, rows in "
-                    f"{'shared memory' if global_dp.rows_in_shared(N) else 'a global scratch'}",
+                    f"{'a global scratch' if global_dp.scratch_ints(N, B) else 'shared memory'}",
            "max_abs_err": max_abs_err([got], [want]), "plain_ms": plain_ms,
            "ms": cuda_ms(lambda: global_dp.nw_lastrow(x, y, m, n, table=table, gap=gap), reps),
-           "cells": cells, "threads": global_dp.NW_THREADS, "run": global_dp.NW_RUN}
+           "cells": cells}
     # Read each lane's bytes and the table once, write the (B, N + 1) rows.
     rec["bound_ms"], rec["bound_by"] = bound(
         cells * NW_OPS_PER_CELL, seq_bytes + 8 * B + table.numel() * 4 + 4 * B * (N + 1), clock)
     rec["gcups"] = cells / rec["ms"] / 1e6
     print(f"K25 nw_lastrow[{label}] {rec['shape']}: equal; kernel {rec['ms']:.3f} ms "
-          f"({rec['gcups']:.2f} GCUPS, {B} blocks of {rec['threads']} threads), plain "
+          f"({rec['gcups']:.2f} GCUPS, {B} blocks), plain "
           f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); {CARD}")
     return got, rec
 
@@ -2673,12 +2766,12 @@ def global_runs(card: str, clock: float, dev, long):
     return cases, launches
 
 
-def a12_phase(args, card: str, clock: float, dev, dna_data, long):
-    """Phase 11: seed-and-extend and global alignment. Returns (the
-    seeded measurements by kernel, the seeded runs' launches, K25's cases,
-    K25's launches)."""
+def a12_phase(args, card: str, clock: float, dev, dna_data, full_rates, long):
+    """Phase 11: seed-and-extend and global alignment (``full_rates``:
+    phases 3 and 4's reads/s). Returns (the seeded measurements by kernel,
+    the seeded runs' launches, K25's cases, K25's launches)."""
     t_phase = time.perf_counter()
-    measured, runs = seeded_runs(args, card, clock, dev, dna_data)
+    measured, runs = seeded_runs(args, card, clock, dev, dna_data, full_rates)
     nw_cases, nw_launches = global_runs(card, clock, dev, long)
     print(f"seed-extend and global phase: {time.perf_counter() - t_phase:.1f} s")
     return measured, runs, nw_cases, nw_launches
@@ -2844,7 +2937,7 @@ def main(argv=None) -> int:
         seconds[name] = round(time.perf_counter() - t0, 1)
         t0 = time.perf_counter()
 
-    dna, dna_launches, dna_data = dna_phase(args, card, clock, dev)
+    dna, dna_launches, dna_rates, dna_data = dna_phase(args, card, clock, dev)
     lap("3-4 short reads")
     protein, protein_launches, entries, protein_data = protein_phase(args, card, clock, dev)
     lap("5 protein scan")
@@ -2868,7 +2961,7 @@ def main(argv=None) -> int:
     serving, serving_runs = serving_phase(args, card, clock, dev, dna_data, protein_data)
     lap("10 serving")
     seeded, seeded_runs_, nw_cases, nw_launches = a12_phase(args, card, clock, dev, dna_data,
-                                                             data)
+                                                             dna_rates, data)
     lap("11 seed-extend and global")
 
     kernels = add_phase(add_phase(

@@ -14,9 +14,9 @@ and the K3 walk, or with ``--gap-open`` K8, K9 and K10. ``--seed-extend``
 seeds every read with the FM index on the host and extends it only inside
 its seeded reference window (``models/seed_extend.py``: K2 and K3, or K7
 and K10, at the window's width; no window sweep), unseeded reads at full
-width; it reports full-matrix-equivalent GCUPS. ``--engine plain`` runs the
-plain PyTorch version of every kernel of the ``--seed-extend`` and
-``--npiece 1`` paths. ``--parity-mode skewed`` is not ported yet.
+width; it reports full-matrix-equivalent GCUPS. With ``--seed-extend``,
+``--engine plain`` runs the plain PyTorch version of every kernel of that
+path. ``--parity-mode skewed`` is not ported yet.
 
 Usage:
     python -m parallel_genomeseq_tpu_torch.cli.solve_small [--npiece 17] [--eval]
@@ -85,8 +85,8 @@ def run(argv=None) -> Run:
     common.add_device_flags(p)
     p.add_argument(
         "--engine", default="auto", choices=["auto", "cuda", "plain"],
-        help="the --seed-extend and --npiece 1 paths' engine: plain runs the "
-        "plain PyTorch version of every kernel on the chosen device",
+        help="the --seed-extend path's engine: plain runs the plain PyTorch "
+        "version of every kernel on the chosen device",
     )
     args = p.parse_args(argv)
 
@@ -94,8 +94,8 @@ def run(argv=None) -> Run:
         p.error("--seed-extend implies exact int32 scoring; drop --parity-mode skewed")
     if args.parity_mode == "skewed":
         p.error("--parity-mode skewed is not ported yet (ROADMAP A2)")
-    if args.engine != "auto" and not args.seed_extend and args.npiece > 1:
-        p.error("--engine applies to --seed-extend and --npiece 1")
+    if args.engine != "auto" and not args.seed_extend:
+        p.error("--engine applies to --seed-extend only")
 
     ref = read_fasta(args.ref)
     rows = read_ground_truth(args.input)
@@ -115,7 +115,7 @@ def run(argv=None) -> Run:
         )
         stream = lambda batches: aligner.align_stream(batches, ref)
     else:
-        aligner = BatchSWAligner(cfg, device=args.device, engine=args.engine)
+        aligner = BatchSWAligner(cfg, device=args.device)
         stream = lambda batches: aligner.align_stream(batches, [ref])
 
     if args.both_strands:

@@ -51,7 +51,7 @@ constexpr int kRun = 8;
 constexpr int kTile = kThreads * kRun;
 constexpr int kWarps = kThreads / 32;
 // The dynamic shared memory the rows and the reference bytes may take; past
-// it the wrapper passes a global scratch.
+// it the wrapper passes a global scratch (pgs_nw_scratch_ints).
 constexpr int kSharedBytes = 200 * 1024;
 constexpr int kNeg = INT_MIN / 2;
 constexpr unsigned kFull = 0xffffffffu;
@@ -192,10 +192,9 @@ nw_lastrow_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
 // pgs_nw_lastrow (K25): x (B, M) and y (B, N) uint8, m, n (B,) int32 (each
 // clamped to [0, M] and [0, N]), table (256, 256) int32 over raw bytes, the
 // linear gap, out (B, N + 1) int32. scratch is null when the rows fit in
-// shared memory (pgs_nw_shape's limit on 2 * stride * 4 + N rounded up to
-// 16), else a (B, 2, stride) int32 buffer, stride = N + 1 rounded up to the
-// run. Returns cudaErrorInvalidValue for a null scratch past that limit,
-// else cudaGetLastError() after the launch (no sync).
+// shared memory, else a buffer of pgs_nw_scratch_ints(N, B) int32. Returns
+// cudaErrorInvalidValue for a null scratch past the shared limit, else
+// cudaGetLastError() after the launch (no sync).
 extern "C" int pgs_nw_lastrow(const void* x, const void* y, const void* m, const void* n,
                               int M, int N, int B, const void* table, int gap, void* scratch,
                               void* out, void* stream) {
@@ -213,12 +212,13 @@ extern "C" int pgs_nw_lastrow(const void* x, const void* y, const void* m, const
   return cudaGetLastError();
 }
 
-// K25's launch constants: out[0] threads a block, out[1] columns a thread,
-// out[2] the shared-memory limit of the rows in bytes.
-extern "C" int pgs_nw_shape(void* out) {
-  int* o = static_cast<int*>(out);
-  o[0] = kThreads;
-  o[1] = kRun;
-  o[2] = kSharedBytes;
+// The int32 scratch K25 needs for B lanes of reference width N, written to
+// *out (a host int64): 0 when a lane's two rows and reference bytes fit in
+// kSharedBytes of shared memory, else B * 2 * stride (the (B, 2, stride)
+// rows, stride = N + 1 rounded up to the run).
+extern "C" int pgs_nw_scratch_ints(int N, int B, void* out) {
+  if (N < 0 || B < 0) return cudaErrorInvalidValue;
+  *static_cast<long long*>(out) =
+      shared_bytes(N) <= kSharedBytes ? 0 : (long long)B * 2 * row_stride(N);
   return cudaSuccess;
 }

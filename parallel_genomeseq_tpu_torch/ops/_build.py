@@ -66,8 +66,8 @@ _SIGNATURES = {
     # x, y, m, n, M, N, B, table, gap, scratch (null: the rows in shared
     # memory), out, stream
     "pgs_nw_lastrow": [_P] * 4 + [_I] * 3 + [_P, _I] + [_P] * 3,
-    # out (int32 threads a block, columns a thread, shared-memory limit)
-    "pgs_nw_shape": [_P],
+    # N, B, out (int64 scratch ints, 0: the rows in shared memory)
+    "pgs_nw_scratch_ints": [_I, _I, _P],
 }
 
 _lib = None

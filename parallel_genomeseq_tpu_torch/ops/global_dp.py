@@ -32,31 +32,14 @@ from . import _build
 from .engine import check_supported
 from .oracle import _as_bytes
 
-# K25's launch constants (csrc/global_dp.cu, read back by ``nw_shape``):
-# threads a block, columns a thread, and the shared memory the two rows and
-# the reference bytes may take before they go to a global scratch.
-NW_THREADS = 512
-NW_RUN = 8
-NW_SHARED_BYTES = 200 * 1024
-
-
-def row_stride(N: int) -> int:
-    """Ints a row of K25's (B, 2, stride) scratch holds: N + 1 rounded up to
-    the run."""
-    return -(-(N + 1) // NW_RUN) * NW_RUN
-
-
-def rows_in_shared(N: int) -> bool:
-    """Whether K25 keeps a lane's two rows and reference bytes in shared
-    memory (else in a global scratch) for a reference width N."""
-    return 2 * row_stride(N) * 4 + -(-N // 16) * 16 <= NW_SHARED_BYTES
-
-
-def nw_shape():
-    """(threads a block, columns a thread, shared limit) as K25 was built."""
-    out = (ctypes.c_int * 3)()
-    _build.check(_build.load().pgs_nw_shape(ctypes.addressof(out)), "pgs_nw_shape")
-    return tuple(out)
+def scratch_ints(N: int, B: int) -> int:
+    """The int32 global scratch K25 needs for B lanes of reference width N,
+    by the kernel's own rule: 0 when a lane's two rows and reference bytes
+    fit in its shared memory."""
+    out = ctypes.c_longlong()
+    _build.check(_build.load().pgs_nw_scratch_ints(N, B, ctypes.byref(out)),
+                 "pgs_nw_scratch_ints")
+    return out.value
 
 
 def check_config(cfg: ScoringConfig):
@@ -115,8 +98,8 @@ def _launch(x, y, m, n, table, gap):
     m = m.to(torch.int32).contiguous()
     n = n.to(torch.int32).contiguous()
     out = torch.empty((B, N + 1), dtype=torch.int32, device=dev)
-    scratch = (None if rows_in_shared(N)
-               else torch.empty((B, 2, row_stride(N)), dtype=torch.int32, device=dev))
+    ints = scratch_ints(N, B)
+    scratch = torch.empty(ints, dtype=torch.int32, device=dev) if ints else None
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.pgs_nw_lastrow(

@@ -232,6 +232,16 @@ def test_solve_small_rejects_unported_modes(flags, tmp_path):
     assert exc.value.code == 2
 
 
+@pytest.mark.parametrize("flags", [["--engine", "plain"], ["--engine", "cuda", "--npiece", "1"]])
+def test_solve_small_engine_needs_seed_extend(flags, tmp_path, capsys):
+    """``--engine`` picks the --seed-extend path's engine and is refused on
+    the chunked and unchunked paths, before any data is read."""
+    with pytest.raises(SystemExit) as exc:
+        solve_small.main(flags + ["--device", "cpu", "--output", str(tmp_path / "o.csv")])
+    assert exc.value.code == 2
+    assert "--engine applies to --seed-extend only" in capsys.readouterr().err
+
+
 @pytest.mark.parametrize("gaps, row", [
     ([], "a,15,66,10,2,LLSIFTVWK,LLSIFTVWK"),
     (["--gap-open", "10", "--gap-penalty", "2"], "a,15,66,10,1,LLSIFTVWKM,LLSIFTVWKM"),

@@ -7,10 +7,8 @@ symmetric substitution matrix (non-negative ones too), linear or affine --
 and a ragged batch whose reads and references hold bytes outside the
 alphabet, half of them with a mutated stretch of their reference planted,
 and compares every AlignResult field with traceback. A few trials run by
-default; PGS_TORCH_FUZZ_TRIALS sets the count, PGS_TORCH_FUZZ_SEED offsets
-the trials' seeds (to shard a long campaign across processes), and
-PGS_TORCH_FUZZ_MAX_M raises the longest read (past 2,048 the port runs its
-strip traceback, the JAX scan its full matrix).
+default; PGS_TORCH_FUZZ_TRIALS sets the count and PGS_TORCH_FUZZ_SEED offsets
+the trials' seeds (to shard a long campaign across processes).
 """
 
 import os
@@ -30,7 +28,7 @@ torch.set_num_threads(1)
 
 TRIALS = int(os.environ.get("PGS_TORCH_FUZZ_TRIALS", 4))
 SEED_OFFSET = int(os.environ.get("PGS_TORCH_FUZZ_SEED", 0))
-MAX_M = int(os.environ.get("PGS_TORCH_FUZZ_MAX_M", 160))
+MAX_M = 160  # the longest read
 FIELDS = ("score", "pos", "consensus_x", "consensus_y", "max_i", "max_j")
 
 
