@@ -137,13 +137,21 @@
    their windows, no score above phase 3's (4's) full-width CSV and the
    rows that differ from it counted, and ``--engine plain``'s CSV on the
    first batch equal to the card's. Then K25, the NW last-row sweep, held
-   exactly against its plain version on phase 6's data: Hirschberg's top
-   launch (2 lanes: a mutated read's halves against its source read), an
-   ``nw_score_batch`` of the 100 mutated reads against their sources and a
-   ragged 64-lane batch, two of those scores against the host row sweep;
-   ``hirschberg_align`` on 2 reads with every subproblem on the card
-   (``device_cells=0``; K25's launches counted from 0) against the
-   host-only run (the same score, a valid alignment of it); ``cli/demo.py``
+   exactly against its plain version on phase 6's data, each case timed
+   beside its rows a thread, warps a block, blocks, segments (chunks) a
+   lane, GCUPS and bound share, and PR 16's time where it had the case:
+   Hirschberg's top launch (2 lanes read in place: a mutated read's first
+   half, and its second half reversed, against its source read forward and
+   reversed), an ``nw_score_batch`` of the 100 mutated reads against their
+   sources, a ragged 64-lane batch, a deep recursion level's launch (4,096
+   lanes of a few rows and columns), 40 lanes at random offsets, forward or
+   reversed, and the segment edges (B of 1, 2 and 3; m_b on, one short of
+   and one past a segment edge at 4 and 32 rows a thread, m_b = 0 and n_b =
+   0; n of 25,000); two of the scores against the host row sweep. Then
+   ``hirschberg_align`` on 2 reads at ``device_cells=0`` (K25's launches
+   counted from 0) and at the default, each with at most one K25 launch a
+   recursion level, its seconds and launches beside PR 16's, and its score
+   and consensus strings identical to the CPU-only run's; ``cli/demo.py``
    on the card, its lines equal to the CPU's.
 12. Prints the seconds of each phase, then the kernels' JSON line -- each kernel's time, its plain version's,
    and its bound: the larger of the integer operations its cells need over
@@ -168,10 +176,9 @@
    each time as well; phase 10's cases under their labels and each run's
    launches as ``launches_<run>``, added to ``launches``, phase 11's
    seeded cases under ``seeded`` and its runs' launches the same way, and
-   K25's entry (its Hirschberg top launch first, the 100-lane and ragged
-   batches under their labels, its launches those of the two
-   ``hirschberg_align`` runs) -- then ``{"ok": true, "device": ...}``
-   last.
+   K25's entry (its Hirschberg top launch first, the other cases under their
+   labels, its launches those of the ``device_cells=0`` ``hirschberg_align``
+   runs) -- then ``{"ok": true, "device": ...}`` last.
 
 Any failed phase raises and exits non-zero before the last line.
 """
@@ -2509,6 +2516,11 @@ def serving_phase(args, card: str, clock: float, dev, dna_data, protein_data):
 # one DPX __viaddmax_s32 (2), the west chain max(u, west - gap) one DPX (1);
 # the score is a shared-memory load (0).
 NW_OPS_PER_CELL = 3
+# K25's first design (a block a lane, PR 16; NVIDIA H100 80GB HBM3, 700.00
+# W): its times on the cases it had, and hirschberg_align's seconds and
+# launches for the 2 reads at device_cells=0.
+NW_PR16_MS = {"hirschberg_top": 12.747, "score_batch": 25.441, "ragged": 23.852}
+HIRSCHBERG_PR16 = (8.86, 19_995)
 
 
 def check_seeded_kernels(se, reads, batch: int, clock: float, dev, kw):
@@ -2651,43 +2663,98 @@ def seeded_runs(args, card: str, clock: float, dev, dna_data, full_rates):
     return measured, runs
 
 
-def nw_case(label, x, y, m, n, table, gap: int, clock: float, reps: int = 3):
-    """K25 on (x, y, m, n) against its plain version, exactly: times, bound."""
+def nw_case(label, x, y, lanes, table, gap: int, clock: float, reps: int = 3):
+    """K25 on lanes read in place from the flat buffers x, y (a ``Lanes``
+    plan) against its plain version, exactly: times, launch shape, bound."""
     from parallel_genomeseq_tpu_torch.ops import global_dp
 
-    got = global_dp.nw_lastrow(x, y, m, n, table=table, gap=gap)
-    want, plain_ms = timed(lambda: global_dp.nw_lastrow_plain(x, y, m, n, table=table, gap=gap))
-    cells, seq_bytes = lane_work(m, n)
-    B, N = y.shape
-    rec = {"shape": f"{B} lanes, M={x.shape[1]}, N={N}, {cells:.3e} cells, rows in "
-                    f"{'a global scratch' if global_dp.scratch_ints(N, B) else 'shared memory'}",
+    got = global_dp.nw_lastrow_lanes(x, y, lanes, table=table, gap=gap)
+    want, plain_ms = timed(lambda: global_dp.nw_lastrow_lanes_plain(x, y, lanes, table=table,
+                                                                    gap=gap))
+    cells = int((lanes.m * lanes.n).sum())
+    seq_bytes = int(lanes.m.sum() + lanes.n.sum())
+    segs = [int(lanes.chunks.min()), int(lanes.chunks.max())] if lanes.B else [0, 0]
+    rec = {"shape": f"{lanes.B} lanes, {cells:.3e} cells, {lanes.rows} rows a thread, "
+                    f"{lanes.warps} warps a block, {lanes.blocks} blocks, "
+                    f"{segs[0]}-{segs[1]} segments a lane",
            "max_abs_err": max_abs_err([got], [want]), "plain_ms": plain_ms,
-           "ms": cuda_ms(lambda: global_dp.nw_lastrow(x, y, m, n, table=table, gap=gap), reps),
-           "cells": cells}
-    # Read each lane's bytes and the table once, write the (B, N + 1) rows.
+           "ms": cuda_ms(lambda: global_dp.nw_lastrow_lanes(x, y, lanes, table=table, gap=gap),
+                         reps),
+           "cells": cells, "rows_a_thread": lanes.rows, "warps_a_block": lanes.warps,
+           "blocks": lanes.blocks, "segments_a_lane": segs,
+           "sms": global_dp.sms_used(x, y, lanes, table=table, gap=gap)}
+    # Read each lane's bytes, its descriptor and the table once, write the rows.
     rec["bound_ms"], rec["bound_by"] = bound(
-        cells * NW_OPS_PER_CELL, seq_bytes + 8 * B + table.numel() * 4 + 4 * B * (N + 1), clock)
+        cells * NW_OPS_PER_CELL,
+        seq_bytes + 8 * lanes.descriptor().size + table.numel() * 4 + 4 * lanes.total_out,
+        clock)
     rec["gcups"] = cells / rec["ms"] / 1e6
-    print(f"K25 nw_lastrow[{label}] {rec['shape']}: equal; kernel {rec['ms']:.3f} ms "
-          f"({rec['gcups']:.2f} GCUPS, {B} blocks), plain "
-          f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); {CARD}")
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    if label in NW_PR16_MS:
+        rec["pr16_ms"] = NW_PR16_MS[label]
+    then = f", PR 16 {NW_PR16_MS[label]:.3f} ms" if label in NW_PR16_MS else ""
+    print(f"K25 nw_lastrow[{label}] {rec['shape']}, on {rec['sms']} SMs: equal; kernel "
+          f"{rec['ms']:.3f} ms "
+          f"({rec['gcups']:.2f} GCUPS{then}), plain {rec['plain_ms']:.3f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, {100 * rec['bound_share']:.2f}%); {CARD}")
     return got, rec
+
+
+def nw_edge_lanes(exact, mutated):
+    """K25's edge cases as (label, x, y, plan arguments) over host buffers:
+    B of 1, 2, 3; m_b on, one short of and one past a segment edge at 4 and
+    32 rows a thread with m_b = 0 and n_b = 0 among them; n of 25,000."""
+    import numpy as np
+
+    X = np.frombuffer("".join(mutated[:3]).encode(), np.uint8)
+    Y = np.frombuffer("".join(exact[:3]).encode(), np.uint8)
+    cases = []
+    for B, ms, ns in ((1, [3000], [5000]), (2, [4000, 129], [9000, 7000]),
+                      (3, [2500, 6000, 1], [3000, 10_000, 4000])):
+        cases.append((f"b{B}", X, Y, dict(m=ms, n=ns)))
+    for R in (4, 32):
+        c = 32 * R
+        ms = [c, c - 1, c + 1, 2 * c, 2 * c + 1, 0, 5, 3 * c - 1]
+        ns = [5000, 1, 300, 2000, 0, 40, 0, 4000]
+        cases.append((f"edges_r{R}", X, Y, dict(m=ms, n=ns, rows=R)))
+    cases.append(("n_25000", X, Y, dict(m=[3000, 30], n=[25_000, 25_000], y_off=[0, 4000])))
+    return cases
+
+
+def deep_level_lanes(x: str, y: str, subproblems: int = 2048):
+    """A deep Hirschberg level's lanes over one read pair: x and y cut into
+    ``subproblems`` consecutive pieces, each a forward lane of its first
+    half and a reversed lane of its second half against its piece of y
+    (forward and reversed) -- the level's shape, a few rows and columns a
+    lane. Returns the plan's arguments."""
+    import numpy as np
+
+    cut = lambda total: (np.arange(subproblems + 1) * total) // subproblems
+    xb, yb = cut(len(x)), cut(len(y))
+    xo, xl = xb[:-1], np.diff(xb)
+    yo, yl = yb[:-1], np.diff(yb)
+    mid = xl // 2
+    two = lambda a, b: np.stack([a, b], 1).reshape(-1)
+    return dict(m=two(mid, xl - mid), n=two(yl, yl), x_off=two(xo, xo + mid),
+                y_off=two(yo, yo), x_rev=np.tile([False, True], subproblems),
+                y_rev=np.tile([False, True], subproblems))
 
 
 def global_runs(card: str, clock: float, dev, long):
     """Phase 11's global half, on phase 6's long-read data: K25 held exactly
-    against its plain version on Hirschberg's top launch (2 lanes, a
-    mutated read's halves against its source read), an ``nw_score_batch`` of
-    the 100 mutated reads against their sources, and a ragged 64-lane batch;
-    two of those scores against the host row sweep; ``hirschberg_align`` on
-    two reads with every subproblem on the card (device_cells=0), its K25
-    launches counted from 0, against the host-only run; the demo on the
-    card. Returns (K25's cases, its launches in the Hirschberg runs)."""
+    against its plain version on Hirschberg's top launch, an
+    ``nw_score_batch`` of the 100 mutated reads against their sources, a
+    ragged 64-lane batch, a deep level's 4,096 lanes, 40 lanes at random
+    offsets and directions, and the segment edges; two scores against the
+    host row sweep; ``hirschberg_align`` on two reads at device_cells=0
+    (K25's launches counted from 0) and at the default, at most one launch
+    a recursion level, identical to the CPU-only run; the demo on the card.
+    Returns (K25's cases, its launches in the device_cells=0 runs)."""
     import contextlib
-    import functools
     import io
 
     import numpy as np
+    import torch
 
     from parallel_genomeseq_tpu_torch.cli import demo
     from parallel_genomeseq_tpu_torch.models import hirschberg
@@ -2698,15 +2765,18 @@ def global_runs(card: str, clock: float, dev, long):
     cfg = ScoringConfig()
     gap = int(cfg.gap_penalty)
     table = global_dp.byte_table(cfg, dev)
-
-    lanes = functools.partial(global_dp.pack_lanes, device=dev)
+    up = lambda a: torch.from_numpy(np.frombuffer(a.encode(), np.uint8).copy()).to(dev)
 
     cases = {}
     x0, y0 = mutated[0], exact[0]
     mid = len(x0) // 2
     _, cases["hirschberg_top"] = nw_case(
-        "hirschberg_top", *lanes([x0[:mid], x0[mid:][::-1]], [y0, y0[::-1]]), table, gap, clock)
-    got, cases["score_batch"] = nw_case("score_batch", *lanes(mutated, exact), table, gap, clock)
+        "hirschberg_top", up(x0), up(y0),
+        global_dp.plan_lanes([mid, len(x0) - mid], [len(y0)] * 2, x_off=[0, mid], y_off=[0, 0],
+                             x_rev=[False, True], y_rev=[False, True]), table, gap, clock)
+    xb, yb, lanes = global_dp.flat_lanes(mutated, exact, dev)
+    got, cases["score_batch"] = nw_case("score_batch", xb, yb, lanes, table, gap, clock)
+    scores = got[torch.from_numpy(lanes.out_off + lanes.n).to(dev)].cpu().numpy()
     rng = np.random.default_rng(11)
     rx, ry = [], []
     for k in range(64):
@@ -2714,44 +2784,61 @@ def global_runs(card: str, clock: float, dev, long):
         lo = int(rng.integers(0, 10_000 - b + 1))
         rx.append(mutated[k % 100][:a])
         ry.append(exact[k % 100][lo : lo + b])
-    _, cases["ragged"] = nw_case("ragged", *lanes(rx, ry), table, gap, clock)
+    _, cases["ragged"] = nw_case("ragged", *global_dp.flat_lanes(rx, ry, dev), table, gap, clock)
+    _, cases["deep_level"] = nw_case("deep_level", up(x0), up(y0),
+                                     global_dp.plan_lanes(**deep_level_lanes(x0, y0)), table,
+                                     gap, clock)
+    X, Y = "".join(mutated[:4]), "".join(exact[:4])
+    m, n = rng.integers(0, 3000, 40), rng.integers(0, 4000, 40)
+    _, cases["offsets_reversed"] = nw_case(
+        "offsets_reversed", up(X), up(Y),
+        global_dp.plan_lanes(m, n, x_off=rng.integers(0, len(X) - m),
+                             y_off=rng.integers(0, len(Y) - n), x_rev=rng.random(40) < 0.5,
+                             y_rev=rng.random(40) < 0.5), table, gap, clock)
+    for label, Xe, Ye, kw in nw_edge_lanes(exact, mutated):
+        _, cases[label] = nw_case(label, torch.from_numpy(Xe.copy()).to(dev),
+                                  torch.from_numpy(Ye.copy()).to(dev),
+                                  global_dp.plan_lanes(**kw), table, gap, clock)
     tab = cfg.byte_table().astype(np.float64)
     for k in (0, 57):
         host = hirschberg._nw_lastrow(np.frombuffer(mutated[k].encode(), np.uint8),
                                       np.frombuffer(exact[k].encode(), np.uint8), tab, gap)
-        if int(got[k, len(exact[k])]) != host[-1]:
-            raise AssertionError(f"K25 score of read {k} {int(got[k, len(exact[k])])} != host "
-                                 f"row sweep {host[-1]}")
-    print(f"K25 scores of reads 0 and 57 equal the host row sweep's "
-          f"({int(got[0, len(exact[0])])}, {int(got[57, len(exact[57])])})")
+        if int(scores[k]) != host[-1]:
+            raise AssertionError(f"K25 score of read {k} {int(scores[k])} != host row sweep "
+                                 f"{host[-1]}")
+    print(f"K25 scores of reads 0 and 57 equal the host row sweep's ({int(scores[0])}, "
+          f"{int(scores[57])})")
 
-    global_dp.nw_lastrow.launches = 0
-    t_dev = t_host = 0.0
-    for k in (0, 1):
+    levels = sum(int(np.ceil(np.log2(len(mutated[k])))) + 1 for k in (0, 1))
+    t0 = time.perf_counter()
+    host = [hirschberg.hirschberg_align(mutated[k], exact[k], cfg, device_cells=1 << 60,
+                                        device=dev) for k in (0, 1)]
+    print(f"hirschberg_align, 2 reads of ~10 kb, every subproblem on the CPU route: "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches = 0
+    for cells, label in ((0, "device_cells=0"),
+                         (hirschberg.DEVICE_CELLS, f"the default ({hirschberg.DEVICE_CELLS})")):
+        global_dp.nw_lastrow.launches = 0
         t0 = time.perf_counter()
-        on_card = hirschberg.hirschberg_align(mutated[k], exact[k], cfg, device_cells=0,
-                                              device=dev)
-        t_dev += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        host = hirschberg.hirschberg_align(mutated[k], exact[k], cfg, device_cells=1 << 60,
-                                           device=dev)
-        t_host += time.perf_counter() - t0
-        cx, cy = on_card.consensus_x[::-1], on_card.consensus_y[::-1]
-        if (on_card.score != host.score or cx.replace("-", "") != mutated[k]
-                or cy.replace("-", "") != exact[k]
-                or hirschberg.alignment_score(cx, cy, cfg) != on_card.score):
-            raise AssertionError(f"hirschberg read {k}: card {on_card.score} vs host "
-                                 f"{host.score}, or not a valid alignment of that score")
-        same = (on_card.consensus_x, on_card.consensus_y) == (host.consensus_x,
-                                                              host.consensus_y)
-        print(f"hirschberg read {k}: score {on_card.score:.0f} on the card and on the host, "
-              f"{len(cx)} columns, a valid alignment of that score; consensus "
-              f"{'identical' if same else 'different'} to the host run's")
-    launches = global_dp.nw_lastrow.launches
-    if launches < 2:
-        raise AssertionError(f"hirschberg_align launched K25 {launches} times")
-    print(f"hirschberg_align, 2 reads of ~10 kb, device_cells=0: {t_dev:.2f} s, {launches} K25 "
-          f"launches; host-only: {t_host:.2f} s; {card}")
+        runs = [hirschberg.hirschberg_align(mutated[k], exact[k], cfg, device_cells=cells,
+                                            device=dev) for k in (0, 1)]
+        seconds = time.perf_counter() - t0
+        n_launch = global_dp.nw_lastrow.launches
+        if cells == 0:
+            launches = n_launch
+        if not 1 <= n_launch <= levels:
+            raise AssertionError(f"hirschberg_align at {label}: {n_launch} K25 launches for "
+                                 f"{levels} recursion levels")
+        for k, (on_card, h) in enumerate(zip(runs, host)):
+            if (on_card.score, on_card.consensus_x, on_card.consensus_y) != \
+                    (h.score, h.consensus_x, h.consensus_y):
+                raise AssertionError(f"hirschberg read {k} at {label}: the card's alignment "
+                                     f"differs from the CPU-only run's")
+        print(f"hirschberg_align, 2 reads of ~10 kb, {label}: {seconds:.3f} s, {n_launch} K25 "
+              f"launches for {levels} levels (PR 16 at device_cells=0: {HIRSCHBERG_PR16[0]} s, "
+              f"{HIRSCHBERG_PR16[1]:,} launches); scores {runs[0].score:.0f}, "
+              f"{runs[1].score:.0f} and consensus strings identical to the CPU-only run's; "
+              f"{card}")
 
     outs = []
     for device in (str(dev), "cpu"):

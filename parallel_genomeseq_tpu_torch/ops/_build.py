@@ -63,11 +63,10 @@ _SIGNATURES = {
     # B, out (int32 K14/K18's tile rows, tile columns, lanes a block,
     # blocks, K14/K18's shared bytes a block, K3/K10's segment rows and band)
     "pgs_walk_shape": [_I, _P],
-    # x, y, m, n, M, N, B, table, gap, scratch (null: the rows in shared
-    # memory), out, stream
-    "pgs_nw_lastrow": [_P] * 4 + [_I] * 3 + [_P, _I] + [_P] * 3,
-    # N, B, out (int64 scratch ints, 0: the rows in shared memory)
-    "pgs_nw_scratch_ints": [_I, _I, _P],
+    # x, y, lanes, chunk_lane, chunks, rows, warps, table, gap, bound (null:
+    # no lane has two chunks), ticket, out, sm_of_block (null: not recorded),
+    # stream
+    "pgs_nw_lastrow": [_P] * 4 + [_I] * 3 + [_P, _I] + [_P] * 5,
 }
 
 _lib = None

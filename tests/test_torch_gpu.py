@@ -1713,34 +1713,52 @@ def test_sweep_handoffs_match_plain(cuda, form, case):
     assert bool((want[0][~live] == 0).all()) and int(want[0].max()) > 0
 
 
-# K25 cases (csrc/global_dp.cu: a block a lane, 512 threads of 8 columns,
-# tiles of 4,096 columns, the rows in shared memory up to N of about 22,700):
-# (B, M, N, seed, ragged lengths, protein letters under BLOSUM62 gap 4).
-# m = 1 and n = 1; N + 1 at one run (8 columns) and one past it; at the tile
-# width and one past; a row past the shared limit (a global scratch); lanes of
-# very different lengths with m_b = 0 and n_b = 0 among them; B of 1, 2, 100.
+# K25 cases (csrc/global_dp.cu: an anti-diagonal sweep, a warp a chunk of
+# 32 x R rows of a lane, chunks chained through device memory, R and warps a
+# block by ops/global_dp.launch_shape): (B, M, N, seed, ragged lengths,
+# protein letters under BLOSUM62 gap 4, form). The packed (B, M) form: m = 1
+# and n = 1; N + 1 at and past 8 and 4,096 columns (the first design's run
+# and tile); N of 25,000 (past the first design's shared-memory rows); lanes
+# of very different lengths with m_b = 0 and n_b = 0 among them; B of 1, 2,
+# 3, 100. Lanes read in place: at random offsets of two shared buffers,
+# forward or reversed ("offsets"); m_b on, one short of and one past the
+# chunk edges at R = M, with m_b = 0 and n_b = 0 ("edges"); a deep
+# Hirschberg level's B small lanes ("deep"); random bytes of more than 64
+# values, which read the byte table from device memory ("bytes"); DNA under
+# scores past int8, which read the shared table and not packed registers
+# ("wide").
 NW_CASES = {
-    "m1": (5, 1, 300, 0, False, False),
-    "n1": (5, 200, 1, 1, False, False),
-    "n_one_run": (3, 50, 7, 2, False, False),
-    "n_past_run": (3, 50, 8, 3, False, False),
-    "n_tile": (2, 40, 4095, 4, False, False),
-    "n_past_tile": (2, 40, 4096, 5, False, False),
-    "global_rows": (2, 30, 25_000, 6, False, False),
-    "ragged_100": (100, 600, 700, 7, True, False),
-    "b1": (1, 300, 5000, 8, False, False),
-    "b2_related": (2, 1000, 2000, 9, False, False),
-    "blosum62": (17, 300, 400, 10, True, True),
+    "m1": (5, 1, 300, 0, False, False, "packed"),
+    "n1": (5, 200, 1, 1, False, False, "packed"),
+    "n_one_run": (3, 50, 7, 2, False, False, "packed"),
+    "n_past_run": (3, 50, 8, 3, False, False, "packed"),
+    "n_tile": (2, 40, 4095, 4, False, False, "packed"),
+    "n_past_tile": (2, 40, 4096, 5, False, False, "packed"),
+    "global_rows": (2, 30, 25_000, 6, False, False, "packed"),
+    "ragged_100": (100, 600, 700, 7, True, False, "packed"),
+    "b1": (1, 300, 5000, 8, False, False, "packed"),
+    "b2_related": (2, 1000, 2000, 9, False, False, "packed"),
+    "blosum62": (17, 300, 400, 10, True, True, "packed"),
+    "b3_long": (3, 2600, 4000, 11, True, False, "packed"),
+    "offsets_reversed": (40, 2000, 3000, 12, True, False, "offsets"),
+    "edges_r4": (9, 4, 700, 13, False, False, "edges"),
+    "edges_r8": (9, 8, 700, 14, False, False, "edges"),
+    "edges_r16": (9, 16, 700, 15, False, False, "edges"),
+    "edges_r32": (9, 32, 700, 16, False, False, "edges"),
+    "deep_level": (4096, 5, 12, 17, True, False, "deep"),
+    "bytes_past_64_codes": (3, 1500, 2000, 18, True, False, "bytes"),
+    "scores_past_int8": (6, 1500, 2000, 19, True, False, "wide"),
 }
 
 
 def nw_lanes(case, dev):
-    """(x, y, m, n, table, gap) of an NW_CASES case on ``dev``: each read a
-    mutated copy of a stretch of its reference, lengths ragged or full."""
+    """(x, y, m, n, table, gap) of a packed NW_CASES case on ``dev``: each
+    read a mutated copy of a stretch of its reference, lengths ragged or
+    full."""
     from parallel_genomeseq_tpu_torch.ops import global_dp
     from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
 
-    B, M, N, seed, ragged_lens, protein = NW_CASES[case]
+    B, M, N, seed, ragged_lens, protein, _ = NW_CASES[case]
     rng = np.random.default_rng(seed)
     letters = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV" if protein else b"ACGT", np.uint8)
     m = rng.integers(0, M + 1, B) if ragged_lens else np.full(B, M)
@@ -1760,20 +1778,63 @@ def nw_lanes(case, dev):
             global_dp.byte_table(cfg, dev), int(cfg.gap_penalty))
 
 
+def nw_lane_form(case, dev):
+    """(x, y flat buffers, their Lanes plan, table, gap) of an NW_CASES case
+    read in place."""
+    from parallel_genomeseq_tpu_torch.ops import global_dp
+    from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
+
+    B, M, N, seed, _, _, form = NW_CASES[case]
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    cfg = {"bytes": ScoringConfig(match=5, mismatch=-4, gap_penalty=3),
+           "wide": ScoringConfig(match=200, mismatch=-150, gap_penalty=7)}.get(
+        form, ScoringConfig())
+    shape = {}
+    if form == "offsets":
+        X = rng.choice(acgt, 40_000)
+        Y = X.copy()
+        Y[rng.random(len(Y)) < 0.05] = rng.choice(acgt)
+        m, n = rng.integers(0, M, B), rng.integers(0, N, B)
+        shape = dict(x_off=rng.integers(0, len(X) - m), y_off=rng.integers(0, len(Y) - n),
+                     x_rev=rng.random(B) < 0.5, y_rev=rng.random(B) < 0.5)
+    else:
+        if form == "edges":
+            c = 32 * M
+            m = np.array([c, c - 1, c + 1, 2 * c, 2 * c + 1, 1, 0, 5, 3 * c - 1])
+            n = np.array([N, 1, 300, 129, 0, 2, 40, 0, 64])
+            shape = dict(rows=M)
+        else:
+            m, n = rng.integers(1, M + 1, B), rng.integers(1, N + 1, B)
+        alphabet = np.arange(256, dtype=np.uint8) if form == "bytes" else acgt
+        X = rng.choice(alphabet, int(m.sum()))
+        Y = rng.choice(alphabet, int(n.sum()))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.uint8)).to(dev)
+    return (t(X), t(Y), global_dp.plan_lanes(m, n, **shape), global_dp.byte_table(cfg, dev),
+            int(cfg.gap_penalty))
+
+
 @pytest.mark.parametrize("case", list(NW_CASES))
 def test_k25_matches_plain(cuda, case):
     """K25's last rows equal the plain row scan's on every column (0 past
-    n_b); only the case past the shared limit takes a global scratch."""
+    n_b in the packed form), in one launch whatever the shape: N past the
+    first design's shared-memory limit, lanes read in place, every chunk
+    edge."""
     from parallel_genomeseq_tpu_torch.ops import global_dp
 
-    x, y, m, n, table, gap = nw_lanes(case, cuda)
-    assert (global_dp.scratch_ints(y.shape[1], x.shape[0]) > 0) == (case == "global_rows")
     before = global_dp.nw_lastrow.launches
-    got = global_dp.nw_lastrow(x, y, m, n, table=table, gap=gap)
-    want = global_dp.nw_lastrow_plain(x, y, m, n, table=table, gap=gap)
+    if NW_CASES[case][-1] == "packed":
+        x, y, m, n, table, gap = nw_lanes(case, cuda)
+        got = global_dp.nw_lastrow(x, y, m, n, table=table, gap=gap)
+        want = global_dp.nw_lastrow_plain(x, y, m, n, table=table, gap=gap)
+        assert got.is_cuda and got.shape == (x.shape[0], y.shape[1] + 1)
+    else:
+        x, y, lanes, table, gap = nw_lane_form(case, cuda)
+        got = global_dp.nw_lastrow_lanes(x, y, lanes, table=table, gap=gap)
+        want = global_dp.nw_lastrow_lanes_plain(x, y, lanes, table=table, gap=gap)
+        assert got.is_cuda and got.shape == (lanes.total_out,)
     torch.cuda.synchronize()
     assert global_dp.nw_lastrow.launches == before + 1
-    assert got.is_cuda and got.shape == (x.shape[0], y.shape[1] + 1)
     assert torch.equal(got, want)
 
 
@@ -1817,9 +1878,12 @@ def test_seed_extend_cuda_matches_cpu(cuda, tmp_path, kw):
     assert (tmp_path / "gpu.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
 
 
-def test_hirschberg_cuda_matches_cpu(cuda):
-    """hirschberg_align with every subproblem on the card (device_cells=0,
-    2-lane K25 launches) gives the CPU's score and consensus strings."""
+@pytest.mark.parametrize("device_cells", [0, 20_000], ids=["all_on_card", "mixed"])
+def test_hirschberg_cuda_matches_cpu(cuda, device_cells):
+    """hirschberg_align on the card -- every subproblem in K25 (device_cells
+    = 0), or the large ones there and the rest on the CPU route within the
+    same levels -- gives the CPU's score and consensus strings, with at most
+    one K25 launch per recursion level."""
     from parallel_genomeseq_tpu_torch.models import hirschberg
     from parallel_genomeseq_tpu_torch.ops import global_dp
     from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
@@ -1828,16 +1892,15 @@ def test_hirschberg_cuda_matches_cpu(cuda):
     y = "".join(rng.choice(list("ACGT"), 900))
     x = "".join(c if rng.random() > 0.08 else "ACGT"[int(rng.integers(4))] for c in y[50:800])
     prot = "".join(rng.choice(list("ARNDCQEGHILKMFPSTWYV"), 400))
-    for a, b, cfg in ((x, y, ScoringConfig()),
+    for a, b, cfg in ((x, y, ScoringConfig()), (x[:40], y, ScoringConfig()),
                       (prot[:300], prot[40:], blosum_config("blosum62", gap_penalty=4.0))):
+        levels = int(np.ceil(np.log2(len(a)))) + 1
         before = global_dp.nw_lastrow.launches
-        got = hirschberg.hirschberg_align(a, b, cfg, device_cells=0, device=cuda)
-        assert global_dp.nw_lastrow.launches > before + len(a) // 2
+        got = hirschberg.hirschberg_align(a, b, cfg, device_cells=device_cells, device=cuda)
+        assert 1 <= global_dp.nw_lastrow.launches - before <= levels
         want = hirschberg.hirschberg_align(a, b, cfg, device_cells=0, device="cpu")
         assert (got.score, got.consensus_x, got.consensus_y) == \
             (want.score, want.consensus_x, want.consensus_y)
-        host = hirschberg.hirschberg_align(a, b, cfg, device_cells=1 << 60, device="cpu")
-        assert got.score == host.score
 
 
 # The randomized campaign on the card: BatchSWAligner's CUDA route against
