@@ -52,6 +52,9 @@ STEP_CYCLES = {4: 190, 8: 230, 16: 365, 32: 510}
 ISSUE_CYCLES = {4: 94, 8: 144, 16: 210, 32: 356}
 SMS = 132
 HANDOFF_STEPS = 100
+# The device memory a launch's boundary rows may take: a chunk edge keeps a
+# whole row of 64-bit slots, so very long lanes take more rows a thread.
+BOUND_BYTES = 1 << 30
 FIELDS = 8  # int64 fields of a lane's descriptor (csrc/global_dp.cu)
 
 
@@ -86,9 +89,11 @@ def launch_shape(m, n, sms: int = SMS):
     the longest lane's span of n_b steps, the bands of its last chunk and
     ``HANDOFF_STEPS`` a chunk boundary, at ``STEP_CYCLES`` a step -- and its
     issue, every chunk's n_b + 32 steps at ``ISSUE_CYCLES`` over the card's
-    4 x ``sms`` schedulers. The cheapest wins, the larger R on a tie. Warps
-    a block: the chunks over the SMs, 1 to ``MAX_WARPS``, so that a launch
-    of few chunks spreads them a block an SM."""
+    4 x ``sms`` schedulers. The cheapest of the R whose boundary rows fit
+    ``BOUND_BYTES`` wins (the one with the fewest bytes where none fits),
+    the larger R on a tie. Warps a block: the chunks over the SMs, 1 to
+    ``MAX_WARPS``, so that a launch of few chunks spreads them a block an
+    SM."""
     m = np.maximum(np.asarray(m, np.int64), 0)
     n = np.maximum(np.asarray(n, np.int64), 0)
     if m.size == 0:
@@ -100,9 +105,10 @@ def launch_shape(m, n, sms: int = SMS):
         span = n + (chunks - 1) * HANDOFF_STEPS + -(-last // R)
         chain = float(span.max()) * STEP_CYCLES[R]
         issue = float(((n + 32) * chunks).sum()) * ISSUE_CYCLES[R] / (4 * sms)
-        cost = max(chain, issue)
-        if best is None or cost <= best[0]:
-            best = (cost, R, int(chunks.sum()))
+        over = max(0.0, 8.0 * float(((chunks - 1) * (n + 1)).sum()) - BOUND_BYTES)
+        key = (over, max(chain, issue))
+        if best is None or key <= best[0]:
+            best = (key, R, int(chunks.sum()))
     _, R, total = best
     return R, int(min(MAX_WARPS, max(1, total // sms)))
 

@@ -401,6 +401,12 @@ def test_launch_shape_rule():
     assert W == 1 and chunks > 2
     assert global_dp.launch_shape([10000] * 100, [10000] * 100) == (32, 4)
     assert global_dp.launch_shape(np.full(4096, 3), np.full(4096, 8))[0] == 4
+    # Very long lanes: the boundary rows stay within BOUND_BYTES, or take
+    # the fewest bytes where no R fits.
+    for L, want in ((100_000, None), (300_000, 32)):
+        R, _ = global_dp.launch_shape([L, L], [L, L])
+        bound = global_dp.plan_lanes([L, L], [L, L]).bound_ints * 8
+        assert R == want if want else bound <= global_dp.BOUND_BYTES
     lanes = global_dp.plan_lanes([0, 300, 2000], [5, 0, 900], rows=4)
     np.testing.assert_array_equal(lanes.chunks, [1, 3, 16])
     np.testing.assert_array_equal(lanes.chunk0, [0, 1, 4])
