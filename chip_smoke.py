@@ -2512,9 +2512,9 @@ def serving_phase(args, card: str, clock: float, dev, dna_data, protein_data):
     return measured, runs
 
 
-# K25's operations a cell: max(diag + s, north - gap) as the gap subtract and
-# one DPX __viaddmax_s32 (2), the west chain max(u, west - gap) one DPX (1);
-# the score is a shared-memory load (0).
+# K25's operations a cell: in the G form (G = H + gap (i + j)) a cell is an
+# add and two maxima, max(max(diag + s', west), north); the bound counts
+# those 3 whatever instructions the kernel issues.
 NW_OPS_PER_CELL = 3
 # K25's first design (a block a lane, PR 16; NVIDIA H100 80GB HBM3, 700.00
 # W): its times on the cases it had, and hirschberg_align's seconds and
@@ -2740,15 +2740,67 @@ def deep_level_lanes(x: str, y: str, subproblems: int = 2048):
                 y_rev=np.tile([False, True], subproblems))
 
 
+def long_lanes_check(dev, table, gap: int, L: int = 300_000):
+    """K25 on two lanes of L x L cells, thousands of chunks: each lane keeps
+    one boundary row of n_b + 1 slots (a row a chunk edge would take over
+    1 GiB), the launch allocates no more than that beside its output, and
+    the rows equal the closed form for x of one letter (A) against y of two
+    (A, C) under the default scores (3, -3): min(m, j) pairs, the A's
+    matched first, the rest gapped. Too
+    large for the plain version; the kernel's launch is not counted as a
+    case."""
+    import numpy as np
+    import torch
+
+    from parallel_genomeseq_tpu_torch.ops import global_dp
+
+    rng = np.random.default_rng(21)
+    m, n = np.array([L, L - 3]), np.array([L - 11, L])
+    X = np.full(int(m.sum()), ord("A"), np.uint8)
+    Y = rng.choice(np.frombuffer(b"AC", np.uint8), int(n.sum()))
+    lanes = global_dp.plan_lanes(m, n, y_rev=[False, True])
+    edge_rows = 8 * int(((lanes.chunks - 1) * (n + 1)).sum())
+    if lanes.bound_ints != int((n + 1).sum()) or edge_rows <= 1 << 30:
+        raise AssertionError(f"K25 long lanes: {lanes.bound_ints} boundary slots, {edge_rows} "
+                             f"bytes of chunk-edge rows")
+    x, y = torch.from_numpy(X).to(dev), torch.from_numpy(Y).to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    got = global_dp.nw_lastrow_lanes(x, y, lanes, table=table, gap=gap).cpu().numpy()
+    seconds = time.perf_counter() - t0
+    extra = torch.cuda.max_memory_allocated(dev) - base
+    if extra > 4 * lanes.total_out + 8 * lanes.bound_ints + (1 << 20):
+        raise AssertionError(f"K25 long lanes allocated {extra} bytes")
+    for b in range(2):
+        yb = Y[int(lanes.y_off[b]) : int(lanes.y_off[b] + n[b])][:: -1 if b else 1]
+        j = np.arange(n[b] + 1)
+        a = np.concatenate([[0], np.cumsum(yb == ord("A"))])
+        p = np.minimum(m[b], j)
+        pa = np.minimum(a, p)
+        want = 3 * pa - 3 * (p - pa) - gap * (m[b] + j - 2 * p)
+        o = int(lanes.out_off[b])
+        if not np.array_equal(got[o : o + n[b] + 1], want):
+            raise AssertionError(f"K25 long lane {b} differs from its closed form")
+    print(f"K25 long lanes: 2 lanes of {L:,} x {L:,}, {lanes.total_chunks} chunks at "
+          f"{lanes.rows} rows a thread, equal to the closed form; {seconds:.3f} s with the "
+          f"fetch; boundary rows {8 * lanes.bound_ints:,} bytes (one row a lane; a row a "
+          f"chunk edge would take {edge_rows:,}), {extra:,} bytes allocated in all")
+
+
 def global_runs(card: str, clock: float, dev, long):
     """Phase 11's global half, on phase 6's long-read data: K25 held exactly
     against its plain version on Hirschberg's top launch, an
     ``nw_score_batch`` of the 100 mutated reads against their sources, a
     ragged 64-lane batch, a deep level's 4,096 lanes, 40 lanes at random
     offsets and directions, and the segment edges; two scores against the
-    host row sweep; ``hirschberg_align`` on two reads at device_cells=0
-    (K25's launches counted from 0) and at the default, at most one launch
-    a recursion level, identical to the CPU-only run; the demo on the card.
+    host row sweep; two lanes of 300,000 x 300,000 against a closed form, in
+    one boundary row a lane; ``hirschberg_align`` on two reads at
+    device_cells=0 (the default; K25's launches counted from 0) and at 2^16,
+    where levels mix the card and the CPU route, at most one launch a
+    recursion level, valid alignments of their scores and identical to the
+    CPU-only run; the demo on the card.
     Returns (K25's cases, its launches in the device_cells=0 runs)."""
     import contextlib
     import io
@@ -2809,6 +2861,8 @@ def global_runs(card: str, clock: float, dev, long):
     print(f"K25 scores of reads 0 and 57 equal the host row sweep's ({int(scores[0])}, "
           f"{int(scores[57])})")
 
+    long_lanes_check(dev, table, gap)
+
     levels = sum(int(np.ceil(np.log2(len(mutated[k])))) + 1 for k in (0, 1))
     t0 = time.perf_counter()
     host = [hirschberg.hirschberg_align(mutated[k], exact[k], cfg, device_cells=1 << 60,
@@ -2816,8 +2870,9 @@ def global_runs(card: str, clock: float, dev, long):
     print(f"hirschberg_align, 2 reads of ~10 kb, every subproblem on the CPU route: "
           f"{time.perf_counter() - t0:.2f} s")
     launches = 0
-    for cells, label in ((0, "device_cells=0"),
-                         (hirschberg.DEVICE_CELLS, f"the default ({hirschberg.DEVICE_CELLS})")):
+    # 0 (the default) sends every subproblem to the card; at 2^16 a level's
+    # subproblems split between the card and the CPU route.
+    for cells, label in ((0, "device_cells=0"), (1 << 16, "device_cells=2^16, mixed")):
         global_dp.nw_lastrow.launches = 0
         t0 = time.perf_counter()
         runs = [hirschberg.hirschberg_align(mutated[k], exact[k], cfg, device_cells=cells,
@@ -2834,11 +2889,17 @@ def global_runs(card: str, clock: float, dev, long):
                     (h.score, h.consensus_x, h.consensus_y):
                 raise AssertionError(f"hirschberg read {k} at {label}: the card's alignment "
                                      f"differs from the CPU-only run's")
+            # A valid alignment of its score: the strings rebuild both reads.
+            cx, cy = on_card.consensus_x[::-1], on_card.consensus_y[::-1]
+            if (cx.replace("-", "") != mutated[k] or cy.replace("-", "") != exact[k]
+                    or hirschberg.alignment_score(cx, cy, cfg) != on_card.score):
+                raise AssertionError(f"hirschberg read {k} at {label}: not a valid alignment "
+                                     f"of score {on_card.score}")
         print(f"hirschberg_align, 2 reads of ~10 kb, {label}: {seconds:.3f} s, {n_launch} K25 "
               f"launches for {levels} levels (PR 16 at device_cells=0: {HIRSCHBERG_PR16[0]} s, "
               f"{HIRSCHBERG_PR16[1]:,} launches); scores {runs[0].score:.0f}, "
-              f"{runs[1].score:.0f} and consensus strings identical to the CPU-only run's; "
-              f"{card}")
+              f"{runs[1].score:.0f}, valid alignments of those scores, consensus strings "
+              f"identical to the CPU-only run's; {card}")
 
     outs = []
     for device in (str(dev), "cpu"):

@@ -35,14 +35,22 @@
 // thread 0 takes it from a 32-column word the warp loads one word ahead.
 // Between chunks of a lane the hand-off goes through device memory: the
 // chunk's thread 31 writes its last row G(r0 + 32R, j) into the lane's
-// boundary row, one 64-bit slot a column holding the value and a flag
-// (zeroed by the caller), so one single-copy-atomic store publishes it and
-// no fence is needed (a count published by a release fence every 8 steps
-// made the steps a quarter slower); the next chunk's warp reads the slots of the word after the
+// boundary row, one 64-bit slot a column holding the value and a tag, so one
+// single-copy-atomic store publishes it and no fence is needed (a count
+// published by a release fence every 8 steps made the steps a quarter
+// slower); the next chunk's warp reads the slots of the word after the
 // current one at the head of each 32-step word, and polls until every
-// slot's flag is set. So a lane's chunks run as one pipeline over as many
+// slot's tag is its own. So a lane's chunks run as one pipeline over as many
 // SMs as it has chunks, about 100 steps apart, and no warp waits inside a
 // word.
+//
+// A lane has one boundary row, whatever its chunks: chunk c reads slot j
+// when it holds tag c (chunk c - 1's value; the caller zeroes the row, tag
+// 0 above chunk 1) and overwrites it with its own, tag c + 1, 55 steps or more
+// after it read it. Chunk c's value at column j depends on what it read
+// there, so slot j steps through tags 1, 2, ... in chunk order, and a chunk
+// polling for tag c never sees a later one. The scratch is 8 (n_b + 1)
+// bytes a lane of two chunks or more, however many chunks are in flight.
 //
 // Chains that cannot hang: warps are handed chunks by an atomic ticket in
 // start order (a block takes `warps` consecutive chunks), and a lane's
@@ -72,8 +80,8 @@
 // chain), and a word whose 32 steps are all in range runs a copy of the
 // step that tests nothing. At R >= 16 those cost more issue than they save.
 //
-// What bounds it on the H100: the function needs 3 integer operations a cell
-// (two maxima and the gap subtract), m * n * 3 over the card's 33.5 T a
+// What bounds it on the H100: in the G form a cell needs 3 integer
+// operations (an add and two maxima), m * n * 3 over the card's 33.5 T a
 // second. The step issues 3 instructions a cell with packed scores (a prmt,
 // two maxima; 4 with the shared table) and about 40 a step besides (four
 // shuffles, the hand-off, the output store, the loop). A warp alone on its
@@ -101,9 +109,10 @@ constexpr unsigned kAll = 0xffffffffu;
 // reversed, 2: y reversed) and the global index of its first chunk.
 enum Field { kXOff, kYOff, kOutOff, kBoundOff, kM, kN, kFlags, kChunk0 };
 
-// A boundary slot: the value in the low word, 1 in the high word once written.
-__device__ __forceinline__ void store_slot(unsigned long long* p, int v) {
-  const unsigned long long w = (1ull << 32) | (unsigned)v;
+// A boundary slot: the value in the low word, the writer's tag (its chunk
+// index + 1) in the high word.
+__device__ __forceinline__ void store_slot(unsigned long long* p, int v, unsigned tag) {
+  const unsigned long long w = (static_cast<unsigned long long>(tag) << 32) | (unsigned)v;
   asm volatile("st.relaxed.gpu.b64 [%0], %1;" : : "l"(p), "l"(w) : "memory");
 }
 
@@ -124,9 +133,10 @@ struct Chunk {
   const uint8_t* x;  // x_b's first byte in memory
   const uint8_t* y;  // y_b's first byte in memory
   int* out;          // the lane's output row, column 0
-  const unsigned long long* bound_in;  // the previous chunk's last row (null for chunk 0)
-  unsigned long long* bound_out;       // this chunk's last row (null for the lane's last)
+  const unsigned long long* bound_in;  // the lane's boundary row (null for chunk 0)
+  unsigned long long* bound_out;       // the same row (null for the lane's last chunk)
   int m, n, r0, nbands;
+  unsigned ci;  // the chunk's index in its lane: it reads tag ci and writes ci + 1
   bool x_rev, y_rev;
 };
 
@@ -141,22 +151,23 @@ __device__ __forceinline__ int x_byte(const Chunk& c, int r) {
 }
 
 // The slots of a boundary row's word as loaded: thread l's of column j
-// (j <= n). Ready once every thread's flag is set.
-__device__ __forceinline__ bool word_ready(unsigned long long w, int j, int n) {
-  return __all_sync(kAll, j > n || (w >> 32) != 0);
+// (j <= n). Ready once every thread's slot holds tag `want`.
+__device__ __forceinline__ bool word_ready(unsigned long long w, int j, int n, unsigned want) {
+  return __all_sync(kAll, j > n || (w >> 32) == want);
 }
 
 // Load a word of a boundary row until every slot is written. A slot that
 // has not come in kWaitNs is a fault in the chain: the kernel traps.
 __device__ __forceinline__ unsigned long long poll_word(const unsigned long long* row, int j,
-                                                        int n, unsigned long long w) {
-  if (word_ready(w, j, n)) return w;
+                                                        int n, unsigned want,
+                                                        unsigned long long w) {
+  if (word_ready(w, j, n, want)) return w;
   const unsigned long long t0 = global_ns();
   do {
     __nanosleep(32);
     if (global_ns() - t0 > kWaitNs) __trap();
     w = load_slot(row + min(j, n));
-  } while (!word_ready(w, j, n));
+  } while (!word_ready(w, j, n, want));
   return w;
 }
 
@@ -261,7 +272,9 @@ __device__ __forceinline__ void sweep_chunk(const Chunk& c, const int* __restric
   // below the lane's first chunk, the row above's G there.
   int ynext = row_of(byte_at(lane + 1));
   unsigned long long bslot = 0;
-  if (takes) bslot = poll_word(c.bound_in, lane + 1, n, load_slot(c.bound_in + min(lane + 1, n)));
+  if (takes) {
+    bslot = poll_word(c.bound_in, lane + 1, n, c.ci, load_slot(c.bound_in + min(lane + 1, n)));
+  }
   int bnext = (int)(unsigned)bslot;
   // This step's column row, thread 0's north G(r0, j), and the step's scores.
   int yc = __shfl_sync(kAll, ynext, 0);
@@ -316,7 +329,7 @@ __device__ __forceinline__ void sweep_chunk(const Chunk& c, const int* __restric
             g[k] = max(north, a[k]);
             if constexpr (!kLatency) north = g[k];
           }
-          if (feeds && lane == 31) store_slot(c.bound_out + j, g[R - 1]);
+          if (feeds && lane == 31) store_slot(c.bound_out + j, g[R - 1], c.ci + 1);
           if (lane == out_lane) c.out[j] = g[R - 1] + out_base - gap * j;
         }
       }
@@ -328,7 +341,7 @@ __device__ __forceinline__ void sweep_chunk(const Chunk& c, const int* __restric
     }
     if (s0 + 32 >= steps) break;
     ynext = row_of(ybyte);
-    if (takes) bslot = poll_word(c.bound_in, jn, n, bslot);
+    if (takes) bslot = poll_word(c.bound_in, jn, n, c.ci, bslot);
     bnext = (int)(unsigned)bslot;
     const int y0 = __shfl_sync(kAll, ynext, 0);
     const int b0 = __shfl_sync(kAll, bnext, 0);
@@ -385,13 +398,13 @@ nw_band_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
     c.x = x + d[kXOff];
     c.y = y + d[kYOff];
     c.out = out + d[kOutOff];
+    c.ci = ci;
     c.r0 = ci * 32 * R;
     const int rows = min(c.m - c.r0, 32 * R);
     c.nbands = rows > 0 ? (rows + R - 1) / R : 0;
     const bool last = c.r0 + 32 * R >= c.m;
-    const long long row = (long long)c.n + 1;
-    c.bound_in = ci > 0 ? bound + d[kBoundOff] + (ci - 1) * row : nullptr;
-    c.bound_out = last ? nullptr : bound + d[kBoundOff] + ci * row;
+    c.bound_in = ci > 0 ? bound + d[kBoundOff] : nullptr;
+    c.bound_out = last ? nullptr : bound + d[kBoundOff];
     // The bytes this chunk reads: its rows of x_b, all of y_b.
     const int lo = c.x_rev ? c.m - c.r0 - max(rows, 0) : c.r0;
     for (int r = lane; r < rows; r += 32) seen[c.x[lo + r]] = 1;
@@ -482,8 +495,9 @@ cudaError_t launch(const void* x, const void* y, const void* lanes, const void* 
 // first chunk) and chunk_lane (chunks,) int64, the lane of each chunk, in
 // lane order then row order; rows R a thread (4, 8, 16 or 32), warps a block
 // (1-4); table (256, 256) int32 over raw bytes; the linear gap; bound the
-// lanes' boundary rows, int64 slots zeroed by the caller (lane b's chunk c
-// at bound_off + c * (n_b + 1), null when no lane has two chunks); ticket
+// lanes' boundary rows, int64 slots zeroed by the caller (lane b's one row
+// of n_b + 1 slots at bound_off, for a lane of two chunks or more; null
+// when no lane has two); ticket
 // one int32 zeroed by the caller; out int32, lane b's H(m_b, j) at out_off
 // + j for j = 0..n_b; sm_of_block, when not null, an int32 a block that
 // receives the SM the block ran on. Returns cudaErrorInvalidValue for a

@@ -3,8 +3,9 @@
 
 Divide and conquer: the optimal global path through (mid, k*) is found from
 a forward NW last row over x[:mid] and a backward one over the reversed
-second half, then the two subproblems recurse. Memory is O(n) whatever the
-lengths.
+second half, then the two subproblems recurse. Memory is O(m + n) whatever
+the lengths: a level's subproblems cut y into disjoint pieces, so its rows
+and, on the card, K25's boundary rows (one row a lane) hold O(m + n) values.
 
 The recursion runs breadth first, a level at a time, with JAX's split rule:
 every subproblem of a level with len(xs) >= 2 and len(ys) >= 1 becomes two

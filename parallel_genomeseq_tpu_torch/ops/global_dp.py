@@ -52,9 +52,6 @@ STEP_CYCLES = {4: 190, 8: 230, 16: 365, 32: 510}
 ISSUE_CYCLES = {4: 94, 8: 144, 16: 210, 32: 356}
 SMS = 132
 HANDOFF_STEPS = 100
-# The device memory a launch's boundary rows may take: a chunk edge keeps a
-# whole row of 64-bit slots, so very long lanes take more rows a thread.
-BOUND_BYTES = 1 << 30
 FIELDS = 8  # int64 fields of a lane's descriptor (csrc/global_dp.cu)
 
 
@@ -83,17 +80,15 @@ def chunk_counts(m, rows: int) -> np.ndarray:
     return np.maximum(1, -(-m // (32 * rows)))
 
 
-def launch_shape(m, n, sms: int = SMS):
+def launch_shape(m, n):
     """K25's launch rule: (rows a thread, warps a block) for lanes of true
     lengths m, n. Each R in ``ROWS`` is costed as the larger of its chain --
     the longest lane's span of n_b steps, the bands of its last chunk and
     ``HANDOFF_STEPS`` a chunk boundary, at ``STEP_CYCLES`` a step -- and its
     issue, every chunk's n_b + 32 steps at ``ISSUE_CYCLES`` over the card's
-    4 x ``sms`` schedulers. The cheapest of the R whose boundary rows fit
-    ``BOUND_BYTES`` wins (the one with the fewest bytes where none fits),
-    the larger R on a tie. Warps a block: the chunks over the SMs, 1 to
-    ``MAX_WARPS``, so that a launch of few chunks spreads them a block an
-    SM."""
+    4 x ``SMS`` schedulers. The cheapest R wins, the larger on a tie. Warps
+    a block: the chunks over the SMs, 1 to ``MAX_WARPS``, so that a launch
+    of few chunks spreads them a block an SM."""
     m = np.maximum(np.asarray(m, np.int64), 0)
     n = np.maximum(np.asarray(n, np.int64), 0)
     if m.size == 0:
@@ -104,13 +99,12 @@ def launch_shape(m, n, sms: int = SMS):
         last = m - (chunks - 1) * 32 * R
         span = n + (chunks - 1) * HANDOFF_STEPS + -(-last // R)
         chain = float(span.max()) * STEP_CYCLES[R]
-        issue = float(((n + 32) * chunks).sum()) * ISSUE_CYCLES[R] / (4 * sms)
-        over = max(0.0, 8.0 * float(((chunks - 1) * (n + 1)).sum()) - BOUND_BYTES)
-        key = (over, max(chain, issue))
-        if best is None or key <= best[0]:
-            best = (key, R, int(chunks.sum()))
+        issue = float(((n + 32) * chunks).sum()) * ISSUE_CYCLES[R] / (4 * SMS)
+        cost = max(chain, issue)
+        if best is None or cost <= best[0]:
+            best = (cost, R, int(chunks.sum()))
     _, R, total = best
-    return R, int(min(MAX_WARPS, max(1, total // sms)))
+    return R, int(min(MAX_WARPS, max(1, total // SMS)))
 
 
 @dataclasses.dataclass
@@ -118,9 +112,10 @@ class Lanes:
     """B lanes read in place, and K25's plan for them. Host arrays (B,):
     x_off, m, y_off, n, the direction bits (1: x reversed, 2: y reversed),
     out_off (lane b's row at out_off[b] + j); rows a thread and warps a
-    block; per lane its chunks, its first chunk and its boundary rows'
+    block; per lane its chunks, its first chunk and its boundary row's
     offset; ``total_out`` the output's length, ``bound_ints`` the boundary
-    rows' 64-bit slots (0: no lane has two chunks)."""
+    rows' 64-bit slots: n_b + 1 for each lane of two chunks or more, which
+    all its chunks share (0: no lane has two chunks)."""
 
     x_off: np.ndarray
     m: np.ndarray
@@ -158,7 +153,7 @@ class Lanes:
 
 
 def plan_lanes(m, n, x_off=None, y_off=None, x_rev=None, y_rev=None, out_off=None,
-               total_out: int = 0, rows: int = 0, warps: int = 0, sms: int = SMS) -> Lanes:
+               total_out: int = 0, rows: int = 0, warps: int = 0) -> Lanes:
     """K25's plan for lanes x_b = x[x_off : x_off + m_b] and y_b = y[y_off :
     y_off + n_b] (host arrays; reversed where ``x_rev`` / ``y_rev``). Offsets
     default to the lanes packed end to end; ``out_off`` to rows of n_b + 1
@@ -181,12 +176,12 @@ def plan_lanes(m, n, x_off=None, y_off=None, x_rev=None, y_rev=None, out_off=Non
         flags |= np.asarray(x_rev, bool).astype(np.int64)
     if y_rev is not None:
         flags |= 2 * np.asarray(y_rev, bool).astype(np.int64)
-    R, W = launch_shape(m, n, sms)
+    R, W = launch_shape(m, n)
     R, W = rows or R, warps or W
     if R not in ROWS or not 1 <= W <= MAX_WARPS:
         raise ValueError(f"K25 takes rows in {ROWS} and 1-{MAX_WARPS} warps, got {R}, {W}")
     chunks = chunk_counts(m, R) if B else np.zeros(0, np.int64)
-    bound_rows = (chunks - 1) * (n + 1)
+    bound_rows = np.where(chunks > 1, n + 1, 0)
     return Lanes(x_off=x_off, m=m, y_off=y_off, n=n, flags=flags, out_off=out_off,
                  total_out=total_out, rows=R, warps=W, chunks=chunks, chunk0=excl(chunks),
                  bound_off=excl(bound_rows), bound_ints=int(bound_rows.sum()))
@@ -331,7 +326,7 @@ def nw_lastrow(x, y, m, n, *, table, gap: int):
 nw_lastrow.launches = 0
 
 
-def packed_lanes(m, n, M: int, N: int, **shape) -> Lanes:
+def packed_lanes(m, n, M: int, N: int) -> Lanes:
     """The plan of the packed (B, M) form: lane b at b * M and b * N,
     forward, its row at b * (N + 1); lengths clamped to M and N."""
     m, n = (v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v) for v in (m, n))
@@ -339,16 +334,16 @@ def packed_lanes(m, n, M: int, N: int, **shape) -> Lanes:
     n = np.clip(n.astype(np.int64), 0, N)
     b = np.arange(len(m), dtype=np.int64)
     return plan_lanes(m, n, x_off=b * M, y_off=b * N, out_off=b * (N + 1),
-                      total_out=len(m) * (N + 1), **shape)
+                      total_out=len(m) * (N + 1))
 
 
-def flat_lanes(xs, ys, device, **shape):
+def flat_lanes(xs, ys, device):
     """Ragged lists of strings or byte arrays -> (x, y flat uint8 buffers on
     ``device``, their ``Lanes`` plan), the lanes end to end."""
     xb = [_as_bytes(v) for v in xs]
     yb = [_as_bytes(v) for v in ys]
     cat = lambda bs: torch.from_numpy(np.concatenate([np.zeros(0, np.uint8)] + bs)).to(device)
-    lanes = plan_lanes([len(v) for v in xb], [len(v) for v in yb], **shape)
+    lanes = plan_lanes([len(v) for v in xb], [len(v) for v in yb])
     return cat(xb), cat(yb), lanes
 
 

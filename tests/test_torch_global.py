@@ -322,6 +322,81 @@ def test_segment_split_matches_unsplit(rows):
     assert torch.equal(segment_sweep(x, y, mt, nt, table, 2, c), want)
 
 
+def shared_row_sweep(xb, yb, tab, gap, chunk_rows, look, rng):
+    """K25's hand-off protocol between the chunks of one lane, emulated with
+    every chunk in flight at once over the lane's one boundary row: slot j
+    holds (tag, H) and chunk c reads it, up to ``look`` columns ahead of the
+    column it computes, once its tag is c, then overwrites it with tag c + 1
+    when it computes column j. Each move is a read or a compute of a chunk
+    picked at random among those that can move. Asserts that a chunk never
+    reads a tag past its own; returns H(m, .)."""
+    m, n = len(xb), len(yb)
+    chunks = max(1, -(-m // chunk_rows))
+    tag = np.zeros(n + 1, np.int64)
+    val = np.zeros(n + 1, np.int64)
+    r0 = [c * chunk_rows for c in range(chunks)]
+    rows = [min(chunk_rows, m - r) for r in r0]
+    col = [-gap * np.arange(r + 1, r + k + 1) for r, k in zip(r0, rows)]  # H(., 0)
+    north_prev = [-gap * r for r in r0]  # H(r0, 0): the row above, column 0
+    read = [dict() for _ in range(chunks)]
+    rp, wp = [1] * chunks, [1] * chunks
+    last = np.zeros(n + 1, np.int64)
+    last[0] = -gap * m
+    while any(w <= n for w in wp):
+        moves = []
+        for c in range(chunks):
+            if rp[c] <= n and rp[c] < wp[c] + look:
+                if c == 0:
+                    moves.append((c, "read"))
+                else:
+                    assert tag[rp[c]] <= c, "a chunk saw a later chunk's tag"
+                    if tag[rp[c]] == c:
+                        moves.append((c, "read"))
+            if wp[c] < rp[c]:
+                moves.append((c, "compute"))
+        c, what = moves[rng.integers(len(moves))]
+        if what == "read":
+            j = rp[c]
+            read[c][j] = -gap * j if c == 0 else int(val[j])
+            rp[c] += 1
+            continue
+        j = wp[c]
+        north = read[c].pop(j)
+        s = tab[xb[r0[c] : r0[c] + rows[c]], yb[j - 1]]
+        new = np.empty(rows[c], np.int64)
+        above, diag = north, north_prev[c]
+        for i in range(rows[c]):
+            new[i] = max(diag + s[i], above - gap, col[c][i] - gap)
+            diag, above = col[c][i], new[i]
+        col[c], north_prev[c] = new, north
+        if c + 1 < chunks:
+            tag[j], val[j] = c + 1, new[-1]
+        else:
+            last[j] = new[-1]
+        wp[c] += 1
+    return last
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_shared_boundary_row_protocol(seed):
+    """Every chunk of a lane shares one boundary row, each slot stepping
+    through the chunks' tags in order: under random interleavings of the
+    chunks' reads (a word ahead) and writes, no chunk reads a tag past its
+    own, and the last row equals the plain sweep's."""
+    cfg = ScoringConfig()
+    tab = cfg.byte_table().astype(np.int64)
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    m, n = int(rng.integers(1, 40)), int(rng.integers(1, 30))
+    xb, yb = rng.choice(acgt, m), rng.choice(acgt, n)
+    got = shared_row_sweep(xb, yb, tab, 2, int(rng.integers(1, 5)), int(rng.integers(1, 8)), rng)
+    want = global_dp.nw_lastrow_plain(torch.from_numpy(xb)[None], torch.from_numpy(yb)[None],
+                                      torch.tensor([m], dtype=torch.int32),
+                                      torch.tensor([n], dtype=torch.int32),
+                                      table=global_dp.byte_table(cfg, "cpu"), gap=2)[0]
+    np.testing.assert_array_equal(got, want.numpy())
+
+
 NEG_PAD = -(1 << 30)
 
 
@@ -401,17 +476,16 @@ def test_launch_shape_rule():
     assert W == 1 and chunks > 2
     assert global_dp.launch_shape([10000] * 100, [10000] * 100) == (32, 4)
     assert global_dp.launch_shape(np.full(4096, 3), np.full(4096, 8))[0] == 4
-    # Very long lanes: the boundary rows stay within BOUND_BYTES, or take
-    # the fewest bytes where no R fits.
-    for L, want in ((100_000, None), (300_000, 32)):
-        R, _ = global_dp.launch_shape([L, L], [L, L])
-        bound = global_dp.plan_lanes([L, L], [L, L]).bound_ints * 8
-        assert R == want if want else bound <= global_dp.BOUND_BYTES
+    # However long the lanes, the boundary rows are one row of n_b + 1
+    # slots a lane of two chunks or more, shared by its chunks.
+    for L in (100_000, 3_000_000):
+        lanes = global_dp.plan_lanes([L, L, 10], [L, 2 * L, L])
+        assert lanes.total_chunks > 3 and lanes.bound_ints == 3 * L + 2
     lanes = global_dp.plan_lanes([0, 300, 2000], [5, 0, 900], rows=4)
     np.testing.assert_array_equal(lanes.chunks, [1, 3, 16])
     np.testing.assert_array_equal(lanes.chunk0, [0, 1, 4])
-    np.testing.assert_array_equal(lanes.bound_off, [0, 0, 2])
-    assert lanes.bound_ints == 2 * 1 + 15 * 901
+    np.testing.assert_array_equal(lanes.bound_off, [0, 0, 1])
+    assert lanes.bound_ints == 1 + 901
     d = lanes.descriptor()
     assert d.shape == (3 * global_dp.FIELDS + 20,)
     np.testing.assert_array_equal(d[3 * global_dp.FIELDS :], [0] + [1] * 3 + [2] * 16)

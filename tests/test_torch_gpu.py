@@ -1726,7 +1726,9 @@ def test_sweep_handoffs_match_plain(cuda, form, case):
 # Hirschberg level's B small lanes ("deep"); random bytes of more than 64
 # values, which read the byte table from device memory ("bytes"); DNA under
 # scores past int8, which read the shared table and not packed registers
-# ("wide").
+# ("wide"); two lanes of 60 and 94 chunks at R = M, every chunk in flight on
+# the lane's one boundary row, one lane's x and the other's y reversed
+# ("chain").
 NW_CASES = {
     "m1": (5, 1, 300, 0, False, False, "packed"),
     "n1": (5, 200, 1, 1, False, False, "packed"),
@@ -1748,6 +1750,7 @@ NW_CASES = {
     "deep_level": (4096, 5, 12, 17, True, False, "deep"),
     "bytes_past_64_codes": (3, 1500, 2000, 18, True, False, "bytes"),
     "scores_past_int8": (6, 1500, 2000, 19, True, False, "wide"),
+    "chain_r4": (2, 4, 3000, 20, False, False, "chain"),
 }
 
 
@@ -1798,6 +1801,13 @@ def nw_lane_form(case, dev):
         m, n = rng.integers(0, M, B), rng.integers(0, N, B)
         shape = dict(x_off=rng.integers(0, len(X) - m), y_off=rng.integers(0, len(Y) - n),
                      x_rev=rng.random(B) < 0.5, y_rev=rng.random(B) < 0.5)
+    elif form == "chain":
+        c = 32 * M
+        m, n = np.array([94 * c - 5, 60 * c]), np.array([N, N - 7])
+        X = rng.choice(acgt, int(m.sum()))
+        Y = X[: int(n.sum())].copy()
+        Y[rng.random(len(Y)) < 0.05] = rng.choice(acgt)
+        shape = dict(rows=M, x_rev=[True, False], y_rev=[False, True])
     else:
         if form == "edges":
             c = 32 * M
@@ -1836,6 +1846,43 @@ def test_k25_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert global_dp.nw_lastrow.launches == before + 1
     assert torch.equal(got, want)
+
+
+def test_k25_long_lanes_share_one_boundary_row(cuda):
+    """Two lanes of 300,000 x 300,000 cells, thousands of chunks: each lane
+    keeps one boundary row of n_b + 1 slots (a row a chunk edge would take
+    over 1 GiB), the launch allocates no more than that beside its output,
+    and the rows equal the closed form for x of one letter (A) against y of
+    two (A, C): min(m, j) pairs, the A's matched first, the rest gapped."""
+    from parallel_genomeseq_tpu_torch.ops import global_dp
+    from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig
+
+    cfg = ScoringConfig()
+    L = 300_000
+    rng = np.random.default_rng(21)
+    m, n = np.array([L, L - 3]), np.array([L - 11, L])
+    X = np.full(int(m.sum()), ord("A"), np.uint8)
+    Y = rng.choice(np.frombuffer(b"AC", np.uint8), int(n.sum()))
+    lanes = global_dp.plan_lanes(m, n, y_rev=[False, True])
+    assert lanes.bound_ints == int((n + 1).sum())
+    assert 8 * int(((lanes.chunks - 1) * (n + 1)).sum()) > 1 << 30
+    x, y = torch.from_numpy(X).to(cuda), torch.from_numpy(Y).to(cuda)
+    table = global_dp.byte_table(cfg, cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    got = global_dp.nw_lastrow_lanes(x, y, lanes, table=table, gap=2).cpu().numpy()
+    extra = torch.cuda.max_memory_allocated(cuda) - base
+    assert extra <= 4 * lanes.total_out + 8 * lanes.bound_ints + (1 << 20)
+    for b in range(2):
+        yb = Y[int(lanes.y_off[b]) : int(lanes.y_off[b] + n[b])][:: -1 if b else 1]
+        j = np.arange(n[b] + 1)
+        a = np.concatenate([[0], np.cumsum(yb == ord("A"))])
+        p = np.minimum(m[b], j)
+        pa = np.minimum(a, p)
+        want = 3 * pa - 3 * (p - pa) - 2 * (m[b] + j - 2 * p)
+        o = int(lanes.out_off[b])
+        np.testing.assert_array_equal(got[o : o + n[b] + 1], want)
 
 
 def seeded_dataset(tmp_path):
