@@ -153,7 +153,24 @@
    recursion level, its seconds and launches beside PR 16's, and its score
    and consensus strings identical to the CPU-only run's; ``cli/demo.py``
    on the card, its lines equal to the CPU's.
-12. Prints the seconds of each phase, then the kernels' JSON line -- each kernel's time, its plain version's,
+12. The reference-parity modes (saturating uint8 values, ``Semantics.SAT_UINT8``,
+   and the reference binary's skewed tie-break), on phase 3's data: K26
+   held exactly against its plain version under both ties -- the 8,704
+   window lanes (score-only, and the skewed argmax), the 512 reads against
+   the whole reference (moves under both ties, the skewed argmax), a
+   plateau (512 reads copied from the reference, every lane at 255) and
+   lanes of m = n, m > n and n > m -- with K3 on its skewed moves; K27 on
+   phase 6's 1,400-lane window sweep (held on one read's 14 lanes) and the
+   skewed tie on a reduced 28 x 2,304 x 4,608 shape. Then ``solve_small
+   --parity-mode skewed`` (K26 and K3 launched, neither K1 nor K2; 32
+   sampled reads against a numpy oracle of the saturating DP and raw key:
+   score, pos, both consensus strings; its first 1,024 rows equal to the
+   same aligner's with engine="plain" on the card), ``solve_small
+   --semantics sat_uint8`` (17 windows; 32 sampled reads against the
+   saturating oracle) and ``solve_big 7 1 --semantics sat_uint8`` on phase
+   6's exact reads (K27 launched, K11 not; every score 255), each with its
+   reads/s and GCUPS.
+13. Prints the seconds of each phase, then the kernels' JSON line -- each kernel's time, its plain version's,
    and its bound: the larger of the integer operations its cells need over
    the card's integer issue peak and the bytes it must move over the memory
    rate; for K1, K2, K6 and K7, and K5 and K9 (a warp a lane) also the rows
@@ -178,7 +195,9 @@
    seeded cases under ``seeded`` and its runs' launches the same way, and
    K25's entry (its Hirschberg top launch first, the other cases under their
    labels, its launches those of the ``device_cells=0`` ``hirschberg_align``
-   runs) -- then ``{"ok": true, "device": ...}`` last.
+   runs), phase 12's K3 case under ``parity_skewed`` and its runs' launches,
+   and K26's and K27's entries (their launches those of phase 12's runs) --
+   then ``{"ok": true, "device": ...}`` last.
 
 Any failed phase raises and exits non-zero before the last line.
 """
@@ -371,7 +390,7 @@ def sweep_steps(sweep, rec, M: int, n, clock_mhz: float, table=None, slab: bool 
     name = sweep.__name__
     threads, passes, blocks, rows = strips_cuda.sweep_occupancy(
         M, affine="affine" in name, ckpt=name.endswith("_ckpt"),
-        ncodes=0 if table is None else table.shape[0])
+        ncodes=0 if table is None else table.shape[0], parity=name.endswith("_parity"))
     slots = blocks * torch.cuda.get_device_properties(0).multi_processor_count
     B = n.shape[0]
     if slab:
@@ -409,7 +428,7 @@ def scan_steps(rec, M: int, n, clock_mhz: float, ncodes: int, affine: bool, shar
 
 
 def wave_steps(rec, fn, M: int, N: int, m, n, clock_mhz: float, mode: str, lanes: int = 0,
-               warps: int = 0, ncodes: int = 0):
+               warps: int = 0, ncodes: int = 0, parity: bool = False):
     """Add a K1/K2/K6/K7 (``ncodes`` > 0: K5/K9) launch's shape and its cost
     per column step to ``rec``: rows a thread, lanes a block, warps a lane, the warps the
     busiest SM holds at once (the CUDA occupancy calculator's blocks an SM,
@@ -425,7 +444,7 @@ def wave_steps(rec, fn, M: int, N: int, m, n, clock_mhz: float, mode: str, lanes
 
     B = m.shape[0]
     sh = wavefront_cuda.launch_shape(M, B, affine="affine" in fn.__name__, mode=mode,
-                                     lanes=lanes, warps=warps, ncodes=ncodes)
+                                     lanes=lanes, warps=warps, ncodes=ncodes, parity=parity)
     rows, L, W = sh["rows"], sh["lanes"], sh["warps"]
     mb, nb = m.clamp(0, M).long(), n.clamp(0, N).long()
     g = (mb - 1).clamp(min=0) // rows  # the thread holding row m_b, over the lane's warps
@@ -747,15 +766,20 @@ def oracle_align(read: str, ref: str, gap=2, sub=None, dtype=None):
     a zero neighbour (consensus reversed, '-' for gaps)."""
     H = oracle_matrix(read, ref, gap, sub, dtype)
     score, i, j = oracle_best(H)
-    if score <= 0:
-        return score, 0, "", ""
+    return (score, *oracle_walk(H, read, ref, i, j)) if score > 0 else (score, 0, "", "")
+
+
+def oracle_walk(H, read: str, ref: str, i: int, j: int):
+    """(pos, consensus_x, consensus_y) of the greedy NW >= W >= N walk on the
+    dense matrix H from cell (i, j), stopping on the first cell with a zero
+    neighbour."""
     cx, cy = [], []
     while True:
         nw, w, no = H[i - 1, j - 1], H[i, j - 1], H[i - 1, j]
         if nw == 0 or w == 0 or no == 0:
             cx.append(read[i - 1])
             cy.append(ref[j - 1])
-            return score, j, "".join(cx), "".join(cy)
+            return j, "".join(cx), "".join(cy)
         if nw >= w and nw >= no:
             cx.append(read[i - 1])
             cy.append(ref[j - 1])
@@ -2925,6 +2949,334 @@ def a12_phase(args, card: str, clock: float, dev, dna_data, full_rates, long):
     return measured, runs, nw_cases, nw_launches
 
 
+# Phase 12: the reference-parity modes (ROADMAP A2) -- saturating uint8 values
+# (Semantics.SAT_UINT8) and the skewed tie -- on K26 (csrc/wavefront.cu's
+# parity forms) and K27 (csrc/strips.cu). Operations a cell as OPS_PER_CELL
+# counts K1/K2 and K11, plus the clamp (1), and under the skewed tie the raw
+# key's compare (1) where the argmax is kept; PARITY_STEP_OPS, the same
+# added to what K1/K2's step executes a cell.
+SAT_KW = dict(match=3, mismatch=-3, gap=2, sat=True)  # scan_dp.sat_operands(3, -3, 2)
+PARITY_OPS = {("score_only", "colmajor"): 2 + 3 + 1 + 1, ("score_only", "skewed"): 2 + 3 + 1 + 1,
+              ("track_pos", "colmajor"): 2 + 3 + 2 + 1, ("track_pos", "skewed"): 2 + 3 + 2 + 2,
+              ("moves", "colmajor"): 2 + 3 + 2 + 7 + 1, ("moves", "skewed"): 2 + 3 + 2 + 7 + 2}
+PARITY_STEP_OPS = {("score_only", "colmajor"): 5 + 0.5 + 1, ("score_only", "skewed"): 5 + 0.5 + 1,
+                 ("track_pos", "colmajor"): 5 + 0.5 + 1, ("track_pos", "skewed"): 5 + 0.5 + 2,
+                 ("moves", "colmajor"): 5 + 0.5 + 7 + 1, ("moves", "skewed"): 5 + 0.5 + 7 + 2}
+PARITY_STRIP_OPS = {"colmajor": 2 + 3 + 2 + 1, "skewed": 2 + 3 + 2 + 2}
+# K26 and K27: (wrapper, source, the JAX device code they replace, the case
+# the JSON line quotes first).
+PARITY_KERNELS = [
+    ("sw_score_parity", "wavefront.cu", "parallel_genomeseq_tpu/ops/scan_dp.py:93",
+     "npiece1_skewed"),
+    ("sw_score_strips_parity", "strips.cu", "parallel_genomeseq_tpu/ops/scan_dp.py:93", "sweep"),
+]
+
+
+def sat_matrices(X, y, match=3, mismatch=-3, gap=2):
+    """The saturating DP in numpy, R reads X (R, m) uint8 against y (n,)
+    uint8, one anti-diagonal at a time: H = min(max(diag + s, west - gap,
+    north - gap, 0), 255) with the clipped operands, which is the JAX scan's
+    saturating step (ops/scan_dp.py's module docstring shows the identity).
+    Returns H (R, m + 1, n + 1) int16 with the zero boundary."""
+    import numpy as np
+
+    R, m = X.shape
+    n = len(y)
+    H = np.zeros((R, m + 1, n + 1), np.int16)
+    for d in range(2, m + n + 1):  # i + j = d
+        i = np.arange(max(1, d - n), min(m, d - 1) + 1)
+        j = d - i
+        s = np.where(X[:, i - 1] == y[j - 1], match, mismatch).astype(np.int16)
+        v = np.maximum(np.maximum(H[:, i - 1, j - 1] + s, H[:, i, j - 1] - gap),
+                       np.maximum(H[:, i - 1, j] - gap, 0))
+        H[:, i, j] = np.minimum(v, 255)
+    return H
+
+
+def skewed_best(H, M: int):
+    """(score, i, j) of the reference binary's skewed tie on one dense
+    matrix H (m + 1, n + 1), M the padded read length: among the cells of
+    the maximum score (> 0), the least raw key rj * (M + 33) + ri, then the
+    least i, then the least j (ops/scan_dp.skewed_keys, written out here)."""
+    import numpy as np
+
+    m, n = H.shape[0] - 1, H.shape[1] - 1
+    score = int(H.max())
+    if score <= 0:
+        return 0, 0, 0
+    i, j = np.nonzero(H[1:, 1:] == score)
+    i, j = i + 1, j + 1
+    s = i + j
+    lo, hi = min(m, n), max(m, n)
+    ri = np.where(n > m, np.where(s < lo, j, np.where(s > hi, j - (n - m), m - i)), j)
+    rj = np.where(s <= hi, s, s - hi - 1)
+    k = np.lexsort((j, i, rj.astype(np.int64) * (M + 33) + ri))[0]
+    return score, int(i[k]), int(j[k])
+
+
+def check_parity_sampled(reads, ref, rows, results, seed: int, count: int = 32):
+    """``solve_small --parity-mode skewed`` check: sampled reads (all of one
+    length) against the numpy saturating DP over the whole reference, the
+    skewed tie's cell and the greedy walk from it -- score, pos and both
+    consensus strings."""
+    import numpy as np
+
+    picks = np.random.default_rng(seed).choice(len(reads), count, replace=False)
+    X = np.stack([np.frombuffer(reads[k].encode(), np.uint8) for k in picks])
+    H = sat_matrices(X, np.frombuffer(ref.encode(), np.uint8))
+    M = -(-X.shape[1] // 8) * 8  # the aligner's padded read length (PAD_M = 8)
+    saturated = 0
+    for r, k in enumerate(picks):
+        score, i, j = skewed_best(H[r], M)
+        pos, cx, cy = oracle_walk(H[r], reads[k], ref, i, j) if score > 0 else (0, "", "")
+        res = results[k]
+        got = (int(rows[k]["score"]), int(rows[k]["pos_pred"]), int(res.score), res.pos,
+               res.consensus_x, res.consensus_y)
+        exp = (score, pos, score, pos, cx, cy)
+        if got != exp:
+            raise AssertionError(f"read {k}: port {got} != saturating skewed oracle {exp}")
+        saturated += score == 255
+    print(f"saturating oracle check: {count} sampled reads agree (score, pos and both "
+          f"consensus strings under the skewed tie; {saturated} of them at 255)")
+
+
+def check_sat_windows_sampled(reads, ref, rows, results, seed: int, count: int = 32):
+    """``solve_small --semantics sat_uint8`` check: sampled reads against the
+    numpy saturating DP in each of the 17 windows -- the first window of the
+    best score, then on it the column-major cell and the walk: score, pos and
+    both consensus strings."""
+    import numpy as np
+
+    from parallel_genomeseq_tpu_torch.parallel.chunking import make_string_ranges
+
+    picks = np.random.default_rng(seed + 5).choice(len(reads), count, replace=False)
+    X = np.stack([np.frombuffer(reads[k].encode(), np.uint8) for k in picks])
+    y = np.frombuffer(ref.encode(), np.uint8)
+    ranges = make_string_ranges(17, X.shape[1], len(ref), 2.0)
+    per_window = [sat_matrices(X, y[l:r]) for l, r in ranges]
+    for r, k in enumerate(picks):
+        win = int(np.argmax([int(H[r].max()) for H in per_window]))
+        H = per_window[win][r]
+        score, i, j = oracle_best(H)
+        pos, cx, cy = oracle_walk(H, reads[k], ref[slice(*ranges[win])], i, j) \
+            if score > 0 else (0, "", "")
+        pos = pos + ranges[win][0] if pos > 0 else 0
+        res = results[k]
+        got = (int(rows[k]["score"]), int(rows[k]["pos_pred"]), int(res.score), res.pos,
+               res.consensus_x, res.consensus_y)
+        if got != (score, pos, score, pos, cx, cy):
+            raise AssertionError(f"read {k}: port {got} != saturating oracle "
+                                 f"{(score, pos, cx, cy)} (window {win})")
+    print(f"saturating oracle check: {count} sampled reads of the 17-window run agree")
+
+
+def check_parity_kernels(reads, ref, batch: int, clock: float, dev):
+    """K26 against its plain version on the card, exactly, both ties: the
+    8,704 window lanes of ``--semantics sat_uint8`` (score-only, and the
+    skewed argmax), the 512 reads against the whole reference of
+    ``--parity-mode skewed`` (moves under both ties, the skewed argmax),
+    a plateau (512 reads copied from the reference: every lane at 255), and
+    lanes of m = n, m > n and n > m (the three branches of the raw key's
+    ri); K3 on K26's skewed moves. Returns {kernel: {case: measurements}}."""
+    import numpy as np
+    import torch
+
+    from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
+    from parallel_genomeseq_tpu_torch.ops import scan_dp, traceback, wavefront_cuda
+    from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkConfig, ChunkedAligner
+    from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig, Semantics
+
+    fn, plain = wavefront_cuda.sw_score_parity, scan_dp.sw_score_parity_plain
+    sat = ScoringConfig(semantics=Semantics.SAT_UINT8)
+    aligner = BatchSWAligner(sat, tie="skewed", device=dev)
+    out = {fn.__name__: {}, "walk_moves": {}}
+
+    def on_card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+    def case(label, xs, ys, m, n, tie, mode):
+        kw = dict(SAT_KW, tie=tie)
+        if mode == "moves":
+            kw["emit_moves"] = True
+        else:
+            kw["track_pos"] = mode != "score_only"
+        got = fn(xs, ys, m, n, **kw)
+        want, plain_ms = timed(lambda: plain(xs, ys, m, n, **kw))
+        err = max_abs_err(got[:3], want[:3])
+        if mode == "moves":
+            err = max(err, moves_err(got[3], want[3], m, n))
+        del want
+        cells, seq_bytes = lane_work(m, n)
+        nbytes = seq_bytes + LANE_BYTES * xs.shape[0] + (cells if mode == "moves" else 0)
+        rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}, {mode}, "
+                        f"{tie} tie", "max_abs_err": err, "plain_ms": plain_ms,
+               "ms": cuda_ms(lambda: fn(xs, ys, m, n, **kw), 10),
+               "saturated_lanes": int((got[0] == 255).sum())}
+        rec["bound_ms"], rec["bound_by"] = bound(cells * PARITY_OPS[mode, tie], nbytes, clock)
+        rec["issued_bound_ms"] = bound(cells * PARITY_STEP_OPS[mode, tie], nbytes, clock)[0]
+        wave_steps(rec, fn, xs.shape[1], ys.shape[1], m, n, clock, mode, parity=True)
+        out[fn.__name__][label] = rec
+        report("K26 sw_score_parity", label, rec)
+        return got
+
+    batch_reads = reads[:batch]
+    chunked = ChunkedAligner(sat, chunk=ChunkConfig(npiece=17, overlap_ratio=2.0), device=dev)
+    lanes = on_card(*chunked.window_lanes(batch_reads, ref)[:4])
+    case("windows_score_only", *lanes, "colmajor", "score_only")
+    case("windows_skewed", *lanes, "skewed", "track_pos")
+    full = on_card(*aligner.pad_batch(batch_reads, [ref]))
+    got = case("npiece1_skewed", *full, "skewed", "moves")
+    xs, ys = full[:2]
+    walk_inputs = (got[3], xs.T.contiguous(), ys, got[1], got[2],
+                   aligner.max_steps(xs.shape[1], ys.shape[1]))
+    rec = walk_case(traceback.walk_moves, traceback._walk_moves_plain, *walk_inputs, clock)
+    out["walk_moves"]["parity_skewed"] = rec
+    report("K3 walk_moves", "parity_skewed", rec)
+    del got, walk_inputs
+    case("npiece1_colmajor", *full, "colmajor", "moves")
+    case("npiece1_skewed_argmax", *full, "skewed", "track_pos")
+    # The plateau: reads copied from the reference, every lane at 255.
+    rng = np.random.default_rng(3)
+    starts = rng.integers(0, len(ref) - 125, batch)
+    copies = [ref[o : o + 125] for o in starts]
+    plateau = on_card(*aligner.pad_batch(copies, [ref]))
+    for tie in ("skewed", "colmajor"):
+        got = case(f"plateau_{tie}", *plateau, tie, "moves")
+        if not bool((got[0] == 255).all()):
+            raise AssertionError("the plateau case has a lane below 255")
+        del got
+    # The raw key's three branches of ri: windows as long as the read (m =
+    # n), shorter (m > n) and longer (n > m), around each copy's source.
+    wins = []
+    for k, o in enumerate(starts[:192]):
+        width = (125, 90, 400)[k % 3]
+        left = int(min(max(0, o - (width - 125) // 2), len(ref) - width))
+        wins.append(ref[left : left + width])
+    branches = on_card(*aligner.pad_batch(copies[:192], wins))
+    case("branches_skewed", *branches, "skewed", "moves")
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_parity_strips(reads, ref, clock: float, dev):
+    """K27 against its plain version: solve_big --semantics sat_uint8's
+    1,400-lane window sweep (100 reads x 14 windows, M = 10,008), held on one
+    read's 14 lanes; and the skewed tie on a reduced shape (2 reads' first
+    2,304 bases against 14 windows of 4,608), held on every lane."""
+    import numpy as np
+    import torch
+
+    from parallel_genomeseq_tpu_torch.ops import scan_dp, strips_cuda
+    from parallel_genomeseq_tpu_torch.parallel.chunking import ChunkConfig, ChunkedAligner
+    from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig, Semantics
+
+    fn, plain = strips_cuda.sw_score_strips_parity, scan_dp.sw_score_parity_plain
+    out = {fn.__name__: {}}
+    chunked = ChunkedAligner(ScoringConfig(semantics=Semantics.SAT_UINT8),
+                             chunk=ChunkConfig(npiece=2 * BIG["npiece"],
+                                               overlap_ratio=BIG["overlap"]), device=dev)
+
+    def on_card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+    def case(label, xs, ys, m, n, tie, held):
+        kw = dict(SAT_KW, tie=tie)
+        got = fn(xs, ys, m, n, **kw)
+        want, plain_ms = timed(lambda: plain(xs[held], ys[held], m[held], n[held], **kw))
+        cells, seq_bytes = lane_work(m, n)
+        rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}, {tie} tie",
+               "max_abs_err": max_abs_err([g[held] for g in got], want),
+               "ms": cuda_ms(lambda: fn(xs, ys, m, n, **kw), 3), "plain_ms": plain_ms,
+               "plain_lanes": int(m[held].shape[0])}
+        rec["bound_ms"], rec["bound_by"] = bound(cells * PARITY_STRIP_OPS[tie],
+                                                 seq_bytes + LANE_BYTES * xs.shape[0], clock)
+        sweep_steps(fn, rec, xs.shape[1], n, clock)
+        out[fn.__name__][label] = rec
+        report("K27 sw_score_strips_parity", label, rec)
+
+    xs, ys, m, n, _ = chunked.window_lanes(reads, ref)
+    case("sweep", *on_card(xs, ys, m, n), "colmajor", slice(0, 2 * BIG["npiece"]))
+    lanes = [(r, o) for r in range(2) for o in np.random.default_rng(2).integers(
+        0, len(ref) - 4608, 2 * BIG["npiece"])]
+    xr = np.stack([np.frombuffer(reads[r][:2304].encode(), np.uint8) for r, _ in lanes])
+    yr = np.stack([np.frombuffer(ref[o : o + 4608].encode(), np.uint8) for _, o in lanes])
+    xr[:, 1000:1100] = yr[:, 2000:2100]  # a saturating stretch in every lane
+    case("reduced_skewed", *on_card(xr, yr, np.full(len(lanes), 2304, np.int32),
+                                    np.full(len(lanes), 4608, np.int32)), "skewed", slice(None))
+    torch.cuda.empty_cache()
+    return out
+
+
+def parity_phase(args, card: str, clock: float, dev, dna_data, long):
+    """Phase 12. K26 and K27 against their plain versions (above); then
+    ``solve_small --parity-mode skewed`` on phase 3's data, its launches
+    (K26 and K3; none of K1 or K2), 32 sampled reads against the saturating
+    skewed oracle and its first 1,024 rows equal to the same aligner's with
+    engine="plain" on the card; ``solve_small --semantics sat_uint8`` (17
+    windows; K26 score-only and with moves, K3) with 32 sampled reads against
+    the saturating oracle; ``solve_big 7 1 --semantics sat_uint8`` on phase
+    6's exact reads (K27; not K11), every score 255. Returns (measurements by
+    kernel, launches by run)."""
+    from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda, traceback, wavefront_cuda
+    from parallel_genomeseq_tpu_torch.seqio.readers import read_ground_truth
+    from parallel_genomeseq_tpu_torch.seqio.writers import write_align_output
+    from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig, Semantics
+
+    t_phase = time.perf_counter()
+    ref_path, csv_path, ref, reads = dna_data
+    data_dir, big_ref, exact, mutated = long
+    print("-- reference-parity modes: saturating uint8 values and the skewed tie")
+    measured = check_parity_kernels(reads, ref, args.batch_size, clock, dev)
+    measured.update(check_parity_strips(mutated, big_ref, clock, dev))
+
+    data = ROOT / "data" / "chip_smoke"
+    k26, k3 = wavefront_cuda.sw_score_parity, traceback.walk_moves
+    absent = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves)
+    runs = {}
+    base = ["--ref", str(ref_path), "--input", str(csv_path), "--batch-size",
+            str(args.batch_size), "--device", str(dev)]
+    out_csv = data / "align_output_parity.csv"
+    runs["solve_small_parity"], _ = dna_run(
+        "--parity-mode skewed", base + ["--output", str(out_csv), "--parity-mode", "skewed"],
+        LINEAR, reads, ref, out_csv, card, args.seed, counters=(k26, k3), absent=absent,
+        check=check_parity_sampled)
+    # The same aligner on the plain route, on the card: the first 1,024 rows.
+    limit = 2 * args.batch_size
+    plain = BatchSWAligner(ScoringConfig(semantics=Semantics.SAT_UINT8), tie="skewed",
+                           device=dev, engine="plain")
+    t0 = time.perf_counter()
+    results = [r for b in plain.align_stream(
+        [reads[k : k + args.batch_size] for k in range(0, limit, args.batch_size)], [ref])
+        for r in b]
+    plain_s = time.perf_counter() - t0
+    plain_csv = data / "align_output_parity_plain.csv"
+    write_align_output(plain_csv, read_ground_truth(csv_path)[:limit], results)
+    card_lines = out_csv.read_bytes().splitlines(keepends=True)[: limit + 1]
+    if plain_csv.read_bytes() != b"".join(card_lines):
+        raise AssertionError("--parity-mode skewed: the card's CSV differs from the plain "
+                             f"engine's on the first {limit} rows")
+    print(f"--parity-mode skewed: the card's first {limit} rows equal engine='plain' on the "
+          f"card ({plain_s:.1f} s for the plain route)")
+    out_csv = data / "align_output_sat.csv"
+    runs["solve_small_sat"], _ = dna_run(
+        "--semantics sat_uint8", base + ["--output", str(out_csv), "--semantics", "sat_uint8"],
+        LINEAR, reads, ref, out_csv, card, args.seed, counters=(k26, k3), absent=absent,
+        check=check_sat_windows_sampled)
+    run, runs["solve_big_sat"] = big_run(
+        "7 1 --semantics sat_uint8", [str(BIG["npiece"]), "1", "--device", str(dev),
+                                      "--semantics", "sat_uint8"],
+        (strips_cuda.sw_score_strips_parity,), data_dir / "reads.csv", data_dir / "ref.fa",
+        absent=(strips_cuda.sw_score_strips,))
+    if any(r.score != 255 for r in run.results):
+        raise AssertionError("solve_big --semantics sat_uint8: an exact 10,000-bp read below 255")
+    print(f"solve_big --semantics sat_uint8 on {card}: {run.seconds[0] * 1e3:.1f} ms, "
+          f"{run.gcups[0]:.3f} GCUPS, {len(run.results) / run.seconds[0]:.1f} reads/s; "
+          "every read at 255")
+    print(f"reference-parity phase: {time.perf_counter() - t_phase:.1f} s")
+    return measured, runs
+
+
 def add_phase(kernels, measured, runs):
     """Merge a later phase (10, 11) into the kernels' entries: its cases
     under their labels, and each run's launches (``launches_<run>``, added
@@ -3111,13 +3463,20 @@ def main(argv=None) -> int:
     seeded, seeded_runs_, nw_cases, nw_launches = a12_phase(args, card, clock, dev, dna_data,
                                                              dna_rates, data)
     lap("11 seed-extend and global")
+    parity, parity_runs = parity_phase(args, card, clock, dev, dna_data, data)
+    lap("12 reference parity")
 
-    kernels = add_phase(add_phase(
+    kernels = add_phase(add_phase(add_phase(
         kernel_entries(dna, dna_launches, protein, protein_launches, long), serving,
-        serving_runs), seeded, seeded_runs_)
+        serving_runs), seeded, seeded_runs_), parity, parity_runs)
     name, src, replaces = NW_KERNEL
     kernels.append(kernel_line(name, src, replaces, nw_cases, "hirschberg_top", nw_launches))
     kernels[-1]["launches_hirschberg_align"] = nw_launches
+    for name, src, replaces, main_case in PARITY_KERNELS:
+        counts = {run: n[name] for run, n in parity_runs.items() if name in n}
+        kernels.append(kernel_line(name, src, replaces, parity[name], main_case,
+                                   sum(counts.values())))
+        kernels[-1].update({f"launches_{run}": c for run, c in counts.items()})
     print(f"phase seconds: {seconds}; total {time.perf_counter() - t_all:.1f} s "
           "(the build before them)")
     print(json.dumps({"kernels": kernels}))

@@ -16,12 +16,18 @@ its seeded reference window (``models/seed_extend.py``: K2 and K3, or K7
 and K10, at the window's width; no window sweep), unseeded reads at full
 width; it reports full-matrix-equivalent GCUPS. With ``--seed-extend``,
 ``--engine plain`` runs the plain PyTorch version of every kernel of that
-path. ``--parity-mode skewed`` is not ported yet.
+path. ``--parity-mode skewed`` reproduces the reference binary's serial
+AVX2 build, as the JAX CLI does: every read against the whole reference
+(``--npiece`` is not used) under saturating uint8 values and the skewed
+raw-layout tie-break, scored, argmaxed and with moves on K26 and walked on
+K3. ``--semantics sat_uint8`` alone keeps the window sweep (K26 score-only,
+then K26 with moves on the winners, and K3).
 
 Usage:
     python -m parallel_genomeseq_tpu_torch.cli.solve_small [--npiece 17] [--eval]
         [--match 1 --mismatch -4 --gap-open 6 --gap-penalty 1]
         [--matrix blosum50 [--gap-open 10 --gap-penalty 2]] [--seed-extend]
+        [--parity-mode skewed] [--semantics sat_uint8]
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from ..parallel.chunking import ChunkedAligner
 from ..seqio.evaluate import check_parity
 from ..seqio.readers import read_fasta, read_ground_truth
 from ..seqio.writers import write_align_output
+from ..utils.config import Semantics
 from ..utils.encoding import revcomp
 from ..utils.result import AlignResult
 from . import common
@@ -67,7 +74,9 @@ def run(argv=None) -> Run:
     p.add_argument("--eval", action="store_true", help="run position-parity check after writing")
     p.add_argument(
         "--parity-mode", choices=["exact", "skewed"], default="exact",
-        help="exact = true int32 scores (the only mode ported so far)",
+        help="skewed = bit-parity with the reference's serial AVX2 build "
+        "(saturating uint8 + raw-layout argmax tie-break); exact = true "
+        "int32 scores (default, strictly better on ground-truth parity)",
     )
     p.add_argument(
         "--seed-extend", action="store_true",
@@ -92,8 +101,6 @@ def run(argv=None) -> Run:
 
     if args.seed_extend and args.parity_mode == "skewed":
         p.error("--seed-extend implies exact int32 scoring; drop --parity-mode skewed")
-    if args.parity_mode == "skewed":
-        p.error("--parity-mode skewed is not ported yet (ROADMAP A2)")
     if args.engine != "auto" and not args.seed_extend:
         p.error("--engine applies to --seed-extend only")
 
@@ -109,6 +116,10 @@ def run(argv=None) -> Run:
         aligner = SeedExtendAligner(ref, aligner=BatchSWAligner(
             cfg, device=args.device, engine=args.engine))
         stream = lambda batches: aligner.align_stream(batches)
+    elif args.parity_mode == "skewed":
+        cfg = dataclasses.replace(cfg, semantics=Semantics.SAT_UINT8)
+        aligner = BatchSWAligner(cfg, tie="skewed", device=args.device)
+        stream = lambda batches: aligner.align_stream(batches, [ref])
     elif args.npiece > 1:
         aligner = ChunkedAligner(
             cfg=cfg, chunk=common.chunk_from_args(args), device=args.device

@@ -59,6 +59,18 @@
 //     `_kernel_strip_profile_affine_moves` (:2070) via
 //     `_call_strip_profile_affine_moves` (:2149): K17's replay and affine
 //     byte with the table's cell score.
+// K27 `strip_sweep_kernel<false, false, false, kBand, true>` (kParity)
+//     replaces JAX device code with no Pallas call: the `lax.scan` wavefront
+//     of parallel_genomeseq_tpu/ops/scan_dp.py (`_wavefront` :93, `_dp_step`
+//     :58) at strip length under Semantics.SAT_UINT8 (`solve_big
+//     --semantics sat_uint8`'s window sweep, 10,008 rows). K11 with each H
+//     clamped at `cap` (255 under saturation, the operands clipped to [0,
+//     255] by ops/scan_dp.sat_operands, which makes the saturating step the
+//     exact one clamped) and, when `skewed` is set, the reference binary's
+//     skewed tie instead of the column-major one: each thread keeps its
+//     cell of the maximum score of least raw key rj * (M + 33) + ri, then
+//     least row and column, and the block reduces in that order (as K26,
+//     csrc/wavefront.cu), so passes and bands need no order between them.
 //
 // Design of K11/K12, a column step without a block barrier. One thread
 // block per lane. Its T threads split the lane's rows into bands of kBand
@@ -234,6 +246,33 @@ __device__ __forceinline__ bool better(int v1, int j1, int i1, int v2, int j2,
   return v1 > v2 || (v1 == v2 && (j1 < j2 || (j1 == j2 && i1 < i2)));
 }
 
+// K27's skewed order: higher score, then smaller raw key, then i, then j.
+__device__ __forceinline__ bool better_skewed(int v1, int k1, int i1, int j1, int v2, int k2,
+                                              int i2, int j2) {
+  return v1 > v2 ||
+         (v1 == v2 && (k1 < k2 || (k1 == k2 && (i1 < i2 || (i1 == i2 && j1 < j2)))));
+}
+
+// The raw key of cell (i, j) under the skewed tie (csrc/wavefront.cu's
+// RawKey, ops/scan_dp.skewed_keys): s = i + j; rj = s up to max(mb, nb),
+// s - max - 1 past it; ri = j unless nb > mb, where ri = j below min(mb,
+// nb), j - (nb - mb) past the max and mb - i between; key = rj * (M + 33) +
+// ri, wrapping, M the padded read length.
+struct RawKey {
+  int mb, minmn, maxmn, dnm, mult;
+  bool ngtm;
+  __device__ RawKey(int mb_, int nb_, int M)
+      : mb(mb_), minmn(min(mb_, nb_)), maxmn(max(mb_, nb_)), dnm(nb_ - mb_), mult(M + 33),
+        ngtm(nb_ > mb_) {}
+  __device__ __forceinline__ int operator()(int i, int j) const {
+    const int s = i + j;
+    const int ri = !ngtm || s < minmn ? j : s > maxmn ? j - dnm : mb - i;
+    const int rj = s <= maxmn ? s : s - maxmn - 1;
+    return static_cast<int>(static_cast<unsigned>(rj) * static_cast<unsigned>(mult) +
+                            static_cast<unsigned>(ri));
+  }
+};
+
 // The score of cell (x byte or code xc, y byte or code yc): uniform
 // match/mismatch, or (kProfile) the word xc of the column's table row.
 template <bool kProfile>
@@ -265,13 +304,14 @@ __device__ __forceinline__ void load_table(int32_t* tab, const int32_t* __restri
 // h holds H(., j - 1) on entry and H(., j) on return. The cell score is
 // cell_score<kProfile>(xb[k], yc, row, ...). Returns the column's maximum
 // over the band. Rows past the lane's m_b are swept like the others: no row
-// above them reads them (see the kernel).
-template <bool kProfile, int kRows>
+// above them reads them (see the kernel). kParity (K27) clamps each H at
+// cap.
+template <bool kProfile, bool kParity, int kRows>
 __device__ __forceinline__ int band_column(int (&h)[kRows],
                                            const uint8_t (&xb)[kRows],
                                            int yc, const int32_t* row,
                                            int match, int mismatch,
-                                           int gap, int nw, int north) {
+                                           int gap, int cap, int nw, int north) {
   // The north-independent part first: a = max(diag + s, west - gap, 0).
   int a[kRows];
   int diag = nw;
@@ -285,6 +325,7 @@ __device__ __forceinline__ int band_column(int (&h)[kRows],
 #pragma unroll
   for (int k = 0; k < kRows; ++k) {
     h[k] = __viaddmax_s32(north, -gap, a[k]);
+    if constexpr (kParity) h[k] = min(h[k], cap);
     north = h[k];
   }
   int colmax = 0;
@@ -375,7 +416,8 @@ __device__ __forceinline__ int y_code(const uint8_t* yl, int k, int ncodes) {
 }
 
 // K11 (kCkpt = false) and K12 (kCkpt = true), with kAffine K15 and K16,
-// with kProfile K19 and K20, with both K22 and K23. x: lane b's read at x +
+// with kProfile K19 and K20, with both K22 and K23; with kParity alone K27
+// (H clamped at cap, the skewed tie when `skewed` is set). x: lane b's read at x +
 // b * x_lane, uint8 bytes (codes when kProfile; x_lane = 0 shares one query
 // between lanes); y: lane b's reference at y + b * N, or at y + y_off[b]
 // when y_off is given (a flat slab of y_len bytes; n_b is then clamped to
@@ -389,24 +431,25 @@ __device__ __forceinline__ int y_code(const uint8_t* yl, int k, int ncodes) {
 // only). kBand: rows per thread, kNarrow or kWide. Dynamic shared memory:
 // the table (table_bytes(ncodes), kProfile only), then each warp's ring of
 // kRing hand-off words and one more for the bound row.
-template <bool kCkpt, bool kAffine, bool kProfile, int kBand>
+template <bool kCkpt, bool kAffine, bool kProfile, int kBand, bool kParity>
 __global__ void __launch_bounds__(max_threads(kBand))
 strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
                    const uint8_t* __restrict__ y, const int64_t* __restrict__ y_off,
                    long long y_len, const int32_t* __restrict__ m,
                    const int32_t* __restrict__ n, int M, int N,
                    const int32_t* __restrict__ table, int ncodes, int match,
-                   int mismatch, int gap_open, int gap, int passes,
+                   int mismatch, int gap_open, int gap, int cap, int skewed, int passes,
                    void* __restrict__ bound, const int64_t* __restrict__ bound_off,
                    int32_t* __restrict__ ck, int32_t* __restrict__ fck, int nck,
                    int32_t* __restrict__ score, int32_t* __restrict__ best_i,
                    int32_t* __restrict__ best_j) {
+  static_assert(!kParity || (!kCkpt && !kAffine && !kProfile), "K27 is K11's form only");
   using Carry = std::conditional_t<kAffine, int2, int>;  // hand-off: H, or (H, F)
   // Per pass parity: done[.][w] counts the columns warp w has handed to warp
   // w + 1, used[.][w] those warp w has taken from warp w - 1.
   __shared__ int done[2][kMaxWarps];
   __shared__ int used[2][kMaxWarps];
-  __shared__ int red[3][kMaxWarps];
+  __shared__ int red[4][kMaxWarps];  // each warp's (best, j, i, key)
   extern __shared__ __align__(16) unsigned char dyn[];
   int32_t* const tab = reinterpret_cast<int32_t*>(dyn);  // kProfile: tab[yc * ncodes + xc]
   Carry* const ring = reinterpret_cast<Carry*>(dyn + (kProfile ? table_bytes(ncodes) : 0));
@@ -438,6 +481,8 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
                           (bound_off ? (size_t)bound_off[b] : (size_t)b * (N + 1))
                     : nullptr;
   int best = 0, bi = 0, bj = 0;
+  int bkey = 0x7fffffff;  // K27, skewed: the raw key of (bi, bj)
+  const bool by_key = kParity && skewed;
   for (int p = 0; p < passes; ++p) {
     // The previous pass is over (its bound row complete), this pass's counts
     // are 0 and the table is loaded.
@@ -539,11 +584,42 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
           } else {
             north = in;
             if (nvalid > 0) {
-              colmax = band_column<kProfile>(h, xb, yc, row, match, mismatch, gap, nw, north);
+              colmax = band_column<kProfile, kParity>(h, xb, yc, row, match, mismatch, gap,
+                                                      cap, nw, north);
             }
             last = h[kBand - 1];
           }
-          if (colmax > best || (colmax == best && colmax > 0 && j < bj)) {
+          if (by_key) {
+            // The column's cells of the maximum, if it reaches the best: the
+            // least raw key, the least row on equal keys.
+            if (colmax >= best && colmax > 0) {
+              if (nvalid < kBand) {  // the band holding m_b: its rows up to m_b only
+                colmax = 0;
+#pragma unroll
+                for (int k = 0; k < kBand; ++k) colmax = k < nvalid ? max(colmax, h[k]) : colmax;
+              }
+              if (colmax >= best && colmax > 0) {
+                int key = 0x7fffffff, kk = 0;
+                const RawKey raw_key(mb, nb, M);  // off the column loop's registers
+#pragma unroll
+                for (int k = kBand - 1; k >= 0; --k) {
+                  if (k < nvalid && h[k] == colmax) {
+                    const int c = raw_key(row0 + k + 1, j);
+                    if (c <= key) {
+                      key = c;
+                      kk = k;
+                    }
+                  }
+                }
+                if (better_skewed(colmax, key, row0 + kk + 1, j, best, bkey, bi, bj)) {
+                  best = colmax;
+                  bkey = key;
+                  bi = row0 + kk + 1;
+                  bj = j;
+                }
+              }
+            }
+          } else if (colmax > best || (colmax == best && colmax > 0 && j < bj)) {
             if (nvalid < kBand) {  // the band holding m_b: its rows up to m_b only
               colmax = 0;
 #pragma unroll
@@ -579,30 +655,38 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
     }
     if (feeds && lane == 31) publish_count(&done[q][w], nb);  // the last columns
   }
-  // Block reduction of (best, bj, bi): a warp by shuffles, then the warps.
+  // Block reduction of (best, bj, bi) (K27 skewed: and bkey, in its
+  // order): a warp by shuffles, then the warps.
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const int v2 = __shfl_down_sync(kAll, best, off);
     const int j2 = __shfl_down_sync(kAll, bj, off);
     const int i2 = __shfl_down_sync(kAll, bi, off);
-    if (better(v2, j2, i2, best, bj, bi)) {
+    const int k2 = kParity ? __shfl_down_sync(kAll, bkey, off) : 0;
+    if (by_key ? better_skewed(v2, k2, i2, j2, best, bkey, bi, bj)
+               : better(v2, j2, i2, best, bj, bi)) {
       best = v2;
       bj = j2;
       bi = i2;
+      bkey = k2;
     }
   }
   if (lane == 0) {
     red[0][w] = best;
     red[1][w] = bj;
     red[2][w] = bi;
+    red[3][w] = bkey;
   }
   __syncthreads();
   if (t == 0) {
     for (int v = 1; v < W; ++v) {
-      if (better(red[0][v], red[1][v], red[2][v], best, bj, bi)) {
+      const int k2 = red[3][v];
+      if (by_key ? better_skewed(red[0][v], k2, red[2][v], red[1][v], best, bkey, bi, bj)
+                 : better(red[0][v], red[1][v], red[2][v], best, bj, bi)) {
         best = red[0][v];
         bj = red[1][v];
         bi = red[2][v];
+        bkey = k2;
       }
     }
     score[b] = best;
@@ -795,21 +879,26 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
   }
 }
 
-using SweepKernel = decltype(&strip_sweep_kernel<false, false, false, kNarrow>);
+using SweepKernel = decltype(&strip_sweep_kernel<false, false, false, kNarrow, false>);
 
-// The sweep kernel of a form with kBand = rows: [kCkpt][kAffine][kProfile];
-// null where has_wide is false.
+// The sweep kernel of a form with kBand = rows: [kCkpt][kAffine][kProfile],
+// or with parity K27 (K11's form only); null where has_wide is false or
+// there is no such form.
 template <int kRows>
-SweepKernel sweep_kernel(bool ckpt, bool affine, bool profile) {
+SweepKernel sweep_kernel(bool ckpt, bool affine, bool profile, bool parity) {
   static const SweepKernel kernels[2][2][2] = {
-      {{&strip_sweep_kernel<false, false, false, kRows>,
-        &strip_sweep_kernel<false, false, true, kRows>},
-       {kRows == kNarrow ? &strip_sweep_kernel<false, true, false, kNarrow> : nullptr,
-        &strip_sweep_kernel<false, true, true, kRows>}},
-      {{&strip_sweep_kernel<true, false, false, kRows>,
-        &strip_sweep_kernel<true, false, true, kRows>},
-       {kRows == kNarrow ? &strip_sweep_kernel<true, true, false, kNarrow> : nullptr,
-        &strip_sweep_kernel<true, true, true, kRows>}}};
+      {{&strip_sweep_kernel<false, false, false, kRows, false>,
+        &strip_sweep_kernel<false, false, true, kRows, false>},
+       {kRows == kNarrow ? &strip_sweep_kernel<false, true, false, kNarrow, false> : nullptr,
+        &strip_sweep_kernel<false, true, true, kRows, false>}},
+      {{&strip_sweep_kernel<true, false, false, kRows, false>,
+        &strip_sweep_kernel<true, false, true, kRows, false>},
+       {kRows == kNarrow ? &strip_sweep_kernel<true, true, false, kNarrow, false> : nullptr,
+        &strip_sweep_kernel<true, true, true, kRows, false>}}};
+  if (parity) {
+    return ckpt || affine || profile ? nullptr
+                                     : &strip_sweep_kernel<false, false, false, kRows, true>;
+  }
   return kernels[ckpt][affine][profile];
 }
 
@@ -827,17 +916,20 @@ struct SweepShape {
   int blocks;
 };
 
-SweepShape shape_with(int rows, int M, bool ckpt, bool affine, bool profile, int ncodes) {
+SweepShape shape_with(int rows, int M, bool ckpt, bool affine, bool profile, int ncodes,
+                      bool parity) {
   const int bands = (M + rows - 1) / rows;
   const int threads = min(max_threads(rows), max(32, (bands + 31) / 32 * 32));
   const size_t carry = affine ? sizeof(int2) : sizeof(int);
-  SweepShape shape{rows == kNarrow ? sweep_kernel<kNarrow>(ckpt, affine, profile)
-                                   : sweep_kernel<kWide>(ckpt, affine, profile),
+  SweepShape shape{rows == kNarrow ? sweep_kernel<kNarrow>(ckpt, affine, profile, parity)
+                                   : sweep_kernel<kWide>(ckpt, affine, profile, parity),
                    rows, threads, (bands + threads - 1) / threads,
                    (profile ? table_bytes(ncodes) : 0) + (size_t)(threads / 32 + 1) * kRing * carry,
                    0};
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&shape.blocks, shape.kernel, threads,
-                                                shape.smem);
+  if (shape.kernel != nullptr) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&shape.blocks, shape.kernel, threads,
+                                                  shape.smem);
+  }
   return shape;
 }
 
@@ -847,10 +939,10 @@ SweepShape shape_with(int rows, int M, bool ckpt, bool affine, bool profile, int
 // 4,096 (a long query's slab scan) or 2,304 rows the wide bands' blocks are
 // small enough to fit more rows, and spend half the steps filling and
 // draining the pipeline.
-SweepShape sweep_shape(int M, bool ckpt, bool affine, bool profile, int ncodes) {
-  const SweepShape narrow = shape_with(kNarrow, M, ckpt, affine, profile, ncodes);
-  if (!has_wide(affine, profile)) return narrow;
-  const SweepShape wide = shape_with(kWide, M, ckpt, affine, profile, ncodes);
+SweepShape sweep_shape(int M, bool ckpt, bool affine, bool profile, int ncodes, bool parity) {
+  const SweepShape narrow = shape_with(kNarrow, M, ckpt, affine, profile, ncodes, parity);
+  if (!has_wide(affine, profile) || narrow.kernel == nullptr) return narrow;
+  const SweepShape wide = shape_with(kWide, M, ckpt, affine, profile, ncodes, parity);
   return (long long)wide.blocks * wide.threads * kWide >
                  (long long)narrow.blocks * narrow.threads * kNarrow
              ? wide
@@ -888,23 +980,30 @@ size_t replay_smem(int ncodes) {
 // N) int32 zero-filled or null (K11/K15/K19/K22); fck the same shape filled
 // with -2^30, or null unless K16/K23; score/best_i/best_j (B,) int32.
 // gap_open > 0 selects the affine kernels, a table ((ncodes, ncodes) int32,
-// compact codes in x and y) the profile ones, both K22/K23; sweep_shape the
-// band height. Returns cudaGetLastError() after the launch.
+// compact codes in x and y) the profile ones, both K22/K23; sat (clamp every
+// H at 255, the operands already clipped) or skewed (the raw-key tie) K27,
+// which takes K11's arguments only; sweep_shape the band height. Returns
+// cudaGetLastError() after the launch.
 extern "C" int pgs_strip_sweep(const void* x, long long x_lane, const void* y,
                                const void* y_off, long long y_len, const void* m,
                                const void* n, int M, int N, int B, const void* table,
                                int ncodes, int match, int mismatch, int gap_open,
                                int gap, void* bound, const void* bound_off, void* ck,
                                void* fck, int nck, void* score, void* best_i,
-                               void* best_j, void* stream) {
+                               void* best_j, int sat, int skewed, void* stream) {
   const bool affine = gap_open > 0;
+  const bool parity = sat || skewed;
   if (B > 0) {
-    const SweepShape shape = sweep_shape(M, ck != nullptr, affine, table != nullptr, ncodes);
+    const SweepShape shape =
+        sweep_shape(M, ck != nullptr, affine, table != nullptr, ncodes, parity);
+    if (shape.kernel == nullptr || (parity && y_off != nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     shape.kernel<<<B, shape.threads, shape.smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(x), x_lane, static_cast<const uint8_t*>(y),
         static_cast<const int64_t*>(y_off), y_len, static_cast<const int32_t*>(m),
         static_cast<const int32_t*>(n), M, N, static_cast<const int32_t*>(table), ncodes,
-        match, mismatch, gap_open, gap, shape.passes, bound,
+        match, mismatch, gap_open, gap, sat ? 255 : 0x7fffffff, skewed, shape.passes, bound,
         static_cast<const int64_t*>(bound_off), static_cast<int32_t*>(ck),
         static_cast<int32_t*>(fck), nck, static_cast<int32_t*>(score),
         static_cast<int32_t*>(best_i), static_cast<int32_t*>(best_j));
@@ -914,11 +1013,14 @@ extern "C" int pgs_strip_sweep(const void* x, long long x_lane, const void* y,
 
 // pgs_strip_sweep_occupancy: the launch pgs_strip_sweep makes for M rows
 // (ckpt, affine != 0 as its ck and gap_open select; ncodes > 0 a table of
-// that size) on the current device: out[0] threads a block, out[1] passes,
-// out[2] the blocks an SM holds at once, out[3] rows a thread. Returns
-// cudaGetLastError().
-extern "C" int pgs_strip_sweep_occupancy(int M, int ckpt, int affine, int ncodes, void* out) {
-  const SweepShape shape = sweep_shape(M, ckpt != 0, affine != 0, ncodes > 0, ncodes);
+// that size; parity != 0 K27) on the current device: out[0] threads a
+// block, out[1] passes, out[2] the blocks an SM holds at once, out[3] rows a
+// thread. Returns cudaGetLastError().
+extern "C" int pgs_strip_sweep_occupancy(int M, int ckpt, int affine, int ncodes, int parity,
+                                         void* out) {
+  const SweepShape shape = sweep_shape(M, ckpt != 0, affine != 0, ncodes > 0, ncodes,
+                                       parity != 0);
+  if (shape.kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int* o = static_cast<int*>(out);
   o[0] = shape.threads;
   o[1] = shape.passes;

@@ -29,6 +29,27 @@
 //    `_kernel_profile_affine_moves` (:724, body `_affine_moves_body` :630) via
 //    `_call_profile_affine_moves` (:779): K7 with the table's scores, the
 //    bytes that K10 walks.
+// K26 `sw_warp_kernel<kTrackPos, kMoves, false, kRows, kWarps, kTable, true>`
+//    (kParity, the reference-parity forms, built by csrc/wavefront_parity.cu
+//    from this file) replaces JAX device code with no Pallas call: the
+//    `lax.scan` wavefront of parallel_genomeseq_tpu/ops/scan_dp.py
+//    (`_wavefront` :93, `_dp_step` :58) under Semantics.SAT_UINT8 and/or
+//    its skewed tie (raw key :144-166, `_reduce_best_skewed` :325). Linear
+//    gaps, uniform scores (or a table, exact values only); score-only,
+//    argmax or moves, as K1/K2 (and K5). Two runtime arguments: `cap`, 255
+//    under saturation (one min a cell: with the operands clipped to [0,
+//    255], ops/scan_dp.sat_operands, the saturating step is the exact one
+//    clamped at 255) or INT_MAX; and `skewed`, the tie-break. Colmajor keeps
+//    K1/K2's (min j, min i). Skewed: each thread keeps, among its cells of
+//    the maximum score (> 0), the least raw key rj * (M + 33) + ri -- the
+//    cell's place in the reference binary's skewed storage, from the lane's
+//    min(m, n), max(m, n) and whether n > m (`raw_key`) -- then the least
+//    row, then the least column, and the warp, then the lane's warps,
+//    reduce by (max score, min key, min i, min j), an order in which every
+//    cell has one place, so no result depends on which thread saw a cell
+//    first. The key is computed only for a column whose maximum reaches the
+//    thread's best: on a saturated plateau that is most columns, which the
+//    card's time for K26 shows (PERF.md section 6).
 //
 // The last template flag, kTable, says how a cell is scored (`UniformScore`,
 // `TableScore`): uniform, match if the read byte equals the reference byte,
@@ -161,6 +182,34 @@ __device__ __forceinline__ bool better(int v1, int j1, int i1, int v2, int j2, i
   return v1 > v2 || (v1 == v2 && (j1 < j2 || (j1 == j2 && i1 < i2)));
 }
 
+// K26's skewed order: higher score, then smaller raw key, then i, then j.
+__device__ __forceinline__ bool better_skewed(int v1, int k1, int i1, int j1, int v2, int k2,
+                                              int i2, int j2) {
+  return v1 > v2 ||
+         (v1 == v2 && (k1 < k2 || (k1 == k2 && (i1 < i2 || (i1 == i2 && j1 < j2)))));
+}
+
+// The raw key of cell (i, j) of a lane of lengths (mb, nb) under the skewed
+// tie, as the JAX scan computes it (ops/scan_dp.py:144-160): s = i + j; rj =
+// s up to max(mb, nb), s - max - 1 past it; ri = j unless nb > mb, where ri
+// = j below min(mb, nb), j - (nb - mb) past the max and mb - i between; key
+// = rj * (M + 33) + ri in 32-bit wrapping arithmetic, M the padded read
+// length.
+struct RawKey {
+  int mb, minmn, maxmn, dnm, mult;
+  bool ngtm;
+  __device__ RawKey(int mb_, int nb_, int M)
+      : mb(mb_), minmn(min(mb_, nb_)), maxmn(max(mb_, nb_)), dnm(nb_ - mb_), mult(M + 33),
+        ngtm(nb_ > mb_) {}
+  __device__ __forceinline__ int operator()(int i, int j) const {
+    const int s = i + j;
+    const int ri = !ngtm || s < minmn ? j : s > maxmn ? j - dnm : mb - i;
+    const int rj = s <= maxmn ? s : s - maxmn - 1;
+    return static_cast<int>(static_cast<unsigned>(rj) * static_cast<unsigned>(mult) +
+                            static_cast<unsigned>(ri));
+  }
+};
+
 __device__ __forceinline__ uint32_t clamp_code(uint32_t c, int ncodes) {
   return c < static_cast<uint32_t>(ncodes) ? c : 0u;
 }
@@ -206,11 +255,12 @@ __device__ __forceinline__ int row_score(const int (&s)[kRows], const uint32_t (
 // One column of a thread's kRows rows, linear gaps: h holds H(., j - 1) on
 // entry and H(., j) on return; nw = H(row0, j - 1) and north = H(row0, j)
 // of the row above the thread's first (row0, 1-based). With kMoves, row k's
-// move code is written to out[k * stride].
-template <bool kMoves, int kRows, int kWords, class Score>
+// move code is written to out[k * stride]. kParity (K26) clamps each H at
+// cap.
+template <bool kMoves, bool kParity, int kRows, int kWords, class Score>
 __device__ __forceinline__ void column_linear(int (&h)[kRows], const uint32_t (&xw)[kWords],
-                                              const Score& score, int gap, int nw, int north,
-                                              uint8_t* out, int stride) {
+                                              const Score& score, int gap, int cap, int nw,
+                                              int north, uint8_t* out, int stride) {
   int s[kRows];
   column_scores(s, xw, score);
   int diag = nw;
@@ -219,7 +269,8 @@ __device__ __forceinline__ void column_linear(int (&h)[kRows], const uint32_t (&
     const int west = h[k];
     const int sk = row_score(s, xw, score, k);
     const int a = __viaddmax_s32_relu(diag, sk, west - gap);  // off the chain
-    const int v = __viaddmax_s32(north, -gap, a);            // the north chain
+    int v = __viaddmax_s32(north, -gap, a);                  // the north chain
+    if constexpr (kParity) v = min(v, cap);                  // saturation (K26)
     if constexpr (kMoves) {
       const int wn = max(west, north);
       uint32_t mv = diag >= wn ? 0u : west >= north ? 1u : 2u;
@@ -353,23 +404,28 @@ __host__ __device__ constexpr int table_bytes(int ncodes) {
 }
 
 // K1 (kMoves = false) and K2 (kMoves = true, which implies kTrackPos), and
-// with kAffine K6 and K7; with kTable (moves only) K5 and K9. kRows rows a
-// thread, W warps a lane (32 * W * kRows >= M). xs (B, M) and ys (B, N)
-// uint8 (K5/K9: compact codes, table (ncodes, ncodes) int32), m and n (B,)
-// int32; moves (M + N - 1, M, B) uint8 (K2/K7, K5/K9). A block holds
+// with kAffine K6 and K7; with kTable (moves only) K5 and K9; with kParity
+// (linear gaps; kTable with or without moves) K26, whose H is clamped at
+// cap and whose argmax takes the skewed tie when `skewed` is set. kRows
+// rows a thread, W warps a lane (32 * W * kRows >= M). xs (B, M) and ys (B,
+// N) uint8 (K5/K9: compact codes, table (ncodes, ncodes) int32), m and n
+// (B,) int32; moves (M + N - 1, M, B) uint8 (K2/K7, K5/K9). A block holds
 // blockDim.x / (32 W) consecutive lanes, lane w's W warps consecutive.
 // Dynamic shared memory: (K5/K9) the transposed table, table_bytes(ncodes),
 // then the hand-off rings, (W - 1) x L x kRing int2, then (moves) the two
 // staged buffers, 2 x kGroup x W * 32 * kRows x L bytes.
-template <bool kTrackPos, bool kMoves, bool kAffine, int kRows, int kWarps, bool kTable>
+template <bool kTrackPos, bool kMoves, bool kAffine, int kRows, int kWarps, bool kTable,
+          bool kParity>
 __global__ void __launch_bounds__(32 * max_warps(kRows))
 sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
                const int32_t* __restrict__ m, const int32_t* __restrict__ n, int M, int N,
                int B, int match, int mismatch, int gap_open, int gap,
-               const int32_t* __restrict__ table, int ncodes, int32_t* __restrict__ score,
-               int32_t* __restrict__ best_i, int32_t* __restrict__ best_j,
-               uint8_t* __restrict__ moves) {
-  static_assert(kMoves || !kTable, "the table form is the moves mode's (K5/K9)");
+               const int32_t* __restrict__ table, int ncodes, int cap, int skewed,
+               int32_t* __restrict__ score, int32_t* __restrict__ best_i,
+               int32_t* __restrict__ best_j, uint8_t* __restrict__ moves) {
+  static_assert(kMoves || !kTable || kParity,
+                "the table form is the moves mode's (K5/K9) or K26's");
+  static_assert(!kParity || !kAffine, "K26 is linear-gap only");
   constexpr int kWords = (kRows + 3) / 4;
   constexpr int W = kWarps;
   // A group's steps unrolled, so that one step's moves, best and stores
@@ -379,7 +435,7 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
   extern __shared__ __align__(16) uint8_t dyn[];
   __shared__ int lane_m[32];  // the block's clamped lengths (barrier launches)
   __shared__ int lane_n[32];
-  __shared__ int red[3][kWarps > 1 ? 32 : 1];  // each warp's (best, j, i)
+  __shared__ int red[4][kWarps > 1 ? 32 : 1];  // each warp's (best, j, i, key)
   const int wi = threadIdx.x >> 5;
   const int l = threadIdx.x & 31;
   const int L = (blockDim.x >> 5) / W;
@@ -387,7 +443,8 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
   const int q = wi - w * W;   // the warp's place in its lane
   const int b0 = blockIdx.x * L;
   const int b = b0 + w;
-  constexpr bool sync = kMoves || W > 1;  // a barrier every kGroup steps
+  // A barrier every kGroup steps (and after K26's table load).
+  constexpr bool sync = kMoves || W > 1 || kTable;
   int32_t* const tab = reinterpret_cast<int32_t*>(dyn);  // kTable: tab[yc * ncodes + xc]
   const int tbytes = kTable ? table_bytes(ncodes) : 0;
   int2* const ring = reinterpret_cast<int2*>(dyn + tbytes);  // [W - 1][L][kRing]
@@ -440,6 +497,8 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
   int flast = 0;  // affine: F of the thread's last row in its last column
   int yc = 0;     // the byte of this thread's column
   int best = 0, bi = 0, bj = 0;
+  int bkey = 0x7fffffff;  // K26, skewed: the raw key of (bi, bj)
+  const bool by_key = kParity && kTrackPos && skewed;  // K26's skewed argmax
   int ycur = 0;   // thread t of word k holds column 32k + t + 1's byte
   int ynext = l < nb ? code(yl[l]) : 0;
   const int lag = q * kLag;
@@ -489,7 +548,7 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
           column_affine<kMoves>(h, e, xw, sc, gap_open, gap, nw, north, f, out, stride);
           flast = f;
         } else {
-          column_linear<kMoves>(h, xw, sc, gap, nw, north, out, stride);
+          column_linear<kMoves, kParity>(h, xw, sc, gap, cap, nw, north, out, stride);
         }
         if constexpr (W > 1) {
           if (l == 31 && q + 1 < W) ring_out[j & (kRing - 1)] = make_int2(h[kRows - 1], f);
@@ -498,7 +557,37 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
 #pragma unroll
         for (int k = 1; k + 1 < kRows; k += 2) colmax = __vimax3_s32(colmax, h[k], h[k + 1]);
         if (kRows % 2 == 0 && kRows > 1) colmax = max(colmax, h[kRows - 1]);
-        if (colmax > best) {
+        if (by_key) {
+          // The column's cells of the maximum, if it reaches the best: the
+          // least raw key, the least row on equal keys.
+          if (colmax >= best && colmax > 0) {
+            if (nvalid < kRows) {  // the thread holding m_b: its rows up to m_b only
+              colmax = 0;
+#pragma unroll
+              for (int k = 0; k < kRows; ++k) colmax = k < nvalid ? max(colmax, h[k]) : colmax;
+            }
+            if (colmax >= best && colmax > 0) {
+              int key = 0x7fffffff, kk = 0;
+              const RawKey raw_key(mb, nb, M);  // off the column loop's registers
+#pragma unroll
+              for (int k = kRows - 1; k >= 0; --k) {
+                if (k < nvalid && h[k] == colmax) {
+                  const int c = raw_key(row0 + k + 1, j);
+                  if (c <= key) {
+                    key = c;
+                    kk = k;
+                  }
+                }
+              }
+              if (better_skewed(colmax, key, row0 + kk + 1, j, best, bkey, bi, bj)) {
+                best = colmax;
+                bkey = key;
+                bi = row0 + kk + 1;
+                bj = j;
+              }
+            }
+          }
+        } else if (colmax > best) {
           if (nvalid < kRows) {  // the thread holding m_b: its rows up to m_b only
             colmax = 0;
 #pragma unroll
@@ -529,16 +618,20 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
       }
     }
   }
-  // Warp reduction of (best, bj, bi), then (W > 1) over the lane's warps.
+  // Warp reduction of (best, bj, bi) (K26 skewed: and bkey, in its order),
+  // then (W > 1) over the lane's warps.
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const int v2 = __shfl_down_sync(kAll, best, off);
     const int j2 = __shfl_down_sync(kAll, bj, off);
     const int i2 = __shfl_down_sync(kAll, bi, off);
-    if (better(v2, j2, i2, best, bj, bi)) {
+    const int k2 = kParity ? __shfl_down_sync(kAll, bkey, off) : 0;
+    if (by_key ? better_skewed(v2, k2, i2, j2, best, bkey, bi, bj)
+               : better(v2, j2, i2, best, bj, bi)) {
       best = v2;
       bj = j2;
       bi = i2;
+      bkey = k2;
     }
   }
   if constexpr (W > 1) {
@@ -546,14 +639,18 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
       red[0][wi] = best;
       red[1][wi] = bj;
       red[2][wi] = bi;
+      red[3][wi] = bkey;
     }
     __syncthreads();
     if (l == 0 && q == 0) {
       for (int v = wi + 1; v < wi + W; ++v) {
-        if (better(red[0][v], red[1][v], red[2][v], best, bj, bi)) {
+        const int k2 = red[3][v];
+        if (by_key ? better_skewed(red[0][v], k2, red[2][v], red[1][v], best, bkey, bi, bj)
+                   : better(red[0][v], red[1][v], red[2][v], best, bj, bi)) {
           best = red[0][v];
           bj = red[1][v];
           bi = red[2][v];
+          bkey = k2;
         }
       }
     }
@@ -566,28 +663,49 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
 }
 
 using SwKernel = void (*)(const uint8_t*, const uint8_t*, const int32_t*, const int32_t*, int,
-                          int, int, int, int, int, int, const int32_t*, int, int32_t*, int32_t*,
-                          int32_t*, uint8_t*);
+                          int, int, int, int, int, int, const int32_t*, int, int, int, int32_t*,
+                          int32_t*, int32_t*, uint8_t*);
 
 // The kernels' modes: score-only, argmax and moves scored uniformly (K1/K6,
-// K2/K7), and moves scored from a table (K5/K9).
-enum Mode { kScoreOnly, kArgmax, kMovesMode, kTableMoves, kNumModes };
+// K2/K7), moves scored from a table (K5/K9), and argmax scored from a table
+// (K26 only).
+enum Mode { kScoreOnly, kArgmax, kMovesMode, kTableMoves, kTableArgmax, kNumModes };
+
+// This translation unit's forms: K1-K9 here, K26 when csrc/wavefront_parity.cu
+// includes this file (its own unit, so that nvcc builds the two sets of
+// instantiations in parallel).
+#ifdef PGS_WAVEFRONT_PARITY
+constexpr bool kParityUnit = true;
+#else
+constexpr bool kParityUnit = false;
+#endif
 
 template <bool kAffine, int kWarps, int I = 0>
 void fill_kernels(SwKernel (*out)[kNumRowChoices]) {
   if constexpr (I < kNumRowChoices) {
     constexpr int R = kRowChoices[I];
-    out[kScoreOnly][I] = &sw_warp_kernel<false, false, kAffine, R, kWarps, false>;
-    out[kArgmax][I] = &sw_warp_kernel<true, false, kAffine, R, kWarps, false>;
-    out[kMovesMode][I] = &sw_warp_kernel<true, true, kAffine, R, kWarps, false>;
-    out[kTableMoves][I] = &sw_warp_kernel<true, true, kAffine, R, kWarps, true>;
+    if constexpr (kParityUnit) {
+      if constexpr (!kAffine) {  // K26: linear gaps only
+        out[kScoreOnly][I] = &sw_warp_kernel<false, false, false, R, kWarps, false, true>;
+        out[kArgmax][I] = &sw_warp_kernel<true, false, false, R, kWarps, false, true>;
+        out[kMovesMode][I] = &sw_warp_kernel<true, true, false, R, kWarps, false, true>;
+        out[kTableMoves][I] = &sw_warp_kernel<true, true, false, R, kWarps, true, true>;
+        out[kTableArgmax][I] = &sw_warp_kernel<true, false, false, R, kWarps, true, true>;
+      }
+    } else {
+      out[kScoreOnly][I] = &sw_warp_kernel<false, false, kAffine, R, kWarps, false, false>;
+      out[kArgmax][I] = &sw_warp_kernel<true, false, kAffine, R, kWarps, false, false>;
+      out[kMovesMode][I] = &sw_warp_kernel<true, true, kAffine, R, kWarps, false, false>;
+      out[kTableMoves][I] = &sw_warp_kernel<true, true, kAffine, R, kWarps, true, false>;
+    }
     fill_kernels<kAffine, kWarps, I + 1>(out);
   }
 }
 
-// Every instantiation, [warps a lane - 1][affine][mode][rows a thread].
+// Every instantiation of this unit, [warps a lane - 1][affine][mode][rows a
+// thread]; null where the unit has no such form.
 struct SwKernels {
-  SwKernel at[2][2][kNumModes][kNumRowChoices];
+  SwKernel at[2][2][kNumModes][kNumRowChoices] = {};
   SwKernels() {
     fill_kernels<false, 1>(at[0][0]);
     fill_kernels<true, 1>(at[0][1]);
@@ -612,7 +730,8 @@ int busiest_sm(int B, int L, int W, int sms) {
 constexpr int kMaxCodes = 64;  // K5/K9's table: 64 x 64 int32, 16 KB of shared memory
 
 // The launch for B lanes of M rows (mode 0 score-only, 1 argmax, 2 moves;
-// ncodes > 0, moves only, the table form K5/K9). W, the warps a lane:
+// ncodes > 0 the table form: K5/K9 with moves, K26 also argmax). W, the
+// warps a lane:
 // `warps` if given (1 or 2), else 1 up to 1,024 rows and 2 beyond; the
 // table form also takes 2 past 64 rows when there are no more lanes than
 // SMs (the protein top 10: two warps of half the rows run faster there,
@@ -624,7 +743,7 @@ constexpr int kMaxCodes = 64;  // K5/K9's table: 64 x 64 int32, 16 KB of shared 
 cudaError_t sw_launch(int M, int B, bool affine, int mode, int ncodes, int lanes, int warps,
                       SwLaunch* out) {
   if (M < 0 || B < 0 || mode < 0 || mode > 2 || lanes < 0 || warps < 0 || ncodes < 0 ||
-      ncodes > kMaxCodes || (ncodes > 0 && mode != kMovesMode)) {
+      ncodes > kMaxCodes || (ncodes > 0 && mode == kScoreOnly)) {
     return cudaErrorInvalidValue;
   }
   const bool moves = mode == kMovesMode;
@@ -649,9 +768,11 @@ cudaError_t sw_launch(int M, int B, bool affine, int mode, int ncodes, int lanes
   if (L < 1 || L > lmax || (L & (L - 1)) != 0) return cudaErrorInvalidValue;
   static const SwKernels kernels;
   const size_t ring = (size_t)(W - 1) * L * kRing * 8;
-  SwLaunch S{kernels.at[W - 1][affine][ncodes > 0 ? kTableMoves : mode][i], rows, L, W, 0,
+  const int form = ncodes == 0 ? mode : moves ? kTableMoves : kTableArgmax;
+  SwLaunch S{kernels.at[W - 1][affine][form][i], rows, L, W, 0,
              (ncodes > 0 ? table_bytes(ncodes) : 0) + ring +
                  (moves ? (size_t)2 * kGroup * W * 32 * rows * L : 0)};
+  if (S.kernel == nullptr) return cudaErrorInvalidValue;  // not a form of this unit
   err = cudaFuncSetAttribute(S.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)S.smem);
   if (err != cudaSuccess) return err;
@@ -661,7 +782,45 @@ cudaError_t sw_launch(int M, int B, bool affine, int mode, int ncodes, int lanes
   return cudaSuccess;
 }
 
+// Launch pgs_sw_score's kernel (below) with K26's cap and tie arguments.
+int sw_run(const void* xs, const void* ys, const void* m, const void* n, int M, int N, int B,
+           int match, int mismatch, int gap_open, int gap, const void* table, int ncodes,
+           int track_pos, int cap, int skewed, int lanes, int warps, void* score, void* best_i,
+           void* best_j, void* moves, void* stream) {
+  if ((table == nullptr) != (ncodes == 0)) return static_cast<int>(cudaErrorInvalidValue);
+  if (B > 0) {
+    SwLaunch S;
+    const int mode = moves ? kMovesMode : track_pos ? kArgmax : kScoreOnly;
+    const cudaError_t err = sw_launch(M, B, gap_open > 0, mode, ncodes, lanes, warps, &S);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    S.kernel<<<(B + S.lanes - 1) / S.lanes, 32 * S.lanes * S.warps, S.smem,
+               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(xs), static_cast<const uint8_t*>(ys),
+        static_cast<const int32_t*>(m), static_cast<const int32_t*>(n), M, N, B, match,
+        mismatch, gap_open, gap, static_cast<const int32_t*>(table), ncodes, cap, skewed,
+        static_cast<int32_t*>(score), static_cast<int32_t*>(best_i),
+        static_cast<int32_t*>(best_j), static_cast<uint8_t*>(moves));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch shape of sw_run's kernel into out[0..4] (see pgs_sw_score_shape).
+int sw_shape(int M, int B, int affine, int mode, int ncodes, int lanes, int warps, void* out) {
+  SwLaunch S;
+  const cudaError_t err = sw_launch(M, B, affine != 0, mode, ncodes, lanes, warps, &S);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int* o = static_cast<int*>(out);
+  o[0] = S.rows;
+  o[1] = S.lanes;
+  o[2] = S.warps;
+  o[3] = S.blocks;
+  o[4] = static_cast<int>(S.smem);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+#ifndef PGS_WAVEFRONT_PARITY
 
 // Plain C entry point, bound with ctypes. Every pointer is a device pointer to
 // a contiguous tensor: xs (B, M) uint8, ys (B, N) uint8, m and n (B,) int32,
@@ -677,21 +836,8 @@ extern "C" int pgs_sw_score(const void* xs, const void* ys, const void* m, const
                             int gap, const void* table, int ncodes, int track_pos, int lanes,
                             int warps, void* score, void* best_i, void* best_j, void* moves,
                             void* stream) {
-  if ((table == nullptr) != (ncodes == 0)) return static_cast<int>(cudaErrorInvalidValue);
-  if (B > 0) {
-    SwLaunch S;
-    const int mode = moves ? kMovesMode : track_pos ? kArgmax : kScoreOnly;
-    const cudaError_t err = sw_launch(M, B, gap_open > 0, mode, ncodes, lanes, warps, &S);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    S.kernel<<<(B + S.lanes - 1) / S.lanes, 32 * S.lanes * S.warps, S.smem,
-               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(xs), static_cast<const uint8_t*>(ys),
-        static_cast<const int32_t*>(m), static_cast<const int32_t*>(n), M, N, B, match,
-        mismatch, gap_open, gap, static_cast<const int32_t*>(table), ncodes,
-        static_cast<int32_t*>(score), static_cast<int32_t*>(best_i),
-        static_cast<int32_t*>(best_j), static_cast<uint8_t*>(moves));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return sw_run(xs, ys, m, n, M, N, B, match, mismatch, gap_open, gap, table, ncodes,
+                track_pos, 0x7fffffff, 0, lanes, warps, score, best_i, best_j, moves, stream);
 }
 
 // pgs_sw_score_shape: the launch pgs_sw_score makes for B lanes of M rows
@@ -702,19 +848,36 @@ extern "C" int pgs_sw_score(const void* xs, const void* ys, const void* m, const
 // shared bytes a block. Returns a cudaError_t.
 extern "C" int pgs_sw_score_shape(int M, int B, int affine, int mode, int ncodes, int lanes,
                                   int warps, void* out) {
-  SwLaunch S;
-  const cudaError_t err = sw_launch(M, B, affine != 0, mode, ncodes, lanes, warps, &S);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int* o = static_cast<int*>(out);
-  o[0] = S.rows;
-  o[1] = S.lanes;
-  o[2] = S.warps;
-  o[3] = S.blocks;
-  o[4] = static_cast<int>(S.smem);
-  return static_cast<int>(cudaGetLastError());
+  return sw_shape(M, B, affine, mode, ncodes, lanes, warps, out);
 }
 
 // Message for a cudaError_t returned by an entry point above.
 extern "C" const char* pgs_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#else
+
+// K26's entry point (built from csrc/wavefront_parity.cu): pgs_sw_score's
+// arguments, linear gaps only, plus sat (clamp every H at 255; the caller
+// passes the clipped operands of ops/scan_dp.sat_operands) and skewed (the
+// reference binary's raw-key tie-break, else the column-major one). A table
+// (ncodes > 0) takes the argmax or the moves mode.
+extern "C" int pgs_sw_score_parity(const void* xs, const void* ys, const void* m,
+                                   const void* n, int M, int N, int B, int match, int mismatch,
+                                   int gap, const void* table, int ncodes, int track_pos,
+                                   int sat, int skewed, int lanes, int warps, void* score,
+                                   void* best_i, void* best_j, void* moves, void* stream) {
+  return sw_run(xs, ys, m, n, M, N, B, match, mismatch, 0, gap, table, ncodes, track_pos,
+                sat ? 255 : 0x7fffffff, skewed, lanes, warps, score, best_i, best_j, moves,
+                stream);
+}
+
+// pgs_sw_score_parity_shape: pgs_sw_score_shape for K26's launch (linear;
+// mode 0-2; ncodes > 0 with mode 1 or 2).
+extern "C" int pgs_sw_score_parity_shape(int M, int B, int mode, int ncodes, int lanes,
+                                         int warps, void* out) {
+  return sw_shape(M, B, 0, mode, ncodes, lanes, warps, out);
+}
+
+#endif

@@ -16,6 +16,12 @@ per-strip times in ``Timings.levels_us`` (a group's on its first strip); a
 score-only one takes K11 (K15, K19, K22).
 Under affine gaps (``cfg.is_affine``) K7 or K9 emit the affine move bytes
 and K10 (``walk_moves_affine``) walks them, as swaligner.py:241, 264 choose.
+The reference-parity forms, a ``Semantics.SAT_UINT8`` config and/or
+``tie="skewed"`` (``solve_small --parity-mode skewed``), score, take the
+argmax and emit moves on K26 and walk on K3, score-only past 2,048 rows on
+K27; the JAX aligner runs them on its scan engine (swaligner.py:89-92,
+196-210), whose 2 GiB bound on the moves tensor is kept here, and moves
+past 2,048 rows raise NotImplementedError (ROADMAP A2b).
 The
 JAX package's affine envelopes (``AFFINE_MOVES_MAX_M``,
 ``PROFILE_AFFINE_MOVES_MAX_M``) and the scan fallback they force are TPU
@@ -80,7 +86,9 @@ class BatchSWAligner:
         self.pad_m = pad_m
         self.pad_n = pad_n
         self.detail_timing = detail_timing
-        self.engine = make_score_engine(cfg, engine, device)
+        # One engine scores and emits moves under the tie, as the JAX
+        # aligner's scorer is its scan engine for a skewed tie (:89-92).
+        self.engine = make_score_engine(cfg, engine, device, tie=tie)
         self.device = self.engine.device
 
     def align_batch(self, reads: Sequence[str], refs: Sequence[str],
@@ -134,6 +142,18 @@ class BatchSWAligner:
         ``collect``. Under ``detail_timing`` the batch comes back already
         collected."""
         xs, ys, m, n = self.pad_batch(reads, refs)
+        if traceback and self.engine.parity:
+            # The JAX aligner's scan engine materialises (D, M, B) moves and
+            # refuses past 2 GiB (swaligner.py:202-209); the same check first.
+            M, N = xs.shape[1], ys.shape[1]
+            est = (M + N) * M * len(reads)
+            if est > 2 * 1024**3:
+                raise ValueError(
+                    f"traceback at this shape needs a ~{est/1e9:.1f} GB "
+                    "move tensor (scan emit_moves); use a Pallas scorer "
+                    "(checkpointed strip traceback), reduce the batch "
+                    "size, or run with traceback=False"
+                )
         t0 = time.perf_counter()
         dev = self.device
         xs_d = torch.from_numpy(xs).to(dev)
@@ -141,7 +161,7 @@ class BatchSWAligner:
         levels_us = ()
         walk = None  # launches the walk (or reads the strip walk's outputs)
         max_steps = self.max_steps(xs.shape[1], ys.shape[1])
-        if traceback and xs.shape[1] > MAX_M:
+        if traceback and xs.shape[1] > MAX_M and not self.engine.parity:
             res = self.engine.score_batch_strip_moves(xs_d, ys_d, m, n, max_steps)
             levels_us = res["level_us"]
             walk = lambda: tuple(res[k] for k in ("pos", "cx", "cy", "steps"))
@@ -243,8 +263,9 @@ def merge_strand_pairs(fwd: List[AlignResult], rev: List[AlignResult]) -> List[A
 class SWAligner:
     """Single-pair aligner with the reference's query surface."""
 
-    def __init__(self, cfg: ScoringConfig = ScoringConfig(), device=None):
-        self._batch = BatchSWAligner(cfg, device=device)
+    def __init__(self, cfg: ScoringConfig = ScoringConfig(), tie: str = "colmajor",
+                 device=None):
+        self._batch = BatchSWAligner(cfg, tie=tie, device=device)
 
     def align(self, read: str, ref: str, traceback: bool = True) -> AlignResult:
         return self._batch.align_batch([read], [ref], traceback=traceback)[0]

@@ -35,6 +35,11 @@ _SIGNATURES = {
     # M, B, affine, mode, ncodes, lanes, warps, out (int32 rows, lanes,
     # warps, blocks per SM, smem)
     "pgs_sw_score_shape": [_I] * 7 + [_P],
+    # K26: xs, ys, m, n, M, N, B, match, mismatch, gap, table, ncodes,
+    # track_pos, sat, skewed, lanes, warps, score, best_i, best_j, moves, stream
+    "pgs_sw_score_parity": [_P] * 4 + [_I] * 6 + [_P] + [_I] * 6 + [_P] * 5,
+    # M, B, mode, ncodes, lanes, warps, out (as pgs_sw_score_shape's)
+    "pgs_sw_score_parity_shape": [_I] * 6 + [_P],
     # x, x_lane, y, y_off, y_len, m, n, table, ncodes, M, N, B, gap_open,
     # gap, score, best_i, best_j, stream
     "pgs_sw_profile_scan": [_P, _L, _P, _P, _L, _P, _P, _P] + [_I] * 6 + [_P] * 4,
@@ -45,11 +50,12 @@ _SIGNATURES = {
     "pgs_walk_moves_affine": [_P] * 5 + [_I] * 5 + [_P] * 5,
     # x, x_lane, y, y_off, y_len, m, n, M, N, B, table, ncodes, match,
     # mismatch, gap_open, gap, bound, bound_off, ck, fck, nck, score, best_i,
-    # best_j, stream
+    # best_j, sat, skewed (K27), stream
     "pgs_strip_sweep": [_P, _L, _P, _P, _L, _P, _P] + [_I] * 3 + [_P] + [_I] * 5
-    + [_P] * 4 + [_I] + [_P] * 4,
-    # M, ckpt, affine, ncodes, out (int32 threads, passes, blocks per SM, rows)
-    "pgs_strip_sweep_occupancy": [_I] * 4 + [_P],
+    + [_P] * 4 + [_I] + [_P] * 3 + [_I] * 2 + [_P],
+    # M, ckpt, affine, ncodes, parity, out (int32 threads, passes, blocks per
+    # SM, rows)
+    "pgs_strip_sweep_occupancy": [_I] * 5 + [_P],
     # x, y, m, n, M, N, B, G, first, hrow, frow, ld_lane, ld_strip, row_first,
     # walk_i, walk_j, walk_active, table, ncodes, match, mismatch, gap_open,
     # gap, moves, stream

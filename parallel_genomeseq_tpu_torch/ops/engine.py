@@ -14,8 +14,13 @@ affine gaps K15, K16 (H and F checkpoints) and K17, walked by K18; under a
 substitution matrix with linear gaps K19, K20 and K21, walked by K14, and
 with affine gaps K22, K23 (H and F checkpoints) and K24, walked by K18
 (K19, or K22, also scans a resident slab for a query longer than MAX_M).
-Every scoring family runs at every length. CUDA tensors launch the kernels
-or raise, CPU tensors take the plain route.
+Every scoring family runs at every length. The reference-parity forms --
+``Semantics.SAT_UINT8`` (uniform scores, linear gaps) and/or the skewed
+tie, ``tie="skewed"`` (linear gaps) -- run K26 (``sw_score_parity``: the
+score-only sweep, argmax and moves, uniform or, exact, from a table) and,
+for reads longer than MAX_M, K27 (``sw_score_strips_parity``, uniform;
+score and argmax), walked by K3. CUDA tensors launch the kernels or
+raise, CPU tensors take the plain route.
 ``PlainEngine`` always runs the plain PyTorch wavefront (``ops/scan_dp``)
 and walks (``ops/traceback``), on either device. Inputs may be numpy arrays
 or tensors of raw bytes; results are tensors on the engine's device,
@@ -23,7 +28,8 @@ unpadded (B lanes, (M + N - 1, M, B) moves).
 
 Configurations outside the ported slices (``check_supported``) raise
 NotImplementedError naming the ROADMAP item that ports them; none is
-rerouted.
+rerouted. What the JAX ``ScanEngine`` itself refuses (a non-uniform
+SAT_UINT8 config, the skewed tie under affine gaps) raises its ValueError.
 """
 
 from __future__ import annotations
@@ -81,16 +87,29 @@ def strip_key(cfg: ScoringConfig):
 
 
 def check_supported(cfg: ScoringConfig, tie: str = "colmajor"):
-    """Raise NotImplementedError for what the port does not run yet."""
-    if cfg.semantics == Semantics.SAT_UINT8:
+    """Raise NotImplementedError for what the port does not run yet: float32
+    values (FLOAT32, or non-integral scoring outside SAT_UINT8, whose
+    operands are truncated to integers as the JAX ``ScanEngine`` truncates
+    them)."""
+    if tie not in ("colmajor", "skewed"):
+        raise ValueError(f"unknown tie {tie!r} (expected 'colmajor' or 'skewed')")
+    sat = cfg.semantics == Semantics.SAT_UINT8
+    if cfg.semantics == Semantics.FLOAT32 or (not sat and not cfg.is_integral):
         raise NotImplementedError(
-            "sat_uint8 semantics (--parity-mode skewed) is not ported yet: ROADMAP A2"
+            "non-integral or float32 scoring is not ported yet: ROADMAP A2b"
         )
-    if tie != "colmajor":
-        raise NotImplementedError(f"tie={tie!r} is not ported yet: ROADMAP A2")
-    if cfg.semantics == Semantics.FLOAT32 or not cfg.is_integral:
-        raise NotImplementedError(
-            "non-integral or float32 scoring is not ported yet: ROADMAP A2"
+
+
+def check_scan_config(cfg: ScoringConfig, tie: str = "colmajor"):
+    """``check_supported``, then what the JAX ``ScanEngine.__init__``
+    refuses, with its ValueErrors (scan_dp.py:360-378)."""
+    check_supported(cfg, tie)
+    if cfg.semantics == Semantics.SAT_UINT8 and not cfg.is_uniform:
+        raise ValueError("SAT_UINT8 supports uniform scoring only")
+    if cfg.is_affine and tie == "skewed":
+        raise ValueError(
+            "affine gaps are an extension without a reference skewed "
+            "build to mirror; use tie='colmajor'"
         )
 
 
@@ -102,9 +121,16 @@ def _as_tensor(a, dtype, device):
 class _Engine:
     _strip_fns = STRIP_KERNELS  # or STRIP_PLAIN
 
-    def __init__(self, cfg: ScoringConfig = ScoringConfig(), device=None):
-        check_supported(cfg)
+    def __init__(self, cfg: ScoringConfig = ScoringConfig(), device=None,
+                 tie: str = "colmajor"):
+        """``tie``: the argmax tie-break, 'colmajor' (min j, then min i) or
+        'skewed' (the reference binary's raw storage order, as the JAX
+        ``ScanEngine(cfg, tie)`` takes it)."""
+        check_scan_config(cfg, tie)
         self.cfg = cfg
+        self.tie = tie
+        # The reference-parity forms (K26, K27): SAT_UINT8 values or the skewed tie.
+        self.parity = cfg.semantics == Semantics.SAT_UINT8 or tie == "skewed"
         self._st, self._st_ckpt, self._st_moves, self._st_walk = \
             self._strip_fns[strip_key(cfg)]
         self.device = resolve_device(device)
@@ -112,8 +138,16 @@ class _Engine:
         gaps = {"gap": self.gap}
         if cfg.is_affine:  # `gap` is then the extension cost
             gaps["gap_open"] = int(cfg.gap_open)
+        match, mismatch = int(cfg.match), int(cfg.mismatch)
+        if self.parity:
+            sat = cfg.semantics == Semantics.SAT_UINT8
+            gaps.update(sat=sat, tie=tie)
+            if sat:  # the clipped operands (scan_dp.sat_operands)
+                match, mismatch, self.gap = scan_dp.sat_operands(
+                    cfg.match, cfg.mismatch, cfg.gap_penalty)
+                gaps["gap"] = self.gap
         if cfg.is_uniform:
-            self._kw = dict(match=int(cfg.match), mismatch=int(cfg.mismatch), **gaps)
+            self._kw = dict(match=match, mismatch=mismatch, **gaps)
         else:
             lut, table = scan_dp.profile_tables(cfg)
             self.encode_lut = lut  # byte -> compact code, on the host
@@ -137,6 +171,18 @@ class _Engine:
         """Per-lane 'score', 'i', 'j' (int32); need_pos=False gives
         i = j = 0, as the JAX engine does (:3171-3175)."""
         xs, ys, m, n = self._inputs(x_bm, y_bn, m, n)
+        if self.parity:
+            if xs.shape[1] <= MAX_M:
+                score, i, j = self._parity(xs, ys, m, n, track_pos=need_pos, **self._kw)
+            elif self.cfg.is_uniform:
+                score, i, j = self._parity_st(xs, ys, m, n, **self._kw)
+                if not need_pos:
+                    i, j = torch.zeros_like(i), torch.zeros_like(j)
+            else:
+                raise NotImplementedError(
+                    f"the skewed tie under a substitution matrix past {MAX_M} rows is not "
+                    "ported yet: ROADMAP A2b")
+            return {"score": score, "i": i, "j": j}
         if xs.shape[1] > MAX_M:
             score, i, j = self._st(xs, ys, m, n, **self._kw)
             if not need_pos:
@@ -152,9 +198,16 @@ class _Engine:
     def score_batch_moves(self, x_bm, y_bn, m, n):
         """Score + argmax + (M + N - 1, M, B) uint8 move codes in one pass."""
         args = self._inputs(x_bm, y_bn, m, n)
-        score, i, j, moves = (
-            self._uniform_moves(*args) if self.cfg.is_uniform else self._profile_moves(*args)
-        )
+        if self.parity:
+            if args[0].shape[1] > MAX_M:
+                raise NotImplementedError(
+                    f"moves of the reference-parity forms past {MAX_M} rows (JAX's scan "
+                    "materialises them up to 2 GiB) are not ported yet: ROADMAP A2b")
+            score, i, j, moves = self._parity(*args, emit_moves=True, **self._kw)
+        elif self.cfg.is_uniform:
+            score, i, j, moves = self._uniform_moves(*args)
+        else:
+            score, i, j, moves = self._profile_moves(*args)
         return {"score": score, "i": i, "j": j, "moves": moves}
 
     def score_batch_strip_moves(self, x_bm, y_bn, m, n, max_steps: int):
@@ -185,6 +238,10 @@ class _Engine:
         group's replay-and-walk microseconds on its first-walked strip and
         0 on its other strips and on strips no group replayed, and 'groups',
         each group's G."""
+        if self.parity:
+            raise NotImplementedError(
+                "the strip traceback of the reference-parity forms is not ported yet: "
+                "ROADMAP A2b")
         xs, ys, m, n, x_raw, y_raw = self._inputs(x_bm, y_bn, m, n, raw=True)
         if xs.shape[1] <= MAX_M:
             raise ValueError(f"the strip path is for reads longer than {MAX_M}")
@@ -232,6 +289,8 @@ class _Engine:
         (score, i, j) int32, j the 1-based entry index of the maximum."""
         if self.cfg.is_uniform:
             raise ValueError("the slab scan needs a substitution-matrix config")
+        if self.parity:
+            raise ValueError("the slab scan takes the column-major tie only")
         m = torch.full_like(lens, query_codes.shape[0])
         if query_codes.shape[0] > MAX_M:  # K19's (K22's) slab form
             return self._st(query_codes, slab, m, lens, y_off=y_off, **self._kw)
@@ -242,10 +301,14 @@ class CudaEngine(_Engine):
     """The kernels (plain route for CPU tensors): K1/K2/K4/K5, the K3 walk
     and the strips K11-K14 (K19-K21 and K14 under a matrix), or under affine
     gaps K6/K7/K8/K9, the K10 walk and the strips K15-K18 (K22-K24 and K18
-    under a matrix)."""
+    under a matrix); the reference-parity forms K26, K27 and K3."""
 
-    def __init__(self, cfg: ScoringConfig = ScoringConfig(), device=None):
-        super().__init__(cfg, device)
+    _parity = staticmethod(wavefront_cuda.sw_score_parity)
+    _parity_st = staticmethod(strips_cuda.sw_score_strips_parity)
+
+    def __init__(self, cfg: ScoringConfig = ScoringConfig(), device=None,
+                 tie: str = "colmajor"):
+        super().__init__(cfg, device, tie)
         w, p, t = wavefront_cuda, profile_cuda, traceback
         if cfg.is_affine:
             self._sw, self._sw_moves = w.sw_score_affine, w.sw_score_affine_moves
@@ -276,6 +339,8 @@ class PlainEngine(_Engine):
     """The plain PyTorch wavefront and walk on the engine's device."""
 
     _strip_fns = STRIP_PLAIN
+    _parity = staticmethod(scan_dp.sw_score_parity_plain)
+    _parity_st = staticmethod(scan_dp.sw_score_parity_plain)
 
     def _uniform(self, xs, ys, m, n, need_pos):
         return scan_dp.sw_score_plain(xs, ys, m, n, track_pos=need_pos, **self._kw)
@@ -296,10 +361,10 @@ class PlainEngine(_Engine):
 
 
 def make_score_engine(cfg: ScoringConfig = ScoringConfig(), name: str = "auto",
-                      device=None):
+                      device=None, tie: str = "colmajor"):
     """'cuda' (or 'auto') -> CudaEngine, 'plain' -> PlainEngine."""
     if name in ("auto", "cuda"):
-        return CudaEngine(cfg, device)
+        return CudaEngine(cfg, device, tie)
     if name == "plain":
-        return PlainEngine(cfg, device)
+        return PlainEngine(cfg, device, tie)
     raise ValueError(f"unknown engine {name!r}")

@@ -22,7 +22,9 @@ lengths.
 Global alignment here is linear-gap only, as the JAX ``_nw_lastrow_scan``
 and ``oracle.nw_matrix`` are (they ignore ``gap_open``): an affine config
 raises ``ValueError`` rather than giving another answer, and a non-integral
-one raises through ``engine.check_supported`` (ROADMAP A2).
+or float32 one raises NotImplementedError (ROADMAP A2b). Like the JAX
+functions, they take no DP semantics: a ``SAT_UINT8`` config gives the exact
+integer rows of its scores.
 """
 
 from __future__ import annotations
@@ -57,14 +59,19 @@ FIELDS = 8  # int64 fields of a lane's descriptor (csrc/global_dp.cu)
 
 def check_config(cfg: ScoringConfig):
     """Raise for what global alignment does not run: an affine config
-    (ValueError; the JAX functions ignore gap_open), and through
-    ``check_supported`` a non-integral or sat_uint8 one."""
+    (ValueError; the JAX functions ignore gap_open), and a non-integral or
+    float32 one (NotImplementedError; the JAX functions then run float32).
+    The semantics are otherwise unused, as in the JAX functions: SAT_UINT8
+    gives exact integer rows."""
     if cfg.is_affine:
         raise ValueError(
             "global (NW / Hirschberg) alignment is linear-gap only: the JAX "
             f"reference ignores gap_open, got gap_open={cfg.gap_open}"
         )
     check_supported(cfg)
+    if not cfg.is_integral:
+        raise NotImplementedError(
+            "non-integral or float32 scoring is not ported yet: ROADMAP A2b")
 
 
 def byte_table(cfg: ScoringConfig, device) -> torch.Tensor:

@@ -20,6 +20,31 @@ byte (pad bytes, lowercase, anything outside the alphabet), and every pair
 involving code 0 scores the matrix minimum, as ``ScoringConfig.score`` does.
 A code at or beyond the table's size reads as code 0, here and in the
 kernels.
+
+The reference-parity forms (K26, K27; ``sw_score_parity_plain``) add the
+JAX ``Semantics.SAT_UINT8`` values and the ``tie="skewed"`` argmax
+(scan_dp.py:58-78, :113-166, :325-339). Saturation is one clamp a cell on
+the exact linear recurrence, with the operands that ``ScanEngine`` clips
+(``sat_operands``, scan_dp.py:360-368): match' = clip(match), mm' =
+clip(-mismatch), gap' = clip(gap), each to [0, 255], a cell scoring by byte
+equality. JAX's step is diag = clip(clip(h2s + plus) - minus), west =
+clip(h1 - gap'), north = clip(h1s - gap'), H = max(diag, west, north), with
+(plus, minus) = (match', 0) on a match and (0, mm') else, clip to [0, 255].
+Every carried H is in [0, 255], so h1 - gap' <= 255 and west = max(h1 -
+gap', 0), north likewise, and on a mismatch diag = max(h2s - mm', 0); on a
+match diag = min(h2s + match', 255). Every term but that one is at most 255,
+so the min commutes out of the max:
+
+    H = min(max(h2s + s', h1 - gap', h1s - gap', 0), 255),
+    s' = match' on a match, -mm' else,
+
+the exact step (``wavefront``) with s' and gap' and ``sat=True``'s clamp
+(``tests/test_torch_parity.py`` pins it). The move codes are the exact
+step's, on the clamped carries. The skewed tie keeps, per row, the first
+maximum (score > 0) of least raw key rj * (M + 33) + ri, the cell's place in
+the reference binary's skewed storage (``skewed_keys``), and
+``reduce_best_skewed`` takes the least key among the rows holding the
+lane's maximum (the first such row on equal keys).
 """
 
 from __future__ import annotations
@@ -27,7 +52,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.encoding import X_PAD, Y_PAD
+from ..utils.config import ScoringConfig, Semantics
+from ..utils.encoding import X_PAD, Y_PAD, to_bytes
 
 # Traceback move codes (bits 0-1) and the stop flag (bit 2), as in the JAX
 # package's ops/scan_dp.py:83-86: NW if nw >= west and nw >= north, else W if
@@ -49,6 +75,7 @@ F_EXT_BIT = 16
 NEG = -(2**30)  # E and F where no gap run can reach
 
 _INT32_MAX = 2**31 - 1
+SAT_MAX = 255  # the saturating uint8 ceiling
 # Rows per strip of the long-read path: checkpoints are the H values of rows
 # kS - 1, and the traceback replays S rows at a time (B13/B17's STRIP_S,
 # wavefront_pallas.py:1030).
@@ -108,7 +135,7 @@ def table_scorer(table: torch.Tensor):
 
 def wavefront(x_mb, y_bn, m, n, *, score, gap: int, gap_open: int = 0,
               track_pos: bool = True, emit_moves: bool = False, north=None,
-              keep=None):
+              keep=None, sat: bool = False, keys=None, hstack=None):
     """Sweep all M + N - 1 diagonals.
 
     x_mb (M, B) uint8 reads, y_bn (B, N) uint8 refs, m/n (B,) int32 true
@@ -124,11 +151,21 @@ def wavefront(x_mb, y_bn, m, n, *, score, gap: int, gap_open: int = 0,
     ``keep`` = (rows (K,) int64, out (K, D, B) int32) records the H of those
     rows on every diagonal (a checkpointing sweep); ``wavefront_affine``
     takes their affine forms.
+
+    ``sat`` clamps every H at SAT_MAX (the saturating uint8 step with the
+    operands of ``sat_operands``; see the module's docstring). ``keys``, an
+    (M, B) int32 tensor of _INT32_MAX, selects the skewed tie: each row keeps
+    its first maximum of least raw key (``skewed_keys``) and ``keys`` ends
+    holding that key (JAX's ``bestkey``). ``hstack``, a (D, M, B) int32
+    tensor, receives every diagonal's H (JAX's ``keep_matrix``).
     """
     if gap_open > 0:
+        if sat or keys is not None:
+            raise ValueError("the saturating and skewed forms are linear-gap only")
         return wavefront_affine(
             x_mb, y_bn, m, n, score=score, gap_open=gap_open, gap=gap,
             track_pos=track_pos, emit_moves=emit_moves, north=north, keep=keep,
+            hstack=hstack,
         )
     M, B = x_mb.shape
     N = y_bn.shape[1]
@@ -159,11 +196,21 @@ def wavefront(x_mb, y_bn, m, n, *, score, gap: int, gap_open: int = 0,
         hd = torch.maximum(
             torch.maximum(h2s + sc, h1 - gap), torch.maximum(h1s - gap, zero)
         )
+        if sat:
+            hd = hd.clamp(max=SAT_MAX)
         valid = (rr <= d) & rowmask & (rr >= lo + d)
         hd = torch.where(valid, hd, zero)
         if keep is not None:
             keep[1][:, d] = hd[keep[0]]
-        if track_pos:
+        if hstack is not None:
+            hstack[d] = hd
+        if keys is not None:  # the skewed tie: least raw key among equal maxima
+            key = skewed_keys(d, M, m, n)
+            upd = (hd > best) | ((hd == best) & (hd > 0) & (key < keys))
+            best = torch.where(upd, hd, best)
+            bestd = torch.where(upd, d, bestd)
+            keys.copy_(torch.where(upd, key, keys))
+        elif track_pos:
             upd = hd > best  # strict: keeps the earliest diagonal (smallest j)
             best = torch.where(upd, hd, best)
             bestd = torch.where(upd, d, bestd)
@@ -184,7 +231,7 @@ def wavefront(x_mb, y_bn, m, n, *, score, gap: int, gap_open: int = 0,
 
 def wavefront_affine(x_mb, y_bn, m, n, *, score, gap_open: int, gap: int,
                      track_pos: bool = True, emit_moves: bool = False, north=None,
-                     keep=None):
+                     keep=None, hstack=None):
     """Affine-gap (Gotoh) sweep, line for line ``_wavefront_affine``
     (scan_dp.py:221-299): a gap of length L costs gap_open + L * gap. Two
     more carried diagonals, E (west runs) and F (north runs); invalid cells
@@ -197,7 +244,7 @@ def wavefront_affine(x_mb, y_bn, m, n, *, score, gap_open: int, gap: int,
     checkpoint rows; None keeps H = F = 0 there). E needs no such row: it
     runs along a row and never crosses a strip edge. ``keep`` = (rows (K,)
     int64, out_h, out_f (K, D, B) int32) records the H and F of those rows
-    on every diagonal."""
+    on every diagonal; ``hstack`` every diagonal's H."""
     M, B = x_mb.shape
     N = y_bn.shape[1]
     D = M + N - 1
@@ -243,6 +290,8 @@ def wavefront_affine(x_mb, y_bn, m, n, *, score, gap_open: int, gap: int,
         if keep is not None:
             keep[1][:, d] = hd[keep[0]]
             keep[2][:, d] = f_d[keep[0]]
+        if hstack is not None:
+            hstack[d] = hd
         if track_pos:
             upd = hd > best  # strict: earliest diagonal (smallest j) wins ties
             best = torch.where(upd, hd, best)
@@ -280,6 +329,80 @@ def reduce_best(best, bestd):
     j_star = (bestd[r_star, lanes] - r_star + 1).to(torch.int32)
     nonzero = score > 0
     return score, torch.where(nonzero, i_star, 0), torch.where(nonzero, j_star, 0)
+
+
+def skewed_keys(d: int, M: int, m, n):
+    """(M, B) int32 raw keys of diagonal d's cells (i = r + 1, j = d - r +
+    1), as the JAX scan computes them (scan_dp.py:144-160): the cell's
+    place in the reference binary's skewed storage, rj * (M + 33) + ri, with
+    s = i + j, rj = s up to max(m, n) and s - max(m, n) - 1 past it, and ri
+    = j unless n > m, where ri = j below min(m, n), j - (n - m) past max(m,
+    n) and m - i between. M is the padded read length."""
+    dev = m.device
+    ii = torch.arange(1, M + 1, dtype=torch.int32, device=dev)[:, None]
+    jj = d + 2 - ii
+    s = d + 2
+    mm, nn = m[None, :], n[None, :]
+    minmn, maxmn = torch.minimum(mm, nn), torch.maximum(mm, nn)
+    ri = torch.where(
+        nn > mm,
+        torch.where(s < minmn, jj, torch.where(s > maxmn, jj - (nn - mm), mm - ii)),
+        jj,
+    )
+    rj = torch.where(s <= maxmn, s, s - maxmn - 1)
+    return (rj * (M + 33) + ri).to(torch.int32)
+
+
+def reduce_best_skewed(best, bestd, bestkey):
+    """Per-lane (score, i, j) int32 with the skewed tie-break of
+    ``_reduce_best_skewed`` (scan_dp.py:325-339): among the rows holding the
+    lane's maximum, the least raw key, the first such row on equal keys; an
+    all-zero lane gives (0, 0, 0)."""
+    B = best.shape[1]
+    score = best.max(dim=0).values
+    key = torch.where(best == score[None, :], bestkey, _INT32_MAX)
+    r_star = key.argmin(dim=0)  # the first of equal minima, as jnp.argmin
+    lanes = torch.arange(B, device=best.device)
+    i_star = (r_star + 1).to(torch.int32)
+    j_star = (bestd[r_star, lanes] - r_star + 1).to(torch.int32)
+    nonzero = score > 0
+    return score, torch.where(nonzero, i_star, 0), torch.where(nonzero, j_star, 0)
+
+
+def sat_operands(match, mismatch, gap):
+    """(match', mismatch', gap') of a SAT_UINT8 config for the exact step
+    with ``sat=True``: the magnitudes ``ScanEngine`` clips to [0, 255]
+    (scan_dp.py:363-368, int() truncating), the mismatch as the negated
+    clipped penalty."""
+    clip = lambda v: min(max(int(v), 0), SAT_MAX)
+    return clip(match), -clip(-mismatch), clip(gap)
+
+
+def sw_score_parity_plain(xs, ys, m, n, *, gap: int, sat: bool, tie: str = "colmajor",
+                          match: int = 0, mismatch: int = 0, table=None,
+                          track_pos: bool = True, emit_moves: bool = False):
+    """Plain version of the K26 kernel (and, past 2,048 rows, K27): the
+    linear recurrence on xs (B, M), ys (B, N) with the clamp at SAT_MAX when
+    ``sat`` (operands from ``sat_operands``), scored uniformly (match,
+    mismatch) or by ``table`` over compact codes, argmax by ``tie``
+    ('colmajor' or 'skewed'). Returns per-lane (score, i, j) int32 (i = j =
+    0 when neither track_pos nor emit_moves), plus with ``emit_moves`` the
+    (M + N - 1, M, B) uint8 move codes."""
+    score_fn = table_scorer(table) if table is not None else uniform_scorer(match, mismatch)
+    B, M = xs.shape
+    pos = track_pos or emit_moves
+    keys = (torch.full((M, B), _INT32_MAX, dtype=torch.int32, device=xs.device)
+            if pos and tie == "skewed" else None)
+    best, bestd, moves = wavefront(
+        xs.T, ys, m, n, score=score_fn, gap=gap, track_pos=pos, emit_moves=emit_moves,
+        sat=sat, keys=keys,
+    )
+    if not pos:
+        score = best.max(dim=0).values
+        z = torch.zeros_like(score)
+        return score, z, z.clone()
+    out = reduce_best_skewed(best, bestd, keys) if keys is not None else reduce_best(best, bestd)
+    return (*out, moves) if emit_moves else out
 
 
 def sw_score_plain(xs, ys, m, n, *, match: int, mismatch: int, gap: int,
@@ -567,3 +690,50 @@ def sw_profile_moves_plain(xs, ys, m, n, *, table, gap: int, gap_open: int = 0):
         emit_moves=True,
     )
     return (*reduce_best(best, bestd), moves)
+
+
+def hstack_to_matrix(hstack, m: int, n: int, lane: int = 0) -> np.ndarray:
+    """Diagonal-major (D, M, B) stack -> dense (m+1, n+1) DP matrix with the
+    zero boundary row and column (copied from scan_dp.py:426-434), as a
+    numpy array of the stack's type; ``hstack`` may be a tensor on any
+    device."""
+    hs = hstack[:, :, lane]
+    hs = hs.cpu().numpy() if isinstance(hs, torch.Tensor) else np.asarray(hs)
+    H = np.zeros((m + 1, n + 1), dtype=hs.dtype)
+    i = np.arange(1, m + 1)[:, None]
+    j = np.arange(1, n + 1)[None, :]
+    H[1:, 1:] = hs[i + j - 2, i - 1]
+    return H
+
+
+def sw_matrix_scan(x, y, cfg: ScoringConfig = ScoringConfig(), device="cpu") -> np.ndarray:
+    """Single-pair convenience (scan_dp.py:437-451): the full (m+1, n+1) DP
+    matrix of ``cfg`` by the plain sweep on ``device``, int32, or uint8 under
+    SAT_UINT8. Linear or affine gaps, uniform or substitution-matrix
+    scoring; a test and inspection utility on no CLI path."""
+    from .engine import check_supported
+
+    check_supported(cfg)
+    xb = to_bytes(x) if isinstance(x, str) else np.asarray(x, np.uint8)
+    yb = to_bytes(y) if isinstance(y, str) else np.asarray(y, np.uint8)
+    sat = cfg.semantics == Semantics.SAT_UINT8
+    if cfg.is_uniform:
+        match, mismatch, gap = (sat_operands(cfg.match, cfg.mismatch, cfg.gap_penalty) if sat
+                                else (int(cfg.match), int(cfg.mismatch), int(cfg.gap_penalty)))
+        score = uniform_scorer(match, mismatch)
+    else:
+        if sat:
+            raise ValueError("SAT_UINT8 supports uniform scoring only")
+        lut, table = profile_tables(cfg)
+        xb, yb = lut[xb], lut[yb]
+        score = table_scorer(torch.from_numpy(table).to(device))
+        gap = int(cfg.gap_penalty)
+    m, n = len(xb), len(yb)
+    xs = torch.from_numpy(np.ascontiguousarray(xb)).to(device)[:, None]
+    ys = torch.from_numpy(np.ascontiguousarray(yb)).to(device)[None, :]
+    lens = [torch.tensor([v], dtype=torch.int32, device=device) for v in (m, n)]
+    hstack = torch.zeros((max(1, m + n - 1), m, 1), dtype=torch.int32, device=device)
+    wavefront(xs, ys, *lens, score=score, gap=gap, gap_open=int(cfg.gap_open), sat=sat,
+              hstack=hstack)
+    H = hstack_to_matrix(hstack, m, n)
+    return H.astype(np.uint8) if sat else H

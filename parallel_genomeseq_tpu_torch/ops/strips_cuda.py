@@ -49,6 +49,10 @@ traceback takes from ``replay_group``; the per-strip wrappers are its G = 1
 launch over every column. A per-strip wrapper's ``launches`` counts every
 launch of its kernel, the group wrapper's too.
 
+K27 ``sw_score_strips_parity`` is K11 in the reference-parity forms of the
+JAX scan (``Semantics.SAT_UINT8``, the skewed tie; no Pallas call ports
+them): ``solve_big --semantics sat_uint8``'s window sweep.
+
 Route: tensors on the CPU take the plain PyTorch versions (``ops/scan_dp``:
 ``sw_score_plain``, ``sw_score_ckpt_plain``, ``strip_moves_plain``,
 ``sw_score_affine_ckpt_plain``, ``strip_affine_moves_plain``,
@@ -86,6 +90,7 @@ from .scan_dp import (
     sw_profile_plain,
     sw_score_affine_ckpt_plain,
     sw_score_ckpt_plain,
+    sw_score_parity_plain,
     sw_score_plain,
 )
 from .wavefront_cuda import _check_inputs
@@ -101,12 +106,13 @@ _NO_WIDTH = 2**31 - 1  # a slab has no padded width; its length bounds each lane
 
 
 def _sweep(xs, ys, m, n, *, gap, ckpt, match=0, mismatch=0, gap_open=0, table=None,
-           y_off=None):
+           y_off=None, sat=False, skewed=False):
     """Shared K11/K12 (gap_open > 0: K15/K16; a table: K19/K20; both:
-    K22/K23) launch on the current stream, no sync; outputs and scratch
-    allocated here. xs is (B, M) or, shared by every lane, (M,); ys is (B,
-    N) or, with ``y_off``, a flat slab. Returns (score, i, j), then with
-    ckpt the H checkpoints, and under affine gaps the F ones."""
+    K22/K23; ``sat`` or ``skewed``: K27) launch on the current stream, no
+    sync; outputs and scratch allocated here. xs is (B, M) or, shared by
+    every lane, (M,); ys is (B, N) or, with ``y_off``, a flat slab. Returns
+    (score, i, j), then with ckpt the H checkpoints, and under affine gaps
+    the F ones."""
     B = m.shape[0]
     M = xs.shape[-1]
     dev = m.device
@@ -142,23 +148,24 @@ def _sweep(xs, ys, m, n, *, gap, ckpt, match=0, mismatch=0, gap_open=0, table=No
             m.data_ptr(), n.data_ptr(), M, N, B, ptr(table),
             table.shape[0] if table is not None else 0, int(match), int(mismatch),
             int(gap_open), int(gap), ptr(bound), ptr(bound_off), ptr(ck), ptr(fck), nck,
-            score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
+            score.data_ptr(), bi.data_ptr(), bj.data_ptr(), int(sat), int(skewed),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "pgs_strip_sweep")
     return tuple(t for t in (score, bi, bj, ck, fck) if t is not None)
 
 
-def sweep_occupancy(M: int, *, affine: bool = False, ckpt: bool = False, ncodes: int = 0):
+def sweep_occupancy(M: int, *, affine: bool = False, ckpt: bool = False, ncodes: int = 0,
+                    parity: bool = False):
     """(threads a block, passes, resident blocks per SM, rows a thread) of
     the sweep launch for M rows on the current CUDA device: K11 (K12 with
     ``ckpt``), affine K15/K16, with ``ncodes`` > 0 (a table of that size)
-    K19/K20, K22/K23. Read by the CUDA occupancy calculator, as the launch
-    picks its band height; launches nothing."""
+    K19/K20, K22/K23, with ``parity`` K27. Read by the CUDA occupancy
+    calculator, as the launch picks its band height; launches nothing."""
     lib = _build.load()
     out = (ctypes.c_int * 4)()
     _build.check(lib.pgs_strip_sweep_occupancy(int(M), int(ckpt), int(affine), int(ncodes),
-                                               ctypes.addressof(out)),
+                                               int(parity), ctypes.addressof(out)),
                  "pgs_strip_sweep_occupancy")
     return tuple(out)
 
@@ -180,6 +187,27 @@ def sw_score_strips(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
 
 
 sw_score_strips.launches = 0
+
+
+def sw_score_strips_parity(xs, ys, m, n, *, match: int, mismatch: int, gap: int, sat: bool,
+                           tie: str = "colmajor"):
+    """K27: K11's per-lane (score, i, j) int32 with every H clamped at 255
+    when ``sat`` (the operands of ``scan_dp.sat_operands``) and the argmax by
+    ``tie``, 'colmajor' (K11's) or 'skewed' (the reference binary's raw
+    key, ``scan_dp.skewed_keys``), for reads of any length. The window
+    sweep of ``solve_big --semantics sat_uint8``."""
+    if tie not in ("colmajor", "skewed"):
+        raise ValueError(f"unknown tie {tie!r}")
+    if _check_inputs(xs, ys, m, n).type == "cpu":
+        return sw_score_parity_plain(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap,
+                                     sat=sat, tie=tie)
+    out = _sweep(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap, ckpt=False, sat=sat,
+                 skewed=tie == "skewed")
+    sw_score_strips_parity.launches += 1
+    return out
+
+
+sw_score_strips_parity.launches = 0
 
 
 def sw_score_strips_ckpt(xs, ys, m, n, *, match: int, mismatch: int, gap: int):

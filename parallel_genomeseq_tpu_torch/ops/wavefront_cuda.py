@@ -30,6 +30,15 @@ block that store their move bytes together, and ``warps``, the warps a lane
 table, is the protein top-K re-run K5/K9 (``profile_cuda.sw_profile_moves``,
 ``sw_profile_affine_moves``), which launches through ``_launch`` with its
 table.
+
+K26 ``sw_score_parity`` is the same template in the reference-parity forms
+of the JAX ``lax.scan`` wavefront (``ops/scan_dp.py`` ``_wavefront`` :93
+under ``Semantics.SAT_UINT8`` and/or ``tie="skewed"``; no Pallas call ports
+them): linear gaps, every H clamped at 255 when ``sat``, the argmax by the
+column-major or the skewed tie, score-only, argmax or moves, scored
+uniformly or (exact values) from a table. It is built from
+``csrc/wavefront_parity.cu``, which compiles ``csrc/wavefront.cu``'s K26
+instantiations as a unit of their own.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ import torch
 
 from ..utils.device import device_of
 from . import _build
-from .scan_dp import sw_score_moves_plain, sw_score_plain
+from .scan_dp import sw_score_moves_plain, sw_score_parity_plain, sw_score_plain
 
 
 def _check_inputs(xs, ys, m, n):
@@ -63,9 +72,10 @@ MODES = {"score_only": 0, "track_pos": 1, "moves": 2}
 
 
 def launch_shape(M: int, B: int, *, affine: bool, mode: str, lanes: int = 0,
-                 warps: int = 0, ncodes: int = 0):
+                 warps: int = 0, ncodes: int = 0, parity: bool = False):
     """The launch of K1/K2/K6/K7 -- or, with ``ncodes`` > 0 (mode "moves"),
-    of K5/K9 over an (ncodes, ncodes) table -- for B lanes of M rows on the
+    of K5/K9 over an (ncodes, ncodes) table; with ``parity``, of K26 (linear,
+    a table with mode "track_pos" too) -- for B lanes of M rows on the
     current CUDA device (``mode`` one of MODES; ``lanes``, ``warps`` as K2
     takes them): {rows (a thread), lanes (a block), warps (a lane),
     blocks_per_sm (the CUDA occupancy calculator), smem (dynamic shared
@@ -73,17 +83,26 @@ def launch_shape(M: int, B: int, *, affine: bool, mode: str, lanes: int = 0,
     not take."""
     lib = _build.load()
     out = (ctypes.c_int * 5)()
-    _build.check(lib.pgs_sw_score_shape(int(M), int(B), int(affine), MODES[mode], int(ncodes),
-                                        int(lanes), int(warps), ctypes.addressof(out)),
-                 "pgs_sw_score_shape")
+    if parity:
+        if affine:
+            raise ValueError("K26 is linear-gap only")
+        _build.check(lib.pgs_sw_score_parity_shape(int(M), int(B), MODES[mode], int(ncodes),
+                                                   int(lanes), int(warps),
+                                                   ctypes.addressof(out)),
+                     "pgs_sw_score_parity_shape")
+    else:
+        _build.check(lib.pgs_sw_score_shape(int(M), int(B), int(affine), MODES[mode],
+                                            int(ncodes), int(lanes), int(warps),
+                                            ctypes.addressof(out)),
+                     "pgs_sw_score_shape")
     return dict(zip(("rows", "lanes", "warps", "blocks_per_sm", "smem"), out))
 
 
 def _launch(xs, ys, m, n, *, match, mismatch, gap_open, gap, track_pos, moves, lanes=0,
-            warps=0, table=None):
+            warps=0, table=None, parity=None):
     """Shared K1/K2/K6/K7 launch, and K5/K9's with a ``table`` (ncodes,
-    ncodes) int32 over compact codes: outputs allocated here, kernel on the
-    current stream, no sync."""
+    ncodes) int32 over compact codes; with ``parity`` = (sat, skewed),
+    K26's: outputs allocated here, kernel on the current stream, no sync."""
     B, M = xs.shape
     N = ys.shape[1]
     if M > MAX_ROWS:
@@ -96,17 +115,27 @@ def _launch(xs, ys, m, n, *, match, mismatch, gap_open, gap, track_pos, moves, l
     if table is not None:
         table = table.contiguous()
     score, bi, bj = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
+    tab = (table.data_ptr() if table is not None else None,
+           table.shape[0] if table is not None else 0)
+    outs = (score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
+            moves.data_ptr() if moves is not None else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pgs_sw_score(
-            xs.data_ptr(), ys.data_ptr(), m.data_ptr(), n.data_ptr(), M, N, B, int(match),
-            int(mismatch), int(gap_open), int(gap),
-            table.data_ptr() if table is not None else None,
-            table.shape[0] if table is not None else 0, int(track_pos), int(lanes), int(warps),
-            score.data_ptr(), bi.data_ptr(), bj.data_ptr(),
-            moves.data_ptr() if moves is not None else None, stream,
-        )
-    _build.check(err, "pgs_sw_score")
+        if parity is None:
+            name = "pgs_sw_score"
+            err = lib.pgs_sw_score(
+                xs.data_ptr(), ys.data_ptr(), m.data_ptr(), n.data_ptr(), M, N, B, int(match),
+                int(mismatch), int(gap_open), int(gap), *tab, int(track_pos), int(lanes),
+                int(warps), *outs, stream,
+            )
+        else:
+            name = "pgs_sw_score_parity"
+            err = lib.pgs_sw_score_parity(
+                xs.data_ptr(), ys.data_ptr(), m.data_ptr(), n.data_ptr(), M, N, B, int(match),
+                int(mismatch), int(gap), *tab, int(track_pos), int(parity[0]), int(parity[1]),
+                int(lanes), int(warps), *outs, stream,
+            )
+    _build.check(err, name)
     return score, bi, bj
 
 
@@ -210,3 +239,36 @@ def sw_score_affine_moves(xs, ys, m, n, *, match: int, mismatch: int,
 
 
 sw_score_affine_moves.launches = 0
+
+
+def sw_score_parity(xs, ys, m, n, *, gap: int, sat: bool, tie: str = "colmajor",
+                    match: int = 0, mismatch: int = 0, table=None, track_pos: bool = True,
+                    emit_moves: bool = False, lanes: int = 0, warps: int = 0):
+    """K26: per-lane (score, i, j) int32 of linear Smith-Waterman with every
+    H clamped at 255 when ``sat`` (pass the operands of
+    ``scan_dp.sat_operands``) and the argmax by ``tie``, 'colmajor' (K1's)
+    or 'skewed' (the reference binary's raw key, ``scan_dp.skewed_keys``);
+    scored uniformly (match, mismatch) over raw bytes or, with ``table``
+    (ncodes, ncodes) int32, over compact codes. track_pos=False gives i = j
+    = 0; ``emit_moves`` appends the (M + N - 1, M, B) uint8 move codes,
+    written only inside each lane's m_b x n_b, as K2's. ``lanes``,
+    ``warps`` as K2 takes them."""
+    if tie not in ("colmajor", "skewed"):
+        raise ValueError(f"unknown tie {tie!r}")
+    dev = _check_inputs(xs, ys, m, n)
+    if dev.type == "cpu":
+        return sw_score_parity_plain(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap,
+                                     table=table, sat=sat, tie=tie, track_pos=track_pos,
+                                     emit_moves=emit_moves)
+    B, M = xs.shape
+    N = ys.shape[1]
+    moves = (torch.empty((M + N - 1, M, B), dtype=torch.uint8, device=dev) if emit_moves
+             else None)
+    out = _launch(xs, ys, m, n, match=match, mismatch=mismatch, gap_open=0, gap=gap,
+                  track_pos=track_pos or emit_moves, moves=moves, lanes=lanes, warps=warps,
+                  table=table, parity=(sat, tie == "skewed"))
+    sw_score_parity.launches += 1
+    return (*out, moves) if emit_moves else out
+
+
+sw_score_parity.launches = 0

@@ -3,11 +3,12 @@ the JAX package's ``parallel/chunking.py`` (:31-230).
 
 Stage A scores every (read, window) pair as one lane of a score-only K1
 sweep (K6 under affine gaps, ``--gap-open``; K11, or affine K15, for reads
-over 2,048 bp, ``solve_big``); the best window per read wins (first window
-on ties); stage B re-runs the winners through ``BatchSWAligner`` (K2 + K3,
-or K7 + K10; for long reads the strip traceback, K12 + K13 + K14, or K16 +
-K17 + K18) and offsets positions back
-to reference coordinates. The scoring config, ``gap_open`` included, reaches
+over 2,048 bp, ``solve_big``; under ``Semantics.SAT_UINT8`` K26, or K27 past
+2,048 bp); the best window per read wins (first window on ties); stage B
+re-runs the winners through ``BatchSWAligner`` (K2 + K3, or K7 + K10, or
+under SAT_UINT8 K26 + K3; for long reads the strip traceback, K12 + K13 +
+K14, or K16 + K17 + K18) and offsets positions back to reference
+coordinates. The scoring config, ``gap_open`` included, reaches
 both stages. Same lane order, window geometry, merge and
 ``align_stream`` depth as the JAX package. Unlike it there is no fallback to
 another engine: a batch the kernels cannot run raises.

@@ -4,7 +4,8 @@ for the same seed):
 
 - gen_ref_custom: a random reference FASTA, or a slice of a source genome;
 - gen_reads_custom: reads sampled as exact substrings of a reference, with
-  their 1-based positions, to a CSV (datagen.py:45-70);
+  their 1-based positions, to a CSV and optionally a reads-only text file
+  (datagen.py:45-70);
 - gen_protein_db: a SwissProt-scale protein database, optionally with
   mutated copies of a query planted at known indices.
 """
@@ -45,12 +46,14 @@ def gen_ref_custom(
 def gen_reads_custom(
     ref_seq: str,
     out_csv,
+    out_txt=None,
     n_reads: int = 100,
     read_len: int = 10_000,
     seed: int = 1,
 ):
     """Sample reads with 1-based ground-truth POS to a CSV (index, QNAME,
-    SEQ, POS); returns a list of (seq, pos)."""
+    SEQ, POS), and with ``out_txt`` the reads alone, one a line; returns a
+    list of (seq, pos)."""
     rng = np.random.default_rng(seed)
     if read_len > len(ref_seq):
         raise ValueError("read_len > reference length")
@@ -63,6 +66,10 @@ def gen_reads_custom(
             seq = ref_seq[start : start + read_len]
             w.writerow([k, f"custom-{k}", seq, start + 1])
             out.append((seq, start + 1))
+    if out_txt:
+        with open(out_txt, "w") as f:
+            for seq, _ in out:
+                f.write(seq + "\n")
     return out
 
 

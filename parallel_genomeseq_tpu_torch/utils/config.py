@@ -107,6 +107,15 @@ class ScoringConfig:
             tab[np.ix_(idx, idx)] = np.asarray(self.matrix, np.float32)
         return tab
 
+    def dp_dtype(self):
+        """The DP value type (config.py:127-132): uint8 under SAT_UINT8,
+        float32 for FLOAT32 or non-integral scoring, else int32."""
+        if self.semantics == Semantics.SAT_UINT8:
+            return np.uint8
+        if self.semantics == Semantics.FLOAT32 or not self.is_integral:
+            return np.float32
+        return np.int32
+
 
 @dataclasses.dataclass(frozen=True)
 class ChunkConfig:

@@ -46,7 +46,8 @@ COUNTERS = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves, traceback.wa
             strips_cuda.sw_score_strips_profile_ckpt, strips_cuda.strip_profile_moves,
             strips_cuda.sw_score_strips_profile_affine,
             strips_cuda.sw_score_strips_profile_affine_ckpt,
-            strips_cuda.strip_profile_affine_moves)
+            strips_cuda.strip_profile_affine_moves, wavefront_cuda.sw_score_parity,
+            strips_cuda.sw_score_strips_parity)
 AFFINE = {
     "uniform": ScoringConfig(gap_open=10.0),
     "matrix": blosum_config("blosum50", gap_penalty=2.0, gap_open=10.0),
@@ -75,7 +76,8 @@ def test_port_never_imports_jax():
         "assert 'parallel_genomeseq_tpu_torch.cli.serve' in mods\n"
         "assert 'parallel_genomeseq_tpu_torch.cli.solve_batch' in mods\n"
         "for m in ('models.fm_index', 'models.seed_extend', 'models.hirschberg',\n"
-        "          'ops.global_dp', 'ops.oracle', 'cli.demo'):\n"
+        "          'ops.global_dp', 'ops.oracle', 'cli.demo', 'cli.gen_data',\n"
+        "          'cli.evaluate', 'seqio.readers', 'seqio.uniprot'):\n"
         "    assert 'parallel_genomeseq_tpu_torch.' + m in mods, m\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'parallel_genomeseq_tpu'\n"
@@ -89,15 +91,19 @@ def test_port_never_imports_jax():
     assert int(out[0]) >= 20 and out[1] == "-", out
 
 
-@pytest.mark.parametrize("cfg", [
-    ScoringConfig(semantics=Semantics.SAT_UINT8),
-    ScoringConfig(match=2.5),
-    ScoringConfig(semantics=Semantics.FLOAT32),
+@pytest.mark.parametrize("cfg, error, match", [
+    (ScoringConfig(semantics=Semantics.SAT_UINT8, matrix=blosum_config("blosum50").matrix,
+                   alphabet=ALPHABET), ValueError, "SAT_UINT8 supports uniform scoring only"),
+    (ScoringConfig(match=2.5), NotImplementedError, "ROADMAP A2b"),
+    (ScoringConfig(semantics=Semantics.FLOAT32), NotImplementedError, "ROADMAP A2b"),
 ], ids=["sat_uint8", "non_integral", "float32"])
-def test_unsupported_configs_raise(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+def test_unsupported_configs_raise(cfg, error, match):
+    """Float32 values wait for A2b; SAT_UINT8 runs (A2) but, as the JAX
+    ScanEngine, only under uniform scores, and refuses a matrix with its
+    ValueError."""
+    with pytest.raises(error, match=match):
         engine.make_score_engine(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(error, match=match):
         ChunkedAligner(cfg=cfg, device="cpu")
 
 
@@ -171,11 +177,13 @@ def test_make_score_engine_names():
 
 
 def test_skewed_ties_raise_and_strip_length_reads_align():
-    """Skewed ties raise naming A2. A read past MAX_M runs under every
+    """Skewed ties (A2) run under linear gaps and raise the JAX ScanEngine's
+    ValueError under affine ones. A read past MAX_M runs under every
     scoring family -- uniform or a substitution matrix, each with linear or
     affine gaps (the strip kernels, A10) -- and aligns."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        BatchSWAligner(tie="skewed", device="cpu")
+    with pytest.raises(ValueError, match="use tie='colmajor'"):
+        BatchSWAligner(AFFINE["uniform"], tie="skewed", device="cpu")
+    assert BatchSWAligner(tie="skewed", device="cpu").engine.parity
     long_read = np.full((1, engine.MAX_M + 8), ord("A"), np.uint8)
     lens = ([engine.MAX_M + 8], [engine.MAX_M + 8])
     blosum = blosum_config("blosum50", gap_penalty=12.0)  # A-A scores 5
@@ -210,11 +218,11 @@ def test_solve_big_matrix_runs_long_reads(flags, tmp_path):
     assert self_score(matrix, ref[1095:2250]) > self_score(matrix, ref[150:1305])
 
 
-@pytest.mark.parametrize("flags, item", [(["--semantics", "sat_uint8"], "A2")],
-                         ids=["sat_uint8"])
+@pytest.mark.parametrize("flags, item", [(["--semantics", "float32"], "A2b")],
+                         ids=["float32"])
 def test_solve_big_rejects_unported_modes(flags, item, capsys):
-    """sat_uint8 needs A2: the refusal exits 2 before any data is
-    generated."""
+    """float32 needs A2b (sat_uint8 runs since A2): the refusal exits 2
+    before any data is generated."""
     with pytest.raises(SystemExit) as exc:
         solve_big.main(["--device", "cpu"] + flags)
     assert exc.value.code == 2
@@ -222,11 +230,12 @@ def test_solve_big_rejects_unported_modes(flags, item, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--seed-extend", "--parity-mode", "skewed"], ["--parity-mode", "skewed"],
+    ["--seed-extend", "--parity-mode", "skewed"], ["--parity-mode", "skewed", "--engine", "plain"],
 ])
 def test_solve_small_rejects_unported_modes(flags, tmp_path):
-    """The skewed parity mode needs A2; with --seed-extend it is refused
-    first, with the JAX CLI's message (seed-extend scores exact int32)."""
+    """The skewed parity mode runs (A2), but not with --seed-extend, which is
+    refused with the JAX CLI's message (seed-extend scores exact int32), nor
+    with --engine, which is the --seed-extend path's."""
     with pytest.raises(SystemExit) as exc:
         solve_small.main(flags + ["--device", "cpu", "--output", str(tmp_path / "o.csv")])
     assert exc.value.code == 2
@@ -370,6 +379,13 @@ def test_cpu_tensors_take_plain_route_without_launches():
     for gaps in (dict(gap_penalty=12.0, gap_open=0.0), {}):
         ResidentProteinDB([(str(k), p) for k, p in enumerate(proteins)], max_query_len=2100,
                           device="cpu", **gaps).scan(long_read)
+    # The reference-parity forms: K26 (the window sweep, the skewed and the
+    # saturating re-runs with moves, the skewed argmax) and K27 (a long read).
+    sat = ScoringConfig(semantics=Semantics.SAT_UINT8)
+    ChunkedAligner(sat, device="cpu").align_batch(reads, ref)
+    BatchSWAligner(sat, tie="skewed", device="cpu").align_batch(reads, [ref])
+    BatchSWAligner(tie="skewed", device="cpu").align_batch(reads, [ref], traceback=False)
+    BatchSWAligner(sat, device="cpu").align_batch([long_read], [short_ref], traceback=False)
     assert [fn.launches for fn in COUNTERS] == [0] * len(COUNTERS)
 
 
@@ -457,7 +473,8 @@ def test_build_command_targets_hopper(monkeypatch, tmp_path):
     calls = [line.split() for line in (tmp_path / "args").read_text().splitlines()]
     compiles, links = [c for c in calls if "-c" in c], [c for c in calls if "-c" not in c]
     assert [Path(c[-1]).name for c in sorted(compiles, key=lambda c: c[-1])] == \
-        ["global_dp.cu", "profile.cu", "strips.cu", "traceback.cu", "wavefront.cu"]
+        ["global_dp.cu", "profile.cu", "strips.cu", "traceback.cu", "wavefront.cu",
+         "wavefront_parity.cu"]
     assert len(links) == 1 and "-shared" in links[0]
     assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
     assert "compiled" in (tmp_path / "build" / "nvcc.log").read_text()

@@ -2008,3 +2008,171 @@ def test_fuzz_cuda_matches_plain(cuda, trial):
     for k, (g, w) in enumerate(zip(got, want)):
         assert [getattr(g, f) for f in fields] == [getattr(w, f) for f in fields], \
             (trial, k, M, B, cfg.is_uniform, affine)
+
+
+# K26 (csrc/wavefront.cu's reference-parity forms, built by
+# csrc/wavefront_parity.cu) and K27 (csrc/strips.cu): saturating values with
+# the operands ScanEngine clips, at the reference's defaults and at a
+# plateau-heavy 100/-50/7 (most lanes reach 255 on many cells), and exact
+# values, each under both ties.
+def parity_scoring(sat, match, mismatch, gap):
+    if sat:
+        match, mismatch, gap = scan_dp.sat_operands(match, mismatch, gap)
+    return dict(sat=sat, match=match, mismatch=mismatch, gap=gap)
+
+
+PARITY_SCORING = {
+    "sat": parity_scoring(True, 3, -3, 2),
+    "sat_plateau": parity_scoring(True, 100, -50, 7),
+    "exact": parity_scoring(False, 3, -3, 2),
+}
+# Every rows-a-thread choice (M of 1 to 2,048, two warps a lane past 1,024),
+# B of 1 and past a lanes-a-block multiple, mixed n_b, m_b or n_b of 0 and
+# 1, and repeated motifs (ties across threads and warps).
+PARITY_CASES = ("rows_1", "rows_32", "rows_33", "rows_128", "main_shape", "rows_129", "rows_512",
+                "rows_513", "rows_2048", "b1", "mixed_n", "edges", "motif_ties")
+
+
+@pytest.mark.parametrize("case", PARITY_CASES)
+@pytest.mark.parametrize("scoring", list(PARITY_SCORING))
+@pytest.mark.parametrize("tie", ["colmajor", "skewed"])
+def test_k26_matches_plain(cuda, case, scoring, tie):
+    """K26 score-only, argmax and moves against its plain version, and the
+    K3 walk on its moves."""
+    xs, ys, m, n, lanes = wave_lanes(case, cuda)
+    kw = dict(tie=tie, **PARITY_SCORING[scoring])
+    before = wavefront_cuda.sw_score_parity.launches
+    for track_pos in (False, True):
+        got = wavefront_cuda.sw_score_parity(xs, ys, m, n, track_pos=track_pos, **kw)
+        want = scan_dp.sw_score_parity_plain(xs, ys, m, n, track_pos=track_pos, **kw)
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g, w), (track_pos, g, w)
+    got = wavefront_cuda.sw_score_parity(xs, ys, m, n, emit_moves=True, lanes=lanes, **kw)
+    want = scan_dp.sw_score_parity_plain(xs, ys, m, n, emit_moves=True, **kw)
+    torch.cuda.synchronize()
+    assert wavefront_cuda.sw_score_parity.launches == before + 3
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert valid_moves(got[3], want[3], m, n)
+    x_mb = xs.T.contiguous()
+    walked = traceback.walk_moves(got[3], x_mb, ys, got[1], got[2], max_steps=300)
+    plain = traceback._walk_moves_plain(want[3], x_mb, ys, want[1], want[2], 300)
+    for g, w in zip(walked, plain):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["seed0", "rows_33", "rows_128", "edges", "motif_ties"])
+def test_k26_two_warps_a_lane_match_plain(cuda, case):
+    """K26 with two warps a lane where the rule takes one (the lane's warps
+    reduce their (score, key, i, j) through shared memory)."""
+    xs, ys, m, n, lanes = wave_lanes(case, cuda)
+    for tie in ("colmajor", "skewed"):
+        kw = dict(tie=tie, **PARITY_SCORING["sat_plateau"])
+        got = wavefront_cuda.sw_score_parity(xs, ys, m, n, emit_moves=True,
+                                             lanes=max(1, lanes // 2), warps=2, **kw)
+        want = scan_dp.sw_score_parity_plain(xs, ys, m, n, emit_moves=True, **kw)
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g, w)
+        assert valid_moves(got[3], want[3], m, n)
+        got = wavefront_cuda.sw_score_parity(xs, ys, m, n, warps=2, **kw)
+        for g, w in zip(got, want[:3]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k26_table_skewed_matches_plain(cuda, seed):
+    """K26's table form (exact values, the skewed tie): argmax and moves."""
+    xs, ys, m, n, table = protein_lanes(seed, cuda)
+    kw = dict(table=table, gap=12, sat=False, tie="skewed")
+    got = wavefront_cuda.sw_score_parity(xs, ys, m, n, **kw)
+    want = scan_dp.sw_score_parity_plain(xs, ys, m, n, emit_moves=True, **kw)
+    for g, w in zip(got, want[:3]):
+        assert torch.equal(g, w)
+    got = wavefront_cuda.sw_score_parity(xs, ys, m, n, emit_moves=True, **kw)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert valid_moves(got[3], want[3], m, n)
+
+
+@pytest.mark.parametrize("shape", [(5, 2049, 300), (3, 2304, 200), (3, 2305, 180),
+                                   (2, 10_300, 64)], ids=["2049", "strip_edge", "2305", "passes"])
+@pytest.mark.parametrize("scoring", ["sat", "sat_plateau", "exact"])
+def test_k27_matches_plain(cuda, shape, scoring):
+    """K27 (K11's sweep, saturating and/or skewed) against its plain version
+    past 2,048 rows: at a strip edge and beyond one pass of 10,240 rows."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    B, M, N = shape
+    xs, ys, m, n = ragged(40 + M, cuda, B=B, M=M, N=N)
+    m[0] = M
+    for tie in ("colmajor", "skewed"):
+        kw = dict(tie=tie, **PARITY_SCORING[scoring])
+        before = strips_cuda.sw_score_strips_parity.launches
+        got = strips_cuda.sw_score_strips_parity(xs, ys, m, n, **kw)
+        want = scan_dp.sw_score_parity_plain(xs, ys, m, n, **kw)
+        assert strips_cuda.sw_score_strips_parity.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g, w), (tie, g, w)
+
+
+def test_solve_small_parity_cuda_matches_cpu(cuda, tmp_path):
+    """solve_small --parity-mode skewed (K26, K3) and --semantics sat_uint8
+    (K26 score-only, K26 moves, K3): the card's CSV equals the CPU's."""
+    ref_path, csv_path = write_dataset(tmp_path, ref_len=2000, n_reads=96, seed=9)
+    base = ["--ref", str(ref_path), "--input", str(csv_path), "--batch-size", "32"]
+    for extra in (["--parity-mode", "skewed"], ["--parity-mode", "skewed", "--both-strands"],
+                  ["--semantics", "sat_uint8", "--npiece", "17"]):
+        before = wavefront_cuda.sw_score_parity.launches
+        assert solve_small.main(base + extra + ["--output", str(tmp_path / "gpu.csv")]) == 0
+        assert wavefront_cuda.sw_score_parity.launches > before
+        assert solve_small.main(
+            base + extra + ["--device", "cpu", "--output", str(tmp_path / "cpu.csv")]) == 0
+        assert (tmp_path / "gpu.csv").read_bytes() == (tmp_path / "cpu.csv").read_bytes()
+
+
+# The reference-parity forms' randomized campaign beside
+# test_fuzz_cuda_matches_plain: saturating operands inside and outside [0,
+# 255] or exact values, either tie, M from the launch rules' edges (reads
+# past 2,048 rows score only: their moves are not ported).
+PARITY_FUZZ_TRIALS = int(os.environ.get("PGS_TORCH_FUZZ_GPU_TRIALS", 12))
+
+
+@pytest.mark.parametrize("trial", range(PARITY_FUZZ_TRIALS))
+def test_parity_fuzz_cuda_matches_plain(cuda, trial):
+    from parallel_genomeseq_tpu_torch.models.swaligner import BatchSWAligner
+    from parallel_genomeseq_tpu_torch.utils.config import ScoringConfig, Semantics
+
+    seed = trial + int(os.environ.get("PGS_TORCH_FUZZ_SEED", 0))
+    rng = np.random.default_rng(2000 + seed)
+    sat = bool(rng.integers(3))
+    tie = "skewed" if rng.integers(3) else "colmajor"
+    if sat:
+        cfg = ScoringConfig(match=float(rng.integers(1, 300)), mismatch=float(rng.integers(-300, 5)),
+                            gap_penalty=float(rng.integers(0, 20)),
+                            semantics=Semantics.SAT_UINT8)
+    else:
+        tie = "skewed"
+        cfg = ScoringConfig(match=float(rng.integers(1, 6)), mismatch=-float(rng.integers(1, 6)),
+                            gap_penalty=float(rng.integers(1, 8)))
+    letters = list("ACGT#j")
+    M = int(rng.choice(GPU_FUZZ_M))
+    B = int(rng.choice(GPU_FUZZ_B)) if M <= 2048 else int(rng.integers(1, 4))
+    reads, refs = [], []
+    for b in range(B):
+        m = M if b == 0 else int(rng.integers(1, M + 1))
+        n = int(rng.integers(1, 700))
+        y = "".join(rng.choice(letters, n))
+        x = "".join(rng.choice(letters, m))
+        if rng.integers(2):  # plant a stretch of the reference
+            s = int(rng.integers(0, n))
+            x = (y[s : s + m] + x)[:m]
+        reads.append(x)
+        refs.append(y)
+    tb = M <= 2048
+    got = BatchSWAligner(cfg, tie=tie, device=cuda).align_batch(reads, refs, traceback=tb)
+    want = BatchSWAligner(cfg, tie=tie, device=cuda, engine="plain").align_batch(
+        reads, refs, traceback=tb)
+    fields = ("score", "pos", "consensus_x", "consensus_y", "max_i", "max_j")
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert [getattr(g, f) for f in fields] == [getattr(w, f) for f in fields], \
+            (trial, k, M, B, sat, tie)
