@@ -161,7 +161,18 @@
    plateau (512 reads copied from the reference, every lane at 255) and
    lanes of m = n, m > n and n > m -- with K3 on its skewed moves; K27 on
    phase 6's 1,400-lane window sweep (held on one read's 14 lanes) and the
-   skewed tie on a reduced 28 x 2,304 x 4,608 shape. Then ``solve_small
+   skewed tie on a reduced 28 x 2,304 x 4,608 shape. Each case runs in the
+   form the launch rule takes (``wavefront_cuda.parity_form``,
+   ``strips_cuda.sweep_form``), and the two with a pair form (two lanes a
+   word in 16-bit halves: K26's score-only windows, K27's column-major
+   sweep) in both forms, each held to the plain version and timed beside
+   the kernel's first form's time, with the bound at the pair form's
+   operation count (``bound_ms``) and at the int32 form's
+   (``int32_bound_ms``); K26's moves at the full reference also through
+   its curve, warps a lane (1 or 2, so 4 or 2 rows a thread) and lanes a
+   block (1-8), each point held; each skewed case with a position again
+   with every cell's key (the rule past the 2^31 key bound), held and
+   timed beside the key at the wrap row. Then ``solve_small
    --parity-mode skewed`` (K26 and K3 launched, neither K1 nor K2; 32
    sampled reads against a numpy oracle of the saturating DP and raw key:
    score, pos, both consensus strings; its first 1,024 rows equal to the
@@ -169,7 +180,7 @@
    --semantics sat_uint8`` (17 windows; 32 sampled reads against the
    saturating oracle) and ``solve_big 7 1 --semantics sat_uint8`` on phase
    6's exact reads (K27 launched, K11 not; every score 255), each with its
-   reads/s and GCUPS.
+   reads/s, GCUPS and the forms its K26 and K27 launches took.
 13. Prints the seconds of each phase, then the kernels' JSON line -- each kernel's time, its plain version's,
    and its bound: the larger of the integer operations its cells need over
    the card's integer issue peak and the bytes it must move over the memory
@@ -205,6 +216,7 @@ Any failed phase raises and exits non-zero before the last line.
 from __future__ import annotations
 
 import argparse
+import collections
 import csv
 import json
 import subprocess
@@ -375,14 +387,16 @@ def bound(ops: float, nbytes: float, clock_mhz: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def sweep_steps(sweep, rec, M: int, n, clock_mhz: float, table=None, slab: bool = False):
+def sweep_steps(sweep, rec, M: int, n, clock_mhz: float, table=None, slab: bool = False,
+                pair: bool = False):
     """Add a strip sweep's launch shape and its cost per block step to
     ``rec``: rows a thread, threads a block, the blocks an SM holds (the CUDA
     occupancy calculator), the waves and the cycles a block step takes, ms x
     clock / (waves x steps). A block of T threads sweeps n_b + T - 1 steps a
     pass. Per lane, waves = ceil(B / (blocks x SMs)) of passes x (max n_b +
     T - 1) steps; in the slab form, where n_b varies, waves x steps is the
-    lanes' steps summed over the card's block slots."""
+    lanes' steps summed over the card's block slots. ``pair``: K27's pair
+    form, a block a lane pair."""
     import torch
 
     from parallel_genomeseq_tpu_torch.ops import strips_cuda
@@ -390,9 +404,10 @@ def sweep_steps(sweep, rec, M: int, n, clock_mhz: float, table=None, slab: bool 
     name = sweep.__name__
     threads, passes, blocks, rows = strips_cuda.sweep_occupancy(
         M, affine="affine" in name, ckpt=name.endswith("_ckpt"),
-        ncodes=0 if table is None else table.shape[0], parity=name.endswith("_parity"))
+        ncodes=0 if table is None else table.shape[0], parity=name.endswith("_parity"),
+        pair=pair)
     slots = blocks * torch.cuda.get_device_properties(0).multi_processor_count
-    B = n.shape[0]
+    B = -(-n.shape[0] // 2) if pair else n.shape[0]
     if slab:
         steps = passes * (float(n.double().mean()) + threads - 1)
         waves = B / slots
@@ -428,7 +443,7 @@ def scan_steps(rec, M: int, n, clock_mhz: float, ncodes: int, affine: bool, shar
 
 
 def wave_steps(rec, fn, M: int, N: int, m, n, clock_mhz: float, mode: str, lanes: int = 0,
-               warps: int = 0, ncodes: int = 0, parity: bool = False):
+               warps: int = 0, ncodes: int = 0, parity: bool = False, pair: bool = False):
     """Add a K1/K2/K6/K7 (``ncodes`` > 0: K5/K9) launch's shape and its cost
     per column step to ``rec``: rows a thread, lanes a block, warps a lane, the warps the
     busiest SM holds at once (the CUDA occupancy calculator's blocks an SM,
@@ -437,18 +452,23 @@ def wave_steps(rec, fn, M: int, N: int, m, n, clock_mhz: float, mode: str, lanes
     warps' steps summed. A lane steps n_b + the place of the thread holding
     row m_b in its warp + 40 for each warp before it; the warps of a block
     that meets at barriers (K2/K7, or more than one warp a lane) step
-    together to its longest lane, in groups of 8."""
+    together to its longest lane, in groups of 8. ``pair``: K26's pair form,
+    whose warps each step a lane pair to the longer of its two lanes."""
     import torch
 
     from parallel_genomeseq_tpu_torch.ops import wavefront_cuda
 
     B = m.shape[0]
     sh = wavefront_cuda.launch_shape(M, B, affine="affine" in fn.__name__, mode=mode,
-                                     lanes=lanes, warps=warps, ncodes=ncodes, parity=parity)
+                                     lanes=lanes, warps=warps, ncodes=ncodes, parity=parity,
+                                     pair=pair)
     rows, L, W = sh["rows"], sh["lanes"], sh["warps"]
     mb, nb = m.clamp(0, M).long(), n.clamp(0, N).long()
     g = (mb - 1).clamp(min=0) // rows  # the thread holding row m_b, over the lane's warps
     steps = torch.where((mb > 0) & (nb > 0), nb + g % 32 + g // 32 * 40, 0)
+    if pair:  # a unit of two lanes steps to the longer
+        steps = torch.nn.functional.pad(steps, (0, B % 2)).view(-1, 2).max(1).values
+        B = steps.shape[0]
     if mode == "moves" or W > 1:
         steps = torch.nn.functional.pad(steps, (0, -B % L)).view(-1, L).max(1).values
         steps = (steps + 7) // 8 * 8 * L * W
@@ -2954,7 +2974,15 @@ def a12_phase(args, card: str, clock: float, dev, dna_data, full_rates, long):
 # parity forms) and K27 (csrc/strips.cu). Operations a cell as OPS_PER_CELL
 # counts K1/K2 and K11, plus the clamp (1), and under the skewed tie the raw
 # key's compare (1) where the argmax is kept; PARITY_STEP_OPS, the same
-# added to what K1/K2's step executes a cell.
+# added to what K1/K2's step executes a cell. The pair form (two lanes a
+# word in 16-bit halves, csrc/parity.cuh) does the same work at two cells
+# an operation, so the least time the card could take, ``bound_ms``, is at
+# half the int32 count, and ``int32_bound_ms`` is at the int32 count (the
+# count K1/K2's and K11's bounds take). Every case times the form the launch
+# rule takes (``ms``, ``form``), the cases with a pair form both forms
+# (``int32_ms``, ``pair_ms``), beside the time of the kernels' first form
+# (int32 only, every cell's key) in the same case on the same card model
+# (PARITY_FIRST_FORM_MS, PERF.md section 6).
 SAT_KW = dict(match=3, mismatch=-3, gap=2, sat=True)  # scan_dp.sat_operands(3, -3, 2)
 PARITY_OPS = {("score_only", "colmajor"): 2 + 3 + 1 + 1, ("score_only", "skewed"): 2 + 3 + 1 + 1,
               ("track_pos", "colmajor"): 2 + 3 + 2 + 1, ("track_pos", "skewed"): 2 + 3 + 2 + 2,
@@ -2963,6 +2991,14 @@ PARITY_STEP_OPS = {("score_only", "colmajor"): 5 + 0.5 + 1, ("score_only", "skew
                  ("track_pos", "colmajor"): 5 + 0.5 + 1, ("track_pos", "skewed"): 5 + 0.5 + 2,
                  ("moves", "colmajor"): 5 + 0.5 + 7 + 1, ("moves", "skewed"): 5 + 0.5 + 7 + 2}
 PARITY_STRIP_OPS = {"colmajor": 2 + 3 + 2 + 1, "skewed": 2 + 3 + 2 + 2}
+PARITY_FIRST_FORM_MS = {"windows_score_only": 0.369, "windows_skewed": 0.672,
+                        "npiece1_skewed": 2.217, "npiece1_colmajor": 1.916,
+                        "npiece1_skewed_argmax": 0.741, "plateau_skewed": 1.849,
+                        "plateau_colmajor": 1.823, "branches_skewed": 0.263, "sweep": 162.237,
+                        "reduced_skewed": 10.412}
+# K26's moves curve at --parity-mode skewed's launch: (warps a lane, lanes a
+# block).
+PARITY_MOVES_CURVE = [(w, l) for w in (1, 2) for l in (1, 2, 4, 8)]
 # K26 and K27: (wrapper, source, the JAX device code they replace, the case
 # the JSON line quotes first).
 PARITY_KERNELS = [
@@ -3070,6 +3106,27 @@ def check_sat_windows_sampled(reads, ref, rows, results, seed: int, count: int =
     print(f"saturating oracle check: {count} sampled reads of the 17-window run agree")
 
 
+def key_search_ms(fn, run, reps: int):
+    """The skewed tie's key search in one call: (ms of ``run``'s K26/K27
+    launch with every cell's key -- tie code 2, the rule past the 2^31 key
+    bound, taken at any shape by replacing ``wavefront_cuda.key_rule`` for
+    the call --, then ms of it with the key at the wrap row, the launch's
+    own rule; the launch's output with every cell's key). Raises unless
+    ``fn.forms`` shows those launches took every cell's key."""
+    from parallel_genomeseq_tpu_torch.ops import wavefront_cuda
+
+    rule, before = wavefront_cuda.key_rule, fn.forms["every_cell"]
+    wavefront_cuda.key_rule = lambda M, N: "every_cell"
+    try:
+        got = run()
+        every_ms = cuda_ms(run, reps)
+    finally:
+        wavefront_cuda.key_rule = rule
+    if fn.forms["every_cell"] == before:
+        raise AssertionError(f"{fn.__name__}: no launch took every cell's key")
+    return every_ms, cuda_ms(run, reps), got
+
+
 def check_parity_kernels(reads, ref, batch: int, clock: float, dev):
     """K26 against its plain version on the card, exactly, both ties: the
     8,704 window lanes of ``--semantics sat_uint8`` (score-only, and the
@@ -3094,29 +3151,76 @@ def check_parity_kernels(reads, ref, batch: int, clock: float, dev):
     def on_card(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
-    def case(label, xs, ys, m, n, tie, mode):
+    def forced(xs, ys, m, n, pair):
+        """The score-only windows in the form asked for (the wrapper's
+        launch, uncounted)."""
+        return wavefront_cuda._launch(xs, ys, m, n, match=SAT_KW["match"],
+                                      mismatch=SAT_KW["mismatch"], gap_open=0,
+                                      gap=SAT_KW["gap"], track_pos=False, moves=None,
+                                      parity=(True, 0, pair))
+
+    def case(label, xs, ys, m, n, tie, mode, curve=False):
         kw = dict(SAT_KW, tie=tie)
         if mode == "moves":
             kw["emit_moves"] = True
         else:
             kw["track_pos"] = mode != "score_only"
+        forms = dict(fn.forms)
         got = fn(xs, ys, m, n, **kw)
+        form = next(f for f in ("pair", "int32") if fn.forms[f] > forms.get(f, 0))
         want, plain_ms = timed(lambda: plain(xs, ys, m, n, **kw))
-        err = max_abs_err(got[:3], want[:3])
-        if mode == "moves":
-            err = max(err, moves_err(got[3], want[3], m, n))
+
+        def err_of(out):
+            err = max_abs_err(out[:3], want[:3])
+            if mode == "moves":
+                err = max(err, moves_err(out[3], want[3], m, n))
+            return err
+
+        err = err_of(got)
+        rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}, {mode}, "
+                        f"{tie} tie", "plain_ms": plain_ms, "form": form,
+               "saturated_lanes": int((got[0] == 255).sum())}
+        rec["ms"] = cuda_ms(lambda: fn(xs, ys, m, n, **kw), 10)
+        rec[f"{form}_ms"] = rec["ms"]
+        if mode == "score_only":  # the other form, held to the plain version too, and timed
+            other = "int32" if form == "pair" else "pair"
+            err = max(err, err_of(forced(xs, ys, m, n, other == "pair")))
+            rec[f"{other}_ms"] = cuda_ms(lambda: forced(xs, ys, m, n, other == "pair"), 10)
+        rec["first_form_ms"] = PARITY_FIRST_FORM_MS[label]
+        if curve:  # the moves launch's curve, each point held to the plain version
+            rec["moves_curve"] = {}
+            for w, L in PARITY_MOVES_CURVE:
+                run = lambda: fn(xs, ys, m, n, warps=w, lanes=L, **kw)
+                err = max(err, err_of(run()))
+                rec["moves_curve"][f"W{w}_L{L}"] = cuda_ms(run, 5)
+        if tie == "skewed" and mode != "score_only":  # the key search, in this call
+            rec["every_cell_ms"], rec["wrap_row_ms"], alt = key_search_ms(
+                fn, lambda: fn(xs, ys, m, n, **kw), 10)
+            err = max(err, err_of(alt))
+            del alt
+        rec["max_abs_err"] = err
         del want
         cells, seq_bytes = lane_work(m, n)
         nbytes = seq_bytes + LANE_BYTES * xs.shape[0] + (cells if mode == "moves" else 0)
-        rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}, {mode}, "
-                        f"{tie} tie", "max_abs_err": err, "plain_ms": plain_ms,
-               "ms": cuda_ms(lambda: fn(xs, ys, m, n, **kw), 10),
-               "saturated_lanes": int((got[0] == 255).sum())}
-        rec["bound_ms"], rec["bound_by"] = bound(cells * PARITY_OPS[mode, tie], nbytes, clock)
+        rec["bound_ms"], rec["bound_by"] = bound(cells * PARITY_OPS[mode, tie] / 2, nbytes, clock)
+        rec["int32_bound_ms"] = bound(cells * PARITY_OPS[mode, tie], nbytes, clock)[0]
         rec["issued_bound_ms"] = bound(cells * PARITY_STEP_OPS[mode, tie], nbytes, clock)[0]
-        wave_steps(rec, fn, xs.shape[1], ys.shape[1], m, n, clock, mode, parity=True)
+        wave_steps(rec, fn, xs.shape[1], ys.shape[1], m, n, clock, mode, parity=True,
+                   pair=form == "pair")
         out[fn.__name__][label] = rec
         report("K26 sw_score_parity", label, rec)
+        both = (f"pair {rec['pair_ms']:.3f} ms, int32 {rec['int32_ms']:.3f} ms"
+                if mode == "score_only" else f"{form} {rec['ms']:.3f} ms")
+        print(f"    K26 {label}: {form} form by the rule; {both}, first form "
+              f"{rec['first_form_ms']:.3f} ms; bound {rec['bound_ms']:.3f} ms at the pair count, "
+              f"{rec['int32_bound_ms']:.3f} ms at the int32 count; {CARD}")
+        if curve:
+            print("    K26 moves curve (int32 form; rows a thread follow W: 4 at W=1, 2 at W=2; "
+                  "every point equal to the plain version): " + ", ".join(
+                      f"{k} {v:.3f} ms" for k, v in rec["moves_curve"].items()))
+        if "every_cell_ms" in rec:
+            print(f"    K26 {label}: the skewed key at the wrap row {rec['wrap_row_ms']:.3f} ms, "
+                  f"every cell's key {rec['every_cell_ms']:.3f} ms ({form} form, this call)")
         return got
 
     batch_reads = reads[:batch]
@@ -3125,7 +3229,7 @@ def check_parity_kernels(reads, ref, batch: int, clock: float, dev):
     case("windows_score_only", *lanes, "colmajor", "score_only")
     case("windows_skewed", *lanes, "skewed", "track_pos")
     full = on_card(*aligner.pad_batch(batch_reads, [ref]))
-    got = case("npiece1_skewed", *full, "skewed", "moves")
+    got = case("npiece1_skewed", *full, "skewed", "moves", curve=True)
     xs, ys = full[:2]
     walk_inputs = (got[3], xs.T.contiguous(), ys, got[1], got[2],
                    aligner.max_steps(xs.shape[1], ys.shape[1]))
@@ -3179,20 +3283,56 @@ def check_parity_strips(reads, ref, clock: float, dev):
     def on_card(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
+    def forced(xs, ys, m, n, pair):
+        """The column-major sweep in the form asked for (the wrapper's
+        launch, uncounted)."""
+        return strips_cuda._sweep(xs, ys, m, n, match=SAT_KW["match"],
+                                  mismatch=SAT_KW["mismatch"], gap=SAT_KW["gap"], ckpt=False,
+                                  sat=True, skewed=0, pair=pair)
+
     def case(label, xs, ys, m, n, tie, held):
         kw = dict(SAT_KW, tie=tie)
+        forms = dict(fn.forms)
         got = fn(xs, ys, m, n, **kw)
+        form = next(f for f in ("pair", "int32") if fn.forms[f] > forms.get(f, 0))
         want, plain_ms = timed(lambda: plain(xs[held], ys[held], m[held], n[held], **kw))
         cells, seq_bytes = lane_work(m, n)
         rec = {"shape": f"{xs.shape[0]} lanes, M={xs.shape[1]}, N={ys.shape[1]}, {tie} tie",
                "max_abs_err": max_abs_err([g[held] for g in got], want),
-               "ms": cuda_ms(lambda: fn(xs, ys, m, n, **kw), 3), "plain_ms": plain_ms,
-               "plain_lanes": int(m[held].shape[0])}
-        rec["bound_ms"], rec["bound_by"] = bound(cells * PARITY_STRIP_OPS[tie],
+               "form": form, "plain_ms": plain_ms, "plain_lanes": int(m[held].shape[0])}
+        del got
+        other = None
+        if tie == "colmajor":  # the other form, held to the plain version too
+            other = "int32" if form == "pair" else "pair"
+            alt = forced(xs, ys, m, n, other == "pair")
+            rec["max_abs_err"] = max(rec["max_abs_err"], max_abs_err([g[held] for g in alt], want))
+            del alt
+        if tie == "skewed":  # the key search, in this call
+            rec["every_cell_ms"], rec["wrap_row_ms"], alt = key_search_ms(
+                fn, lambda: fn(xs, ys, m, n, **kw), 3)
+            rec["max_abs_err"] = max(rec["max_abs_err"],
+                                     max_abs_err([g[held] for g in alt], want))
+            del alt
+        rec["ms"] = cuda_ms(lambda: fn(xs, ys, m, n, **kw), 3)
+        rec[f"{form}_ms"] = rec["ms"]
+        if other:
+            rec[f"{other}_ms"] = cuda_ms(lambda: forced(xs, ys, m, n, other == "pair"), 3)
+        rec["first_form_ms"] = PARITY_FIRST_FORM_MS[label]
+        rec["bound_ms"], rec["bound_by"] = bound(cells * PARITY_STRIP_OPS[tie] / 2,
                                                  seq_bytes + LANE_BYTES * xs.shape[0], clock)
-        sweep_steps(fn, rec, xs.shape[1], n, clock)
+        rec["int32_bound_ms"] = bound(cells * PARITY_STRIP_OPS[tie],
+                                      seq_bytes + LANE_BYTES * xs.shape[0], clock)[0]
+        sweep_steps(fn, rec, xs.shape[1], n, clock, pair=form == "pair")
         out[fn.__name__][label] = rec
         report("K27 sw_score_strips_parity", label, rec)
+        both = (f"pair {rec['pair_ms']:.3f} ms, int32 {rec['int32_ms']:.3f} ms" if other
+                else f"{form} {rec['ms']:.3f} ms")
+        print(f"    K27 {label}: {form} form by the rule; {both}, first form "
+              f"{rec['first_form_ms']:.3f} ms; bound {rec['bound_ms']:.3f} ms at the pair count, "
+              f"{rec['int32_bound_ms']:.3f} ms at the int32 count; {CARD}")
+        if "every_cell_ms" in rec:
+            print(f"    K27 {label}: the skewed key at the wrap row {rec['wrap_row_ms']:.3f} ms, "
+                  f"every cell's key {rec['every_cell_ms']:.3f} ms ({form} form, this call)")
 
     xs, ys, m, n, _ = chunked.window_lanes(reads, ref)
     case("sweep", *on_card(xs, ys, m, n), "colmajor", slice(0, 2 * BIG["npiece"]))
@@ -3232,8 +3372,22 @@ def parity_phase(args, card: str, clock: float, dev, dna_data, long):
 
     data = ROOT / "data" / "chip_smoke"
     k26, k3 = wavefront_cuda.sw_score_parity, traceback.walk_moves
+    k27 = strips_cuda.sw_score_strips_parity
     absent = (wavefront_cuda.sw_score, wavefront_cuda.sw_score_moves)
     runs = {}
+    forms_before = {}
+
+    def forms_of(run):
+        """Print (and keep under the run's launches) the forms its K26 and
+        K27 launches took, by form and key rule."""
+        for fn in (k26, k27):
+            took = dict(fn.forms - forms_before.get(fn.__name__, collections.Counter()))
+            forms_before[fn.__name__] = collections.Counter(fn.forms)
+            if took and run in runs:
+                runs[run][f"{fn.__name__}_forms"] = took
+                print(f"    {run}: {fn.__name__} launched {took}")
+
+    forms_of("the kernel checks")
     base = ["--ref", str(ref_path), "--input", str(csv_path), "--batch-size",
             str(args.batch_size), "--device", str(dev)]
     out_csv = data / "align_output_parity.csv"
@@ -3241,6 +3395,7 @@ def parity_phase(args, card: str, clock: float, dev, dna_data, long):
         "--parity-mode skewed", base + ["--output", str(out_csv), "--parity-mode", "skewed"],
         LINEAR, reads, ref, out_csv, card, args.seed, counters=(k26, k3), absent=absent,
         check=check_parity_sampled)
+    forms_of("solve_small_parity")
     # The same aligner on the plain route, on the card: the first 1,024 rows.
     limit = 2 * args.batch_size
     plain = BatchSWAligner(ScoringConfig(semantics=Semantics.SAT_UINT8), tie="skewed",
@@ -3263,11 +3418,13 @@ def parity_phase(args, card: str, clock: float, dev, dna_data, long):
         "--semantics sat_uint8", base + ["--output", str(out_csv), "--semantics", "sat_uint8"],
         LINEAR, reads, ref, out_csv, card, args.seed, counters=(k26, k3), absent=absent,
         check=check_sat_windows_sampled)
+    forms_of("solve_small_sat")
     run, runs["solve_big_sat"] = big_run(
         "7 1 --semantics sat_uint8", [str(BIG["npiece"]), "1", "--device", str(dev),
                                       "--semantics", "sat_uint8"],
         (strips_cuda.sw_score_strips_parity,), data_dir / "reads.csv", data_dir / "ref.fa",
         absent=(strips_cuda.sw_score_strips,))
+    forms_of("solve_big_sat")
     if any(r.score != 255 for r in run.results):
         raise AssertionError("solve_big --semantics sat_uint8: an exact 10,000-bp read below 255")
     print(f"solve_big --semantics sat_uint8 on {card}: {run.seconds[0] * 1e3:.1f} ms, "

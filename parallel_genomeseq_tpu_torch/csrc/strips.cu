@@ -59,18 +59,27 @@
 //     `_kernel_strip_profile_affine_moves` (:2070) via
 //     `_call_strip_profile_affine_moves` (:2149): K17's replay and affine
 //     byte with the table's cell score.
-// K27 `strip_sweep_kernel<false, false, false, kBand, true>` (kParity)
+// K27 `strip_sweep_kernel<false, false, false, kBand, true, kPair>` (kParity)
 //     replaces JAX device code with no Pallas call: the `lax.scan` wavefront
 //     of parallel_genomeseq_tpu/ops/scan_dp.py (`_wavefront` :93, `_dp_step`
 //     :58) at strip length under Semantics.SAT_UINT8 (`solve_big
 //     --semantics sat_uint8`'s window sweep, 10,008 rows). K11 with each H
 //     clamped at `cap` (255 under saturation, the operands clipped to [0,
 //     255] by ops/scan_dp.sat_operands, which makes the saturating step the
-//     exact one clamped) and, when `skewed` is set, the reference binary's
-//     skewed tie instead of the column-major one: each thread keeps its
-//     cell of the maximum score of least raw key rj * (M + 33) + ri, then
-//     least row and column, and the block reduces in that order (as K26,
-//     csrc/wavefront.cu), so passes and bands need no order between them.
+//     exact one clamped) and, when `skewed` is set (csrc/parity.cuh's Tie),
+//     the reference binary's skewed tie instead of the column-major one:
+//     each thread keeps its cell of the maximum score of least raw key rj *
+//     (M + 33) + ri, found at the wrap row (csrc/wavefront.cu's K26 says
+//     how), then least row and column, and the block reduces in that order,
+//     so passes and bands need no order between them. Its pair form (kPair,
+//     the column-major tie under saturation with uniform scores; the
+//     skewed tie runs the int32 form): a block sweeps lanes 2b and 2b + 1,
+//     each thread word a row of both in signed 16-bit halves stepped by DPX
+//     s16x2 instructions (parity.cuh's PairStep); the hand-off shuffles, the
+//     rings and the between-pass bound row carry the packed word, one a
+//     column for the two lanes; each half keeps its own best, masked past
+//     its lane's m_b and n_b, and the block reduces the halves one after the
+//     other.
 //
 // Design of K11/K12, a column step without a block barrier. One thread
 // block per lane. Its T threads split the lane's rows into bands of kBand
@@ -202,6 +211,8 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "parity.cuh"
+
 namespace {
 
 constexpr int kNarrow = 16;             // rows per thread of a sweep: narrow bands,
@@ -245,33 +256,6 @@ __device__ __forceinline__ bool better(int v1, int j1, int i1, int v2, int j2,
                                        int i2) {
   return v1 > v2 || (v1 == v2 && (j1 < j2 || (j1 == j2 && i1 < i2)));
 }
-
-// K27's skewed order: higher score, then smaller raw key, then i, then j.
-__device__ __forceinline__ bool better_skewed(int v1, int k1, int i1, int j1, int v2, int k2,
-                                              int i2, int j2) {
-  return v1 > v2 ||
-         (v1 == v2 && (k1 < k2 || (k1 == k2 && (i1 < i2 || (i1 == i2 && j1 < j2)))));
-}
-
-// The raw key of cell (i, j) under the skewed tie (csrc/wavefront.cu's
-// RawKey, ops/scan_dp.skewed_keys): s = i + j; rj = s up to max(mb, nb),
-// s - max - 1 past it; ri = j unless nb > mb, where ri = j below min(mb,
-// nb), j - (nb - mb) past the max and mb - i between; key = rj * (M + 33) +
-// ri, wrapping, M the padded read length.
-struct RawKey {
-  int mb, minmn, maxmn, dnm, mult;
-  bool ngtm;
-  __device__ RawKey(int mb_, int nb_, int M)
-      : mb(mb_), minmn(min(mb_, nb_)), maxmn(max(mb_, nb_)), dnm(nb_ - mb_), mult(M + 33),
-        ngtm(nb_ > mb_) {}
-  __device__ __forceinline__ int operator()(int i, int j) const {
-    const int s = i + j;
-    const int ri = !ngtm || s < minmn ? j : s > maxmn ? j - dnm : mb - i;
-    const int rj = s <= maxmn ? s : s - maxmn - 1;
-    return static_cast<int>(static_cast<unsigned>(rj) * static_cast<unsigned>(mult) +
-                            static_cast<unsigned>(ri));
-  }
-};
 
 // The score of cell (x byte or code xc, y byte or code yc): uniform
 // match/mismatch, or (kProfile) the word xc of the column's table row.
@@ -331,6 +315,34 @@ __device__ __forceinline__ int band_column(int (&h)[kRows],
   int colmax = 0;
 #pragma unroll
   for (int k = 0; k < kRows; k += 2) colmax = __vimax3_s32(colmax, h[k], h[k + 1]);
+  return colmax;
+}
+
+// The pair form of band_column (K27 under saturation, kPair): h holds
+// H(., j - 1) of the band's rows of two lanes, one a 16-bit half
+// (parity.cuh's PairStep), on entry and H(., j) on return; xp the rows'
+// read bytes and yp the column's reference bytes, one a half. Returns each
+// half's maximum over the band.
+template <int kRows>
+__device__ __forceinline__ uint32_t band_column_pair(uint32_t (&h)[kRows],
+                                                     const uint32_t (&xp)[kRows], uint32_t yp,
+                                                     const PairStep& step, uint32_t nw,
+                                                     uint32_t north) {
+  uint32_t a[kRows];
+  uint32_t diag = nw;
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    a[k] = step.off_chain(xp[k], yp, diag, h[k]);
+    diag = h[k];
+  }
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    h[k] = step.chain(north, a[k]);
+    north = h[k];
+  }
+  uint32_t colmax = 0;
+#pragma unroll
+  for (int k = 0; k < kRows; k += 2) colmax = __vimax3_s16x2(colmax, h[k], h[k + 1]);
   return colmax;
 }
 
@@ -417,26 +429,30 @@ __device__ __forceinline__ int y_code(const uint8_t* yl, int k, int ncodes) {
 
 // K11 (kCkpt = false) and K12 (kCkpt = true), with kAffine K15 and K16,
 // with kProfile K19 and K20, with both K22 and K23; with kParity alone K27
-// (H clamped at cap, the skewed tie when `skewed` is set). x: lane b's read at x +
-// b * x_lane, uint8 bytes (codes when kProfile; x_lane = 0 shares one query
-// between lanes); y: lane b's reference at y + b * N, or at y + y_off[b]
-// when y_off is given (a flat slab of y_len bytes; n_b is then clamped to
-// the bytes past the offset).
+// (H clamped at cap, the tie `skewed` of parity.cuh), and with kPair too
+// K27's pair form (cap 255, uniform scores, the column-major tie): block b
+// sweeps lanes 2b and 2b + 1, each thread word holding a row of both, a
+// 16-bit half each. x: lane
+// b's read at x + b * x_lane, uint8 bytes (codes when kProfile; x_lane = 0
+// shares one query between lanes); y: lane b's reference at y + b * N, or
+// at y + y_off[b] when y_off is given (a flat slab of y_len bytes; n_b is
+// then clamped to the bytes past the offset). B the lanes.
 // bound: scratch of the hand-off type (int32, or int2 (H, F) when affine),
-// lane b's row at bound_off[b] if given, else b * (N + 1); used when passes
-// > 1. ck (B, nck, N) int32 zero-filled by the caller, ck[b][c][j - 1] =
-// H((c + 1) * kStrip, j) (1-based rows); fck the same shape, filled with
-// kNeg by the caller, fck[b][c][j - 1] = F((c + 1) * kStrip, j) (K16 and
-// K23 only). table (ncodes, ncodes) int32 over compact codes (kProfile
-// only). kBand: rows per thread, kNarrow or kWide. Dynamic shared memory:
-// the table (table_bytes(ncodes), kProfile only), then each warp's ring of
-// kRing hand-off words and one more for the bound row.
-template <bool kCkpt, bool kAffine, bool kProfile, int kBand, bool kParity>
+// lane b's row at bound_off[b] if given, else b * (N + 1) (kPair: lane pair
+// b's, a packed word a column); used when passes > 1. ck (B, nck, N) int32
+// zero-filled by the caller, ck[b][c][j - 1] = H((c + 1) * kStrip, j)
+// (1-based rows); fck the same shape, filled with kNeg by the caller,
+// fck[b][c][j - 1] = F((c + 1) * kStrip, j) (K16 and K23 only). table
+// (ncodes, ncodes) int32 over compact codes (kProfile only). kBand: rows per
+// thread, kNarrow or kWide. Dynamic shared memory: the table
+// (table_bytes(ncodes), kProfile only), then each warp's ring of kRing
+// hand-off words and one more for the bound row.
+template <bool kCkpt, bool kAffine, bool kProfile, int kBand, bool kParity, bool kPair = false>
 __global__ void __launch_bounds__(max_threads(kBand))
 strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
                    const uint8_t* __restrict__ y, const int64_t* __restrict__ y_off,
                    long long y_len, const int32_t* __restrict__ m,
-                   const int32_t* __restrict__ n, int M, int N,
+                   const int32_t* __restrict__ n, int M, int N, int B,
                    const int32_t* __restrict__ table, int ncodes, int match,
                    int mismatch, int gap_open, int gap, int cap, int skewed, int passes,
                    void* __restrict__ bound, const int64_t* __restrict__ bound_off,
@@ -444,7 +460,10 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
                    int32_t* __restrict__ score, int32_t* __restrict__ best_i,
                    int32_t* __restrict__ best_j) {
   static_assert(!kParity || (!kCkpt && !kAffine && !kProfile), "K27 is K11's form only");
-  using Carry = std::conditional_t<kAffine, int2, int>;  // hand-off: H, or (H, F)
+  static_assert(!kPair || kParity, "the pair form is K27's");
+  constexpr int P = kPair ? 2 : 1;  // lanes a block
+  using Carry = std::conditional_t<kAffine, int2, int>;  // hand-off: H (a pair's two), or (H, F)
+  using Cell = std::conditional_t<kPair, uint32_t, int>;  // a row's H, or a pair's two
   // Per pass parity: done[.][w] counts the columns warp w has handed to warp
   // w + 1, used[.][w] those warp w has taken from warp w - 1.
   __shared__ int done[2][kMaxWarps];
@@ -464,25 +483,51 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
     done[0][w] = 0;
     used[0][w] = 0;
   }
-  const int mb = min(m[b], M);
-  int nb = min(n[b], N);
-  long long off = (long long)b * N;
-  if (y_off) {
-    off = y_off[b];
-    if (off < 0 || off > y_len) {
-      nb = 0;
-    } else if ((long long)nb > y_len - off) {
-      nb = (int)(y_len - off);
+  int mbv[P], nbv[P];  // each lane's lengths
+  const uint8_t* xl[P];
+  const uint8_t* yl[P];
+#pragma unroll
+  for (int v = 0; v < P; ++v) {
+    const int lb = kPair ? min(2 * b + v, B - 1) : b;  // an empty half reads lane 2b's bytes
+    const bool has = !kPair || 2 * b + v < B;
+    mbv[v] = has ? min(m[lb], M) : 0;
+    nbv[v] = has ? min(n[lb], N) : 0;
+    long long off = (long long)lb * N;
+    if (y_off) {
+      off = y_off[lb];
+      if (off < 0 || off > y_len) {
+        nbv[v] = 0;
+      } else if ((long long)nbv[v] > y_len - off) {
+        nbv[v] = (int)(y_len - off);
+      }
     }
+    if (kPair && (mbv[v] <= 0 || nbv[v] <= 0)) mbv[v] = nbv[v] = 0;  // an empty half
+    xl[v] = x + (size_t)lb * x_lane;
+    yl[v] = y + off;
   }
-  const uint8_t* xl = x + (size_t)b * x_lane;
-  const uint8_t* yl = y + off;
+  const int mb = max(mbv[0], mbv[P - 1]);  // the block's rows and columns
+  const int nb = max(nbv[0], nbv[P - 1]);
   Carry* bl = bound ? static_cast<Carry*>(bound) +
                           (bound_off ? (size_t)bound_off[b] : (size_t)b * (N + 1))
                     : nullptr;
-  int best = 0, bi = 0, bj = 0;
-  int bkey = 0x7fffffff;  // K27, skewed: the raw key of (bi, bj)
-  const bool by_key = kParity && skewed;
+  Cell best = 0;  // kPair: each half's best
+  int bi[P], bj[P], bkey[P];  // K27, skewed: bkey the raw key of (bi, bj)
+#pragma unroll
+  for (int v = 0; v < P; ++v) {
+    bi[v] = bj[v] = 0;
+    bkey[v] = 0x7fffffff;
+  }
+  const bool by_key = kParity && !kPair && skewed != kColmajor;
+  const PairStep pstep(match, mismatch, gap);
+  // Column k + 1's reference byte, or (kProfile) its clamped code, or
+  // (kPair) the two lanes' bytes, a half each.
+  const auto y_at = [&](int k) -> int {
+    if constexpr (kPair) {
+      return yl[0][k] | yl[P - 1][k] << 16;
+    } else {
+      return y_code<kProfile>(yl[0], k, ncodes);
+    }
+  };
   for (int p = 0; p < passes; ++p) {
     // The previous pass is over (its bound row complete), this pass's counts
     // are 0 and the table is loaded.
@@ -503,14 +548,33 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
     // which warp 0 fills from device memory a group at a time; this warp's.
     const int ring_in = (takes ? w - 1 : W) * kRing;
     const int row0 = wrow0 + lane * kBand;  // 0-based first row of the band
-    const int nvalid = min(max(mb - row0, 0), kBand);
-    uint8_t xb[kBand];
-    int h[kBand];
+    int nvalid[P];  // the band's rows up to each lane's m_b
+#pragma unroll
+    for (int v = 0; v < P; ++v) nvalid[v] = min(max(mbv[v] - row0, 0), kBand);
+    const int nv = max(nvalid[0], nvalid[P - 1]);
+    // The pair form: a half past its n_b, or a band wholly past its m_b,
+    // counts nothing in the best; the band holding a lane's m_b masks its
+    // rows past it.
+    int ncount[P];
+#pragma unroll
+    for (int v = 0; v < P; ++v) ncount[v] = nvalid[v] > 0 ? nbv[v] : 0;
+    const bool straddle = kPair && ((nvalid[0] > 0 && nvalid[0] < kBand) ||
+                                    (nvalid[P - 1] > 0 && nvalid[P - 1] < kBand));
+    uint32_t vbits[P];  // the skewed search's rows: bit k for each row up to m_b
+#pragma unroll
+    for (int v = 0; v < P; ++v) vbits[v] = nvalid[v] >= 32 ? ~0u : (1u << nvalid[v]) - 1u;
+    std::conditional_t<kPair, uint32_t, uint8_t> xb[kBand];
+    Cell h[kBand];
     int e[kBand];  // affine only: E(., j - 1), kNeg in column 0
 #pragma unroll
     for (int k = 0; k < kBand; ++k) {
-      xb[k] = row0 + k < M ? xl[row0 + k] : 0;
-      if (kProfile) xb[k] = clamp_code(xb[k], ncodes);
+      if constexpr (kPair) {
+        xb[k] = row0 + k < M ? xl[0][row0 + k] | static_cast<uint32_t>(xl[P - 1][row0 + k]) << 16
+                             : 0u;
+      } else {
+        xb[k] = row0 + k < M ? xl[0][row0 + k] : 0;
+        if (kProfile) xb[k] = clamp_code(xb[k], ncodes);
+      }
       h[k] = 0;
       e[k] = kNeg;
     }
@@ -518,21 +582,21 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
     // past the lane's m_b the caller's fill (H = 0, F = kNeg) stands.
     const int c = (row0 + kBand) / kStrip - 1;
     const bool writes_ck = kCkpt && (row0 + kBand) % kStrip == 0 && c < nck &&
-                           nvalid == kBand;
-    int nw = 0;        // H(row0, j - 1): the previous column's north input
+                           nvalid[0] == kBand;
+    Cell nw = 0;       // H(row0, j - 1): the previous column's north input
     int flast = kNeg;  // affine: F of the band's last row in the column it finished last
     int yc = 0;        // the code of this band's column
     // The reference 32 columns a word, one a lane, loaded one word ahead:
     // lane l of word k holds column 32k + l + 1's code.
     int ycur = 0;
-    int ynext = lane < nb ? y_code<kProfile>(yl, lane, ncodes) : 0;
+    int ynext = lane < nb ? y_at(lane) : 0;
     // Steps in groups of kGroup: lane 0 takes columns s0 + 1 .. s0 + kGroup of
     // a group at step s0, lane 31 hands on columns s0 - 30 .. s0 - 23.
     for (int s0 = 0; s0 < nb + 31; s0 += kGroup) {
       if ((s0 & 31) == 0) {
         ycur = ynext;
         const int k = s0 + 32 + lane;
-        ynext = k < nb ? y_code<kProfile>(yl, k, ncodes) : 0;
+        ynext = k < nb ? y_at(k) : 0;
       }
       // Warp-uniform waits at the group's head: for warp w - 1's output of
       // the columns lane 0 takes, and for warp w + 1 to have taken the
@@ -554,7 +618,7 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
         if constexpr (kAffine) {
           in = shfl_up1(make_int2(h[kBand - 1], flast));
         } else {
-          in = shfl_up1(h[kBand - 1]);
+          in = shfl_up1(static_cast<int>(h[kBand - 1]));
         }
         yc = shfl_up1(yc);
         const int yfirst = shfl_from(ycur, s & 31);
@@ -568,70 +632,112 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
         if (j >= 1 && j <= nb) {
           const int32_t* row = nullptr;  // kProfile: the column's table row
           if constexpr (kProfile) row = tab + yc * ncodes;
-          int colmax = 0;
-          int north;
+          Cell colmax = 0;
+          Cell north;
           Carry last;
           if constexpr (kAffine) {
             north = in.x;
             int f = in.y;
-            if (nvalid > 0) {
+            if (nv > 0) {
               colmax = band_column_affine<kProfile>(h, e, xb, yc, row, match, mismatch, gap_open,
                                                     gap, nw, north, f);
             } else {
               f = kNeg;  // a band wholly past m_b
             }
             last = make_int2(h[kBand - 1], f);
+          } else if constexpr (kPair) {
+            north = static_cast<uint32_t>(in);
+            if (nv > 0) {
+              colmax = band_column_pair(h, xb, static_cast<uint32_t>(yc), pstep, nw, north);
+            }
+            last = static_cast<int>(h[kBand - 1]);
           } else {
             north = in;
-            if (nvalid > 0) {
+            if (nv > 0) {
               colmax = band_column<kProfile, kParity>(h, xb, yc, row, match, mismatch, gap,
                                                       cap, nw, north);
             }
             last = h[kBand - 1];
           }
-          if (by_key) {
+          if constexpr (kPair) {
+            // Each half's best test, K11's: a higher score, or an equal one
+            // (> 0) at a smaller j, from an earlier pass's band.
+            const uint32_t cmask = (j <= ncount[0] ? 0xffffu : 0u) |
+                                   (j <= ncount[P - 1] ? 0xffff0000u : 0u);
+            colmax &= cmask;
+            bool go_hi, go_lo;
+            if (j < max(bj[0], bj[P - 1])) {  // colmax >= max(best, 1)
+              __vibmax_s16x2(colmax, __vimax_s16x2_relu(best, 0x00010001u), &go_hi, &go_lo);
+            } else {  // not best >= colmax: only a higher score wins past a half's best column
+              __vibmax_s16x2(best, colmax, &go_hi, &go_lo);
+              go_hi = !go_hi;
+              go_lo = !go_lo;
+            }
+            if (go_lo || go_hi) {
+              if (straddle) {  // each half's rows up to its m_b only
+                colmax = 0;
+#pragma unroll
+                for (int k = 0; k < kBand; ++k) {
+                  colmax = __vimax_s16x2_relu(
+                      colmax, h[k] & ((k < nvalid[0] ? 0xffffu : 0u) |
+                                      (k < nvalid[P - 1] ? 0xffff0000u : 0u)));
+                }
+                colmax &= cmask;
+              }
+#pragma unroll
+              for (int hh = 0; hh < P; ++hh) {
+                const int cv = half_of(colmax, hh);
+                const int bv = half_of(best, hh);
+                if (!(cv > bv || (cv == bv && cv > 0 && j < bj[hh]))) continue;
+                int kk = 0;
+#pragma unroll
+                for (int k = kBand - 1; k >= 0; --k) kk = half_of(h[k], hh) == cv ? k : kk;
+                best = hh ? (best & 0xffffu) | static_cast<uint32_t>(cv) << 16
+                          : (best & 0xffff0000u) | static_cast<uint32_t>(cv);
+                bi[hh] = row0 + kk + 1;
+                bj[hh] = j;
+              }
+            }
+          } else if (by_key) {
             // The column's cells of the maximum, if it reaches the best: the
             // least raw key, the least row on equal keys.
             if (colmax >= best && colmax > 0) {
-              if (nvalid < kBand) {  // the band holding m_b: its rows up to m_b only
+              if (nv < kBand) {  // the band holding m_b: its rows up to m_b only
                 colmax = 0;
 #pragma unroll
-                for (int k = 0; k < kBand; ++k) colmax = k < nvalid ? max(colmax, h[k]) : colmax;
+                for (int k = 0; k < kBand; ++k) colmax = k < nv ? max(colmax, h[k]) : colmax;
               }
-              if (colmax >= best && colmax > 0) {
-                int key = 0x7fffffff, kk = 0;
-                const RawKey raw_key(mb, nb, M);  // off the column loop's registers
+              if (colmax >= best && colmax > 0 &&
+                  (colmax > best || skewed != kSkewedWrap ||
+                   tie_may_win(mb, nb, M, row0, j, kBand, bkey[0]))) {
+                // The rows of the maximum, then the candidate's key.
+                uint32_t eq = 0;
 #pragma unroll
-                for (int k = kBand - 1; k >= 0; --k) {
-                  if (k < nvalid && h[k] == colmax) {
-                    const int c = raw_key(row0 + k + 1, j);
-                    if (c <= key) {
-                      key = c;
-                      kk = k;
-                    }
-                  }
-                }
-                if (better_skewed(colmax, key, row0 + kk + 1, j, best, bkey, bi, bj)) {
+                for (int k = 0; k < kBand; ++k) eq |= (h[k] == colmax ? 1u : 0u) << k;
+                const RawKey raw_key(mb, nb, M);  // off the column loop's registers
+                int key;
+                const int kk = candidate(eq & vbits[0], raw_key, row0, j, skewed, key);
+                if (better_skewed(colmax, key, row0 + kk + 1, j, best, bkey[0], bi[0], bj[0])) {
                   best = colmax;
-                  bkey = key;
-                  bi = row0 + kk + 1;
-                  bj = j;
+                  bkey[0] = key;
+                  bi[0] = row0 + kk + 1;
+                  bj[0] = j;
                 }
               }
             }
-          } else if (colmax > best || (colmax == best && colmax > 0 && j < bj)) {
-            if (nvalid < kBand) {  // the band holding m_b: its rows up to m_b only
+          } else if (colmax > best || (colmax == best && colmax > 0 && j < bj[0])) {
+            if (nv < kBand) {  // the band holding m_b: its rows up to m_b only
               colmax = 0;
 #pragma unroll
-              for (int k = 0; k < kBand; ++k) colmax = k < nvalid ? max(colmax, h[k]) : colmax;
+              for (int k = 0; k < kBand; ++k) colmax = k < nv ? max(colmax, h[k]) : colmax;
             }
-            if (colmax > best || (colmax == best && colmax > 0 && j < bj)) {
+            if (colmax > best || (colmax == best && colmax > 0 && j < bj[0])) {
               int kk = 0;
 #pragma unroll
               for (int k = kBand - 1; k >= 0; --k) kk = h[k] == colmax ? k : kk;
               best = colmax;
-              bj = j;
-              bi = row0 + kk + 1;
+              bj[0] = j;
+              bi[0] = row0 + kk + 1;
             }
           }
           if constexpr (kAffine) flast = last.y;
@@ -655,43 +761,49 @@ strip_sweep_kernel(const uint8_t* __restrict__ x, long long x_lane,
     }
     if (feeds && lane == 31) publish_count(&done[q][w], nb);  // the last columns
   }
-  // Block reduction of (best, bj, bi) (K27 skewed: and bkey, in its
-  // order): a warp by shuffles, then the warps.
+  // Block reduction of each lane's (best, bj, bi) (K27 skewed: and bkey, in
+  // its order): a warp by shuffles, then the warps.
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int v2 = __shfl_down_sync(kAll, best, off);
-    const int j2 = __shfl_down_sync(kAll, bj, off);
-    const int i2 = __shfl_down_sync(kAll, bi, off);
-    const int k2 = kParity ? __shfl_down_sync(kAll, bkey, off) : 0;
-    if (by_key ? better_skewed(v2, k2, i2, j2, best, bkey, bi, bj)
-               : better(v2, j2, i2, best, bj, bi)) {
-      best = v2;
-      bj = j2;
-      bi = i2;
-      bkey = k2;
-    }
-  }
-  if (lane == 0) {
-    red[0][w] = best;
-    red[1][w] = bj;
-    red[2][w] = bi;
-    red[3][w] = bkey;
-  }
-  __syncthreads();
-  if (t == 0) {
-    for (int v = 1; v < W; ++v) {
-      const int k2 = red[3][v];
-      if (by_key ? better_skewed(red[0][v], k2, red[2][v], red[1][v], best, bkey, bi, bj)
-                 : better(red[0][v], red[1][v], red[2][v], best, bj, bi)) {
-        best = red[0][v];
-        bj = red[1][v];
-        bi = red[2][v];
-        bkey = k2;
+  for (int hh = 0; hh < P; ++hh) {
+    int v = kPair ? half_of(best, hh) : static_cast<int>(best);
+    int vj = bj[hh], vi = bi[hh], vk = bkey[hh];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const int v2 = __shfl_down_sync(kAll, v, off);
+      const int j2 = __shfl_down_sync(kAll, vj, off);
+      const int i2 = __shfl_down_sync(kAll, vi, off);
+      const int k2 = kParity ? __shfl_down_sync(kAll, vk, off) : 0;
+      if (by_key ? better_skewed(v2, k2, i2, j2, v, vk, vi, vj) : better(v2, j2, i2, v, vj, vi)) {
+        v = v2;
+        vj = j2;
+        vi = i2;
+        vk = k2;
       }
     }
-    score[b] = best;
-    best_i[b] = best > 0 ? bi : 0;
-    best_j[b] = best > 0 ? bj : 0;
+    if (hh > 0) __syncthreads();  // thread 0 has read the first lane's red
+    if (lane == 0) {
+      red[0][w] = v;
+      red[1][w] = vj;
+      red[2][w] = vi;
+      red[3][w] = vk;
+    }
+    __syncthreads();
+    const int lb = kPair ? 2 * b + hh : b;
+    if (t == 0 && lb < B) {
+      for (int u = 1; u < W; ++u) {
+        const int k2 = red[3][u];
+        if (by_key ? better_skewed(red[0][u], k2, red[2][u], red[1][u], v, vk, vi, vj)
+                   : better(red[0][u], red[1][u], red[2][u], v, vj, vi)) {
+          v = red[0][u];
+          vj = red[1][u];
+          vi = red[2][u];
+          vk = k2;
+        }
+      }
+      score[lb] = v;
+      best_i[lb] = v > 0 ? vi : 0;
+      best_j[lb] = v > 0 ? vj : 0;
+    }
   }
 }
 
@@ -882,10 +994,10 @@ strip_moves_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ y,
 using SweepKernel = decltype(&strip_sweep_kernel<false, false, false, kNarrow, false>);
 
 // The sweep kernel of a form with kBand = rows: [kCkpt][kAffine][kProfile],
-// or with parity K27 (K11's form only); null where has_wide is false or
-// there is no such form.
+// or with parity K27 (K11's form only; with pair its pair form); null where
+// has_wide is false or there is no such form.
 template <int kRows>
-SweepKernel sweep_kernel(bool ckpt, bool affine, bool profile, bool parity) {
+SweepKernel sweep_kernel(bool ckpt, bool affine, bool profile, bool parity, bool pair) {
   static const SweepKernel kernels[2][2][2] = {
       {{&strip_sweep_kernel<false, false, false, kRows, false>,
         &strip_sweep_kernel<false, false, true, kRows, false>},
@@ -897,9 +1009,10 @@ SweepKernel sweep_kernel(bool ckpt, bool affine, bool profile, bool parity) {
         &strip_sweep_kernel<true, true, true, kRows, false>}}};
   if (parity) {
     return ckpt || affine || profile ? nullptr
+           : pair                    ? &strip_sweep_kernel<false, false, false, kRows, true, true>
                                      : &strip_sweep_kernel<false, false, false, kRows, true>;
   }
-  return kernels[ckpt][affine][profile];
+  return pair ? nullptr : kernels[ckpt][affine][profile];
 }
 
 // A sweep's block shape for M rows with `rows`-row bands: a thread a band,
@@ -917,12 +1030,12 @@ struct SweepShape {
 };
 
 SweepShape shape_with(int rows, int M, bool ckpt, bool affine, bool profile, int ncodes,
-                      bool parity) {
+                      bool parity, bool pair) {
   const int bands = (M + rows - 1) / rows;
   const int threads = min(max_threads(rows), max(32, (bands + 31) / 32 * 32));
   const size_t carry = affine ? sizeof(int2) : sizeof(int);
-  SweepShape shape{rows == kNarrow ? sweep_kernel<kNarrow>(ckpt, affine, profile, parity)
-                                   : sweep_kernel<kWide>(ckpt, affine, profile, parity),
+  SweepShape shape{rows == kNarrow ? sweep_kernel<kNarrow>(ckpt, affine, profile, parity, pair)
+                                   : sweep_kernel<kWide>(ckpt, affine, profile, parity, pair),
                    rows, threads, (bands + threads - 1) / threads,
                    (profile ? table_bytes(ncodes) : 0) + (size_t)(threads / 32 + 1) * kRing * carry,
                    0};
@@ -939,10 +1052,11 @@ SweepShape shape_with(int rows, int M, bool ckpt, bool affine, bool profile, int
 // 4,096 (a long query's slab scan) or 2,304 rows the wide bands' blocks are
 // small enough to fit more rows, and spend half the steps filling and
 // draining the pipeline.
-SweepShape sweep_shape(int M, bool ckpt, bool affine, bool profile, int ncodes, bool parity) {
-  const SweepShape narrow = shape_with(kNarrow, M, ckpt, affine, profile, ncodes, parity);
+SweepShape sweep_shape(int M, bool ckpt, bool affine, bool profile, int ncodes, bool parity,
+                       bool pair) {
+  const SweepShape narrow = shape_with(kNarrow, M, ckpt, affine, profile, ncodes, parity, pair);
   if (!has_wide(affine, profile) || narrow.kernel == nullptr) return narrow;
-  const SweepShape wide = shape_with(kWide, M, ckpt, affine, profile, ncodes, parity);
+  const SweepShape wide = shape_with(kWide, M, ckpt, affine, profile, ncodes, parity, pair);
   return (long long)wide.blocks * wide.threads * kWide >
                  (long long)narrow.blocks * narrow.threads * kNarrow
              ? wide
@@ -981,8 +1095,12 @@ size_t replay_smem(int ncodes) {
 // with -2^30, or null unless K16/K23; score/best_i/best_j (B,) int32.
 // gap_open > 0 selects the affine kernels, a table ((ncodes, ncodes) int32,
 // compact codes in x and y) the profile ones, both K22/K23; sat (clamp every
-// H at 255, the operands already clipped) or skewed (the raw-key tie) K27,
-// which takes K11's arguments only; sweep_shape the band height. Returns
+// H at 255, the operands already clipped) or skewed (parity.cuh's Tie: 1 the
+// raw-key tie with each column's key found at the wrap row, 2 with every
+// cell's key) K27, which takes K11's arguments only, and with pair its pair
+// form (sat, the column-major tie, the operands in [0, 255]; a block a lane
+// pair, the bound row ((B + 1) / 2, N + 1) packed words); sweep_shape the
+// band height. Returns
 // cudaGetLastError() after the launch.
 extern "C" int pgs_strip_sweep(const void* x, long long x_lane, const void* y,
                                const void* y_off, long long y_len, const void* m,
@@ -990,19 +1108,25 @@ extern "C" int pgs_strip_sweep(const void* x, long long x_lane, const void* y,
                                int ncodes, int match, int mismatch, int gap_open,
                                int gap, void* bound, const void* bound_off, void* ck,
                                void* fck, int nck, void* score, void* best_i,
-                               void* best_j, int sat, int skewed, void* stream) {
+                               void* best_j, int sat, int skewed, int pair, void* stream) {
   const bool affine = gap_open > 0;
   const bool parity = sat || skewed;
+  if (skewed < kColmajor || skewed > kSkewedEveryCell ||
+      (pair && (!sat || skewed != kColmajor || match < 0 || match > 255 || mismatch < -255 ||
+                mismatch > 0 || gap < 0 || gap > 255))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (B > 0) {
     const SweepShape shape =
-        sweep_shape(M, ck != nullptr, affine, table != nullptr, ncodes, parity);
+        sweep_shape(M, ck != nullptr, affine, table != nullptr, ncodes, parity, pair != 0);
     if (shape.kernel == nullptr || (parity && y_off != nullptr)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    shape.kernel<<<B, shape.threads, shape.smem, static_cast<cudaStream_t>(stream)>>>(
+    shape.kernel<<<pair ? (B + 1) / 2 : B, shape.threads, shape.smem,
+                   static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(x), x_lane, static_cast<const uint8_t*>(y),
         static_cast<const int64_t*>(y_off), y_len, static_cast<const int32_t*>(m),
-        static_cast<const int32_t*>(n), M, N, static_cast<const int32_t*>(table), ncodes,
+        static_cast<const int32_t*>(n), M, N, B, static_cast<const int32_t*>(table), ncodes,
         match, mismatch, gap_open, gap, sat ? 255 : 0x7fffffff, skewed, shape.passes, bound,
         static_cast<const int64_t*>(bound_off), static_cast<int32_t*>(ck),
         static_cast<int32_t*>(fck), nck, static_cast<int32_t*>(score),
@@ -1013,13 +1137,13 @@ extern "C" int pgs_strip_sweep(const void* x, long long x_lane, const void* y,
 
 // pgs_strip_sweep_occupancy: the launch pgs_strip_sweep makes for M rows
 // (ckpt, affine != 0 as its ck and gap_open select; ncodes > 0 a table of
-// that size; parity != 0 K27) on the current device: out[0] threads a
-// block, out[1] passes, out[2] the blocks an SM holds at once, out[3] rows a
-// thread. Returns cudaGetLastError().
+// that size; parity != 0 K27, pair != 0 its pair form) on the current
+// device: out[0] threads a block, out[1] passes, out[2] the blocks an SM
+// holds at once, out[3] rows a thread. Returns cudaGetLastError().
 extern "C" int pgs_strip_sweep_occupancy(int M, int ckpt, int affine, int ncodes, int parity,
-                                         void* out) {
+                                         int pair, void* out) {
   const SweepShape shape = sweep_shape(M, ckpt != 0, affine != 0, ncodes > 0, ncodes,
-                                       parity != 0);
+                                       parity != 0, pair != 0);
   if (shape.kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int* o = static_cast<int*>(out);
   o[0] = shape.threads;

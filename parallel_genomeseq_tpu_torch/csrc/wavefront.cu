@@ -29,27 +29,40 @@
 //    `_kernel_profile_affine_moves` (:724, body `_affine_moves_body` :630) via
 //    `_call_profile_affine_moves` (:779): K7 with the table's scores, the
 //    bytes that K10 walks.
-// K26 `sw_warp_kernel<kTrackPos, kMoves, false, kRows, kWarps, kTable, true>`
+// K26 `sw_warp_kernel<kTrackPos, kMoves, false, kRows, kWarps, kTable, true, kPair>`
 //    (kParity, the reference-parity forms, built by csrc/wavefront_parity.cu
 //    from this file) replaces JAX device code with no Pallas call: the
 //    `lax.scan` wavefront of parallel_genomeseq_tpu/ops/scan_dp.py
-//    (`_wavefront` :93, `_dp_step` :58) under Semantics.SAT_UINT8 and/or
-//    its skewed tie (raw key :144-166, `_reduce_best_skewed` :325). Linear
-//    gaps, uniform scores (or a table, exact values only); score-only,
-//    argmax or moves, as K1/K2 (and K5). Two runtime arguments: `cap`, 255
-//    under saturation (one min a cell: with the operands clipped to [0,
-//    255], ops/scan_dp.sat_operands, the saturating step is the exact one
-//    clamped at 255) or INT_MAX; and `skewed`, the tie-break. Colmajor keeps
-//    K1/K2's (min j, min i). Skewed: each thread keeps, among its cells of
-//    the maximum score (> 0), the least raw key rj * (M + 33) + ri -- the
-//    cell's place in the reference binary's skewed storage, from the lane's
-//    min(m, n), max(m, n) and whether n > m (`raw_key`) -- then the least
-//    row, then the least column, and the warp, then the lane's warps,
-//    reduce by (max score, min key, min i, min j), an order in which every
-//    cell has one place, so no result depends on which thread saw a cell
-//    first. The key is computed only for a column whose maximum reaches the
-//    thread's best: on a saturated plateau that is most columns, which the
-//    card's time for K26 shows (PERF.md section 6).
+//    (`_wavefront` :93, `_dp_step` :58) under Semantics.SAT_UINT8 and/or its
+//    skewed tie (raw key :144-166, `_reduce_best_skewed` :325). Linear gaps,
+//    uniform scores (or a table, exact values only); score-only, argmax or
+//    moves, as K1/K2 (and K5). Two runtime arguments: `cap`, 255 under
+//    saturation (one min a cell: with the operands clipped to [0, 255],
+//    ops/scan_dp.sat_operands, the saturating step is the exact one clamped
+//    at 255) or INT_MAX; and `skewed`, the tie-break (csrc/parity.cuh's Tie).
+//    Colmajor keeps K1/K2's (min j, min i). Skewed: each thread keeps, among
+//    its cells of the maximum score (> 0), the least raw key rj * (M + 33) +
+//    ri -- the cell's place in the reference binary's skewed storage -- then
+//    the least row, then the least column, and the warp, then the lane's
+//    warps, reduce by (max score, min key, min i, min j), an order in which
+//    every cell has one place, so no result depends on which thread saw a
+//    cell first. A column's candidate is found at the wrap row (parity.cuh's
+//    wrap_row_pick: the least row of the maximum past i = max(m, n) - j,
+//    else the least one), its key computed alone, and a column that only
+//    ties the thread's best is searched only when its least key lies below
+//    the best's; past the 2^31 key bound the launch takes the least of the
+//    keys of the column's rows of the maximum instead
+//    (ops/wavefront_cuda.key_rule).
+//    The pair form (kPair, the score-only sweep under saturation with
+//    uniform scores): a thread's word holds the same row of two lanes, b and
+//    b + 1, in signed 16-bit halves, and each DPX s16x2 instruction steps
+//    both (parity.cuh's PairStep: four DPX and three other instructions a
+//    pair of cells, against the int32 step's seven a cell). A unit of two
+//    lanes steps to the longer; each half keeps its own best, masked past
+//    its lane's m_b and n_b, and the halves go through the reduction one
+//    after the other. ops/wavefront_cuda.parity_form takes it for the
+//    score-only launches, where it measured faster than the int32 form
+//    (PERF.md section 6); the argmax and the moves run the int32 form.
 //
 // The last template flag, kTable, says how a cell is scored (`UniformScore`,
 // `TableScore`): uniform, match if the read byte equals the reference byte,
@@ -156,6 +169,8 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "parity.cuh"
+
 namespace {
 
 constexpr int kNeg = -(1 << 30);  // E and F where no gap run can reach
@@ -181,34 +196,6 @@ __host__ __device__ constexpr int max_warps(int rows) {
 __device__ __forceinline__ bool better(int v1, int j1, int i1, int v2, int j2, int i2) {
   return v1 > v2 || (v1 == v2 && (j1 < j2 || (j1 == j2 && i1 < i2)));
 }
-
-// K26's skewed order: higher score, then smaller raw key, then i, then j.
-__device__ __forceinline__ bool better_skewed(int v1, int k1, int i1, int j1, int v2, int k2,
-                                              int i2, int j2) {
-  return v1 > v2 ||
-         (v1 == v2 && (k1 < k2 || (k1 == k2 && (i1 < i2 || (i1 == i2 && j1 < j2)))));
-}
-
-// The raw key of cell (i, j) of a lane of lengths (mb, nb) under the skewed
-// tie, as the JAX scan computes it (ops/scan_dp.py:144-160): s = i + j; rj =
-// s up to max(mb, nb), s - max - 1 past it; ri = j unless nb > mb, where ri
-// = j below min(mb, nb), j - (nb - mb) past the max and mb - i between; key
-// = rj * (M + 33) + ri in 32-bit wrapping arithmetic, M the padded read
-// length.
-struct RawKey {
-  int mb, minmn, maxmn, dnm, mult;
-  bool ngtm;
-  __device__ RawKey(int mb_, int nb_, int M)
-      : mb(mb_), minmn(min(mb_, nb_)), maxmn(max(mb_, nb_)), dnm(nb_ - mb_), mult(M + 33),
-        ngtm(nb_ > mb_) {}
-  __device__ __forceinline__ int operator()(int i, int j) const {
-    const int s = i + j;
-    const int ri = !ngtm || s < minmn ? j : s > maxmn ? j - dnm : mb - i;
-    const int rj = s <= maxmn ? s : s - maxmn - 1;
-    return static_cast<int>(static_cast<unsigned>(rj) * static_cast<unsigned>(mult) +
-                            static_cast<unsigned>(ri));
-  }
-};
 
 __device__ __forceinline__ uint32_t clamp_code(uint32_t c, int ncodes) {
   return c < static_cast<uint32_t>(ncodes) ? c : 0u;
@@ -277,6 +264,27 @@ __device__ __forceinline__ void column_linear(int (&h)[kRows], const uint32_t (&
       if (__vimin3_s32(diag, west, north) == 0) mv |= 4u;  // H >= 0: any of them 0
       out[k * stride] = static_cast<uint8_t>(mv);
     }
+    diag = west;
+    h[k] = v;
+    north = v;
+  }
+}
+
+// The pair form's column (K26's score-only sweep under saturation, kPair):
+// h holds H(., j - 1) of the thread's kRows rows of two lanes, one a 16-bit
+// half (parity.cuh's PairStep), on entry and H(., j) on return; xp the rows'
+// read bytes and yp the column's reference bytes, one a half; nw and north
+// as in column_linear.
+template <int kRows>
+__device__ __forceinline__ void column_pair(uint32_t (&h)[kRows], const uint32_t (&xp)[kRows],
+                                            uint32_t yp, const PairStep& step, uint32_t nw,
+                                            uint32_t north) {
+  uint32_t diag = nw;
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const uint32_t west = h[k];
+    const uint32_t a = step.off_chain(xp[k], yp, diag, west);  // off the chain
+    const uint32_t v = step.chain(north, a);                    // the north chain
     diag = west;
     h[k] = v;
     north = v;
@@ -406,16 +414,20 @@ __host__ __device__ constexpr int table_bytes(int ncodes) {
 // K1 (kMoves = false) and K2 (kMoves = true, which implies kTrackPos), and
 // with kAffine K6 and K7; with kTable (moves only) K5 and K9; with kParity
 // (linear gaps; kTable with or without moves) K26, whose H is clamped at
-// cap and whose argmax takes the skewed tie when `skewed` is set. kRows
-// rows a thread, W warps a lane (32 * W * kRows >= M). xs (B, M) and ys (B,
-// N) uint8 (K5/K9: compact codes, table (ncodes, ncodes) int32), m and n
-// (B,) int32; moves (M + N - 1, M, B) uint8 (K2/K7, K5/K9). A block holds
-// blockDim.x / (32 W) consecutive lanes, lane w's W warps consecutive.
-// Dynamic shared memory: (K5/K9) the transposed table, table_bytes(ncodes),
-// then the hand-off rings, (W - 1) x L x kRing int2, then (moves) the two
-// staged buffers, 2 x kGroup x W * 32 * kRows x L bytes.
+// cap and whose argmax takes the tie `skewed` (parity.cuh's Tie); with
+// kPair too, K26's pair form (score-only, cap 255, uniform scores), whose
+// words hold the same rows of two lanes, b and b + 1, a 16-bit half each.
+// A unit is a
+// lane (a lane pair with kPair): kRows rows a thread, W warps a unit (32 *
+// W * kRows >= M). xs (B, M) and ys (B, N) uint8 (K5/K9: compact codes,
+// table (ncodes, ncodes) int32), m and n (B,) int32; moves (M + N - 1, M,
+// B) uint8 (K2/K7, K5/K9). A block holds blockDim.x / (32 W) consecutive
+// units, unit w's W warps consecutive. Dynamic shared memory: (K5/K9) the
+// transposed table, table_bytes(ncodes), then the hand-off rings, (W - 1) x
+// units x kRing int2, then (moves) the two staged buffers, 2 x kGroup x W *
+// 32 * kRows x lanes bytes.
 template <bool kTrackPos, bool kMoves, bool kAffine, int kRows, int kWarps, bool kTable,
-          bool kParity>
+          bool kParity, bool kPair = false>
 __global__ void __launch_bounds__(32 * max_warps(kRows))
 sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
                const int32_t* __restrict__ m, const int32_t* __restrict__ n, int M, int N,
@@ -426,23 +438,29 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
   static_assert(kMoves || !kTable || kParity,
                 "the table form is the moves mode's (K5/K9) or K26's");
   static_assert(!kParity || !kAffine, "K26 is linear-gap only");
-  constexpr int kWords = (kRows + 3) / 4;
+  static_assert(!kPair || (kParity && !kTable && !kTrackPos && !kMoves),
+                "the pair form is K26's score-only sweep, scored uniformly");
+  constexpr int P = kPair ? 2 : 1;  // lanes a unit
+  // The read bytes: four rows a word, or (kPair) a row's two lanes a word.
+  constexpr int kWords = kPair ? kRows : (kRows + 3) / 4;
   constexpr int W = kWarps;
   // A group's steps unrolled, so that one step's moves, best and stores
   // overlap the next one's chain; not for the long reads' wide threads,
   // whose steps are long enough alone (and whose unrolled code is large).
   constexpr int kUnroll = kRows <= 8 ? kGroup : 1;
+  using Cell = std::conditional_t<kPair, uint32_t, int>;  // a row's H, or a pair's two
   extern __shared__ __align__(16) uint8_t dyn[];
   __shared__ int lane_m[32];  // the block's clamped lengths (barrier launches)
   __shared__ int lane_n[32];
   __shared__ int red[4][kWarps > 1 ? 32 : 1];  // each warp's (best, j, i, key)
   const int wi = threadIdx.x >> 5;
   const int l = threadIdx.x & 31;
-  const int L = (blockDim.x >> 5) / W;
-  const int w = wi / W;       // the lane's place in the block
-  const int q = wi - w * W;   // the warp's place in its lane
-  const int b0 = blockIdx.x * L;
-  const int b = b0 + w;
+  const int L = (blockDim.x >> 5) / W;  // units a block
+  const int LP = L * P;                 // lanes a block
+  const int w = wi / W;       // the unit's place in the block
+  const int q = wi - w * W;   // the warp's place in its unit
+  const int b0 = blockIdx.x * LP;
+  const int b = b0 + w * P;   // the unit's first lane
   // A barrier every kGroup steps (and after K26's table load).
   constexpr bool sync = kMoves || W > 1 || kTable;
   int32_t* const tab = reinterpret_cast<int32_t*>(dyn);  // kTable: tab[yc * ncodes + xc]
@@ -456,51 +474,95 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
   }
   // A byte of the read or the reference (K5/K9: a code, clamped to the table).
   const auto code = [ncodes](uint32_t c) { return kTable ? clamp_code(c, ncodes) : c; };
-  int mb = 0, nb = 0;
-  if (b < B) {
-    mb = max(min(m[b], M), 0);
-    nb = max(min(n[b], N), 0);
+  int mb[P], nb[P];  // the unit's lanes' clamped lengths
+  int steps = 0;
+#pragma unroll
+  for (int v = 0; v < P; ++v) {
+    mb[v] = b + v < B ? max(min(m[b + v], M), 0) : 0;
+    nb[v] = b + v < B ? max(min(n[b + v], N), 0) : 0;
+    if (kPair && (mb[v] == 0 || nb[v] == 0)) mb[v] = nb[v] = 0;  // an empty half
+    steps = max(steps, lane_steps(mb[v], nb[v], kRows));
   }
-  int steps = lane_steps(mb, nb, kRows);
+  const int mmax = max(mb[0], mb[P - 1]);  // the unit's rows and columns
+  const int nmax = max(nb[0], nb[P - 1]);
   int V = 1;
   if constexpr (sync) {
     // Every warp of the block takes the block's step count (its barriers).
     if (q == 0 && l == 0) {
-      lane_m[w] = mb;
-      lane_n[w] = nb;
+#pragma unroll
+      for (int v = 0; v < P; ++v) {
+        lane_m[w * P + v] = mb[v];
+        lane_n[w * P + v] = nb[v];
+      }
     }
     __syncthreads();
-    for (int v = 0; v < L; ++v) steps = max(steps, lane_steps(lane_m[v], lane_n[v], kRows));
-    V = (L % 4 == 0 && B % 4 == 0) ? 4 : (L % 2 == 0 && B % 2 == 0) ? 2 : 1;
+    for (int v = 0; v < LP; ++v) steps = max(steps, lane_steps(lane_m[v], lane_n[v], kRows));
+    V = (LP % 4 == 0 && B % 4 == 0) ? 4 : (LP % 2 == 0 && B % 2 == 0) ? 2 : 1;
   } else if (b >= B) {
     return;
   }
-  const uint8_t* xl = xs + (size_t)(b < B ? b : 0) * M;
-  const uint8_t* yl = ys + (size_t)(b < B ? b : 0) * N;
   const int row0 = (q * 32 + l) * kRows;  // 0-based first row of the thread
-  const int nvalid = min(max(mb - row0, 0), kRows);
-  const bool active = q * 32 * kRows < mb;  // warp-uniform: the warp holds a row <= m_b
+  const bool active = q * 32 * kRows < mmax;  // warp-uniform: the warp holds a row <= m_b
+  int nvalid[P];          // the thread's rows up to each lane's m_b
+  const uint8_t* yl[P];   // each lane's reference
   uint32_t xw[kWords];
 #pragma unroll
   for (int i = 0; i < kWords; ++i) xw[i] = 0;
 #pragma unroll
-  for (int k = 0; k < kRows; ++k) {
-    if (k < nvalid) xw[k >> 2] |= code(xl[row0 + k]) << (8 * (k & 3));
+  for (int v = 0; v < P; ++v) {
+    nvalid[v] = min(max(mb[v] - row0, 0), kRows);
+    const int lane = b + v < B ? b + v : 0;
+    const uint8_t* xl = xs + (size_t)lane * M;
+    yl[v] = ys + (size_t)lane * N;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      if (k >= nvalid[v]) continue;
+      if constexpr (kPair) {
+        xw[k] |= static_cast<uint32_t>(xl[row0 + k]) << (16 * v);
+      } else {
+        xw[k >> 2] |= code(xl[row0 + k]) << (8 * (k & 3));
+      }
+    }
   }
-  int h[kRows];
+  // The pair form's per-thread masks: a half past its lane's n_b, or a
+  // thread wholly past its m_b, counts nothing in the best; the thread that
+  // holds a lane's m_b masks its rows past it.
+  int ncount[P];
+#pragma unroll
+  for (int v = 0; v < P; ++v) ncount[v] = nvalid[v] > 0 ? nb[v] : 0;
+  const bool straddle = kPair && ((nvalid[0] > 0 && nvalid[0] < kRows) ||
+                                  (nvalid[P - 1] > 0 && nvalid[P - 1] < kRows));
+  uint32_t vbits[P];  // the skewed search's rows: bit k for each row up to m_b
+#pragma unroll
+  for (int v = 0; v < P; ++v) vbits[v] = nvalid[v] >= 32 ? ~0u : (1u << nvalid[v]) - 1u;
+  const PairStep pstep(match, mismatch, gap);
+  Cell h[kRows];
   int e[kAffine ? kRows : 1];  // affine: E(., j - 1), kNeg in column 0
 #pragma unroll
   for (int k = 0; k < kRows; ++k) h[k] = 0;
 #pragma unroll
   for (int k = 0; k < (kAffine ? kRows : 1); ++k) e[k] = kNeg;
-  int nw = 0;     // H(row0, j - 1): the previous column's north input
+  Cell nw = 0;    // H(row0, j - 1): the previous column's north input
   int flast = 0;  // affine: F of the thread's last row in its last column
-  int yc = 0;     // the byte of this thread's column
-  int best = 0, bi = 0, bj = 0;
-  int bkey = 0x7fffffff;  // K26, skewed: the raw key of (bi, bj)
-  const bool by_key = kParity && kTrackPos && skewed;  // K26's skewed argmax
+  int yc = 0;     // the byte of this thread's column (kPair: the two lanes', a half each)
+  Cell best = 0;  // kPair: each half's best
+  int bi[P], bj[P], bkey[P];  // K26, skewed: bkey the raw key of (bi, bj)
+#pragma unroll
+  for (int hh = 0; hh < P; ++hh) {
+    bi[hh] = bj[hh] = 0;
+    bkey[hh] = 0x7fffffff;
+  }
+  const bool by_key = kParity && kTrackPos && skewed != kColmajor;  // K26's skewed argmax
+  // Column k + 1's byte (code), or with kPair the two lanes' bytes.
+  const auto y_at = [&](int k) -> int {
+    if constexpr (kPair) {
+      return yl[0][k] | yl[P - 1][k] << 16;
+    } else {
+      return code(yl[0][k]);
+    }
+  };
   int ycur = 0;   // thread t of word k holds column 32k + t + 1's byte
-  int ynext = l < nb ? code(yl[l]) : 0;
+  int ynext = l < nmax ? y_at(l) : 0;
   const int lag = q * kLag;
   const int stride = W * 32 * L;  // staged rows k and k + 1 of one thread
   int2* const ring_in = ring + (max(q - 1, 0) * L + w) * kRing;  // q > 0: warp q - 1's last row
@@ -510,18 +572,18 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
     if (sl0 >= 0 && (sl0 & 31) == 0) {
       ycur = ynext;
       const int k = sl0 + 32 + l;
-      ynext = k < nb ? code(yl[k]) : 0;
+      ynext = k < nmax ? y_at(k) : 0;
     }
     uint8_t* buf = stage + ((s0 / kGroup) & 1) * (kGroup * kRows * W * 32 * L);
 #pragma unroll kUnroll
     for (int u = 0; u < kGroup; ++u) {
       const int sl = sl0 + u;
-      int north = __shfl_up_sync(kAll, h[kRows - 1], 1);
+      Cell north = __shfl_up_sync(kAll, h[kRows - 1], 1);
       int f = kAffine ? __shfl_up_sync(kAll, flast, 1) : 0;
       yc = __shfl_up_sync(kAll, yc, 1);
       const int yfirst = __shfl_sync(kAll, ycur, sl & 31);
       const int j = sl - l + 1;
-      const bool on = active && j >= 1 && j <= nb;
+      const bool on = active && j >= 1 && j <= nmax;
       if (l == 0) {  // the row above the warp: zero above row 1, else warp q - 1's
         yc = yfirst;
         north = 0;
@@ -529,78 +591,108 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
         if constexpr (W > 1) {
           if (q > 0 && on) {
             const int2 v = ring_in[j & (kRing - 1)];
-            north = v.x;
+            north = static_cast<Cell>(v.x);
             f = v.y;
           }
         }
       }
       if (on) {
-        const auto sc = [&] {
-          if constexpr (kTable) {
-            return TableScore{tab + yc * ncodes};
-          } else {
-            return UniformScore{static_cast<uint32_t>(yc) * 0x01010101u, match, mismatch};
-          }
-        }();
         uint8_t* out = kMoves ? buf + ((u * kRows * W + q) * 32 + l) * L + lane_offset(w, l, L)
                               : nullptr;
-        if constexpr (kAffine) {
-          column_affine<kMoves>(h, e, xw, sc, gap_open, gap, nw, north, f, out, stride);
-          flast = f;
+        if constexpr (kPair) {
+          column_pair(h, xw, static_cast<uint32_t>(yc), pstep, nw, north);
         } else {
-          column_linear<kMoves, kParity>(h, xw, sc, gap, cap, nw, north, out, stride);
+          const auto sc = [&] {
+            if constexpr (kTable) {
+              return TableScore{tab + yc * ncodes};
+            } else {
+              return UniformScore{static_cast<uint32_t>(yc) * 0x01010101u, match, mismatch};
+            }
+          }();
+          if constexpr (kAffine) {
+            column_affine<kMoves>(h, e, xw, sc, gap_open, gap, nw, north, f, out, stride);
+            flast = f;
+          } else {
+            column_linear<kMoves, kParity>(h, xw, sc, gap, cap, nw, north, out, stride);
+          }
         }
         if constexpr (W > 1) {
-          if (l == 31 && q + 1 < W) ring_out[j & (kRing - 1)] = make_int2(h[kRows - 1], f);
+          if (l == 31 && q + 1 < W) {
+            ring_out[j & (kRing - 1)] = make_int2(static_cast<int>(h[kRows - 1]), f);
+          }
         }
-        int colmax = h[0];
+        if constexpr (kPair) {
+          // Each half's column maximum over its rows up to m_b and its
+          // columns up to n_b, kept where it passes the half's best.
+          uint32_t colmax = h[0];
 #pragma unroll
-        for (int k = 1; k + 1 < kRows; k += 2) colmax = __vimax3_s32(colmax, h[k], h[k + 1]);
-        if (kRows % 2 == 0 && kRows > 1) colmax = max(colmax, h[kRows - 1]);
-        if (by_key) {
-          // The column's cells of the maximum, if it reaches the best: the
-          // least raw key, the least row on equal keys.
-          if (colmax >= best && colmax > 0) {
-            if (nvalid < kRows) {  // the thread holding m_b: its rows up to m_b only
+          for (int k = 1; k + 1 < kRows; k += 2) colmax = __vimax3_s16x2(colmax, h[k], h[k + 1]);
+          if (kRows % 2 == 0 && kRows > 1) colmax = __vimax_s16x2_relu(colmax, h[kRows - 1]);
+          const uint32_t cmask = (j <= ncount[0] ? 0xffffu : 0u) |
+                                 (j <= ncount[P - 1] ? 0xffff0000u : 0u);
+          colmax &= cmask;
+          bool keep_hi, keep_lo;  // best >= colmax, a half each
+          __vibmax_s16x2(best, colmax, &keep_hi, &keep_lo);
+          if (!keep_hi || !keep_lo) {
+            if (straddle) {  // each half's rows up to its m_b only
               colmax = 0;
 #pragma unroll
-              for (int k = 0; k < kRows; ++k) colmax = k < nvalid ? max(colmax, h[k]) : colmax;
+              for (int k = 0; k < kRows; ++k) {
+                colmax = __vimax_s16x2_relu(
+                    colmax, h[k] & ((k < nvalid[0] ? 0xffffu : 0u) |
+                                    (k < nvalid[P - 1] ? 0xffff0000u : 0u)));
+              }
+              colmax &= cmask;
             }
-            if (colmax >= best && colmax > 0) {
-              int key = 0x7fffffff, kk = 0;
-              const RawKey raw_key(mb, nb, M);  // off the column loop's registers
+            best = __vimax_s16x2_relu(best, colmax);
+          }
+        } else {
+          int colmax = h[0];
 #pragma unroll
-              for (int k = kRows - 1; k >= 0; --k) {
-                if (k < nvalid && h[k] == colmax) {
-                  const int c = raw_key(row0 + k + 1, j);
-                  if (c <= key) {
-                    key = c;
-                    kk = k;
-                  }
+          for (int k = 1; k + 1 < kRows; k += 2) colmax = __vimax3_s32(colmax, h[k], h[k + 1]);
+          if (kRows % 2 == 0 && kRows > 1) colmax = max(colmax, h[kRows - 1]);
+          if (by_key) {
+            // The column's cells of the maximum, if it reaches the best: the
+            // least raw key, the least row on equal keys.
+            if (colmax >= best && colmax > 0) {
+              if (nvalid[0] < kRows) {  // the thread holding m_b: its rows up to m_b only
+                colmax = 0;
+#pragma unroll
+                for (int k = 0; k < kRows; ++k) colmax = k < nvalid[0] ? max(colmax, h[k]) : colmax;
+              }
+              if (colmax >= best && colmax > 0 &&
+                  (colmax > best || skewed != kSkewedWrap ||
+                   tie_may_win(mb[0], nb[0], M, row0, j, kRows, bkey[0]))) {
+                // The rows of the maximum, then the candidate's key.
+                uint32_t eq = 0;
+#pragma unroll
+                for (int k = 0; k < kRows; ++k) eq |= (h[k] == colmax ? 1u : 0u) << k;
+                const RawKey raw_key(mb[0], nb[0], M);  // off the column loop's registers
+                int key;
+                const int kk = candidate(eq & vbits[0], raw_key, row0, j, skewed, key);
+                if (better_skewed(colmax, key, row0 + kk + 1, j, best, bkey[0], bi[0], bj[0])) {
+                  best = colmax;
+                  bkey[0] = key;
+                  bi[0] = row0 + kk + 1;
+                  bj[0] = j;
                 }
               }
-              if (better_skewed(colmax, key, row0 + kk + 1, j, best, bkey, bi, bj)) {
-                best = colmax;
-                bkey = key;
-                bi = row0 + kk + 1;
-                bj = j;
-              }
             }
-          }
-        } else if (colmax > best) {
-          if (nvalid < kRows) {  // the thread holding m_b: its rows up to m_b only
-            colmax = 0;
+          } else if (colmax > best) {
+            if (nvalid[0] < kRows) {  // the thread holding m_b: its rows up to m_b only
+              colmax = 0;
 #pragma unroll
-            for (int k = 0; k < kRows; ++k) colmax = k < nvalid ? max(colmax, h[k]) : colmax;
-          }
-          if (colmax > best) {
-            best = colmax;
-            if (kTrackPos) {
-              int kk = 0;
+              for (int k = 0; k < kRows; ++k) colmax = k < nvalid[0] ? max(colmax, h[k]) : colmax;
+            }
+            if (colmax > best) {
+              best = colmax;
+              if (kTrackPos) {
+                int kk = 0;
 #pragma unroll
-              for (int k = kRows - 1; k >= 0; --k) kk = h[k] == colmax ? k : kk;
-              bi = row0 + kk + 1;
-              bj = j;
+                for (int k = kRows - 1; k >= 0; --k) kk = h[k] == colmax ? k : kk;
+                bi[0] = row0 + kk + 1;
+                bj[0] = j;
+              }
             }
           }
         }
@@ -618,47 +710,52 @@ sw_warp_kernel(const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
       }
     }
   }
-  // Warp reduction of (best, bj, bi) (K26 skewed: and bkey, in its order),
-  // then (W > 1) over the lane's warps.
+  // Each lane of the unit: a warp reduction of (best, bj, bi) (K26 skewed:
+  // and bkey, in its order), then (W > 1) over the unit's warps.
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int v2 = __shfl_down_sync(kAll, best, off);
-    const int j2 = __shfl_down_sync(kAll, bj, off);
-    const int i2 = __shfl_down_sync(kAll, bi, off);
-    const int k2 = kParity ? __shfl_down_sync(kAll, bkey, off) : 0;
-    if (by_key ? better_skewed(v2, k2, i2, j2, best, bkey, bi, bj)
-               : better(v2, j2, i2, best, bj, bi)) {
-      best = v2;
-      bj = j2;
-      bi = i2;
-      bkey = k2;
+  for (int hh = 0; hh < P; ++hh) {
+    int v = kPair ? half_of(best, hh) : static_cast<int>(best);
+    int vj = bj[hh], vi = bi[hh], vk = bkey[hh];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const int v2 = __shfl_down_sync(kAll, v, off);
+      const int j2 = __shfl_down_sync(kAll, vj, off);
+      const int i2 = __shfl_down_sync(kAll, vi, off);
+      const int k2 = kParity ? __shfl_down_sync(kAll, vk, off) : 0;
+      if (by_key ? better_skewed(v2, k2, i2, j2, v, vk, vi, vj) : better(v2, j2, i2, v, vj, vi)) {
+        v = v2;
+        vj = j2;
+        vi = i2;
+        vk = k2;
+      }
     }
-  }
-  if constexpr (W > 1) {
-    if (l == 0) {
-      red[0][wi] = best;
-      red[1][wi] = bj;
-      red[2][wi] = bi;
-      red[3][wi] = bkey;
-    }
-    __syncthreads();
-    if (l == 0 && q == 0) {
-      for (int v = wi + 1; v < wi + W; ++v) {
-        const int k2 = red[3][v];
-        if (by_key ? better_skewed(red[0][v], k2, red[2][v], red[1][v], best, bkey, bi, bj)
-                   : better(red[0][v], red[1][v], red[2][v], best, bj, bi)) {
-          best = red[0][v];
-          bj = red[1][v];
-          bi = red[2][v];
-          bkey = k2;
+    if constexpr (W > 1) {
+      if (hh > 0) __syncthreads();  // the first lane's reduction has read red
+      if (l == 0) {
+        red[0][wi] = v;
+        red[1][wi] = vj;
+        red[2][wi] = vi;
+        red[3][wi] = vk;
+      }
+      __syncthreads();
+      if (l == 0 && q == 0) {
+        for (int u = wi + 1; u < wi + W; ++u) {
+          const int k2 = red[3][u];
+          if (by_key ? better_skewed(red[0][u], k2, red[2][u], red[1][u], v, vk, vi, vj)
+                     : better(red[0][u], red[1][u], red[2][u], v, vj, vi)) {
+            v = red[0][u];
+            vj = red[1][u];
+            vi = red[2][u];
+            vk = k2;
+          }
         }
       }
     }
-  }
-  if (l == 0 && q == 0 && b < B) {
-    score[b] = best;
-    best_i[b] = best > 0 ? bi : 0;
-    best_j[b] = best > 0 ? bj : 0;
+    if (l == 0 && q == 0 && b + hh < B) {
+      score[b + hh] = v;
+      best_i[b + hh] = v > 0 ? vi : 0;
+      best_j[b + hh] = v > 0 ? vj : 0;
+    }
   }
 }
 
@@ -666,15 +763,15 @@ using SwKernel = void (*)(const uint8_t*, const uint8_t*, const int32_t*, const 
                           int, int, int, int, int, int, const int32_t*, int, int, int, int32_t*,
                           int32_t*, int32_t*, uint8_t*);
 
-// The kernels' modes: score-only, argmax and moves scored uniformly (K1/K6,
-// K2/K7), moves scored from a table (K5/K9), and argmax scored from a table
-// (K26 only).
-enum Mode { kScoreOnly, kArgmax, kMovesMode, kTableMoves, kTableArgmax, kNumModes };
+// The kernels' forms: score-only, argmax and moves scored uniformly (K1/K6,
+// K2/K7), moves scored from a table (K5/K9), and, K26 only, argmax scored
+// from a table and the pair form's score-only sweep.
+enum Form { kScoreOnly, kArgmax, kMovesMode, kTableMoves, kTableArgmax, kPairScore, kNumForms };
 
-// This translation unit's forms: K1-K9 here, K26 when csrc/wavefront_parity.cu
-// includes this file (its own unit, so that nvcc builds the two sets of
-// instantiations in parallel).
-#ifdef PGS_WAVEFRONT_PARITY
+// This translation unit's forms: K1-K9 here; K26's when
+// csrc/wavefront_parity.cu includes this file (a unit of its own, so that
+// nvcc builds the two sets of instantiations in parallel).
+#if defined(PGS_WAVEFRONT_PARITY)
 constexpr bool kParityUnit = true;
 #else
 constexpr bool kParityUnit = false;
@@ -691,6 +788,7 @@ void fill_kernels(SwKernel (*out)[kNumRowChoices]) {
         out[kMovesMode][I] = &sw_warp_kernel<true, true, false, R, kWarps, false, true>;
         out[kTableMoves][I] = &sw_warp_kernel<true, true, false, R, kWarps, true, true>;
         out[kTableArgmax][I] = &sw_warp_kernel<true, false, false, R, kWarps, true, true>;
+        out[kPairScore][I] = &sw_warp_kernel<false, false, false, R, kWarps, false, true, true>;
       }
     } else {
       out[kScoreOnly][I] = &sw_warp_kernel<false, false, kAffine, R, kWarps, false, false>;
@@ -705,7 +803,7 @@ void fill_kernels(SwKernel (*out)[kNumRowChoices]) {
 // Every instantiation of this unit, [warps a lane - 1][affine][mode][rows a
 // thread]; null where the unit has no such form.
 struct SwKernels {
-  SwKernel at[2][2][kNumModes][kNumRowChoices] = {};
+  SwKernel at[2][2][kNumForms][kNumRowChoices] = {};
   SwKernels() {
     fill_kernels<false, 1>(at[0][0]);
     fill_kernels<true, 1>(at[0][1]);
@@ -716,11 +814,11 @@ struct SwKernels {
 
 struct SwLaunch {
   SwKernel kernel;
-  int rows, lanes, warps, blocks;  // rows a thread, lanes a block, warps a lane, blocks an SM
+  int rows, lanes, warps, blocks;  // rows a thread, units a block, warps a unit, blocks an SM
   size_t smem;
 };
 
-// The warps on the busiest SM when B lanes of W warps run L to a block on
+// The warps on the busiest SM when B units of W warps run L to a block on
 // `sms` SMs.
 int busiest_sm(int B, int L, int W, int sms) {
   const int blocks = (B + L - 1) / L;
@@ -730,29 +828,32 @@ int busiest_sm(int B, int L, int W, int sms) {
 constexpr int kMaxCodes = 64;  // K5/K9's table: 64 x 64 int32, 16 KB of shared memory
 
 // The launch for B lanes of M rows (mode 0 score-only, 1 argmax, 2 moves;
-// ncodes > 0 the table form: K5/K9 with moves, K26 also argmax). W, the
-// warps a lane:
+// ncodes > 0 the table form: K5/K9 with moves, K26 also argmax; pair
+// K26's pair form, score-only), in units of a lane, or of two with pair.
+// W, the warps a unit:
 // `warps` if given (1 or 2), else 1 up to 1,024 rows and 2 beyond; the
 // table form also takes 2 past 64 rows when there are no more lanes than
 // SMs (the protein top 10: two warps of half the rows run faster there,
 // tools/warp_curves.py, PERF.md §6). kRows: the least choice with 32 * W *
-// kRows >= M. L, the lanes a block: `lanes` if given, else the
+// kRows >= M. L, the units a block: `lanes` if given, else the
 // largest power of two up to kScoreLanes (K1/K6) or max_warps(kRows) / W
 // (the moves) whose busiest SM holds no more warps than with L = 1. The
 // blocks an SM from the CUDA occupancy calculator.
-cudaError_t sw_launch(int M, int B, bool affine, int mode, int ncodes, int lanes, int warps,
-                      SwLaunch* out) {
+cudaError_t sw_launch(int M, int B, bool affine, int mode, int ncodes, bool pair, int lanes,
+                      int warps, SwLaunch* out) {
   if (M < 0 || B < 0 || mode < 0 || mode > 2 || lanes < 0 || warps < 0 || ncodes < 0 ||
-      ncodes > kMaxCodes || (ncodes > 0 && mode == kScoreOnly)) {
+      ncodes > kMaxCodes || (ncodes > 0 && mode == kScoreOnly) ||
+      (pair && (mode != kScoreOnly || ncodes > 0 || affine))) {
     return cudaErrorInvalidValue;
   }
   const bool moves = mode == kMovesMode;
+  const int U = pair ? (B + 1) / 2 : B;  // units
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   int W = warps;
-  if (W == 0) W = M > 32 * 32 || (ncodes > 0 && B <= sms && M > 32 * 2) ? 2 : 1;
+  if (W == 0) W = M > 32 * 32 || (ncodes > 0 && U <= sms && M > 32 * 2) ? 2 : 1;
   int i = 0;
   while (i < kNumRowChoices && 32 * W * kRowChoices[i] < M) ++i;
   if (i == kNumRowChoices || W > 2) return cudaErrorInvalidValue;
@@ -762,13 +863,13 @@ cudaError_t sw_launch(int M, int B, bool affine, int mode, int ncodes, int lanes
   if (L == 0) {
     L = 1;
     for (int c = 2; c <= lmax; c *= 2) {
-      if (busiest_sm(B, c, W, sms) <= busiest_sm(B, 1, W, sms)) L = c;
+      if (busiest_sm(U, c, W, sms) <= busiest_sm(U, 1, W, sms)) L = c;
     }
   }
   if (L < 1 || L > lmax || (L & (L - 1)) != 0) return cudaErrorInvalidValue;
   static const SwKernels kernels;
   const size_t ring = (size_t)(W - 1) * L * kRing * 8;
-  const int form = ncodes == 0 ? mode : moves ? kTableMoves : kTableArgmax;
+  const int form = pair ? kPairScore : ncodes == 0 ? mode : moves ? kTableMoves : kTableArgmax;
   SwLaunch S{kernels.at[W - 1][affine][form][i], rows, L, W, 0,
              (ncodes > 0 ? table_bytes(ncodes) : 0) + ring +
                  (moves ? (size_t)2 * kGroup * W * 32 * rows * L : 0)};
@@ -782,18 +883,19 @@ cudaError_t sw_launch(int M, int B, bool affine, int mode, int ncodes, int lanes
   return cudaSuccess;
 }
 
-// Launch pgs_sw_score's kernel (below) with K26's cap and tie arguments.
+// Launch pgs_sw_score's kernel (below) with K26's cap, tie and form arguments.
 int sw_run(const void* xs, const void* ys, const void* m, const void* n, int M, int N, int B,
            int match, int mismatch, int gap_open, int gap, const void* table, int ncodes,
-           int track_pos, int cap, int skewed, int lanes, int warps, void* score, void* best_i,
-           void* best_j, void* moves, void* stream) {
+           int track_pos, int cap, int skewed, bool pair, int lanes, int warps, void* score,
+           void* best_i, void* best_j, void* moves, void* stream) {
   if ((table == nullptr) != (ncodes == 0)) return static_cast<int>(cudaErrorInvalidValue);
   if (B > 0) {
     SwLaunch S;
     const int mode = moves ? kMovesMode : track_pos ? kArgmax : kScoreOnly;
-    const cudaError_t err = sw_launch(M, B, gap_open > 0, mode, ncodes, lanes, warps, &S);
+    const cudaError_t err = sw_launch(M, B, gap_open > 0, mode, ncodes, pair, lanes, warps, &S);
     if (err != cudaSuccess) return static_cast<int>(err);
-    S.kernel<<<(B + S.lanes - 1) / S.lanes, 32 * S.lanes * S.warps, S.smem,
+    const int units = pair ? (B + 1) / 2 : B;
+    S.kernel<<<(units + S.lanes - 1) / S.lanes, 32 * S.lanes * S.warps, S.smem,
                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(xs), static_cast<const uint8_t*>(ys),
         static_cast<const int32_t*>(m), static_cast<const int32_t*>(n), M, N, B, match,
@@ -805,9 +907,10 @@ int sw_run(const void* xs, const void* ys, const void* m, const void* n, int M, 
 }
 
 // The launch shape of sw_run's kernel into out[0..4] (see pgs_sw_score_shape).
-int sw_shape(int M, int B, int affine, int mode, int ncodes, int lanes, int warps, void* out) {
+int sw_shape(int M, int B, int affine, int mode, int ncodes, bool pair, int lanes, int warps,
+             void* out) {
   SwLaunch S;
-  const cudaError_t err = sw_launch(M, B, affine != 0, mode, ncodes, lanes, warps, &S);
+  const cudaError_t err = sw_launch(M, B, affine != 0, mode, ncodes, pair, lanes, warps, &S);
   if (err != cudaSuccess) return static_cast<int>(err);
   int* o = static_cast<int*>(out);
   o[0] = S.rows;
@@ -820,7 +923,7 @@ int sw_shape(int M, int B, int affine, int mode, int ncodes, int lanes, int warp
 
 }  // namespace
 
-#ifndef PGS_WAVEFRONT_PARITY
+#if !defined(PGS_WAVEFRONT_PARITY)
 
 // Plain C entry point, bound with ctypes. Every pointer is a device pointer to
 // a contiguous tensor: xs (B, M) uint8, ys (B, N) uint8, m and n (B,) int32,
@@ -837,7 +940,8 @@ extern "C" int pgs_sw_score(const void* xs, const void* ys, const void* m, const
                             int warps, void* score, void* best_i, void* best_j, void* moves,
                             void* stream) {
   return sw_run(xs, ys, m, n, M, N, B, match, mismatch, gap_open, gap, table, ncodes,
-                track_pos, 0x7fffffff, 0, lanes, warps, score, best_i, best_j, moves, stream);
+                track_pos, 0x7fffffff, 0, false, lanes, warps, score, best_i, best_j, moves,
+                stream);
 }
 
 // pgs_sw_score_shape: the launch pgs_sw_score makes for B lanes of M rows
@@ -848,7 +952,7 @@ extern "C" int pgs_sw_score(const void* xs, const void* ys, const void* m, const
 // shared bytes a block. Returns a cudaError_t.
 extern "C" int pgs_sw_score_shape(int M, int B, int affine, int mode, int ncodes, int lanes,
                                   int warps, void* out) {
-  return sw_shape(M, B, affine, mode, ncodes, lanes, warps, out);
+  return sw_shape(M, B, affine, mode, ncodes, false, lanes, warps, out);
 }
 
 // Message for a cudaError_t returned by an entry point above.
@@ -860,24 +964,35 @@ extern "C" const char* pgs_error_string(int err) {
 
 // K26's entry point (built from csrc/wavefront_parity.cu): pgs_sw_score's
 // arguments, linear gaps only, plus sat (clamp every H at 255; the caller
-// passes the clipped operands of ops/scan_dp.sat_operands) and skewed (the
-// reference binary's raw-key tie-break, else the column-major one). A table
-// (ncodes > 0) takes the argmax or the moves mode.
+// passes the clipped operands of ops/scan_dp.sat_operands), skewed (0 the
+// column-major tie-break, 1 the reference binary's raw-key one with each
+// column's key found at the wrap row, 2 the same with the key of every cell
+// of a column's maximum: parity.cuh's Tie) and pair (the pair form: two
+// lanes a thread's word, the score-only sweep under sat with uniform scores
+// and the operands in [0, 255] only; lanes then counts lane pairs a block).
+// A table (ncodes > 0) takes the argmax or the moves mode.
 extern "C" int pgs_sw_score_parity(const void* xs, const void* ys, const void* m,
                                    const void* n, int M, int N, int B, int match, int mismatch,
                                    int gap, const void* table, int ncodes, int track_pos,
-                                   int sat, int skewed, int lanes, int warps, void* score,
-                                   void* best_i, void* best_j, void* moves, void* stream) {
+                                   int sat, int skewed, int pair, int lanes, int warps,
+                                   void* score, void* best_i, void* best_j, void* moves,
+                                   void* stream) {
+  if (skewed < kColmajor || skewed > kSkewedEveryCell ||
+      (pair && (!sat || table != nullptr || track_pos || moves != nullptr || match < 0 ||
+                match > 255 || mismatch < -255 || mismatch > 0 || gap < 0 || gap > 255))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return sw_run(xs, ys, m, n, M, N, B, match, mismatch, 0, gap, table, ncodes, track_pos,
-                sat ? 255 : 0x7fffffff, skewed, lanes, warps, score, best_i, best_j, moves,
-                stream);
+                sat ? 255 : 0x7fffffff, skewed, pair != 0, lanes, warps, score, best_i, best_j,
+                moves, stream);
 }
 
 // pgs_sw_score_parity_shape: pgs_sw_score_shape for K26's launch (linear;
-// mode 0-2; ncodes > 0 with mode 1 or 2).
-extern "C" int pgs_sw_score_parity_shape(int M, int B, int mode, int ncodes, int lanes,
-                                         int warps, void* out) {
-  return sw_shape(M, B, 0, mode, ncodes, lanes, warps, out);
+// mode 0-2; ncodes > 0 with mode 1 or 2; pair the pair form, mode 0 and
+// ncodes 0, its out[1] the lane pairs a block).
+extern "C" int pgs_sw_score_parity_shape(int M, int B, int mode, int ncodes, int pair,
+                                         int lanes, int warps, void* out) {
+  return sw_shape(M, B, 0, mode, ncodes, pair != 0, lanes, warps, out);
 }
 
 #endif

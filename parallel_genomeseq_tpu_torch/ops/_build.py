@@ -36,10 +36,11 @@ _SIGNATURES = {
     # warps, blocks per SM, smem)
     "pgs_sw_score_shape": [_I] * 7 + [_P],
     # K26: xs, ys, m, n, M, N, B, match, mismatch, gap, table, ncodes,
-    # track_pos, sat, skewed, lanes, warps, score, best_i, best_j, moves, stream
-    "pgs_sw_score_parity": [_P] * 4 + [_I] * 6 + [_P] + [_I] * 6 + [_P] * 5,
-    # M, B, mode, ncodes, lanes, warps, out (as pgs_sw_score_shape's)
-    "pgs_sw_score_parity_shape": [_I] * 6 + [_P],
+    # track_pos, sat, skewed, pair, lanes, warps, score, best_i, best_j,
+    # moves, stream
+    "pgs_sw_score_parity": [_P] * 4 + [_I] * 6 + [_P] + [_I] * 7 + [_P] * 5,
+    # M, B, mode, ncodes, pair, lanes, warps, out (as pgs_sw_score_shape's)
+    "pgs_sw_score_parity_shape": [_I] * 7 + [_P],
     # x, x_lane, y, y_off, y_len, m, n, table, ncodes, M, N, B, gap_open,
     # gap, score, best_i, best_j, stream
     "pgs_sw_profile_scan": [_P, _L, _P, _P, _L, _P, _P, _P] + [_I] * 6 + [_P] * 4,
@@ -50,12 +51,12 @@ _SIGNATURES = {
     "pgs_walk_moves_affine": [_P] * 5 + [_I] * 5 + [_P] * 5,
     # x, x_lane, y, y_off, y_len, m, n, M, N, B, table, ncodes, match,
     # mismatch, gap_open, gap, bound, bound_off, ck, fck, nck, score, best_i,
-    # best_j, sat, skewed (K27), stream
+    # best_j, sat, skewed, pair (K27), stream
     "pgs_strip_sweep": [_P, _L, _P, _P, _L, _P, _P] + [_I] * 3 + [_P] + [_I] * 5
-    + [_P] * 4 + [_I] + [_P] * 3 + [_I] * 2 + [_P],
-    # M, ckpt, affine, ncodes, parity, out (int32 threads, passes, blocks per
-    # SM, rows)
-    "pgs_strip_sweep_occupancy": [_I] * 5 + [_P],
+    + [_P] * 4 + [_I] + [_P] * 3 + [_I] * 3 + [_P],
+    # M, ckpt, affine, ncodes, parity, pair, out (int32 threads, passes,
+    # blocks per SM, rows)
+    "pgs_strip_sweep_occupancy": [_I] * 6 + [_P],
     # x, y, m, n, M, N, B, G, first, hrow, frow, ld_lane, ld_strip, row_first,
     # walk_i, walk_j, walk_active, table, ncodes, match, mismatch, gap_open,
     # gap, moves, stream
@@ -82,6 +83,10 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def find_nvcc() -> str:
     """``$NVCC``, else ``nvcc`` on PATH, else ``$CUDA_HOME/bin/nvcc``, else
     ``/usr/local/cuda/bin/nvcc``. Raises FileNotFoundError if none exists."""
@@ -104,13 +109,13 @@ def find_nvcc() -> str:
 
 def build(build_dir=None) -> Path:
     """Compile the kernels into ``build_dir`` (default ``csrc/build``) unless
-    the library there is newer than every source: one ``nvcc -c`` per
-    source, all started together, then one link into the shared library.
-    Returns the library path; the compilers' resource reports (``-Xptxas
-    -v``) are kept beside it in ``nvcc.log``."""
+    the library there is newer than every source and header: one ``nvcc
+    -c`` per source, all started together, then one link into the shared
+    library. Returns the library path; the compilers' resource reports
+    (``-Xptxas -v``) are kept beside it in ``nvcc.log``."""
     so = Path(build_dir or BUILD_DIR) / LIB_NAME
     srcs = sources()
-    if so.exists() and so.stat().st_mtime >= max(s.stat().st_mtime for s in srcs):
+    if so.exists() and so.stat().st_mtime >= max(s.stat().st_mtime for s in srcs + headers()):
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()

@@ -51,7 +51,12 @@ launch of its kernel, the group wrapper's too.
 
 K27 ``sw_score_strips_parity`` is K11 in the reference-parity forms of the
 JAX scan (``Semantics.SAT_UINT8``, the skewed tie; no Pallas call ports
-them): ``solve_big --semantics sat_uint8``'s window sweep.
+them): ``solve_big --semantics sat_uint8``'s window sweep. Under saturation
+with uniform scores and the column-major tie it takes its pair form
+(``sweep_form``): a block sweeps two lanes, each thread word holding a row
+of both in signed 16-bit halves; the skewed tie runs the int32 form, its
+key by ``wavefront_cuda.key_rule``. ``sw_score_strips_parity.forms`` counts
+its launches by form and key rule.
 
 Route: tensors on the CPU take the plain PyTorch versions (``ops/scan_dp``:
 ``sw_score_plain``, ``sw_score_ckpt_plain``, ``strip_moves_plain``,
@@ -67,6 +72,7 @@ launches only.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -93,7 +99,7 @@ from .scan_dp import (
     sw_score_parity_plain,
     sw_score_plain,
 )
-from .wavefront_cuda import _check_inputs
+from .wavefront_cuda import _check_inputs, _count_form, pair_fits, tie_code
 
 # Rows one block sweeps in a pass (kRowsPerPass in csrc/strips.cu), under
 # linear and affine gaps alike (ROWS_PER_PASS_AFFINE is the same value, the
@@ -106,13 +112,13 @@ _NO_WIDTH = 2**31 - 1  # a slab has no padded width; its length bounds each lane
 
 
 def _sweep(xs, ys, m, n, *, gap, ckpt, match=0, mismatch=0, gap_open=0, table=None,
-           y_off=None, sat=False, skewed=False):
+           y_off=None, sat=False, skewed=0, pair=False):
     """Shared K11/K12 (gap_open > 0: K15/K16; a table: K19/K20; both:
-    K22/K23; ``sat`` or ``skewed``: K27) launch on the current stream, no
-    sync; outputs and scratch allocated here. xs is (B, M) or, shared by
-    every lane, (M,); ys is (B, N) or, with ``y_off``, a flat slab. Returns
-    (score, i, j), then with ckpt the H checkpoints, and under affine gaps
-    the F ones."""
+    K22/K23; ``sat`` or ``skewed``, the C tie code: K27, with ``pair`` its
+    pair form) launch on the current stream, no sync; outputs and scratch
+    allocated here. xs is (B, M) or, shared by every lane, (M,); ys is (B,
+    N) or, with ``y_off``, a flat slab. Returns (score, i, j), then with
+    ckpt the H checkpoints, and under affine gaps the F ones."""
     B = m.shape[0]
     M = xs.shape[-1]
     dev = m.device
@@ -126,14 +132,16 @@ def _sweep(xs, ys, m, n, *, gap, ckpt, match=0, mismatch=0, gap_open=0, table=No
         ck = torch.zeros((B, nck, N), dtype=torch.int32, device=dev)
         if affine:
             fck = torch.full((B, nck, N), NEG, dtype=torch.int32, device=dev)
-    # The between-pass row: H, or the (H, F) pair; in the slab form one row
-    # of n_b + 1 per lane, back to back (one sync for its size), its offsets
-    # counted in the row's elements (int32, or (H, F) pairs).
+    # The between-pass row: H, or the (H, F) pair, or (pair) a lane pair's
+    # packed H; in the slab form one row of n_b + 1 per lane, back to back
+    # (one sync for its size), its offsets counted in the row's elements
+    # (int32, or (H, F) pairs).
     bound = bound_off = None
     if M > ROWS_PER_PASS:
         if y_off is None:
-            bound = torch.empty((B, N + 1, 2) if affine else (B, N + 1), dtype=torch.int32,
-                                device=dev)
+            rows = -(-B // 2) if pair else B
+            bound = torch.empty((rows, N + 1, 2) if affine else (rows, N + 1),
+                                dtype=torch.int32, device=dev)
         else:
             width = slab_lengths(ys.shape[0], y_off, n).long() + 1
             ends = torch.cumsum(width, 0)
@@ -148,7 +156,7 @@ def _sweep(xs, ys, m, n, *, gap, ckpt, match=0, mismatch=0, gap_open=0, table=No
             m.data_ptr(), n.data_ptr(), M, N, B, ptr(table),
             table.shape[0] if table is not None else 0, int(match), int(mismatch),
             int(gap_open), int(gap), ptr(bound), ptr(bound_off), ptr(ck), ptr(fck), nck,
-            score.data_ptr(), bi.data_ptr(), bj.data_ptr(), int(sat), int(skewed),
+            score.data_ptr(), bi.data_ptr(), bj.data_ptr(), int(sat), int(skewed), int(pair),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, "pgs_strip_sweep")
@@ -156,16 +164,17 @@ def _sweep(xs, ys, m, n, *, gap, ckpt, match=0, mismatch=0, gap_open=0, table=No
 
 
 def sweep_occupancy(M: int, *, affine: bool = False, ckpt: bool = False, ncodes: int = 0,
-                    parity: bool = False):
+                    parity: bool = False, pair: bool = False):
     """(threads a block, passes, resident blocks per SM, rows a thread) of
     the sweep launch for M rows on the current CUDA device: K11 (K12 with
     ``ckpt``), affine K15/K16, with ``ncodes`` > 0 (a table of that size)
-    K19/K20, K22/K23, with ``parity`` K27. Read by the CUDA occupancy
-    calculator, as the launch picks its band height; launches nothing."""
+    K19/K20, K22/K23, with ``parity`` K27 (``pair``: its pair form, a block
+    a lane pair). Read by the CUDA occupancy calculator, as the launch
+    picks its band height; launches nothing."""
     lib = _build.load()
     out = (ctypes.c_int * 4)()
     _build.check(lib.pgs_strip_sweep_occupancy(int(M), int(ckpt), int(affine), int(ncodes),
-                                               int(parity), ctypes.addressof(out)),
+                                               int(parity), int(pair), ctypes.addressof(out)),
                  "pgs_strip_sweep_occupancy")
     return tuple(out)
 
@@ -189,25 +198,41 @@ def sw_score_strips(xs, ys, m, n, *, match: int, mismatch: int, gap: int):
 sw_score_strips.launches = 0
 
 
+def sweep_form(*, sat: bool, match: int, mismatch: int, gap: int, tie: str) -> str:
+    """The form of a K27 launch: 'pair' (a block a lane pair, two lanes a
+    word in 16-bit halves) for the column-major tie where
+    ``wavefront_cuda.pair_fits`` (``solve_big --semantics sat_uint8``'s
+    sweep, where it measured faster, PERF.md section 6), else 'int32' (exact
+    values, and the skewed tie, whose per-column search the pair form does a
+    half at a time on half the blocks)."""
+    fits = pair_fits(sat=sat, match=match, mismatch=mismatch, gap=gap)
+    return "pair" if fits and tie == "colmajor" else "int32"
+
+
 def sw_score_strips_parity(xs, ys, m, n, *, match: int, mismatch: int, gap: int, sat: bool,
                            tie: str = "colmajor"):
     """K27: K11's per-lane (score, i, j) int32 with every H clamped at 255
     when ``sat`` (the operands of ``scan_dp.sat_operands``) and the argmax by
     ``tie``, 'colmajor' (K11's) or 'skewed' (the reference binary's raw
     key, ``scan_dp.skewed_keys``), for reads of any length. The window
-    sweep of ``solve_big --semantics sat_uint8``."""
+    sweep of ``solve_big --semantics sat_uint8``. The form is
+    ``sweep_form``'s."""
     if tie not in ("colmajor", "skewed"):
         raise ValueError(f"unknown tie {tie!r}")
     if _check_inputs(xs, ys, m, n).type == "cpu":
         return sw_score_parity_plain(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap,
                                      sat=sat, tie=tie)
+    pair = sweep_form(sat=sat, match=match, mismatch=mismatch, gap=gap, tie=tie) == "pair"
+    tcode = tie_code(tie, xs.shape[1], ys.shape[1])
     out = _sweep(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap, ckpt=False, sat=sat,
-                 skewed=tie == "skewed")
+                 skewed=tcode, pair=pair)
     sw_score_strips_parity.launches += 1
+    _count_form(sw_score_strips_parity, pair, tcode)
     return out
 
 
 sw_score_strips_parity.launches = 0
+sw_score_strips_parity.forms = collections.Counter()
 
 
 def sw_score_strips_ckpt(xs, ys, m, n, *, match: int, mismatch: int, gap: int):

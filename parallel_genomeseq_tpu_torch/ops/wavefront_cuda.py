@@ -38,11 +38,19 @@ them): linear gaps, every H clamped at 255 when ``sat``, the argmax by the
 column-major or the skewed tie, score-only, argmax or moves, scored
 uniformly or (exact values) from a table. It is built from
 ``csrc/wavefront_parity.cu``, which compiles ``csrc/wavefront.cu``'s K26
-instantiations as a unit of their own.
+instantiations as a unit of their own. Its score-only sweep under
+saturation with uniform scores takes the pair form (``parity_form``): each
+thread's word holds the same row of two lanes in signed 16-bit halves,
+stepped by DPX s16x2 instructions. Under the skewed tie each column's key
+is found at the wrap row while every key of the launch's shape fits 32 bits
+(``key_rule``), else computed for each row of the column's maximum.
+``sw_score_parity.forms`` counts the launches by form and, for the skewed
+argmax, by key rule.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -72,12 +80,14 @@ MODES = {"score_only": 0, "track_pos": 1, "moves": 2}
 
 
 def launch_shape(M: int, B: int, *, affine: bool, mode: str, lanes: int = 0,
-                 warps: int = 0, ncodes: int = 0, parity: bool = False):
+                 warps: int = 0, ncodes: int = 0, parity: bool = False, pair: bool = False):
     """The launch of K1/K2/K6/K7 -- or, with ``ncodes`` > 0 (mode "moves"),
     of K5/K9 over an (ncodes, ncodes) table; with ``parity``, of K26 (linear,
-    a table with mode "track_pos" too) -- for B lanes of M rows on the
-    current CUDA device (``mode`` one of MODES; ``lanes``, ``warps`` as K2
-    takes them): {rows (a thread), lanes (a block), warps (a lane),
+    a table with mode "track_pos" too; ``pair`` its pair form, mode
+    "score_only") -- for B
+    lanes of M rows on the current CUDA device (``mode`` one of MODES;
+    ``lanes``, ``warps`` as K2 takes them): {rows (a thread), lanes (a
+    block; lane pairs under the pair form), warps (a lane or pair),
     blocks_per_sm (the CUDA occupancy calculator), smem (dynamic shared
     bytes a block)}. Launches nothing; raises for a shape the kernels do
     not take."""
@@ -87,7 +97,7 @@ def launch_shape(M: int, B: int, *, affine: bool, mode: str, lanes: int = 0,
         if affine:
             raise ValueError("K26 is linear-gap only")
         _build.check(lib.pgs_sw_score_parity_shape(int(M), int(B), MODES[mode], int(ncodes),
-                                                   int(lanes), int(warps),
+                                                   int(pair), int(lanes), int(warps),
                                                    ctypes.addressof(out)),
                      "pgs_sw_score_parity_shape")
     else:
@@ -101,8 +111,10 @@ def launch_shape(M: int, B: int, *, affine: bool, mode: str, lanes: int = 0,
 def _launch(xs, ys, m, n, *, match, mismatch, gap_open, gap, track_pos, moves, lanes=0,
             warps=0, table=None, parity=None):
     """Shared K1/K2/K6/K7 launch, and K5/K9's with a ``table`` (ncodes,
-    ncodes) int32 over compact codes; with ``parity`` = (sat, skewed),
-    K26's: outputs allocated here, kernel on the current stream, no sync."""
+    ncodes) int32 over compact codes; with ``parity`` = (sat, skewed, pair),
+    K26's (skewed: the C tie code, 0 column-major, 1 the key at the wrap
+    row, 2 every cell's key): outputs allocated here, kernel on the current
+    stream, no sync."""
     B, M = xs.shape
     N = ys.shape[1]
     if M > MAX_ROWS:
@@ -132,7 +144,7 @@ def _launch(xs, ys, m, n, *, match, mismatch, gap_open, gap, track_pos, moves, l
             name = "pgs_sw_score_parity"
             err = lib.pgs_sw_score_parity(
                 xs.data_ptr(), ys.data_ptr(), m.data_ptr(), n.data_ptr(), M, N, B, int(match),
-                int(mismatch), int(gap), *tab, int(track_pos), int(parity[0]), int(parity[1]),
+                int(mismatch), int(gap), *tab, int(track_pos), *(int(v) for v in parity),
                 int(lanes), int(warps), *outs, stream,
             )
     _build.check(err, name)
@@ -241,6 +253,57 @@ def sw_score_affine_moves(xs, ys, m, n, *, match: int, mismatch: int,
 sw_score_affine_moves.launches = 0
 
 
+# K26 and K27's skewed tie finds each column's key at the wrap row while no
+# raw key rj * (M + 33) + ri of the launch's padded shape (M, N) can pass
+# 2^31: rj <= max(m_b, n_b) <= M + N and ri <= N (csrc/parity.cuh's
+# wrap_row_pick). Past that bound the keys wrap as the JAX scan's int32 keys
+# do, the key order within a column no longer follows the rows, and the
+# launch computes the key of every row of a column's maximum.
+KEY_LIMIT = 2**31
+TIE_CODES = {"colmajor": 0, "wrap_row": 1, "every_cell": 2}
+
+
+def key_rule(M: int, N: int) -> str:
+    """The skewed tie's key search for a launch of padded shape (M, N):
+    'wrap_row' for (M + N) (M + 33) + N < 2^31, else 'every_cell'. A rule
+    chosen from the shape on the host, at each launch."""
+    return "wrap_row" if (M + N) * (M + 33) + N < KEY_LIMIT else "every_cell"
+
+
+def pair_fits(*, sat: bool, match: int = 0, mismatch: int = 0, gap: int = 0,
+              table=None) -> bool:
+    """Whether a config has a pair form: saturation with uniform scores and
+    the operands ``scan_dp.sat_operands`` gives (match and gap in [0, 255],
+    mismatch in [-255, 0]), so that every value fits a 16-bit half."""
+    in_range = 0 <= match <= 255 and -255 <= mismatch <= 0 and 0 <= gap <= 255
+    return bool(sat) and table is None and in_range
+
+
+def parity_form(*, sat: bool, match: int = 0, mismatch: int = 0, gap: int = 0, table=None,
+                mode: str = "track_pos") -> str:
+    """The form a K26 launch (``mode`` one of MODES) takes for a config:
+    'pair' (two lanes a word in 16-bit halves) for the score-only sweep
+    where ``pair_fits``, the one launch whose pair form measured faster
+    (the 8,704 windows of ``--semantics sat_uint8``, PERF.md section 6); else
+    'int32' (exact values, a table, and the argmax and the moves, whose
+    per-column work the pair form does a half at a time)."""
+    fits = pair_fits(sat=sat, match=match, mismatch=mismatch, gap=gap, table=table)
+    return "pair" if fits and mode == "score_only" else "int32"
+
+
+def tie_code(tie: str, M: int, N: int) -> int:
+    """The C tie argument of K26/K27 for ``tie`` at padded shape (M, N)."""
+    return TIE_CODES["colmajor" if tie == "colmajor" else key_rule(M, N)]
+
+
+def _count_form(fn, pair: bool, tcode: int):
+    """Count a K26/K27 launch in ``fn.forms``: its form and, under the
+    skewed tie, its key rule."""
+    fn.forms["pair" if pair else "int32"] += 1
+    if tcode:
+        fn.forms["wrap_row" if tcode == TIE_CODES["wrap_row"] else "every_cell"] += 1
+
+
 def sw_score_parity(xs, ys, m, n, *, gap: int, sat: bool, tie: str = "colmajor",
                     match: int = 0, mismatch: int = 0, table=None, track_pos: bool = True,
                     emit_moves: bool = False, lanes: int = 0, warps: int = 0):
@@ -252,7 +315,8 @@ def sw_score_parity(xs, ys, m, n, *, gap: int, sat: bool, tie: str = "colmajor",
     (ncodes, ncodes) int32, over compact codes. track_pos=False gives i = j
     = 0; ``emit_moves`` appends the (M + N - 1, M, B) uint8 move codes,
     written only inside each lane's m_b x n_b, as K2's. ``lanes``,
-    ``warps`` as K2 takes them."""
+    ``warps`` as K2 takes them (lane pairs a block under the pair form; 0:
+    the kernel's rules). The form is ``parity_form``'s."""
     if tie not in ("colmajor", "skewed"):
         raise ValueError(f"unknown tie {tie!r}")
     dev = _check_inputs(xs, ys, m, n)
@@ -260,15 +324,22 @@ def sw_score_parity(xs, ys, m, n, *, gap: int, sat: bool, tie: str = "colmajor",
         return sw_score_parity_plain(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap,
                                      table=table, sat=sat, tie=tie, track_pos=track_pos,
                                      emit_moves=emit_moves)
+    mode = "moves" if emit_moves else "track_pos" if track_pos else "score_only"
+    pair = parity_form(sat=sat, match=match, mismatch=mismatch, gap=gap, table=table,
+                       mode=mode) == "pair"
     B, M = xs.shape
     N = ys.shape[1]
     moves = (torch.empty((M + N - 1, M, B), dtype=torch.uint8, device=dev) if emit_moves
              else None)
+    pos = track_pos or emit_moves
+    tcode = tie_code(tie, M, N) if pos else 0
     out = _launch(xs, ys, m, n, match=match, mismatch=mismatch, gap_open=0, gap=gap,
-                  track_pos=track_pos or emit_moves, moves=moves, lanes=lanes, warps=warps,
-                  table=table, parity=(sat, tie == "skewed"))
+                  track_pos=pos, moves=moves, lanes=lanes, warps=warps, table=table,
+                  parity=(sat, tcode, pair))
     sw_score_parity.launches += 1
+    _count_form(sw_score_parity, pair, tcode)
     return (*out, moves) if emit_moves else out
 
 
 sw_score_parity.launches = 0
+sw_score_parity.forms = collections.Counter()

@@ -6,6 +6,7 @@ on a machine without JAX:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+import collections
 import os
 
 import numpy as np
@@ -2025,7 +2026,13 @@ PARITY_SCORING = {
     "sat": parity_scoring(True, 3, -3, 2),
     "sat_plateau": parity_scoring(True, 100, -50, 7),
     "exact": parity_scoring(False, 3, -3, 2),
+    "sat_edges": parity_scoring(True, 255, -255, 0),
 }
+
+
+def form_counts(fn, before):
+    """The launches of ``fn`` by form and key rule since ``before``."""
+    return dict(fn.forms - before)
 # Every rows-a-thread choice (M of 1 to 2,048, two warps a lane past 1,024),
 # B of 1 and past a lanes-a-block multiple, mixed n_b, m_b or n_b of 0 and
 # 1, and repeated motifs (ties across threads and warps).
@@ -2042,6 +2049,7 @@ def test_k26_matches_plain(cuda, case, scoring, tie):
     xs, ys, m, n, lanes = wave_lanes(case, cuda)
     kw = dict(tie=tie, **PARITY_SCORING[scoring])
     before = wavefront_cuda.sw_score_parity.launches
+    forms = collections.Counter(wavefront_cuda.sw_score_parity.forms)
     for track_pos in (False, True):
         got = wavefront_cuda.sw_score_parity(xs, ys, m, n, track_pos=track_pos, **kw)
         want = scan_dp.sw_score_parity_plain(xs, ys, m, n, track_pos=track_pos, **kw)
@@ -2051,6 +2059,16 @@ def test_k26_matches_plain(cuda, case, scoring, tie):
     want = scan_dp.sw_score_parity_plain(xs, ys, m, n, emit_moves=True, **kw)
     torch.cuda.synchronize()
     assert wavefront_cuda.sw_score_parity.launches == before + 3
+    took = form_counts(wavefront_cuda.sw_score_parity, forms)
+    assert sum(took.get(f, 0) for f in ("pair", "int32")) == 3
+    if scoring == "exact":
+        assert took.get("int32") == 3
+    else:  # the pair form where the rule takes it for the launch's mode
+        modes = ("score_only", "track_pos", "moves")
+        assert took.get("pair", 0) == sum(wavefront_cuda.parity_form(
+            mode=mo, **PARITY_SCORING[scoring]) == "pair" for mo in modes) == 1
+    if tie == "skewed":
+        assert took.get("wrap_row") == 2
     for g, w in zip(got[:3], want[:3]):
         assert torch.equal(g, w)
     assert valid_moves(got[3], want[3], m, n)
@@ -2113,6 +2131,191 @@ def test_k27_matches_plain(cuda, shape, scoring):
         assert strips_cuda.sw_score_strips_parity.launches == before + 1
         for g, w in zip(got, want):
             assert g.is_cuda and torch.equal(g, w), (tie, g, w)
+
+
+def k26_score_only(xs, ys, m, n, *, pair, sat, match, mismatch, gap):
+    """K26's score-only sweep in the form asked for, through the wrappers'
+    shared launch (the rule's form is ``parity_form``'s)."""
+    return wavefront_cuda._launch(xs, ys, m, n, match=match, mismatch=mismatch, gap_open=0,
+                                  gap=gap, track_pos=False, moves=None,
+                                  parity=(sat, 0, pair))
+
+
+def k27_sweep(xs, ys, m, n, *, pair, tie, sat, match, mismatch, gap):
+    """K27 in the form asked for, through its wrapper's launch (the rule's
+    form is ``strips_cuda.sweep_form``'s)."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    return strips_cuda._sweep(xs, ys, m, n, match=match, mismatch=mismatch, gap=gap,
+                              ckpt=False, sat=sat, pair=pair,
+                              skewed=wavefront_cuda.tie_code(tie, xs.shape[1], ys.shape[1]))
+
+
+@pytest.mark.parametrize("case", PARITY_CASES)
+@pytest.mark.parametrize("scoring", ["sat", "sat_plateau", "sat_edges"])
+@pytest.mark.parametrize("pair", [True, False])
+def test_k26_forms_match_plain(cuda, case, scoring, pair):
+    """K26's score-only sweep under saturation in each form, asked for by
+    name: the pair form (two lanes a word in 16-bit halves; an odd B leaves
+    an empty half, ragged pairs step to the longer lane) and the int32
+    form, against the plain version; the wrapper's launch takes the pair
+    form, its argmax and moves the int32 form, and the pair form refuses
+    the argmax."""
+    xs, ys, m, n, _ = wave_lanes(case, cuda)
+    kw = PARITY_SCORING[scoring]
+    want = scan_dp.sw_score_parity_plain(xs, ys, m, n, track_pos=False, **kw)
+    got = k26_score_only(xs, ys, m, n, pair=pair, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (g, w)
+    fn = wavefront_cuda.sw_score_parity
+    forms = collections.Counter(fn.forms)
+    got = fn(xs, ys, m, n, track_pos=False, **kw)
+    got_pos = fn(xs, ys, m, n, tie="skewed", **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got_pos[0], want[0])
+    assert form_counts(fn, forms) == {"pair": 1, "int32": 1, "wrap_row": 1}
+    with pytest.raises(RuntimeError, match="pgs_sw_score_parity"):
+        wavefront_cuda._launch(xs, ys, m, n, match=kw["match"], mismatch=kw["mismatch"],
+                               gap_open=0, gap=kw["gap"], track_pos=True, moves=None,
+                               parity=(True, 0, True))
+
+
+# K26's moves curve (chip_smoke.py phase 12): warps a lane, lanes a block.
+K26_CURVE = [(w, l) for w in (1, 2) for l in (1, 2, 4, 8)]
+
+
+@pytest.mark.parametrize("warps,lanes", K26_CURVE)
+def test_k26_moves_curve_matches_plain(cuda, warps, lanes):
+    """Every shape of K26's moves curve on 67 ragged lanes (an odd B) of M =
+    128 against 700 columns, plateau-heavy, under the skewed tie."""
+    xs, ys, m, n = ragged(91, cuda, B=67, M=128, N=700)
+    kw = dict(tie="skewed", **PARITY_SCORING["sat_plateau"])
+    forms = collections.Counter(wavefront_cuda.sw_score_parity.forms)
+    got = wavefront_cuda.sw_score_parity(xs, ys, m, n, emit_moves=True, warps=warps,
+                                         lanes=lanes, **kw)
+    want = scan_dp.sw_score_parity_plain(xs, ys, m, n, emit_moves=True, **kw)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    assert valid_moves(got[3], want[3], m, n)
+    assert form_counts(wavefront_cuda.sw_score_parity, forms) == {"int32": 1, "wrap_row": 1}
+
+
+@pytest.mark.parametrize("case", ["rows_33", "rows_128", "rows_513", "edges", "motif_ties"])
+def test_k26_every_cell_key_matches_plain(cuda, case):
+    """The key of every row of a column's maximum (the launch's rule past
+    the 2^31 key bound, tie code 2) at shapes below the bound, where it must
+    agree with the plain version as the wrap row does: argmax and moves."""
+    xs, ys, m, n, _ = wave_lanes(case, cuda)
+    kw = dict(tie="skewed", **PARITY_SCORING["sat_plateau"])
+    want = scan_dp.sw_score_parity_plain(xs, ys, m, n, emit_moves=True, **kw)
+    for moves in (None, torch.empty((xs.shape[1] + ys.shape[1] - 1, xs.shape[1], xs.shape[0]),
+                                    dtype=torch.uint8, device=cuda)):
+        got = wavefront_cuda._launch(xs, ys, m, n, match=kw["match"], mismatch=kw["mismatch"],
+                                     gap_open=0, gap=kw["gap"], track_pos=True, moves=moves,
+                                     parity=(True, 2, False))
+        for g, w in zip(got, want[:3]):
+            assert torch.equal(g, w)
+        if moves is not None:
+            assert valid_moves(moves, want[3], m, n)
+
+
+@pytest.mark.parametrize("mn", [(100, 100), (128, 60), (60, 128)], ids=["m_eq_n", "m_gt_n",
+                                                                       "n_gt_m"])
+def test_parity_wrap_row_plateau_matches_plain(cuda, mn):
+    """Identical bytes under match 255, mismatch -255, gap 0: every cell of
+    a lane is 255, every cell on the wrap row i + j = max(m, n) among them;
+    beside it ragged lanes (5 lanes, an odd B). K26 (argmax and moves under
+    the skewed tie, the score-only pair form) and K27 (M = 2,304: the
+    skewed tie, the column-major pair form) against the plain versions."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    mm, nn = mn
+    for M, N, fn in ((128, 128, "k26"), (2304, 160, "k27")):
+        xs, ys, m, n = ragged(mm + nn, cuda, B=5, M=M, N=N)
+        m[0], n[0] = mm, nn
+        xs[0, :mm], ys[0, :nn] = ord("A"), ord("A")
+        for tie in ("skewed", "colmajor"):
+            kw = dict(tie=tie, **PARITY_SCORING["sat_edges"])
+            if fn == "k26":
+                want = scan_dp.sw_score_parity_plain(xs, ys, m, n, emit_moves=True, **kw)
+                got = wavefront_cuda.sw_score_parity(xs, ys, m, n, **kw)
+                moves = wavefront_cuda.sw_score_parity(xs, ys, m, n, emit_moves=True, **kw)[3]
+                assert valid_moves(moves, want[3], m, n)
+                score = wavefront_cuda.sw_score_parity(xs, ys, m, n, track_pos=False, **kw)[0]
+                assert torch.equal(score, want[0])
+            else:
+                want = scan_dp.sw_score_parity_plain(xs, ys, m, n, **kw)
+                got = strips_cuda.sw_score_strips_parity(xs, ys, m, n, **kw)
+            assert int(want[0][0]) == 255
+            for g, w in zip(got[:3], want[:3]):
+                assert torch.equal(g, w), (fn, tie)
+
+
+@pytest.mark.parametrize("shape", [(5, 2049, 300), (3, 2304, 200), (4, 4096, 160),
+                                   (3, 10_300, 64)], ids=["2049", "strip_edge", "4096",
+                                                          "passes"])
+@pytest.mark.parametrize("scoring", ["sat", "sat_plateau", "sat_edges"])
+def test_k27_forms_match_plain(cuda, shape, scoring):
+    """K27's pair form (a block a lane pair; an odd B's last block an empty
+    half; passes past 10,240 rows carry a packed bound row) and its int32
+    form under the column-major tie, and the int32 form under the skewed
+    tie, against the plain version; the forms the wrapper's launches take,
+    counted; the pair form refuses the skewed tie."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    B, M, N = shape
+    xs, ys, m, n = ragged(60 + M, cuda, B=B, M=M, N=N)
+    m[0] = M
+    fn = strips_cuda.sw_score_strips_parity
+    for tie in ("colmajor", "skewed"):
+        kw = dict(tie=tie, **PARITY_SCORING[scoring])
+        want = scan_dp.sw_score_parity_plain(xs, ys, m, n, **kw)
+        forms = collections.Counter(fn.forms)
+        got = fn(xs, ys, m, n, **kw)
+        assert form_counts(fn, forms) == (
+            {"pair": 1} if tie == "colmajor" else {"int32": 1, "wrap_row": 1})
+        for g, w in zip(got, want):
+            assert g.is_cuda and torch.equal(g, w), (tie, g, w)
+        for pair in ((True, False) if tie == "colmajor" else (False,)):
+            got = k27_sweep(xs, ys, m, n, pair=pair, **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (tie, pair, g, w)
+    with pytest.raises(RuntimeError, match="pgs_strip_sweep"):
+        k27_sweep(xs, ys, m, n, pair=True, **dict(kw, tie="skewed"))
+
+
+def test_k27_band_heights(cuda):
+    """Both band heights among test_k27_forms_match_plain's shapes, in each
+    form."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    for pair in (True, False):
+        rows = {strips_cuda.sweep_occupancy(M, parity=True, pair=pair)[3]
+                for M in (2049, 2304, 4096, 10_300)}
+        assert rows == {16, 32}, (pair, rows)
+
+
+def test_k27_key_limit_takes_every_cell(cuda):
+    """At M = 46,400 rows keys pass 2^31 (46,400 x 46,433 > 2^31):
+    ``key_rule`` takes every cell's key, which K27 follows on a saturated
+    plateau of wrapped keys, against the plain version's int32 keys; three
+    lanes, one of them the full 46,400 x 64 plateau."""
+    from parallel_genomeseq_tpu_torch.ops import strips_cuda
+
+    B, M, N = 3, 46_400, 64
+    xs, ys, m, n = ragged(7, cuda, B=B, M=M, N=N)
+    m[0], n[0] = M, N
+    xs[0], ys[0] = ord("A"), ord("A")
+    assert wavefront_cuda.key_rule(M, N) == "every_cell"
+    kw = dict(tie="skewed", **PARITY_SCORING["sat"])
+    want = scan_dp.sw_score_parity_plain(xs, ys, m, n, **kw)
+    fn = strips_cuda.sw_score_strips_parity
+    forms = collections.Counter(fn.forms)
+    got = fn(xs, ys, m, n, **kw)
+    assert form_counts(fn, forms) == {"int32": 1, "every_cell": 1}
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (g, w)
 
 
 def test_solve_small_parity_cuda_matches_cpu(cuda, tmp_path):
